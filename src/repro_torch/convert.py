@@ -1,0 +1,127 @@
+"""Carry the JAX package's state across into the port's.
+
+The reference's state arrives as a flat dict of numpy arrays keyed by the
+dotted path of each leaf — ``"hmu.counts"``, ``"hmu.log_used.hi"``,
+``"pebs.cursor"``, ``"placement.slot_to_block"``, ``"out_buf.n_fast"`` and
+so on (the caller flattens the pytree; this module never sees JAX).  Static
+fields — log capacity, PEBS period, NB scan rate, record-buffer depth — are
+not leaves there; they come from ``like``, a port state built with the same
+configuration, which also names the device.
+
+The reference's hi/lo int32 event counters recombine into the port's int64
+:class:`~repro_torch.faults.Counter64` values, and its record-buffer dict
+packs into the port's ``(sync_every, F)`` int64 rows.  Its ``tenant_id``
+leaf (all zeros without a tenancy, which the port does not carry yet) has
+no counterpart.  :func:`bundle_to_numpy` goes the other way for the bundle, with the
+reference's keys, so the two can be compared leaf by leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .core import telemetry as tel
+from .core.placement import Placement
+from .core.runtime import (_FusedState, _OUT_LANE_FIELDS, _OUT_SCALARS,
+                           _out_columns)
+from .faults.model import CARRY_BASE, Counter64
+
+__all__ = ["bundle_from_numpy", "bundle_to_numpy", "fused_state_from_numpy"]
+
+Flat = Mapping[str, np.ndarray]
+
+
+def _t(flat: Flat, key: str, like: torch.Tensor) -> torch.Tensor:
+    arr = np.asarray(flat[key])
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"{key}: shape {arr.shape}, expected "
+                         f"{tuple(like.shape)}")
+    return torch.from_numpy(np.array(arr, copy=True)).to(
+        dtype=like.dtype, device=like.device)
+
+
+def _c64(flat: Flat, key: str, like: Counter64) -> Counter64:
+    value = int(flat[key + ".hi"]) * CARRY_BASE + int(flat[key + ".lo"])
+    return Counter64(torch.tensor(value, dtype=torch.int64,
+                                  device=like.value.device))
+
+
+def bundle_from_numpy(flat: Flat, *, like: tel.TelemetryBundle,
+                      prefix: str = "") -> tel.TelemetryBundle:
+    """The port's :class:`TelemetryBundle` from the reference's leaves."""
+    p = prefix
+    return tel.TelemetryBundle(
+        hmu=dataclasses.replace(
+            like.hmu, counts=_t(flat, p + "hmu.counts", like.hmu.counts),
+            log_used=_c64(flat, p + "hmu.log_used", like.hmu.log_used),
+            log_dropped=_c64(flat, p + "hmu.log_dropped",
+                             like.hmu.log_dropped),
+            host_events=_c64(flat, p + "hmu.host_events",
+                             like.hmu.host_events)),
+        pebs=dataclasses.replace(
+            like.pebs,
+            sampled=_t(flat, p + "pebs.sampled", like.pebs.sampled),
+            cursor=_t(flat, p + "pebs.cursor", like.pebs.cursor),
+            host_events=_c64(flat, p + "pebs.host_events",
+                             like.pebs.host_events)),
+        nb=dataclasses.replace(
+            like.nb, mapped=_t(flat, p + "nb.mapped", like.nb.mapped),
+            faults=_t(flat, p + "nb.faults", like.nb.faults),
+            scan_ptr=_t(flat, p + "nb.scan_ptr", like.nb.scan_ptr),
+            host_events=_c64(flat, p + "nb.host_events",
+                             like.nb.host_events)),
+        true_counts=_t(flat, p + "true_counts", like.true_counts))
+
+
+def bundle_to_numpy(bundle: tel.TelemetryBundle) -> Dict[str, np.ndarray]:
+    """The bundle's leaves under the reference's keys (hi/lo int32 pairs
+    for the event counters)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def put(key, val):
+        if isinstance(val, Counter64):
+            out[key + ".hi"] = np.int32(val.hi)
+            out[key + ".lo"] = np.int32(val.lo)
+        else:
+            out[key] = val.cpu().numpy()
+
+    for col in ("hmu", "pebs", "nb"):
+        state = getattr(bundle, col)
+        for f in dataclasses.fields(state):
+            val = getattr(state, f.name)
+            if isinstance(val, (torch.Tensor, Counter64)):
+                put(f"{col}.{f.name}", val)
+    put("true_counts", bundle.true_counts)
+    return out
+
+
+def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:
+    """The runtime's :class:`_FusedState` (placement and record buffer
+    included) from the reference's ``_FusedState`` leaves."""
+    buf = like.out_buf
+    k, n_lanes = buf.shape[0], like.placement.slot_to_block.shape[0]
+    cols = _out_columns(n_lanes)
+    rows = np.zeros(tuple(buf.shape), np.int64)
+    for f in _OUT_SCALARS:
+        hi = np.asarray(flat[f"out_buf.{f}_hi"], np.int64)
+        lo = np.asarray(flat[f"out_buf.{f}_lo"], np.int64)
+        rows[:, cols[f]] = hi * CARRY_BASE + lo
+    for f in _OUT_LANE_FIELDS:
+        rows[:, cols[f]] = np.asarray(flat[f"out_buf.{f}"],
+                                      np.int64).reshape(k, n_lanes)
+    return _FusedState(
+        bundle=bundle_from_numpy(flat, like=like.bundle, prefix="bundle."),
+        placement=Placement(
+            slot_to_block=_t(flat, "placement.slot_to_block",
+                             like.placement.slot_to_block),
+            block_to_slot=_t(flat, "placement.block_to_slot",
+                             like.placement.block_to_slot)),
+        pred=_t(flat, "pred", like.pred),
+        hint_rank=_t(flat, "hint_rank", like.hint_rank),
+        prefetch_rank=_t(flat, "prefetch_rank", like.prefetch_rank),
+        prev_hmu=_t(flat, "prev_hmu", like.prev_hmu),
+        prev_pebs=_t(flat, "prev_pebs", like.prev_pebs),
+        out_buf=torch.from_numpy(rows).to(buf.device))

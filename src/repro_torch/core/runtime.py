@@ -1,0 +1,710 @@
+"""Epoch-driven tiering runtime, fused path (PyTorch port of
+``repro/core/runtime.py``): observe -> decide -> migrate -> account.
+
+Each epoch is two steps on the device:
+
+1. :func:`repro_torch.core.telemetry.observe_all` feeds the epoch's batches
+   to the HMU, PEBS and NB collectors and the true counter — one
+   ``observe_scatter`` kernel pass per batch;
+2. :func:`_epoch_step` runs the six policy lanes: every lane's signal is
+   ranked in ONE ``selectk.select_top_k`` over the stacked unique key rows
+   (one ``hist_select`` kernel call), the lanes migrate through
+   ``placement.apply_plan``, and their counts land in row ``out_row`` of the
+   device-side record buffer.
+
+The host pulls that buffer — one packed ``(sync_every, F)`` int64 tensor —
+once every ``sync_every`` epochs (:meth:`EpochRuntime._flush_records`, the
+only device->host transfer of the loop, counted in
+``DISPATCH_COUNTS["record_sync"]``) and assembles the
+:class:`EpochRecord`\\ s in float64 on the host, exactly as the reference
+does, so trajectories are bit-identical to it for every ``sync_every``.
+Inside an epoch nothing is read back: thresholds, caps and the PEBS bound
+stay host Python ints, and every upload (batches, hint ranks) goes through
+pinned memory without blocking.
+
+PyTorch runs eagerly, so there is no trace to count: the reference's
+``TRACE_COUNTS`` has no counterpart here.  Options the port does not carry
+yet raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+
+Policy lanes and their telemetry sources:
+
+=================  =========================  ===============================
+lane               estimate                   host tax per epoch
+=================  =========================  ===============================
+hmu_oracle         HMU epoch-delta counts     log drain (~ns/record)
+nb_two_touch       NB cumulative faults       hint faults (~2 us each)
+reactive_watermark HMU epoch-delta counts     log drain
+proactive_ewma     EWMA of HMU epoch deltas   log drain
+hinted             PEBS epoch-delta estimate  PEBS samples (~1.5 us each)
+                   blended with static hints
+prefetch           lookahead window over the  none
+                   queued next-epoch batches
+=================  =========================  ===============================
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import itertools
+import json
+from collections import deque
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import selectk
+from . import policy
+from . import telemetry as tel
+from ..device import sync_allowed, upload
+from ..kernels.dispatch import resolve_device
+from .costmodel import CXL_SYSTEM, MemSystem
+from .placement import Placement, apply_plan, demote_idle
+
+__all__ = [
+    "ALL_POLICIES", "DISPATCH_COUNTS", "Counters", "counting",
+    "EpochRecord", "EpochRuntime", "Trajectory",
+]
+
+ALL_POLICIES = (
+    "hmu_oracle", "nb_two_touch", "reactive_watermark", "proactive_ewma",
+    "hinted", "prefetch",
+)
+
+NB_FAULT_COST_S = 2e-6
+PEBS_SAMPLE_COST_S = 1.5e-6
+HMU_DRAIN_COST_S = 2e-9
+
+# Per-call counters: an epoch is exactly one observe_all and one epoch_step;
+# "hint_refresh" counts host->device hint-rank uploads, "record_sync" the
+# device->host record pulls (ceil(n_epochs / sync_every) per run).  Never
+# zeroed: read them through counting().
+DISPATCH_COUNTS: Dict[str, int] = {
+    "observe_all": 0, "epoch_step": 0, "hint_refresh": 0, "record_sync": 0,
+}
+
+
+class _CounterView:
+    """Read-only scope-relative view of one live counter dict: each key reads
+    as (current total) - (total at scope entry).  The live dict is never
+    mutated, so nested and overlapping views stay correct."""
+
+    def __init__(self, live: Dict[str, int]):
+        self._live = live
+        self._base = dict(live)
+
+    def __getitem__(self, key: str) -> int:
+        if key not in self._live:       # a typo'd gate must not read as 0
+            raise KeyError(key)
+        return self._live[key] - self._base.get(key, 0)
+
+    def get(self, key: str, default: int = 0) -> int:
+        return self[key] if key in self._live else default
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._live
+
+    def __iter__(self):
+        return iter(self._live)
+
+    def keys(self):
+        return self._live.keys()
+
+    def items(self):
+        return [(k, self[k]) for k in self._live]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, _CounterView):
+            other = dict(other.items())
+        return dict(self.items()) == other
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"_CounterView({dict(self.items())!r})"
+
+
+class Counters(NamedTuple):
+    """The scope-relative views a :func:`counting` block observes."""
+    dispatch: _CounterView
+
+
+@contextlib.contextmanager
+def counting():
+    """``with counting() as c:`` — ``c.dispatch[kind]`` reads the activity
+    since the block started; nestable, since the live dict is never reset."""
+    yield Counters(_CounterView(DISPATCH_COUNTS))
+
+
+@dataclasses.dataclass
+class EpochRecord:
+    """One lane's accounting for one epoch."""
+    epoch: int
+    lane: str
+    time_s: float            # access + host tax + migration
+    access_s: float
+    host_tax_s: float
+    migration_s: float
+    accuracy: float          # placement that served the epoch vs epoch top-K
+    coverage: float
+    resident: int            # fast blocks during the epoch
+    promoted: int            # migrations applied at epoch end
+    demoted: int
+    host_events: float       # telemetry events charged this epoch
+    hidden_s: float = 0.0    # migration time overlapped away (prefetch lane)
+    quality: float = 1.0     # collector quality (1.0 without hardening)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class Trajectory:
+    """Per-epoch time series for every lane (the runtime's output)."""
+    n_blocks: int
+    k_hot: int
+    records: Dict[str, List[EpochRecord]]
+
+    def lane(self, name: str) -> List[EpochRecord]:
+        return self.records[name]
+
+    def times(self, name: str) -> np.ndarray:
+        return np.array([r.time_s for r in self.records[name]])
+
+    def to_json(self, **meta) -> str:
+        return json.dumps({
+            "n_blocks": self.n_blocks,
+            "k_hot": self.k_hot,
+            **meta,
+            "lanes": {name: [r.to_dict() for r in recs]
+                      for name, recs in self.records.items()},
+        }, indent=1)
+
+
+@dataclasses.dataclass
+class _Lane:
+    """Per-lane placement view (host copies)."""
+    name: str
+    slot_to_block: np.ndarray            # (k,) int32, -1 = free
+    block_to_slot: np.ndarray            # (n_blocks,) int32, -1 = slow-only
+    pred: Optional[np.ndarray] = None    # EWMA state (proactive lane)
+
+    @property
+    def fast_mask(self) -> np.ndarray:
+        return self.block_to_slot >= 0
+
+    def resident_ids(self) -> np.ndarray:
+        s = self.slot_to_block
+        return s[s >= 0]
+
+
+# ======================================================  fused device step
+class _FusedCfg(NamedTuple):
+    """Hashable static config of the epoch step."""
+    lanes: Tuple[str, ...]
+    n_blocks: int
+    k_hot: int
+    ewma_alpha: float
+    hint_weight: float
+    nb_rate_limit: Optional[int]
+    reactive_hot_threshold: Optional[int]
+
+
+@dataclasses.dataclass(frozen=True)
+class _FusedState:
+    """Everything the epoch loop mutates, resident on the device."""
+    bundle: tel.TelemetryBundle
+    placement: Placement         # lane-stacked: (L, k_hot) / (L, n_blocks)
+    pred: torch.Tensor           # (n_blocks,) f32 EWMA (the proactive lane's)
+    hint_rank: torch.Tensor      # (n_blocks,) f32 static priorities
+    prefetch_rank: torch.Tensor  # (n_blocks,) f32 lookahead priorities
+    prev_hmu: torch.Tensor       # (n_blocks,) i32 epoch-delta baselines
+    prev_pebs: torch.Tensor
+    out_buf: torch.Tensor        # (sync_every, F) int64 packed record rows
+                                 # (layout: _out_columns), written in place
+
+
+# Packed record-row layout: three collector event scalars, then one column
+# per lane for each per-lane count (the reference's out_buf dict, packed so
+# a flush is one transfer).
+_OUT_SCALARS = ("drained", "pebs_host", "nb_host")
+_OUT_LANE_FIELDS = ("n_fast", "n_slow", "inter", "resident", "promoted",
+                    "demoted")
+
+
+def _out_columns(n_lanes: int) -> Dict[str, object]:
+    cols: Dict[str, object] = {f: i for i, f in enumerate(_OUT_SCALARS)}
+    base = len(_OUT_SCALARS)
+    for j, f in enumerate(_OUT_LANE_FIELDS):
+        cols[f] = slice(base + j * n_lanes, base + (j + 1) * n_lanes)
+    return cols
+
+
+def _out_buf_init(sync_every: int, n_lanes: int,
+                  device) -> torch.Tensor:
+    """Zeroed device accumulator for ``sync_every`` epochs of record rows."""
+    width = len(_OUT_SCALARS) + len(_OUT_LANE_FIELDS) * int(n_lanes)
+    return torch.zeros((int(sync_every), width), dtype=torch.int64,
+                       device=device)
+
+
+def _lane_column(values: Sequence, dtype, device) -> torch.Tensor:
+    """(L, 1) per-lane constant, filled on the device (no host copy)."""
+    col = torch.empty((len(values), 1), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        col[i].fill_(v)
+    return col
+
+
+def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
+                cfg: _FusedCfg, s_max: int) -> _FusedState:
+    """decide + migrate + account for every lane.
+
+    ``epoch_accesses`` and ``out_row`` are host ints; ``s_max`` is the
+    static PEBS-positives bound.  The lanes' counts are written into row
+    ``out_row`` of ``state.out_buf``; nothing leaves the device."""
+    lanes, k = cfg.lanes, cfg.k_hot
+    dev = state.pred.device
+    b = state.bundle
+
+    # -- drain the HMU log (host tax charged from the drained count)
+    drained = b.hmu.log_used
+    bundle = dataclasses.replace(b, hmu=tel.hmu_drain_cost(b.hmu))
+
+    # -- epoch-local estimates.  The fault-free HMU counter is exact, so
+    #    d_hmu IS the epoch's ground truth and the oracle lane's selection
+    #    doubles as the epoch-hot set.
+    true_now = b.true_counts
+    hmu_now = b.hmu.counts
+    pebs_now = b.pebs.sampled * b.pebs.period
+    d_hmu = hmu_now - state.prev_hmu
+    d_pebs = pebs_now - state.prev_pebs
+    nb_faults = b.nb.faults
+    d_true = d_hmu
+    d_hmu_f = d_hmu.to(torch.float32)
+
+    thr = (cfg.reactive_hot_threshold
+           if cfg.reactive_hot_threshold is not None
+           else max(2, epoch_accesses // (8 * max(k, 1))))
+
+    # -- per-lane selection keys (int32; floats via order-isomorphic
+    #    bitcast) and eviction estimates.  Lanes that rank the same signal
+    #    share one selection row.
+    rows: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def row(rkey: str, key: torch.Tensor, est: torch.Tensor) -> int:
+        if rkey not in rows:
+            rows[rkey] = (key, est)
+        return list(rows).index(rkey)
+
+    hmu_row = row("hmu", d_hmu, d_hmu_f)
+    pred_new = state.pred
+    lane_row, min_keys, caps, is_reactive = [], [], [], []
+    for name in lanes:
+        if name == "hmu_oracle":
+            r, min_key, cap = hmu_row, 1, k
+        elif name == "nb_two_touch":
+            cap = k if cfg.nb_rate_limit is None else min(k, cfg.nb_rate_limit)
+            min_key = 2
+            r = row("nb", nb_faults, nb_faults.to(torch.float32))
+        elif name == "reactive_watermark":
+            r, min_key, cap = hmu_row, thr, k
+        elif name == "proactive_ewma":
+            # the reference's fused-step float32 arithmetic, bit for bit
+            pred_new = policy.ewma(cfg.ewma_alpha, d_hmu_f, state.pred)
+            r = row("pred", selectk.sortable_key(pred_new), pred_new)
+            min_key, cap = 1, k
+        elif name == "hinted":
+            # exact argsort(argsort(d_pebs)): positives are bounded by this
+            # epoch's PEBS samples, so rank the sparse support only
+            t_rank = selectk.stable_rank_sparse(d_pebs, s_max)
+            score = policy.hinted_score(d_pebs, t_rank, state.hint_rank,
+                                        cfg.hint_weight)
+            r = row("score", selectk.sortable_key(score),
+                    d_pebs.to(torch.float32))
+            min_key, cap = 0, k
+        elif name == "prefetch":
+            # lookahead rank in [0,1]; min_key 1 gates rank > 0
+            r = row("la", selectk.sortable_key(state.prefetch_rank),
+                    state.prefetch_rank)
+            min_key, cap = 1, k
+        else:  # pragma: no cover - guarded in __init__
+            raise ValueError(name)
+        lane_row.append(r)
+        min_keys.append(min_key)
+        caps.append(cap)
+        is_reactive.append(name == "reactive_watermark")
+
+    key_rows = torch.stack([kv[0] for kv in rows.values()])  # (U, n) int32
+    ests = [kv[1] for kv in rows.values()]
+    est_lanes = torch.stack([ests[r] for r in lane_row])      # (L, n) f32
+    reactive = _lane_column(is_reactive, torch.bool, dev)       # (L, 1)
+    min_key_col = _lane_column(min_keys, torch.int32, dev)
+    cap_col = _lane_column(caps, torch.int32, dev)[:, 0]
+
+    # -- one selection per unique signal (the hist_select kernel on the
+    #    card), fanned out to lanes
+    vals_u, ids_u, sel_u = selectk.select_top_k(
+        key_rows, k, return_mask=True)
+    vals = torch.stack([vals_u[r] for r in lane_row])          # (L, k)
+    ids = torch.stack([ids_u[r] for r in lane_row])
+
+    # -- account the epoch under the placement that served it
+    hot = sel_u[hmu_row]                           # epoch's true top-K set
+    fast0 = state.placement.fast_mask              # (L, n)
+    n_fast = torch.sum(torch.where(fast0, d_true, 0), dim=-1,
+                       dtype=torch.int64)
+    n_slow = torch.sum(d_true, dtype=torch.int64) - n_fast
+    inter = torch.sum(fast0 & hot, dim=-1, dtype=torch.int64)
+    resident0 = state.placement.resident()
+
+    # -- decide: ordered top-k ids per lane, gated per lane config
+    pl, pre_demoted = demote_idle(state.placement, est_lanes, reactive)
+    free_slots = torch.sum(pl.slot_to_block < 0, dim=-1, dtype=torch.int32)
+    cap_eff = torch.where(reactive[:, 0], torch.minimum(cap_col, free_slots),
+                          cap_col)
+    ok = (vals >= min_key_col) & (
+        torch.arange(k, dtype=torch.int32, device=dev)[None, :]
+        < cap_eff[:, None])
+    want = torch.where(ok, ids, -1)
+
+    # -- migrate: bounded promotion with plan-guarded coldest-victim eviction
+    pl, promoted, demoted = apply_plan(pl, want, est_lanes)
+
+    # -- this epoch's record row, written in place into the accumulator
+    #    (the reference donates the buffer; here the update is in place)
+    state.out_buf[out_row] = torch.cat([
+        torch.stack([drained.value, bundle.pebs.host_events.value,
+                     bundle.nb.host_events.value]),
+        n_fast, n_slow, inter, resident0.to(torch.int64),
+        promoted.to(torch.int64), (demoted + pre_demoted).to(torch.int64),
+    ])
+    return dataclasses.replace(
+        state, bundle=bundle, placement=pl, pred=pred_new,
+        prev_hmu=hmu_now, prev_pebs=pebs_now)
+
+
+def _not_ported(option: str, item: str):
+    raise NotImplementedError(
+        f"{option} is not ported to repro_torch yet (ROADMAP Queue 1, "
+        f"item {item})")
+
+
+class EpochRuntime:
+    """Runs all policy lanes over one shared telemetry stream, epoch by
+    epoch, on ``device`` (default ``"cuda"``; raises without a CUDA device,
+    and runs on the CPU only when given ``device="cpu"``).
+
+    ``step`` consumes one epoch of equal-size batches ``(n_batches,
+    batch_size)``; ``run`` drives a whole workload and returns the
+    :class:`Trajectory`.  ``hints`` (a
+    :class:`repro_torch.hints.HintPipeline`) refreshes the hinted lane's
+    ``hint_rank`` and the prefetch lane's ``prefetch_rank`` every epoch;
+    ``sync_every=K`` batches the record sync (``step`` then returns the
+    epochs it flushed, ``run`` flushes the partial tail, and :meth:`flush`
+    drains it after manual stepping).  The kernels run on the card and
+    their plain versions on the CPU, by the tensors' device.
+    """
+
+    def __init__(
+        self,
+        n_blocks: int,
+        k_hot: int,
+        policies: Sequence[str] = ALL_POLICIES,
+        system: MemSystem = CXL_SYSTEM,
+        bytes_per_access: float = 256.0,
+        block_bytes: float = 4096.0,
+        pebs_period: int = 10007,
+        nb_scan_rate: Optional[int] = None,
+        hmu_log_capacity: int = 1 << 33,
+        ewma_alpha: float = 0.5,
+        hint_rank: Optional[np.ndarray] = None,
+        hint_weight: float = 0.25,
+        reactive_hot_threshold: Optional[int] = None,
+        nb_rate_limit: Optional[int] = None,
+        hints=None,
+        prefetch_overlap: float = 1.0,
+        fused: bool = True,
+        mesh=None,
+        tenancy=None,
+        sync_every: int = 1,
+        faults=None,
+        hardening=None,
+        export=None,
+        device="cuda",
+    ):
+        unknown = set(policies) - set(ALL_POLICIES)
+        if unknown:
+            raise ValueError(f"unknown policies {sorted(unknown)}; "
+                             f"choose from {ALL_POLICIES}")
+        if not fused:
+            _not_ported("fused=False (the per-lane reference path)", "12")
+        if mesh is not None:
+            _not_ported("mesh= (sharded state)", "15")
+        if tenancy is not None:
+            _not_ported("tenancy= (multi-tenant quotas)", "9")
+        if faults is not None or hardening is not None:
+            _not_ported("faults=/hardening= (fault injection)", "10")
+        if export is not None:
+            _not_ported("export= (the export plane)", "11")
+        self.device = resolve_device(device)
+        self.sync_every = int(sync_every)
+        if self.sync_every < 1:
+            raise ValueError(f"sync_every must be >= 1, got {sync_every!r}")
+        self.n_blocks = int(n_blocks)
+        self.k_hot = min(int(k_hot), self.n_blocks)
+        self.system = system
+        self.bytes_per_access = float(bytes_per_access)
+        self.block_bytes = float(block_bytes)
+        self.ewma_alpha = float(ewma_alpha)
+        self.hint_rank = (np.zeros((n_blocks,), np.float32)
+                          if hint_rank is None
+                          else np.asarray(hint_rank, np.float32))
+        self.prefetch_rank = np.zeros((n_blocks,), np.float32)
+        self.hint_weight = float(hint_weight)
+        self.reactive_hot_threshold = reactive_hot_threshold
+        self.nb_rate_limit = nb_rate_limit
+        self.hints = hints
+        self.prefetch_overlap = float(prefetch_overlap)
+        if not 0.0 <= self.prefetch_overlap <= 1.0:
+            raise ValueError(f"prefetch_overlap must be in [0, 1], "
+                             f"got {prefetch_overlap!r}")
+        self._prefetch_pending = 0          # blocks moved at the last boundary
+        scan = (nb_scan_rate if nb_scan_rate is not None
+                else max(n_blocks // 16, 1))
+        self._lane_names = tuple(policies)
+        self.epoch = 0
+        self.records: Dict[str, List[EpochRecord]] = {n: [] for n in policies}
+        self._prev_pebs_host = 0.0
+        self._prev_nb_host = 0.0
+        self._buffered = 0          # dispatched epochs not yet record-synced
+        L = len(self._lane_names)
+        self._cfg = _FusedCfg(
+            lanes=self._lane_names, n_blocks=self.n_blocks, k_hot=self.k_hot,
+            ewma_alpha=self.ewma_alpha, hint_weight=self.hint_weight,
+            nb_rate_limit=self.nb_rate_limit,
+            reactive_hot_threshold=self.reactive_hot_threshold)
+        dev = self.device
+
+        def zeros_n():
+            return torch.zeros((self.n_blocks,), dtype=torch.int32,
+                               device=dev)
+
+        self._state = _FusedState(
+            bundle=tel.bundle_init(
+                n_blocks, pebs_period=pebs_period, nb_scan_rate=scan,
+                hmu_log_capacity=hmu_log_capacity, device=dev),
+            placement=Placement.create(self.n_blocks, self.k_hot, lanes=L,
+                                       device=dev),
+            pred=torch.zeros((self.n_blocks,), dtype=torch.float32,
+                             device=dev),
+            hint_rank=upload(self.hint_rank, dev),
+            prefetch_rank=upload(self.prefetch_rank, dev),
+            prev_hmu=zeros_n(), prev_pebs=zeros_n(),
+            out_buf=_out_buf_init(self.sync_every, L, dev),
+        )
+
+    # ---------------------------------------------------------- constructors
+    @classmethod
+    def for_scenario(cls, scenario, *, policies: Sequence[str] = ALL_POLICIES,
+                     hints=None, prefetch_overlap: float = 1.0,
+                     fused: bool = True, mesh=None,
+                     **overrides) -> "EpochRuntime":
+        """Build a runtime from an access scenario's geometry and cost-model
+        parameters; ``overrides`` replace any constructor kwarg."""
+        kw = dict(
+            policies=policies,
+            system=scenario.system,
+            bytes_per_access=scenario.bytes_per_access,
+            block_bytes=scenario.block_bytes,
+            pebs_period=scenario.pebs_period,
+            nb_scan_rate=scenario.nb_scan_rate,
+            hints=hints, prefetch_overlap=prefetch_overlap,
+            fused=fused, mesh=mesh,
+            tenancy=getattr(scenario, "tenancy", None),
+        )
+        kw.update(overrides)
+        return cls(scenario.n_blocks, scenario.k_hot, **kw)
+
+    # ------------------------------------------------------- state accessors
+    @property
+    def lanes(self) -> Dict[str, _Lane]:
+        """Per-lane placement view (host copies; reads the device)."""
+        s2b = self._state.placement.slot_to_block.cpu().numpy()
+        b2s = self._state.placement.block_to_slot.cpu().numpy()
+        pred = self._state.pred.cpu().numpy()
+        return {
+            name: _Lane(name=name, slot_to_block=s2b[i], block_to_slot=b2s[i],
+                        pred=pred if name == "proactive_ewma" else None)
+            for i, name in enumerate(self._lane_names)
+        }
+
+    @property
+    def pending_migration_s(self) -> float:
+        """Migration time of the prefetch lane's last boundary, not yet
+        charged to any record (flushes the record buffer first)."""
+        self._flush_records()
+        return self.system.migration_time_s(self._prefetch_pending,
+                                            self.block_bytes)
+
+    # ----------------------------------------------------------- hint refresh
+    def set_hint_ranks(self, hint_rank: Optional[np.ndarray] = None,
+                       prefetch_rank: Optional[np.ndarray] = None) -> None:
+        """Replace the hint arrays the next epoch step reads — a pinned,
+        non-blocking host->device upload counted in
+        ``DISPATCH_COUNTS['hint_refresh']``.  An array that is the SAME
+        object as the current one is skipped, as in the reference."""
+        updates = {}
+        if hint_rank is not None and hint_rank is not self.hint_rank:
+            self.hint_rank = np.asarray(hint_rank, np.float32)
+            updates["hint_rank"] = self.hint_rank
+        if prefetch_rank is not None and prefetch_rank is not self.prefetch_rank:
+            self.prefetch_rank = np.asarray(prefetch_rank, np.float32)
+            updates["prefetch_rank"] = self.prefetch_rank
+        if updates:
+            DISPATCH_COUNTS["hint_refresh"] += 1
+            self._state = dataclasses.replace(
+                self._state,
+                **{k: upload(v, self.device) for k, v in updates.items()})
+
+    # ---------------------------------------------------------------- step
+    def step(self, batches, lookahead: Sequence = ()):
+        """Consume one epoch ``(n_batches, batch_size)``: observe, then
+        decide/migrate/account every lane.  With ``sync_every=1`` returns
+        this epoch's records; else the epochs a full buffer flushed."""
+        batches = np.ascontiguousarray(np.asarray(batches, np.int32))
+        if batches.ndim != 2:
+            raise ValueError(f"epoch batches must be 2-D, got {batches.shape}")
+        if self.hints is not None:
+            self.set_hint_ranks(*self.hints.epoch_ranks(batches, lookahead))
+        return self._step_fused(batches)
+
+    def _record(self, name: str, epoch: int, n_fast: float, n_slow: float,
+                host_events: float, promoted: int, demoted: int,
+                resident: int, inter: int,
+                quality: float = 1.0) -> EpochRecord:
+        """Epoch accounting (host float64 scalar math, as the reference)."""
+        access_s = self.system.access_time_s(
+            n_fast, n_slow, self.bytes_per_access)
+        per_event = (NB_FAULT_COST_S if name == "nb_two_touch" else
+                     PEBS_SAMPLE_COST_S if name == "hinted" else
+                     0.0 if name == "prefetch" else
+                     HMU_DRAIN_COST_S)
+        host_tax_s = host_events * per_event
+        hidden_s = 0.0
+        if name == "prefetch":
+            # the migration charged here is the one issued at the PREVIOUS
+            # boundary; it streamed under this epoch's accesses
+            moved = self._prefetch_pending
+            self._prefetch_pending = promoted + demoted
+            migration_s = self.system.migration_time_s(moved, self.block_bytes)
+            hidden_s = self.system.migration_overlap_s(
+                n_slow, self.bytes_per_access, moved, self.block_bytes,
+                self.prefetch_overlap)
+        else:
+            migration_s = self.system.migration_time_s(
+                promoted + demoted, self.block_bytes)
+        return EpochRecord(
+            epoch=epoch, lane=name,
+            time_s=access_s + host_tax_s + migration_s - hidden_s,
+            access_s=access_s, host_tax_s=host_tax_s, migration_s=migration_s,
+            accuracy=(inter / resident) if resident else 0.0,
+            coverage=(inter / self.k_hot) if self.k_hot else 0.0,
+            resident=resident, promoted=promoted, demoted=demoted,
+            host_events=host_events, hidden_s=hidden_s, quality=quality,
+        )
+
+    def _step_fused(self, batches: np.ndarray):
+        state = self._state
+        DISPATCH_COUNTS["observe_all"] += 1
+        bundle = tel.observe_all(state.bundle, upload(batches, self.device))
+        state = dataclasses.replace(state, bundle=bundle)
+        # this epoch's observe_all is already queued when a full buffer
+        # forces the previous K epochs' record pull
+        flushed: Dict[str, List[EpochRecord]] = {}
+        if self._buffered >= self.sync_every:
+            flushed = self._flush_records()
+        # static PEBS-positives bound, quantized to the next power of two
+        bound = int(batches.size) // state.bundle.pebs.period + 2
+        s_max = min(self.n_blocks, 1 << (bound - 1).bit_length())
+        DISPATCH_COUNTS["epoch_step"] += 1
+        self._state = _epoch_step(state, int(batches.size), self._buffered,
+                                  cfg=self._cfg, s_max=s_max)
+        self.epoch += 1
+        self._buffered += 1
+        if self.sync_every == 1:
+            flushed = self._flush_records()   # synchronous loop: pull now
+            return {name: recs[0] for name, recs in flushed.items()}
+        return flushed
+
+    def _flush_records(self) -> Dict[str, List[EpochRecord]]:
+        """Pull the buffered epochs' record rows in ONE device->host
+        transfer and assemble their :class:`EpochRecord`\\ s in dispatch
+        order — the loop's only sync."""
+        n_buf = self._buffered
+        if n_buf == 0:
+            return {}
+        base = self.epoch - n_buf
+        DISPATCH_COUNTS["record_sync"] += 1
+        with sync_allowed(self.device):
+            host = self._state.out_buf.cpu().numpy()
+        cols = _out_columns(len(self._lane_names))
+        flushed: Dict[str, List[EpochRecord]] = {
+            name: [] for name in self._lane_names}
+        for j in range(n_buf):                 # rows beyond n_buf are stale
+            row = host[j]
+            pebs_host = float(row[cols["pebs_host"]])
+            nb_host = float(row[cols["nb_host"]])
+            d_pebs_host = pebs_host - self._prev_pebs_host
+            d_nb_host = nb_host - self._prev_nb_host
+            self._prev_pebs_host, self._prev_nb_host = pebs_host, nb_host
+            drained = float(row[cols["drained"]])
+            lane_vals = {f: row[cols[f]] for f in _OUT_LANE_FIELDS}
+            for i, name in enumerate(self._lane_names):
+                host_events = (d_nb_host if name == "nb_two_touch" else
+                               d_pebs_host if name == "hinted" else
+                               0.0 if name == "prefetch" else drained)
+                rec = self._record(
+                    name, epoch=base + j,
+                    n_fast=float(lane_vals["n_fast"][i]),
+                    n_slow=float(lane_vals["n_slow"][i]),
+                    host_events=host_events,
+                    promoted=int(lane_vals["promoted"][i]),
+                    demoted=int(lane_vals["demoted"][i]),
+                    resident=int(lane_vals["resident"][i]),
+                    inter=int(lane_vals["inter"][i]),
+                )
+                self.records[name].append(rec)
+                flushed[name].append(rec)
+        self._buffered = 0
+        return flushed
+
+    def flush(self) -> Dict[str, List[EpochRecord]]:
+        """Force the record pull for any still-buffered epochs."""
+        return self._flush_records()
+
+    # ----------------------------------------------------------------- run
+    def run(self, epochs: Iterable) -> Trajectory:
+        """Drive a whole epoch stream.  With a hint pipeline attached, the
+        stream is buffered by the pipeline's lookahead depth so each
+        ``step`` sees the queued next epochs.  Returns only this stream's
+        records."""
+        self._flush_records()
+        self._prefetch_pending = 0
+        starts = {name: len(recs) for name, recs in self.records.items()}
+        depth = self.hints.lookahead_depth if self.hints is not None else 0
+        it = iter(epochs)
+        buf: deque = deque()                # current epoch + queued lookahead
+        try:
+            while True:
+                if not buf:
+                    buf.extend(itertools.islice(it, 1))
+                    if not buf:
+                        break
+                batches = buf.popleft()
+                buf.extend(itertools.islice(it, depth - len(buf)))
+                self.step(batches, lookahead=tuple(buf))
+        finally:
+            # the partial tail lands even when a run dies mid-stream
+            self._flush_records()
+        return Trajectory(n_blocks=self.n_blocks, k_hot=self.k_hot,
+                          records={name: recs[starts[name]:]
+                                   for name, recs in self.records.items()})

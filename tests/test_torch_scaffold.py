@@ -1,0 +1,118 @@
+"""repro_torch scaffold: the port stands alone, runs on the card by default,
+raises without one, and refuses the options it does not carry yet.
+
+Everything here is structural (imports, devices, errors), so there is no
+tolerance to state."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.runtime import EpochRuntime  # noqa: E402
+from repro_torch.dlrm import datagen  # noqa: E402
+from repro_torch.faults import FaultModel, Hardening  # noqa: E402
+from repro_torch.kernels.dispatch import (KernelBackend, resolve_device,  # noqa: E402
+                                          use_kernel)
+from repro_torch.kernels.hist_select.kernel import kth_key_cuda  # noqa: E402
+from repro_torch.kernels.observe_scatter.kernel import observe_scatter_cuda  # noqa: E402
+from repro_torch.scenarios import DLRMScenario, run_online, run_scenario  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+TINY = DLRMScenario(spec=datagen.DLRMTraceSpec(n_params=256_000,
+                                               lookups_per_batch=500),
+                    n_epochs=2, batches_per_epoch=2, shift_at=1)
+
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.scenarios, repro_torch.core.runtime\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=120,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_sources_import_neither_jax_nor_repro():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    offenders = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+                 for f in files
+                 for i, line in enumerate(f.read_text().splitlines(), 1)
+                 if _IMPORT.match(line)]
+    assert offenders == []
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EpochRuntime(100, 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_scenario(TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_online(spec=TINY.spec, n_epochs=1)
+
+
+def test_entry_points_run_on_the_cpu_when_asked():
+    out = run_scenario(TINY, hints=True, device="cpu")
+    assert len(out["trajectory"]["lanes"]["hmu_oracle"]) == TINY.n_epochs
+    rt = EpochRuntime(100, 10, device="cpu")
+    assert rt.device.type == "cpu"
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(fused=False), "12"), (dict(mesh=object()), "15"),
+    (dict(tenancy=object()), "9"), (dict(faults=object()), "10"),
+    (dict(hardening=object()), "10"), (dict(export=object()), "11"),
+])
+def test_unported_options_raise(option, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        run_scenario(TINY, device="cpu", **option)
+
+
+def test_fault_containers_are_not_ported():
+    with pytest.raises(NotImplementedError):
+        FaultModel()
+    with pytest.raises(NotImplementedError):
+        Hardening()
+
+
+def test_dispatch_rule_follows_the_tensor():
+    cpu = torch.zeros(4, dtype=torch.int32)
+    assert not use_kernel(cpu)
+    assert not use_kernel(cpu, KernelBackend(plain=True))
+    assert hash(KernelBackend()) == hash(KernelBackend(plain=False))
+    with pytest.raises(ValueError):
+        use_kernel(torch.zeros(4, device="meta"))
+    # the CUDA wrappers never run a CPU tensor through anything
+    with pytest.raises(ValueError, match="CUDA"):
+        observe_scatter_cuda(cpu, torch.zeros(1, dtype=torch.int32),
+                             n_blocks=8, period=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kth_key_cuda(cpu.reshape(1, 4), None, (1,))
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=REPO,
+                         timeout=120, env={"PATH": "/usr/bin:/bin",
+                                           "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
