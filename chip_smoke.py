@@ -3,34 +3,53 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device of compute capability 9.0 and the CUDA toolkit (``nvcc``); it
-imports nothing of JAX or of the JAX package.  Phases, each reported on its
-own line:
+imports nothing of JAX or of the JAX package.  Float32 matrix products run
+in full float32 (TF32 off).  Phases, each reported on its own line:
 
 1. device: the card's name, power limit and capability (must be 9.0);
-2. build: both CUDA kernels compiled from ``src/repro_torch/**/csrc``;
+2. build: the four CUDA kernels compiled from ``src/repro_torch/**/csrc``,
+   one ``nvcc`` each, in parallel;
 3. observe_scatter vs its plain version, exact, on the shared-memory path
    (5,000 blocks) and the global-atomics path (5,242,880 blocks);
 4. hist_select vs its plain version, exact, at 5 x 5,242,880 keys, S=1 and
    S=3, with caps of 0 and of the full segment and heavy ties;
-5. SMALL DLRM parity: ``run_scenario`` on the GPU and on the CPU give
-   byte-identical results for hints in {False, True} x sync_every in
-   {1, 4, 7};
-6. the main path at paper scale: 5,242,880 pages, 2.4 M lookups per batch,
-   486,587 fast slots, hints on, sync_every=4, under
+5. gather_count vs its plain version, exact, float32 and bfloat16 storage
+   at the paper's width (21,800,000 x 256), M in {1, 127, 2,400,001}, with
+   a non-zero carry-in of the counters;
+6. embedding_bag vs its plain version (float32 within 1e-5, bfloat16
+   within 2e-2, counters exact) at B=150,000, L=16, D=256, and B=3, L=5;
+7. SMALL parity, GPU vs CPU: ``run_scenario`` byte-identical for hints in
+   {False, True} x sync_every in {1, 4, 7}; ``run_table1``/``run_fig3`` on
+   the small specs and the tiering example at a small size, every field
+   identical (the example's pooled rows within 1e-5);
+8. the online main path at paper scale: 5,242,880 pages, 2.4 M lookups per
+   batch, 486,587 fast slots, hints on, sync_every=4, under
    ``torch.cuda.set_sync_debug_mode("error")`` (only the record pull may
    sync); the kernels' launch counts and the record-pull count are checked;
    then the same loop five times warm, timed without the sync checks;
-7. kernel times at the paper-scale shapes (CUDA events), beside the bound,
-   the plain version and one PyTorch library call; then the paper run once
-   more under ``torch.profiler``: device busy time, idle share and the
-   kernels that take the most device time.
+9. the offline path at the paper's width: ``examples.dlrm_tiering.run()``
+   (20,000,000 x 256 table, 450,000 fast slots, 20 profile and 5 replay
+   batches of 150,000 bags of 16): 20 embedding_bag, 5 gather_count and at
+   least one hist_select launch, gathered rows equal to the table's; run
+   under cProfile, whose top functions say where the host's time goes;
+10. ``tracesim.run_table1()`` at paper scale (40 observe_scatter launches)
+    inside the bands of ``tests/test_paper_claims.py``, under cProfile;
+11. ``tracesim.run_fig3()`` at paper scale (256 launches), inside its bands,
+    under cProfile;
+12. kernel times at the paper-scale shapes (CUDA events), beside the bound,
+    the plain version and one PyTorch library call; then the online paper
+    run once more under ``torch.profiler``: device busy time, idle share
+    and the kernels that take the most device time.
 
-Any failure exits non-zero before the result lines.  The last lines are the
+Each path (8-11) sets the launch counters to 0 just before it runs and
+reads them just after.  Any failure exits non-zero before the result
+lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -45,6 +64,12 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor-core rate (float32)
 PAPER_PAGES = 5_242_880
 PAPER_K_HOT = 486_587
+# the offline path's paper width (datagen.PAPER): 20 M rows of 256 in 5 M
+# blocks of 4, 9 % of them fast, 150,000 bags of 16 per batch
+PAPER_ROWS, PAPER_DIM, PAPER_BLOCK_ROWS = 20_000_000, 256, 4
+PAPER_SLOTS = 450_000
+PAPER_STORAGE_ROWS = PAPER_ROWS + PAPER_SLOTS * PAPER_BLOCK_ROWS
+PAPER_BAGS, PAPER_BAG = 150_000, 16
 
 
 def fail(msg: str) -> None:
@@ -88,7 +113,176 @@ def in_turns(plain, kernel, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def main(until: int = 7) -> None:
+def same_tree(a, b) -> bool:
+    """Exact equality of nested dicts / lists / arrays / scalars."""
+    import numpy as np
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(same_tree(a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return bool(np.array_equal(a, b))
+    return a == b
+
+
+def profiled(fn):
+    """``fn()`` under cProfile -> (its result, {function: own seconds} of
+    the ten functions with the most own time, total own seconds)."""
+    import cProfile
+    import pstats
+    import torch
+    host = cProfile.Profile()
+    host.enable()
+    out = fn()
+    torch.cuda.synchronize()
+    host.disable()
+    stats = pstats.Stats(host).stats
+    by_own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    return out, {f"{Path(k[0]).name}:{k[1]}:{k[2]}": v[2]
+                 for k, v in by_own}, sum(v[2] for v in stats.values())
+
+
+def free_device_memory() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def paper_storage(dev, seed: int):
+    """A (21.8 M, 256) float32 storage of the offline path's width, made on
+    the card from a seeded generator (22.3 GB)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = torch.empty((PAPER_STORAGE_ROWS, PAPER_DIM), dtype=torch.float32,
+                     device=dev)
+    return st.normal_(generator=gen)
+
+
+def zipf_rows(rng, m: int, n_rows: int):
+    """Row ids as the offline path draws them: Zipf(1.3) heads (repeats)
+    mixed with uniform rows, all in [0, n_rows)."""
+    import numpy as np
+    heads = (rng.zipf(1.3, m) - 1) % n_rows
+    return np.where(rng.random(m) < 0.5, heads,
+                    rng.integers(0, n_rows, m)).astype(np.int32)
+
+
+def check_gather_count(dev, rng, plain) -> int:
+    """Phase 5: gather_count == plain, exactly; returns the max abs err."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.gather_count import gather_count
+    st32 = paper_storage(dev, 1)
+    n_counts = PAPER_STORAGE_ROWS // PAPER_BLOCK_ROWS
+    carry = torch.from_numpy(rng.integers(0, 10, n_counts).astype(np.int32)
+                             ).to(dev)
+    worst = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        st = st32 if dtype == torch.float32 else st32.to(dtype)
+        for m in (1, 127, 2_400_001):
+            idx = torch.from_numpy(zipf_rows(rng, m, PAPER_STORAGE_ROWS)
+                                   ).to(dev)
+            rows, counts = gather_count(st, idx, carry,
+                                        block_rows=PAPER_BLOCK_ROWS)
+            p_rows, p_counts = gather_count(st, idx, carry,
+                                            block_rows=PAPER_BLOCK_ROWS,
+                                            backend=plain)
+            torch.cuda.synchronize()
+            err = max(float((rows.float() - p_rows.float()).abs().max()),
+                      float((counts - p_counts).abs().max()))
+            if not (torch.equal(rows, p_rows) and torch.equal(counts,
+                                                              p_counts)):
+                fail(f"gather_count differs from its plain version "
+                     f"({dtype}, M={m}, max abs err {err})")
+            worst = max(worst, int(err))
+            del rows, p_rows
+        del st
+    del st32
+    free_device_memory()
+    return worst
+
+
+def check_embedding_bag(dev, rng, plain):
+    """Phase 6: embedding_bag == plain within 1e-5 (f32) / 2e-2 (bf16),
+    counters exact; returns the max abs err per dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    st32 = paper_storage(dev, 2)
+    n_counts = PAPER_STORAGE_ROWS // PAPER_BLOCK_ROWS
+    carry = torch.from_numpy(rng.integers(0, 10, n_counts).astype(np.int32)
+                             ).to(dev)
+    worst = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        st = st32 if dtype == torch.float32 else st32.to(dtype)
+        err = 0.0
+        for b, l in ((PAPER_BAGS, PAPER_BAG), (3, 5)):
+            idx = torch.from_numpy(zipf_rows(rng, b * l, PAPER_STORAGE_ROWS)
+                                   .reshape(b, l)).to(dev)
+            w = torch.from_numpy(rng.uniform(0.5, 1.5, (b, l))
+                                 .astype(np.float32)).to(dev)
+            out, counts = embedding_bag(st, idx, carry, w,
+                                        block_rows=PAPER_BLOCK_ROWS)
+            p_out, p_counts = embedding_bag(st, idx, carry, w,
+                                            block_rows=PAPER_BLOCK_ROWS,
+                                            backend=plain)
+            torch.cuda.synchronize()
+            diff = (out.float() - p_out.float()).abs()
+            err = max(err, float(diff.max()))
+            within = bool(torch.all(diff <= tol + tol * p_out.float().abs()))
+            if not (within and torch.equal(counts, p_counts)):
+                fail(f"embedding_bag differs from its plain version "
+                     f"({dtype}, B={b}, L={l}, max abs err {err}, counts "
+                     f"equal {torch.equal(counts, p_counts)})")
+        worst[str(dtype).split(".")[-1]] = err
+        del st
+    del st32
+    free_device_memory()
+    return worst
+
+
+def offline_small_parity(dlrm_tiering, tracesim, datagen, mmap_bench):
+    """Phase 7, offline part: the small specs on the GPU and on the CPU."""
+    import numpy as np
+    import torch
+    t1 = dict(k_hot=500, batches_per_iteration=5, eval_batches=8,
+              dram_only_target_us=633.24)
+    rows = {d: {k: dataclasses.asdict(v) for k, v in tracesim.run_table1(
+        datagen.SMALL, device=d, **t1).items()} for d in ("cuda", "cpu")}
+    if rows["cuda"] != rows["cpu"]:
+        fail("run_table1 (small) differs GPU vs CPU")
+    f3 = dict(total_accesses=2_000_000, pebs_period=401, n_batches=16)
+    figs = {d: tracesim.run_fig3(mmap_bench.SMALL, device=d, **f3)
+            for d in ("cuda", "cpu")}
+    if not same_tree(figs["cuda"], figs["cpu"]):
+        fail("run_fig3 (small) differs GPU vs CPU")
+    spec = dlrm_tiering.SMALL
+    table = (np.random.default_rng(3).normal(size=(spec.n_rows, spec.emb_dim))
+             * 0.05).astype(np.float32)
+    ex = {d: dlrm_tiering.run(spec, bag=4, table=table, device=d)
+          for d in ("cuda", "cpu")}
+    pooled_err = float((ex["cuda"].pop("pooled").cpu()
+                        - ex["cpu"].pop("pooled")).abs().max())
+    if not (same_tree(ex["cuda"], ex["cpu"]) and pooled_err <= 1e-5
+            and ex["cuda"]["gathered_equal"]):
+        fail(f"the small tiering example differs GPU vs CPU (pooled max "
+             f"abs err {pooled_err})")
+    return pooled_err
+
+
+def in_band(name: str, checks: dict) -> None:
+    bad = {k: v for k, v in checks.items() if not v}
+    if bad:
+        fail(f"{name} outside the bands of tests/test_paper_claims.py: "
+             f"{sorted(bad)}")
+
+
+def main(until: int = 12) -> None:
     import numpy as np
     import torch
 
@@ -99,18 +293,35 @@ def main(until: int = 7) -> None:
     sys.path.insert(0, str(SRC))
 
     from repro_torch.core import runtime, selectk
-    from repro_torch.dlrm import datagen
+    from repro_torch.dlrm import datagen, tracesim
+    from repro_torch.examples import dlrm_tiering
     from repro_torch.kernels import _build
     from repro_torch.kernels.dispatch import KernelBackend
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.gather_count import gather_count
+    from repro_torch.kernels.gather_count import kernel as gc_kernel
     from repro_torch.kernels.hist_select import kernel as hs_kernel
     from repro_torch.kernels.hist_select import kth_key
     from repro_torch.kernels.observe_scatter import kernel as os_kernel
     from repro_torch.kernels.observe_scatter import observe_scatter
     from repro_torch.scenarios import DLRMScenario, build_hints, run_scenario
+    from repro_torch.workloads import mmap_bench
 
     plain = KernelBackend(plain=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernel_modules = {"observe_scatter": os_kernel, "hist_select": hs_kernel,
+                      "gather_count": gc_kernel, "embedding_bag": eb_kernel}
+
+    def zero_counts() -> None:
+        for mod in kernel_modules.values():
+            mod.LAUNCHES = 0
+
+    def read_counts() -> dict:
+        return {name: mod.LAUNCHES for name, mod in kernel_modules.items()}
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(
@@ -201,9 +412,25 @@ def main(until: int = 7) -> None:
         fail(f"hist_select differs from its plain version (max abs err "
              f"{worst}, select_top_k equal {sel_equal})")
 
-    if until < 5:
+    # --------------------------------------- 5. gather_count vs plain, exact
+    t0 = time.perf_counter()
+    errors["gather_count"] = check_gather_count(dev, rng, plain)
+    say("gather_count", storage=[PAPER_STORAGE_ROWS, PAPER_DIM],
+        dtypes=["float32", "bfloat16"], m=[1, 127, 2_400_001],
+        max_abs_err=errors["gather_count"], seconds=time.perf_counter() - t0)
+
+    # ------------------------------------------ 6. embedding_bag vs plain
+    t0 = time.perf_counter()
+    eb_err = check_embedding_bag(dev, rng, plain)
+    errors["embedding_bag"] = eb_err["float32"]
+    say("embedding_bag", storage=[PAPER_STORAGE_ROWS, PAPER_DIM],
+        bags=[[PAPER_BAGS, PAPER_BAG], [3, 5]], max_abs_err=eb_err,
+        tolerance={"float32": 1e-5, "bfloat16": 2e-2}, counts_exact=True,
+        seconds=time.perf_counter() - t0)
+
+    if until < 7:
         fail(f"stopped after phase {until} (--until)")
-    # -------------------------------- 5. SMALL parity, GPU vs CPU, bytewise
+    # -------------------------------- 7. SMALL parity, GPU vs CPU, bytewise
     t0 = time.perf_counter()
     for hints in (False, True):
         for k in (1, 4, 7):
@@ -215,10 +442,16 @@ def main(until: int = 7) -> None:
                      f"sync_every={k})")
     say("small_parity", runs=12, identical=True,
         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    pooled_err = offline_small_parity(dlrm_tiering, tracesim, datagen,
+                                      mmap_bench)
+    say("offline_small_parity", table1=True, fig3=True, example=True,
+        example_pooled_max_abs_err=pooled_err,
+        seconds=time.perf_counter() - t0)
 
-    if until < 6:
+    if until < 8:
         fail(f"stopped after phase {until} (--until)")
-    # ------------------------------------------ 6. the main path, paper scale
+    # ------------------------------ 8. the online main path, paper scale
     spec = datagen.DLRMTraceSpec(n_params=5_368_709_120)
     if spec.n_pages != PAPER_PAGES:
         fail(f"paper spec has {spec.n_pages} pages")
@@ -228,8 +461,7 @@ def main(until: int = 7) -> None:
     epochs = list(scen.epochs())
     pipeline = build_hints(scen)
     setup_s = time.perf_counter() - t0
-    os_kernel.LAUNCHES = 0
-    hs_kernel.LAUNCHES = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     with runtime.counting() as c:
@@ -242,8 +474,7 @@ def main(until: int = 7) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         wall = time.perf_counter() - t0
-    launches = {"observe_scatter": os_kernel.LAUNCHES,
-                "hist_select": hs_kernel.LAUNCHES}
+    launches = read_counts()
     record_sync = c.dispatch["record_sync"]
     lanes = res["trajectory"]["lanes"]
     say("paper_run", n_pages=spec.n_pages, k_hot=scen.k_hot,
@@ -254,7 +485,8 @@ def main(until: int = 7) -> None:
         hint_refresh=c.dispatch["hint_refresh"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     say("paper_summary", **res["summary"])
-    if launches != {"observe_scatter": 12, "hist_select": 6}:
+    if launches != {"observe_scatter": 12, "hist_select": 6,
+                    "gather_count": 0, "embedding_bag": 0}:
         fail(f"kernel launches {launches}, expected 12 and 6")
     if record_sync != 2:
         fail(f"record_sync {record_sync}, expected 2")
@@ -303,9 +535,89 @@ def main(until: int = 7) -> None:
         epoch_wall_s_mean=sum(warm_epoch_s) / len(warm_epoch_s),
         cold_epoch_wall_s_mean=wall / scen.n_epochs)
 
-    if until < 7:
+    if until < 9:
         fail(f"stopped after phase {until} (--until)")
-    # ---------------------------------------- 7. kernel times, paper shapes
+    # ----------------------- 9. the offline path at the paper's width
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    # under cProfile, whose cost is small beside the run's numpy and copies:
+    # where the wall goes (host sampling, uploads, the exactness check)
+    t0 = time.perf_counter()
+    ex, ex_top_own, _ = profiled(lambda: dlrm_tiering.run(datagen.PAPER,
+                                                          device=dev))
+    ex_wall = time.perf_counter() - t0
+    ex_launches = read_counts()
+    say("offline_example", rows=ex["n_rows"], dim=ex["dim"],
+        blocks=ex["n_blocks"], slots=ex["n_slots"], bags=ex["batch"],
+        bag=ex["bag"], launches=ex_launches,
+        promoted=ex["fast_occupancy"], hit_rate=ex["hit_rate"],
+        tiered_vs_dram=ex["tiered_vs_dram"],
+        tiered_us=ex["tiered_s"] * 1e6, dram_only_us=ex["dram_only_s"] * 1e6,
+        cxl_only_us=ex["cxl_only_s"] * 1e6,
+        gathered_equal=ex["gathered_equal"], wall_s=ex_wall,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        host_top_own_s=ex_top_own)
+    if not (ex_launches["embedding_bag"] == 20
+            and ex_launches["gather_count"] == 5
+            and ex_launches["hist_select"] >= 1
+            and ex_launches["observe_scatter"] == 0):
+        fail(f"offline example launches {ex_launches}")
+    if not ex["gathered_equal"]:
+        fail("gathered rows differ from the table's")
+    if not (ex["n_slots"] == PAPER_SLOTS
+            and ex["fast_occupancy"] == PAPER_SLOTS
+            and 0.0 < ex["hit_rate"] < 1.0
+            and ex["n_fast"] + ex["n_slow"] == 5 * PAPER_BAGS * PAPER_BAG
+            and int(ex["eval_counts"].sum()) == 5 * PAPER_BAGS * PAPER_BAG
+            and math.isfinite(ex["tiered_vs_dram"])):
+        fail("offline example report out of range")
+    del ex
+    free_device_memory()
+
+    # --------------------------------------- 10. run_table1 at paper scale
+    zero_counts()
+    t0 = time.perf_counter()
+    t1, t1_top_own, _ = profiled(lambda: tracesim.run_table1(device=dev))
+    t1_launches = read_counts()
+    hmu, nb, dram = t1["hmu"], t1["nb"], t1["dram-only"]
+    say("table1", launches=t1_launches, seconds=time.perf_counter() - t0,
+        rows={k: dataclasses.asdict(v) for k, v in t1.items()},
+        host_top_own_s=t1_top_own)
+    if t1_launches["observe_scatter"] != 40:
+        fail(f"run_table1 launches {t1_launches}, expected 40 observe_scatter")
+    in_band("run_table1", {
+        "1.5 <= hmu.speed_vs_nb <= 2.5": 1.5 <= hmu.speed_vs_nb <= 2.5,
+        "hmu / dram-only <= 1.08":
+            hmu.avg_inference_us / dram.avg_inference_us <= 1.08,
+        "hmu promotes 486,587 pages": hmu.pages_promoted == PAPER_K_HOT,
+        "hmu footprint <= 0.11": hmu.top_tier_gb / dram.top_tier_gb <= 0.11,
+        "nb 100-160 ms": 100_000 <= nb.avg_inference_us <= 160_000})
+
+    # ----------------------------------------- 11. run_fig3 at paper scale
+    zero_counts()
+    t0 = time.perf_counter()
+    f3, f3_top_own, _ = profiled(lambda: tracesim.run_fig3(device=dev))
+    f3_launches = read_counts()
+    m3 = f3["methods"]
+    say("fig3", launches=f3_launches, seconds=time.perf_counter() - t0,
+        pages_for_90pct=f3["hotness"]["pages_for_90pct"],
+        overlap_nb_hmu=f3["overlap_nb_hmu"], methods=m3,
+        host_top_own_s=f3_top_own)
+    if f3_launches["observe_scatter"] != 4 * 64:
+        fail(f"run_fig3 launches {f3_launches}, expected 256 observe_scatter")
+    in_band("run_fig3", {
+        "pebs coverage <= 0.12": m3["pebs"]["coverage"] <= 0.12,
+        "pebs accuracy >= 0.70": m3["pebs"]["accuracy"] >= 0.70,
+        "2.2 <= hmu/pebs <= 4.0": 2.2 <= m3["hmu"]["speedup_vs_pebs"] <= 4.0,
+        "1.4 <= hmu/nb <= 2.3": 1.4 <= m3["hmu"]["speedup_vs_nb"] <= 2.3,
+        "0.6 <= overlap <= 1.0": 0.6 <= f3["overlap_nb_hmu"] <= 1.0,
+        "pages for 90% = 0.10 +- 0.02":
+            abs(f3["hotness"]["pages_for_90pct"] - 0.10) <= 0.02})
+
+    if until < 12:
+        fail(f"stopped after phase {until} (--until)")
+    # --------------------------------------- 12. kernel times, paper shapes
     ids = torch.from_numpy(epochs[0][0]).to(dev)
     cursor = torch.zeros((), dtype=torch.int32, device=dev)
     m = ids.numel()
@@ -335,6 +647,70 @@ def main(until: int = 7) -> None:
         fail("hist_select disagrees with torch.kthvalue")
     hs_bound, hs_by = bound_ms(4 * rows.numel(), 4 * rows.numel())
 
+    # gather_count and embedding_bag at the offline path's paper shapes: a
+    # float32 storage of 21.8 M x 256 and 2.4 M rows drawn as the example
+    # draws them (Zipf pages x 4 + a row within the page).  The bound reads
+    # each distinct row once, as the data needs, and counts the counters'
+    # read and write.
+    del h0, h1, hf, rows
+    free_device_memory()
+    storage = paper_storage(dev, 3)
+    slow = storage[PAPER_SLOTS * PAPER_BLOCK_ROWS:]
+    n_logical = PAPER_ROWS // PAPER_BLOCK_ROWS
+    n_phys = PAPER_STORAGE_ROWS // PAPER_BLOCK_ROWS
+    m_rows = PAPER_BAGS * PAPER_BAG
+    row_bytes = PAPER_DIM * 4
+    pages = datagen.ZipfPageSampler(datagen.PAPER, seed=1).sample(m_rows)
+    logical = (pages.astype(np.int64) * PAPER_BLOCK_ROWS
+               + rng.integers(0, PAPER_BLOCK_ROWS, m_rows)).astype(np.int32)
+    e_idx = torch.from_numpy(logical.reshape(PAPER_BAGS, PAPER_BAG)).to(dev)
+    g_idx = e_idx.reshape(-1) + PAPER_SLOTS * PAPER_BLOCK_ROWS  # slow region
+    distinct = int(torch.unique(e_idx).numel())
+    g_counts = torch.zeros(n_phys, dtype=torch.int32, device=dev)
+    gc_ms, gc_plain = in_turns(
+        lambda: gather_count(storage, g_idx, g_counts,
+                             block_rows=PAPER_BLOCK_ROWS, backend=plain),
+        lambda: gather_count(storage, g_idx, g_counts,
+                             block_rows=PAPER_BLOCK_ROWS), 10)
+    g_idx64 = g_idx.to(torch.int64)
+    gc_lib = time_ms(lambda: (storage.index_select(0, g_idx64), torch.bincount(
+        g_idx64 // PAPER_BLOCK_ROWS, minlength=n_phys)), 10)
+    gc_bound, gc_by = bound_ms(
+        distinct * row_bytes + 4 * m_rows + m_rows * row_bytes + 8 * n_phys,
+        m_rows)
+
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (PAPER_BAGS, PAPER_BAG))
+                         .astype(np.float32)).to(dev)
+    e_counts = torch.zeros(n_logical, dtype=torch.int32, device=dev)
+    eb_ms, eb_plain = in_turns(
+        lambda: embedding_bag(slow, e_idx, e_counts, w,
+                              block_rows=PAPER_BLOCK_ROWS, backend=plain),
+        lambda: embedding_bag(slow, e_idx, e_counts, w,
+                              block_rows=PAPER_BLOCK_ROWS), 10)
+    e_idx64 = e_idx.to(torch.int64)
+    eb_lib = time_ms(lambda: (
+        torch.nn.functional.embedding_bag(e_idx64, slow, mode="sum",
+                                          per_sample_weights=w),
+        torch.bincount(e_idx64.reshape(-1) // PAPER_BLOCK_ROWS,
+                       minlength=n_logical)), 10)
+    lib_out = torch.nn.functional.embedding_bag(e_idx64, slow, mode="sum",
+                                                per_sample_weights=w)
+    eb_lib_err = float((lib_out - embedding_bag(
+        slow, e_idx, e_counts, w, block_rows=PAPER_BLOCK_ROWS)[0]).abs().max())
+    eb_bound, eb_by = bound_ms(
+        distinct * row_bytes + 8 * m_rows + PAPER_BAGS * row_bytes
+        + 8 * n_logical, 2 * m_rows * PAPER_DIM)
+    say("offline_kernel_times", rows=m_rows, distinct_rows=distinct,
+        gather_count_ms=gc_ms, gather_count_plain_ms=gc_plain,
+        gather_count_library_ms=gc_lib, gather_count_bound_ms=gc_bound,
+        embedding_bag_ms=eb_ms, embedding_bag_plain_ms=eb_plain,
+        embedding_bag_library_ms=eb_lib, embedding_bag_bound_ms=eb_bound,
+        embedding_bag_vs_library_max_abs_err=eb_lib_err,
+        bound_if_every_row_read=bound_ms(
+            2 * m_rows * row_bytes + 4 * m_rows, m_rows)[0])
+    del storage, slow, lib_out
+    free_device_memory()
+
     # -------------------- where the time goes: the paper run, profiled once
     from torch.profiler import ProfilerActivity, profile
     pipeline = build_hints(scen)
@@ -361,7 +737,7 @@ def main(until: int = 7) -> None:
                 sorted(table.items(), key=lambda kv: -kv[1])[:n]}
 
     # the profiler slows the host, so the idle share is given both over the
-    # profiled wall and over the mean unprofiled warm wall of phase 6
+    # profiled wall and over the mean unprofiled warm wall of phase 8
     warm_mean = sum(warm_wall_s) / len(warm_wall_s)
     say("profile", wall_s=prof_wall, device_busy_s=busy_s,
         device_idle_share_profiled=1.0 - busy_s / prof_wall,
@@ -371,20 +747,11 @@ def main(until: int = 7) -> None:
                         if "observe_scatter" in key or "hs_" in key})
 
     # the host's side of the same run: where the Python process spends it
-    import cProfile
-    import pstats
     pipeline = build_hints(scen)
     torch.cuda.synchronize()
-    host = cProfile.Profile()
-    host.enable()
-    run_scenario(scen, hints=pipeline, sync_every=4, epochs=epochs)
-    torch.cuda.synchronize()
-    host.disable()
-    stats = pstats.Stats(host).stats
-    by_own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
-    say("host_profile", total_s=sum(v[2] for v in stats.values()),
-        top_own_s={f"{Path(k[0]).name}:{k[1]}:{k[2]}": v[2]
-                   for k, v in by_own})
+    _, top_own, total_own = profiled(lambda: run_scenario(
+        scen, hints=pipeline, sync_every=4, epochs=epochs))
+    say("host_profile", total_s=total_own, top_own_s=top_own)
 
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
@@ -402,6 +769,22 @@ def main(until: int = 7) -> None:
          "max_abs_err": errors["hist_select"], "ms": hs_ms,
          "plain_ms": hs_plain, "bound_ms": hs_bound, "bound_by": hs_by,
          "library_ms": hs_lib},
+        {"name": "gather_count", "route": "cuda",
+         "source": "src/repro_torch/kernels/gather_count/csrc/"
+                   "gather_count.cu",
+         "replaces": "src/repro/kernels/gather_count/kernel.py:34",
+         "launches": ex_launches["gather_count"],
+         "max_abs_err": errors["gather_count"], "ms": gc_ms,
+         "plain_ms": gc_plain, "bound_ms": gc_bound, "bound_by": gc_by,
+         "library_ms": gc_lib},
+        {"name": "embedding_bag", "route": "cuda",
+         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                   "embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag/kernel.py:27",
+         "launches": ex_launches["embedding_bag"],
+         "max_abs_err": errors["embedding_bag"], "ms": eb_ms,
+         "plain_ms": eb_plain, "bound_ms": eb_bound, "bound_by": eb_by,
+         "library_ms": eb_lib},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -414,4 +797,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 7)
+    main(int(args[1]) if args[:1] == ["--until"] else 12)

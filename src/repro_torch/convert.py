@@ -24,12 +24,14 @@ import numpy as np
 import torch
 
 from .core import telemetry as tel
+from .core.blockstore import TieredStore
 from .core.placement import Placement
 from .core.runtime import (_FusedState, _OUT_LANE_FIELDS, _OUT_SCALARS,
                            _out_columns)
 from .faults.model import CARRY_BASE, Counter64
 
-__all__ = ["bundle_from_numpy", "bundle_to_numpy", "fused_state_from_numpy"]
+__all__ = ["bundle_from_numpy", "bundle_to_numpy", "fused_state_from_numpy",
+           "store_from_numpy", "store_to_numpy"]
 
 Flat = Mapping[str, np.ndarray]
 
@@ -96,6 +98,35 @@ def bundle_to_numpy(bundle: tel.TelemetryBundle) -> Dict[str, np.ndarray]:
                 put(f"{col}.{f.name}", val)
     put("true_counts", bundle.true_counts)
     return out
+
+
+def store_from_numpy(flat: Flat, *, like: TieredStore) -> TieredStore:
+    """The port's :class:`TieredStore` from the reference's leaves
+    (``storage``, ``placement.slot_to_block``, ``placement.block_to_slot``);
+    ``like`` gives the geometry, the dtype and the device.  A bfloat16
+    ``storage`` leaf (numpy's ``ml_dtypes`` type, which torch cannot take)
+    crosses as float32, exactly."""
+    storage = np.asarray(flat["storage"])
+    if storage.dtype.name == "bfloat16":
+        flat = dict(flat, storage=storage.astype(np.float32))
+    return dataclasses.replace(
+        like, storage=_t(flat, "storage", like.storage),
+        placement=Placement(
+            slot_to_block=_t(flat, "placement.slot_to_block",
+                             like.slot_to_block),
+            block_to_slot=_t(flat, "placement.block_to_slot",
+                             like.block_to_slot)))
+
+
+def store_to_numpy(store: TieredStore) -> Dict[str, np.ndarray]:
+    """The store's leaves under the reference's keys (bfloat16 storage
+    comes out as float32, which holds every bfloat16 value exactly)."""
+    storage = store.storage
+    if storage.dtype == torch.bfloat16:
+        storage = storage.to(torch.float32)
+    return {"storage": storage.cpu().numpy(),
+            "placement.slot_to_block": store.slot_to_block.cpu().numpy(),
+            "placement.block_to_slot": store.block_to_slot.cpu().numpy()}
 
 
 def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:

@@ -20,11 +20,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from . import selectk
+from ..device import upload
+from . import policy, selectk
 
-__all__ = ["Placement", "apply_plan", "demote_idle"]
+__all__ = ["Placement", "apply_plan", "demote_idle", "plan_promotion"]
 
 # Free fast slots sort at this heat in eviction order: after every finite
 # resident but before +inf-guarded still-wanted residents.
@@ -142,3 +144,27 @@ def apply_plan(p: Placement, want: torch.Tensor, est: torch.Tensor,
     b2s = _scatter_ids(b2s, want, assign, slot_for)
     promoted = torch.sum(assign, dim=-1, dtype=torch.int32)
     return Placement(slot_to_block=s2b, block_to_slot=b2s), promoted, demoted
+
+
+def plan_promotion(p: Placement, want, est,
+                   ) -> Tuple[np.ndarray, Optional[torch.Tensor]]:
+    """Host-side control-plane variant for payload-carrying stores: given a
+    plan's ids (tensor or array, -1 padding) and the epoch estimate, return
+    ``(want_ids, victims)`` where ``victims`` (or None) are the demotions
+    that make the promotions fit — the sequence ``TieredStore.migrate``
+    expects, chosen by the same ``policy.plan_eviction``."""
+    if isinstance(want, torch.Tensor):
+        want = want.cpu().numpy()
+    want = np.asarray(want).reshape(-1)
+    want = want[want >= 0]
+    b2s = p.block_to_slot.cpu().numpy()
+    n_new = int(np.sum(b2s[want] < 0)) if want.size else 0
+    free = p.n_slots - int(torch.sum(p.slot_to_block >= 0))
+    need = n_new - free
+    victims = None
+    if need > 0:
+        dev = p.slot_to_block.device
+        victims = policy.plan_eviction(
+            upload(np.asarray(est, np.float32), dev), upload(want, dev),
+            p.slot_to_block, int(need))
+    return want, victims

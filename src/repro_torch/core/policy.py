@@ -1,20 +1,97 @@
-"""Policy helpers the fused epoch step uses (PyTorch port of the matching
-functions of ``repro/core/policy.py``).
+"""Promotion policies (PyTorch port of ``repro/core/policy.py``).
 
-The reference's per-lane eager policies (``oracle_top_k``, ``hinted`` ...)
-serve its unfused reference path, which is not ported yet (ROADMAP Queue 1,
-item 12); the fused step decides every lane through ``selectk`` and these
-helpers.
+Two groups:
+
+* the eager per-call policies of the offline path and ``TieredEmbedding``
+  (:func:`oracle_top_k`, :func:`nb_two_touch`, :func:`reactive_watermark`,
+  :func:`proactive_ewma`).  Every ``lax.top_k`` of the reference goes
+  through :func:`repro_torch.core.selectk.select_top_k` (the ``hist_select``
+  kernel on the card), ties lowest index first; float scores join through
+  ``selectk.sortable_key``.  The reference calls these outside ``jit``, so
+  every float op rounds on its own, and so do they here;
+* the helpers of the fused epoch step, which reproduce the reference's
+  *jit* arithmetic (``fma_f32``, ``ewma``, ``hinted_score``).
+
+The eager ``hinted`` and ``prefetch`` serve only the unfused reference path
+of the runtime, which is not ported yet (ROADMAP Queue 1, item 12).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["cold_streak", "coldest_victims", "ewma", "fma_f32",
-           "hinted_score", "plan_eviction"]
+from . import selectk
+
+__all__ = ["MigrationPlan", "cold_streak", "coldest_victims", "ewma",
+           "fma_f32", "hinted_score", "nb_two_touch", "oracle_top_k",
+           "plan_eviction", "proactive_ewma", "reactive_watermark"]
 
 _INT32_MAX = (1 << 31) - 1
+
+
+# ====================================================  eager policies
+@dataclasses.dataclass(frozen=True)
+class MigrationPlan:
+    """Block ids to promote (int32, padded with -1), in priority order."""
+    promote: torch.Tensor
+    demote: Optional[torch.Tensor] = None
+
+
+def _top_k(key: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` on a 1-D int32 key: (values, int32 indices)."""
+    vals, ids = selectk.select_top_k(key.to(torch.int32), k)
+    return vals, ids.to(torch.int32)
+
+
+def _plan(keep: torch.Tensor, ids: torch.Tensor) -> MigrationPlan:
+    return MigrationPlan(promote=torch.where(keep, ids, -1))
+
+
+def oracle_top_k(est_counts: torch.Tensor, k: int,
+                 min_count: int = 1) -> MigrationPlan:
+    """Promote the top-k blocks by estimated count; blocks below
+    ``min_count`` are never promoted (PEBS's coverage limit)."""
+    counts, ids = _top_k(est_counts, min(k, est_counts.shape[0]))
+    return _plan(counts >= min_count, ids)
+
+
+def nb_two_touch(faults: torch.Tensor, k: int,
+                 rate_limit: Optional[int] = None) -> MigrationPlan:
+    """Linux NB promotion: >= 2 hint faults, ranked by fault count;
+    ``rate_limit`` caps the pages per call."""
+    k = min(k, faults.shape[0])
+    if rate_limit is not None:
+        k = min(k, rate_limit)
+    counts, ids = _top_k(faults, k)
+    return _plan(counts >= 2, ids)
+
+
+def reactive_watermark(est_counts: torch.Tensor, hot_threshold: int,
+                       free_slots, max_moves: int) -> MigrationPlan:
+    """Promote blocks whose counter crosses ``hot_threshold``, bounded by
+    the free fast-tier slots (int or scalar tensor)."""
+    counts, ids = _top_k(est_counts, min(int(max_moves),
+                                         est_counts.shape[0]))
+    rank = torch.arange(counts.shape[0], device=counts.device)
+    return _plan((counts >= hot_threshold) & (rank < free_slots), ids)
+
+
+def proactive_ewma(prev_pred: torch.Tensor, est_counts: torch.Tensor, k: int,
+                   alpha: float = 0.5,
+                   ) -> Tuple[torch.Tensor, MigrationPlan]:
+    """EWMA trend prediction per block; promote the blocks predicted hot.
+    Each op rounds separately, as in the reference's eager call (unlike
+    :func:`ewma`, which mirrors its fused form).  ``pred`` is non-negative,
+    so its float32 bits order like its values."""
+    pred = alpha * est_counts.to(torch.float32) + (1.0 - alpha) * prev_pred
+    _, ids = _top_k(selectk.sortable_key(pred), min(k, pred.shape[0]))
+    return pred, _plan(pred[ids.to(torch.int64)] > 0, ids)
+
+
+# =============================================  fused-step helpers
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor,

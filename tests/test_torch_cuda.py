@@ -4,14 +4,22 @@ where only PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact — both kernels compute integers, and int32 atomics give
-the same counts in any order."""
+Tolerance: exact for observe_scatter, hist_select and gather_count — they
+compute integers or copy rows, and int32 atomics give the same counts in
+any order.  embedding_bag's pooled rows: 1e-5 (float32) and 2e-2
+(bfloat16), relative and absolute — the kernel and the plain version sum
+the same float32 products in different orders; its counts are exact."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.examples import dlrm_tiering  # noqa: E402
 from repro_torch.kernels.dispatch import KernelBackend  # noqa: E402
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: E402
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel  # noqa: E402
+from repro_torch.kernels.gather_count import gather_count  # noqa: E402
+from repro_torch.kernels.gather_count import kernel as gc_kernel  # noqa: E402
 from repro_torch.kernels.hist_select import kernel as hs_kernel  # noqa: E402
 from repro_torch.kernels.hist_select import kth_key  # noqa: E402
 from repro_torch.kernels.observe_scatter import kernel as os_kernel  # noqa: E402
@@ -73,3 +81,66 @@ def test_small_run_identical_on_gpu_and_cpu(cuda):
     b = run_scenario(DLRMScenario(**scen), hints=True, sync_every=2,
                      device="cpu")
     assert a == b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,m", [(64, 256, 0), (64, 256, 1),
+                                   (1_000, 256, 127), (1_000, 10, 5_000),
+                                   (999, 3, 333)])
+def test_gather_count_kernel_matches_plain(cuda, dtype, n, d, m):
+    rng = np.random.default_rng(n + d + m)
+    storage = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
+        .to(cuda, dtype)
+    idx = np.where(rng.random(m) < 0.5, rng.zipf(1.3, m) % n,
+                   rng.integers(0, n, m))
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    counts = torch.full(((n + 3) // 4,), 5, dtype=torch.int32, device=cuda)
+    before = gc_kernel.LAUNCHES
+    got = gather_count(storage, idx, counts, block_rows=4)
+    ref = gather_count(storage, idx, counts, block_rows=4, backend=PLAIN)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(counts, torch.full_like(counts, 5))   # not in place
+    assert gc_kernel.LAUNCHES == before + (m > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,l,n,d", [(3, 5, 128, 128), (64, 16, 1_000, 256),
+                                     (7, 40, 500, 20), (5, 3, 100, 250)])
+def test_embedding_bag_kernel_matches_plain(cuda, dtype, tol, b, l, n, d):
+    rng = np.random.default_rng(b * l + d)
+    storage = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
+        .to(cuda, dtype)
+    idx = torch.from_numpy(rng.integers(0, n, (b, l)).astype(np.int32)) \
+        .to(cuda)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (b, l)).astype(np.float32)) \
+        .to(cuda)
+    counts = torch.full(((n + 7) // 8,), 2, dtype=torch.int32, device=cuda)
+    before = eb_kernel.LAUNCHES
+    for weights in (w, None):
+        got = embedding_bag(storage, idx, counts, weights, block_rows=8)
+        ref = embedding_bag(storage, idx, counts, weights, block_rows=8,
+                            backend=PLAIN)
+        assert got[0].dtype == dtype
+        torch.testing.assert_close(got[0].float(), ref[0].float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got[1], ref[1])
+    assert eb_kernel.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_small_example_identical_on_gpu_and_cpu(cuda):
+    spec = dlrm_tiering.SMALL
+    table = (np.random.default_rng(3).normal(size=(spec.n_rows, spec.emb_dim))
+             * 0.05).astype(np.float32)
+    out = {dev: dlrm_tiering.run(spec, bag=4, table=table, device=dev)
+           for dev in ("cuda", "cpu")}
+    g, c = out["cuda"], out["cpu"]
+    torch.testing.assert_close(g.pop("pooled").cpu(), c.pop("pooled"),
+                               rtol=1e-5, atol=1e-5)
+    assert sorted(g) == sorted(c)
+    for key in g:
+        assert np.array_equal(g[key], c[key]), key
+    assert g["gathered_equal"]

@@ -12,8 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import TieringManager  # noqa: E402
 from repro_torch.core.runtime import EpochRuntime  # noqa: E402
-from repro_torch.dlrm import datagen  # noqa: E402
+from repro_torch.dlrm import datagen, tracesim  # noqa: E402
+from repro_torch.examples import dlrm_tiering  # noqa: E402
 from repro_torch.faults import FaultModel, Hardening  # noqa: E402
 from repro_torch.kernels.dispatch import (KernelBackend, resolve_device,  # noqa: E402
                                           use_kernel)
@@ -31,7 +33,13 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.scenarios, repro_torch.core.runtime\n"
+            "repro_torch.scenarios, repro_torch.core.runtime, "
+            "repro_torch.core.blockstore, repro_torch.core.manager, "
+            "repro_torch.core.tiered_embedding, repro_torch.dlrm.tracesim, "
+            "repro_torch.examples.dlrm_tiering, "
+            "repro_torch.kernels.gather_count, "
+            "repro_torch.kernels.embedding_bag, "
+            "repro_torch.workloads.mmap_bench\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -68,6 +76,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         run_scenario(TINY)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_online(spec=TINY.spec, n_epochs=1)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: TieringManager(100, 10),
+    lambda: tracesim.run_table1(datagen.SMALL, k_hot=50),
+    lambda: tracesim.run_fig3(total_accesses=1_000, n_batches=1),
+    lambda: dlrm_tiering.run(dlrm_tiering.SMALL),
+], ids=["TieringManager", "run_table1", "run_fig3", "dlrm_tiering.run"])
+def test_offline_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, entry):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
 
 
 def test_entry_points_run_on_the_cpu_when_asked():
