@@ -7,7 +7,7 @@ imports nothing of JAX or of the JAX package.  Float32 matrix products run
 in full float32 (TF32 off).  Phases, each reported on its own line:
 
 1. device: the card's name, power limit and capability (must be 9.0);
-2. build: the four CUDA kernels compiled from ``src/repro_torch/**/csrc``,
+2. build: the five CUDA kernels compiled from ``src/repro_torch/**/csrc``,
    one ``nvcc`` each, in parallel;
 3. observe_scatter vs its plain version, exact, on the shared-memory path
    (5,000 blocks) and the global-atomics path (5,242,880 blocks);
@@ -39,11 +39,36 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
 12. kernel times at the paper-scale shapes (CUDA events), beside the bound,
     the plain version and one PyTorch library call; then the online paper
     run once more under ``torch.profiler``: device busy time, idle share
-    and the kernels that take the most device time.
+    and the kernels that take the most device time;
+13. flash_attention vs its plain version (2e-5 in float32; in bfloat16
+    one bfloat16 step, 2**-7 of the value, plus 1e-3 of the largest
+    output, and at most 1 % of the outputs differing at all), on inputs
+    whose softmax is peaked, at the qwen2-0.5b and
+    internlm2-1.8b prefill shapes (S=4096, bfloat16), MQA d=256, a sliding
+    window, non-causal, and ragged S in {1, 19, 1000};
+14. the serving path at full width:
+    ``repro_torch.launch.serve.main(["--arch", "qwen2-0.5b", "--batch",
+    "4", "--prompt-len", "64", "--gen", "32", "--page-size", "16"])`` (the
+    launcher's own example without ``--smoke``) and again with
+    ``--prompt-len 4096``: 24 flash_attention launches per run (one per
+    layer of the one prefill, none in decode), tokens/s, peak memory; then
+    eight decode steps under ``torch.profiler`` (device busy and idle
+    share, device ops per step, host-to-device copies, top ops);
+15. one full-width prefill and decode step on the GPU (under
+    ``set_sync_debug_mode("error")``: no host sync inside) and on the CPU
+    with the same tokens: float32 activations within a stated tolerance,
+    bfloat16 reported;
+16. ``KVCacheScenario()`` on the GPU vs the CPU: 2 flash_attention launches
+    (one prefill of the 2-layer smoke model), decode masses within a
+    tolerance, ``run_scenario`` fed the CPU's stream byte-identical for
+    hints on x sync_every in {1, 4}, and how many access counts the GPU's
+    own quantization moves;
+17. flash_attention's time at the qwen2-0.5b S=4096 shape beside its bound,
+    its plain version and ``F.scaled_dot_product_attention``.
 
-Each path (8-11) sets the launch counters to 0 just before it runs and
-reads them just after.  Any failure exits non-zero before the result
-lines.  The last lines are the
+Each path (8-11, 14, 16) sets the launch counters to 0 just before it
+runs and reads them just after.  Any failure exits non-zero before the
+result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -62,6 +87,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor-core rate (float32)
+TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 PAPER_PAGES = 5_242_880
 PAPER_K_HOT = 486_587
 # the offline path's paper width (datagen.PAPER): 20 M rows of 256 in 5 M
@@ -81,9 +107,10 @@ def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, sort_keys=True), flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / SCALAR_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -275,6 +302,337 @@ def offline_small_parity(dlrm_tiering, tracesim, datagen, mmap_bench):
     return pooled_err
 
 
+# flash_attention's checks (phase 13): (label, B, H, KVH, Sq, Sk, d, dtype,
+# causal, window)
+FLASH_CASES = [
+    ("qwen2-0.5b prefill", 4, 14, 2, 4096, 4096, 64, "bfloat16", True, None),
+    ("internlm2-1.8b prefill", 2, 16, 8, 4096, 4096, 128, "bfloat16", True,
+     None),
+    ("mqa d=256", 2, 8, 1, 512, 512, 256, "float32", True, None),
+    ("window 128", 2, 4, 4, 512, 512, 128, "float32", True, 128),
+    ("non-causal", 2, 4, 2, 512, 300, 64, "float32", False, None),
+    ("ragged S=1", 1, 14, 2, 1, 1, 64, "bfloat16", True, None),
+    ("ragged S=19", 4, 4, 2, 19, 19, 16, "bfloat16", True, None),
+    ("ragged S=1000", 2, 14, 2, 1000, 1000, 64, "float32", True, None),
+]
+# |got - plain| <= atol + rtol * |plain|.  float32: 2e-5 both, the JAX
+# kernel tests' own.  bfloat16: both compute in float32 and round once to
+# bfloat16, so where the two float32 results straddle a rounding boundary
+# they land one bfloat16 step apart, at most 2**-7 of the value; the atol,
+# 1e-3 of the output's largest value, covers float32 summation noise at
+# outputs near 0.  Such straddles are rare, so at most 1 % of the bfloat16
+# outputs may differ at all: a rounding fault, which stays within one step,
+# moves about half of them.  (3e-2, the JAX tests' bfloat16 tolerance, is
+# several times a typical output here and would pass a wrong kernel.)
+FLASH_TOL = {"float32": {"rtol": 2e-5, "atol": 2e-5},
+             "bfloat16": {"rtol": 2 ** -7, "atol_of_max": 1e-3,
+                          "differing_share": 0.01}}
+# q, k, v scales: scores of std 3 (q 3, k 1) make the softmax peaked, a
+# handful of keys carrying each row, so a fault in the running max, the
+# scale, the mask or one KV tile moves the output by the size of v
+FLASH_QKV_SCALE = (3.0, 1.0, 1.0)
+# qwen2-0.5b: 24 layers, 14 heads; the full-width GPU-vs-CPU check's
+# float32 tolerance (phase 15): the same float32 operations summed in
+# another order by cuBLAS and the CPU's BLAS, through 24 layers
+QWEN_LAYERS, QWEN_HEADS = 24, 14
+FULL_WIDTH_F32_TOL = 1e-4
+KV_MASS_TOL = 5e-4          # bf16 smoke model, GPU vs CPU (phase 16)
+
+
+def qkv(dev, seed: int, b, h, kvh, sq, sk, d, dtype):
+    """Random (B*H, Sq, d) q and (B*KVH, Sk, d) k, v on the card, scaled
+    by FLASH_QKV_SCALE."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return [(torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+            for shape, scale in zip(((b * h, sq, d), (b * kvh, sk, d),
+                                     (b * kvh, sk, d)), FLASH_QKV_SCALE)]
+
+
+def flash_allowed(ref, dtype: str):
+    """FLASH_TOL's bound on |got - ref|, elementwise."""
+    tol = FLASH_TOL[dtype]
+    ref = ref.float().abs()
+    atol = tol.get("atol", tol.get("atol_of_max", 0.0) * float(ref.max()))
+    return atol + tol["rtol"] * ref
+
+
+def check_flash_attention(dev, plain):
+    """Phase 13: flash_attention == plain within FLASH_TOL at every case;
+    returns ({label: max abs err}, {label: [the largest |err| / allowed,
+    the share of outputs that differ at all]})."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    errs, shares = {}, {}
+    for i, (label, b, h, kvh, sq, sk, d, dtype, causal, window) in enumerate(
+            FLASH_CASES):
+        q, k, v = qkv(dev, 10 + i, b, h, kvh, sq, sk, d, dtype)
+        kw = dict(q_per_kv=h // kvh, causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        ref = flash_attention(q, k, v, backend=plain, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        errs[label] = float(diff.max())
+        share = diff / flash_allowed(ref, dtype)
+        shares[label] = [float(share.max()),
+                         float((diff > 0).float().mean())]
+        if not (got.dtype == q.dtype and got.shape == q.shape
+                and shares[label][0] <= 1.0 and shares[label][1]
+                <= FLASH_TOL[dtype].get("differing_share", 1.0)):
+            fail(f"flash_attention differs from its plain version ({label}, "
+                 f"{dtype}, max abs err {errs[label]}, largest share of the "
+                 f"tolerance and share of outputs that differ "
+                 f"{shares[label]}, {FLASH_TOL[dtype]})")
+        del q, k, v, got, ref, diff, share
+    free_device_memory()
+    return errs, shares
+
+
+def full_width_gpu_vs_cpu(rng):
+    """Phase 15: one prefill (B=2, 64 tokens) and one decode step of the
+    full-width qwen2-0.5b on the GPU (with no host sync inside) and on the
+    CPU, same weights (drawn on the CPU) and tokens; -> {dtype:
+    {logits/decode_logits/mass: max abs err}}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine
+    base = get_config("qwen2-0.5b")
+    toks = rng.integers(0, base.vocab_size, (2, 64))
+    nxt = rng.integers(0, base.vocab_size, (2,))
+    errs = {}
+    for act in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, activ_dtype=act)
+        out = {}
+        for d in ("cuda", "cpu"):
+            params = init_params(cfg, 0, d)
+            t_toks, t_nxt = (torch.from_numpy(x).to(d) for x in (toks, nxt))
+            # on the card, prefill and decode must not stall the host:
+            # set_sync_debug_mode raises on any synchronizing call inside
+            if d == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, cache = engine.prefill(params, cfg, tokens=t_toks,
+                                               max_len=80)
+                dec, _, aux = engine.decode_step(params, cfg, cache, t_nxt,
+                                                 page_size=16)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out[d] = [t.float().cpu() for t in
+                      (logits, dec, aux["kv_page_mass"])]
+            del params, cache
+        free_device_memory()
+        name = str(act).split(".")[-1]
+        errs[name] = {}
+        for key, g, c in zip(("logits", "decode_logits", "kv_page_mass"),
+                             out["cuda"], out["cpu"]):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"full-width {name} {key} on the GPU is not finite")
+            diff = (g - c).abs()
+            errs[name][key] = float(diff.max())
+            if act == torch.float32 and not bool(torch.all(
+                    diff <= FULL_WIDTH_F32_TOL * (1 + c.abs()))):
+                fail(f"full-width float32 {key} GPU vs CPU: max abs err "
+                     f"{errs[name][key]} over {FULL_WIDTH_F32_TOL}")
+        np.testing.assert_allclose(
+            out["cuda"][2].sum(-1).numpy(), QWEN_HEADS, rtol=1e-3)
+    return errs
+
+
+def serve_full_width(serve_launcher, dev, zero_counts, read_counts) -> dict:
+    """Phase 14: the launcher at qwen2-0.5b's full width, prompt 64, then
+    4096, then 64 again warm; each run makes exactly one flash_attention
+    launch per layer (its one prefill) and none in decode.  Returns the
+    first run's launch counts (the main path's)."""
+    import torch
+    serve_args = ["--arch", "qwen2-0.5b", "--batch", "4", "--prompt-len",
+                  "64", "--gen", "32", "--page-size", "16"]
+    runs = {}
+    for plen in ("64", "4096", "64"):
+        args = list(serve_args)
+        args[args.index("--prompt-len") + 1] = plen
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = serve_launcher.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        if launches != {"observe_scatter": 0, "hist_select": 0,
+                        "gather_count": 0, "embedding_bag": 0,
+                        "flash_attention": QWEN_LAYERS}:
+            fail(f"serve --prompt-len {plen} launches {launches}: expected "
+                 f"{QWEN_LAYERS} flash_attention (one prefill, one per "
+                 f"layer) and none in decode")
+        pm = rep["page_mass"]
+        want_mass = 31 * QWEN_LAYERS * 4 * QWEN_HEADS   # heads per step
+        if not (rep["tokens"].shape == (4, 32)
+                and pm.shape == (-(-(int(plen) + 32) // 16),)
+                and abs(pm.sum() - want_mass) <= 1e-3 * want_mass):
+            fail(f"serve --prompt-len {plen} report out of range")
+        key = plen if plen not in runs else plen + "_warm"
+        runs[key] = dict(
+            launches=launches, wall_s=wall, prefill_s=rep["prefill_s"],
+            prefill_tok_s=rep["prefill_tok_s"], decode_s=rep["decode_s"],
+            decode_tok_s=rep["decode_tok_s"],
+            pages_for_90pct=rep["pages_for_90pct"],
+            covered_25pct=float(rep["covered_25pct"]),
+            peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        say("serve", prompt_len=int(plen), run=key, **runs[key])
+    return runs["64"]["launches"]
+
+
+def profile_decode(dev, steps: int = 8) -> dict:
+    """Phase 14, where a serving step's time goes: the full-width
+    qwen2-0.5b (bf16, batch 4, prompt 64) decodes ``steps`` tokens under
+    ``torch.profiler``; device busy time (kernel and copy events) against
+    the wall, device ops per step and the ops that take the most host and
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine
+    cfg = get_config("qwen2-0.5b")
+    params = init_params(cfg, 0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                         device=dev)
+    logits, cache = engine.prefill(params, cfg, tokens=toks,
+                                   max_len=64 + steps + 2)
+    tok = torch.argmax(logits, -1)
+    _, cache, _ = engine.decode_step(params, cfg, cache, tok, page_size=16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache, _ = engine.decode_step(params, cfg, cache, tok,
+                                                  page_size=16)
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, host_us, n_dev, h2d = {}, {}, 0, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CUDA:
+            n_dev += ev.count
+            if "HtoD" in ev.key:
+                h2d += ev.count
+            if us > 0:
+                dev_us[ev.key] = dev_us.get(ev.key, 0.0) + us
+        elif ev.self_cpu_time_total > 0:
+            host_us[ev.key] = host_us.get(ev.key, 0.0) + ev.self_cpu_time_total
+    busy = sum(dev_us.values()) / 1e6
+
+    def top(table):
+        return {k[:60]: v / 1e3 for k, v in
+                sorted(table.items(), key=lambda kv: -kv[1])[:8]}
+    out = dict(steps=steps, step_wall_ms=1e3 * wall / steps,
+               step_device_busy_ms=1e3 * busy / steps,
+               device_idle_share=1.0 - busy / wall,
+               device_events_per_step=n_dev / steps,
+               host_to_device_copies=h2d, top_device_ms=top(dev_us),
+               top_host_self_ms=top(host_us))
+    say("serve_decode_profile", **out)
+    del params, cache
+    free_device_memory()
+    return out
+
+
+def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts):
+    """Phase 16: ``KVCacheScenario()`` (internlm2-1.8b smoke) on the GPU vs
+    the CPU: one prefill = n_layers flash_attention launches, decode masses
+    within KV_MASS_TOL, and the GPU's ``run_scenario`` fed the CPU's stream
+    byte-identical to the CPU's for hints on x sync_every in {1, 4}."""
+    import numpy as np
+    t0 = time.perf_counter()
+    zero_counts()
+    kv_gpu = KVCacheScenario()
+    gpu_epochs = list(kv_gpu.epochs())
+    prefill_launches = read_counts()
+    if prefill_launches != {"observe_scatter": 0, "hist_select": 0,
+                            "gather_count": 0, "embedding_bag": 0,
+                            "flash_attention": kv_gpu.cfg.n_layers}:
+        fail(f"KVCacheScenario launches {prefill_launches}: expected "
+             f"{kv_gpu.cfg.n_layers} flash_attention (one prefill)")
+    kv_cpu = KVCacheScenario(device="cpu")
+    cpu_epochs = list(kv_cpu.epochs())
+    mass_err = float(np.abs(kv_gpu.masses - kv_cpu.masses).max())
+    if mass_err > KV_MASS_TOL:
+        fail(f"KV decode masses GPU vs CPU: max abs err {mass_err}")
+    # informational: the GPU's own quantization of its (tolerance-close)
+    # masses against the CPU's — a last-bit difference can flip a
+    # largest-remainder rounding
+    moved = changed = 0
+    for ge, ce in zip(gpu_epochs, cpu_epochs):
+        for gr, cr in zip(ge, ce):
+            diff = np.abs(np.bincount(gr, minlength=kv_gpu.n_blocks)
+                          - np.bincount(cr, minlength=kv_gpu.n_blocks))
+            changed += int((diff > 0).sum())
+            moved += int(diff.sum()) // 2
+    zero_counts()
+    for k in (1, 4):
+        g = run_scenario(kv_gpu, hints=True, sync_every=k, epochs=cpu_epochs)
+        c = run_scenario(kv_cpu, hints=True, sync_every=k, epochs=cpu_epochs,
+                         device="cpu")
+        if json.dumps(g, sort_keys=True) != json.dumps(c, sort_keys=True):
+            fail(f"KV trajectory differs GPU vs CPU (hints, sync_every={k})")
+    run_launches = read_counts()
+    if not (run_launches["observe_scatter"] > 0
+            and run_launches["hist_select"] > 0):
+        fail(f"KV run_scenario launches {run_launches}")
+    say("kv_cache", n_blocks=kv_gpu.n_blocks, k_hot=kv_gpu.k_hot,
+        prefill_launches=prefill_launches, run_launches=run_launches,
+        mass_max_abs_err=mass_err, mass_tolerance=KV_MASS_TOL,
+        trajectories_identical=True, gpu_quantization_counts_changed=changed,
+        gpu_quantization_accesses_moved=moved,
+        accesses=kv_gpu.n_steps * kv_gpu.accesses_per_batch,
+        seconds=time.perf_counter() - t0)
+
+
+def flash_attention_time(dev, plain, s_len: int = 4096) -> dict:
+    """Phase 17: flash_attention at the qwen2-0.5b prefill shape (B=4,
+    H=14, KVH=2, S=4096, d=64, bf16, causal) beside its plain version,
+    ``F.scaled_dot_product_attention`` and the bound: the causal products
+    2*B*H*S^2*d at the dense bf16 tensor-core rate, or q, k, v and the
+    output moved once."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, h, kvh, d = 4, QWEN_HEADS, 2, 64
+    q, k, v = qkv(dev, 99, b, h, kvh, s_len, s_len, d, "bfloat16")
+    ms, plain_ms = in_turns(
+        lambda: flash_attention(q, k, v, q_per_kv=h // kvh, backend=plain),
+        lambda: flash_attention(q, k, v, q_per_kv=h // kvh), 5)
+    q4, k4, v4 = (x.view(b, -1, s_len, d) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                   enable_gqa=True), 5)
+    sdpa_err = float((sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+                      .reshape(q.shape).float()
+                      - flash_attention(q, k, v, q_per_kv=h // kvh).float())
+                     .abs().max())
+    flops = 2 * b * h * s_len * s_len * d
+    n_bytes = 2 * (2 * b * h * s_len * d + 2 * b * kvh * s_len * d)
+    bound, by = bound_ms(n_bytes, flops, TENSOR_BF16_OPS_PER_S)
+    out = dict(shape=[b, h, kvh, s_len, d], dtype="bfloat16", ms=ms,
+               plain_ms=plain_ms, sdpa_ms=sdpa_ms, bound_ms=bound,
+               bound_by=by, causal_flops=flops, bytes=n_bytes,
+               achieved_tflop_s=flops / ms / 1e9,
+               vs_sdpa_max_abs_err=sdpa_err)
+    say("flash_attention_time", **out)
+    del q, k, v, q4, k4, v4
+    free_device_memory()
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -282,7 +640,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 12) -> None:
+def main(until: int = 17) -> None:
     import numpy as np
     import torch
 
@@ -299,13 +657,16 @@ def main(until: int = 12) -> None:
     from repro_torch.kernels.dispatch import KernelBackend
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.gather_count import gather_count
     from repro_torch.kernels.gather_count import kernel as gc_kernel
     from repro_torch.kernels.hist_select import kernel as hs_kernel
     from repro_torch.kernels.hist_select import kth_key
     from repro_torch.kernels.observe_scatter import kernel as os_kernel
     from repro_torch.kernels.observe_scatter import observe_scatter
-    from repro_torch.scenarios import DLRMScenario, build_hints, run_scenario
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.scenarios import (DLRMScenario, KVCacheScenario,
+                                       build_hints, run_scenario)
     from repro_torch.workloads import mmap_bench
 
     plain = KernelBackend(plain=True)
@@ -314,7 +675,8 @@ def main(until: int = 12) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernel_modules = {"observe_scatter": os_kernel, "hist_select": hs_kernel,
-                      "gather_count": gc_kernel, "embedding_bag": eb_kernel}
+                      "gather_count": gc_kernel, "embedding_bag": eb_kernel,
+                      "flash_attention": fa_kernel}
 
     def zero_counts() -> None:
         for mod in kernel_modules.values():
@@ -486,7 +848,8 @@ def main(until: int = 12) -> None:
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     say("paper_summary", **res["summary"])
     if launches != {"observe_scatter": 12, "hist_select": 6,
-                    "gather_count": 0, "embedding_bag": 0}:
+                    "gather_count": 0, "embedding_bag": 0,
+                    "flash_attention": 0}:
         fail(f"kernel launches {launches}, expected 12 and 6")
     if record_sync != 2:
         fail(f"record_sync {record_sync}, expected 2")
@@ -753,6 +1116,35 @@ def main(until: int = 12) -> None:
         scen, hints=pipeline, sync_every=4, epochs=epochs))
     say("host_profile", total_s=total_own, top_own_s=top_own)
 
+    if until < 13:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------------------------------ 13. flash_attention vs plain
+    t0 = time.perf_counter()
+    fa_errs, fa_shares = check_flash_attention(dev, plain)
+    errors["flash_attention"] = max(fa_errs.values())
+    say("flash_attention", cases=[list(c) for c in FLASH_CASES],
+        max_abs_err=fa_errs, share_of_tolerance=fa_shares,
+        tolerance=FLASH_TOL, qkv_scale=FLASH_QKV_SCALE,
+        seconds=time.perf_counter() - t0)
+
+    # --------------------------- 14. the serving path at full width
+    serve_launches = serve_full_width(serve_launcher, dev, zero_counts,
+                                      read_counts)
+    profile_decode(dev)
+
+    # ---------------------- 15. full-width prefill + decode, GPU vs CPU
+    t0 = time.perf_counter()
+    fw_errs = full_width_gpu_vs_cpu(rng)
+    say("full_width_gpu_vs_cpu", batch=2, prompt_len=64, max_abs_err=fw_errs,
+        float32_tolerance=FULL_WIDTH_F32_TOL,
+        seconds=time.perf_counter() - t0)
+
+    # ------------------------------- 16. KVCacheScenario, GPU vs CPU
+    kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts)
+
+    # ------------- 17. flash_attention time, the qwen2-0.5b prefill shape
+    fa_time = flash_attention_time(dev, plain)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -785,6 +1177,14 @@ def main(until: int = 12) -> None:
          "max_abs_err": errors["embedding_bag"], "ms": eb_ms,
          "plain_ms": eb_plain, "bound_ms": eb_bound, "bound_by": eb_by,
          "library_ms": eb_lib},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": serve_launches["flash_attention"],
+         "max_abs_err": errors["flash_attention"], "ms": fa_time["ms"],
+         "plain_ms": fa_time["plain_ms"], "bound_ms": fa_time["bound_ms"],
+         "bound_by": fa_time["bound_by"], "library_ms": fa_time["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -797,4 +1197,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 12)
+    main(int(args[1]) if args[:1] == ["--until"] else 17)

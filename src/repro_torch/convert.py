@@ -14,6 +14,14 @@ packs into the port's ``(sync_every, F)`` int64 rows.  Its ``tenant_id``
 leaf (all zeros without a tenancy, which the port does not carry yet) has
 no counterpart.  :func:`bundle_to_numpy` goes the other way for the bundle, with the
 reference's keys, so the two can be compared leaf by leaf.
+
+Model weights and serving caches cross as nested dicts of numpy arrays in
+the reference's layout (:func:`params_from_numpy`, :func:`cache_from_numpy`
+and their inverses): the stacked ``blocks.*`` leaves keep their leading
+layer dim, and each leaf keeps its dtype.  numpy has no bfloat16 of its own
+(the reference's arrays carry ``ml_dtypes``' type, which torch cannot
+take), so a bfloat16 leaf crosses through float32, which holds every
+bfloat16 value exactly.
 """
 from __future__ import annotations
 
@@ -29,9 +37,11 @@ from .core.placement import Placement
 from .core.runtime import (_FusedState, _OUT_LANE_FIELDS, _OUT_SCALARS,
                            _out_columns)
 from .faults.model import CARRY_BASE, Counter64
+from .kernels.dispatch import resolve_device
 
-__all__ = ["bundle_from_numpy", "bundle_to_numpy", "fused_state_from_numpy",
-           "store_from_numpy", "store_to_numpy"]
+__all__ = ["bundle_from_numpy", "bundle_to_numpy", "cache_from_numpy",
+           "cache_to_numpy", "fused_state_from_numpy", "params_from_numpy",
+           "params_to_numpy", "store_from_numpy", "store_to_numpy"]
 
 Flat = Mapping[str, np.ndarray]
 
@@ -156,3 +166,47 @@ def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:
         prev_hmu=_t(flat, "prev_hmu", like.prev_hmu),
         prev_pebs=_t(flat, "prev_pebs", like.prev_pebs),
         out_buf=torch.from_numpy(rows).to(buf.device))
+
+
+def _leaf_from_numpy(x, dev: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.detach().cpu().numpy()
+
+
+def _map_tree(tree: Mapping, fn) -> dict:
+    return {k: _map_tree(v, fn) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
+
+
+def params_from_numpy(tree: Mapping, device="cuda") -> dict:
+    """The port's parameter dict from the reference's (nested dict of numpy
+    arrays, ``blocks.*`` stacked over layers), on ``device``."""
+    dev = resolve_device(device)
+    return _map_tree(tree, lambda x: _leaf_from_numpy(x, dev))
+
+
+def params_to_numpy(params: Mapping) -> dict:
+    """The parameters as a nested dict of numpy arrays (bfloat16 leaves as
+    float32)."""
+    return _map_tree(params, _leaf_to_numpy)
+
+
+def cache_from_numpy(flat: Flat, device="cuda") -> dict:
+    """A serving cache (``k``, ``v``: (L, B, KVH, S, hd); ``pos``: (B,)
+    int32) from the reference's, on ``device``."""
+    dev = resolve_device(device)
+    return {key: _leaf_from_numpy(flat[key], dev) for key in ("k", "v", "pos")}
+
+
+def cache_to_numpy(cache: Mapping) -> Dict[str, np.ndarray]:
+    """The cache's ``k``, ``v`` and ``pos`` as numpy (bfloat16 as float32)."""
+    return {key: _leaf_to_numpy(cache[key]) for key in ("k", "v", "pos")}

@@ -27,7 +27,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
     name: _KERNELS / name / "csrc" / f"{name}.cu"
     for name in ("observe_scatter", "hist_select", "gather_count",
-                 "embedding_bag")
+                 "embedding_bag", "flash_attention")
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,11 @@
+"""flash_attention — causal / sliding-window GQA attention with an online
+softmax (f32 running max, sum and accumulator), for the models' prefill and
+forward passes.
+
+``q (B·H, Sq, d)``, ``k, v (B·KVH, Sk, d)``; query row ``bh`` reads KV row
+``bh // q_per_kv``; the output has q's dtype; rows with no valid key give 0.
+"""
+from .ops import flash_attention
+from .ref import attention_ref
+
+__all__ = ["attention_ref", "flash_attention"]

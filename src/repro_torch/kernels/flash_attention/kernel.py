@@ -1,0 +1,86 @@
+"""ctypes wrapper around ``csrc/flash_attention.cu`` (see the note there for
+what it replaces, what bounds it and how).
+
+The wrapper checks its inputs, allocates the output, launches on the current
+stream and raises if the launch failed (a launch refused for its shared
+memory never runs, and a later synchronize would not report it).
+``LAUNCHES`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+__all__ = ["HEAD_DIMS", "LAUNCHES", "flash_attention_cuda"]
+
+LAUNCHES = 0
+
+_P = ctypes.c_void_p
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the kernel is instantiated for: the smoke configs' 16, the
+# published configs' 64 and 128, and 32 / 256 beside them
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_launch.argtypes = [
+            _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, q_per_kv: int, causal: bool = True,
+                         window: int | None = None,
+                         sm_scale: float | None = None) -> torch.Tensor:
+    """(B·H, Sq, d) q, (B·KVH, Sk, d) k and v, all float32 or all bfloat16,
+    contiguous, on one CUDA device -> (B·H, Sq, d) output in q's dtype."""
+    global LAUNCHES
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != q.dtype or t.dim() != 3 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 3-D {q.dtype} "
+                             f"tensor on {dev}")
+    bh, sq, d = q.shape
+    bkh, sk, _ = k.shape
+    if k.shape[2] != d or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"be (B*KVH, Sk, {d})")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q_per_kv < 1 or bh != bkh * q_per_kv:
+        raise ValueError(f"{bh} query rows with q_per_kv={q_per_kv} need "
+                         f"{bh // max(q_per_kv, 1)} KV rows, got {bkh}")
+    if sq >= 2 ** 31 or sk >= 2 ** 31:
+        raise ValueError(f"sequence lengths {(sq, sk)} must fit int32")
+    if window is not None and window < 0:
+        raise ValueError(f"window {window} must be >= 0")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    out = torch.empty_like(q)
+    if bh == 0 or sq == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+            sk, d, q_per_kv, int(causal),
+            -1 if window is None else min(int(window), 2 ** 31 - 1),
+            float(sm_scale), _DTYPES[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    return out

@@ -1,0 +1,323 @@
+"""The causal LM of ``repro/models/model.py`` in PyTorch (dense family).
+
+``ModelConfig`` describes every family of the reference (``attn``, ``moe``,
+``rwkv6``, ``zamba2``), and :func:`iter_schema` walks the parameters of all
+of them (it is a pure shape walk, so :meth:`ModelConfig.param_count` works
+for every config).  The forward passes are ported for the dense
+decoder-only transformers (``family == "attn"``: llama3.2, qwen2,
+internlm2, yi, musicgen, qwen2-vl with the token frontend); the ``moe``,
+``rwkv6`` and ``zamba2`` branches raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 13).
+
+Parameters are a nested dict of tensors in the reference's layout: the
+per-layer leaves are stacked along a leading ``n_layers`` dim under
+``params["blocks"]``, and a Python loop over layers takes the place of the
+reference's ``lax.scan``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels.dispatch import resolve_device
+from .layers import AttnParams, attention_block, rms_norm, swiglu
+
+__all__ = ["LeafSpec", "MoECfg", "ModelConfig", "forward", "init_params",
+           "iter_schema", "layer_params", "logits_fn", "require_attn",
+           "transformer_block"]
+
+
+# =============================================================== configuration
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # attn | moe | rwkv6 | zamba2
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    qkv_bias: bool = False
+    window: Optional[int] = None    # sliding-window attention (mixtral)
+    rope: str = "rope"              # rope | mrope | none
+    rope_theta: float = 10000.0
+    moe: Optional[MoECfg] = None
+    ssm_state: int = 64             # zamba2
+    zamba_attn_every: int = 6
+    frontend: str = "tokens"        # tokens | embeddings (audio/vlm stubs)
+    param_dtype: Any = torch.float32
+    activ_dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-5
+    causal_schedule: str = "triangular"  # triangular | masked (same math)
+    attn_block_k: int = 512
+    loss_chunk: int = 256
+    remat: str = "full"             # full | dots | none
+    sub_quadratic: bool = False     # eligible for long_500k
+    tie_embeddings: bool = False
+    act_batch_axes: Optional[Tuple[str, ...]] = None
+    moe_groups: Optional[Tuple[int, int]] = None
+    moe_expert_sharded: bool = False
+
+    @property
+    def d_inner(self) -> int:       # zamba2 mamba expansion
+        return 2 * self.d_model
+
+    @property
+    def mamba_heads(self) -> int:
+        return self.d_inner // 64
+
+    @property
+    def n_shared_attn(self) -> int:
+        return self.n_layers // self.zamba_attn_every
+
+    def param_count(self) -> int:
+        return sum(int(np.prod(spec.shape)) for _, spec in iter_schema(self))
+
+
+def require_attn(cfg: ModelConfig, what: str) -> None:
+    """The port's model stack carries the dense family only."""
+    if cfg.family != "attn":
+        raise NotImplementedError(
+            f"{what} for family {cfg.family!r} is not ported yet (ROADMAP "
+            f"Queue 1 item 13); the port runs family 'attn'")
+
+
+# ============================================================== schema leaves
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    shape: Tuple[int, ...]
+    logical_axes: Tuple[Optional[str], ...]
+    init: str = "normal"            # normal | zeros | ones | small_normal
+    dtype: Any = None               # default: cfg.param_dtype
+
+
+def _attn_leaves(cfg: ModelConfig, prefix: str, stacked: bool
+                 ) -> Dict[str, LeafSpec]:
+    L = (cfg.n_layers,) if stacked else ()
+    lax_ = ("layers",) if stacked else ()
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    leaves = {
+        f"{prefix}wq": LeafSpec(L + (d, h * hd), lax_ + ("embed", "heads")),
+        f"{prefix}wk": LeafSpec(L + (d, kvh * hd), lax_ + ("embed", "kv_heads")),
+        f"{prefix}wv": LeafSpec(L + (d, kvh * hd), lax_ + ("embed", "kv_heads")),
+        f"{prefix}wo": LeafSpec(L + (h * hd, d), lax_ + ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        leaves |= {
+            f"{prefix}bq": LeafSpec(L + (h * hd,), lax_ + ("heads",), "zeros"),
+            f"{prefix}bk": LeafSpec(L + (kvh * hd,), lax_ + ("kv_heads",), "zeros"),
+            f"{prefix}bv": LeafSpec(L + (kvh * hd,), lax_ + ("kv_heads",), "zeros"),
+        }
+    return leaves
+
+
+def _mlp_leaves(cfg: ModelConfig, prefix: str = "") -> Dict[str, LeafSpec]:
+    L, lax_ = (cfg.n_layers,), ("layers",)
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        f"{prefix}w_gate": LeafSpec(L + (d, f), lax_ + ("embed", "mlp")),
+        f"{prefix}w_up": LeafSpec(L + (d, f), lax_ + ("embed", "mlp")),
+        f"{prefix}w_down": LeafSpec(L + (f, d), lax_ + ("mlp", "embed")),
+    }
+
+
+def iter_schema(cfg: ModelConfig):
+    """Yields (path, LeafSpec) for every parameter of the model, in the
+    reference's order."""
+    d, v = cfg.d_model, cfg.vocab_size
+    L, lax_ = (cfg.n_layers,), ("layers",)
+
+    yield "embed", LeafSpec((v, d), ("vocab", "embed"))
+    yield "final_norm", LeafSpec((d,), (None,), "ones")
+    if not cfg.tie_embeddings:
+        yield "lm_head", LeafSpec((d, v), ("embed", "vocab"))
+
+    fam = cfg.family
+    if fam in ("attn", "moe"):
+        yield from _attn_leaves(cfg, "blocks.", True).items()
+        yield "blocks.ln1", LeafSpec(L + (d,), lax_ + (None,), "ones")
+        yield "blocks.ln2", LeafSpec(L + (d,), lax_ + (None,), "ones")
+        if fam == "attn":
+            yield from _mlp_leaves(cfg, "blocks.").items()
+        else:
+            m = cfg.moe
+            e, fe = m.n_experts, m.d_expert
+            yield "blocks.router", LeafSpec(L + (d, e), lax_ + ("embed", None), "small_normal")
+            yield "blocks.e_gate", LeafSpec(L + (e, d, fe), lax_ + ("experts", "embed", "expert_mlp"))
+            yield "blocks.e_up", LeafSpec(L + (e, d, fe), lax_ + ("experts", "embed", "expert_mlp"))
+            yield "blocks.e_down", LeafSpec(L + (e, fe, d), lax_ + ("experts", "expert_mlp", "embed"))
+            if m.n_shared:
+                fs = m.d_expert * m.n_shared
+                yield "blocks.s_gate", LeafSpec(L + (d, fs), lax_ + ("embed", "mlp"))
+                yield "blocks.s_up", LeafSpec(L + (d, fs), lax_ + ("embed", "mlp"))
+                yield "blocks.s_down", LeafSpec(L + (fs, d), lax_ + ("mlp", "embed"))
+
+    elif fam == "rwkv6":
+        yield "blocks.ln1", LeafSpec(L + (d,), lax_ + (None,), "ones")
+        yield "blocks.ln2", LeafSpec(L + (d,), lax_ + (None,), "ones")
+        yield "blocks.tm_mu", LeafSpec(L + (5, d), lax_ + (None, None), "zeros")
+        yield "blocks.tm_lora_a", LeafSpec(L + (d, 32), lax_ + ("embed", None), "small_normal")
+        yield "blocks.tm_lora_b", LeafSpec(L + (5, 32, d), lax_ + (None, None, "embed"), "zeros")
+        yield "blocks.w0", LeafSpec(L + (d,), lax_ + (None,), "ones")
+        yield "blocks.w_lora_a", LeafSpec(L + (d, 64), lax_ + ("embed", None), "small_normal")
+        yield "blocks.w_lora_b", LeafSpec(L + (64, d), lax_ + (None, "embed"), "zeros")
+        yield "blocks.u", LeafSpec(L + (d,), lax_ + (None,), "zeros")
+        for w in ("wr", "wk", "wv", "wg", "wo"):
+            yield f"blocks.{w}", LeafSpec(L + (d, d), lax_ + ("embed", "heads"))
+        yield "blocks.ln_x", LeafSpec(L + (d,), lax_ + (None,), "ones")
+        yield "blocks.f_mu_k", LeafSpec(L + (d,), lax_ + (None,), "zeros")
+        yield "blocks.f_mu_r", LeafSpec(L + (d,), lax_ + (None,), "zeros")
+        yield "blocks.f_wk", LeafSpec(L + (d, cfg.d_ff), lax_ + ("embed", "mlp"))
+        yield "blocks.f_wv", LeafSpec(L + (cfg.d_ff, d), lax_ + ("mlp", "embed"))
+        yield "blocks.f_wr", LeafSpec(L + (d, d), lax_ + ("embed", "heads"))
+
+    elif fam == "zamba2":
+        di, n = cfg.d_inner, cfg.ssm_state
+        h = cfg.mamba_heads
+        conv_ch = di + 2 * n
+        yield "blocks.ln1", LeafSpec(L + (d,), lax_ + (None,), "ones")
+        yield "blocks.in_proj", LeafSpec(L + (d, 2 * di + 2 * n + h), lax_ + ("embed", "mlp"))
+        yield "blocks.conv_w", LeafSpec(L + (4, conv_ch), lax_ + (None, "mlp"), "small_normal")
+        yield "blocks.conv_b", LeafSpec(L + (conv_ch,), lax_ + ("mlp",), "zeros")
+        yield "blocks.a_log", LeafSpec(L + (h,), lax_ + (None,), "ones")
+        yield "blocks.d_skip", LeafSpec(L + (h,), lax_ + (None,), "ones")
+        yield "blocks.dt_bias", LeafSpec(L + (h,), lax_ + (None,), "zeros")
+        yield "blocks.norm", LeafSpec(L + (di,), lax_ + (None,), "ones")
+        yield "blocks.out_proj", LeafSpec(L + (di, d), lax_ + ("mlp", "embed"))
+        ninv = cfg.n_shared_attn
+        for k, spec in _attn_leaves(cfg, "shared_attn.", False).items():
+            yield k, spec
+        yield "shared_attn.ln", LeafSpec((d,), (None,), "ones")
+        yield "shared_attn.ln_mlp", LeafSpec((d,), (None,), "ones")
+        yield "shared_attn.w_gate", LeafSpec((d, cfg.d_ff), ("embed", "mlp"))
+        yield "shared_attn.w_up", LeafSpec((d, cfg.d_ff), ("embed", "mlp"))
+        yield "shared_attn.w_down", LeafSpec((cfg.d_ff, d), ("mlp", "embed"))
+        r = 32
+        for nm in ("q", "k", "v"):
+            yield f"shared_attn.lora_{nm}_a", LeafSpec(
+                (ninv, d, r), (None, "embed", None), "small_normal")
+            yield f"shared_attn.lora_{nm}_b", LeafSpec(
+                (ninv, r, d), (None, None, "heads"), "zeros")
+    else:
+        raise ValueError(cfg.family)
+
+
+# ----------------------------------------------------------- schema consumers
+def _set(tree: dict, path: str, val) -> None:
+    parts = path.split(".")
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = val
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random-init parameters, the reference's scales: ``normal`` leaves
+    ``N(0, 1) * min(0.02, fan_in ** -0.5)``, ``small_normal`` with 0.006.
+
+    The draws come from one CPU ``torch.Generator`` seeded with ``seed``, leaf
+    after leaf in schema order, and are then moved to ``device``, so a GPU run
+    and a CPU run get the same weights.  (They are not the reference's
+    ``jax.random`` weights; tests carry those across with
+    :func:`repro_torch.convert.params_from_numpy`.)"""
+    dev = resolve_device(device)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(seed))
+    tree: dict = {}
+    for path, spec in iter_schema(cfg):
+        dt = spec.dtype or cfg.param_dtype
+        if spec.init == "zeros":
+            val = torch.zeros(spec.shape, dtype=dt, device=dev)
+        elif spec.init == "ones":
+            val = torch.ones(spec.shape, dtype=dt, device=dev)
+        else:
+            scale = 0.02 if spec.init == "normal" else 0.006
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+            scale = min(scale, fan_in ** -0.5)
+            val = (torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+                   * scale).to(dt).to(dev)
+        _set(tree, path, val)
+    return tree
+
+
+# ================================================================ block passes
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked ``params["blocks"]`` leaves."""
+    return {k: v[i] for k, v in params["blocks"].items()}
+
+
+def _attn_params(bp: dict) -> AttnParams:
+    return AttnParams(wq=bp["wq"], wk=bp["wk"], wv=bp["wv"], wo=bp["wo"],
+                      bq=bp.get("bq"), bk=bp.get("bk"), bv=bp.get("bv"))
+
+
+def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
+                      positions: torch.Tensor, return_kv: bool = False):
+    """One dense transformer layer -> (x, aux) with aux = None, or
+    (x, (k, v)) with ``return_kv`` (the prefill's cache rows)."""
+    require_attn(cfg, "transformer_block")
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h = attention_block(
+        h, _attn_params(bp),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        positions=positions, rope_mode=cfg.rope, rope_theta=cfg.rope_theta,
+        window=cfg.window, causal_schedule=cfg.causal_schedule,
+        block_k=cfg.attn_block_k, return_kv=return_kv,
+    )
+    kv = None
+    if return_kv:
+        h, kv = h
+    x = x + h
+    h = swiglu(rms_norm(x, bp["ln2"], cfg.norm_eps), bp["w_gate"], bp["w_up"],
+               bp["w_down"])
+    return x + h, kv
+
+
+# ================================================================== forward
+def default_positions(cfg: ModelConfig, b: int, s: int,
+                      device: torch.device) -> torch.Tensor:
+    positions = torch.arange(s, device=device).expand(b, s)
+    if cfg.rope == "mrope":
+        positions = positions.expand(3, b, s)
+    return positions
+
+
+def embed_inputs(params: dict, cfg: ModelConfig, tokens=None, embeds=None
+                 ) -> torch.Tensor:
+    if embeds is not None:
+        return embeds.to(cfg.activ_dtype)
+    return params["embed"][tokens.long()].to(cfg.activ_dtype)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
+            positions=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Teacher-forced forward pass -> (hidden (B, S, D), aux).  Every layer's
+    attention goes through :func:`repro_torch.models.attention.flash_train`,
+    which launches the ``flash_attention`` kernel on a CUDA tensor."""
+    require_attn(cfg, "forward")
+    x = embed_inputs(params, cfg, tokens, embeds)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = default_positions(cfg, b, s, x.device)
+    for i in range(cfg.n_layers):
+        x, _ = transformer_block(x, layer_params(params, i), cfg, positions)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), {}
+
+
+def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
+              ) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("bsd,dv->bsv", hidden, head.to(hidden.dtype))

@@ -1,11 +1,27 @@
 """repro_torch.scenarios — one EpochRuntime, many workloads (PyTorch port of
 ``repro/scenarios``).  Ported so far: the :class:`AccessScenario` protocol,
-:func:`run_scenario` and the DLRM phase-shift scenario; the KV-cache, MoE
-and mmap-bench scenarios come with the model stack (ROADMAP Queue 1)."""
+:func:`run_scenario`, the DLRM phase-shift scenario and the KV-cache
+scenario (KV pages placed from the serving engine's per-page attention-mass
+feed); the MoE and mmap-bench scenarios come later (ROADMAP Queue 1 items
+13 and 9).
+
+The model-backed scenario imports the model stack lazily (PEP 562), so
+trace-only users of ``run_online`` never pay for it.
+"""
 from .base import AccessScenario, build_hints, run_scenario, scenario_summary
 from .dlrm import DLRMScenario, run_online
 
 __all__ = [
-    "AccessScenario", "DLRMScenario", "build_hints", "run_online",
-    "run_scenario", "scenario_summary",
+    "AccessScenario", "DLRMScenario", "KVCacheScenario", "build_hints",
+    "run_online", "run_scenario", "scenario_summary",
 ]
+
+_LAZY = {"KVCacheScenario": "kv_cache"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module(f".{_LAZY[name]}", __name__)
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

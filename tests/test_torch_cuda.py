@@ -8,7 +8,15 @@ Tolerance: exact for observe_scatter, hist_select and gather_count — they
 compute integers or copy rows, and int32 atomics give the same counts in
 any order.  embedding_bag's pooled rows: 1e-5 (float32) and 2e-2
 (bfloat16), relative and absolute — the kernel and the plain version sum
-the same float32 products in different orders; its counts are exact."""
+the same float32 products in different orders; its counts are exact.
+flash_attention: an online softmax against a one-pass softmax, both in
+float32.  float32 outputs: 2e-5, relative and absolute, the JAX kernel
+tests' own.  bfloat16 outputs: both round once from float32, so they may
+land one bfloat16 step apart (2**-7 of the value), plus 1e-3 of the largest
+output for float32 noise near 0; and at most 1 % of them may differ at all,
+since such straddles are rare and a rounding fault moves about half.  The
+inputs make the softmax peaked (q scaled by 3, k and v by 1), so a wrong
+max, scale, mask or KV tile moves the output by the size of v."""
 import numpy as np
 import pytest
 
@@ -18,13 +26,15 @@ from repro_torch.examples import dlrm_tiering  # noqa: E402
 from repro_torch.kernels.dispatch import KernelBackend  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: E402
 from repro_torch.kernels.embedding_bag import kernel as eb_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.gather_count import gather_count  # noqa: E402
 from repro_torch.kernels.gather_count import kernel as gc_kernel  # noqa: E402
 from repro_torch.kernels.hist_select import kernel as hs_kernel  # noqa: E402
 from repro_torch.kernels.hist_select import kth_key  # noqa: E402
 from repro_torch.kernels.observe_scatter import kernel as os_kernel  # noqa: E402
 from repro_torch.kernels.observe_scatter import observe_scatter  # noqa: E402
-from repro_torch.scenarios import DLRMScenario, run_scenario  # noqa: E402
+from repro_torch.scenarios import DLRMScenario, KVCacheScenario, run_scenario  # noqa: E402
 
 PLAIN = KernelBackend(plain=True)
 
@@ -144,3 +154,48 @@ def test_small_example_identical_on_gpu_and_cpu(cuda):
     for key in g:
         assert np.array_equal(g[key], c[key]), key
     assert g["gathered_equal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol_of_max", [
+    (torch.float32, 2e-5, None), (torch.bfloat16, 2 ** -7, 1e-3)])
+@pytest.mark.parametrize("bh,kvh,sq,sk,d,causal,window", [
+    (14, 2, 200, 200, 64, True, None),      # qwen2-0.5b heads, ragged S
+    (4, 4, 19, 19, 16, True, None),         # the KV scenario's prefill
+    (16, 8, 130, 130, 128, True, 33),       # internlm2 heads, a window
+    (2, 1, 70, 45, 256, False, None),       # MQA, non-causal, Sq != Sk
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, rtol, atol_of_max,
+                                              bh, kvh, sq, sk, d, causal,
+                                              window):
+    rng = np.random.default_rng(sq * d + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to(cuda, dtype)
+               for shape, scale in (((bh, sq, d), 3.0), ((kvh, sk, d), 1.0),
+                                    ((kvh, sk, d), 1.0)))
+    before = fa_kernel.LAUNCHES
+    got = flash_attention(q, k, v, q_per_kv=bh // kvh, causal=causal,
+                          window=window)
+    ref = flash_attention(q, k, v, q_per_kv=bh // kvh, causal=causal,
+                          window=window, backend=PLAIN)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol = (rtol if atol_of_max is None
+            else atol_of_max * float(ref.float().abs().max()))
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    if dtype == torch.bfloat16:
+        assert float((got != ref).float().mean()) <= 0.01
+    assert fa_kernel.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_kv_scenario_prefill_launches_flash_attention_per_layer(cuda):
+    scen = KVCacheScenario(batch=2, n_epochs=2, batches_per_epoch=2)
+    before = fa_kernel.LAUNCHES
+    eps = list(scen.epochs())
+    assert fa_kernel.LAUNCHES == before + scen.cfg.n_layers
+    cpu = KVCacheScenario(batch=2, n_epochs=2, batches_per_epoch=2,
+                          device="cpu")
+    list(cpu.epochs())
+    np.testing.assert_allclose(scen.masses, cpu.masses, rtol=1e-3, atol=1e-3)
+    assert len(eps) == 2

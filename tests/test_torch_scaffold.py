@@ -39,7 +39,14 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.examples.dlrm_tiering, "
             "repro_torch.kernels.gather_count, "
             "repro_torch.kernels.embedding_bag, "
-            "repro_torch.workloads.mmap_bench\n"
+            "repro_torch.workloads.mmap_bench, repro_torch.models, "
+            "repro_torch.models.model, repro_torch.serve, "
+            "repro_torch.serve.engine, repro_torch.launch, "
+            "repro_torch.launch.serve, repro_torch.configs, "
+            "repro_torch.scenarios.kv_cache, "
+            "repro_torch.kernels.flash_attention\n"
+            "repro_torch.configs.get_config('qwen2-0.5b')\n"
+            "repro_torch.scenarios.KVCacheScenario\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
