@@ -7,8 +7,9 @@ imports nothing of JAX or of the JAX package.  Float32 matrix products run
 in full float32 (TF32 off).  Phases, each reported on its own line:
 
 1. device: the card's name, power limit and capability (must be 9.0);
-2. build: the five CUDA kernels compiled from ``src/repro_torch/**/csrc``,
-   one ``nvcc`` each, in parallel;
+2. build: the five kernels' CUDA sources compiled from
+   ``src/repro_torch/**/csrc``, one ``nvcc`` each, in parallel (seconds and
+   the ``ptxas`` register and spill report of each);
 3. observe_scatter vs its plain version, exact, on the shared-memory path
    (5,000 blocks) and the global-atomics path (5,242,880 blocks);
 4. hist_select vs its plain version, exact, at 5 x 5,242,880 keys, S=1 and
@@ -45,13 +46,18 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     output, and at most 1 % of the outputs differing at all), on inputs
     whose softmax is peaked, at the qwen2-0.5b and
     internlm2-1.8b prefill shapes (S=4096, bfloat16), MQA d=256, a sliding
-    window, non-causal, and ragged S in {1, 19, 1000};
+    window, non-causal, and ragged S in {1, 19, 1000}; then the bfloat16
+    tensor-core route at d=64 and 128 with ragged S in {130, 1000},
+    non-causal Sq != Sk and a window, and the CUDA-core route at d=80
+    (zamba2-2.7b) and d=112 (kimi-k2); each case must take the route that
+    ``kernel.route`` names for its dtype and head dim;
 14. the serving path at full width:
     ``repro_torch.launch.serve.main(["--arch", "qwen2-0.5b", "--batch",
     "4", "--prompt-len", "64", "--gen", "32", "--page-size", "16"])`` (the
     launcher's own example without ``--smoke``) and again with
     ``--prompt-len 4096``: 24 flash_attention launches per run (one per
-    layer of the one prefill, none in decode), tokens/s, peak memory; then
+    layer of the one prefill, none in decode), all on the tensor-core
+    route, tokens/s, peak memory; then
     eight decode steps under ``torch.profiler`` (device busy and idle
     share, device ops per step, host-to-device copies, top ops);
 15. one full-width prefill and decode step on the GPU (under
@@ -59,12 +65,16 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     with the same tokens: float32 activations within a stated tolerance,
     bfloat16 reported;
 16. ``KVCacheScenario()`` on the GPU vs the CPU: 2 flash_attention launches
-    (one prefill of the 2-layer smoke model), decode masses within a
+    (one prefill of the 2-layer smoke model, d=16: the CUDA-core route),
+    decode masses within a
     tolerance, ``run_scenario`` fed the CPU's stream byte-identical for
     hints on x sync_every in {1, 4}, and how many access counts the GPU's
     own quantization moves;
-17. flash_attention's time at the qwen2-0.5b S=4096 shape beside its bound,
-    its plain version and ``F.scaled_dot_product_attention``.
+17. flash_attention's time at the qwen2-0.5b and internlm2-1.8b S=4096
+    prefill shapes (bfloat16: the tensor-core route) beside its bound, its
+    plain version and ``F.scaled_dot_product_attention`` timed in the same
+    call; TFLOP/s on the function's work and on the kernel's; then the
+    CUDA-core route at the qwen2-0.5b shape in float32.
 
 Each path (8-11, 14, 16) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
@@ -314,6 +324,21 @@ FLASH_CASES = [
     ("ragged S=1", 1, 14, 2, 1, 1, 64, "bfloat16", True, None),
     ("ragged S=19", 4, 4, 2, 19, 19, 16, "bfloat16", True, None),
     ("ragged S=1000", 2, 14, 2, 1000, 1000, 64, "float32", True, None),
+    # the tensor-core route (bfloat16, d in 64, 128): ragged tiles, Sq != Sk,
+    # a window edge inside a KV tile
+    ("ragged S=130 d=64", 2, 14, 2, 130, 130, 64, "bfloat16", True, None),
+    ("ragged S=1000 d=64", 2, 14, 2, 1000, 1000, 64, "bfloat16", True, None),
+    ("ragged S=130 d=128", 2, 16, 8, 130, 130, 128, "bfloat16", True, None),
+    ("ragged S=1000 d=128", 2, 16, 8, 1000, 1000, 128, "bfloat16", True,
+     None),
+    ("non-causal Sq>Sk d=64", 2, 14, 2, 517, 300, 64, "bfloat16", False,
+     None),
+    ("non-causal Sq<Sk d=128", 2, 16, 8, 300, 517, 128, "bfloat16", False,
+     None),
+    ("window 200 d=128", 2, 16, 8, 1000, 1000, 128, "bfloat16", True, 200),
+    # the configs' other head dims, on the CUDA-core route
+    ("zamba2-2.7b d=80", 1, 32, 32, 512, 512, 80, "bfloat16", True, None),
+    ("kimi-k2 d=112", 1, 64, 8, 512, 512, 112, "bfloat16", True, None),
 ]
 # |got - plain| <= atol + rtol * |plain|.  float32: 2e-5 both, the JAX
 # kernel tests' own.  bfloat16: both compute in float32 and round once to
@@ -337,6 +362,13 @@ FLASH_QKV_SCALE = (3.0, 1.0, 1.0)
 QWEN_LAYERS, QWEN_HEADS = 24, 14
 FULL_WIDTH_F32_TOL = 1e-4
 KV_MASS_TOL = 5e-4          # bf16 smoke model, GPU vs CPU (phase 16)
+# phase 17's causal prefill shapes at S=4096: (label, B, H, KVH, d)
+FLASH_TIME_SHAPES = (("qwen2-0.5b", 4, 14, 2, 64),
+                     ("internlm2-1.8b", 2, 16, 8, 128))
+# the CUDA-core kernel's time at the qwen2-0.5b shape in bfloat16, before
+# bfloat16 at d=64 moved to the tensor cores (PERF.md's kernel table; NVIDIA
+# H100 80GB HBM3, 700 W)
+CUDA_CORE_BF16_QWEN_MS = 4.216
 
 
 def qkv(dev, seed: int, b, h, kvh, sq, sk, d, dtype):
@@ -360,17 +392,24 @@ def flash_allowed(ref, dtype: str):
 
 
 def check_flash_attention(dev, plain):
-    """Phase 13: flash_attention == plain within FLASH_TOL at every case;
-    returns ({label: max abs err}, {label: [the largest |err| / allowed,
-    the share of outputs that differ at all]})."""
+    """Phase 13: flash_attention == plain within FLASH_TOL at every case,
+    each on the route ``kernel.route`` names; returns ({label: max abs
+    err}, {label: [the largest |err| / allowed, the share of outputs that
+    differ at all]}, {label: route})."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
-    errs, shares = {}, {}
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    errs, shares, routes = {}, {}, {}
     for i, (label, b, h, kvh, sq, sk, d, dtype, causal, window) in enumerate(
             FLASH_CASES):
         q, k, v = qkv(dev, 10 + i, b, h, kvh, sq, sk, d, dtype)
         kw = dict(q_per_kv=h // kvh, causal=causal, window=window)
+        routes[label] = fa_kernel.route(q.dtype, d)
+        before = fa_kernel.ROUTE_LAUNCHES[routes[label]]
         got = flash_attention(q, k, v, **kw)
+        if fa_kernel.ROUTE_LAUNCHES[routes[label]] != before + 1:
+            fail(f"flash_attention ({label}) did not launch its "
+                 f"{routes[label]} kernel")
         ref = flash_attention(q, k, v, backend=plain, **kw)
         torch.cuda.synchronize()
         diff = (got.float() - ref.float()).abs()
@@ -387,7 +426,7 @@ def check_flash_attention(dev, plain):
                  f"{shares[label]}, {FLASH_TOL[dtype]})")
         del q, k, v, got, ref, diff, share
     free_device_memory()
-    return errs, shares
+    return errs, shares, routes
 
 
 def full_width_gpu_vs_cpu(rng):
@@ -442,11 +481,13 @@ def full_width_gpu_vs_cpu(rng):
     return errs
 
 
-def serve_full_width(serve_launcher, dev, zero_counts, read_counts) -> dict:
+def serve_full_width(serve_launcher, dev, zero_counts, read_counts,
+                     read_routes) -> dict:
     """Phase 14: the launcher at qwen2-0.5b's full width, prompt 64, then
     4096, then 64 again warm; each run makes exactly one flash_attention
-    launch per layer (its one prefill) and none in decode.  Returns the
-    first run's launch counts (the main path's)."""
+    launch per layer (its one prefill), all on the tensor-core route, and
+    none in decode.  Returns the first run's launch counts (the main
+    path's)."""
     import torch
     serve_args = ["--arch", "qwen2-0.5b", "--batch", "4", "--prompt-len",
                   "64", "--gen", "32", "--page-size", "16"]
@@ -461,13 +502,15 @@ def serve_full_width(serve_launcher, dev, zero_counts, read_counts) -> dict:
         rep = serve_launcher.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_counts()
+        launches, routes = read_counts(), read_routes()
         if launches != {"observe_scatter": 0, "hist_select": 0,
                         "gather_count": 0, "embedding_bag": 0,
-                        "flash_attention": QWEN_LAYERS}:
-            fail(f"serve --prompt-len {plen} launches {launches}: expected "
-                 f"{QWEN_LAYERS} flash_attention (one prefill, one per "
-                 f"layer) and none in decode")
+                        "flash_attention": QWEN_LAYERS} or routes != {
+                            "tensor_core": QWEN_LAYERS, "cuda_core": 0}:
+            fail(f"serve --prompt-len {plen} launches {launches}, routes "
+                 f"{routes}: expected {QWEN_LAYERS} flash_attention (one "
+                 f"prefill, one per layer, on the tensor cores) and none in "
+                 f"decode")
         pm = rep["page_mass"]
         want_mass = 31 * QWEN_LAYERS * 4 * QWEN_HEADS   # heads per step
         if not (rep["tokens"].shape == (4, 32)
@@ -476,7 +519,8 @@ def serve_full_width(serve_launcher, dev, zero_counts, read_counts) -> dict:
             fail(f"serve --prompt-len {plen} report out of range")
         key = plen if plen not in runs else plen + "_warm"
         runs[key] = dict(
-            launches=launches, wall_s=wall, prefill_s=rep["prefill_s"],
+            launches=launches, flash_attention_routes=routes, wall_s=wall,
+            prefill_s=rep["prefill_s"],
             prefill_tok_s=rep["prefill_tok_s"], decode_s=rep["decode_s"],
             decode_tok_s=rep["decode_tok_s"],
             pages_for_90pct=rep["pages_for_90pct"],
@@ -547,22 +591,28 @@ def profile_decode(dev, steps: int = 8) -> dict:
     return out
 
 
-def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts):
+def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts,
+                  read_routes) -> dict:
     """Phase 16: ``KVCacheScenario()`` (internlm2-1.8b smoke) on the GPU vs
-    the CPU: one prefill = n_layers flash_attention launches, decode masses
-    within KV_MASS_TOL, and the GPU's ``run_scenario`` fed the CPU's stream
-    byte-identical to the CPU's for hints on x sync_every in {1, 4}."""
+    the CPU: one prefill = n_layers flash_attention launches (d=16: the
+    CUDA-core route), decode masses within KV_MASS_TOL, and the GPU's
+    ``run_scenario`` fed the CPU's stream byte-identical to the CPU's for
+    hints on x sync_every in {1, 4}.  Returns the prefill's launches by
+    route."""
     import numpy as np
     t0 = time.perf_counter()
     zero_counts()
     kv_gpu = KVCacheScenario()
     gpu_epochs = list(kv_gpu.epochs())
-    prefill_launches = read_counts()
+    prefill_launches, prefill_routes = read_counts(), read_routes()
+    n_layers = kv_gpu.cfg.n_layers
     if prefill_launches != {"observe_scatter": 0, "hist_select": 0,
                             "gather_count": 0, "embedding_bag": 0,
-                            "flash_attention": kv_gpu.cfg.n_layers}:
-        fail(f"KVCacheScenario launches {prefill_launches}: expected "
-             f"{kv_gpu.cfg.n_layers} flash_attention (one prefill)")
+                            "flash_attention": n_layers} or prefill_routes \
+            != {"tensor_core": 0, "cuda_core": n_layers}:
+        fail(f"KVCacheScenario launches {prefill_launches}, routes "
+             f"{prefill_routes}: expected {n_layers} flash_attention (one "
+             f"prefill, on the CUDA cores)")
     kv_cpu = KVCacheScenario(device="cpu")
     cpu_epochs = list(kv_cpu.epochs())
     mass_err = float(np.abs(kv_gpu.masses - kv_cpu.masses).max())
@@ -590,24 +640,33 @@ def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts):
             and run_launches["hist_select"] > 0):
         fail(f"KV run_scenario launches {run_launches}")
     say("kv_cache", n_blocks=kv_gpu.n_blocks, k_hot=kv_gpu.k_hot,
-        prefill_launches=prefill_launches, run_launches=run_launches,
+        prefill_launches=prefill_launches,
+        prefill_flash_attention_routes=prefill_routes,
+        run_launches=run_launches,
         mass_max_abs_err=mass_err, mass_tolerance=KV_MASS_TOL,
         trajectories_identical=True, gpu_quantization_counts_changed=changed,
         gpu_quantization_accesses_moved=moved,
         accesses=kv_gpu.n_steps * kv_gpu.accesses_per_batch,
         seconds=time.perf_counter() - t0)
+    return prefill_routes
 
 
-def flash_attention_time(dev, plain, s_len: int = 4096) -> dict:
-    """Phase 17: flash_attention at the qwen2-0.5b prefill shape (B=4,
-    H=14, KVH=2, S=4096, d=64, bf16, causal) beside its plain version,
-    ``F.scaled_dot_product_attention`` and the bound: the causal products
-    2*B*H*S^2*d at the dense bf16 tensor-core rate, or q, k, v and the
-    output moved once."""
+def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
+                         d: int, dtype: str = "bfloat16",
+                         s_len: int = 4096) -> dict:
+    """Phase 17: flash_attention at a causal prefill shape beside its plain
+    version, ``F.scaled_dot_product_attention`` (timed in this call) and the
+    bound: the function's products, 2*B*H*S^2*d over the causal half, at
+    the card's peak for the dtype (the dense bf16 tensor-core rate, or the
+    float32 rate of the CUDA cores), or q, k, v and the output moved once.
+    TFLOP/s are given on the function's work and on the kernel's: the
+    tensor-core route does 1.5x the function's products (P.V twice, as
+    P_hi and P_lo)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
-    b, h, kvh, d = 4, QWEN_HEADS, 2, 64
-    q, k, v = qkv(dev, 99, b, h, kvh, s_len, s_len, d, "bfloat16")
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    q, k, v = qkv(dev, 99, b, h, kvh, s_len, s_len, d, dtype)
+    route = fa_kernel.route(q.dtype, d)
     ms, plain_ms = in_turns(
         lambda: flash_attention(q, k, v, q_per_kv=h // kvh, backend=plain),
         lambda: flash_attention(q, k, v, q_per_kv=h // kvh), 5)
@@ -620,13 +679,21 @@ def flash_attention_time(dev, plain, s_len: int = 4096) -> dict:
                       - flash_attention(q, k, v, q_per_kv=h // kvh).float())
                      .abs().max())
     flops = 2 * b * h * s_len * s_len * d
-    n_bytes = 2 * (2 * b * h * s_len * d + 2 * b * kvh * s_len * d)
-    bound, by = bound_ms(n_bytes, flops, TENSOR_BF16_OPS_PER_S)
-    out = dict(shape=[b, h, kvh, s_len, d], dtype="bfloat16", ms=ms,
-               plain_ms=plain_ms, sdpa_ms=sdpa_ms, bound_ms=bound,
-               bound_by=by, causal_flops=flops, bytes=n_bytes,
-               achieved_tflop_s=flops / ms / 1e9,
+    kernel_flops = flops * (3 if route == "tensor_core" else 2) // 2
+    n_bytes = q.element_size() * (2 * b * h * s_len * d
+                                  + 2 * b * kvh * s_len * d)
+    bound, by = bound_ms(n_bytes, flops, TENSOR_BF16_OPS_PER_S
+                         if dtype == "bfloat16" else SCALAR_OPS_PER_S)
+    out = dict(label=label, shape=[b, h, kvh, s_len, d], dtype=dtype,
+               route=route, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+               ms_over_sdpa_ms=ms / sdpa_ms, bound_ms=bound, bound_by=by,
+               causal_flops=flops, kernel_flops=kernel_flops, bytes=n_bytes,
+               function_tflop_s=flops / ms / 1e9,
+               kernel_tflop_s=kernel_flops / ms / 1e9,
                vs_sdpa_max_abs_err=sdpa_err)
+    if (label, dtype) == ("qwen2-0.5b", "bfloat16"):
+        out.update(cuda_core_bf16_ms=CUDA_CORE_BF16_QWEN_MS,
+                   speedup_over_cuda_core=CUDA_CORE_BF16_QWEN_MS / ms)
     say("flash_attention_time", **out)
     del q, k, v, q4, k4, v4
     free_device_memory()
@@ -681,9 +748,15 @@ def main(until: int = 17) -> None:
     def zero_counts() -> None:
         for mod in kernel_modules.values():
             mod.LAUNCHES = 0
+        for route in fa_kernel.ROUTE_LAUNCHES:
+            fa_kernel.ROUTE_LAUNCHES[route] = 0
 
     def read_counts() -> dict:
         return {name: mod.LAUNCHES for name, mod in kernel_modules.items()}
+
+    def read_routes() -> dict:
+        """flash_attention's launches by route."""
+        return dict(fa_kernel.ROUTE_LAUNCHES)
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(
@@ -707,7 +780,8 @@ def main(until: int = 17) -> None:
     for name in took:
         log = _build.library_path(name).with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln] if log.exists() else []
+                       if "registers" in ln or "spill" in ln
+                       or "C75" in ln] if log.exists() else []
     say("build", seconds=time.perf_counter() - t0, per_kernel=took,
         ptxas=ptxas)
 
@@ -1120,16 +1194,19 @@ def main(until: int = 17) -> None:
         fail(f"stopped after phase {until} (--until)")
     # ------------------------------------ 13. flash_attention vs plain
     t0 = time.perf_counter()
-    fa_errs, fa_shares = check_flash_attention(dev, plain)
-    errors["flash_attention"] = max(fa_errs.values())
+    fa_errs, fa_shares, fa_routes = check_flash_attention(dev, plain)
+    for route in fa_kernel.ROUTE_LAUNCHES:
+        errors["flash_attention_" + route] = max(
+            err for label, err in fa_errs.items()
+            if fa_routes[label] == route)
     say("flash_attention", cases=[list(c) for c in FLASH_CASES],
-        max_abs_err=fa_errs, share_of_tolerance=fa_shares,
+        routes=fa_routes, max_abs_err=fa_errs, share_of_tolerance=fa_shares,
         tolerance=FLASH_TOL, qkv_scale=FLASH_QKV_SCALE,
         seconds=time.perf_counter() - t0)
 
     # --------------------------- 14. the serving path at full width
     serve_launches = serve_full_width(serve_launcher, dev, zero_counts,
-                                      read_counts)
+                                      read_counts, read_routes)
     profile_decode(dev)
 
     # ---------------------- 15. full-width prefill + decode, GPU vs CPU
@@ -1140,10 +1217,15 @@ def main(until: int = 17) -> None:
         seconds=time.perf_counter() - t0)
 
     # ------------------------------- 16. KVCacheScenario, GPU vs CPU
-    kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts)
+    kv_routes = kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts,
+                              read_counts, read_routes)
 
-    # ------------- 17. flash_attention time, the qwen2-0.5b prefill shape
-    fa_time = flash_attention_time(dev, plain)
+    # --------- 17. flash_attention's time at the S=4096 prefill shapes
+    fa_times = [flash_attention_time(dev, plain, *shape)
+                for shape in FLASH_TIME_SHAPES]
+    fa_tc = fa_times[0]
+    fa_cc = flash_attention_time(dev, plain, *FLASH_TIME_SHAPES[0],
+                                 dtype="float32")
 
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
@@ -1177,14 +1259,29 @@ def main(until: int = 17) -> None:
          "max_abs_err": errors["embedding_bag"], "ms": eb_ms,
          "plain_ms": eb_plain, "bound_ms": eb_bound, "bound_by": eb_by,
          "library_ms": eb_lib},
+        # the tensor-core route: its launches on the serving path (all of
+        # them, phase 14 checks), its time at the qwen2-0.5b prefill shape
         {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": serve_launches["flash_attention"],
+         "max_abs_err": errors["flash_attention_tensor_core"],
+         "ms": fa_tc["ms"], "plain_ms": fa_tc["plain_ms"],
+         "bound_ms": fa_tc["bound_ms"], "bound_by": fa_tc["bound_by"],
+         "library_ms": fa_tc["sdpa_ms"]},
+        # the CUDA-core route (float32, and bfloat16 at d outside 64, 128):
+        # its launches in the KV scenario's prefill, its time at the same
+        # shape in float32
+        {"name": "flash_attention_cuda_core", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-         "launches": serve_launches["flash_attention"],
-         "max_abs_err": errors["flash_attention"], "ms": fa_time["ms"],
-         "plain_ms": fa_time["plain_ms"], "bound_ms": fa_time["bound_ms"],
-         "bound_by": fa_time["bound_by"], "library_ms": fa_time["sdpa_ms"]},
+         "launches": kv_routes["cuda_core"],
+         "max_abs_err": errors["flash_attention_cuda_core"],
+         "ms": fa_cc["ms"], "plain_ms": fa_cc["plain_ms"],
+         "bound_ms": fa_cc["bound_ms"], "bound_by": fa_cc["bound_by"],
+         "library_ms": fa_cc["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -3,8 +3,10 @@
 Each kernel's source, ``kernels/<name>/csrc/<name>.cu``, exposes a plain C
 entry point.  ``nvcc`` compiles it for Hopper (``sm_90a``) into
 ``build/kernels/<name>-<hash>.so`` at the repository root (a git-ignored
-directory), keyed by a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one is loaded as it is.  The library is bound with
+directory), keyed by a hash of every file under the kernel's ``csrc/`` (the
+``.cu`` and the headers it includes) and of the flags ``nvcc`` is given, so
+a changed source, header or flag rebuilds and an unchanged one is loaded as
+it is.  The library is bound with
 ``ctypes``; nothing here includes PyTorch's headers, which keeps ``nvcc``
 fast.  :func:`build_all` starts one ``nvcc`` per missing library, all at
 once.
@@ -49,10 +51,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    csrc = SOURCES[name].parent
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(b"\0" + f.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -1,4 +1,4 @@
-// flash_attention for Hopper (sm_90a).
+// flash_attention for Hopper (sm_90a): the CUDA-core kernel.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_kernel, flash_attention_pallas): blocked attention with an online
@@ -29,22 +29,31 @@
 //     the heaviest query tiles go first, to shorten the causal tail;
 //   * element offsets are 64-bit.
 //
-// Bound, on this card: operations for long prompts, bytes for short ones.
-// At the qwen2-0.5b prefill shape (B=4, H=14, KVH=2, d=64, S=4096, bf16)
-// the causal products are 2*B*H*S^2*d = 120 GFLOP, 0.12 ms at the dense
-// bf16 tensor-core rate (989 TFLOP/s), against 67 MB of q, k, v and output
-// (0.02 ms at 3.35 TB/s); at S=19 or 64 the bytes and the launch dominate.
-// This first version does its products on the CUDA cores in float32 (67
-// TFLOP/s), so by construction it cannot come within 15x of that bound; it
-// spends the CUDA cores well (register tiles, one staging of each K/V tile
-// for 64 query rows, masked tiles skipped).  Tensor cores (wgmma fed by
-// TMA, FA3's shape) are the next step.
+// Two routes, fixed by dtype and head dim (kernel.py's route()): bfloat16 at
+// d = 64 and 128, the head dims of the published attention configs, runs on
+// the tensor cores (flash_attention_wgmma.cuh); everything else runs this
+// CUDA-core kernel: float32 at d in {16, 32, 64, 80, 112, 128, 256} (its 2e-5
+// tolerance rules out TF32) and bfloat16 at d in {16, 32, 80, 112, 256}.
 //
-// The C entry point launches on the caller's stream, allocates nothing (the
-// wrapper passes the output) and returns the first CUDA error it meets.
+// Bound, on this card: operations for long prompts, bytes for short ones.
+// At the qwen2-0.5b prefill shape (B=4, H=14, KVH=2, d=64, S=4096) the
+// causal products are 2*B*H*S^2*d = 120 GFLOP, 0.12 ms at the dense bf16
+// tensor-core rate (989 TFLOP/s), against 67 MB of q, k, v and output
+// (0.02 ms at 3.35 TB/s); at S=19 or 64 the bytes and the launch dominate.
+// This kernel does its products on the CUDA cores in float32 (67 TFLOP/s),
+// so by construction it cannot come within 15x of that bound; it spends the
+// CUDA cores well (register tiles, one staging of each K/V tile for 64
+// query rows, masked tiles skipped).
+//
+// The C entry points launch on the caller's stream, allocate nothing (the
+// wrapper passes the output) and return the first CUDA error they meet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -281,22 +290,31 @@ template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, long long n_bh,
              int sq, int sk, int d, int q_per_kv, int causal, int window,
              float scale, cudaStream_t s) {
+  // bf16 at d = 64 and 128 takes the tensor-core kernel (flash_attention_wgmma.cuh)
+  constexpr bool kF32 = std::is_same<T, float>::value;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
     case 32: return launch<T, 32>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
+    case 64:
+      if constexpr (kF32) return launch<T, 64>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
+      break;
+    case 80: return launch<T, 80>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
+    case 112: return launch<T, 112>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
+    case 128:
+      if constexpr (kF32) return launch<T, 128>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
+      break;
     case 256: return launch<T, 256>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q: (n_bh, sq, d); k, v: (n_bh / q_per_kv, sk, d); out like q.  dtype:
-// 0 = float32, 1 = bfloat16 (all four tensors).  window < 0: no window.
+// The CUDA-core kernel.  q: (n_bh, sq, d); k, v: (n_bh / q_per_kv, sk, d); out
+// like q.  dtype: 0 = float32 (d in 16, 32, 64, 80, 112, 128, 256), 1 =
+// bfloat16 (d in 16, 32, 80, 112, 256).  window < 0: no window.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            long long n_bh, long long sq, long long sk, int d,
                            int q_per_kv, int causal, int window, float scale,
@@ -310,6 +328,26 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(q, k, v, out, n_bh, (int)sq, (int)sk, d, q_per_kv,
                                    causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel: bfloat16 q, k, v and out as above, d in 64, 128,
+// sk >= 1, every pointer 16-byte aligned.  Returns a cudaError_t, or a
+// negative code for a refused tensor map (fa_wgmma::kNoDriverEntry,
+// fa_wgmma::kEncodeFailed minus the CUresult).
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out,
+                                 long long n_bh, long long sq, long long sk, int d,
+                                 int q_per_kv, int causal, int window, float scale,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
+    return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    return fa_wgmma::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
+                                window, scale, s);
+  if (d == 128)
+    return fa_wgmma::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
+                                 window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

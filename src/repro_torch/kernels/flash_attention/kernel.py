@@ -1,10 +1,18 @@
-"""ctypes wrapper around ``csrc/flash_attention.cu`` (see the note there for
-what it replaces, what bounds it and how).
+"""ctypes wrapper around ``csrc/flash_attention.cu`` (see the notes there and
+in ``csrc/flash_attention_wgmma.cuh`` for what they replace, what bounds them
+and how).
+
+Two kernels, one function.  :func:`route` picks one from the dtype and the
+head dim, fixed in code: bfloat16 at d = 64 and 128 runs on the tensor cores
+(``"tensor_core"``: wgmma fed by TMA), everything else on the CUDA cores
+(``"cuda_core"``).  A launch that fails raises; no route stands in for
+another.
 
 The wrapper checks its inputs, allocates the output, launches on the current
 stream and raises if the launch failed (a launch refused for its shared
 memory never runs, and a later synchronize would not report it).
-``LAUNCHES`` counts the launches.
+``LAUNCHES`` counts the launches of both routes, ``ROUTE_LAUNCHES`` each
+route's.
 """
 from __future__ import annotations
 
@@ -14,25 +22,43 @@ import torch
 
 from .. import _build
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "flash_attention_cuda"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "ROUTE_LAUNCHES", "TENSOR_CORE_HEAD_DIMS",
+           "flash_attention_cuda", "route"]
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"tensor_core": 0, "cuda_core": 0}
 
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernel is instantiated for: the smoke configs' 16, the
-# published configs' 64 and 128, and 32 / 256 beside them
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# head dims the kernels take: the smoke configs' 16, the published configs'
+# 64 and 128, zamba2's 80 and kimi-k2's 112, and 32 / 256 beside them
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
+# bfloat16 at these runs on the tensor cores
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that computes (dtype, d): ``"tensor_core"`` or
+    ``"cuda_core"``."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
-        lib.flash_attention_launch.argtypes = [
-            _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]
+        common = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_float]
+        lib.flash_attention_launch.argtypes = common + [ctypes.c_int, _P]
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_wgmma_launch.argtypes = common + [_P]
+        lib.flash_attention_wgmma_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -47,8 +73,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or t.dtype != q.dtype or t.dim() != 3 \
                 or not t.is_contiguous():
@@ -59,8 +83,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[2] != d or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
                          f"be (B*KVH, Sk, {d})")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    which = route(q.dtype, d)
+    if which == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core route's TMA loads need q, k and v "
+                         "to start on 16-byte boundaries")
     if q_per_kv < 1 or bh != bkh * q_per_kv:
         raise ValueError(f"{bh} query rows with q_per_kv={q_per_kv} need "
                          f"{bh // max(q_per_kv, 1)} KV rows, got {bkh}")
@@ -73,14 +99,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if bh == 0 or sq == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = _lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            sk, d, q_per_kv, int(causal),
+    if sk == 0:             # no key: every row gives 0, nothing to launch
+        return out.zero_()
+    args = (bh, sq, sk, d, q_per_kv, int(causal),
             -1 if window is None else min(int(window), 2 ** 31 - 1),
-            float(sm_scale), _DTYPES[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            float(sm_scale))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if which == "tensor_core":
+            rc = _lib().flash_attention_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *args, stream)
+        else:
+            rc = _lib().flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *args, _DTYPES[q.dtype], stream)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[which] += 1
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention ({which}) launch failed: "
+                           + (f"CUDA error {rc}" if rc > 0 else
+                              f"tensor map refused (code {rc})"))
     return out

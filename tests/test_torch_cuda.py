@@ -188,6 +188,67 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, rtol, atol_of_max,
     assert fa_kernel.LAUNCHES == before + 1
 
 
+def _bf16_check(got, ref):
+    """The bfloat16 rule above: one bfloat16 step plus 1e-3 of the largest
+    output, at most 1 % of the outputs differing."""
+    atol = 1e-3 * float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
+                               atol=atol)
+    assert float((got != ref).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bh,kvh,sq,sk,causal,window", [
+    (14, 2, 1, 1, True, None),          # a one-token prompt
+    (14, 2, 19, 19, True, None),        # shorter than one tile
+    (16, 8, 130, 130, True, None),      # one tile and two rows
+    (14, 2, 200, 200, True, None),      # ragged second tile
+    (16, 8, 200, 200, True, 33),        # a window edge inside a tile
+    (8, 2, 200, 130, False, None),      # non-causal, Sq > Sk
+    (8, 2, 130, 300, False, None),      # non-causal, Sq < Sk
+])
+def test_flash_attention_tensor_core_route_matches_plain(cuda, d, bh, kvh, sq,
+                                                        sk, causal, window):
+    """bfloat16 at d = 64 and 128 runs on the tensor cores (and only
+    there), within the bfloat16 rule of the plain version."""
+    rng = np.random.default_rng(sq * d + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to(cuda, torch.bfloat16)
+               for shape, scale in (((bh, sq, d), 3.0), ((kvh, sk, d), 1.0),
+                                    ((kvh, sk, d), 1.0)))
+    before = dict(fa_kernel.ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, q_per_kv=bh // kvh, causal=causal,
+                          window=window)
+    ref = flash_attention(q, k, v, q_per_kv=bh // kvh, causal=causal,
+                          window=window, backend=PLAIN)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _bf16_check(got, ref)
+    assert fa_kernel.ROUTE_LAUNCHES == {
+        "tensor_core": before["tensor_core"] + 1,
+        "cuda_core": before["cuda_core"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,kvh,d", [(8, 8, 80),      # zamba2-2.7b
+                                      (16, 2, 112)])   # kimi-k2
+def test_flash_attention_head_dims_80_and_112(cuda, dtype, bh, kvh, d):
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to(cuda, dtype)
+               for shape, scale in (((bh, 150, d), 3.0), ((kvh, 150, d), 1.0),
+                                    ((kvh, 150, d), 1.0)))
+    before = fa_kernel.ROUTE_LAUNCHES["cuda_core"]
+    got = flash_attention(q, k, v, q_per_kv=bh // kvh)
+    ref = flash_attention(q, k, v, q_per_kv=bh // kvh, backend=PLAIN)
+    if dtype == torch.bfloat16:
+        _bf16_check(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    assert fa_kernel.ROUTE_LAUNCHES["cuda_core"] == before + 1
+
+
 @pytest.mark.cuda
 def test_kv_scenario_prefill_launches_flash_attention_per_layer(cuda):
     scen = KVCacheScenario(batch=2, n_epochs=2, batches_per_epoch=2)

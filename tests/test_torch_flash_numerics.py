@@ -1,0 +1,131 @@
+"""The numerics that flash_attention's tensor-core route rests on, on the CPU
+(no GPU, no JAX), and the route rule itself.
+
+The route multiplies P·V on the tensor cores, whose A operand is bfloat16.
+Its card check (``chip_smoke.py``'s ``FLASH_TOL`` for bfloat16, mirrored in
+``tests/test_torch_cuda.py``) holds every output within one bfloat16 step
+(2**-7 of the value) plus 1e-3 of the largest output, with at most 1 % of
+the outputs differing from the plain version at all — the plain version, as
+the JAX kernel, computes P·V in float32.  Here the kernel's blocked online
+softmax (128-key tiles, float32 max, sum and accumulator, p taken against
+the running max) is emulated in float32 PyTorch with P rounded three ways
+before the product: kept in float32; rounded once to bfloat16 (FA2 / FA3's
+choice); and split as P_hi = bf16(p) plus P_lo = bf16(p - P_hi), two
+products into one float32 accumulator (the kernel's choice).  Inputs are
+the card check's: numpy normals, q scaled by 3, k and v by 1, rounded once
+to bfloat16, causal, at qwen2-0.5b's 14 query heads over 2 KV heads (d=64)
+and internlm2-1.8b's 16 over 8 (d=128).  The split must pass with at most
+0.5 % of the outputs differing; the single bfloat16 P must fail the 1 %
+rule, which is why the kernel pays for a third product."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+
+# chip_smoke.py's FLASH_TOL["bfloat16"] and FLASH_QKV_SCALE
+RTOL, ATOL_OF_MAX, DIFFERING_SHARE = 2 ** -7, 1e-3, 0.01
+QKV_SCALE = (3.0, 1.0, 1.0)
+BLOCK_K = 128          # the tensor-core kernel's KV tile
+
+SHAPES = {"qwen2-0.5b": (14, 2, 1024, 64), "internlm2-1.8b": (16, 8, 512, 128)}
+
+
+def _qkv(seed, h, kvh, s, d):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.normal(size=shape) * scale)
+                             .astype(np.float32)).to(torch.bfloat16)
+            for shape, scale in zip(((h, s, d), (kvh, s, d), (kvh, s, d)),
+                                    QKV_SCALE)]
+
+
+def _split(p: torch.Tensor, rounding: str):
+    """The float32 operands whose products with V the kernel sums."""
+    if rounding == "float32":
+        return [p]
+    hi = p.to(torch.bfloat16).float()
+    if rounding == "bf16":
+        return [hi]
+    return [hi, (p - hi).to(torch.bfloat16).float()]
+
+
+def _emulated(q, k, v, q_per_kv, rounding):
+    """Causal blocked online softmax in float32, P rounded as ``rounding``
+    before P·V, output rounded once to bfloat16."""
+    h, s, d = q.shape
+    qf = q.float() * d ** -0.5
+    kf = torch.repeat_interleave(k, q_per_kv, 0).float()
+    vf = torch.repeat_interleave(v, q_per_kv, 0).float()
+    m = torch.full((h, s, 1), -torch.inf)
+    l = torch.zeros((h, s, 1))
+    acc = torch.zeros((h, s, d))
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, BLOCK_K):
+        kt, vt = kf[:, k0:k0 + BLOCK_K], vf[:, k0:k0 + BLOCK_K]
+        sc = qf @ kt.transpose(1, 2)
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        sc = torch.where(kpos <= qpos, sc, -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        for part in _split(p, rounding):
+            acc = acc + part @ vt
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+def _verdict(got, ref):
+    """(largest |got - ref| over FLASH_TOL's bound, share of outputs that
+    differ at all)."""
+    diff = (got.float() - ref.float()).abs()
+    ref_abs = ref.float().abs()
+    allowed = ATOL_OF_MAX * float(ref_abs.max()) + RTOL * ref_abs
+    return float((diff / allowed).max()), float((diff > 0).float().mean())
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("rounding,passes,most_differing", [
+    ("float32", True, DIFFERING_SHARE),
+    ("bf16_hi_lo", True, 0.005),
+    ("bf16", False, None),
+])
+def test_p_rounding_against_the_bf16_check(shape, rounding, passes,
+                                           most_differing):
+    h, kvh, s, d = SHAPES[shape]
+    q, k, v = _qkv(s + d, h, kvh, s, d)
+    ref = attention_ref(q, k, v, q_per_kv=h // kvh, causal=True)
+    got = _emulated(q, k, v, h // kvh, rounding)
+    largest, differing = _verdict(got, ref)
+    if passes:
+        assert largest <= 1.0 and differing <= most_differing, \
+            (largest, differing)
+    else:
+        assert differing > DIFFERING_SHARE, (largest, differing)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 16, "cuda_core"),
+    (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 80, "cuda_core"),
+    (torch.bfloat16, 112, "cuda_core"),
+    (torch.bfloat16, 256, "cuda_core"),
+    (torch.float32, 64, "cuda_core"),
+    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 80, "cuda_core"),
+])
+def test_route_by_dtype_and_head_dim(dtype, d, want):
+    assert fa_kernel.route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
+                                     (torch.bfloat16, 48),
+                                     (torch.float32, 512)])
+def test_route_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError):
+        fa_kernel.route(dtype, d)
