@@ -12,13 +12,22 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
    the ``ptxas`` register and spill report of each);
 3. observe_scatter vs its plain version, exact, on the shared-memory path
    (5,000 blocks) and the global-atomics path (5,242,880 blocks);
-4. hist_select vs its plain version, exact, at 5 x 5,242,880 keys, S=1 and
-   S=3, with caps of 0 and of the full segment and heavy ties;
+4. hist_select vs its plain version, exact, one launch per call: 5 x
+   5,242,880 mixed keys, S=1 and S=3, with caps of 0 and of the full
+   segment and heavy ties; the online path's own rows (phase 12's, which
+   stop after one or a few passes); uniform rows and rows that need every
+   pass; n % 4 in {1, 2, 3} at 1 and at 5 rows (rows off a 16-byte
+   boundary), S=3 with padding, k = 0 and k = |segment|; a row that starts
+   4 bytes past its allocation;
 5. gather_count vs its plain version, exact, float32 and bfloat16 storage
    at the paper's width (21,800,000 x 256), M in {1, 127, 2,400,001}, with
    a non-zero carry-in of the counters;
 6. embedding_bag vs its plain version (float32 within 1e-5, bfloat16
-   within 2e-2, counters exact) at B=150,000, L=16, D=256, and B=3, L=5;
+   within 2e-2, counters exact): the paper draw at B=150,000, L=16, D=256
+   in float32 and bfloat16, a Zipf mix, uniform ids (every row of a tile
+   distinct: the tiled route's overflow), B=1 and B=3, L=5 on the tiled
+   route, each equal to the per-bag route bit for bit, and D=250 on the
+   per-bag route; each case takes the route ``kernel.route`` names;
 7. SMALL parity, GPU vs CPU: ``run_scenario`` byte-identical for hints in
    {False, True} x sync_every in {1, 4, 7}; ``run_table1``/``run_fig3`` on
    the small specs and the tiering example at a small size, every field
@@ -30,17 +39,21 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
    then the same loop five times warm, timed without the sync checks;
 9. the offline path at the paper's width: ``examples.dlrm_tiering.run()``
    (20,000,000 x 256 table, 450,000 fast slots, 20 profile and 5 replay
-   batches of 150,000 bags of 16): 20 embedding_bag, 5 gather_count and at
-   least one hist_select launch, gathered rows equal to the table's; run
-   under cProfile, whose top functions say where the host's time goes;
+   batches of 150,000 bags of 16): 20 embedding_bag (all on the tiled
+   route), 5 gather_count and at least one hist_select launch, gathered
+   rows equal to the table's; run under cProfile, whose top functions say
+   where the host's time goes;
 10. ``tracesim.run_table1()`` at paper scale (40 observe_scatter launches)
     inside the bands of ``tests/test_paper_claims.py``, under cProfile;
 11. ``tracesim.run_fig3()`` at paper scale (256 launches), inside its bands,
     under cProfile;
 12. kernel times at the paper-scale shapes (CUDA events), beside the bound,
-    the plain version and one PyTorch library call; then the online paper
-    run once more under ``torch.profiler``: device busy time, idle share
-    and the kernels that take the most device time;
+    the plain version and one PyTorch library call (for hist_select the
+    faster of ``kthvalue`` and ``topk``), the two redesigned kernels' times
+    before their redesign beside theirs, and embedding_bag's per-bag route
+    timed in turns with the tiled one; then the online paper run once more
+    under ``torch.profiler``: device busy time, idle share and the kernels
+    that take the most device time;
 13. flash_attention vs its plain version (2e-5 in float32; in bfloat16
     one bfloat16 step, 2**-7 of the value, plus 1e-3 of the largest
     output, and at most 1 % of the outputs differing at all), on inputs
@@ -209,6 +222,87 @@ def zipf_rows(rng, m: int, n_rows: int):
                     rng.integers(0, n_rows, m)).astype(np.int32)
 
 
+def selection_rows(dev, ids0, ids1):
+    """The (5, PAPER_PAGES) int32 key rows the online path ranks in one
+    hist_select call, from two batches of its page ids: the access counts,
+    their non-zero mask and three float scores as sortable keys (phase 12's
+    rows; about 98 % of each row is one tie value)."""
+    import torch
+    from repro_torch.core import selectk
+    from repro_torch.kernels.observe_scatter import observe_scatter
+    cursor = torch.zeros((), dtype=torch.int32, device=dev)
+    h0, h1 = (observe_scatter(torch.from_numpy(ids).to(dev), cursor,
+                              n_blocks=PAPER_PAGES, period=401)[0]
+              for ids in (ids0, ids1))
+    hf = h0.to(torch.float32)
+    return torch.stack([
+        h0, (h0 > 0).to(torch.int32), selectk.sortable_key(0.5 * hf),
+        selectk.sortable_key(torch.where(h0 > 0, hf / hf.max(), -1.0)),
+        selectk.sortable_key(h1.to(torch.float32) / h1.max())]).contiguous()
+
+
+def hist_select_cases(dev, rng, datagen, DLRMScenario):
+    """Phase 4's cases: [(label, (B, n) int32 keys, seg ids or None, ks)]."""
+    import numpy as np
+    import torch
+    n = PAPER_PAGES
+    keys = rng.integers(0, 40, (5, n)).astype(np.int32)          # heavy ties
+    keys[1] = rng.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64)
+    keys[2, : n // 2] = -2 ** 31                                   # sentinel
+    keys[3] = np.float32(rng.random(n) * (rng.random(n) < 0.1)).view(
+        np.int32)
+    keys_t = torch.from_numpy(keys).to(dev)
+    lens = (1_000_003, 2_500_000, n - 3_500_003)
+    seg = torch.from_numpy(np.repeat(np.arange(3, dtype=np.int32), lens)
+                           ).to(dev)
+    cases = [("mixed rows", keys_t, None, ks) for ks in (
+        (PAPER_K_HOT,), (0,), (n,), (1,))]
+    cases.append(("mixed rows, S=3", keys_t, seg, (0, lens[1], 7_777)))
+    # the online path's rows: tie-heavy, one pass for the float rows
+    spec = datagen.DLRMTraceSpec(n_params=5_368_709_120)
+    head = list(DLRMScenario(spec=spec, n_epochs=2, batches_per_epoch=2,
+                             shift_at=3, k_hot=PAPER_K_HOT).epochs())
+    sel = selection_rows(dev, head[0][0], head[1][0])
+    cases += [("phase-12 rows", sel, None, ks)
+              for ks in ((PAPER_K_HOT,), (0,), (1,), (n,))]
+    # uniform keys, and keys whose bytes come from {0, 1, 254, 255}: every
+    # bin the search picks holds keys that differ in the next byte, so
+    # those rows need every pass
+    uni = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (2, n),
+                                        dtype=np.int64).astype(np.int32)
+                           ).to(dev)
+    cases += [("uniform rows", uni, None, ks)
+              for ks in ((PAPER_K_HOT,), (1,), (n,))]
+    byte = rng.choice(np.asarray([0, 1, 254, 255], np.uint32), (2, n, 4))
+    hard = ((byte[..., 0] << 24) | (byte[..., 1] << 16) | (byte[..., 2] << 8)
+            | byte[..., 3]).astype(np.uint32).view(np.int32)
+    cases += [("every-pass rows", torch.from_numpy(hard).to(dev), None, ks)
+              for ks in ((PAPER_K_HOT,), (1,), (n // 2,), (n,))]
+    # n % 4 in {1, 2, 3}: rows that start off a 16-byte boundary, with a
+    # scalar head and tail; S=3 with padding inside and at the end
+    for m in (1_000_001, 1_000_002, 1_000_003, 5, 6, 7):
+        for rows in (1, 5):
+            x = rng.integers(-5, 6, (rows, m)).astype(np.int32)
+            x[:, ::3] = rng.integers(-2 ** 31, 2 ** 31 - 1, x[:, ::3].shape,
+                                     dtype=np.int64)
+            x_t = torch.from_numpy(x).to(dev)
+            sg = np.minimum(np.arange(m) * 3 // m, 2).astype(np.int32)
+            sg[1::7] = -1
+            sg[-1] = -1
+            sg_t = torch.from_numpy(sg).to(dev)
+            seg_lens = [int((sg == s).sum()) for s in range(3)]
+            cases += [(f"n={m}, {rows} row(s)", x_t, None, ks)
+                      for ks in ((1,), (m // 2 + 1,), (m,), (0,))]
+            cases.append((f"n={m}, {rows} row(s), S=3 padded", x_t, sg_t,
+                          (seg_lens[0], max(seg_lens[1] // 2, 1), 0)))
+        # one row that starts 4 bytes past an allocation (a 12-byte head)
+        flat = torch.from_numpy(rng.integers(-5, 6, m + 1).astype(np.int32)
+                                ).to(dev)
+        cases.append((f"n={m}, offset row", flat[1:].view(1, m), None,
+                      (max(m // 3, 1),)))
+    return cases
+
+
 def check_gather_count(dev, rng, plain) -> int:
     """Phase 5: gather_count == plain, exactly; returns the max abs err."""
     import numpy as np
@@ -244,43 +338,119 @@ def check_gather_count(dev, rng, plain) -> int:
     return worst
 
 
+def paper_lookups(dev, n_bags: int = PAPER_BAGS):
+    """(n_bags, 16) row ids drawn as the offline example draws them
+    (``ZipfPageSampler(PAPER, seed=1)`` pages x 4 + a row within the page,
+    seeded): phase 12's draw, and phase 6's paper cases."""
+    import numpy as np
+    import torch
+    from repro_torch.dlrm import datagen
+    m = n_bags * PAPER_BAG
+    pages = datagen.ZipfPageSampler(datagen.PAPER, seed=1).sample(m)
+    rows = (pages.astype(np.int64) * PAPER_BLOCK_ROWS
+            + np.random.default_rng(1).integers(0, PAPER_BLOCK_ROWS, m))
+    return torch.from_numpy(rows.astype(np.int32).reshape(n_bags, PAPER_BAG)
+                            ).to(dev)
+
+
+# embedding_bag's checks (phase 6): (label, dtype, ids, B, L); ids "paper"
+# is phase 12's draw, "zipf" zipf_rows, "uniform" uniform over the storage
+# (every row of a tile distinct: the tiled route's overflow case)
+EB_CASES = [
+    ("paper f32", "float32", "paper", PAPER_BAGS, PAPER_BAG),
+    ("paper bf16", "bfloat16", "paper", PAPER_BAGS, PAPER_BAG),
+    ("zipf f32", "float32", "zipf", PAPER_BAGS, PAPER_BAG),
+    ("zipf bf16", "bfloat16", "zipf", PAPER_BAGS, PAPER_BAG),
+    ("uniform f32", "float32", "uniform", PAPER_BAGS, PAPER_BAG),
+    ("B=1", "float32", "paper", 1, PAPER_BAG),
+    ("B=3 L=5 f32", "float32", "zipf", 3, 5),
+    ("B=3 L=5 bf16", "bfloat16", "zipf", 3, 5),
+]
+EB_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# an unaligned width (rows of 250 float32: not whole 128-byte slices) on a
+# storage of its own, which takes the per-bag route
+EB_UNALIGNED = (1_000_003, 250, 20_000, PAPER_BAG)
+
+
 def check_embedding_bag(dev, rng, plain):
-    """Phase 6: embedding_bag == plain within 1e-5 (f32) / 2e-2 (bf16),
-    counters exact; returns the max abs err per dtype."""
+    """Phase 6: embedding_bag == plain within EB_TOL, counters exact, each
+    case on the route ``kernel.route`` names; where that is the tiled
+    route, its output and counters equal the per-bag route's bit for bit.
+    Returns ({dtype: max abs err}, {label: route})."""
     import numpy as np
     import torch
     from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     st32 = paper_storage(dev, 2)
     n_counts = PAPER_STORAGE_ROWS // PAPER_BLOCK_ROWS
     carry = torch.from_numpy(rng.integers(0, 10, n_counts).astype(np.int32)
                              ).to(dev)
-    worst = {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        st = st32 if dtype == torch.float32 else st32.to(dtype)
-        err = 0.0
-        for b, l in ((PAPER_BAGS, PAPER_BAG), (3, 5)):
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    routes = {}
+    stores = {"float32": st32}
+
+    def one(label, st, idx, counts, dtype):
+        b, l = idx.shape
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, (b, l))
+                             .astype(np.float32)).to(dev)
+        routes[label] = eb_kernel.route(st.dtype, st.shape[1], l,
+                                        st.data_ptr() % 16 == 0)
+        before = eb_kernel.ROUTE_LAUNCHES[routes[label]]
+        out, got_counts = embedding_bag(st, idx, counts, w,
+                                        block_rows=PAPER_BLOCK_ROWS)
+        if eb_kernel.ROUTE_LAUNCHES[routes[label]] != before + 1:
+            fail(f"embedding_bag ({label}) did not take its {routes[label]} "
+                 f"route")
+        p_out, p_counts = embedding_bag(st, idx, counts, w,
+                                        block_rows=PAPER_BLOCK_ROWS,
+                                        backend=plain)
+        torch.cuda.synchronize()
+        diff = (out.float() - p_out.float()).abs()
+        err = float(diff.max())
+        worst[dtype] = max(worst[dtype], err)
+        tol = EB_TOL[dtype]
+        within = bool(torch.all(diff <= tol + tol * p_out.float().abs()))
+        if not (within and torch.equal(got_counts, p_counts)):
+            fail(f"embedding_bag differs from its plain version ({label}, "
+                 f"max abs err {err}, counts equal "
+                 f"{torch.equal(got_counts, p_counts)})")
+        if routes[label] == "tiled":
+            o_out, o_counts = eb_kernel._launch(
+                "per_bag", st, idx, w, counts, block_rows=PAPER_BLOCK_ROWS)
+            if not (torch.equal(out, o_out) and torch.equal(got_counts,
+                                                            o_counts)):
+                fail(f"embedding_bag's tiled route differs from the per-bag "
+                     f"route ({label}, max abs diff "
+                     f"{float((out.float() - o_out.float()).abs().max())})")
+
+    for label, dtype, ids, b, l in EB_CASES:
+        if dtype not in stores:
+            stores[dtype] = st32.to(getattr(torch, dtype))
+        if ids == "paper":
+            idx = paper_lookups(dev, b)
+        elif ids == "zipf":
             idx = torch.from_numpy(zipf_rows(rng, b * l, PAPER_STORAGE_ROWS)
                                    .reshape(b, l)).to(dev)
-            w = torch.from_numpy(rng.uniform(0.5, 1.5, (b, l))
-                                 .astype(np.float32)).to(dev)
-            out, counts = embedding_bag(st, idx, carry, w,
-                                        block_rows=PAPER_BLOCK_ROWS)
-            p_out, p_counts = embedding_bag(st, idx, carry, w,
-                                            block_rows=PAPER_BLOCK_ROWS,
-                                            backend=plain)
-            torch.cuda.synchronize()
-            diff = (out.float() - p_out.float()).abs()
-            err = max(err, float(diff.max()))
-            within = bool(torch.all(diff <= tol + tol * p_out.float().abs()))
-            if not (within and torch.equal(counts, p_counts)):
-                fail(f"embedding_bag differs from its plain version "
-                     f"({dtype}, B={b}, L={l}, max abs err {err}, counts "
-                     f"equal {torch.equal(counts, p_counts)})")
-        worst[str(dtype).split(".")[-1]] = err
-        del st
-    del st32
+        else:
+            idx = torch.from_numpy(rng.integers(0, PAPER_STORAGE_ROWS, (b, l))
+                                   .astype(np.int32)).to(dev)
+        one(label, stores[dtype], idx, carry, dtype)
+    del stores, st32
     free_device_memory()
-    return worst
+    n, d, b, l = EB_UNALIGNED
+    st = torch.empty((n, d), device=dev).normal_(
+        generator=torch.Generator(device=dev).manual_seed(4))
+    idx = torch.from_numpy(zipf_rows(rng, b * l, n).reshape(b, l)).to(dev)
+    one(f"D={d} f32", st, idx, torch.zeros(-(-n // PAPER_BLOCK_ROWS),
+                                           dtype=torch.int32, device=dev),
+        "float32")
+    want = {c[0]: "tiled" for c in EB_CASES}
+    want[f"D={d} f32"] = "per_bag"
+    if routes != want:
+        fail(f"embedding_bag routes {routes}, expected {want}")
+    del st
+    free_device_memory()
+    return worst, routes
 
 
 def offline_small_parity(dlrm_tiering, tracesim, datagen, mmap_bench):
@@ -369,6 +539,13 @@ FLASH_TIME_SHAPES = (("qwen2-0.5b", 4, 14, 2, 64),
 # bfloat16 at d=64 moved to the tensor cores (PERF.md's kernel table; NVIDIA
 # H100 80GB HBM3, 700 W)
 CUDA_CORE_BF16_QWEN_MS = 4.216
+# hist_select's and embedding_bag's times at phase 12's shapes before their
+# redesign for the card (PERF.md's kernel table; NVIDIA H100 80GB HBM3,
+# 700 W).  embedding_bag's was taken on an earlier lookup draw (the row
+# within a page came from the generator the earlier phases share; now from
+# a seed of its own), so the per-bag route timed in turns beside the tiled
+# one is the comparison on the same draw.
+BEFORE_MS = {"hist_select": 0.524, "embedding_bag": 0.431}
 
 
 def qkv(dev, seed: int, b, h, kvh, sq, sk, d, dtype):
@@ -748,8 +925,9 @@ def main(until: int = 17) -> None:
     def zero_counts() -> None:
         for mod in kernel_modules.values():
             mod.LAUNCHES = 0
-        for route in fa_kernel.ROUTE_LAUNCHES:
-            fa_kernel.ROUTE_LAUNCHES[route] = 0
+        for mod in (fa_kernel, eb_kernel):
+            for route in mod.ROUTE_LAUNCHES:
+                mod.ROUTE_LAUNCHES[route] = 0
 
     def read_counts() -> dict:
         return {name: mod.LAUNCHES for name, mod in kernel_modules.items()}
@@ -816,37 +994,38 @@ def main(until: int = 17) -> None:
         fail(f"unexpected shared-memory limit {shared_limit}")
 
     # ---------------------------------------- 4. hist_select vs plain, exact
-    n = PAPER_PAGES
-    keys = rng.integers(0, 40, (5, n)).astype(np.int32)          # heavy ties
-    keys[1] = rng.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64)
-    keys[2, : n // 2] = -2 ** 31                                   # sentinel
-    keys[3] = np.float32(rng.random(n) * (rng.random(n) < 0.1)).view(
-        np.int32)
-    keys_t = torch.from_numpy(keys).to(dev)
-    seg_bounds = (0, 1_000_003, 1_000_003 + 2_500_000, n)
-    lens = np.diff(seg_bounds)
-    seg = torch.from_numpy(np.repeat(np.arange(3, dtype=np.int32),
-                                     lens)).to(dev)
+    t0 = time.perf_counter()
+    hs_cases = hist_select_cases(dev, rng, datagen, DLRMScenario)
     worst = 0
-    cases = [(None, (PAPER_K_HOT,)), (None, (0,)), (None, (n,)),
-             (None, (1,)), (seg, (0, int(lens[1]), 7_777))]
-    for sg, ks in cases:
-        got = kth_key(keys_t, sg, ks)
-        ref = kth_key(keys_t, sg, ks, backend=plain)
+    for label, rows_t, sg, ks in hs_cases:
+        before = hs_kernel.LAUNCHES
+        got = kth_key(rows_t, sg, ks)
+        if hs_kernel.LAUNCHES != before + 1:
+            fail(f"hist_select ({label}) did not launch once")
+        ref = kth_key(rows_t, sg, ks, backend=plain)
         torch.cuda.synchronize()
-        worst = max(worst, int((got - ref).abs().max()))
+        err = int((got - ref).abs().max())
+        worst = max(worst, err)
+        if err != 0:
+            fail(f"hist_select differs from its plain version ({label}, "
+                 f"ks {ks}, max abs err {err})")
     # and the whole selection built on it, against the plain threshold
+    keys_t = hs_cases[0][1]
     v1, i1, s1 = selectk.select_top_k(keys_t, PAPER_K_HOT, return_mask=True)
     v2, i2, s2 = selectk.select_top_k(keys_t, PAPER_K_HOT, return_mask=True,
                                       backend=plain)
     sel_equal = bool(torch.equal(v1, v2) and torch.equal(i1, i2)
                      and torch.equal(s1, s2))
-    say("hist_select", rows=5, n=n, cases=[list(c[1]) for c in cases],
-        max_abs_err=worst, select_top_k_equal=sel_equal)
+    say("hist_select", cases=[[c[0], list(c[1].shape), list(c[3])]
+                              for c in hs_cases],
+        max_abs_err=worst, select_top_k_equal=sel_equal,
+        seconds=time.perf_counter() - t0)
     errors["hist_select"] = worst
-    if worst != 0 or not sel_equal:
-        fail(f"hist_select differs from its plain version (max abs err "
-             f"{worst}, select_top_k equal {sel_equal})")
+    if not sel_equal:
+        fail("select_top_k on the kernel's threshold differs from the plain "
+             "version's")
+    del hs_cases, keys_t
+    free_device_memory()
 
     # --------------------------------------- 5. gather_count vs plain, exact
     t0 = time.perf_counter()
@@ -857,11 +1036,12 @@ def main(until: int = 17) -> None:
 
     # ------------------------------------------ 6. embedding_bag vs plain
     t0 = time.perf_counter()
-    eb_err = check_embedding_bag(dev, rng, plain)
+    eb_err, eb_routes = check_embedding_bag(dev, rng, plain)
     errors["embedding_bag"] = eb_err["float32"]
     say("embedding_bag", storage=[PAPER_STORAGE_ROWS, PAPER_DIM],
-        bags=[[PAPER_BAGS, PAPER_BAG], [3, 5]], max_abs_err=eb_err,
-        tolerance={"float32": 1e-5, "bfloat16": 2e-2}, counts_exact=True,
+        cases=[list(c) for c in EB_CASES], unaligned=list(EB_UNALIGNED),
+        routes=eb_routes, max_abs_err=eb_err, tolerance=EB_TOL,
+        counts_exact=True, tiled_equals_per_bag_bitwise=True,
         seconds=time.perf_counter() - t0)
 
     if until < 7:
@@ -985,9 +1165,11 @@ def main(until: int = 17) -> None:
                                                           device=dev))
     ex_wall = time.perf_counter() - t0
     ex_launches = read_counts()
+    ex_routes = dict(eb_kernel.ROUTE_LAUNCHES)
     say("offline_example", rows=ex["n_rows"], dim=ex["dim"],
         blocks=ex["n_blocks"], slots=ex["n_slots"], bags=ex["batch"],
         bag=ex["bag"], launches=ex_launches,
+        embedding_bag_routes=ex_routes,
         promoted=ex["fast_occupancy"], hit_rate=ex["hit_rate"],
         tiered_vs_dram=ex["tiered_vs_dram"],
         tiered_us=ex["tiered_s"] * 1e6, dram_only_us=ex["dram_only_s"] * 1e6,
@@ -998,8 +1180,10 @@ def main(until: int = 17) -> None:
     if not (ex_launches["embedding_bag"] == 20
             and ex_launches["gather_count"] == 5
             and ex_launches["hist_select"] >= 1
-            and ex_launches["observe_scatter"] == 0):
-        fail(f"offline example launches {ex_launches}")
+            and ex_launches["observe_scatter"] == 0
+            and ex_routes == {"tiled": 20, "per_bag": 0}):
+        fail(f"offline example launches {ex_launches}, embedding_bag routes "
+             f"{ex_routes}")
     if not ex["gathered_equal"]:
         fail("gathered rows differ from the table's")
     if not (ex["n_slots"] == PAPER_SLOTS
@@ -1055,6 +1239,7 @@ def main(until: int = 17) -> None:
     if until < 12:
         fail(f"stopped after phase {until} (--until)")
     # --------------------------------------- 12. kernel times, paper shapes
+    n = PAPER_PAGES
     ids = torch.from_numpy(epochs[0][0]).to(dev)
     cursor = torch.zeros((), dtype=torch.int32, device=dev)
     m = ids.numel()
@@ -1065,23 +1250,22 @@ def main(until: int = 17) -> None:
     os_lib = time_ms(lambda: torch.bincount(ids, minlength=n), 20)
     os_bound, os_by = bound_ms(4 * m + 2 * 4 * n, 2 * m)
 
-    h0 = observe_scatter(ids, cursor, n_blocks=n, period=401)[0]
-    h1 = observe_scatter(torch.from_numpy(epochs[1][0]).to(dev), cursor,
-                         n_blocks=n, period=401)[0]
-    hf = h0.to(torch.float32)
-    rows = torch.stack([
-        h0, (h0 > 0).to(torch.int32), selectk.sortable_key(0.5 * hf),
-        selectk.sortable_key(torch.where(h0 > 0, hf / hf.max(), -1.0)),
-        selectk.sortable_key(h1.to(torch.float32) / h1.max())]).contiguous()
+    rows = selection_rows(dev, epochs[0][0], epochs[1][0])
     ks = (PAPER_K_HOT,)
     hs_ms, hs_plain = in_turns(lambda: kth_key(rows, None, ks, backend=plain),
                                lambda: kth_key(rows, None, ks), 10)
-    hs_lib = time_ms(lambda: torch.kthvalue(rows, n - PAPER_K_HOT + 1,
+    kth_ms = time_ms(lambda: torch.kthvalue(rows, n - PAPER_K_HOT + 1,
                                             dim=-1), 10)
+    topk_ms = time_ms(lambda: torch.topk(rows, PAPER_K_HOT, dim=-1,
+                                         sorted=False), 10)
+    hs_lib = min(kth_ms, topk_ms)
     lib_t = torch.kthvalue(rows, n - PAPER_K_HOT + 1, dim=-1).values
-    if not torch.equal(lib_t.to(torch.int64) + 2 ** 31,
-                       kth_key(rows, None, ks)[:, 0]):
-        fail("hist_select disagrees with torch.kthvalue")
+    top_min = torch.topk(rows, PAPER_K_HOT, dim=-1, sorted=False
+                         ).values.min(dim=-1).values
+    got_t = kth_key(rows, None, ks)[:, 0]
+    if not (torch.equal(lib_t.to(torch.int64) + 2 ** 31, got_t)
+            and torch.equal(top_min.to(torch.int64) + 2 ** 31, got_t)):
+        fail("hist_select disagrees with torch.kthvalue / torch.topk")
     hs_bound, hs_by = bound_ms(4 * rows.numel(), 4 * rows.numel())
 
     # gather_count and embedding_bag at the offline path's paper shapes: a
@@ -1089,7 +1273,11 @@ def main(until: int = 17) -> None:
     # draws them (Zipf pages x 4 + a row within the page).  The bound reads
     # each distinct row once, as the data needs, and counts the counters'
     # read and write.
-    del h0, h1, hf, rows
+    say("hist_select_time", rows=list(rows.shape), k=PAPER_K_HOT, ms=hs_ms,
+        plain_ms=hs_plain, kthvalue_ms=kth_ms, topk_ms=topk_ms,
+        before_ms=BEFORE_MS["hist_select"], bound_ms=hs_bound,
+        share_of_bound=hs_bound / hs_ms)
+    del rows, lib_t, top_min, got_t
     free_device_memory()
     storage = paper_storage(dev, 3)
     slow = storage[PAPER_SLOTS * PAPER_BLOCK_ROWS:]
@@ -1097,10 +1285,7 @@ def main(until: int = 17) -> None:
     n_phys = PAPER_STORAGE_ROWS // PAPER_BLOCK_ROWS
     m_rows = PAPER_BAGS * PAPER_BAG
     row_bytes = PAPER_DIM * 4
-    pages = datagen.ZipfPageSampler(datagen.PAPER, seed=1).sample(m_rows)
-    logical = (pages.astype(np.int64) * PAPER_BLOCK_ROWS
-               + rng.integers(0, PAPER_BLOCK_ROWS, m_rows)).astype(np.int32)
-    e_idx = torch.from_numpy(logical.reshape(PAPER_BAGS, PAPER_BAG)).to(dev)
+    e_idx = paper_lookups(dev)
     g_idx = e_idx.reshape(-1) + PAPER_SLOTS * PAPER_BLOCK_ROWS  # slow region
     distinct = int(torch.unique(e_idx).numel())
     g_counts = torch.zeros(n_phys, dtype=torch.int32, device=dev)
@@ -1124,6 +1309,16 @@ def main(until: int = 17) -> None:
                               block_rows=PAPER_BLOCK_ROWS, backend=plain),
         lambda: embedding_bag(slow, e_idx, e_counts, w,
                               block_rows=PAPER_BLOCK_ROWS), 10)
+    if eb_kernel.route(slow.dtype, PAPER_DIM, PAPER_BAG,
+                       slow.data_ptr() % 16 == 0) != "tiled":
+        fail("the paper shape does not take embedding_bag's tiled route")
+    # the per-bag route (the kernel before the redesign) beside the tiled
+    # one, in turns
+    eb_tiled_ms, eb_per_bag_ms = in_turns(
+        lambda: eb_kernel._launch("per_bag", slow, e_idx, w, e_counts,
+                                  block_rows=PAPER_BLOCK_ROWS),
+        lambda: embedding_bag(slow, e_idx, e_counts, w,
+                              block_rows=PAPER_BLOCK_ROWS), 10)
     e_idx64 = e_idx.to(torch.int64)
     eb_lib = time_ms(lambda: (
         torch.nn.functional.embedding_bag(e_idx64, slow, mode="sum",
@@ -1141,6 +1336,9 @@ def main(until: int = 17) -> None:
         gather_count_ms=gc_ms, gather_count_plain_ms=gc_plain,
         gather_count_library_ms=gc_lib, gather_count_bound_ms=gc_bound,
         embedding_bag_ms=eb_ms, embedding_bag_plain_ms=eb_plain,
+        embedding_bag_tiled_ms=eb_tiled_ms,
+        embedding_bag_per_bag_ms=eb_per_bag_ms,
+        embedding_bag_before_ms=BEFORE_MS["embedding_bag"],
         embedding_bag_library_ms=eb_lib, embedding_bag_bound_ms=eb_bound,
         embedding_bag_vs_library_max_abs_err=eb_lib_err,
         bound_if_every_row_read=bound_ms(
@@ -1251,9 +1449,11 @@ def main(until: int = 17) -> None:
          "max_abs_err": errors["gather_count"], "ms": gc_ms,
          "plain_ms": gc_plain, "bound_ms": gc_bound, "bound_by": gc_by,
          "library_ms": gc_lib},
+        # the tiled route: all 20 of the offline example's launches (phase
+        # 9 checks), its time at the paper shape
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/kernels/embedding_bag/csrc/"
-                   "embedding_bag.cu",
+                   "embedding_bag_tiled.cuh",
          "replaces": "src/repro/kernels/embedding_bag/kernel.py:27",
          "launches": ex_launches["embedding_bag"],
          "max_abs_err": errors["embedding_bag"], "ms": eb_ms,

@@ -13,13 +13,18 @@
 // with L async copies and pools them as a (1, L) x (L, D) product on the
 // matrix unit.  A bag is a weighted sum of L rows: far too little work per
 // byte for the tensor cores, so here:
+// Two routes compute it (the wrapper's kernel.route picks one from the dtype,
+// D, L and alignment): the tiled route (embedding_bag_tiled.cuh), which
+// serves a tile's repeated rows from shared memory, and this per-bag kernel
+// for the shapes the tiled route does not take:
 //   * one warp per bag (grid-stride over bags); the warp loads up to 32 of
 //     the bag's ids and weights at once (lane l holds entry l) and
 //     broadcasts each with __shfl_sync;
 //   * each lane owns VEC consecutive columns (16-byte loads: 4 f32 or 8
 //     bf16 when the row allows, else 1) and walks the columns in chunks of
-//     32 * VEC, accumulating l = 0 .. L-1 in order in f32 registers, so the
-//     registers a lane needs do not grow with D;
+//     32 * VEC, accumulating l = 0 .. L-1 in order in f32 registers (one
+//     fused multiply-add each, as the tiled route), so the registers a lane
+//     needs do not grow with D;
 //   * the counters take warp-aggregated int32 atomics (lanes holding the
 //     same block add once, __match_any_sync): exact in any order;
 //   * element offsets are 64-bit (row * D overflows int32 at the paper's
@@ -90,6 +95,12 @@ template <> struct Vec<__nv_bfloat16, 8> {
   }
 };
 
+}  // namespace
+
+#include "embedding_bag_tiled.cuh"
+
+namespace {
+
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 embedding_bag_kernel(const T* __restrict__ storage, const int* __restrict__ idx,
@@ -129,7 +140,7 @@ embedding_bag_kernel(const T* __restrict__ storage, const int* __restrict__ idx,
             float x[VEC];
             Vec<T, VEC>::load(storage + row * dim + c, x);
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) acc[v] += wj * x[v];
+            for (int v = 0; v < VEC; ++v) acc[v] = __fmaf_rn(wj, x[v], acc[v]);
           }
         }
       }
@@ -175,6 +186,20 @@ int embedding_bag_launch(const void* storage, const int* idx, const float* w,
     return launch<__nv_bfloat16, 8>(storage, idx, w, n_bags, bag_len, dim, block_rows, counts, out, s);
   if (dtype == 1 && vec == 1)
     return launch<__nv_bfloat16, 1>(storage, idx, w, n_bags, bag_len, dim, block_rows, counts, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tiled route: 16-byte aligned storage and out, D * sizeof(T) a multiple
+// of 128 bytes, 1 <= L <= 1,024 (else cudaErrorInvalidValue).
+int embedding_bag_tiled_launch(const void* storage, const int* idx,
+                               const float* w, long long n_bags, int bag_len,
+                               int dim, int dtype, int block_rows, int* counts,
+                               void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_tiled<float>(storage, idx, w, n_bags, bag_len, dim, block_rows, counts, out, s);
+  if (dtype == 1)
+    return launch_tiled<__nv_bfloat16>(storage, idx, w, n_bags, bag_len, dim, block_rows, counts, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

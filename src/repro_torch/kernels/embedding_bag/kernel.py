@@ -1,27 +1,55 @@
-"""ctypes wrapper around ``csrc/embedding_bag.cu`` (see the note there for
-what it replaces, what bounds it and how).
+"""ctypes wrapper around ``csrc/embedding_bag.cu`` (see the notes there and
+in ``csrc/embedding_bag_tiled.cuh`` for what they replace, what bounds them
+and how).
+
+Two kernels, one function.  :func:`route` picks one from the dtype, D, L and
+alignment, fixed in code: 16-byte aligned storage whose rows are whole
+128-byte slices (D a multiple of 32 in float32, of 64 in bfloat16) with
+1 <= L <= 1,024 takes the tiled kernel (``"tiled"``: a tile's repeated rows
+served from shared memory); everything else the per-bag kernel
+(``"per_bag"``).  Both give the same bits where both apply.  A launch that
+fails raises; no route stands in for another.
 
 The wrapper checks its inputs, allocates the pooled output and the new
 counts (a copy of the carry-in that the kernel adds into), picks the load
 width, launches on the current stream and raises if the launch failed.
-``LAUNCHES`` counts the launches.
+``LAUNCHES`` counts the launches of both routes, ``ROUTE_LAUNCHES`` each
+route's.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
 
-__all__ = ["LAUNCHES", "embedding_bag_cuda"]
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "TILE_LOOKUPS", "embedding_bag_cuda",
+           "route"]
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"tiled": 0, "per_bag": 0}
+
+TILE_LOOKUPS = 1024     # most lookups a bag may have on the tiled route
+SLICE_BYTES = 128       # the tiled route's column slice
 
 _P = ctypes.c_void_p
 # dtype code and elements per 16-byte load, per storage dtype
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
+
+
+def route(dtype: torch.dtype, d: int, bag_len: int, aligned: bool) -> str:
+    """The kernel that computes an embedding bag of ``dtype`` rows of width
+    ``d`` and bags of ``bag_len`` lookups, over a storage whose address is
+    16-byte aligned (``aligned``): ``"tiled"`` or ``"per_bag"``."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"storage must be float32 or bfloat16, got {dtype}")
+    row_bytes = d * torch.finfo(dtype).bits // 8
+    if aligned and d > 0 and row_bytes % SLICE_BYTES == 0 \
+            and 1 <= bag_len <= TILE_LOOKUPS:
+        return "tiled"
+    return "per_bag"
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,6 +59,10 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P]
         lib.embedding_bag_launch.restype = ctypes.c_int
+        lib.embedding_bag_tiled_launch.argtypes = [
+            _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _P, _P, _P]
+        lib.embedding_bag_tiled_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -39,7 +71,19 @@ def embedding_bag_cuda(storage: torch.Tensor, indices: torch.Tensor,
                        weights: torch.Tensor, counts: torch.Tensor, *,
                        block_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, D) storage, (B, L) int32 ids, (B, L) float32 weights,
-    (n_blocks,) int32 counts -> ((B, D) pooled rows, counts + hits)."""
+    (n_blocks,) int32 counts -> ((B, D) pooled rows, counts + hits), on
+    :func:`route`'s kernel."""
+    return _launch(None, storage, indices, weights, counts,
+                   block_rows=block_rows)
+
+
+def _launch(way: Optional[str], storage: torch.Tensor, indices: torch.Tensor,
+            weights: torch.Tensor, counts: torch.Tensor, *, block_rows: int,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`embedding_bag_cuda` on the kernel ``way`` names (``"tiled"``
+    or ``"per_bag"``), or on :func:`route`'s when it is None.  Naming one
+    holds the two routes against each other on the card; ``"tiled"`` still
+    fails on a shape that route does not take."""
     global LAUNCHES
     dev = storage.device
     if dev.type != "cuda":
@@ -69,14 +113,26 @@ def embedding_bag_cuda(storage: torch.Tensor, indices: torch.Tensor,
     if b == 0 or d == 0:
         return out, new_counts
     code, vec = _DTYPES[storage.dtype]
-    if d % vec or any(p % 16 for p in (storage.data_ptr(), out.data_ptr())):
-        vec = 1
+    way = way or route(storage.dtype, d, l, storage.data_ptr() % 16 == 0)
+    if way not in ROUTE_LAUNCHES:
+        raise ValueError(f"no route {way!r}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().embedding_bag_launch(
-            storage.data_ptr(), indices.data_ptr(), weights.data_ptr(), b, l,
-            d, code, vec, block_rows, new_counts.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if way == "tiled":
+            rc = _lib().embedding_bag_tiled_launch(
+                storage.data_ptr(), indices.data_ptr(), weights.data_ptr(), b,
+                l, d, code, block_rows, new_counts.data_ptr(), out.data_ptr(),
+                stream)
+        else:
+            if d % vec or any(p % 16 for p in (storage.data_ptr(),
+                                               out.data_ptr())):
+                vec = 1
+            rc = _lib().embedding_bag_launch(
+                storage.data_ptr(), indices.data_ptr(), weights.data_ptr(), b,
+                l, d, code, vec, block_rows, new_counts.data_ptr(),
+                out.data_ptr(), stream)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[way] += 1
     if rc != 0:
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {rc}")
     return out, new_counts

@@ -1,9 +1,10 @@
 """ctypes wrapper around ``csrc/hist_select.cu`` (see the note there for what
 it replaces, what bounds it and how).
 
-The wrapper checks its inputs, allocates the output and the scratch
-(``k_rem`` and the ``(B, S, 256)`` bins), launches on the current stream and
-raises if the launch failed.  The per-segment widths reach the kernel as one
+The wrapper checks its inputs, allocates the output and the scratch (the
+``(B, S)`` search state, and the zeroed ``(B, S, 3, bins)`` global bins,
+``(B,)`` tickets and the passes' lists of open rows), launches on the
+current stream and raises if the launch failed.  The per-segment widths reach the kernel as one
 device tensor cached per static ``ks`` tuple (uploaded once, from pinned
 memory), so a call makes no host->device copy.  ``LAUNCHES`` counts the
 calls that launched.
@@ -32,10 +33,14 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.hist_select_launch.argtypes = [
             _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            _P, _P, _P, _P]
+            _P, _P, _P, _P, _P, _P]
         lib.hist_select_launch.restype = ctypes.c_int
         lib.hist_select_max_segments.argtypes = []
         lib.hist_select_max_segments.restype = ctypes.c_int
+        lib.hist_select_digit_bits.argtypes = []
+        lib.hist_select_digit_bits.restype = ctypes.c_int
+        lib.hist_select_passes.argtypes = []
+        lib.hist_select_passes.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -79,12 +84,16 @@ def kth_key_cuda(keys: torch.Tensor, seg_ids: Optional[torch.Tensor],
         out = torch.empty((rows, segs), dtype=torch.int64, device=dev)
         if rows == 0 or n == 0:
             return out.fill_(0xFFFFFFFF)
-        krem = torch.empty((rows, segs), dtype=torch.int32, device=dev)
-        bins = torch.empty((rows, segs, 256), dtype=torch.int32, device=dev)
+        state = torch.empty((rows, segs, 4), dtype=torch.int32, device=dev)
+        n_bins = rows * segs * 3 << lib.hist_select_digit_bits()
+        passes = lib.hist_select_passes()
+        scratch = torch.zeros(n_bins + rows + passes * (rows + 1),
+                              dtype=torch.int32, device=dev)
         rc = lib.hist_select_launch(
             keys.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(),
             _ks_tensor(ks, dev).data_ptr(), rows, n, segs, out.data_ptr(),
-            krem.data_ptr(), bins.data_ptr(),
+            state.data_ptr(), scratch.data_ptr(),
+            scratch[n_bins:].data_ptr(), scratch[n_bins + rows:].data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES += 1
     if rc != 0:

@@ -8,7 +8,9 @@ Tolerance: exact for observe_scatter, hist_select and gather_count — they
 compute integers or copy rows, and int32 atomics give the same counts in
 any order.  embedding_bag's pooled rows: 1e-5 (float32) and 2e-2
 (bfloat16), relative and absolute — the kernel and the plain version sum
-the same float32 products in different orders; its counts are exact.
+the same float32 products in different orders; its counts are exact; and
+its tiled route equals its per-bag route bit for bit (the same sums in
+the same order).
 flash_attention: an online softmax against a one-pass softmax, both in
 float32.  float32 outputs: 2e-5, relative and absolute, the JAX kernel
 tests' own.  bfloat16 outputs: both round once from float32, so they may
@@ -82,6 +84,125 @@ def test_hist_select_kernel_matches_plain(cuda, n):
         assert torch.equal(kth_key(keys_t, sg, ks),
                            kth_key(keys_t, sg, ks, backend=PLAIN))
     assert hs_kernel.LAUNCHES == before + 4
+
+
+def _every_pass_keys(rng, shape):
+    """Keys whose bytes come from {0, 1, 254, 255}: the search needs every
+    pass (tests/test_torch_kernel_designs.py)."""
+    b = rng.choice(np.asarray([0, 1, 254, 255], np.uint32), size=shape + (4,))
+    u = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+    return u.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("n", [5, 6, 7, 100_001, 100_002, 100_003])
+def test_hist_select_unaligned_rows_and_padding(cuda, rows, n):
+    """n % 4 != 0: rows after the first start off a 16-byte boundary (a
+    scalar head and tail); S=3 with padding; k = 0 and k = |segment|; rows
+    that stop after one pass (one tie value) and rows that need every
+    pass."""
+    rng = np.random.default_rng(n + rows)
+    keys = rng.integers(-5, 6, (rows, n)).astype(np.int32)
+    keys[:, ::3] = rng.integers(-2 ** 31, 2 ** 31 - 1, keys[:, ::3].shape,
+                                dtype=np.int64)
+    ties = np.where(rng.random((rows, n)) < 0.02, 7, 0).astype(np.float32)
+    hard = _every_pass_keys(rng, (rows, n))
+    seg = np.minimum(np.arange(n) * 3 // n, 2).astype(np.int32)
+    seg[1::7] = -1
+    seg[-1] = -1
+    lens = [int((seg == s).sum()) for s in range(3)]
+    seg_t = torch.from_numpy(seg).to(cuda)
+    before = hs_kernel.LAUNCHES
+    calls = 0
+    for x in (keys, ties.view(np.int32), hard):
+        x_t = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+        for sg, ks in ((None, (0,)), (None, (1,)), (None, (n // 2 + 1,)),
+                       (None, (n,)), (seg_t, (lens[0], 0, lens[2]))):
+            got = kth_key(x_t, sg, ks)
+            calls += 1
+            assert torch.equal(got, kth_key(x_t, sg, ks, backend=PLAIN)), \
+                (ks, sg is None)
+    assert hs_kernel.LAUNCHES == before + calls
+
+
+@pytest.mark.cuda
+def test_hist_select_offset_row(cuda):
+    """One row that starts 4 bytes past an allocation (a 12-byte head)."""
+    rng = np.random.default_rng(4)
+    flat = torch.from_numpy(rng.integers(-9, 9, 70_004).astype(np.int32)
+                            ).to(cuda)
+    row = flat[1:].view(1, -1)
+    for k in (1, 12_345, 70_003):
+        assert torch.equal(kth_key(row, None, (k,)),
+                           kth_key(row, None, (k,), backend=PLAIN))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ids,b", [("zipf", 5_000), ("uniform", 3_000),
+                                   ("zipf", 1), ("hot", 640),
+                                   ("ragged", 999)])
+def test_embedding_bag_tiled_route_equals_per_bag(cuda, dtype, ids, b):
+    """D=256 at L=16 takes the tiled route: within the plain version's
+    tolerance, and equal to the per-bag route bit for bit (counters too);
+    uniform ids overflow the on-chip rows of a tile."""
+    rng = np.random.default_rng(b)
+    n, d, l = 50_000, 256, 16
+    storage = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
+        .to(cuda, dtype)
+    if ids == "zipf":
+        idx = (rng.zipf(1.3, (b, l)) - 1) % n
+    elif ids == "ragged":                 # L % 4 != 0: entries one by one
+        idx = (rng.zipf(1.3, (b, 13)) - 1) % n
+    elif ids == "hot":
+        idx = rng.integers(0, 200, (b, l))
+    else:
+        idx = rng.integers(0, n, (b, l))
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    l = idx.shape[1]
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (b, l)).astype(np.float32)) \
+        .to(cuda)
+    counts = torch.full((n // 4,), 3, dtype=torch.int32, device=cuda)
+    assert eb_kernel.route(dtype, d, l, True) == "tiled"
+    before = dict(eb_kernel.ROUTE_LAUNCHES)
+    got = embedding_bag(storage, idx, counts, w, block_rows=4)
+    assert eb_kernel.ROUTE_LAUNCHES == {"tiled": before["tiled"] + 1,
+                                        "per_bag": before["per_bag"]}
+    old = eb_kernel._launch("per_bag", storage, idx, w, counts, block_rows=4)
+    ref = embedding_bag(storage, idx, counts, w, block_rows=4, backend=PLAIN)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got[0].float(), ref[0].float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,l", [(250, 16), (20, 16), (256, 1_500)])
+def test_embedding_bag_per_bag_route_shapes(cuda, d, l):
+    """Rows that are not whole 128-byte slices, and bags longer than a
+    tile, take the per-bag route; the tiled kernel refuses them.  (The
+    float32 atol grows with L: an L-term sum in two orders.)"""
+    rng = np.random.default_rng(d + l)
+    n, b = 10_000, 37
+    storage = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
+        .to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, (b, l)).astype(np.int32)) \
+        .to(cuda)
+    counts = torch.zeros(n // 4, dtype=torch.int32, device=cuda)
+    assert eb_kernel.route(storage.dtype, d, l, True) == "per_bag"
+    before = eb_kernel.ROUTE_LAUNCHES["per_bag"]
+    got = embedding_bag(storage, idx, counts, None, block_rows=4)
+    assert eb_kernel.ROUTE_LAUNCHES["per_bag"] == before + 1
+    ref = embedding_bag(storage, idx, counts, None, block_rows=4,
+                        backend=PLAIN)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-5 * l / 16)
+    assert torch.equal(got[1], ref[1])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eb_kernel._launch(
+            "tiled", storage, idx, torch.ones_like(idx, dtype=torch.float32),
+            counts, block_rows=4)
 
 
 @pytest.mark.cuda
