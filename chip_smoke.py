@@ -10,8 +10,15 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
 2. build: the five kernels' CUDA sources compiled from
    ``src/repro_torch/**/csrc``, one ``nvcc`` each, in parallel (seconds and
    the ``ptxas`` register and spill report of each);
-3. observe_scatter vs its plain version, exact, on the shared-memory path
-   (5,000 blocks) and the global-atomics path (5,242,880 blocks);
+3. observe_scatter vs its plain version, exact, with and without a keep
+   mask, each case on the table mode ``kernel.table_mode`` names (direct:
+   slot = id; hashed): 5,000 blocks (SMALL) and 88 (the KV scenario);
+   5,242,880 blocks on a Zipf draw, the online path's first batch (phase
+   12's draw) at cursor 0 and at cursor = period - 1, a draw with a
+   quarter of the ids on one page, all-distinct ids (they overflow every
+   table) and ids that start 4 bytes past their allocation; n_blocks at
+   the direct-map limit and one above it; the direct table's cases again
+   on the hashed table, and the direct table above its limit refused;
 4. hist_select vs its plain version, exact, one launch per call: 5 x
    5,242,880 mixed keys, S=1 and S=3, with caps of 0 and of the full
    segment and heavy ties; the online path's own rows (phase 12's, which
@@ -49,8 +56,10 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     under cProfile;
 12. kernel times at the paper-scale shapes (CUDA events), beside the bound,
     the plain version and one PyTorch library call (for hist_select the
-    faster of ``kthvalue`` and ``topk``), the two redesigned kernels' times
-    before their redesign beside theirs, and embedding_bag's per-bag route
+    faster of ``kthvalue`` and ``topk``), the three redesigned kernels' times
+    before their redesign beside theirs, observe_scatter on three draws
+    (the online path's batch, uniform ids, one page) with the zeroing of
+    its outputs timed alone, and embedding_bag's per-bag route
     timed in turns with the tiled one; then the online paper run once more
     under ``torch.profiler``: device busy time, idle share and the kernels
     that take the most device time;
@@ -138,14 +147,23 @@ def bound_ms(n_bytes: float, n_ops: float,
                                        else "operations")
 
 
+# cycles the card spins before a timed run, so that the host enqueues the
+# run's calls while it waits (about 60 ms at the H100's clock)
+SPIN_CYCLES = 100_000_000
+
+
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up."""
+    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up.
+    The calls queue up behind a spin of the card, so a host slower than
+    the card at enqueueing them (as at observe_scatter's paper shape) does
+    not show in the time."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -220,6 +238,87 @@ def zipf_rows(rng, m: int, n_rows: int):
     heads = (rng.zipf(1.3, m) - 1) % n_rows
     return np.where(rng.random(m) < 0.5, heads,
                     rng.integers(0, n_rows, m)).astype(np.int32)
+
+
+def observe_scatter_draws(dev, paper_ids) -> dict:
+    """observe_scatter's id streams at the paper shape (2.4 M ids into
+    5,242,880 pages), as phase 12 times them: the online path's first batch
+    (Zipf 1.31; its hottest page takes about a quarter of the ids), uniform
+    ids (few repeats: atomics seldom meet) and one page (all of them do)."""
+    import torch
+    m = paper_ids.numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    return {"paper": paper_ids,
+            "uniform": torch.randint(0, PAPER_PAGES, (m,), generator=gen,
+                                     device=dev, dtype=torch.int32),
+            "one_page": torch.full((m,), 4_321, dtype=torch.int32,
+                                   device=dev)}
+
+
+def observe_scatter_cases(dev, rng, paper_ids, direct_limit: int):
+    """Phase 3's cases: (label, ids, n_blocks, cursor, period).  Ids reach
+    past both ends of the range where the draw allows (negatives wrap once,
+    the rest drop)."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def zipf(m, n):                     # -3 .. n + 2
+        return (rng.zipf(1.3, m) - 1) % (n + 6) - 3
+
+    n, m = PAPER_PAGES, 2_400_001
+    quarter = np.where(rng.random(m) < 0.25, 77, rng.integers(-3, n + 3, m))
+    # 4 bytes past the allocation: a 12-byte scalar head
+    offset = t(zipf(m + 1, n))[1:]
+    return [("small", t(zipf(40_003, 5_000)), 5_000, 123, 401),
+            ("kv", t(zipf(16_384, 88)), 88, 5, 401),
+            ("zipf", t(zipf(m, n)), n, 123, 401),
+            ("phase-12 draw", paper_ids, n, 0, 401),
+            ("phase-12 draw, cursor = period - 1", paper_ids, n, 400, 401),
+            ("quarter on one page", t(quarter), n, 123, 401),
+            ("all distinct", t(rng.permutation(n)[:m]), n, 123, 401),
+            ("offset by 4 bytes", offset, n, 123, 401),
+            ("direct-map limit", t(zipf(200_003, direct_limit)),
+             direct_limit, 9, 13),
+            ("direct-map limit + 1", t(zipf(200_003, direct_limit + 1)),
+             direct_limit + 1, 9, 13)]
+
+
+def observe_scatter_time(dev, plain, paper_ids) -> dict:
+    """Phase 12: observe_scatter at the paper shape on observe_scatter_draws
+    (the online path's batch gives the kernels line), in turns with the
+    plain version, beside ``bincount``; each call zeroes its two outputs,
+    and the zeroing is timed alone."""
+    import torch
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    from repro_torch.kernels.observe_scatter import observe_scatter
+    n, m = PAPER_PAGES, paper_ids.numel()
+    cursor = torch.zeros((), dtype=torch.int32, device=dev)
+    draws = {}
+    for label, ids in observe_scatter_draws(dev, paper_ids).items():
+        k_ms, p_ms = in_turns(
+            lambda: observe_scatter(ids, cursor, n_blocks=n, period=401,
+                                    backend=plain),
+            lambda: observe_scatter(ids, cursor, n_blocks=n, period=401), 20)
+        draws[label] = {
+            "ms": k_ms, "plain_ms": p_ms,
+            "bincount_ms": time_ms(lambda: torch.bincount(ids, minlength=n),
+                                   20),
+            "distinct": int(torch.unique(ids).numel())}
+    zero_ms = time_ms(lambda: (torch.zeros(n, dtype=torch.int32, device=dev),
+                               torch.zeros(n, dtype=torch.int32, device=dev)),
+                      20)
+    bound, by = bound_ms(4 * m + 2 * 4 * n, 2 * m)
+    out = {"m": m, "n_blocks": n, "mode": os_kernel.table_mode(n),
+           "draws": draws, "zeroing_ms": zero_ms, "bound_ms": bound,
+           "bound_by": by, "before_ms": BEFORE_MS["observe_scatter"],
+           "before_ms_without_spin": BEFORE_NO_SPIN_MS["observe_scatter"],
+           "share_of_bound": bound / draws["paper"]["ms"]}
+    say("observe_scatter_time", **out)
+    return out
 
 
 def selection_rows(dev, ids0, ids1):
@@ -301,6 +400,68 @@ def hist_select_cases(dev, rng, datagen, DLRMScenario):
         cases.append((f"n={m}, offset row", flat[1:].view(1, m), None,
                       (max(m // 3, 1),)))
     return cases
+
+
+def check_observe_scatter(dev, rng, plain, paper_ids) -> int:
+    """Phase 3: every case of observe_scatter_cases, with and without a
+    keep mask, against the plain version, exactly, on the table mode
+    ``kernel.table_mode`` names, and the direct table's cases on the hashed
+    table too; the direct table above its limit must be refused -> the
+    largest difference (0)."""
+    import torch
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    from repro_torch.kernels.observe_scatter import observe_scatter
+    t0 = time.perf_counter()
+    direct_limit = os_kernel.shared_limit()
+    if not 5_000 <= direct_limit < PAPER_PAGES:
+        fail(f"unexpected direct-map limit {direct_limit}")
+    os_modes, worst = {}, 0
+    for label, ids, n_blocks, cur, period in observe_scatter_cases(
+            dev, rng, paper_ids, direct_limit):
+        keep = torch.from_numpy(rng.random(ids.numel()) < 0.7).to(dev)
+        if label == "offset by 4 bytes":
+            keep = torch.from_numpy(rng.random(ids.numel() + 1) < 0.7
+                                    ).to(dev)[1:]
+        cursor = torch.tensor(cur, dtype=torch.int32, device=dev)
+        mode = os_kernel.table_mode(n_blocks)
+        for run_mode in dict.fromkeys([mode, "hashed"]):
+            before = dict(os_kernel.MODE_LAUNCHES)
+            err = 0
+            for km in (None, keep):
+                got = (observe_scatter(ids, cursor, n_blocks=n_blocks,
+                                       period=period, keep=km)
+                       if run_mode == mode else
+                       os_kernel._launch(run_mode, ids, cursor,
+                                         n_blocks=n_blocks, period=period,
+                                         keep=km))
+                ref = observe_scatter(ids, cursor, n_blocks=n_blocks,
+                                      period=period, keep=km, backend=plain)
+                torch.cuda.synchronize()
+                for g, r in zip(got, ref):
+                    err = max(err, int((g - r).abs().max()))
+            if os_kernel.MODE_LAUNCHES[run_mode] != before[run_mode] + 2:
+                fail(f"observe_scatter ({label}) did not launch twice on "
+                     f"the {run_mode} table")
+            key = label if run_mode == mode else f"{label}, hashed"
+            os_modes[key] = [n_blocks, ids.numel(), run_mode, err]
+            worst = max(worst, err)
+            if err != 0:
+                fail(f"observe_scatter differs from its plain version "
+                     f"({key}, max abs err {err})")
+    launches = os_kernel.LAUNCHES
+    try:
+        os_kernel._launch("direct", paper_ids, cursor,
+                          n_blocks=direct_limit + 1, period=401)
+        fail("observe_scatter ran the direct table above its limit")
+    except RuntimeError:
+        pass
+    if os_kernel.LAUNCHES != launches:
+        fail("a refused observe_scatter launch was counted")
+    say("observe_scatter", cases=os_modes, direct_map_limit=direct_limit,
+        max_abs_err=worst, seconds=time.perf_counter() - t0)
+    if {v[2] for v in os_modes.values()} != {"direct", "hashed"}:
+        fail(f"observe_scatter's cases missed a table mode: {os_modes}")
+    return worst
 
 
 def check_gather_count(dev, rng, plain) -> int:
@@ -539,13 +700,20 @@ FLASH_TIME_SHAPES = (("qwen2-0.5b", 4, 14, 2, 64),
 # bfloat16 at d=64 moved to the tensor cores (PERF.md's kernel table; NVIDIA
 # H100 80GB HBM3, 700 W)
 CUDA_CORE_BF16_QWEN_MS = 4.216
-# hist_select's and embedding_bag's times at phase 12's shapes before their
+# The three redesigned kernels' times at phase 12's shapes before their
 # redesign for the card (PERF.md's kernel table; NVIDIA H100 80GB HBM3,
-# 700 W).  embedding_bag's was taken on an earlier lookup draw (the row
-# within a page came from the generator the earlier phases share; now from
-# a seed of its own), so the per-bag route timed in turns beside the tiled
-# one is the comparison on the same draw.
-BEFORE_MS = {"hist_select": 0.524, "embedding_bag": 0.431}
+# 700 W).  hist_select's and embedding_bag's were taken before time_ms
+# waited behind a spin of the card.  embedding_bag's was taken on an
+# earlier lookup draw (the row within a page came from the generator the
+# earlier phases share; now from a seed of its own), so the per-bag route
+# timed in turns beside the tiled one is the comparison on the same draw.
+# observe_scatter's is the kernel from before it summed a block's ids on
+# chip, on phase 12's draw, timed in turns with the new one by this
+# time_ms; BEFORE_NO_SPIN_MS is the figure taken earlier without the spin,
+# printed beside it since the two methods give different times.
+BEFORE_MS = {"hist_select": 0.524, "embedding_bag": 0.431,
+             "observe_scatter": 0.1713}
+BEFORE_NO_SPIN_MS = {"observe_scatter": 0.143}
 
 
 def qkv(dev, seed: int, b, h, kvh, sq, sk, d, dtype):
@@ -928,6 +1096,8 @@ def main(until: int = 17) -> None:
         for mod in (fa_kernel, eb_kernel):
             for route in mod.ROUTE_LAUNCHES:
                 mod.ROUTE_LAUNCHES[route] = 0
+        for mode in os_kernel.MODE_LAUNCHES:
+            os_kernel.MODE_LAUNCHES[mode] = 0
 
     def read_counts() -> dict:
         return {name: mod.LAUNCHES for name, mod in kernel_modules.items()}
@@ -967,31 +1137,17 @@ def main(until: int = 17) -> None:
     errors = {}
 
     # ------------------------------------ 3. observe_scatter vs plain, exact
-    shared_limit = os_kernel.shared_limit()
-    for n_blocks, m in ((5_000, 40_003), (PAPER_PAGES, 2_400_001)):
-        ids = (rng.zipf(1.3, m) - 1) % (n_blocks + 6) - 3   # -3 .. n+2
-        ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
-        keep = torch.from_numpy(rng.random(m) < 0.7).to(dev)
-        cursor = torch.tensor(123, dtype=torch.int32, device=dev)
-        worst = 0
-        for km in (None, keep):
-            got = observe_scatter(ids, cursor, n_blocks=n_blocks, period=401,
-                                  keep=km)
-            ref = observe_scatter(ids, cursor, n_blocks=n_blocks, period=401,
-                                  keep=km, backend=plain)
-            torch.cuda.synchronize()
-            for g, r in zip(got, ref):
-                worst = max(worst, int((g - r).abs().max()))
-        path = "shared" if n_blocks <= shared_limit else "global"
-        say("observe_scatter", n_blocks=n_blocks, m=m, path=path,
-            max_abs_err=worst)
-        errors["observe_scatter"] = max(errors.get("observe_scatter", 0),
-                                        worst)
-        if worst != 0:
-            fail(f"observe_scatter differs from its plain version "
-                 f"(n_blocks={n_blocks}, max abs err {worst})")
-    if not 5_000 <= shared_limit < PAPER_PAGES:
-        fail(f"unexpected shared-memory limit {shared_limit}")
+    t0 = time.perf_counter()
+    spec = datagen.DLRMTraceSpec(n_params=5_368_709_120)
+    if spec.n_pages != PAPER_PAGES:
+        fail(f"paper spec has {spec.n_pages} pages")
+    scen = DLRMScenario(spec=spec, n_epochs=6, batches_per_epoch=2,
+                        shift_at=3, k_hot=PAPER_K_HOT)
+    epochs = list(scen.epochs())
+    setup_s = time.perf_counter() - t0
+    paper_ids = torch.from_numpy(epochs[0][0]).to(dev)
+    errors["observe_scatter"] = check_observe_scatter(dev, rng, plain,
+                                                      paper_ids)
 
     # ---------------------------------------- 4. hist_select vs plain, exact
     t0 = time.perf_counter()
@@ -1068,15 +1224,9 @@ def main(until: int = 17) -> None:
     if until < 8:
         fail(f"stopped after phase {until} (--until)")
     # ------------------------------ 8. the online main path, paper scale
-    spec = datagen.DLRMTraceSpec(n_params=5_368_709_120)
-    if spec.n_pages != PAPER_PAGES:
-        fail(f"paper spec has {spec.n_pages} pages")
-    scen = DLRMScenario(spec=spec, n_epochs=6, batches_per_epoch=2,
-                        shift_at=3, k_hot=PAPER_K_HOT)
     t0 = time.perf_counter()
-    epochs = list(scen.epochs())
     pipeline = build_hints(scen)
-    setup_s = time.perf_counter() - t0
+    setup_s += time.perf_counter() - t0
     zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1091,20 +1241,24 @@ def main(until: int = 17) -> None:
             torch.cuda.set_sync_debug_mode(0)
         wall = time.perf_counter() - t0
     launches = read_counts()
+    os_paper_modes = dict(os_kernel.MODE_LAUNCHES)
     record_sync = c.dispatch["record_sync"]
     lanes = res["trajectory"]["lanes"]
     say("paper_run", n_pages=spec.n_pages, k_hot=scen.k_hot,
         lookups_per_batch=spec.lookups_per_batch, epochs=scen.n_epochs,
         batches_per_epoch=scen.batches_per_epoch, setup_s=setup_s,
         wall_s=wall, epoch_wall_s_mean=wall / scen.n_epochs,
-        launches=launches, record_sync=record_sync,
-        hint_refresh=c.dispatch["hint_refresh"],
+        launches=launches, observe_scatter_modes=os_paper_modes,
+        record_sync=record_sync, hint_refresh=c.dispatch["hint_refresh"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     say("paper_summary", **res["summary"])
     if launches != {"observe_scatter": 12, "hist_select": 6,
                     "gather_count": 0, "embedding_bag": 0,
                     "flash_attention": 0}:
         fail(f"kernel launches {launches}, expected 12 and 6")
+    if os_paper_modes != {"direct": 0, "hashed": 12}:
+        fail(f"observe_scatter's table modes {os_paper_modes}, expected 12 "
+             f"hashed")
     if record_sync != 2:
         fail(f"record_sync {record_sync}, expected 2")
     if set(lanes) != set(runtime.ALL_POLICIES):
@@ -1239,16 +1393,9 @@ def main(until: int = 17) -> None:
     if until < 12:
         fail(f"stopped after phase {until} (--until)")
     # --------------------------------------- 12. kernel times, paper shapes
+    os_time = observe_scatter_time(dev, plain, paper_ids)
+    os_paper = os_time["draws"]["paper"]
     n = PAPER_PAGES
-    ids = torch.from_numpy(epochs[0][0]).to(dev)
-    cursor = torch.zeros((), dtype=torch.int32, device=dev)
-    m = ids.numel()
-    os_ms, os_plain = in_turns(
-        lambda: observe_scatter(ids, cursor, n_blocks=n, period=401,
-                                backend=plain),
-        lambda: observe_scatter(ids, cursor, n_blocks=n, period=401), 20)
-    os_lib = time_ms(lambda: torch.bincount(ids, minlength=n), 20)
-    os_bound, os_by = bound_ms(4 * m + 2 * 4 * n, 2 * m)
 
     rows = selection_rows(dev, epochs[0][0], epochs[1][0])
     ks = (PAPER_K_HOT,)
@@ -1431,9 +1578,10 @@ def main(until: int = 17) -> None:
                    "observe_scatter.cu",
          "replaces": "src/repro/kernels/observe_scatter/kernel.py:34",
          "launches": launches["observe_scatter"],
-         "max_abs_err": errors["observe_scatter"], "ms": os_ms,
-         "plain_ms": os_plain, "bound_ms": os_bound, "bound_by": os_by,
-         "library_ms": os_lib},
+         "max_abs_err": errors["observe_scatter"], "ms": os_paper["ms"],
+         "plain_ms": os_paper["plain_ms"], "bound_ms": os_time["bound_ms"],
+         "bound_by": os_time["bound_by"],
+         "library_ms": os_paper["bincount_ms"]},
         {"name": "hist_select", "route": "cuda",
          "source": "src/repro_torch/kernels/hist_select/csrc/hist_select.cu",
          "replaces": "src/repro/kernels/hist_select/kernel.py:45",

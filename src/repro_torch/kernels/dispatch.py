@@ -12,19 +12,22 @@ the same choice the same way, from the tensor they hold:
   kernels' arithmetic);
 * ``KernelBackend(plain=True)`` is an explicit override that runs the plain
   version on a CUDA tensor too.  Only ``chip_smoke.py`` sets it, to time
-  the plain version on the card; nothing sets it implicitly.
+  the plain version on the card; nothing sets it implicitly;
+* a kernel has no backward, so a CUDA wrapper whose output would need a
+  gradient raises (:func:`refuse_grad`) rather than return an output that
+  silently carries none.  The plain versions stay differentiable.
 
 :class:`KernelBackend` mirrors the reference's ``PallasBackend``: hashable,
 so it rides in the runtime's static config.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["DEFAULT_BACKEND", "KernelBackend", "resolve_device",
-           "use_kernel"]
+__all__ = ["DEFAULT_BACKEND", "KernelBackend", "refuse_grad",
+           "resolve_device", "use_kernel"]
 
 
 class KernelBackend(NamedTuple):
@@ -62,3 +65,15 @@ def use_kernel(t: torch.Tensor, backend: KernelBackend = DEFAULT_BACKEND,
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {t.device}")
     return not backend.plain
+
+
+def refuse_grad(kernel: str, *inputs: Optional[torch.Tensor]) -> None:
+    """Raise when grad mode is on and a floating input requires grad: the
+    kernel's output could carry no gradient back to it."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad
+            for t in inputs):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, but the kernel has no "
+            f"backward (training's backward is not ported, ROADMAP Queue 1 "
+            f"item 6); call it under torch.no_grad() or on detached inputs")

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from ..dispatch import refuse_grad
 
 __all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "TILE_LOOKUPS", "embedding_bag_cuda",
            "route"]
@@ -85,6 +86,7 @@ def _launch(way: Optional[str], storage: torch.Tensor, indices: torch.Tensor,
     holds the two routes against each other on the card; ``"tiled"`` still
     fails on a shape that route does not take."""
     global LAUNCHES
+    refuse_grad("embedding_bag", storage, weights)
     dev = storage.device
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag_cuda needs CUDA tensors, got {dev}")

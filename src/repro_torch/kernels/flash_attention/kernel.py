@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..dispatch import refuse_grad
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "ROUTE_LAUNCHES", "TENSOR_CORE_HEAD_DIMS",
            "flash_attention_cuda", "route"]
@@ -70,6 +71,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B·H, Sq, d) q, (B·KVH, Sk, d) k and v, all float32 or all bfloat16,
     contiguous, on one CUDA device -> (B·H, Sq, d) output in q's dtype."""
     global LAUNCHES
+    refuse_grad("flash_attention", q, k, v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")

@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..dispatch import refuse_grad
 
 __all__ = ["LAUNCHES", "gather_count_cuda"]
 
@@ -48,6 +49,7 @@ def gather_count_cuda(storage: torch.Tensor, indices: torch.Tensor,
     """(N, D) storage, (M,) int32 row ids, (n_blocks,) int32 counts ->
     ((M, D) rows, counts + per-block hits)."""
     global LAUNCHES
+    refuse_grad("gather_count", storage)
     dev = storage.device
     if dev.type != "cuda":
         raise ValueError(f"gather_count_cuda needs CUDA tensors, got {dev}")

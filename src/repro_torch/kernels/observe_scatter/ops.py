@@ -3,7 +3,7 @@
 A CUDA tensor launches the kernel (which masks its own ragged edge, so
 nothing is padded); a CPU tensor runs the plain version.  Unlike the
 reference there is no ``MAX_BLOCKS``: that was a VMEM limit, and the
-kernel's global-atomics path takes any ``n_blocks``.
+kernel's hashed table takes any ``n_blocks``.
 """
 from __future__ import annotations
 

@@ -36,6 +36,7 @@ from repro_torch.kernels.hist_select import kernel as hs_kernel  # noqa: E402
 from repro_torch.kernels.hist_select import kth_key  # noqa: E402
 from repro_torch.kernels.observe_scatter import kernel as os_kernel  # noqa: E402
 from repro_torch.kernels.observe_scatter import observe_scatter  # noqa: E402
+from repro_torch.models.attention import flash_train  # noqa: E402
 from repro_torch.scenarios import DLRMScenario, KVCacheScenario, run_scenario  # noqa: E402
 
 PLAIN = KernelBackend(plain=True)
@@ -66,6 +67,90 @@ def test_observe_scatter_kernel_matches_plain(cuda, n_blocks, m):
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
     assert os_kernel.LAUNCHES == before + 2
+
+
+def _observe_ids(kind, rng, n_blocks, m):
+    if kind == "zipf_head":         # a quarter of the ids on one page
+        ids = np.where(rng.random(m) < 0.25, 5,
+                       (rng.zipf(1.31, m) - 1) % (n_blocks + 6) - 3)
+    elif kind == "all_distinct":    # overflows every table
+        ids = rng.permutation(n_blocks)[:m]
+    elif kind == "hot_among_distinct":  # blocks stop claiming slots
+        ids = np.where(rng.random(m) < 0.05, 7,
+                       rng.permutation(n_blocks)[:m])
+    else:
+        ids = rng.integers(-n_blocks - 2, n_blocks + 3, m)
+    return ids.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n_blocks,m,offset", [
+    ("zipf_head", 5_242_880, 600_001, 0),
+    ("all_distinct", 5_242_880, 600_000, 0),
+    ("hot_among_distinct", 5_242_880, 600_001, 2),
+    ("zipf_head", "limit", 100_003, 0),
+    ("zipf_head", "limit + 1", 100_003, 0),
+    ("uniform", "limit", 50_001, 1),
+    ("zipf_head", 1_000_003, 200_002, 1),    # 4 bytes past the allocation
+    ("zipf_head", 1_000_003, 200_003, 3)])
+def test_observe_scatter_table_modes(cuda, kind, n_blocks, m, offset):
+    """Each table mode exact against the plain version, with and without a
+    keep mask (its words aligned with the ids' vectors or not), at cursor
+    0 and at period - 1."""
+    limit = os_kernel.shared_limit()
+    if isinstance(n_blocks, str):
+        n_blocks = limit + (n_blocks == "limit + 1")
+    rng = np.random.default_rng(m + offset)
+    ids = torch.from_numpy(_observe_ids(kind, rng, n_blocks, m + offset)
+                           ).to(cuda)[offset:]
+    keep_a = torch.from_numpy(rng.random(m + offset) < 0.6).to(cuda)[offset:]
+    keep_b = torch.from_numpy(rng.random(m + 1) < 0.6).to(cuda)[1:]
+    mode = os_kernel.table_mode(n_blocks)
+    assert mode == ("direct" if n_blocks <= limit else "hashed")
+    before = os_kernel.LAUNCHES, dict(os_kernel.MODE_LAUNCHES)
+    calls = 0
+    for cur in (0, 400):
+        cursor = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        for km in (None, keep_a, keep_b):
+            got = observe_scatter(ids, cursor, n_blocks=n_blocks, period=401,
+                                  keep=km)
+            calls += 1
+            ref = observe_scatter(ids, cursor, n_blocks=n_blocks, period=401,
+                                  keep=km, backend=PLAIN)
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r), (cur, km is None)
+    assert os_kernel.LAUNCHES == before[0] + calls
+    assert os_kernel.MODE_LAUNCHES[mode] == before[1][mode] + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [88, 5_000, "limit"])
+def test_observe_scatter_mode_is_what_runs(cuda, n_blocks):
+    """The table mode the wrapper passes is the one the kernel runs: the
+    hashed table, asked for below the direct-map limit, is exact too; the
+    direct table above the limit is refused and counts no launch."""
+    limit = os_kernel.shared_limit()
+    n_blocks = limit if n_blocks == "limit" else n_blocks
+    rng = np.random.default_rng(n_blocks)
+    ids = torch.from_numpy(_observe_ids("zipf_head", rng, n_blocks, 70_001)
+                           ).to(cuda)
+    keep = torch.from_numpy(rng.random(ids.numel()) < 0.6).to(cuda)
+    cursor = torch.tensor(400, dtype=torch.int32, device=cuda)
+    before = dict(os_kernel.MODE_LAUNCHES)
+    for km in (None, keep):
+        got = os_kernel._launch("hashed", ids, cursor, n_blocks=n_blocks,
+                                period=401, keep=km)
+        ref = observe_scatter(ids, cursor, n_blocks=n_blocks, period=401,
+                              keep=km, backend=PLAIN)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    assert os_kernel.MODE_LAUNCHES == {**before,
+                                       "hashed": before["hashed"] + 2}
+    launches = os_kernel.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        os_kernel._launch("direct", ids, cursor, n_blocks=limit + 1,
+                          period=401)
+    assert os_kernel.LAUNCHES == launches
 
 
 @pytest.mark.cuda
@@ -203,6 +288,47 @@ def test_embedding_bag_per_bag_route_shapes(cuda, d, l):
         eb_kernel._launch(
             "tiled", storage, idx, torch.ones_like(idx, dtype=torch.float32),
             counts, block_rows=4)
+
+
+def _grad_call(name, cuda, requires_grad):
+    """One call of a kernel's public function on CUDA inputs whose floats
+    require grad (or not) -> (the call, the kernel module)."""
+    gen = torch.Generator().manual_seed(3)
+
+    def f(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(cuda, dtype) \
+            .requires_grad_(requires_grad)
+    if name == "flash_train":
+        q, k, v = (f(1, 2, 64, 64, dtype=torch.bfloat16) for _ in range(3))
+        return lambda: flash_train(q, k, v), fa_kernel
+    idx = torch.arange(32, dtype=torch.int32, device=cuda)
+    counts = torch.zeros(16, dtype=torch.int32, device=cuda)
+    storage = f(64, 128)
+    if name == "embedding_bag":
+        w = f(4, 8)
+        return (lambda: embedding_bag(storage, idx.reshape(4, 8), counts, w,
+                                      block_rows=4), eb_kernel)
+    return (lambda: gather_count(storage, idx, counts, block_rows=4),
+            gc_kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_train", "embedding_bag",
+                                  "gather_count"])
+def test_kernels_refuse_a_gradient_they_cannot_carry(cuda, name):
+    """Inputs that require grad: the kernel's call raises before it
+    launches; the same call under no_grad launches it; so does a call
+    whose inputs do not require grad."""
+    call, mod = _grad_call(name, cuda, True)
+    before = mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert mod.LAUNCHES == before
+    with torch.no_grad():
+        call()
+    assert mod.LAUNCHES == before + 1
+    _grad_call(name, cuda, False)[0]()
+    assert mod.LAUNCHES == before + 2
 
 
 @pytest.mark.cuda

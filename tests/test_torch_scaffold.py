@@ -17,8 +17,11 @@ from repro_torch.core.runtime import EpochRuntime  # noqa: E402
 from repro_torch.dlrm import datagen, tracesim  # noqa: E402
 from repro_torch.examples import dlrm_tiering  # noqa: E402
 from repro_torch.faults import FaultModel, Hardening  # noqa: E402
-from repro_torch.kernels.dispatch import (KernelBackend, resolve_device,  # noqa: E402
-                                          use_kernel)
+from repro_torch.kernels.dispatch import (KernelBackend, refuse_grad,  # noqa: E402
+                                          resolve_device, use_kernel)
+from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.gather_count.kernel import gather_count_cuda  # noqa: E402
 from repro_torch.kernels.hist_select.kernel import kth_key_cuda  # noqa: E402
 from repro_torch.kernels.observe_scatter.kernel import observe_scatter_cuda  # noqa: E402
 from repro_torch.scenarios import DLRMScenario, run_online, run_scenario  # noqa: E402
@@ -135,6 +138,61 @@ def test_dispatch_rule_follows_the_tensor():
                              n_blocks=8, period=3)
     with pytest.raises(ValueError, match="CUDA"):
         kth_key_cuda(cpu.reshape(1, 4), None, (1,))
+
+
+# case: (its inputs from a float g that requires grad, a float f and an
+# int32 i; grad mode on; refuse_grad raises)
+_GRAD_CASES = {
+    "one float input requires grad": (lambda g, f, i: (g,), True, True),
+    "one of several, with None": (lambda g, f, i: (i, None, f, g), True,
+                                  True),
+    "a view of a leaf": (lambda g, f, i: (g[1:],), True, True),
+    "under no_grad": (lambda g, f, i: (g, f), False, False),
+    "integer inputs only": (lambda g, f, i: (i, i), True, False),
+    "no input requires grad": (lambda g, f, i: (f, i, None), True, False)}
+
+
+@pytest.mark.parametrize("case", sorted(_GRAD_CASES))
+def test_refuse_grad(case):
+    make, grad_mode, raises = _GRAD_CASES[case]
+    inputs = make(torch.ones(3, requires_grad=True), torch.ones(3),
+                  torch.ones(3, dtype=torch.int32))
+    with torch.set_grad_enabled(grad_mode):
+        if raises:
+            with pytest.raises(RuntimeError, match="no backward"):
+                refuse_grad("some_kernel", *inputs)
+        else:
+            refuse_grad("some_kernel", *inputs)
+
+
+def _wrapper_call(name, requires_grad):
+    """One CPU call of a CUDA wrapper with float inputs that require grad
+    (or not)."""
+    f = torch.ones(2, 1, 16, requires_grad=requires_grad)
+    ids = torch.zeros(1, 2, dtype=torch.int32)
+    counts = torch.zeros(1, dtype=torch.int32)
+    st = torch.ones(4, 16, requires_grad=requires_grad)
+    w = torch.ones(1, 2, requires_grad=requires_grad)
+    if name == "flash_attention":
+        return lambda: flash_attention_cuda(f, f, f, q_per_kv=1)
+    if name == "embedding_bag":
+        return lambda: embedding_bag_cuda(st, ids, w, counts, block_rows=1)
+    return lambda: gather_count_cuda(st, ids.reshape(-1), counts,
+                                     block_rows=1)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "embedding_bag",
+                                  "gather_count"])
+def test_cuda_wrappers_refuse_grad_before_anything_else(name):
+    """The guard comes first: a CPU input that requires grad is refused for
+    its gradient, not for its device; without grad the device check
+    speaks."""
+    with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+        _wrapper_call(name, True)()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        _wrapper_call(name, True)()
+    with pytest.raises(ValueError, match="CUDA"):
+        _wrapper_call(name, False)()
 
 
 def test_chip_smoke_fails_without_a_card():
