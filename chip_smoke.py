@@ -9,7 +9,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
 1. device: the card's name, power limit and capability (must be 9.0);
 2. build: the five kernels' CUDA sources compiled from
    ``src/repro_torch/**/csrc``, one ``nvcc`` each, in parallel (seconds and
-   the ``ptxas`` register and spill report of each);
+   the ``ptxas`` register and spill report of each; the TF32
+   flash_attention kernels must not spill, and their static SASS
+   instruction mix is printed);
 3. observe_scatter vs its plain version, exact, with and without a keep
    mask, each case on the table mode ``kernel.table_mode`` names (direct:
    slot = id; hashed): 5,000 blocks (SMALL) and 88 (the KV scenario);
@@ -70,9 +72,13 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     internlm2-1.8b prefill shapes (S=4096, bfloat16), MQA d=256, a sliding
     window, non-causal, and ragged S in {1, 19, 1000}; then the bfloat16
     tensor-core route at d=64 and 128 with ragged S in {130, 1000},
-    non-causal Sq != Sk and a window, and the CUDA-core route at d=80
-    (zamba2-2.7b) and d=112 (kimi-k2); each case must take the route that
-    ``kernel.route`` names for its dtype and head dim;
+    non-causal Sq != Sk and a window, the CUDA-core route at d=80
+    (zamba2-2.7b) and d=112 (kimi-k2), and the float32 TF32 route at d=64
+    and 128: the qwen2-0.5b prefill, ragged S in {130, 1000}, a window edge
+    inside a KV tile, non-causal Sq > Sk and Sq < Sk; each case must take
+    the route that ``kernel.route`` names for its dtype and head dim, and on
+    each TF32 case the CUDA-core kernel, named through ``kernel._launch``,
+    must pass too;
 14. the serving path at full width:
     ``repro_torch.launch.serve.main(["--arch", "qwen2-0.5b", "--batch",
     "4", "--prompt-len", "64", "--gen", "32", "--page-size", "16"])`` (the
@@ -85,7 +91,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
 15. one full-width prefill and decode step on the GPU (under
     ``set_sync_debug_mode("error")``: no host sync inside) and on the CPU
     with the same tokens: float32 activations within a stated tolerance,
-    bfloat16 reported;
+    bfloat16 reported; each dtype's GPU run is a path of its own, counters
+    zeroed before it: 24 flash_attention launches, on the TF32 route in
+    float32 and on the tensor cores in bfloat16;
 16. ``KVCacheScenario()`` on the GPU vs the CPU: 2 flash_attention launches
     (one prefill of the 2-layer smoke model, d=16: the CUDA-core route),
     decode masses within a
@@ -96,9 +104,12 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     prefill shapes (bfloat16: the tensor-core route) beside its bound, its
     plain version and ``F.scaled_dot_product_attention`` timed in the same
     call; TFLOP/s on the function's work and on the kernel's; then the
-    CUDA-core route at the qwen2-0.5b shape in float32.
+    qwen2-0.5b shape in float32 on the TF32 route, timed in turns with the
+    plain version and with the CUDA-core kernel, beside both bounds (three
+    TF32 products at the TF32 rate; one float32 product at the CUDA cores'
+    rate) and the TF32 kernel's resident blocks an SM.
 
-Each path (8-11, 14, 16) sets the launch counters to 0 just before it
+Each path (8-11, 14-16) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -109,6 +120,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +132,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor-core rate (float32)
 TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+TENSOR_TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate
 PAPER_PAGES = 5_242_880
 PAPER_K_HOT = 486_587
 # the offline path's paper width (datagen.PAPER): 20 M rows of 256 in 5 M
@@ -137,6 +150,48 @@ def fail(msg: str) -> None:
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, sort_keys=True), flush=True)
+
+
+def sass_mix(library: Path, marker: str) -> dict:
+    """{function: [instructions, HMMA instructions, {opcode: count} of the
+    ten most common]} of the functions in ``library``'s SASS (``cuobjdump
+    -sass``, beside ``nvcc``) whose (mangled) names hold ``marker``; static
+    counts."""
+    import collections
+    from repro_torch.kernels import _build
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
+                           "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    mix, fn = {}, None
+    for ln in sass.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            fn = head.group(1) if marker in head.group(1) else None
+            if fn:
+                mix[fn] = collections.Counter()
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      ln)
+        if fn and op:
+            mix[fn][op.group(1)] += 1
+    return {f: [sum(c.values()),
+                sum(n for op, n in c.items() if op.startswith("HMMA")),
+                dict(c.most_common(10))] for f, c in mix.items()}
+
+
+def spill_bytes(ptxas_log: str, marker: str) -> dict:
+    """{function: spill store + load bytes} of the functions in a ``ptxas
+    -v`` report whose (mangled) names hold ``marker``."""
+    out, fn = {}, None
+    for ln in ptxas_log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split()[-1]
+        elif fn is not None and "spill stores" in ln:
+            if marker in fn:
+                out[fn] = sum(int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", ln))
+            fn = None
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -670,6 +725,23 @@ FLASH_CASES = [
     # the configs' other head dims, on the CUDA-core route
     ("zamba2-2.7b d=80", 1, 32, 32, 512, 512, 80, "bfloat16", True, None),
     ("kimi-k2 d=112", 1, 64, 8, 512, 512, 112, "bfloat16", True, None),
+    # the TF32 route (float32, d in 64, 128; "window 128", "non-causal" and
+    # "ragged S=1000" above take it too): the qwen2-0.5b prefill, ragged
+    # tiles, a window edge inside a KV tile, non-causal Sq != Sk, GQA 14 / 2
+    ("qwen2-0.5b prefill f32", 4, 14, 2, 4096, 4096, 64, "float32", True,
+     None),
+    ("f32 ragged S=130 d=64", 2, 14, 2, 130, 130, 64, "float32", True, None),
+    ("f32 ragged S=130 d=128", 2, 16, 8, 130, 130, 128, "float32", True,
+     None),
+    ("f32 ragged S=1000 d=128", 2, 16, 8, 1000, 1000, 128, "float32", True,
+     None),
+    ("f32 window 200 d=64", 2, 14, 2, 1000, 1000, 64, "float32", True, 200),
+    ("f32 window 200 d=128", 2, 16, 8, 1000, 1000, 128, "float32", True,
+     200),
+    ("f32 non-causal Sq>Sk d=64", 2, 14, 2, 517, 300, 64, "float32", False,
+     None),
+    ("f32 non-causal Sq<Sk d=128", 2, 16, 8, 300, 517, 128, "float32",
+     False, None),
 ]
 # |got - plain| <= atol + rtol * |plain|.  float32: 2e-5 both, the JAX
 # kernel tests' own.  bfloat16: both compute in float32 and round once to
@@ -738,13 +810,15 @@ def flash_allowed(ref, dtype: str):
 
 def check_flash_attention(dev, plain):
     """Phase 13: flash_attention == plain within FLASH_TOL at every case,
-    each on the route ``kernel.route`` names; returns ({label: max abs
-    err}, {label: [the largest |err| / allowed, the share of outputs that
-    differ at all]}, {label: route})."""
+    each on the route ``kernel.route`` names, and the CUDA-core kernel,
+    named through ``kernel._launch``, on every case of the TF32 route;
+    returns ({label: max abs err}, {label: [the largest |err| / allowed,
+    the share of outputs that differ at all]}, {label: route}, {label: the
+    named CUDA-core kernel's max abs err})."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    errs, shares, routes = {}, {}, {}
+    errs, shares, routes, cuda_core = {}, {}, {}, {}
     for i, (label, b, h, kvh, sq, sk, d, dtype, causal, window) in enumerate(
             FLASH_CASES):
         q, k, v = qkv(dev, 10 + i, b, h, kvh, sq, sk, d, dtype)
@@ -769,16 +843,28 @@ def check_flash_attention(dev, plain):
                  f"{dtype}, max abs err {errs[label]}, largest share of the "
                  f"tolerance and share of outputs that differ "
                  f"{shares[label]}, {FLASH_TOL[dtype]})")
+        if routes[label] == "tf32x3":
+            old = fa_kernel._launch("cuda_core", q, k, v, **kw)
+            torch.cuda.synchronize()
+            old_diff = (old - ref).abs()
+            cuda_core[label] = float(old_diff.max())
+            if not bool((old_diff <= flash_allowed(ref, dtype)).all()):
+                fail(f"the CUDA-core kernel named on {label} differs from "
+                     f"the plain version (max abs err {cuda_core[label]})")
+            del old, old_diff
         del q, k, v, got, ref, diff, share
     free_device_memory()
-    return errs, shares, routes
+    return errs, shares, routes, cuda_core
 
 
-def full_width_gpu_vs_cpu(rng):
+def full_width_gpu_vs_cpu(rng, zero_counts, read_routes):
     """Phase 15: one prefill (B=2, 64 tokens) and one decode step of the
     full-width qwen2-0.5b on the GPU (with no host sync inside) and on the
-    CPU, same weights (drawn on the CPU) and tokens; -> {dtype:
-    {logits/decode_logits/mass: max abs err}}."""
+    CPU, same weights (drawn on the CPU) and tokens.  On the GPU each
+    dtype's prefill is a path: one flash_attention launch per layer, on
+    the TF32 route in float32 and on the tensor cores in bfloat16, none in
+    decode.  -> ({dtype: {logits/decode_logits/mass: max abs err}},
+    {dtype: flash_attention's launches by route})."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -787,9 +873,10 @@ def full_width_gpu_vs_cpu(rng):
     base = get_config("qwen2-0.5b")
     toks = rng.integers(0, base.vocab_size, (2, 64))
     nxt = rng.integers(0, base.vocab_size, (2,))
-    errs = {}
+    errs, routes = {}, {}
     for act in (torch.float32, torch.bfloat16):
         cfg = dataclasses.replace(base, activ_dtype=act)
+        name = str(act).split(".")[-1]
         out = {}
         for d in ("cuda", "cpu"):
             params = init_params(cfg, 0, d)
@@ -797,6 +884,7 @@ def full_width_gpu_vs_cpu(rng):
             # on the card, prefill and decode must not stall the host:
             # set_sync_debug_mode raises on any synchronizing call inside
             if d == "cuda":
+                zero_counts()
                 torch.cuda.set_sync_debug_mode("error")
             try:
                 logits, cache = engine.prefill(params, cfg, tokens=t_toks,
@@ -805,11 +893,18 @@ def full_width_gpu_vs_cpu(rng):
                                                  page_size=16)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
+            if d == "cuda":
+                routes[name] = read_routes()
+                want = "tf32x3" if act == torch.float32 else "tensor_core"
+                if routes[name] != {r: QWEN_LAYERS if r == want else 0
+                                    for r in routes[name]}:
+                    fail(f"full-width {name} prefill + decode launches "
+                         f"{routes[name]}: expected {QWEN_LAYERS} "
+                         f"flash_attention on the {want} route")
             out[d] = [t.float().cpu() for t in
                       (logits, dec, aux["kv_page_mass"])]
             del params, cache
         free_device_memory()
-        name = str(act).split(".")[-1]
         errs[name] = {}
         for key, g, c in zip(("logits", "decode_logits", "kv_page_mass"),
                              out["cuda"], out["cpu"]):
@@ -823,7 +918,7 @@ def full_width_gpu_vs_cpu(rng):
                      f"{errs[name][key]} over {FULL_WIDTH_F32_TOL}")
         np.testing.assert_allclose(
             out["cuda"][2].sum(-1).numpy(), QWEN_HEADS, rtol=1e-3)
-    return errs
+    return errs, routes
 
 
 def serve_full_width(serve_launcher, dev, zero_counts, read_counts,
@@ -851,7 +946,8 @@ def serve_full_width(serve_launcher, dev, zero_counts, read_counts,
         if launches != {"observe_scatter": 0, "hist_select": 0,
                         "gather_count": 0, "embedding_bag": 0,
                         "flash_attention": QWEN_LAYERS} or routes != {
-                            "tensor_core": QWEN_LAYERS, "cuda_core": 0}:
+                            "tensor_core": QWEN_LAYERS, "tf32x3": 0,
+                            "cuda_core": 0}:
             fail(f"serve --prompt-len {plen} launches {launches}, routes "
                  f"{routes}: expected {QWEN_LAYERS} flash_attention (one "
                  f"prefill, one per layer, on the tensor cores) and none in "
@@ -954,7 +1050,7 @@ def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts,
     if prefill_launches != {"observe_scatter": 0, "hist_select": 0,
                             "gather_count": 0, "embedding_bag": 0,
                             "flash_attention": n_layers} or prefill_routes \
-            != {"tensor_core": 0, "cuda_core": n_layers}:
+            != {"tensor_core": 0, "tf32x3": 0, "cuda_core": n_layers}:
         fail(f"KVCacheScenario launches {prefill_launches}, routes "
              f"{prefill_routes}: expected {n_layers} flash_attention (one "
              f"prefill, on the CUDA cores)")
@@ -1002,11 +1098,15 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     """Phase 17: flash_attention at a causal prefill shape beside its plain
     version, ``F.scaled_dot_product_attention`` (timed in this call) and the
     bound: the function's products, 2*B*H*S^2*d over the causal half, at
-    the card's peak for the dtype (the dense bf16 tensor-core rate, or the
-    float32 rate of the CUDA cores), or q, k, v and the output moved once.
-    TFLOP/s are given on the function's work and on the kernel's: the
-    tensor-core route does 1.5x the function's products (P.V twice, as
-    P_hi and P_lo)."""
+    the card's peak for the dtype, or q, k, v and the output moved once.
+    In bfloat16 that is the dense bf16 tensor-core rate (the tensor-core
+    route does 1.5x those products: P.V twice, as P_hi and P_lo).  In
+    float32 it is three TF32 products for each (lo.hi + hi.lo + hi.hi, the
+    least that keeps float32 accuracy) at the dense TF32 rate, which the
+    TF32 route does; that route is also timed in turns with the CUDA-core
+    kernel on the same input, whose own bound is the products at the CUDA
+    cores' float32 rate.  TFLOP/s are given on the function's work and on
+    the kernel's."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1024,11 +1124,16 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
                       - flash_attention(q, k, v, q_per_kv=h // kvh).float())
                      .abs().max())
     flops = 2 * b * h * s_len * s_len * d
-    kernel_flops = flops * (3 if route == "tensor_core" else 2) // 2
+    # (the kernel's products, the fewest products the function needs at
+    # that rate: three TF32 ones for each float32 one, the rate)
+    products, needed, rate = {
+        "tensor_core": (1.5, 1, TENSOR_BF16_OPS_PER_S),
+        "tf32x3": (3, 3, TENSOR_TF32_OPS_PER_S),
+        "cuda_core": (1, 1, SCALAR_OPS_PER_S)}[route]
+    kernel_flops = int(flops * products)
     n_bytes = q.element_size() * (2 * b * h * s_len * d
                                   + 2 * b * kvh * s_len * d)
-    bound, by = bound_ms(n_bytes, flops, TENSOR_BF16_OPS_PER_S
-                         if dtype == "bfloat16" else SCALAR_OPS_PER_S)
+    bound, by = bound_ms(n_bytes, flops * needed, rate)
     out = dict(label=label, shape=[b, h, kvh, s_len, d], dtype=dtype,
                route=route, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                ms_over_sdpa_ms=ms / sdpa_ms, bound_ms=bound, bound_by=by,
@@ -1039,6 +1144,16 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     if (label, dtype) == ("qwen2-0.5b", "bfloat16"):
         out.update(cuda_core_bf16_ms=CUDA_CORE_BF16_QWEN_MS,
                    speedup_over_cuda_core=CUDA_CORE_BF16_QWEN_MS / ms)
+    if route == "tf32x3":
+        ms_beside, cc_ms = in_turns(
+            lambda: fa_kernel._launch("cuda_core", q, k, v,
+                                      q_per_kv=h // kvh),
+            lambda: flash_attention(q, k, v, q_per_kv=h // kvh), 5)
+        cc_bound, cc_by = bound_ms(n_bytes, flops)
+        out.update(cuda_core_ms=cc_ms, ms_in_turns_with_cuda_core=ms_beside,
+                   speedup_over_cuda_core=cc_ms / ms_beside,
+                   cuda_core_bound_ms=cc_bound, cuda_core_bound_by=cc_by,
+                   blocks_per_sm=fa_kernel.tf32x3_blocks_per_sm(d))
     say("flash_attention_time", **out)
     del q, k, v, q4, k4, v4
     free_device_memory()
@@ -1132,6 +1247,15 @@ def main(until: int = 17) -> None:
                        or "C75" in ln] if log.exists() else []
     say("build", seconds=time.perf_counter() - t0, per_kernel=took,
         ptxas=ptxas)
+    tf32_spills = spill_bytes(_build.library_path("flash_attention")
+                              .with_suffix(".log").read_text(), "tf32x3")
+    if len(tf32_spills) != 2 or any(tf32_spills.values()):
+        fail(f"the TF32 flash_attention kernels (d = 64, 128) spill or are "
+             f"missing from the ptxas report: {tf32_spills}")
+    # the TF32 kernels' instruction mix: how many instructions the operand
+    # splits and the softmax add to each HMMA
+    say("build_sass", tf32x3=sass_mix(_build.library_path("flash_attention"),
+                                      "tf32x3"))
 
     rng = np.random.default_rng(0)
     errors = {}
@@ -1539,15 +1663,16 @@ def main(until: int = 17) -> None:
         fail(f"stopped after phase {until} (--until)")
     # ------------------------------------ 13. flash_attention vs plain
     t0 = time.perf_counter()
-    fa_errs, fa_shares, fa_routes = check_flash_attention(dev, plain)
+    fa_errs, fa_shares, fa_routes, fa_named = check_flash_attention(dev,
+                                                                    plain)
     for route in fa_kernel.ROUTE_LAUNCHES:
         errors["flash_attention_" + route] = max(
             err for label, err in fa_errs.items()
             if fa_routes[label] == route)
     say("flash_attention", cases=[list(c) for c in FLASH_CASES],
         routes=fa_routes, max_abs_err=fa_errs, share_of_tolerance=fa_shares,
-        tolerance=FLASH_TOL, qkv_scale=FLASH_QKV_SCALE,
-        seconds=time.perf_counter() - t0)
+        cuda_core_named_max_abs_err=fa_named, tolerance=FLASH_TOL,
+        qkv_scale=FLASH_QKV_SCALE, seconds=time.perf_counter() - t0)
 
     # --------------------------- 14. the serving path at full width
     serve_launches = serve_full_width(serve_launcher, dev, zero_counts,
@@ -1556,10 +1681,10 @@ def main(until: int = 17) -> None:
 
     # ---------------------- 15. full-width prefill + decode, GPU vs CPU
     t0 = time.perf_counter()
-    fw_errs = full_width_gpu_vs_cpu(rng)
+    fw_errs, fw_routes = full_width_gpu_vs_cpu(rng, zero_counts, read_routes)
     say("full_width_gpu_vs_cpu", batch=2, prompt_len=64, max_abs_err=fw_errs,
         float32_tolerance=FULL_WIDTH_F32_TOL,
-        seconds=time.perf_counter() - t0)
+        flash_attention_routes=fw_routes, seconds=time.perf_counter() - t0)
 
     # ------------------------------- 16. KVCacheScenario, GPU vs CPU
     kv_routes = kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts,
@@ -1569,8 +1694,8 @@ def main(until: int = 17) -> None:
     fa_times = [flash_attention_time(dev, plain, *shape)
                 for shape in FLASH_TIME_SHAPES]
     fa_tc = fa_times[0]
-    fa_cc = flash_attention_time(dev, plain, *FLASH_TIME_SHAPES[0],
-                                 dtype="float32")
+    fa_f32 = flash_attention_time(dev, plain, *FLASH_TIME_SHAPES[0],
+                                  dtype="float32")
 
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
@@ -1618,18 +1743,31 @@ def main(until: int = 17) -> None:
          "ms": fa_tc["ms"], "plain_ms": fa_tc["plain_ms"],
          "bound_ms": fa_tc["bound_ms"], "bound_by": fa_tc["bound_by"],
          "library_ms": fa_tc["sdpa_ms"]},
-        # the CUDA-core route (float32, and bfloat16 at d outside 64, 128):
-        # its launches in the KV scenario's prefill, its time at the same
-        # shape in float32
+        # the CUDA-core route (bfloat16 at d outside 64, 128; float32 at
+        # d outside 64, 128): its launches in the KV scenario's prefill, its
+        # time at the same shape in float32, named through _launch in turns
+        # with the TF32 route
         {"name": "flash_attention_cuda_core", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
          "launches": kv_routes["cuda_core"],
          "max_abs_err": errors["flash_attention_cuda_core"],
-         "ms": fa_cc["ms"], "plain_ms": fa_cc["plain_ms"],
-         "bound_ms": fa_cc["bound_ms"], "bound_by": fa_cc["bound_by"],
-         "library_ms": fa_cc["sdpa_ms"]},
+         "ms": fa_f32["cuda_core_ms"], "plain_ms": fa_f32["plain_ms"],
+         "bound_ms": fa_f32["cuda_core_bound_ms"],
+         "bound_by": fa_f32["cuda_core_bound_by"],
+         "library_ms": fa_f32["sdpa_ms"]},
+        # the TF32 route (float32 at d 64, 128): its launches in the
+        # full-width float32 prefill (phase 15), its time at the same shape
+        {"name": "flash_attention_tf32x3", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_tf32x3.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": fw_routes["float32"]["tf32x3"],
+         "max_abs_err": errors["flash_attention_tf32x3"],
+         "ms": fa_f32["ms"], "plain_ms": fa_f32["plain_ms"],
+         "bound_ms": fa_f32["bound_ms"], "bound_by": fa_f32["bound_by"],
+         "library_ms": fa_f32["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

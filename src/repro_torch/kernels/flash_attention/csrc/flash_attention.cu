@@ -29,21 +29,26 @@
 //     the heaviest query tiles go first, to shorten the causal tail;
 //   * element offsets are 64-bit.
 //
-// Two routes, fixed by dtype and head dim (kernel.py's route()): bfloat16 at
-// d = 64 and 128, the head dims of the published attention configs, runs on
-// the tensor cores (flash_attention_wgmma.cuh); everything else runs this
-// CUDA-core kernel: float32 at d in {16, 32, 64, 80, 112, 128, 256} (its 2e-5
-// tolerance rules out TF32) and bfloat16 at d in {16, 32, 80, 112, 256}.
+// Three routes, fixed by dtype and head dim (kernel.py's route()).  At d = 64
+// and 128, the head dims of the published attention configs, bfloat16 runs on
+// the tensor cores through wgmma (flash_attention_wgmma.cuh) and float32 on
+// the TF32 tensor cores through mma.sync, each product split three ways so
+// that it keeps float32 accuracy (flash_attention_tf32x3.cuh): one TF32
+// product misses the float32 tolerance of 2e-5, three of them meet it, and
+// the TF32 rate is 7x the CUDA cores'.  Everything else runs this CUDA-core
+// kernel: float32 at d in {16, 32, 80, 112, 256} and bfloat16 at d in {16,
+// 32, 80, 112, 256}.  It still takes float32 at d = 64 and 128 when it is
+// named (kernel.py's _launch), to be held against the TF32 route.
 //
 // Bound, on this card: operations for long prompts, bytes for short ones.
 // At the qwen2-0.5b prefill shape (B=4, H=14, KVH=2, d=64, S=4096) the
 // causal products are 2*B*H*S^2*d = 120 GFLOP, 0.12 ms at the dense bf16
-// tensor-core rate (989 TFLOP/s), against 67 MB of q, k, v and output
-// (0.02 ms at 3.35 TB/s); at S=19 or 64 the bytes and the launch dominate.
-// This kernel does its products on the CUDA cores in float32 (67 TFLOP/s),
-// so by construction it cannot come within 15x of that bound; it spends the
-// CUDA cores well (register tiles, one staging of each K/V tile for 64
-// query rows, masked tiles skipped).
+// tensor-core rate (989 TFLOP/s), against 67 MB of q, k, v and output in
+// bfloat16 (0.02 ms at 3.35 TB/s); at S=19 or 64 the bytes and the launch
+// dominate.  This kernel does its products on the CUDA cores in float32 (67
+// TFLOP/s: 1.8 ms at that shape), so by construction it cannot come within
+// 15x of the bf16 bound; it spends the CUDA cores well (register tiles, one
+// staging of each K/V tile for 64 query rows, masked tiles skipped).
 //
 // The C entry points launch on the caller's stream, allocate nothing (the
 // wrapper passes the output) and return the first CUDA error they meet.
@@ -53,6 +58,7 @@
 
 #include <type_traits>
 
+#include "flash_attention_tf32x3.cuh"
 #include "flash_attention_wgmma.cuh"
 
 namespace {
@@ -290,7 +296,9 @@ template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, long long n_bh,
              int sq, int sk, int d, int q_per_kv, int causal, int window,
              float scale, cudaStream_t s) {
-  // bf16 at d = 64 and 128 takes the tensor-core kernel (flash_attention_wgmma.cuh)
+  // bf16 at d = 64 and 128 takes the tensor-core kernel (flash_attention_wgmma.cuh);
+  // f32 there is the TF32 route's (flash_attention_tf32x3.cuh), but is taken
+  // here too when this kernel is named
   constexpr bool kF32 = std::is_same<T, float>::value;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
@@ -313,8 +321,9 @@ int launch_d(const void* q, const void* k, const void* v, void* out, long long n
 extern "C" {
 
 // The CUDA-core kernel.  q: (n_bh, sq, d); k, v: (n_bh / q_per_kv, sk, d); out
-// like q.  dtype: 0 = float32 (d in 16, 32, 64, 80, 112, 128, 256), 1 =
-// bfloat16 (d in 16, 32, 80, 112, 256).  window < 0: no window.
+// like q.  dtype: 0 = float32 (d in 16, 32, 64, 80, 112, 128, 256; at 64 and
+// 128 the TF32 route below is the wrapper's choice), 1 = bfloat16 (d in 16,
+// 32, 80, 112, 256).  window < 0: no window.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            long long n_bh, long long sq, long long sk, int d,
                            int q_per_kv, int causal, int window, float scale,
@@ -349,6 +358,33 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
     return fa_wgmma::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
                                  window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The TF32 tensor-core kernel (3xTF32 mma.sync): float32 q, k, v and out as
+// above, d in 64, 128, every pointer 16-byte aligned (cp.async).  Returns a
+// cudaError_t.
+int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v, void* out,
+                                  long long n_bh, long long sq, long long sk, int d,
+                                  int q_per_kv, int causal, int window, float scale,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
+    return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    return fa_tf32x3::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
+                                 window, scale, s);
+  if (d == 128)
+    return fa_tf32x3::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
+                                  window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The TF32 kernel's resident blocks an SM at head dim d (64 or 128), or minus
+// the cudaError_t that stopped the query.
+int flash_attention_tf32x3_blocks_per_sm(int d) {
+  if (d == 64) return fa_tf32x3::blocks_per_sm<64>();
+  if (d == 128) return fa_tf32x3::blocks_per_sm<128>();
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

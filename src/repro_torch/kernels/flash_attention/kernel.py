@@ -1,17 +1,20 @@
 """ctypes wrapper around ``csrc/flash_attention.cu`` (see the notes there and
-in ``csrc/flash_attention_wgmma.cuh`` for what they replace, what bounds them
-and how).
+in ``csrc/flash_attention_wgmma.cuh`` and ``csrc/flash_attention_tf32x3.cuh``
+for what they replace, what bounds them and how).
 
-Two kernels, one function.  :func:`route` picks one from the dtype and the
-head dim, fixed in code: bfloat16 at d = 64 and 128 runs on the tensor cores
-(``"tensor_core"``: wgmma fed by TMA), everything else on the CUDA cores
-(``"cuda_core"``).  A launch that fails raises; no route stands in for
-another.
+Three kernels, one function.  :func:`route` picks one from the dtype and the
+head dim, fixed in code: at d = 64 and 128, bfloat16 runs on the tensor
+cores (``"tensor_core"``: wgmma fed by TMA) and float32 on the TF32 tensor
+cores with every product split three ways (``"tf32x3"``: mma.sync fed by
+cp.async); everything else runs on the CUDA cores (``"cuda_core"``).  A
+launch that fails raises; no route stands in for another.  The private
+:func:`_launch` names a route, to hold the CUDA-core kernel against the TF32
+one on the same float32 input; no path calls it.
 
 The wrapper checks its inputs, allocates the output, launches on the current
 stream and raises if the launch failed (a launch refused for its shared
 memory never runs, and a later synchronize would not report it).
-``LAUNCHES`` counts the launches of both routes, ``ROUTE_LAUNCHES`` each
+``LAUNCHES`` counts the launches of all three routes, ``ROUTE_LAUNCHES`` each
 route's.
 """
 from __future__ import annotations
@@ -24,29 +27,31 @@ from .. import _build
 from ..dispatch import refuse_grad
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "ROUTE_LAUNCHES", "TENSOR_CORE_HEAD_DIMS",
-           "flash_attention_cuda", "route"]
+           "flash_attention_cuda", "route", "tf32x3_blocks_per_sm"]
 
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"tensor_core": 0, "cuda_core": 0}
+ROUTE_LAUNCHES = {"tensor_core": 0, "tf32x3": 0, "cuda_core": 0}
 
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernels take: the smoke configs' 16, the published configs'
 # 64 and 128, zamba2's 80 and kimi-k2's 112, and 32 / 256 beside them
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
-# bfloat16 at these runs on the tensor cores
+# at these, bfloat16 runs on the tensor cores and float32 on the TF32 ones
 TENSOR_CORE_HEAD_DIMS = (64, 128)
+# the routes whose copies (TMA, cp.async) need 16-byte-aligned q, k and v
+_ALIGNED_ROUTES = ("tensor_core", "tf32x3")
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel that computes (dtype, d): ``"tensor_core"`` or
-    ``"cuda_core"``."""
+    """The kernel that computes (dtype, d): ``"tensor_core"``, ``"tf32x3"``
+    or ``"cuda_core"``."""
     if dtype not in _DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS:
-        return "tensor_core"
+    if d in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
     return "cuda_core"
 
 
@@ -60,8 +65,21 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_wgmma_launch.argtypes = common + [_P]
         lib.flash_attention_wgmma_launch.restype = ctypes.c_int
+        lib.flash_attention_tf32x3_launch.argtypes = common + [_P]
+        lib.flash_attention_tf32x3_launch.restype = ctypes.c_int
+        lib.flash_attention_tf32x3_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.flash_attention_tf32x3_blocks_per_sm.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def tf32x3_blocks_per_sm(d: int) -> int:
+    """Resident blocks an SM of the ``"tf32x3"`` kernel at head dim ``d``
+    (the current CUDA device)."""
+    n = _lib().flash_attention_tf32x3_blocks_per_sm(d)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,7 +87,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int | None = None,
                          sm_scale: float | None = None) -> torch.Tensor:
     """(B·H, Sq, d) q, (B·KVH, Sk, d) k and v, all float32 or all bfloat16,
-    contiguous, on one CUDA device -> (B·H, Sq, d) output in q's dtype."""
+    contiguous, on one CUDA device -> (B·H, Sq, d) output in q's dtype, on
+    :func:`route`'s kernel."""
+    return _launch(None, q, k, v, q_per_kv=q_per_kv, causal=causal,
+                   window=window, sm_scale=sm_scale)
+
+
+def _launch(way: str | None, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, *, q_per_kv: int, causal: bool = True,
+            window: int | None = None,
+            sm_scale: float | None = None) -> torch.Tensor:
+    """:func:`flash_attention_cuda` on the kernel ``way`` names, or on
+    :func:`route`'s when it is None.  ``"cuda_core"`` takes float32 at every
+    head dim; ``"tensor_core"`` and ``"tf32x3"`` only what :func:`route`
+    gives them."""
     global LAUNCHES
     refuse_grad("flash_attention", q, k, v)
     dev = q.device
@@ -86,9 +117,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
                          f"be (B*KVH, Sk, {d})")
     which = route(q.dtype, d)
-    if which == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the tensor-core route's TMA loads need q, k and v "
-                         "to start on 16-byte boundaries")
+    if way is not None and way != which and not (
+            way == "cuda_core" and q.dtype == torch.float32):
+        raise ValueError(f"route {way!r} does not take {q.dtype} at d={d}")
+    which = way or which
+    if which in _ALIGNED_ROUTES and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"the {which} route's copies need q, k and v to "
+                         f"start on 16-byte boundaries")
     if q_per_kv < 1 or bh != bkh * q_per_kv:
         raise ValueError(f"{bh} query rows with q_per_kv={q_per_kv} need "
                          f"{bh // max(q_per_kv, 1)} KV rows, got {bkh}")
@@ -110,6 +145,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if which == "tensor_core":
             rc = _lib().flash_attention_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *args, stream)
+        elif which == "tf32x3":
+            rc = _lib().flash_attention_tf32x3_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *args, stream)
         else:

@@ -473,7 +473,62 @@ def test_flash_attention_tensor_core_route_matches_plain(cuda, d, bh, kvh, sq,
     _bf16_check(got, ref)
     assert fa_kernel.ROUTE_LAUNCHES == {
         "tensor_core": before["tensor_core"] + 1,
+        "tf32x3": before["tf32x3"],
         "cuda_core": before["cuda_core"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bh,kvh,sq,sk,causal,window", [
+    (14, 2, 1, 1, True, None),          # a one-token prompt
+    (14, 2, 19, 19, True, None),        # shorter than one tile
+    (16, 8, 130, 130, True, None),      # one tile and two rows
+    (14, 2, 200, 200, True, None),      # ragged second tile
+    (16, 8, 200, 200, True, 33),        # a window edge inside a tile
+    (8, 2, 200, 130, False, None),      # non-causal, Sq > Sk
+    (8, 2, 130, 300, False, None),      # non-causal, Sq < Sk
+])
+def test_flash_attention_tf32x3_route_matches_plain(cuda, d, bh, kvh, sq, sk,
+                                                   causal, window):
+    """float32 at d = 64 and 128 runs on the TF32 tensor cores (3xTF32),
+    within 2e-5 of the plain version; the CUDA-core kernel, named through
+    ``_launch`` on the same input, is within 2e-5 too."""
+    rng = np.random.default_rng(sq * d + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to(cuda)
+               for shape, scale in (((bh, sq, d), 3.0), ((kvh, sk, d), 1.0),
+                                    ((kvh, sk, d), 1.0)))
+    kw = dict(q_per_kv=bh // kvh, causal=causal, window=window)
+    before = dict(fa_kernel.ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, **kw)
+    assert fa_kernel.ROUTE_LAUNCHES == {
+        "tensor_core": before["tensor_core"],
+        "tf32x3": before["tf32x3"] + 1,
+        "cuda_core": before["cuda_core"]}
+    ref = flash_attention(q, k, v, backend=PLAIN, **kw)
+    old = fa_kernel._launch("cuda_core", q, k, v, **kw)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(old, ref, rtol=2e-5, atol=2e-5)
+    assert fa_kernel.ROUTE_LAUNCHES["cuda_core"] == before["cuda_core"] + 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_tf32x3_refuses_what_it_does_not_take(cuda):
+    """cp.async needs 16-byte-aligned q, k and v; the TF32 and tensor-core
+    kernels take only their own (dtype, d); a refusal launches nothing."""
+    buf = torch.zeros(14 * 64 * 64 + 1, device=cuda)
+    q = buf[1:].view(14, 64, 64)                    # 4 bytes off
+    k = torch.zeros(2, 64, 64, device=cuda)
+    before = fa_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, k, q_per_kv=7)
+    with pytest.raises(ValueError, match="tf32x3"):
+        fa_kernel._launch("tf32x3", q.bfloat16(), k.bfloat16(), k.bfloat16(),
+                          q_per_kv=7)
+    with pytest.raises(ValueError, match="tensor_core"):
+        fa_kernel._launch("tensor_core", q, k, k, q_per_kv=7)
+    assert fa_kernel.LAUNCHES == before
 
 
 @pytest.mark.cuda

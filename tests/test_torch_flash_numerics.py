@@ -115,8 +115,8 @@ def test_p_rounding_against_the_bf16_check(shape, rounding, passes,
     (torch.bfloat16, 80, "cuda_core"),
     (torch.bfloat16, 112, "cuda_core"),
     (torch.bfloat16, 256, "cuda_core"),
-    (torch.float32, 64, "cuda_core"),
-    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"),
     (torch.float32, 80, "cuda_core"),
 ])
 def test_route_by_dtype_and_head_dim(dtype, d, want):
