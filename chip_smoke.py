@@ -107,9 +107,25 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     qwen2-0.5b shape in float32 on the TF32 route, timed in turns with the
     plain version and with the CUDA-core kernel, beside both bounds (three
     TF32 products at the TF32 rate; one float32 product at the CUDA cores'
-    rate) and the TF32 kernel's resident blocks an SM.
+    rate) and the TF32 kernel's resident blocks an SM;
+18. the fleet: ``repro_torch.examples.fleet_mix``'s 3-tenant mix (dlrm, kv,
+    scanner; 340 fast slots) on the GPU vs the CPU for capacity in
+    {shared, partition, weighted} x sync_every in {1, 4}, trajectory,
+    summary and tenant rows identical, the launches checked; then the
+    example's own run on the GPU inside the reference example's margins;
+19. a paper-scale fleet at full width: phase 8's DLRM (stationary), the
+    paper's mmap-bench region (2,621,440 pages, 262,144 hot, 2.4 M accesses
+    a batch) and ``KVCacheScenario()``: 7,864,408 blocks, 600,000 fast
+    slots against 748,753 of demand, 6 epochs of 4 interleaved rows, hints
+    on, sync_every=4, shared and weighted-fair, each under
+    ``set_sync_debug_mode("error")``: launches, 2 record pulls, the DLRM
+    quota and weighted-fair DLRM coverage above the shared pool's checked;
+    the warm epoch wall, the host interleave's share of it, the device's
+    idle share (``torch.profiler``) and peak memory; hist_select's segment
+    call (5 x 7,864,408 keys, S=3) timed beside its plain version, its
+    bound and ``torch.topk`` on each segment's slice.
 
-Each path (8-11, 14-16) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-19) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -376,8 +392,8 @@ def observe_scatter_time(dev, plain, paper_ids) -> dict:
     return out
 
 
-def selection_rows(dev, ids0, ids1):
-    """The (5, PAPER_PAGES) int32 key rows the online path ranks in one
+def selection_rows(dev, ids0, ids1, n_blocks: int = PAPER_PAGES):
+    """The (5, n_blocks) int32 key rows the online path ranks in one
     hist_select call, from two batches of its page ids: the access counts,
     their non-zero mask and three float scores as sortable keys (phase 12's
     rows; about 98 % of each row is one tie value)."""
@@ -386,7 +402,7 @@ def selection_rows(dev, ids0, ids1):
     from repro_torch.kernels.observe_scatter import observe_scatter
     cursor = torch.zeros((), dtype=torch.int32, device=dev)
     h0, h1 = (observe_scatter(torch.from_numpy(ids).to(dev), cursor,
-                              n_blocks=PAPER_PAGES, period=401)[0]
+                              n_blocks=n_blocks, period=401)[0]
               for ids in (ids0, ids1))
     hf = h0.to(torch.float32)
     return torch.stack([
@@ -1160,6 +1176,286 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     return out
 
 
+class Replay:
+    """A scenario whose ``epochs()`` replays a list made once (set-up, so a
+    timed fleet run holds the interleave and the runtime, not the tenants'
+    data generation); every other attribute is the scenario's own."""
+
+    def __init__(self, scenario, epochs):
+        self._scenario, self._epochs = scenario, epochs
+
+    def __getattr__(self, name):
+        return getattr(self._scenario, name)
+
+    def epochs(self):
+        return iter(self._epochs)
+
+
+def fleet_launches(fleet, runs: dict) -> dict:
+    """The kernel launches ``runs`` ({capacity: number of runs}) of
+    ``fleet``'s geometry make: observe_scatter once a batch row; hist_select
+    per epoch the select and the tenants' hot sets, and under quotas also
+    the segment mask and the hot set."""
+    n_ep, rows = fleet.n_epochs, fleet.batches_per_epoch
+    return {"observe_scatter": n_ep * rows * sum(runs.values()),
+            "hist_select": sum(n_ep * (2 if cap == "shared" else 4) * n
+                               for cap, n in runs.items()),
+            "gather_count": 0, "embedding_bag": 0, "flash_attention": 0}
+
+
+def fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts) -> dict:
+    """Phase 18: the example's 3-tenant mix (``repro_torch.examples.
+    fleet_mix``: dlrm, kv, scanner; 340 fast slots) on the GPU vs the CPU
+    for capacity in {shared, partition, weighted} x sync_every in {1, 4}:
+    trajectory, summary and tenant rows identical; then the example's own
+    run (shared, weighted and every tenant solo) on the GPU inside the
+    reference example's margins.  The KV tenant's stream is decoded on the
+    GPU once and replayed by every fleet on both devices.  Returns the
+    parity runs' launches."""
+    from repro_torch.examples import fleet_mix
+    from repro_torch.fleet import run_fleet
+    t0 = time.perf_counter()
+    zero_counts()
+    sc = fleet_mix.make_scenarios(device=dev)
+    list(sc["kv"].epochs())                 # the KV decode, once
+    kv_launches = read_counts()
+    if kv_launches["flash_attention"] != sc["kv"].cfg.n_layers:
+        fail(f"fleet_mix's KV decode launches {kv_launches}")
+    zero_counts()
+    for capacity in ("shared", "partition", "weighted"):
+        for k in (1, 4):
+            out = {d: run_fleet(fleet_mix.fleet(sc, capacity), hints=True,
+                                sync_every=k, device=d)
+                   for d in (dev, "cpu")}
+            for part in ("trajectory", "summary", "tenants"):
+                if json.dumps(out[dev][part], sort_keys=True) != json.dumps(
+                        out["cpu"][part], sort_keys=True):
+                    fail(f"fleet_mix {part} differs GPU vs CPU "
+                         f"(capacity={capacity}, sync_every={k})")
+    launches = read_counts()
+    want = fleet_launches(fleet_mix.fleet(sc, "shared"),
+                          {"shared": 2, "partition": 2, "weighted": 2})
+    if launches != want:
+        fail(f"fleet_mix parity launches {launches}, expected {want}")
+    res = fleet_mix.run(device=dev, scenarios=sc)
+    margins = fleet_mix.margins_met(res)
+    if not all(margins.values()):
+        fail(f"fleet_mix margins missed on the GPU: {margins}, coverages "
+             f"solo {res['solo_cov']}, shared {res['shared_cov']}, "
+             f"weighted {res['fair_cov']}")
+    say("fleet_mix", runs=12, identical=True, launches=launches,
+        kv_decode_launches=kv_launches, margins=margins,
+        solo_cov=res["solo_cov"], shared_cov=res["shared_cov"],
+        fair_cov=res["fair_cov"], caps=res["caps"],
+        seconds=time.perf_counter() - t0)
+    return launches
+
+
+# phase 19's fleet: 600,000 fast slots against a demand of 748,753 (the
+# tenants' hot sets); weighted-fair weights: the DLRM tenant's hot set,
+# the KV tenant's k_hot (as in the example) and 60,000 for the scanner
+FLEET_K_HOT = 600_000
+FLEET_BLOCKS, FLEET_DEMAND = 7_864_408, 748_753
+FLEET_WEIGHTS = {"dlrm": float(PAPER_K_HOT), "kv": 22.0, "scanner": 60_000.0}
+
+
+def check_fleet_records(res: dict, fleet) -> None:
+    lanes = res["trajectory"]["lanes"]
+    tenants = res["tenants"]
+    if sorted(tenants) != sorted(t.name for t in fleet.tenants):
+        fail(f"fleet tenants {sorted(tenants)}")
+    for name, recs in lanes.items():
+        if len(recs) != fleet.n_epochs:
+            fail(f"fleet lane {name} has {len(recs)} records")
+        for r in recs:
+            nums = [v for v in r.values() if isinstance(v, (int, float))]
+            if not (all(math.isfinite(v) for v in nums)
+                    and 0.0 <= r["accuracy"] <= 1.0
+                    and 0.0 <= r["coverage"] <= 1.0
+                    and 0 <= r["resident"] <= fleet.k_hot
+                    and r["time_s"] > 0):
+                fail(f"fleet record out of range {r}")
+    for t in tenants.values():
+        for lane, recs in t["records"].items():
+            if len(recs) != fleet.n_epochs or not all(
+                    0.0 <= r["coverage"] <= 1.0 and r["resident"] >= 0
+                    and math.isfinite(r["time_s"]) for r in recs):
+                fail(f"tenant records out of range ({lane})")
+
+
+def paper_fleet(dev, plain, spec, DLRMScenario, KVCacheScenario,
+                mmap_bench, zero_counts, read_counts) -> dict:
+    """Phase 19: a paper-scale fleet at full width — the online path's DLRM
+    (5,242,880 pages, 2.4 M lookups a batch, 486,587 hot, stationary), the
+    paper's §III.A mmap-bench region (2,621,440 pages, 262,144 hot, 2.4 M
+    accesses a batch) and ``KVCacheScenario()`` (88 blocks): 7,864,408
+    blocks, 600,000 fast slots, 6 epochs, hints on, sync_every=4, shared
+    pool and weighted-fair quotas, each under ``set_sync_debug_mode(
+    "error")``; launches, record pulls and the DLRM quota checked.  Then
+    the weighted run warm, three times (the epoch wall and the host
+    interleave's share of it), once under ``torch.profiler`` (the device's
+    idle share), and hist_select's segment call on key rows from the
+    fleet's stream (U=5 x 7,864,408 keys, S=3) timed beside its plain
+    version, its bound and ``torch.topk`` on each segment's slice."""
+    import numpy as np
+    import torch
+    from repro_torch.core import runtime
+    from repro_torch.fleet import FleetScenario, TenantSpec, run_fleet
+    from repro_torch.kernels.hist_select import kth_key
+    from repro_torch.scenarios import MmapBenchScenario
+
+    t0 = time.perf_counter()
+    dlrm = DLRMScenario(spec=spec, n_epochs=6, batches_per_epoch=2,
+                        shift_at=0, k_hot=PAPER_K_HOT)
+    scanner = MmapBenchScenario(spec=mmap_bench.PAPER, n_epochs=6,
+                                batches_per_epoch=2,
+                                accesses_per_batch=2_400_000)
+    kv = KVCacheScenario(device=dev)
+    tenants = [TenantSpec(Replay(s, list(s.epochs())), weight=w, name=n)
+               for s, n, w in ((dlrm, "dlrm", FLEET_WEIGHTS["dlrm"]),
+                               (kv, "kv", FLEET_WEIGHTS["kv"]),
+                               (scanner, "scanner",
+                                FLEET_WEIGHTS["scanner"]))]
+    fleets = {cap: FleetScenario(tenants, k_hot=FLEET_K_HOT, capacity=cap)
+              for cap in ("shared", "weighted")}
+    fleet = fleets["weighted"]
+    if (fleet.n_blocks != FLEET_BLOCKS
+            or sum(fleet.tenancy.hot_k) != FLEET_DEMAND
+            or fleet.n_epochs != 6):
+        fail(f"paper fleet geometry: {fleet.n_blocks} blocks, hot sets "
+             f"{fleet.tenancy.hot_k}, {fleet.n_epochs} epochs")
+    setup_s = time.perf_counter() - t0
+    # the host interleave alone (the tenants replay from memory)
+    interleave_s = {}
+    for cap, fl in fleets.items():
+        t0 = time.perf_counter()
+        fl_epochs = list(fl.epochs())
+        interleave_s[cap] = time.perf_counter() - t0
+    runs, walls, peaks, launches = {}, {}, {}, {}
+    for cap, fl in fleets.items():
+        pipeline = fl.build_pipeline()
+        free_device_memory()
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with runtime.counting() as c:
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                runs[cap] = run_fleet(fl, hints=pipeline, sync_every=4,
+                                      device=dev)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            walls[cap] = time.perf_counter() - t0
+        peaks[cap] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        launches[cap] = read_counts()
+        want = fleet_launches(fl, {cap: 1})
+        if launches[cap] != want:
+            fail(f"paper fleet ({cap}) launches {launches[cap]}, expected "
+                 f"{want}")
+        dispatch = {k: c.dispatch[k] for k in ("observe_all", "epoch_step",
+                                               "record_sync")}
+        if dispatch != {"observe_all": 6, "epoch_step": 6, "record_sync": 2}:
+            fail(f"paper fleet ({cap}) dispatches {dispatch}, expected 6, 6 "
+                 f"and 2 record pulls")
+        check_fleet_records(runs[cap], fl)
+    caps = runs["weighted"]["tenants"]
+    cov = {cap: r["tenants"]["dlrm"]["lanes"]["hmu_oracle"]["final_coverage"]
+           for cap, r in runs.items()}
+    if caps["dlrm"]["cap"] < PAPER_K_HOT:
+        fail(f"DLRM quota {caps['dlrm']['cap']} < its hot set {PAPER_K_HOT}")
+    if not cov["weighted"] > cov["shared"]:
+        fail(f"weighted-fair DLRM coverage {cov['weighted']} is not above "
+             f"the shared pool's {cov['shared']}")
+    say("paper_fleet", n_blocks=fleet.n_blocks, k_hot=fleet.k_hot,
+        tenants={t.name: [t.n_blocks, t.k_hot] for t in fleet.tenants},
+        quotas={n: caps[n]["cap"] for n in caps},
+        epochs=fleet.n_epochs, rows_per_epoch=fleet.batches_per_epoch,
+        accesses_per_epoch=int(fl_epochs[0].size), setup_s=setup_s,
+        cold_wall_s=walls, launches=launches, dispatch=dispatch,
+        peak_mem_gib=peaks, dlrm_hmu_oracle_final_coverage=cov,
+        tenant_final_coverage={
+            cap: {n: t["lanes"]["hmu_oracle"]["final_coverage"]
+                  for n, t in r["tenants"].items()}
+            for cap, r in runs.items()},
+        interleave_s=interleave_s)
+
+    # warm: the weighted fleet three times, the interleave inside the wall
+    warm_wall_s, warm_cpu_s = [], []
+    for _ in range(3):
+        pipeline = fleet.build_pipeline()
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        run_fleet(fleet, hints=pipeline, sync_every=4, device=dev)
+        torch.cuda.synchronize()
+        warm_wall_s.append(time.perf_counter() - t0)
+        warm_cpu_s.append(time.process_time() - c0)
+    warm_mean = sum(warm_wall_s) / len(warm_wall_s)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pipeline = fleet.build_pipeline()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_fleet(fleet, hints=pipeline, sync_every=4, device=dev)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernel_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            kernel_us[ev.key] = kernel_us.get(ev.key, 0.0) + us
+    busy_s = sum(kernel_us.values()) / 1e6
+    say("paper_fleet_warm", runs=len(warm_wall_s), wall_s=warm_wall_s,
+        process_cpu_s=warm_cpu_s,
+        epoch_wall_s_mean=warm_mean / fleet.n_epochs,
+        interleave_s_per_epoch=interleave_s["weighted"] / fleet.n_epochs,
+        interleave_share_of_wall=interleave_s["weighted"] / warm_mean,
+        profiled_wall_s=prof_wall, device_busy_s=busy_s,
+        device_idle_share_profiled=1.0 - busy_s / prof_wall,
+        device_idle_share_warm=1.0 - busy_s / warm_mean,
+        top_kernel_ms={key[:80]: us / 1e3 for key, us in sorted(
+            kernel_us.items(), key=lambda kv: -kv[1])[:10]})
+
+    # hist_select's segment call at the fleet's shape, on key rows made
+    # from the fleet's own first two batch rows
+    ten = fleet.tenancy
+    rows = selection_rows(dev, fl_epochs[0][0], fl_epochs[0][1],
+                          n_blocks=fleet.n_blocks)
+    seg = torch.from_numpy(ten.block_tenants()).to(dev)
+    ks = ten.caps
+    got = kth_key(rows, seg, ks)
+    ref = kth_key(rows, seg, ks, backend=plain)
+    err = int((got - ref).abs().max())
+    if err != 0:
+        fail(f"hist_select's segment call differs from its plain version "
+             f"on the fleet's rows (max abs err {err})")
+    bounds = list(zip(ten.offsets, ten.offsets[1:], ks))
+    top_min = torch.stack([torch.topk(rows[:, a:b], c, dim=-1, sorted=False
+                                      ).values.min(dim=-1).values
+                           for a, b, c in bounds], dim=-1)
+    if not torch.equal(top_min.to(torch.int64) + 2 ** 31, got):
+        fail("hist_select's segment call disagrees with torch.topk")
+    ms, plain_ms = in_turns(lambda: kth_key(rows, seg, ks, backend=plain),
+                            lambda: kth_key(rows, seg, ks), 10)
+    topk_ms = time_ms(lambda: [torch.topk(rows[:, a:b], c, dim=-1,
+                                          sorted=False)
+                               for a, b, c in bounds], 10)
+    n_keys = rows.numel()
+    b_ms, b_by = bound_ms(4 * n_keys + 4 * fleet.n_blocks
+                          + 8 * got.numel(), n_keys)
+    seg_time = {"rows": list(rows.shape), "segments": len(ks), "ks": list(ks),
+                "ms": ms, "plain_ms": plain_ms, "topk_ms": topk_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                "launches": launches["weighted"]["hist_select"]}
+    say("hist_select_segments_time", share_of_bound=b_ms / ms, **seg_time)
+    del rows, seg, got, ref, top_min
+    free_device_memory()
+    return seg_time
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -1167,7 +1463,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 17) -> None:
+def main(until: int = 19) -> None:
     import numpy as np
     import torch
 
@@ -1697,6 +1993,15 @@ def main(until: int = 17) -> None:
     fa_f32 = flash_attention_time(dev, plain, *FLASH_TIME_SHAPES[0],
                                   dtype="float32")
 
+    if until < 18:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------------- 18. the fleet example's mix, GPU vs CPU, margins
+    fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts)
+
+    # --------------------------- 19. a paper-scale fleet at full width
+    seg_time = paper_fleet(dev, plain, spec, DLRMScenario, KVCacheScenario,
+                           mmap_bench, zero_counts, read_counts)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -1768,6 +2073,17 @@ def main(until: int = 17) -> None:
          "ms": fa_f32["ms"], "plain_ms": fa_f32["plain_ms"],
          "bound_ms": fa_f32["bound_ms"], "bound_by": fa_f32["bound_by"],
          "library_ms": fa_f32["sdpa_ms"]},
+        # the fleet path: hist_select's launches in phase 19's weighted-fair
+        # run (half of them on the segment route, S = 3), and the segment
+        # call's time at that fleet's shape beside torch.topk on each
+        # segment's slice
+        {"name": "hist_select_segments", "route": "cuda",
+         "source": "src/repro_torch/kernels/hist_select/csrc/hist_select.cu",
+         "replaces": "src/repro/kernels/hist_select/kernel.py:45",
+         "launches": seg_time["launches"],
+         "max_abs_err": seg_time["max_abs_err"], "ms": seg_time["ms"],
+         "plain_ms": seg_time["plain_ms"], "bound_ms": seg_time["bound_ms"],
+         "bound_by": seg_time["bound_by"], "library_ms": seg_time["topk_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -1780,4 +2096,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 17)
+    main(int(args[1]) if args[:1] == ["--until"] else 19)

@@ -11,9 +11,9 @@ configuration, which also names the device.
 The reference's hi/lo int32 event counters recombine into the port's int64
 :class:`~repro_torch.faults.Counter64` values, and its record-buffer dict
 packs into the port's ``(sync_every, F)`` int64 rows.  Its ``tenant_id``
-leaf (all zeros without a tenancy, which the port does not carry yet) has
-no counterpart.  :func:`bundle_to_numpy` goes the other way for the bundle, with the
-reference's keys, so the two can be compared leaf by leaf.
+leaf has no counterpart: the port's tenant layout is static and comes from
+``like``.  :func:`bundle_to_numpy` goes the other way for the bundle, with
+the reference's keys, so the two can be compared leaf by leaf.
 
 Model weights and serving caches cross as nested dicts of numpy arrays in
 the reference's layout (:func:`params_from_numpy`, :func:`cache_from_numpy`
@@ -141,10 +141,11 @@ def store_to_numpy(store: TieredStore) -> Dict[str, np.ndarray]:
 
 def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:
     """The runtime's :class:`_FusedState` (placement and record buffer
-    included) from the reference's ``_FusedState`` leaves."""
+    included) from the reference's ``_FusedState`` leaves (a fleet's
+    buffered tenant rows are not carried)."""
     buf = like.out_buf
     k, n_lanes = buf.shape[0], like.placement.slot_to_block.shape[0]
-    cols = _out_columns(n_lanes)
+    cols = _out_columns(n_lanes, 0)   # the lane columns precede the tenants'
     rows = np.zeros(tuple(buf.shape), np.int64)
     for f in _OUT_SCALARS:
         hi = np.asarray(flat[f"out_buf.{f}_hi"], np.int64)
@@ -165,7 +166,8 @@ def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:
         prefetch_rank=_t(flat, "prefetch_rank", like.prefetch_rank),
         prev_hmu=_t(flat, "prev_hmu", like.prev_hmu),
         prev_pebs=_t(flat, "prev_pebs", like.prev_pebs),
-        out_buf=torch.from_numpy(rows).to(buf.device))
+        out_buf=torch.from_numpy(rows).to(buf.device),
+        tenant_hot=like.tenant_hot, tenant_caps=like.tenant_caps)
 
 
 def _leaf_from_numpy(x, dev: torch.device) -> torch.Tensor:

@@ -12,18 +12,21 @@ Public surface:
   TieringManager        Fig. 2 "Tiering Agent" glue (manager.py)
   EpochRuntime          online observe->decide->migrate->account loop over
                         all six policy lanes (runtime.py, fused path)
+  Tenancy               multi-tenant layout and quotas the epoch step
+                        enforces (runtime.py; built by repro_torch.fleet)
   metrics               accuracy / coverage / overlap / hotness CDF
 """
 from .blockstore import TieredStore
 from .costmodel import CXL_SYSTEM, TPU_V5E_SYSTEM, MemSystem, TierSpec
 from .manager import StrategyResult, TieringManager
 from .placement import Placement
-from .runtime import ALL_POLICIES, EpochRecord, EpochRuntime, Trajectory
+from .runtime import (ALL_POLICIES, EpochRecord, EpochRuntime, Tenancy,
+                      Trajectory)
 from . import metrics, placement, policy, selectk, telemetry
 
 __all__ = [
     "TieredStore", "TieringManager", "StrategyResult", "Placement",
-    "EpochRuntime", "EpochRecord", "Trajectory", "ALL_POLICIES",
+    "EpochRuntime", "EpochRecord", "Tenancy", "Trajectory", "ALL_POLICIES",
     "MemSystem", "TierSpec", "CXL_SYSTEM", "TPU_V5E_SYSTEM",
     "metrics", "placement", "policy", "selectk", "telemetry",
 ]

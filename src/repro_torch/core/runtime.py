@@ -12,6 +12,12 @@ Each epoch is two steps on the device:
    ``placement.apply_plan``, and their counts land in row ``out_row`` of the
    device-side record buffer.
 
+With a :class:`Tenancy` (``repro_torch.fleet``) the same step enforces
+per-tenant quotas — one segment-capped ``hist_select`` call masks every key
+row to each tenant's own top ``caps[t]`` before the select — and adds
+(L, T) per-tenant counts to the same record row, which the flush appends to
+``EpochRuntime.tenant_records``.
+
 The host pulls that buffer — one packed ``(sync_every, F)`` int64 tensor —
 once every ``sync_every`` epochs (:meth:`EpochRuntime._flush_records`, the
 only device->host transfer of the loop, counted in
@@ -58,12 +64,13 @@ from . import policy
 from . import telemetry as tel
 from ..device import sync_allowed, upload
 from ..kernels.dispatch import resolve_device
+from ..kernels.hist_select import kernel as hs_kernel
 from .costmodel import CXL_SYSTEM, MemSystem
 from .placement import Placement, apply_plan, demote_idle
 
 __all__ = [
     "ALL_POLICIES", "DISPATCH_COUNTS", "Counters", "counting",
-    "EpochRecord", "EpochRuntime", "Trajectory",
+    "EpochRecord", "EpochRuntime", "Tenancy", "Trajectory",
 ]
 
 ALL_POLICIES = (
@@ -196,6 +203,68 @@ class _Lane:
         return s[s >= 0]
 
 
+class Tenancy(NamedTuple):
+    """Static multi-tenant layout of one shared block space
+    (``repro_torch.fleet``).
+
+    ``offsets`` are the cumulative block offsets of the per-tenant id ranges
+    (length T+1, ``offsets[0] == 0``, ``offsets[-1] == n_blocks``); tenant
+    ``t`` owns global ids ``[offsets[t], offsets[t+1])``.  ``hot_k`` is each
+    tenant's true-hot-set size — the denominator of its per-tenant coverage,
+    the fast-tier target it would run solo — and ``caps`` are per-tenant
+    admission quotas applied to every lane's selection each epoch (``None``
+    = shared pool, no quotas).  While ``sum(caps) <= k_hot`` a tenant's
+    first ``caps[t]`` wanted blocks are admitted unconditionally, because
+    ``placement.apply_plan`` never evicts a still-wanted resident ahead of
+    a free slot: quotas are isolation guarantees, not only rate limits.
+    Hashable: it rides in the epoch step's static config."""
+    offsets: Tuple[int, ...]
+    hot_k: Tuple[int, ...]
+    caps: Optional[Tuple[int, ...]] = None
+
+    @property
+    def n_tenants(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def sizes(self) -> Tuple[int, ...]:
+        return tuple(b - a for a, b in zip(self.offsets, self.offsets[1:]))
+
+    def block_tenants(self) -> np.ndarray:
+        """Per-block tenant ids, (n_blocks,) int32."""
+        return np.repeat(np.arange(self.n_tenants, dtype=np.int32),
+                         self.sizes)
+
+    def validate(self, n_blocks: int, k_hot: int,
+                 max_segments: Optional[int] = None) -> None:
+        """Raise on a layout the epoch step cannot run.  ``max_segments``
+        is the card's ``hist_select`` segment cap (every epoch selects per
+        tenant in one call); ``None`` (the plain versions) has no cap."""
+        offs = self.offsets
+        if len(offs) < 2 or offs[0] != 0 or offs[-1] != n_blocks or any(
+                b <= a for a, b in zip(offs, offs[1:])):
+            raise ValueError(f"tenancy offsets must be strictly increasing "
+                             f"from 0 to n_blocks={n_blocks}, got {offs}")
+        if len(self.hot_k) != self.n_tenants or any(
+                not 0 < h <= s for h, s in zip(self.hot_k, self.sizes)):
+            raise ValueError(f"hot_k must give every tenant a size in "
+                             f"(0, n_tenant_blocks], got {self.hot_k}")
+        if self.caps is not None:
+            if len(self.caps) != self.n_tenants or any(
+                    c < 0 for c in self.caps):
+                raise ValueError(f"caps must be one non-negative quota per "
+                                 f"tenant, got {self.caps}")
+            if sum(self.caps) > k_hot:
+                raise ValueError(f"tenant caps sum to {sum(self.caps)} > "
+                                 f"k_hot={k_hot}; quotas must fit the fast "
+                                 f"tier for admission to be guaranteed")
+        if max_segments is not None and self.n_tenants > max_segments:
+            raise ValueError(
+                f"tenancy has {self.n_tenants} tenants, more than the "
+                f"{max_segments} segments one hist_select call takes on "
+                f"the card")
+
+
 # ======================================================  fused device step
 class _FusedCfg(NamedTuple):
     """Hashable static config of the epoch step."""
@@ -206,6 +275,7 @@ class _FusedCfg(NamedTuple):
     hint_weight: float
     nb_rate_limit: Optional[int]
     reactive_hot_threshold: Optional[int]
+    tenancy: Optional[Tenancy] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,30 +290,49 @@ class _FusedState:
     prev_pebs: torch.Tensor
     out_buf: torch.Tensor        # (sync_every, F) int64 packed record rows
                                  # (layout: _out_columns), written in place
+    # with a Tenancy: its segments on the device, uploaded once — widths
+    # hot_k (per-tenant hot sets) and, under quotas, caps
+    tenant_hot: Optional[selectk.SegmentLayout] = None
+    tenant_caps: Optional[selectk.SegmentLayout] = None
 
 
 # Packed record-row layout: three collector event scalars, then one column
-# per lane for each per-lane count (the reference's out_buf dict, packed so
-# a flush is one transfer).
+# per lane for each per-lane count, then (with a Tenancy) L x T columns,
+# lane-major, for each per-tenant count (the reference's out_buf dict and
+# its "tenant" sub-dict, packed so a flush is one transfer).
 _OUT_SCALARS = ("drained", "pebs_host", "nb_host")
 _OUT_LANE_FIELDS = ("n_fast", "n_slow", "inter", "resident", "promoted",
                     "demoted")
 
 
-def _out_columns(n_lanes: int) -> Dict[str, object]:
+def _out_columns(n_lanes: int, n_tenants: int) -> Dict[str, object]:
     cols: Dict[str, object] = {f: i for i, f in enumerate(_OUT_SCALARS)}
     base = len(_OUT_SCALARS)
     for j, f in enumerate(_OUT_LANE_FIELDS):
         cols[f] = slice(base + j * n_lanes, base + (j + 1) * n_lanes)
+    base += len(_OUT_LANE_FIELDS) * n_lanes
+    width = n_lanes * n_tenants
+    for j, f in enumerate(_OUT_LANE_FIELDS):
+        cols["tenant:" + f] = slice(base + j * width, base + (j + 1) * width)
     return cols
 
 
-def _out_buf_init(sync_every: int, n_lanes: int,
+def _out_buf_init(sync_every: int, n_lanes: int, n_tenants: int,
                   device) -> torch.Tensor:
     """Zeroed device accumulator for ``sync_every`` epochs of record rows."""
-    width = len(_OUT_SCALARS) + len(_OUT_LANE_FIELDS) * int(n_lanes)
+    width = (len(_OUT_SCALARS)
+             + len(_OUT_LANE_FIELDS) * int(n_lanes) * (1 + int(n_tenants)))
     return torch.zeros((int(sync_every), width), dtype=torch.int64,
                        device=device)
+
+
+def _per_tenant_sum(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
+    """(L, n_blocks) -> (L, T) int64: a sum over each tenant's id range
+    (the ranges are contiguous and static, so each is a slice; one
+    ``index_add_`` over the segment ids would instead send every block's
+    value to one of L x T addresses by an atomic add)."""
+    return torch.stack([torch.sum(x[:, a:b], dim=-1, dtype=torch.int64)
+                        for a, b in zip(offsets, offsets[1:])], dim=-1)
 
 
 def _lane_column(values: Sequence, dtype, device) -> torch.Tensor:
@@ -340,6 +429,18 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     min_key_col = _lane_column(min_keys, torch.int32, dev)
     cap_col = _lane_column(caps, torch.int32, dev)[:, 0]
 
+    # -- multi-tenant quotas: every unique key row is masked to int32 min
+    #    outside each tenant's own top caps[t] (one segment-capped
+    #    hist_select call over the static tenant bounds), so a noisy
+    #    tenant cannot crowd a quieter one out of any lane's candidates.
+    #    Masked entries fail every lane's value gate (all min_keys >= 0).
+    ten = cfg.tenancy
+    quotas = ten is not None and ten.caps is not None
+    if quotas:
+        protected = selectk.segment_top_k_mask(
+            key_rows, ten.offsets, ten.caps, layout=state.tenant_caps)
+        key_rows = torch.where(protected, key_rows, selectk.INT32_MIN)
+
     # -- one selection per unique signal (the hist_select kernel on the
     #    card), fanned out to lanes
     vals_u, ids_u, sel_u = selectk.select_top_k(
@@ -347,11 +448,14 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     vals = torch.stack([vals_u[r] for r in lane_row])          # (L, k)
     ids = torch.stack([ids_u[r] for r in lane_row])
 
-    # -- account the epoch under the placement that served it
-    hot = sel_u[hmu_row]                           # epoch's true top-K set
+    # -- account the epoch under the placement that served it.  The hot
+    #    set is workload truth: under quotas the hmu row is masked, so it
+    #    gets its own exact top-K; otherwise the oracle row doubles as it.
+    hot = (selectk.top_k_mask(d_true, k) if quotas
+           else sel_u[hmu_row])                    # epoch's true top-K set
     fast0 = state.placement.fast_mask              # (L, n)
-    n_fast = torch.sum(torch.where(fast0, d_true, 0), dim=-1,
-                       dtype=torch.int64)
+    d_fast = torch.where(fast0, d_true, 0)
+    n_fast = torch.sum(d_fast, dim=-1, dtype=torch.int64)
     n_slow = torch.sum(d_true, dtype=torch.int64) - n_fast
     inter = torch.sum(fast0 & hot, dim=-1, dtype=torch.int64)
     resident0 = state.placement.resident()
@@ -369,14 +473,26 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     # -- migrate: bounded promotion with plan-guarded coldest-victim eviction
     pl, promoted, demoted = apply_plan(pl, want, est_lanes)
 
-    # -- this epoch's record row, written in place into the accumulator
-    #    (the reference donates the buffer; here the update is in place)
-    state.out_buf[out_row] = torch.cat([
+    parts = [
         torch.stack([drained.value, bundle.pebs.host_events.value,
                      bundle.nb.host_events.value]),
         n_fast, n_slow, inter, resident0.to(torch.int64),
         promoted.to(torch.int64), (demoted + pre_demoted).to(torch.int64),
-    ])
+    ]
+    if ten is not None:
+        # per-tenant accounting: tenant-range sums of the same masks the
+        # lane record sums, and each tenant's own true-hot set (the top
+        # hot_k[t] of its id range, all tenants in one segment call); only
+        # (L, T) counts join the record row
+        t_hot = selectk.segment_top_k_mask(
+            d_true, ten.offsets, ten.hot_k, layout=state.tenant_hot)
+        fast1 = pl.fast_mask
+        parts += [_per_tenant_sum(x, ten.offsets).reshape(-1) for x in (
+            d_fast, d_true - d_fast,
+            fast0 & t_hot, fast0, fast1 & ~fast0, fast0 & ~fast1)]
+    # -- this epoch's record row, written in place into the accumulator
+    #    (the reference donates the buffer; here the update is in place)
+    state.out_buf[out_row] = torch.cat(parts)
     return dataclasses.replace(
         state, bundle=bundle, placement=pl, pred=pred_new,
         prev_hmu=hmu_now, prev_pebs=pebs_now)
@@ -439,8 +555,6 @@ class EpochRuntime:
             _not_ported("fused=False (the per-lane reference path)", "12")
         if mesh is not None:
             _not_ported("mesh= (sharded state)", "15")
-        if tenancy is not None:
-            _not_ported("tenancy= (multi-tenant quotas)", "9")
         if faults is not None or hardening is not None:
             _not_ported("faults=/hardening= (fault injection)", "10")
         if export is not None:
@@ -451,6 +565,15 @@ class EpochRuntime:
             raise ValueError(f"sync_every must be >= 1, got {sync_every!r}")
         self.n_blocks = int(n_blocks)
         self.k_hot = min(int(k_hot), self.n_blocks)
+        self.tenancy = tenancy
+        # per-epoch per-tenant raw accounting ((L, T) int64 arrays, lane
+        # order = policies); repro_torch.fleet.accounting slices these into
+        # TenantRecord rows with the tenants' own cost-model geometry
+        self.tenant_records: List[Dict[str, np.ndarray]] = []
+        if tenancy is not None:
+            tenancy.validate(self.n_blocks, self.k_hot, max_segments=(
+                hs_kernel.max_segments() if self.device.type == "cuda"
+                else None))
         self.system = system
         self.bytes_per_access = float(bytes_per_access)
         self.block_bytes = float(block_bytes)
@@ -481,13 +604,21 @@ class EpochRuntime:
             lanes=self._lane_names, n_blocks=self.n_blocks, k_hot=self.k_hot,
             ewma_alpha=self.ewma_alpha, hint_weight=self.hint_weight,
             nb_rate_limit=self.nb_rate_limit,
-            reactive_hot_threshold=self.reactive_hot_threshold)
+            reactive_hot_threshold=self.reactive_hot_threshold,
+            tenancy=tenancy)
+        self._n_tenants = 0 if tenancy is None else tenancy.n_tenants
         dev = self.device
 
         def zeros_n():
             return torch.zeros((self.n_blocks,), dtype=torch.int32,
                                device=dev)
 
+        t_hot = t_caps = None
+        if tenancy is not None:
+            t_hot = selectk.segment_layout(tenancy.offsets, tenancy.hot_k,
+                                           dev)
+            if tenancy.caps is not None:
+                t_caps = t_hot.with_caps(tenancy.caps)
         self._state = _FusedState(
             bundle=tel.bundle_init(
                 n_blocks, pebs_period=pebs_period, nb_scan_rate=scan,
@@ -499,7 +630,8 @@ class EpochRuntime:
             hint_rank=upload(self.hint_rank, dev),
             prefetch_rank=upload(self.prefetch_rank, dev),
             prev_hmu=zeros_n(), prev_pebs=zeros_n(),
-            out_buf=_out_buf_init(self.sync_every, L, dev),
+            out_buf=_out_buf_init(self.sync_every, L, self._n_tenants, dev),
+            tenant_hot=t_hot, tenant_caps=t_caps,
         )
 
     # ---------------------------------------------------------- constructors
@@ -646,7 +778,8 @@ class EpochRuntime:
         DISPATCH_COUNTS["record_sync"] += 1
         with sync_allowed(self.device):
             host = self._state.out_buf.cpu().numpy()
-        cols = _out_columns(len(self._lane_names))
+        L, T = len(self._lane_names), self._n_tenants
+        cols = _out_columns(L, T)
         flushed: Dict[str, List[EpochRecord]] = {
             name: [] for name in self._lane_names}
         for j in range(n_buf):                 # rows beyond n_buf are stale
@@ -657,6 +790,11 @@ class EpochRuntime:
             d_nb_host = nb_host - self._prev_nb_host
             self._prev_pebs_host, self._prev_nb_host = pebs_host, nb_host
             drained = float(row[cols["drained"]])
+            if T:
+                # copies: on the CPU ``host`` is the live buffer itself
+                self.tenant_records.append({
+                    f: np.array(row[cols["tenant:" + f]].reshape(L, T))
+                    for f in _OUT_LANE_FIELDS})
             lane_vals = {f: row[cols[f]] for f in _OUT_LANE_FIELDS}
             for i, name in enumerate(self._lane_names):
                 host_events = (d_nb_host if name == "nb_two_touch" else

@@ -9,7 +9,8 @@
   selections.
 * :func:`stable_rank_sparse` — ``argsort(argsort(x))`` for non-negative
   arrays with a static bound on the number of positives.
-* :func:`segment_top_k_mask` — per-segment top-k membership (tenant quotas).
+* :func:`segment_top_k_mask` — per-segment top-k membership (tenant quotas),
+  over a :class:`SegmentLayout` uploaded once by :func:`segment_layout`.
 
 Keys are int32; non-negative float32 scores join through
 :func:`sortable_key`.  The ordering work runs in the order-preserving
@@ -26,7 +27,7 @@ results, as under JAX's default ``x64=False``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,7 +38,8 @@ from ..kernels.hist_select import kth_key
 
 __all__ = [
     "sortable_key", "select_top_k", "top_k_mask", "bottom_k_mask",
-    "stable_rank_sparse", "compact", "segment_top_k_mask", "prefix_sum",
+    "stable_rank_sparse", "compact", "SegmentLayout", "segment_layout",
+    "segment_top_k_mask", "prefix_sum",
 ]
 
 _U_OFFSET = 1 << 31
@@ -182,29 +184,75 @@ def select_top_k(key: torch.Tensor, k: int, return_mask: bool = False, *,
     return vals, ids_sorted
 
 
+def _widths(edges: Tuple[int, ...], caps: Sequence[int]) -> Tuple[int, ...]:
+    """Each segment's width: its cap, at most its length."""
+    return tuple(min(int(c), b - a)
+                 for c, a, b in zip(caps, edges, edges[1:]))
+
+
+class SegmentLayout(NamedTuple):
+    """Static contiguous segments and their widths, on one device.  Built
+    once by :func:`segment_layout` and handed to every
+    :func:`segment_top_k_mask` call over the same segments, so a select
+    inside an epoch copies nothing host->device."""
+    edges: Tuple[int, ...]       # segment s is edges[s]:edges[s+1]
+    ks: Tuple[int, ...]          # min(caps[s], |segment s|)
+    seg: torch.Tensor            # (n,) int32 segment id of every element
+    starts: torch.Tensor         # (S,) int64 edges[:-1]
+    ends: torch.Tensor           # (S,) int64 edges[1:]
+    ks_t: torch.Tensor           # (S,) int32 ks
+
+    def with_caps(self, caps: Sequence[int]) -> "SegmentLayout":
+        """The same segments with other caps: only the S widths upload."""
+        ks = _widths(self.edges, caps)
+        return self._replace(ks=ks, ks_t=upload(np.asarray(ks, np.int32),
+                                                self.seg.device))
+
+
+def segment_layout(bounds: Sequence[int], caps: Sequence[int],
+                   device) -> SegmentLayout:
+    """Upload the segments ``bounds[s]:bounds[s+1]`` with widths ``caps``
+    to ``device``."""
+    edges = tuple(int(b) for b in bounds)
+    ks = _widths(edges, caps)
+    dev = torch.device(device)
+    seg, starts, ends, ks_t = (upload(a, dev) for a in (
+        np.repeat(np.arange(len(ks), dtype=np.int32), np.diff(edges)),
+        np.asarray(edges[:-1], np.int64), np.asarray(edges[1:], np.int64),
+        np.asarray(ks, np.int32)))
+    return SegmentLayout(edges, ks, seg, starts, ends, ks_t)
+
+
 def segment_top_k_mask(key: torch.Tensor, bounds: Sequence[int],
                        caps: Sequence[int], *,
+                       layout: Optional[SegmentLayout] = None,
                        backend: KernelBackend = DEFAULT_BACKEND,
                        ) -> torch.Tensor:
     """Per-segment top-k membership over static contiguous segments
     ``bounds[s]:bounds[s+1]``, each keeping its ``min(caps[s], len)``
     largest keys (ties lowest-index-first).
 
-    Every segment's threshold comes out of ONE ``kth_key`` call (the caps become per-segment widths) and the per-segment tie
-    ranks from global prefix sums rebased at the static segment starts."""
+    Every segment's threshold comes out of ONE ``kth_key`` call (the caps
+    become per-segment widths) and the per-segment tie ranks from global
+    prefix sums rebased at the static segment starts.  ``layout`` is
+    :func:`segment_layout` of the same bounds and caps on ``key``'s device;
+    without it the layout is uploaded for this call."""
     n = key.shape[-1]
     dev = key.device
-    edges = [int(b) for b in bounds]
-    lens = np.diff(np.asarray(edges))
-    ks = tuple(min(int(c), int(l)) for c, l in zip(caps, lens))
-    seg = upload(np.repeat(np.arange(len(ks), dtype=np.int32), lens), dev)
+    if layout is None:
+        layout = segment_layout(bounds, caps, dev)
+    elif (layout.edges != tuple(int(b) for b in bounds)
+          or layout.ks != _widths(layout.edges, caps)):
+        raise ValueError("segment_top_k_mask: the layout was built for "
+                         "other bounds or caps")
+    seg, starts, ends, ks_t = (layout.seg, layout.starts, layout.ends,
+                               layout.ks_t)
     key2 = key.reshape(-1, n)
     u = _to_u(key2)
-    t = kth_key(key2, seg, ks, backend=backend)           # (B, S)
-    seg64 = seg.to(torch.int64)
+    t = kth_key(key2, seg, layout.ks, backend=backend)    # (B, S)
 
     def widen(per_seg):             # (B, S) -> (B, n), constant per segment
-        return per_seg[:, seg64]
+        return per_seg.index_select(1, seg)
 
     t_elem = widen(t)
     gt = u > t_elem
@@ -212,10 +260,9 @@ def segment_top_k_mask(key: torch.Tensor, bounds: Sequence[int],
     zero = torch.zeros(u.shape[:-1] + (1,), dtype=torch.int32, device=dev)
     cgt = torch.cat([zero, prefix_sum(gt)], dim=-1)
     ceq = torch.cat([zero, prefix_sum(eq)], dim=-1)
-    starts, ends = edges[:-1], edges[1:]
-    n_gt = cgt[:, ends] - cgt[:, starts]                     # (B, S)
-    allow_eq = upload(np.asarray(ks, np.int32), dev)[None, :] - n_gt
-    eq_rank = ceq[:, 1:] - widen(ceq[:, starts]) - 1
+    n_gt = cgt.index_select(1, ends) - cgt.index_select(1, starts)  # (B, S)
+    allow_eq = ks_t[None, :] - n_gt
+    eq_rank = ceq[:, 1:] - widen(ceq.index_select(1, starts)) - 1
     sel = gt | (eq & (eq_rank < widen(allow_eq)))
     return sel.reshape(key.shape)
 

@@ -20,7 +20,7 @@ import torch
 from ...device import upload
 from .. import _build
 
-__all__ = ["LAUNCHES", "kth_key_cuda"]
+__all__ = ["LAUNCHES", "kth_key_cuda", "max_segments"]
 
 LAUNCHES = 0
 
@@ -43,6 +43,13 @@ def _lib() -> ctypes.CDLL:
         lib.hist_select_passes.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def max_segments() -> int:
+    """The most segments one call takes (the kernel's shared memory holds
+    a search state per segment); loads the library, building it if need
+    be."""
+    return int(_lib().hist_select_max_segments())
 
 
 def _ks_tensor(ks: Tuple[int, ...], dev: torch.device) -> torch.Tensor:

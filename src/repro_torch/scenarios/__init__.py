@@ -1,19 +1,20 @@
 """repro_torch.scenarios — one EpochRuntime, many workloads (PyTorch port of
 ``repro/scenarios``).  Ported so far: the :class:`AccessScenario` protocol,
-:func:`run_scenario`, the DLRM phase-shift scenario and the KV-cache
-scenario (KV pages placed from the serving engine's per-page attention-mass
-feed); the MoE and mmap-bench scenarios come later (ROADMAP Queue 1 items
-13 and 9).
+:func:`run_scenario`, the DLRM phase-shift scenario, the KV-cache scenario
+(KV pages placed from the serving engine's per-page attention-mass feed)
+and the mmap-bench scenario (the paper's §III.A region, the fleet's
+scanner tenant); the MoE scenario comes later (ROADMAP Queue 1 item 13).
 
 The model-backed scenario imports the model stack lazily (PEP 562), so
 trace-only users of ``run_online`` never pay for it.
 """
 from .base import AccessScenario, build_hints, run_scenario, scenario_summary
 from .dlrm import DLRMScenario, run_online
+from .mmap_bench import MmapBenchScenario
 
 __all__ = [
-    "AccessScenario", "DLRMScenario", "KVCacheScenario", "build_hints",
-    "run_online", "run_scenario", "scenario_summary",
+    "AccessScenario", "DLRMScenario", "KVCacheScenario", "MmapBenchScenario",
+    "build_hints", "run_online", "run_scenario", "scenario_summary",
 ]
 
 _LAZY = {"KVCacheScenario": "kv_cache"}

@@ -562,3 +562,77 @@ def test_kv_scenario_prefill_launches_flash_attention_per_layer(cuda):
     list(cpu.epochs())
     np.testing.assert_allclose(scen.masses, cpu.masses, rtol=1e-3, atol=1e-3)
     assert len(eps) == 2
+
+
+def _fleet_mix_scenarios(cuda):
+    from repro_torch.examples import fleet_mix
+    # the KV tenant's stream is decoded once on the card; both devices'
+    # fleets replay it
+    return fleet_mix, fleet_mix.make_scenarios(device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,hs_per_epoch", [
+    ("shared", 2), ("partition", 4), ("weighted", 4)])
+def test_fleet_step_on_the_card_equals_the_cpu_step(cuda, capacity,
+                                                     hs_per_epoch):
+    """The example's 3-tenant mix (dlrm, kv, scanner), hints on, K=3: the
+    card's run equals the CPU's field for field, tenant rows included.
+    hist_select launches per epoch: with quotas the segment mask, the
+    select, the hot set and the tenants' hot sets; shared, the select and
+    the tenants' hot sets."""
+    from repro_torch.fleet import run_fleet
+    fleet_mix, sc = _fleet_mix_scenarios(cuda)
+    fleet = fleet_mix.fleet(sc, capacity)
+    eps = list(fleet.epochs())
+    os0, hs0 = os_kernel.LAUNCHES, hs_kernel.LAUNCHES
+    gpu = run_fleet(fleet, hints=True, sync_every=3, epochs=eps)
+    assert os_kernel.LAUNCHES - os0 == sum(len(e) for e in eps)
+    assert hs_kernel.LAUNCHES - hs0 == hs_per_epoch * len(eps)
+    cpu = run_fleet(fleet_mix.fleet(sc, capacity), hints=True, sync_every=3,
+                    epochs=eps, device="cpu")
+    assert gpu == cpu
+
+
+@pytest.mark.cuda
+def test_segment_select_on_fleet_key_rows_matches_plain(cuda):
+    """hist_select's segment route (S = T) on key rows made from the
+    fleet's own stream: the kernel's thresholds and the whole segment mask
+    equal the plain versions'."""
+    from repro_torch.core import selectk
+    fleet_mix, sc = _fleet_mix_scenarios(cuda)
+    fleet = fleet_mix.fleet(sc, "weighted")
+    ep = next(iter(fleet.epochs()))
+    h = [torch.bincount(torch.from_numpy(row.astype(np.int64)).to(cuda),
+                        minlength=fleet.n_blocks).to(torch.int32)
+         for row in ep]
+    hf = h[0].to(torch.float32)
+    rows = torch.stack([
+        h[0], (h[0] > 0).to(torch.int32), selectk.sortable_key(0.5 * hf),
+        selectk.sortable_key(h[1].to(torch.float32) / h[1].max())]
+    ).contiguous()
+    ten = fleet.tenancy
+    seg = torch.from_numpy(ten.block_tenants()).to(cuda)
+    for ks in (ten.caps, ten.hot_k):
+        before = hs_kernel.LAUNCHES
+        got = kth_key(rows, seg, ks)
+        assert hs_kernel.LAUNCHES == before + 1
+        assert torch.equal(got, kth_key(rows, seg, ks, backend=PLAIN))
+        assert torch.equal(
+            selectk.segment_top_k_mask(rows, ten.offsets, ks),
+            selectk.segment_top_k_mask(rows, ten.offsets, ks, backend=PLAIN))
+
+
+@pytest.mark.cuda
+def test_tenancy_over_the_segment_cap_refused_at_construction(cuda):
+    """A tenancy of more tenants than one hist_select call takes fails when
+    the runtime is built on the card, naming both numbers; the same
+    tenancy builds on the CPU (the plain versions have no cap)."""
+    from repro_torch.core.runtime import EpochRuntime, Tenancy
+    cap = hs_kernel.max_segments()
+    t = cap + 1
+    ten = Tenancy(offsets=tuple(range(0, 2 * t + 1, 2)), hot_k=(1,) * t)
+    with pytest.raises(ValueError, match=f"{t} tenants.*{cap} segments"):
+        EpochRuntime(2 * t, t, policies=("hmu_oracle",), tenancy=ten)
+    EpochRuntime(2 * t, t, policies=("hmu_oracle",), tenancy=ten,
+                 device="cpu")

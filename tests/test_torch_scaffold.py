@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import TieringManager  # noqa: E402
-from repro_torch.core.runtime import EpochRuntime  # noqa: E402
+from repro_torch.core.runtime import EpochRuntime, Tenancy  # noqa: E402
 from repro_torch.dlrm import datagen, tracesim  # noqa: E402
 from repro_torch.examples import dlrm_tiering  # noqa: E402
 from repro_torch.faults import FaultModel, Hardening  # noqa: E402
@@ -110,12 +110,22 @@ def test_entry_points_run_on_the_cpu_when_asked():
 
 @pytest.mark.parametrize("option,item", [
     (dict(fused=False), "12"), (dict(mesh=object()), "15"),
-    (dict(tenancy=object()), "9"), (dict(faults=object()), "10"),
+    (dict(faults=object()), "10"),
     (dict(hardening=object()), "10"), (dict(export=object()), "11"),
 ])
 def test_unported_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         run_scenario(TINY, device="cpu", **option)
+
+
+def test_tenancy_option_runs():
+    """``tenancy=`` is ported (the fleet): a two-tenant layout with quotas
+    runs through run_scenario and leaves one row set of tenant counts an
+    epoch."""
+    n = TINY.n_blocks
+    ten = Tenancy(offsets=(0, n // 2, n), hot_k=(5, 5), caps=(6, 4))
+    out = run_scenario(TINY, device="cpu", tenancy=ten)
+    assert len(out["trajectory"]["lanes"]["hmu_oracle"]) == TINY.n_epochs
 
 
 def test_fault_containers_are_not_ported():
