@@ -123,9 +123,29 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     the warm epoch wall, the host interleave's share of it, the device's
     idle share (``torch.profiler``) and peak memory; hist_select's segment
     call (5 x 7,864,408 keys, S=3) timed beside its plain version, its
-    bound and ``torch.topk`` on each segment's slice.
+    bound and ``torch.topk`` on each segment's slice;
+20. degraded telemetry (``repro_torch.faults``): (a) SMALL's
+    ``run_scenario`` GPU vs CPU byte-identical under a neutral
+    ``FaultModel`` and an "all faults" one (PEBS drops 0.3, resets 0.5 on
+    every collector, NB stalls 0.5, 12-bit HMU counters, staleness 1,
+    seed 7), each without and with hardening (three fallbacks, hysteresis
+    2), K in {1, 4}, the neutral model equal to ``faults=None``; (b)
+    ``repro_torch.examples.degraded_telemetry`` on the GPU inside the
+    reference example's margins; (c) phase 8's paper-scale run under
+    faults (drops 0.1, resets 0.1, stalls 0.2, 16-bit counters, staleness
+    1) and ``hmu_oracle -> pebs`` hardening with H 2, under
+    ``set_sync_debug_mode("error")``: 12 observe_scatter launches, all
+    with the keep mask, 12 hist_select, 2 record pulls, the PEBS drop
+    share within 5 sigma of 0.1; its warm epoch beside phase 8's, the
+    fault model's draw for one batch, the device's idle share and peak
+    memory; observe_scatter on the online batch with that draw's keep
+    mask against its plain version (exact) and timed with and without it;
+    (d) phase 18's mix GPU vs CPU, shared and weighted x K in {1, 4},
+    under ``build_faults`` of a per-tenant profile (the scanner's PEBS
+    drops 0.5 and 8-bit counters) with resets 0.2: trajectory, summary and
+    tenant rows identical, launches checked.
 
-Each path (8-11, 14-16, 18-19) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-20) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -1456,6 +1476,307 @@ def paper_fleet(dev, plain, spec, DLRMScenario, KVCacheScenario,
     return seg_time
 
 
+# phase 20's fault models and hardenings: (a) SMALL's "all faults" model,
+# (c) the paper-scale one, (d) the fleet's per-tenant profile and its
+# collector-wide knobs
+ALL_FAULTS = dict(pebs_drop_p=0.3, reset_p=(0.5, 0.5, 0.5), nb_stall_p=0.5,
+                  hmu_counter_bits=12, stale_epochs=1, seed=7)
+SMALL_HARDENING = dict(fallback={"hmu_oracle": "pebs", "hinted": "hmu",
+                                 "nb_two_touch": "hmu"}, demote_hysteresis=2)
+PAPER_FAULTS = dict(pebs_drop_p=0.1, reset_p=(0.1, 0.1, 0.1), nb_stall_p=0.2,
+                    hmu_counter_bits=16, stale_epochs=1, seed=7)
+PAPER_HARDENING = dict(fallback={"hmu_oracle": "pebs"}, demote_hysteresis=2)
+FLEET_PROFILE = {"scanner": {"pebs_drop_p": 0.5, "hmu_counter_bits": 8}}
+FLEET_FAULT_KW = dict(reset_p=0.2, seed=3)
+
+
+def degraded_small_parity(dev, datagen, DLRMScenario, run_scenario,
+                          zero_counts, read_counts) -> dict:
+    """Phase 20a: SMALL's ``run_scenario`` trajectory JSON byte-identical
+    GPU vs CPU under a neutral and the "all faults" model, each without
+    and with hardening, for K in {1, 4}; the neutral unhardened run equal
+    to ``faults=None``.  Returns the GPU runs' launches."""
+    from repro_torch.faults import FaultModel, Hardening
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    t0 = time.perf_counter()
+    proto = DLRMScenario(spec=datagen.SMALL)
+    zero_counts()
+    faulty_runs = 0
+    for k in (1, 4):
+        base = json.dumps(run_scenario(DLRMScenario(spec=datagen.SMALL),
+                                       hints=True, sync_every=k, device=dev),
+                          sort_keys=True)
+        for label, kw in (("neutral", {}), ("all faults", ALL_FAULTS)):
+            for har in (None, SMALL_HARDENING):
+                out = {d: json.dumps(run_scenario(
+                    DLRMScenario(spec=datagen.SMALL), hints=True,
+                    sync_every=k, device=d,
+                    faults=FaultModel.create(n_blocks=proto.n_blocks, **kw),
+                    hardening=None if har is None else Hardening.make(**har)),
+                    sort_keys=True) for d in (dev, "cpu")}
+                faulty_runs += 1
+                if out[dev] != out["cpu"]:
+                    fail(f"SMALL degraded trajectory differs GPU vs CPU "
+                         f"({label}, hardened={har is not None}, "
+                         f"sync_every={k})")
+                if label == "neutral" and har is None and out[dev] != base:
+                    fail(f"the neutral FaultModel differs from faults=None "
+                         f"on the GPU (sync_every={k})")
+    launches, keep = read_counts(), os_kernel.KEEP_LAUNCHES
+    per_run = proto.n_epochs * proto.batches_per_epoch
+    want = {"observe_scatter": per_run * (faulty_runs + 2),
+            "hist_select": proto.n_epochs * (2 * faulty_runs + 2),
+            "gather_count": 0, "embedding_bag": 0, "flash_attention": 0}
+    if launches != want or keep != per_run * faulty_runs:
+        fail(f"SMALL degraded launches {launches}, {keep} with keep; "
+             f"expected {want}, {per_run * faulty_runs}")
+    say("degraded_small_parity", runs=2 * faulty_runs + 2, identical=True,
+        neutral_equals_none=True, launches=launches, keep_launches=keep,
+        faults=ALL_FAULTS, hardening=SMALL_HARDENING,
+        seconds=time.perf_counter() - t0)
+    return launches
+
+
+def degraded_example(dev, zero_counts, read_counts) -> dict:
+    """Phase 20b: ``repro_torch.examples.degraded_telemetry`` on the GPU
+    inside the reference example's margins; launches: one observe_scatter a
+    batch (with keep in the three runs with a model) and one hist_select an
+    epoch, two under a model (its own hot set)."""
+    from repro_torch.examples import degraded_telemetry as ex
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    t0 = time.perf_counter()
+    zero_counts()
+    res = ex.run(device=dev)
+    launches, keep = read_counts(), os_kernel.KEEP_LAUNCHES
+    margins = ex.margins_met(res)
+    if not all(margins.values()):
+        fail(f"degraded_telemetry margins missed on the GPU: {margins}, "
+             f"coverage {res['cov']}, final quality {res['q_final']}")
+    per_run = ex.N_EPOCHS * ex.scenario().batches_per_epoch
+    if (launches["observe_scatter"] != 4 * per_run or keep != 3 * per_run
+            or launches["hist_select"] != 7 * ex.N_EPOCHS):
+        fail(f"degraded_telemetry launches {launches}, {keep} with keep")
+    say("degraded_example", coverage=res["cov"], final_quality=res["q_final"],
+        margins=margins, dispatch=res["dispatch"], launches=launches,
+        keep_launches=keep, seconds=time.perf_counter() - t0)
+    return res
+
+
+def degraded_paper_run(dev, plain, scen, epochs, phase8_epoch_s: float,
+                       build_hints, zero_counts, read_counts) -> dict:
+    """Phase 20c: phase 8's paper-scale run (5,242,880 pages, 2.4 M lookups
+    a batch, 486,587 fast slots, hints on, K 4, 6 epochs x 2 batches) under
+    PAPER_FAULTS and PAPER_HARDENING, through ``EpochRuntime.for_scenario``
+    under ``set_sync_debug_mode("error")``: 12 observe_scatter launches,
+    all with keep, 12 hist_select (phase 8's 6 and the hot set's one an
+    epoch), 2 record pulls, the PEBS drop share within 5 sigma of 0.1.
+    Then the warm epoch wall beside phase 8's, the fault model's draw per
+    batch and observe_scatter with and without the draw's keep mask (CUDA
+    events), the device's idle share over a profiled run and peak memory.
+    Returns the keep route's numbers for the kernels line."""
+    import torch
+    from repro_torch.core import runtime
+    from repro_torch.faults import FaultModel, Hardening, prng
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    from repro_torch.kernels.observe_scatter import observe_scatter
+    fm = FaultModel.create(n_blocks=scen.n_blocks, **PAPER_FAULTS)
+    har = Hardening.make(**PAPER_HARDENING)
+
+    def build(pipeline):
+        return runtime.EpochRuntime.for_scenario(
+            scen, hints=pipeline, sync_every=4, faults=fm, hardening=har,
+            device=dev)
+
+    free_device_memory()
+    pipeline = build_hints(scen)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with runtime.counting() as c:
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            rt = build(pipeline)
+            traj = rt.run(epochs)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches, keep = read_counts(), os_kernel.KEEP_LAUNCHES
+    modes = dict(os_kernel.MODE_LAUNCHES)
+    dispatch = {k: c.dispatch[k] for k in ("observe_all", "epoch_step",
+                                           "record_sync")}
+    if launches != {"observe_scatter": 12, "hist_select": 12,
+                    "gather_count": 0, "embedding_bag": 0,
+                    "flash_attention": 0} or keep != 12 \
+            or modes != {"direct": 0, "hashed": 12}:
+        fail(f"degraded paper run launches {launches}, {keep} with keep, "
+             f"modes {modes}: expected 12 observe_scatter (all hashed, all "
+             f"with keep) and 12 hist_select")
+    if dispatch != {"observe_all": 6, "epoch_step": 6, "record_sync": 2}:
+        fail(f"degraded paper run dispatches {dispatch}")
+    f, pebs = rt._state.bundle.faults, rt._state.bundle.pebs
+    dropped, kept = int(f.pebs_dropped), int(pebs.host_events)
+    share = dropped / (dropped + kept)
+    sigma = math.sqrt(0.1 * 0.9 / (dropped + kept))
+    if abs(share - 0.1) > 5 * sigma:
+        fail(f"PEBS drop share {share} is more than 5 sigma ({sigma}) from "
+             f"0.1 ({dropped} dropped, {kept} kept)")
+    lanes = {n: [r.to_dict() for r in recs]
+             for n, recs in traj.records.items()}
+    for name, recs in lanes.items():
+        if len(recs) != scen.n_epochs:
+            fail(f"degraded lane {name} has {len(recs)} records")
+        for r in recs:
+            nums = [v for v in r.values() if isinstance(v, (int, float))]
+            if not (all(math.isfinite(v) for v in nums)
+                    and 0.0 <= r["accuracy"] <= 1.0
+                    and 0.0 <= r["coverage"] <= 1.0
+                    and 0.0 <= r["quality"] <= 1.0
+                    and 0 <= r["resident"] <= scen.k_hot
+                    and r["time_s"] > 0):
+                fail(f"degraded record out of range {r}")
+    say("degraded_paper_run", faults=PAPER_FAULTS, hardening=PAPER_HARDENING,
+        wall_s=wall, epoch_wall_s_mean=wall / scen.n_epochs,
+        launches=launches, keep_launches=keep, observe_scatter_modes=modes,
+        dispatch=dispatch, pebs_dropped=dropped, pebs_kept=kept,
+        drop_share=share, drop_share_sigma=sigma,
+        resets=f.resets.tolist(), nb_stalls=int(f.nb_stalls),
+        hmu_quality=[r["quality"] for r in lanes["hmu_oracle"]],
+        pebs_quality=[r["quality"] for r in lanes["hinted"]],
+        final_coverage={n: recs[-1]["coverage"] for n, recs in lanes.items()},
+        peak_mem_gib=peak)
+    del rt, traj
+
+    # warm, twice, beside phase 8's warm epoch
+    warm = []
+    for _ in range(2):
+        pipeline = build_hints(scen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build(pipeline).run(epochs)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    epoch_s = sum(warm) / len(warm) / scen.n_epochs
+
+    # the device's idle share over one profiled run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pipeline = build_hints(scen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        build(pipeline).run(epochs)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernel_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            kernel_us[ev.key] = kernel_us.get(ev.key, 0.0) + us
+    busy_s = sum(kernel_us.values()) / 1e6
+
+    # the fault model's draw for one batch (a three-way split, the keep
+    # mask against pebs_drop_p, the stall bit) and observe_scatter on the
+    # online batch with and without that mask
+    ids = torch.from_numpy(epochs[0][0]).to(dev)
+    m, n = ids.numel(), scen.n_blocks
+    key = prng.prng_key(PAPER_FAULTS["seed"], device=dev)
+    drop_p = fm.pebs_drop_p.to(dev)
+    stall_p = fm.nb_stall_p.to(dev)
+
+    def draw():
+        k = prng.split(key, 3)
+        return prng.uniform(k[1], (m,)) >= drop_p, prng.bernoulli(k[2],
+                                                                  stall_p)
+
+    draw_ms = time_ms(draw, 20)
+    keep_mask = draw()[0]
+    cursor = torch.zeros((), dtype=torch.int32, device=dev)
+    got = observe_scatter(ids, cursor, n_blocks=n, period=401, keep=keep_mask)
+    ref = observe_scatter(ids, cursor, n_blocks=n, period=401,
+                          keep=keep_mask, backend=plain)
+    err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
+    if err != 0:
+        fail(f"observe_scatter with the fault model's keep mask differs "
+             f"from its plain version (max abs err {err})")
+    k_ms, p_ms = in_turns(
+        lambda: observe_scatter(ids, cursor, n_blocks=n, period=401,
+                                keep=keep_mask, backend=plain),
+        lambda: observe_scatter(ids, cursor, n_blocks=n, period=401,
+                                keep=keep_mask), 20)
+    nokeep_ms = time_ms(lambda: observe_scatter(ids, cursor, n_blocks=n,
+                                                period=401), 20)
+    hit = (torch.arange(m, device=dev) % 401 == 0) & keep_mask
+    hit_w = hit.to(torch.float32)
+    lib_ms = time_ms(lambda: (torch.bincount(ids, minlength=n),
+                              torch.bincount(ids, weights=hit_w,
+                                             minlength=n)), 20)
+    b_ms, b_by = bound_ms(4 * m + m + 2 * 4 * n, 2 * m)
+    out = {"ms": k_ms, "plain_ms": p_ms, "no_keep_ms": nokeep_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err, "launches": keep, "draw_ms": draw_ms}
+    say("degraded_paper_warm", warm_wall_s=warm, epoch_wall_s_mean=epoch_s,
+        phase8_epoch_wall_s_mean=phase8_epoch_s,
+        epoch_wall_ratio=epoch_s / phase8_epoch_s,
+        draw_ms_per_batch=draw_ms,
+        draw_share_of_epoch=2 * draw_ms / 1e3 / epoch_s,
+        profiled_wall_s=prof_wall, device_busy_s=busy_s,
+        device_idle_share_profiled=1.0 - busy_s / prof_wall,
+        device_idle_share_warm=1.0 - busy_s / (epoch_s * scen.n_epochs),
+        top_kernel_ms={key[:80]: us / 1e3 for key, us in sorted(
+            kernel_us.items(), key=lambda kv: -kv[1])[:10]},
+        observe_scatter_keep=out, share_of_bound=b_ms / k_ms)
+    del ids, keep_mask, hit, hit_w, got, ref
+    free_device_memory()
+    return out
+
+
+def degraded_fleet(dev, zero_counts, read_counts) -> dict:
+    """Phase 20d: phase 18's mix GPU vs CPU for shared and weighted x
+    sync_every in {1, 4} under ``build_faults(FLEET_PROFILE,
+    **FLEET_FAULT_KW)``: trajectory, summary and tenant rows identical;
+    launches: one observe_scatter a batch row, all with keep, and
+    hist_select 3 an epoch shared (the hot set joins the select and the
+    tenants' hot sets) and 4 weighted."""
+    from repro_torch.examples import fleet_mix
+    from repro_torch.fleet import run_fleet
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    t0 = time.perf_counter()
+    sc = fleet_mix.make_scenarios(device=dev)
+    list(sc["kv"].epochs())                 # the KV decode, once
+    zero_counts()
+    for capacity in ("shared", "weighted"):
+        for k in (1, 4):
+            out = {}
+            for d in (dev, "cpu"):
+                fl = fleet_mix.fleet(sc, capacity)
+                out[d] = run_fleet(fl, hints=True, sync_every=k, device=d,
+                                   faults=fl.build_faults(FLEET_PROFILE,
+                                                          **FLEET_FAULT_KW))
+            for part in ("trajectory", "summary", "tenants"):
+                if json.dumps(out[dev][part], sort_keys=True) != json.dumps(
+                        out["cpu"][part], sort_keys=True):
+                    fail(f"degraded fleet {part} differs GPU vs CPU "
+                         f"(capacity={capacity}, sync_every={k})")
+    launches, keep = read_counts(), os_kernel.KEEP_LAUNCHES
+    fl = fleet_mix.fleet(sc, "shared")
+    rows = fl.n_epochs * fl.batches_per_epoch
+    want = {"observe_scatter": 4 * rows,
+            "hist_select": 2 * fl.n_epochs * (3 + 4),
+            "gather_count": 0, "embedding_bag": 0, "flash_attention": 0}
+    if launches != want or keep != 4 * rows:
+        fail(f"degraded fleet launches {launches}, {keep} with keep; "
+             f"expected {want}")
+    say("degraded_fleet", runs=8, identical=True, launches=launches,
+        keep_launches=keep, profile=FLEET_PROFILE, **FLEET_FAULT_KW,
+        seconds=time.perf_counter() - t0)
+    return launches
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -1463,7 +1784,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 19) -> None:
+def main(until: int = 20) -> None:
     import numpy as np
     import torch
 
@@ -1504,6 +1825,7 @@ def main(until: int = 19) -> None:
     def zero_counts() -> None:
         for mod in kernel_modules.values():
             mod.LAUNCHES = 0
+        os_kernel.KEEP_LAUNCHES = 0
         for mod in (fa_kernel, eb_kernel):
             for route in mod.ROUTE_LAUNCHES:
                 mod.ROUTE_LAUNCHES[route] = 0
@@ -2002,6 +2324,17 @@ def main(until: int = 19) -> None:
     seg_time = paper_fleet(dev, plain, spec, DLRMScenario, KVCacheScenario,
                            mmap_bench, zero_counts, read_counts)
 
+    if until < 20:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------------------------------------- 20. degraded telemetry
+    degraded_small_parity(dev, datagen, DLRMScenario, run_scenario,
+                          zero_counts, read_counts)
+    degraded_example(dev, zero_counts, read_counts)
+    keep_time = degraded_paper_run(
+        dev, plain, scen, epochs, sum(warm_epoch_s) / len(warm_epoch_s),
+        build_hints, zero_counts, read_counts)
+    degraded_fleet(dev, zero_counts, read_counts)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -2084,6 +2417,19 @@ def main(until: int = 19) -> None:
          "max_abs_err": seg_time["max_abs_err"], "ms": seg_time["ms"],
          "plain_ms": seg_time["plain_ms"], "bound_ms": seg_time["bound_ms"],
          "bound_by": seg_time["bound_by"], "library_ms": seg_time["topk_ms"]},
+        # the faulty path: observe_scatter with the fault model's keep mask,
+        # its launches in phase 20's paper-scale degraded run (all 12 with
+        # keep), its time on the online batch with that run's own draw; the
+        # library call is two bincounts (accesses, kept samples)
+        {"name": "observe_scatter_keep", "route": "cuda",
+         "source": "src/repro_torch/kernels/observe_scatter/csrc/"
+                   "observe_scatter.cu",
+         "replaces": "src/repro/kernels/observe_scatter/kernel.py:34",
+         "launches": keep_time["launches"],
+         "max_abs_err": keep_time["max_abs_err"], "ms": keep_time["ms"],
+         "plain_ms": keep_time["plain_ms"], "bound_ms": keep_time["bound_ms"],
+         "bound_by": keep_time["bound_by"],
+         "library_ms": keep_time["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -2096,4 +2442,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 19)
+    main(int(args[1]) if args[:1] == ["--until"] else 20)

@@ -10,7 +10,12 @@ configuration, which also names the device.
 
 The reference's hi/lo int32 event counters recombine into the port's int64
 :class:`~repro_torch.faults.Counter64` values, and its record-buffer dict
-packs into the port's ``(sync_every, F)`` int64 rows.  Its ``tenant_id``
+packs into the port's ``(sync_every, F)`` int64 rows (a hardened runtime's
+float32 quality row as its bits).  A fault model crosses leaf by leaf, its
+Threefry key words and counters included (:func:`fault_model_from_numpy`),
+so a mid-run reference model continues on the port with the same draws; a
+:class:`~repro_torch.faults.Hardening` holds no arrays and crosses as its
+fields (:func:`hardening_from_fields`).  Its ``tenant_id``
 leaf has no counterpart: the port's tenant layout is static and comes from
 ``like``.  :func:`bundle_to_numpy` goes the other way for the bundle, with
 the reference's keys, so the two can be compared leaf by leaf.
@@ -36,12 +41,14 @@ from .core.blockstore import TieredStore
 from .core.placement import Placement
 from .core.runtime import (_FusedState, _OUT_LANE_FIELDS, _OUT_SCALARS,
                            _out_columns)
-from .faults.model import CARRY_BASE, Counter64
+from .faults.model import CARRY_BASE, Counter64, FaultModel, Hardening
 from .kernels.dispatch import resolve_device
 
 __all__ = ["bundle_from_numpy", "bundle_to_numpy", "cache_from_numpy",
-           "cache_to_numpy", "fused_state_from_numpy", "params_from_numpy",
-           "params_to_numpy", "store_from_numpy", "store_to_numpy"]
+           "cache_to_numpy", "fault_model_from_numpy",
+           "fault_model_to_numpy", "fused_state_from_numpy",
+           "hardening_from_fields", "params_from_numpy", "params_to_numpy",
+           "store_from_numpy", "store_to_numpy"]
 
 Flat = Mapping[str, np.ndarray]
 
@@ -61,9 +68,51 @@ def _c64(flat: Flat, key: str, like: Counter64) -> Counter64:
                                   device=like.value.device))
 
 
+_FAULT_TENSORS = ("hmu_counter_max", "pebs_drop_p", "reset_p", "nb_stall_p",
+                  "resets", "nb_stalls")
+
+
+def fault_model_from_numpy(flat: Flat, *, like: FaultModel,
+                           prefix: str = "") -> FaultModel:
+    """The port's :class:`FaultModel` from the reference's leaves (the
+    uint32 key words under ``key``, the drop counter as ``pebs_dropped.hi``
+    / ``.lo``); ``like`` gives ``stale_epochs``, ``seed``, the leaves'
+    shapes and the device."""
+    p = prefix
+    # the uint32 key words, widened to the port's int64 words
+    flat = {**flat, p + "key": np.asarray(flat[p + "key"]).astype(np.int64)}
+    return dataclasses.replace(
+        like, **{f: _t(flat, p + f, getattr(like, f))
+                 for f in _FAULT_TENSORS + ("key",)},
+        pebs_dropped=_c64(flat, p + "pebs_dropped", like.pebs_dropped))
+
+
+def fault_model_to_numpy(fm: FaultModel) -> Dict[str, np.ndarray]:
+    """The model's leaves under the reference's keys: the key as its two
+    uint32 words, the drop counter as a hi/lo int32 pair."""
+    out = {f: getattr(fm, f).cpu().numpy() for f in _FAULT_TENSORS}
+    out["key"] = fm.key.cpu().numpy().astype(np.uint32)
+    out["pebs_dropped.hi"] = np.int32(fm.pebs_dropped.hi)
+    out["pebs_dropped.lo"] = np.int32(fm.pebs_dropped.lo)
+    return out
+
+
+def hardening_from_fields(fields: Mapping) -> Hardening:
+    """A :class:`Hardening` from the reference's fields (its ``_asdict()``,
+    the fallback as ``(lane, collector)`` pairs), validated."""
+    h = Hardening(demote_hysteresis=int(fields["demote_hysteresis"]),
+                  fallback=tuple((str(lane), str(col))
+                                 for lane, col in fields["fallback"]),
+                  quality_floor=float(fields["quality_floor"]),
+                  quality_beta=float(fields["quality_beta"]))
+    h.validate()
+    return h
+
+
 def bundle_from_numpy(flat: Flat, *, like: tel.TelemetryBundle,
                       prefix: str = "") -> tel.TelemetryBundle:
-    """The port's :class:`TelemetryBundle` from the reference's leaves."""
+    """The port's :class:`TelemetryBundle` from the reference's leaves (its
+    fault model's too, under ``faults.``, when ``like`` carries one)."""
     p = prefix
     return tel.TelemetryBundle(
         hmu=dataclasses.replace(
@@ -85,12 +134,14 @@ def bundle_from_numpy(flat: Flat, *, like: tel.TelemetryBundle,
             scan_ptr=_t(flat, p + "nb.scan_ptr", like.nb.scan_ptr),
             host_events=_c64(flat, p + "nb.host_events",
                              like.nb.host_events)),
-        true_counts=_t(flat, p + "true_counts", like.true_counts))
+        true_counts=_t(flat, p + "true_counts", like.true_counts),
+        faults=(None if like.faults is None else fault_model_from_numpy(
+            flat, like=like.faults, prefix=p + "faults.")))
 
 
 def bundle_to_numpy(bundle: tel.TelemetryBundle) -> Dict[str, np.ndarray]:
     """The bundle's leaves under the reference's keys (hi/lo int32 pairs
-    for the event counters)."""
+    for the event counters; a fault model's under ``faults.``)."""
     out: Dict[str, np.ndarray] = {}
 
     def put(key, val):
@@ -107,6 +158,9 @@ def bundle_to_numpy(bundle: tel.TelemetryBundle) -> Dict[str, np.ndarray]:
             if isinstance(val, (torch.Tensor, Counter64)):
                 put(f"{col}.{f.name}", val)
     put("true_counts", bundle.true_counts)
+    if bundle.faults is not None:
+        out.update({"faults." + key: val for key, val in
+                    fault_model_to_numpy(bundle.faults).items()})
     return out
 
 
@@ -140,12 +194,14 @@ def store_to_numpy(store: TieredStore) -> Dict[str, np.ndarray]:
 
 
 def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:
-    """The runtime's :class:`_FusedState` (placement and record buffer
-    included) from the reference's ``_FusedState`` leaves (a fleet's
-    buffered tenant rows are not carried)."""
+    """The runtime's :class:`_FusedState` (placement, record buffer and the
+    robustness leaves ``like`` carries included) from the reference's
+    ``_FusedState`` leaves (a fleet's buffered tenant rows are not
+    carried)."""
     buf = like.out_buf
     k, n_lanes = buf.shape[0], like.placement.slot_to_block.shape[0]
-    cols = _out_columns(n_lanes, 0)   # the lane columns precede the tenants'
+    # the lane and quality columns precede the tenants'
+    cols = _out_columns(n_lanes, 0, quality=like.quality is not None)
     rows = np.zeros(tuple(buf.shape), np.int64)
     for f in _OUT_SCALARS:
         hi = np.asarray(flat[f"out_buf.{f}_hi"], np.int64)
@@ -154,6 +210,13 @@ def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:
     for f in _OUT_LANE_FIELDS:
         rows[:, cols[f]] = np.asarray(flat[f"out_buf.{f}"],
                                       np.int64).reshape(k, n_lanes)
+    if like.quality is not None:
+        rows[:, cols["quality"]] = np.asarray(
+            flat["out_buf.quality"], np.float32).view(np.int32)
+    robust = {name: None if getattr(like, name) is None
+              else _t(flat, name, getattr(like, name))
+              for name in ("prev_true", "stale", "quality", "prev_nb",
+                           "nb_ewma", "cold_streak")}
     return _FusedState(
         bundle=bundle_from_numpy(flat, like=like.bundle, prefix="bundle."),
         placement=Placement(
@@ -167,7 +230,10 @@ def fused_state_from_numpy(flat: Flat, *, like: _FusedState) -> _FusedState:
         prev_hmu=_t(flat, "prev_hmu", like.prev_hmu),
         prev_pebs=_t(flat, "prev_pebs", like.prev_pebs),
         out_buf=torch.from_numpy(rows).to(buf.device),
-        tenant_hot=like.tenant_hot, tenant_caps=like.tenant_caps)
+        tenant_hot=like.tenant_hot, tenant_caps=like.tenant_caps,
+        stale_ptr=(int(flat["stale_ptr"]) if like.stale is not None
+                   else like.stale_ptr),
+        **robust)
 
 
 def _leaf_from_numpy(x, dev: torch.device) -> torch.Tensor:

@@ -10,7 +10,8 @@ Two groups:
   ``selectk.sortable_key``.  The reference calls these outside ``jit``, so
   every float op rounds on its own, and so do they here;
 * the helpers of the fused epoch step, which reproduce the reference's
-  *jit* arithmetic (``fma_f32``, ``ewma``, ``hinted_score``).
+  *jit* arithmetic (``fma_f32``, ``ewma``, ``hinted_score``, and the
+  hardened runtime's ``quality_estimate`` / ``quality_smooth``).
 
 The eager ``hinted`` and ``prefetch`` serve only the unfused reference path
 of the runtime, which is not ported yet (ROADMAP Queue 1, item 12).
@@ -27,7 +28,8 @@ from . import selectk
 
 __all__ = ["MigrationPlan", "cold_streak", "coldest_victims", "ewma",
            "fma_f32", "hinted_score", "nb_two_touch", "oracle_top_k",
-           "plan_eviction", "proactive_ewma", "reactive_watermark"]
+           "plan_eviction", "proactive_ewma", "quality_estimate",
+           "quality_smooth", "reactive_watermark"]
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -147,6 +149,28 @@ def ewma(alpha: float, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     (Identical to separate rounding when ``alpha * x`` is exact, as at the
     default ``alpha = 0.5``.)"""
     return fma_f32(torch.full_like(x, alpha), x, (1.0 - alpha) * prev)
+
+
+def quality_estimate(observed_mass: torch.Tensor,
+                     expected_mass: torch.Tensor) -> torch.Tensor:
+    """Per-collector signal quality: the share of the expected epoch access
+    mass the collector's served estimate reported, clipped to [0, 1] (both
+    float32 tensors; a true float32 division, as the reference's)."""
+    return torch.clamp(observed_mass / torch.clamp_min(expected_mass, 1.0),
+                       0.0, 1.0)
+
+
+def quality_smooth(prev_q: torch.Tensor, raw_q: torch.Tensor,
+                   beta: float) -> torch.Tensor:
+    """EWMA of the raw quality signal, ``beta * raw + (1 - beta) * prev``,
+    as the reference's fused epoch step computes it:
+    ``fma(1 - beta, prev, f32(beta * raw))``.  There XLA contracts the
+    *second* product (the one on the carried state), not the first as in
+    :func:`ewma` or in a ``jit`` of this blend alone; the two differ in the
+    last bit unless both products are exact, as at the default
+    ``beta = 0.5``."""
+    return fma_f32(torch.full_like(prev_q, 1.0 - beta), prev_q,
+                   beta * raw_q)
 
 
 def cold_streak(streak: torch.Tensor, est: torch.Tensor,

@@ -12,6 +12,18 @@ Each epoch is two steps on the device:
    ``placement.apply_plan``, and their counts land in row ``out_row`` of the
    device-side record buffer.
 
+With a :class:`~repro_torch.faults.FaultModel` the collectors degrade on the
+device (``core.telemetry``) and the step keeps its accounting on ground
+truth (its own ``prev_true`` baseline and a hot set of its own, one more
+``hist_select`` call an epoch), serves the lanes' estimates
+``stale_epochs`` late from a ring, and clamps negative deltas (a reset) to
+zero.  With a :class:`~repro_torch.faults.Hardening` it tracks each
+collector's smoothed quality (observed epoch mass over expected), swaps a
+lane's input to a healthy collector by ``torch.where`` on that scalar when
+it falls below the floor, and gates watermark demotion on ``H`` cold epochs
+in a row.  Both only add state leaves and record columns: no branch reads
+the device.
+
 With a :class:`Tenancy` (``repro_torch.fleet``) the same step enforces
 per-tenant quotas — one segment-capped ``hist_select`` call masks every key
 row to each tenant's own top ``caps[t]`` before the select — and adds
@@ -54,7 +66,8 @@ import dataclasses
 import itertools
 import json
 from collections import deque
-from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -63,6 +76,7 @@ from . import selectk
 from . import policy
 from . import telemetry as tel
 from ..device import sync_allowed, upload
+from ..faults.model import COLLECTORS, LANE_COLLECTOR, FaultModel, Hardening
 from ..kernels.dispatch import resolve_device
 from ..kernels.hist_select import kernel as hs_kernel
 from .costmodel import CXL_SYSTEM, MemSystem
@@ -276,6 +290,7 @@ class _FusedCfg(NamedTuple):
     nb_rate_limit: Optional[int]
     reactive_hot_threshold: Optional[int]
     tenancy: Optional[Tenancy] = None
+    hardening: Optional[Hardening] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,34 +309,60 @@ class _FusedState:
     # hot_k (per-tenant hot sets) and, under quotas, caps
     tenant_hot: Optional[selectk.SegmentLayout] = None
     tenant_caps: Optional[selectk.SegmentLayout] = None
+    # --- robustness leaves (None = subsystem off), as the reference's
+    #     (runtime.py:282-305)
+    prev_true: Optional[torch.Tensor] = None
+                                 # (n_blocks,) i32 ground-truth baseline
+                                 # (faults: d_hmu is no longer the truth)
+    stale: Optional[torch.Tensor] = None
+                                 # (stale_epochs+1, 3, n_blocks) i32 delay
+                                 # ring of [d_hmu, d_pebs, nb] estimates
+    stale_ptr: int = 0           # ring write position (advances by one an
+                                 # epoch, so the host knows it)
+    quality: Optional[torch.Tensor] = None
+                                 # (3,) f32 smoothed per-collector quality
+                                 # (COLLECTORS order; hardening only)
+    prev_nb: Optional[torch.Tensor] = None
+                                 # (n_blocks,) i32 last served NB faults
+    nb_ewma: Optional[torch.Tensor] = None
+                                 # () f32 EWMA of NB epoch fault mass
+    cold_streak: Optional[torch.Tensor] = None
+                                 # (L, n_blocks) i32 consecutive cold
+                                 # epochs (demote hysteresis H > 1 only)
 
 
 # Packed record-row layout: three collector event scalars, then one column
-# per lane for each per-lane count, then (with a Tenancy) L x T columns,
-# lane-major, for each per-tenant count (the reference's out_buf dict and
-# its "tenant" sub-dict, packed so a flush is one transfer).
+# per lane for each per-lane count, then (with a Hardening) the three
+# collectors' smoothed quality as float32 bits, then (with a Tenancy) L x T
+# columns, lane-major, for each per-tenant count (the reference's out_buf
+# dict and its "quality" and "tenant" entries, packed so a flush is one
+# exact transfer).
 _OUT_SCALARS = ("drained", "pebs_host", "nb_host")
 _OUT_LANE_FIELDS = ("n_fast", "n_slow", "inter", "resident", "promoted",
                     "demoted")
 
 
-def _out_columns(n_lanes: int, n_tenants: int) -> Dict[str, object]:
+def _out_columns(n_lanes: int, n_tenants: int,
+                 quality: bool = False) -> Dict[str, object]:
     cols: Dict[str, object] = {f: i for i, f in enumerate(_OUT_SCALARS)}
     base = len(_OUT_SCALARS)
     for j, f in enumerate(_OUT_LANE_FIELDS):
         cols[f] = slice(base + j * n_lanes, base + (j + 1) * n_lanes)
     base += len(_OUT_LANE_FIELDS) * n_lanes
+    if quality:
+        cols["quality"] = slice(base, base + len(COLLECTORS))
+        base += len(COLLECTORS)
     width = n_lanes * n_tenants
     for j, f in enumerate(_OUT_LANE_FIELDS):
         cols["tenant:" + f] = slice(base + j * width, base + (j + 1) * width)
+    cols["width"] = base + len(_OUT_LANE_FIELDS) * width
     return cols
 
 
 def _out_buf_init(sync_every: int, n_lanes: int, n_tenants: int,
-                  device) -> torch.Tensor:
+                  device, quality: bool = False) -> torch.Tensor:
     """Zeroed device accumulator for ``sync_every`` epochs of record rows."""
-    width = (len(_OUT_SCALARS)
-             + len(_OUT_LANE_FIELDS) * int(n_lanes) * (1 + int(n_tenants)))
+    width = _out_columns(int(n_lanes), int(n_tenants), quality)["width"]
     return torch.zeros((int(sync_every), width), dtype=torch.int64,
                        device=device)
 
@@ -351,8 +392,10 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     static PEBS-positives bound.  The lanes' counts are written into row
     ``out_row`` of ``state.out_buf``; nothing leaves the device."""
     lanes, k = cfg.lanes, cfg.k_hot
+    har = cfg.hardening
     dev = state.pred.device
     b = state.bundle
+    faulty = b.faults is not None
 
     # -- drain the HMU log (host tax charged from the drained count)
     drained = b.hmu.log_used
@@ -360,15 +403,62 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
 
     # -- epoch-local estimates.  The fault-free HMU counter is exact, so
     #    d_hmu IS the epoch's ground truth and the oracle lane's selection
-    #    doubles as the epoch-hot set.
+    #    doubles as the epoch-hot set.  With faults the step keeps its own
+    #    ground-truth baseline: accounting stays on the truth while the
+    #    lanes see only what their degraded collectors deliver.
     true_now = b.true_counts
     hmu_now = b.hmu.counts
     pebs_now = b.pebs.sampled * b.pebs.period
     d_hmu = hmu_now - state.prev_hmu
     d_pebs = pebs_now - state.prev_pebs
     nb_faults = b.nb.faults
-    d_true = d_hmu
+    d_true = (true_now - state.prev_true if state.prev_true is not None
+              else d_hmu)
+
+    # -- staleness: this epoch's estimates go into the delay ring and the
+    #    lanes are served the ones stale_epochs old (zeros while it warms
+    #    up); accounting (d_true) is never delayed.  Served rows are copies:
+    #    prev_nb keeps one past the slot's next write.
+    stale_ptr_new = state.stale_ptr
+    if state.stale is not None:
+        depth = state.stale.shape[0]
+        state.stale[state.stale_ptr] = torch.stack([d_hmu, d_pebs,
+                                                    nb_faults])
+        stale_ptr_new = (state.stale_ptr + 1) % depth
+        served = state.stale[stale_ptr_new].clone()
+        d_hmu, d_pebs, nb_faults = served[0], served[1], served[2]
+    if faulty:
+        # a reset shrinks cumulative collector state, so a delta can go
+        # negative: "no information this epoch", never negative hotness
+        d_hmu = torch.clamp_min(d_hmu, 0)
+        d_pebs = torch.clamp_min(d_pebs, 0)
     d_hmu_f = d_hmu.to(torch.float32)
+
+    # -- per-collector quality (hardening): observed epoch mass over the
+    #    expected.  HMU and period-scaled PEBS should both report the
+    #    epoch's access mass; NB's expectation is its own smoothed history.
+    #    Every fault lane shrinks observed mass, so one smoothed scalar per
+    #    collector covers them all.
+    quality_new = nb_ewma_new = prev_nb_new = None
+    if har is not None:
+        exp_mass = torch.full((), float(max(np.float32(epoch_accesses),
+                                            1.0)),
+                              dtype=torch.float32, device=dev)
+        obs_hmu = torch.sum(d_hmu, dtype=torch.int64).to(torch.float32)
+        obs_pebs = torch.sum(d_pebs, dtype=torch.int64).to(torch.float32)
+        d_nb = torch.clamp_min(nb_faults - state.prev_nb, 0)
+        obs_nb = torch.sum(d_nb, dtype=torch.int64).to(torch.float32)
+        q_raw = torch.stack([
+            policy.quality_estimate(obs_hmu, exp_mass),
+            policy.quality_estimate(obs_pebs, exp_mass),
+            torch.where(state.nb_ewma > 0.0,
+                        policy.quality_estimate(obs_nb, state.nb_ewma),
+                        1.0)])
+        quality_new = policy.quality_smooth(state.quality, q_raw,
+                                            har.quality_beta)
+        nb_ewma_new = policy.quality_smooth(state.nb_ewma, obs_nb,
+                                            har.quality_beta)
+        prev_nb_new = nb_faults
 
     thr = (cfg.reactive_hot_threshold
            if cfg.reactive_hot_threshold is not None
@@ -385,21 +475,40 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
         return list(rows).index(rkey)
 
     hmu_row = row("hmu", d_hmu, d_hmu_f)
+    # -- collector fallback (hardening): while a lane's primary collector's
+    #    smoothed quality is below the floor, the lane's selection key AND
+    #    eviction estimate are swapped, by torch.where on the quality
+    #    scalar, to the named collector's served delta
+    fb_map = dict(har.fallback) if har is not None else {}
+    col_key = {"hmu": d_hmu, "pebs": d_pebs, "nb": nb_faults}
+
+    def fall_back(name: str, key: torch.Tensor, est: torch.Tensor):
+        alt = col_key[fb_map[name]]
+        # the floor as a float32 value, as the reference compares it
+        floor = float(np.float32(har.quality_floor))
+        ok = quality_new[COLLECTORS.index(LANE_COLLECTOR[name])] >= floor
+        return (ok, torch.where(ok, key, alt),
+                torch.where(ok, est, alt.to(torch.float32)))
+
     pred_new = state.pred
-    lane_row, min_keys, caps, is_reactive = [], [], [], []
+    lane_row, min_keys, caps, is_reactive, healthy = [], [], [], [], []
     for name in lanes:
         if name == "hmu_oracle":
             r, min_key, cap = hmu_row, 1, k
+            key, est = d_hmu, d_hmu_f
         elif name == "nb_two_touch":
             cap = k if cfg.nb_rate_limit is None else min(k, cfg.nb_rate_limit)
             min_key = 2
-            r = row("nb", nb_faults, nb_faults.to(torch.float32))
+            key, est = nb_faults, nb_faults.to(torch.float32)
+            r = row("nb", key, est)
         elif name == "reactive_watermark":
             r, min_key, cap = hmu_row, thr, k
+            key, est = d_hmu, d_hmu_f
         elif name == "proactive_ewma":
             # the reference's fused-step float32 arithmetic, bit for bit
             pred_new = policy.ewma(cfg.ewma_alpha, d_hmu_f, state.pred)
-            r = row("pred", selectk.sortable_key(pred_new), pred_new)
+            key, est = selectk.sortable_key(pred_new), pred_new
+            r = row("pred", key, est)
             min_key, cap = 1, k
         elif name == "hinted":
             # exact argsort(argsort(d_pebs)): positives are bounded by this
@@ -407,8 +516,8 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
             t_rank = selectk.stable_rank_sparse(d_pebs, s_max)
             score = policy.hinted_score(d_pebs, t_rank, state.hint_rank,
                                         cfg.hint_weight)
-            r = row("score", selectk.sortable_key(score),
-                    d_pebs.to(torch.float32))
+            key, est = selectk.sortable_key(score), d_pebs.to(torch.float32)
+            r = row("score", key, est)
             min_key, cap = 0, k
         elif name == "prefetch":
             # lookahead rank in [0,1]; min_key 1 gates rank > 0
@@ -417,6 +526,11 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
             min_key, cap = 1, k
         else:  # pragma: no cover - guarded in __init__
             raise ValueError(name)
+        ok = None
+        if name in fb_map:
+            ok, key, est = fall_back(name, key, est)
+            r = row(f"fb:{name}", key, est)
+        healthy.append(ok)
         lane_row.append(r)
         min_keys.append(min_key)
         caps.append(cap)
@@ -427,6 +541,15 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     est_lanes = torch.stack([ests[r] for r in lane_row])      # (L, n) f32
     reactive = _lane_column(is_reactive, torch.bool, dev)       # (L, 1)
     min_key_col = _lane_column(min_keys, torch.int32, dev)
+    if fb_map:
+        # a fallen-back lane keys on a raw collector delta whatever its
+        # normal key space was: gate at >= max(min_key, 1), so zero-signal
+        # blocks are never promoted just to fill k
+        true_ = torch.ones((), dtype=torch.bool, device=dev)
+        healthy_col = torch.stack([true_ if h is None else h
+                                   for h in healthy])[:, None]
+        min_key_col = torch.where(healthy_col, min_key_col,
+                                  torch.clamp_min(min_key_col, 1))
     cap_col = _lane_column(caps, torch.int32, dev)[:, 0]
 
     # -- multi-tenant quotas: every unique key row is masked to int32 min
@@ -449,9 +572,11 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     ids = torch.stack([ids_u[r] for r in lane_row])
 
     # -- account the epoch under the placement that served it.  The hot
-    #    set is workload truth: under quotas the hmu row is masked, so it
-    #    gets its own exact top-K; otherwise the oracle row doubles as it.
-    hot = (selectk.top_k_mask(d_true, k) if quotas
+    #    set is workload truth: under quotas the hmu row is masked, and with
+    #    faults or staleness it no longer ranks the truth, so it gets its
+    #    own exact top-K; otherwise the oracle row doubles as it.
+    hot = (selectk.top_k_mask(d_true, k)
+           if quotas or faulty or state.stale is not None
            else sel_u[hmu_row])                    # epoch's true top-K set
     fast0 = state.placement.fast_mask              # (L, n)
     d_fast = torch.where(fast0, d_true, 0)
@@ -460,8 +585,17 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     inter = torch.sum(fast0 & hot, dim=-1, dtype=torch.int64)
     resident0 = state.placement.resident()
 
-    # -- decide: ordered top-k ids per lane, gated per lane config
-    pl, pre_demoted = demote_idle(state.placement, est_lanes, reactive)
+    # -- decide: ordered top-k ids per lane, gated per lane config.  With
+    #    demote hysteresis a resident block must have looked cold for H
+    #    epochs in a row before the watermark lane frees its slot.
+    demote_enable = reactive
+    cold_streak_new = None
+    if state.cold_streak is not None:
+        cold_streak_new = policy.cold_streak(state.cold_streak, est_lanes,
+                                             fast0)
+        demote_enable = demote_enable & (
+            cold_streak_new >= har.demote_hysteresis)
+    pl, pre_demoted = demote_idle(state.placement, est_lanes, demote_enable)
     free_slots = torch.sum(pl.slot_to_block < 0, dim=-1, dtype=torch.int32)
     cap_eff = torch.where(reactive[:, 0], torch.minimum(cap_col, free_slots),
                           cap_col)
@@ -479,6 +613,9 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
         n_fast, n_slow, inter, resident0.to(torch.int64),
         promoted.to(torch.int64), (demoted + pre_demoted).to(torch.int64),
     ]
+    if har is not None:
+        # float32 bits, widened: the int64 row stays one exact transfer
+        parts.append(quality_new.view(torch.int32).to(torch.int64))
     if ten is not None:
         # per-tenant accounting: tenant-range sums of the same masks the
         # lane record sums, and each tenant's own true-hot set (the top
@@ -493,9 +630,17 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     # -- this epoch's record row, written in place into the accumulator
     #    (the reference donates the buffer; here the update is in place)
     state.out_buf[out_row] = torch.cat(parts)
-    return dataclasses.replace(
-        state, bundle=bundle, placement=pl, pred=pred_new,
-        prev_hmu=hmu_now, prev_pebs=pebs_now)
+    updates = dict(bundle=bundle, placement=pl, pred=pred_new,
+                   prev_hmu=hmu_now, prev_pebs=pebs_now,
+                   stale_ptr=stale_ptr_new)
+    if state.prev_true is not None:
+        updates["prev_true"] = true_now
+    if har is not None:
+        updates.update(quality=quality_new, nb_ewma=nb_ewma_new,
+                       prev_nb=prev_nb_new)
+    if state.cold_streak is not None:
+        updates["cold_streak"] = cold_streak_new
+    return dataclasses.replace(state, **updates)
 
 
 def _not_ported(option: str, item: str):
@@ -516,7 +661,11 @@ class EpochRuntime:
     ``hint_rank`` and the prefetch lane's ``prefetch_rank`` every epoch;
     ``sync_every=K`` batches the record sync (``step`` then returns the
     epochs it flushed, ``run`` flushes the partial tail, and :meth:`flush`
-    drains it after manual stepping).  The kernels run on the card and
+    drains it after manual stepping).  ``faults`` (a
+    :class:`~repro_torch.faults.FaultModel`) degrades the collectors and
+    ``hardening`` (a :class:`~repro_torch.faults.Hardening`, or a dict of
+    :meth:`Hardening.make`'s keywords) makes the lanes cope; the runtime
+    takes a private copy of the model.  The kernels run on the card and
     their plain versions on the CPU, by the tensors' device.
     """
 
@@ -551,12 +700,27 @@ class EpochRuntime:
         if unknown:
             raise ValueError(f"unknown policies {sorted(unknown)}; "
                              f"choose from {ALL_POLICIES}")
+        if (faults is not None or hardening is not None) and not fused:
+            raise ValueError("fault injection / hardening run inside the "
+                             "fused epoch step; the reference path stays "
+                             "the fault-free bit-identity oracle — pass "
+                             "fused=True or drop faults/hardening")
         if not fused:
             _not_ported("fused=False (the per-lane reference path)", "12")
         if mesh is not None:
             _not_ported("mesh= (sharded state)", "15")
-        if faults is not None or hardening is not None:
-            _not_ported("faults=/hardening= (fault injection)", "10")
+        if faults is not None and not isinstance(faults, FaultModel):
+            raise TypeError(f"faults= takes a repro_torch.faults.FaultModel, "
+                            f"got {type(faults).__name__}")
+        if hardening is not None and not isinstance(hardening, Hardening):
+            if not isinstance(hardening, Mapping):
+                raise TypeError(
+                    f"hardening= takes a repro_torch.faults.Hardening or a "
+                    f"dict of Hardening.make's keywords, got "
+                    f"{type(hardening).__name__}")
+            hardening = Hardening.make(**dict(hardening))
+        if hardening is not None:
+            hardening.validate()
         if export is not None:
             _not_ported("export= (the export plane)", "11")
         self.device = resolve_device(device)
@@ -566,6 +730,7 @@ class EpochRuntime:
         self.n_blocks = int(n_blocks)
         self.k_hot = min(int(k_hot), self.n_blocks)
         self.tenancy = tenancy
+        self.hardening = hardening
         # per-epoch per-tenant raw accounting ((L, T) int64 arrays, lane
         # order = policies); repro_torch.fleet.accounting slices these into
         # TenantRecord rows with the tenants' own cost-model geometry
@@ -605,7 +770,7 @@ class EpochRuntime:
             ewma_alpha=self.ewma_alpha, hint_weight=self.hint_weight,
             nb_rate_limit=self.nb_rate_limit,
             reactive_hot_threshold=self.reactive_hot_threshold,
-            tenancy=tenancy)
+            tenancy=tenancy, hardening=hardening)
         self._n_tenants = 0 if tenancy is None else tenancy.n_tenants
         dev = self.device
 
@@ -613,6 +778,24 @@ class EpochRuntime:
             return torch.zeros((self.n_blocks,), dtype=torch.int32,
                                device=dev)
 
+        # robustness leaves exist only when their subsystem is on
+        # (reference runtime.py:944-965)
+        extra = {}
+        if faults is not None:
+            extra["prev_true"] = zeros_n()
+            if faults.stale_epochs > 0:
+                extra["stale"] = torch.zeros(
+                    (faults.stale_epochs + 1, 3, self.n_blocks),
+                    dtype=torch.int32, device=dev)
+        if hardening is not None:
+            extra["quality"] = torch.ones((3,), dtype=torch.float32,
+                                          device=dev)
+            extra["nb_ewma"] = torch.zeros((), dtype=torch.float32,
+                                           device=dev)
+            extra["prev_nb"] = zeros_n()
+            if hardening.demote_hysteresis > 1:
+                extra["cold_streak"] = torch.zeros(
+                    (L, self.n_blocks), dtype=torch.int32, device=dev)
         t_hot = t_caps = None
         if tenancy is not None:
             t_hot = selectk.segment_layout(tenancy.offsets, tenancy.hot_k,
@@ -622,7 +805,8 @@ class EpochRuntime:
         self._state = _FusedState(
             bundle=tel.bundle_init(
                 n_blocks, pebs_period=pebs_period, nb_scan_rate=scan,
-                hmu_log_capacity=hmu_log_capacity, device=dev),
+                hmu_log_capacity=hmu_log_capacity, faults=faults,
+                device=dev),
             placement=Placement.create(self.n_blocks, self.k_hot, lanes=L,
                                        device=dev),
             pred=torch.zeros((self.n_blocks,), dtype=torch.float32,
@@ -630,8 +814,9 @@ class EpochRuntime:
             hint_rank=upload(self.hint_rank, dev),
             prefetch_rank=upload(self.prefetch_rank, dev),
             prev_hmu=zeros_n(), prev_pebs=zeros_n(),
-            out_buf=_out_buf_init(self.sync_every, L, self._n_tenants, dev),
-            tenant_hot=t_hot, tenant_caps=t_caps,
+            out_buf=_out_buf_init(self.sync_every, L, self._n_tenants, dev,
+                                  quality=hardening is not None),
+            tenant_hot=t_hot, tenant_caps=t_caps, **extra,
         )
 
     # ---------------------------------------------------------- constructors
@@ -779,7 +964,7 @@ class EpochRuntime:
         with sync_allowed(self.device):
             host = self._state.out_buf.cpu().numpy()
         L, T = len(self._lane_names), self._n_tenants
-        cols = _out_columns(L, T)
+        cols = _out_columns(L, T, quality=self.hardening is not None)
         flushed: Dict[str, List[EpochRecord]] = {
             name: [] for name in self._lane_names}
         for j in range(n_buf):                 # rows beyond n_buf are stale
@@ -796,12 +981,17 @@ class EpochRuntime:
                     f: np.array(row[cols["tenant:" + f]].reshape(L, T))
                     for f in _OUT_LANE_FIELDS})
             lane_vals = {f: row[cols[f]] for f in _OUT_LANE_FIELDS}
+            qual = (row[cols["quality"]].astype(np.int32).view(np.float32)
+                    if "quality" in cols else None)
             for i, name in enumerate(self._lane_names):
                 host_events = (d_nb_host if name == "nb_two_touch" else
                                d_pebs_host if name == "hinted" else
                                0.0 if name == "prefetch" else drained)
+                col = LANE_COLLECTOR[name]
+                quality = (float(qual[COLLECTORS.index(col)])
+                           if qual is not None and col is not None else 1.0)
                 rec = self._record(
-                    name, epoch=base + j,
+                    name, epoch=base + j, quality=quality,
                     n_fast=float(lane_vals["n_fast"][i]),
                     n_slow=float(lane_vals["n_slow"][i]),
                     host_events=host_events,

@@ -28,9 +28,9 @@ The fleet owns exactly the plumbing the runtime must never learn:
   enforces on the device.
 
 :func:`run_fleet` is the packaging: one six-lane run over the mix, global
-summary plus per-tenant coverage/accuracy/epoch-time rows, and optional
-per-tenant solo baselines.  Per-tenant fault profiles
-(:meth:`FleetScenario.build_faults`, ``faults=``), the export plane
+summary plus per-tenant coverage/accuracy/epoch-time rows, optional
+per-tenant solo baselines, and per-tenant fault profiles
+(:meth:`FleetScenario.build_faults`, ``faults=``).  The export plane
 (``export=``), the per-lane reference path (``fused=False``) and sharded
 state (``mesh=``) are not ported yet and raise ``NotImplementedError``
 naming their ROADMAP item.
@@ -45,7 +45,8 @@ import numpy as np
 
 from ..core import runtime as rtmod
 from ..core.costmodel import MemSystem
-from ..core.runtime import ALL_POLICIES, EpochRuntime, Tenancy, _not_ported
+from ..core.runtime import ALL_POLICIES, EpochRuntime, Tenancy
+from ..faults import FaultModel
 from ..hints import HintPipeline
 from ..scenarios.base import run_scenario, scenario_summary
 from . import accounting
@@ -220,11 +221,21 @@ class FleetScenario:
             [(t.offset, t.scenario.hint_layout()) for t in self.tenants],
             depth=depth, clip_rank=clip_rank, detector=detector)
 
-    def build_faults(self, profiles: Dict[str, dict], **global_kwargs):
-        """Per-tenant fault profiles -> one fleet-wide fault model: not
-        ported yet."""
-        _not_ported("FleetScenario.build_faults (per-tenant fault profiles)",
-                    "10")
+    def build_faults(self, profiles: Dict[str, dict],
+                     **global_kwargs) -> FaultModel:
+        """Per-tenant fault profiles -> one fleet-wide
+        :class:`~repro_torch.faults.FaultModel`, keyed by tenant name.  Each
+        profile sets the per-block knobs (``pebs_drop_p``,
+        ``hmu_counter_bits`` / ``hmu_counter_max``) on that tenant's block
+        segment; collector-wide knobs (``reset_p``, ``nb_stall_p``,
+        ``stale_epochs``, ``seed``) go in ``global_kwargs`` — a reset drains
+        the shared collector, it cannot hit one tenant's blocks alone."""
+        unknown = set(profiles) - {t.name for t in self.tenants}
+        if unknown:
+            raise KeyError(f"unknown tenant names {sorted(unknown)}; "
+                           f"tenants are {[t.name for t in self.tenants]}")
+        segs = [profiles.get(t.name) for t in self.tenants]
+        return FaultModel.for_segments(self.offsets, segs, **global_kwargs)
 
 
 def run_fleet(
@@ -264,12 +275,21 @@ def run_fleet(
     counting` scope whose view stamps the solo row's own
     ``dispatches_per_epoch``.
 
-    ``faults=``, ``hardening=`` (ROADMAP Queue 1 item 10), ``export=``
-    (item 11), ``fused=False`` (item 12) and ``mesh=`` (item 15) raise
-    ``NotImplementedError``.
+    ``faults=`` takes a fleet-wide :class:`~repro_torch.faults.FaultModel`
+    or a ``{tenant_name: profile}`` dict handed to
+    :meth:`FleetScenario.build_faults` (per-tenant degradation; for
+    collector-wide knobs call ``build_faults`` yourself).  ``hardening=``
+    passes through to the runtime.  Solo baselines always run fault-free:
+    the comparison is this tenant under the fleet's faults against this
+    tenant alone on healthy telemetry.
+
+    ``export=`` (ROADMAP Queue 1 item 11), ``fused=False`` (item 12) and
+    ``mesh=`` (item 15) raise ``NotImplementedError``.
     """
     if hints is True:
         hints = fleet.build_pipeline(depth=lookahead_depth)
+    if isinstance(faults, dict):
+        faults = fleet.build_faults(faults)
     rt = EpochRuntime.for_scenario(
         fleet, policies=tuple(policies), hints=hints or None,
         prefetch_overlap=prefetch_overlap, fused=fused, mesh=mesh,

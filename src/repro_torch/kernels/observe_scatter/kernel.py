@@ -9,8 +9,9 @@ refuses the direct table above the limit.
 
 The wrapper checks its inputs, allocates the zeroed outputs, launches on the
 current stream and raises if the launch failed.  ``LAUNCHES`` counts the
-launches, so a run can show that its main path went through the kernel, and
-``MODE_LAUNCHES`` the launches on each mode.
+launches, so a run can show that its main path went through the kernel,
+``MODE_LAUNCHES`` the launches on each mode, and ``KEEP_LAUNCHES`` those
+given a keep mask (the fault model's PEBS drops).
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ import torch
 
 from .. import _build
 
-__all__ = ["LAUNCHES", "MODE_LAUNCHES", "observe_scatter_cuda",
-           "shared_limit", "table_mode"]
+__all__ = ["KEEP_LAUNCHES", "LAUNCHES", "MODE_LAUNCHES",
+           "observe_scatter_cuda", "shared_limit", "table_mode"]
 
 LAUNCHES = 0
 MODE_LAUNCHES = {"direct": 0, "hashed": 0}
+KEEP_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 
@@ -69,7 +71,7 @@ def _launch(
     """:func:`observe_scatter_cuda` on the table ``mode`` names (``None``:
     :func:`table_mode`'s); the hashed table takes any ``n_blocks``, the
     direct one raises above :func:`shared_limit`."""
-    global LAUNCHES
+    global LAUNCHES, KEEP_LAUNCHES
     if mode not in (None, *MODE_LAUNCHES):
         raise ValueError(f"unknown table mode {mode!r}")
     dev = ids.device
@@ -104,4 +106,6 @@ def _launch(
         raise RuntimeError(f"observe_scatter launch failed: CUDA error {rc}")
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
+    if keep is not None:
+        KEEP_LAUNCHES += 1
     return hist, pebs

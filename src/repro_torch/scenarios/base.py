@@ -151,8 +151,16 @@ def run_scenario(
     trajectories are bit-identical for every K.  Extra keyword arguments
     override runtime constructor kwargs (``ewma_alpha=``).
 
-    ``fused=False``, ``mesh=``, ``faults=``, ``hardening=`` and ``export=``
-    are not ported yet and raise ``NotImplementedError``.
+    ``faults=`` (a :class:`~repro_torch.faults.FaultModel`) degrades the
+    collectors on the device and ``hardening=`` (a
+    :class:`~repro_torch.faults.Hardening` or a dict of its ``make``
+    keywords) turns on the quality-gated fallback and demotion hysteresis;
+    both draw and decide exactly as the reference does, so a degraded
+    trajectory is byte-identical to the reference's, and a neutral
+    ``FaultModel.create()`` to ``faults=None``.
+
+    ``fused=False``, ``mesh=`` and ``export=`` are not ported yet and raise
+    ``NotImplementedError``.
 
     Returns ``{"trajectory": per-epoch dict, "summary": headline numbers}``.
     """

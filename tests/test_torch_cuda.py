@@ -636,3 +636,101 @@ def test_tenancy_over_the_segment_cap_refused_at_construction(cuda):
         EpochRuntime(2 * t, t, policies=("hmu_oracle",), tenancy=ten)
     EpochRuntime(2 * t, t, policies=("hmu_oracle",), tenancy=ten,
                  device="cpu")
+
+
+# ------------------------------------------------------ degraded telemetry
+_ALL_FAULTS = dict(pebs_drop_p=0.3, reset_p=(0.5, 0.5, 0.5), nb_stall_p=0.5,
+                   hmu_counter_bits=12, stale_epochs=1, seed=7)
+_HARD = dict(fallback={"hmu_oracle": "pebs", "hinted": "hmu",
+                       "nb_two_touch": "hmu"}, demote_hysteresis=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_prng_on_the_card_equals_the_cpu(cuda, seed):
+    """The Threefry words, splits, uniforms and Bernoulli draws are the
+    same on the card as on the CPU, bit for bit."""
+    from repro_torch.faults import prng
+    kc, kg = prng.prng_key(seed), prng.prng_key(seed, device=cuda)
+    assert torch.equal(prng.split(kg, 3).cpu(), prng.split(kc, 3))
+    for shape in ((), (3,), (2, 5), (1_000_003,)):
+        assert torch.equal(prng.random_bits(kg, shape).cpu(),
+                           prng.random_bits(kc, shape))
+        assert torch.equal(prng.uniform(kg, shape).cpu().view(torch.int32),
+                           prng.uniform(kc, shape).view(torch.int32))
+        assert torch.equal(prng.bernoulli(kg, 0.3, shape).cpu(),
+                           prng.bernoulli(kc, 0.3, shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks,m,drop", [(5_000, 30_001, 0.3),
+                                             (5_242_880, 2_400_000, 0.1)])
+def test_observe_scatter_on_the_prng_keep_mask_matches_plain(cuda, n_blocks,
+                                                             m, drop):
+    """observe_scatter with the fault model's own keep draw (the faulty
+    observe path's mask: ``uniform >= pebs_drop_p`` from a split key)."""
+    from repro_torch.faults import prng
+    rng = np.random.default_rng(m)
+    ids = torch.from_numpy(((rng.zipf(1.2, m) - 1) % n_blocks)
+                           .astype(np.int32)).to(cuda)
+    key = prng.split(prng.prng_key(7, device=cuda), 3)[1]
+    keep = prng.uniform(key, (m,)) >= drop
+    cursor = torch.tensor(3, dtype=torch.int32, device=cuda)
+    before = os_kernel.LAUNCHES
+    got = observe_scatter(ids, cursor, n_blocks=n_blocks, period=101,
+                          keep=keep)
+    assert os_kernel.LAUNCHES == before + 1
+    ref = observe_scatter(ids, cursor, n_blocks=n_blocks, period=101,
+                          keep=keep, backend=PLAIN)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hardened", [False, True])
+@pytest.mark.parametrize("sync_every", [1, 4])
+def test_faulty_small_run_identical_on_gpu_and_cpu(cuda, hardened,
+                                                   sync_every):
+    """SMALL under every fault at once, with and without hardening: the
+    card's run equals the CPU's; every batch launches observe_scatter with
+    its keep mask, and the hot set adds one hist_select call an epoch."""
+    from repro_torch.faults import FaultModel, Hardening
+    scen = dict(n_epochs=4, batches_per_epoch=2, shift_at=2)
+
+    def run(device):
+        return run_scenario(
+            DLRMScenario(**scen), hints=True, sync_every=sync_every,
+            device=device, pebs_period=101,
+            faults=FaultModel.create(n_blocks=DLRMScenario().n_blocks,
+                                     **_ALL_FAULTS),
+            hardening=Hardening.make(**_HARD) if hardened else None)
+
+    os0, hs0 = os_kernel.LAUNCHES, hs_kernel.LAUNCHES
+    gpu = run(cuda)
+    assert os_kernel.LAUNCHES - os0 == 4 * 2
+    assert hs_kernel.LAUNCHES - hs0 == 4 * 2
+    assert gpu == run("cpu")
+
+
+@pytest.mark.cuda
+def test_faulty_fused_step_makes_no_sync_inside_an_epoch(cuda):
+    """Under ``set_sync_debug_mode("error")`` a faulty, hardened run makes
+    no host sync but its record pulls: every draw, reset, stall, swap and
+    ring read stays on the card."""
+    from repro_torch.core import runtime
+    from repro_torch.faults import FaultModel, Hardening
+    from repro_torch.scenarios import build_hints
+    scen = DLRMScenario(n_epochs=4, batches_per_epoch=2, shift_at=2)
+    eps = list(scen.epochs())
+    pipeline = build_hints(scen)
+    fm = FaultModel.create(n_blocks=scen.n_blocks,
+                           **dict(_ALL_FAULTS, stale_epochs=2))
+    with runtime.counting() as c:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_scenario(scen, hints=pipeline, sync_every=4, epochs=eps,
+                         faults=fm, hardening=Hardening.make(**_HARD))
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert c.dispatch["record_sync"] == 1

@@ -230,13 +230,22 @@ def test_fleet_rejects_bad_configs():
     ("faults", "10"), ("hardening", "10"), ("export", "11"),
     ("fused", "12"), ("mesh", "15")])
 def test_unported_options_raise_naming_their_item(moe_pair, option, item):
+    """Options still to be ported raise naming their ROADMAP item.  Item 10
+    is ported: ``faults=`` and ``hardening=`` of the wrong type are refused
+    naming what they take, and ``build_faults`` refuses an unknown
+    tenant."""
     fleet = small_fleet(moe_pair[1])
     value = False if option == "fused" else object()
+    if item == "10":
+        name = "FaultModel" if option == "faults" else "Hardening"
+        with pytest.raises(TypeError, match=name):
+            run_fleet(fleet, device="cpu", **{option: value})
+        if option == "faults":
+            with pytest.raises(KeyError, match="unknown tenant"):
+                fleet.build_faults({"nope": {"pebs_drop_p": 0.5}})
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         run_fleet(fleet, device="cpu", **{option: value})
-    if option == "faults":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fleet.build_faults({"dlrm": {"pebs_drop_p": 0.5}})
 
 
 # ---------------------------------------------------------------- capacity

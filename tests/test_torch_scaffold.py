@@ -47,7 +47,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.serve.engine, repro_torch.launch, "
             "repro_torch.launch.serve, repro_torch.configs, "
             "repro_torch.scenarios.kv_cache, "
-            "repro_torch.kernels.flash_attention\n"
+            "repro_torch.kernels.flash_attention, repro_torch.faults.prng, "
+            "repro_torch.examples.degraded_telemetry\n"
             "repro_torch.configs.get_config('qwen2-0.5b')\n"
             "repro_torch.scenarios.KVCacheScenario\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -114,6 +115,13 @@ def test_entry_points_run_on_the_cpu_when_asked():
     (dict(hardening=object()), "10"), (dict(export=object()), "11"),
 ])
 def test_unported_options_raise(option, item):
+    """Options still to be ported raise naming their ROADMAP item; item 10
+    (``faults=``, ``hardening=``) is ported, so a value of the wrong type
+    is refused by a TypeError that names the container it needs."""
+    if item == "10":
+        with pytest.raises(TypeError, match="FaultModel|Hardening"):
+            run_scenario(TINY, device="cpu", **option)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         run_scenario(TINY, device="cpu", **option)
 
@@ -129,10 +137,19 @@ def test_tenancy_option_runs():
 
 
 def test_fault_containers_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        FaultModel()
-    with pytest.raises(NotImplementedError):
-        Hardening()
+    """The fault containers are ported: ``FaultModel.create()`` holds every
+    knob at its no-op value with fresh state, and ``Hardening()`` has the
+    reference's defaults."""
+    fm = FaultModel.create()
+    assert int(fm.hmu_counter_max) == 2 ** 31 - 1
+    assert float(fm.pebs_drop_p) == 0.0 and float(fm.nb_stall_p) == 0.0
+    assert fm.reset_p.tolist() == [0.0, 0.0, 0.0]
+    assert fm.key.tolist() == [0, 0]
+    assert int(fm.pebs_dropped) == 0 and fm.resets.tolist() == [0, 0, 0]
+    assert int(fm.nb_stalls) == 0
+    assert (fm.stale_epochs, fm.seed) == (0, 0)
+    assert tuple(Hardening()) == (1, (), 0.5, 0.5)
+    assert Hardening.make() == Hardening()
 
 
 def test_dispatch_rule_follows_the_tensor():
