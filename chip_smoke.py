@@ -143,9 +143,26 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     (d) phase 18's mix GPU vs CPU, shared and weighted x K in {1, 4},
     under ``build_faults`` of a per-tenant profile (the scanner's PEBS
     drops 0.5 and 8-bit counters) with resets 0.2: trajectory, summary and
-    tenant rows identical, launches checked.
+    tenant rows identical, launches checked;
+21. the observability and export planes (``repro_torch.obs``,
+    ``repro_torch.export``): (a) phase 8's paper run with tracing
+    (``profiler_annotations``, span durations into ``REGISTRY``) and an
+    ``ExportClient`` on a ``JsonlSink`` against the same run with both off,
+    each under ``set_sync_debug_mode("error")``: trajectory JSON, dispatch
+    deltas, launches (12 hashed observe_scatter, 6 hist_select) and peak
+    memory to the MB equal; exactly 6 observe_all, 6 epoch_step and 2
+    record_sync spans on the host thread, the pipelining visible, the
+    Chrome trace written with its device track; every JSONL record valid,
+    none dropped; under ``torch.profiler`` every observe_scatter kernel
+    inside an ``observe_all`` range and every hist_select pass inside an
+    ``epoch_step`` range; the warm epoch with both on and off, in turns,
+    three runs each; (b) ``repro_torch.examples.runtime_timeline`` and
+    ``telemetry_export`` on the GPU with the reference examples' asserts;
+    (c) phase 18's mix, shared, sync_every in {1, 4}, with a
+    ``MemorySink`` on the GPU and the CPU: wire records equal.  Its files
+    go to fresh directories under the git-ignored ``build/``.
 
-Each path (8-11, 14-16, 18-20) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-21) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -1777,6 +1794,292 @@ def degraded_fleet(dev, zero_counts, read_counts) -> dict:
     return launches
 
 
+# phase 21: the observability and export planes (repro_torch.obs,
+# repro_torch.export) on the online paper run, the port's two examples and
+# the fleet mix's wire records; files go to fresh directories under build/
+OBS_SPAN_KERNELS = {"observe_all": "observe_scatter", "epoch_step": "hs_pass"}
+EXPORT_DROPS = ("dropped_queue_full", "dropped_invalid",
+                "dropped_breaker_open", "dropped_sink_failure",
+                "dropped_degraded")
+
+
+def obs_dir(label: str) -> Path:
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix=f"obs_{label}_", dir=ROOT / "build"))
+
+
+def kernels_in_spans(trace: dict) -> dict:
+    """From a ``torch.profiler`` Chrome trace: for each span of
+    ``OBS_SPAN_KERNELS``, how many of its kernel's launches there are and
+    how many lie inside a ``record_function`` range of that name — by the
+    launching call's host time inside the host range, or by the kernel's
+    device interval inside the range's device annotation."""
+    evs = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    host, gpu, launch_ts = {}, {}, {}
+    for e in evs:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "user_annotation":
+            host.setdefault(name, []).append((e["ts"], e["ts"] + e["dur"]))
+        elif cat == "gpu_user_annotation":
+            gpu.setdefault(name, []).append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launch_ts[corr] = e["ts"]
+    out = {}
+    for span, frag in OBS_SPAN_KERNELS.items():
+        total = inside = 0
+        for e in evs:
+            if e.get("cat") != "kernel" or frag not in e.get("name", ""):
+                continue
+            total += 1
+            t = launch_ts.get((e.get("args") or {}).get("correlation"))
+            by_host = t is not None and any(
+                a <= t <= b for a, b in host.get(span, ()))
+            by_device = any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                            for a, b in gpu.get(span, ()))
+            inside += by_host or by_device
+        out[span] = {"kernel": frag, "launches": total, "inside": inside,
+                     "host_ranges": len(host.get(span, ())),
+                     "device_ranges": len(gpu.get(span, ()))}
+    return out
+
+
+def observed_paper_run(dev, scen, epochs, build_hints, run_scenario,
+                       zero_counts, read_counts) -> dict:
+    """Phase 21a: phase 8's online paper run with tracing (metrics into
+    ``REGISTRY``, ``profiler_annotations``) and an ``ExportClient`` on a
+    ``JsonlSink`` against the same run with both off, each under
+    ``set_sync_debug_mode("error")``: trajectory JSON, dispatch deltas,
+    launches and peak memory (to the MB) equal; exactly 6 observe_all, 6
+    epoch_step and 2 record_sync spans on the host thread, the pipelining
+    visible and the Chrome trace written with its device track; every JSONL
+    line valid, nothing dropped.  Then the traced run under
+    ``torch.profiler`` (the kernels inside their spans) and the warm epoch
+    with both on and off, in turns, three runs each."""
+    import contextlib
+    import threading
+    import torch
+    from repro_torch.core import runtime
+    from repro_torch.export import ExportClient, JsonlSink, validate_record
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    from repro_torch.obs import REGISTRY, chrometrace
+    from repro_torch.obs import trace as obs_trace
+    t_phase = time.perf_counter()
+    out_dir = obs_dir("paper")
+    host_thread = threading.current_thread().name
+
+    def run(on: bool, label: str, checked: bool):
+        pipeline = build_hints(scen)
+        client = (ExportClient(JsonlSink(out_dir / f"{label}.jsonl"))
+                  if on else None)
+        scope = (obs_trace.tracing(metrics=REGISTRY,
+                                   profiler_annotations=True)
+                 if on else contextlib.nullcontext())
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        with runtime.counting() as c, scope as tracer:
+            if checked:
+                torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                res = run_scenario(scen, hints=pipeline, sync_every=4,
+                                   epochs=epochs, export=client)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            wall = time.perf_counter() - t0
+            dispatch = dict(c.dispatch.items())
+        stats = None
+        if client is not None:
+            t0 = time.perf_counter()
+            client.flush(timeout=120)
+            stats = dict(client.stats(), flush_s=time.perf_counter() - t0)
+            client.close()
+        return {"json": json.dumps(res), "dispatch": dispatch,
+                "launches": read_counts(),
+                "modes": dict(os_kernel.MODE_LAUNCHES),
+                "peak_mb": torch.cuda.max_memory_allocated(dev) // 2 ** 20,
+                "wall_s": wall, "stats": stats,
+                "spans": tracer.spans if on else None}
+
+    off = run(False, "off", True)
+    on = run(True, "on", True)
+    want = {"observe_scatter": 12, "hist_select": 6, "gather_count": 0,
+            "embedding_bag": 0, "flash_attention": 0}
+    if off["json"] != on["json"]:
+        fail("the paper run's trajectory differs with tracing and export on")
+    if on["dispatch"] != off["dispatch"]:
+        fail(f"dispatch counts differ: on {on['dispatch']}, "
+             f"off {off['dispatch']}")
+    for r in (off, on):
+        if r["launches"] != want or r["modes"] != {"direct": 0, "hashed": 12}:
+            fail(f"observed paper run launches {r['launches']}, modes "
+                 f"{r['modes']}; expected {want}, 12 hashed")
+    if on["dispatch"]["record_sync"] != 2:
+        fail(f"record pulls {on['dispatch']['record_sync']}, expected 2")
+    if on["peak_mb"] != off["peak_mb"]:
+        fail(f"peak memory {on['peak_mb']} MB with tracing and export, "
+             f"{off['peak_mb']} MB without")
+
+    spans = on["spans"]
+    names = [s.name for s in spans if s.tid == host_thread]
+    counts = {n: names.count(n) for n in sorted(set(names))}
+    if (counts.get("observe_all"), counts.get("epoch_step"),
+            counts.get("record_sync")) != (6, 6, 2) or \
+            counts.get("hint_refresh") != on["dispatch"]["hint_refresh"]:
+        fail(f"host spans {counts}, expected 6 observe_all, 6 epoch_step, "
+             f"2 record_sync and {on['dispatch']['hint_refresh']} "
+             f"hint_refresh")
+    visible = chrometrace.pipelining_visible(spans)
+    doc = chrometrace.write_chrome_trace(
+        out_dir / "trace.json", spans,
+        metadata={"phase": 21, "sync_every": 4})
+    device_track = [e["name"] for e in doc["traceEvents"]
+                    if e["tid"] == "device"]
+    if not visible or len(device_track) != 2:
+        fail(f"pipelining visible {visible}, device track {device_track}")
+
+    lines = (out_dir / "on.jsonl").read_text().splitlines()
+    kinds = {}
+    for ln in lines:
+        rec = validate_record(json.loads(ln))
+        kinds[rec["record_type"]] = kinds.get(rec["record_type"], 0) + 1
+    st = on["stats"]
+    n_lanes = len(runtime.ALL_POLICIES)
+    if (kinds != {"epoch": 6 * n_lanes, "lane_summary": n_lanes}
+            or st["exported"] != len(lines) or st["emitted"] != len(lines)
+            or any(st[k] for k in EXPORT_DROPS)):
+        fail(f"exported records {kinds}, stats {st}")
+
+    # the traced run under torch.profiler: the kernels inside their spans
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pipeline = build_hints(scen)
+    client = ExportClient(JsonlSink(out_dir / "profiled.jsonl"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with obs_trace.tracing(metrics=REGISTRY,
+                               profiler_annotations=True) as tracer:
+            t0 = time.perf_counter()
+            run_scenario(scen, hints=pipeline, sync_every=4, epochs=epochs,
+                         export=client)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    client.close()
+    # a span's range on the device timeline is a device event of the
+    # span's name: it covers the span's kernels and the gaps between them,
+    # so it is reported apart and kept out of the busy time
+    span_names = {s.name for s in tracer.spans}
+    busy_us, span_device_ms = 0.0, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.key in span_names:
+            span_device_ms[ev.key] = us / 1e3
+        else:
+            busy_us += us
+    prof.export_chrome_trace(str(out_dir / "profile.json"))
+    inside = kernels_in_spans(json.loads(
+        (out_dir / "profile.json").read_text()))
+    if any(v["launches"] == 0 or v["inside"] != v["launches"]
+           for v in inside.values()):
+        fail(f"kernels outside their spans in torch.profiler: {inside}")
+
+    # the warm epoch with both on and off, in turns (off, on, on, off, off,
+    # on), each run timed from the call to the last epoch's completion
+    warm = {False: [], True: []}
+    flush_s = []
+    for k, on_turn in enumerate((False, True, True, False, False, True)):
+        r = run(on_turn, f"warm{k}", False)
+        warm[on_turn].append(r["wall_s"] / scen.n_epochs)
+        if on_turn:
+            flush_s.append(r["stats"]["flush_s"])
+    res = {"epoch_s_off": warm[False], "epoch_s_on": warm[True],
+           "epoch_s_off_mean": sum(warm[False]) / 3,
+           "epoch_s_on_mean": sum(warm[True]) / 3}
+    res["on_over_off"] = res["epoch_s_on_mean"] / res["epoch_s_off_mean"]
+    say("observed_paper_run", identical=True, launches=on["launches"],
+        dispatch=on["dispatch"], peak_mb=on["peak_mb"], host_spans=counts,
+        pipelining_visible=visible, device_track=device_track,
+        exported=kinds, export_stats=st, kernels_in_spans=inside,
+        profiled_wall_s=prof_wall, device_busy_s=busy_us / 1e6,
+        span_device_ranges_ms=span_device_ms,
+        device_idle_share_profiled=1.0 - busy_us / 1e6 / prof_wall,
+        cold_wall_s={"off": off["wall_s"], "on": on["wall_s"]},
+        export_flush_after_run_s=flush_s, **res,
+        seconds=time.perf_counter() - t_phase)
+    return res
+
+
+def observability_examples(dev, zero_counts, read_counts) -> None:
+    """Phase 21b: ``repro_torch.examples.runtime_timeline`` and
+    ``telemetry_export`` on the GPU with the reference examples' asserts;
+    their Chrome trace and JSONL under build/."""
+    from repro_torch.examples import runtime_timeline, telemetry_export
+    from repro_torch.export import validate_record
+    t0 = time.perf_counter()
+    zero_counts()
+    tl = runtime_timeline.run(dev, trace_dir=obs_dir("timeline"))
+    tl_launches = read_counts()
+    ex = telemetry_export.run(dev, out_dir=obs_dir("export"))
+    for name, res, checks in (("runtime_timeline", tl, runtime_timeline),
+                              ("telemetry_export", ex, telemetry_export)):
+        ok = checks.checks(res)
+        if not all(ok.values()):
+            fail(f"{name}'s checks failed on the GPU: {ok}")
+    for ln in ex["lines"]:
+        validate_record(json.loads(ln))
+    # three runs (warm-up, off, on) of 6 epochs of 2 batches, one
+    # hist_select an epoch
+    if (tl_launches["observe_scatter"] != 3 * 2 * runtime_timeline.N_EPOCHS
+            or tl_launches["hist_select"] != 3 * runtime_timeline.N_EPOCHS):
+        fail(f"runtime_timeline launches {tl_launches}")
+    say("observability_examples", timeline_spans=tl["spans"],
+        timeline_pipelining_visible=tl["pipelining_visible"],
+        timeline_launches=tl_launches, export_records=len(ex["lines"]),
+        export_stats=ex["stats"], dead_sink=ex["dead_stats"],
+        seconds=time.perf_counter() - t0)
+
+
+def fleet_export_gpu_vs_cpu(dev, zero_counts, read_counts) -> None:
+    """Phase 21c: phase 18's mix (shared, sync_every in {1, 4}) with a
+    ``MemorySink`` on the GPU and the CPU: wire records equal record for
+    record, launches checked."""
+    from repro_torch.examples import fleet_mix
+    from repro_torch.export import ExportClient, MemorySink
+    from repro_torch.fleet import run_fleet
+    t0 = time.perf_counter()
+    sc = fleet_mix.make_scenarios(device=dev)
+    list(sc["kv"].epochs())                 # the KV decode, once
+    zero_counts()
+    n_recs = {}
+    for k in (1, 4):
+        recs = {}
+        for d in (dev, "cpu"):
+            sink = MemorySink()
+            client = ExportClient(sink)
+            run_fleet(fleet_mix.fleet(sc, "shared"), hints=True,
+                      sync_every=k, device=d, export=client)
+            client.flush(timeout=60)
+            client.close()
+            recs[d] = sink.snapshot()
+        if recs[dev] != recs["cpu"] or not recs["cpu"]:
+            fail(f"fleet wire records differ GPU vs CPU (sync_every={k})")
+        n_recs[k] = len(recs["cpu"])
+    launches = read_counts()
+    want = fleet_launches(fleet_mix.fleet(sc, "shared"), {"shared": 2})
+    if launches != want:
+        fail(f"fleet export launches {launches}, expected {want}")
+    say("fleet_export", identical=True, records=n_recs, launches=launches,
+        seconds=time.perf_counter() - t0)
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -1784,7 +2087,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 20) -> None:
+def main(until: int = 21) -> None:
     import numpy as np
     import torch
 
@@ -2335,6 +2638,14 @@ def main(until: int = 20) -> None:
         build_hints, zero_counts, read_counts)
     degraded_fleet(dev, zero_counts, read_counts)
 
+    if until < 21:
+        fail(f"stopped after phase {until} (--until)")
+    # ---------------------- 21. the observability and export planes
+    observed_paper_run(dev, scen, epochs, build_hints, run_scenario,
+                       zero_counts, read_counts)
+    observability_examples(dev, zero_counts, read_counts)
+    fleet_export_gpu_vs_cpu(dev, zero_counts, read_counts)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -2442,4 +2753,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 20)
+    main(int(args[1]) if args[:1] == ["--until"] else 21)

@@ -160,17 +160,31 @@ def quality_estimate(observed_mass: torch.Tensor,
                        0.0, 1.0)
 
 
-def quality_smooth(prev_q: torch.Tensor, raw_q: torch.Tensor,
-                   beta: float) -> torch.Tensor:
+def quality_smooth(prev_q: torch.Tensor, raw_q: torch.Tensor, beta: float,
+                   fma_on_prev) -> torch.Tensor:
     """EWMA of the raw quality signal, ``beta * raw + (1 - beta) * prev``,
-    as the reference's fused epoch step computes it:
-    ``fma(1 - beta, prev, f32(beta * raw))``.  There XLA contracts the
-    *second* product (the one on the carried state), not the first as in
-    :func:`ewma` or in a ``jit`` of this blend alone; the two differ in the
-    last bit unless both products are exact, as at the default
-    ``beta = 0.5``."""
-    return fma_f32(torch.full_like(prev_q, 1.0 - beta), prev_q,
-                   beta * raw_q)
+    in the form the reference's fused epoch step computes each element in
+    (the step's fusion on jax 0.9.0 x86 XLA:CPU), picked per element by
+    ``fma_on_prev`` (a bool or a bool tensor broadcast against ``prev_q``):
+
+    - ``True``: ``fma(1 - beta, prev, f32(beta * raw))``, the product on
+      the carried state contracted: quality elements 0 (HMU) and 2 (NB);
+    - ``False``: ``fma(beta, raw, f32((1 - beta) * prev))``: quality
+      element 1 (PEBS) and NB's smoothed fault mass ``nb_ewma``.
+
+    The two forms differ in the last bit unless both products are exact,
+    as at the default ``beta = 0.5``."""
+    def on_prev():
+        return fma_f32(torch.full_like(prev_q, 1.0 - beta), prev_q,
+                       beta * raw_q)
+
+    def on_raw():
+        return fma_f32(torch.full_like(raw_q, beta), raw_q,
+                       (1.0 - beta) * prev_q)
+
+    if isinstance(fma_on_prev, bool):
+        return on_prev() if fma_on_prev else on_raw()
+    return torch.where(fma_on_prev, on_prev(), on_raw())
 
 
 def cold_streak(streak: torch.Tensor, est: torch.Tensor,

@@ -40,8 +40,12 @@ Inside an epoch nothing is read back: thresholds, caps and the PEBS bound
 stay host Python ints, and every upload (batches, hint ranks) goes through
 pinned memory without blocking.
 
-PyTorch runs eagerly, so there is no trace to count: the reference's
-``TRACE_COUNTS`` has no counterpart here.  Options the port does not carry
+With a tracer enabled (:mod:`repro_torch.obs.trace`) the loop records the
+reference's spans — ``hint_refresh``, ``observe_all``, ``epoch_step`` and
+``record_sync`` — and, with ``profiler_annotations``, the same names as
+``torch.profiler`` ranges around the kernels they launch.  PyTorch runs
+eagerly, so there is no trace to count: the reference's ``TRACE_COUNTS``
+has no counterpart here.  Options the port does not carry
 yet raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 
 Policy lanes and their telemetry sources:
@@ -79,6 +83,8 @@ from ..device import sync_allowed, upload
 from ..faults.model import COLLECTORS, LANE_COLLECTOR, FaultModel, Hardening
 from ..kernels.dispatch import resolve_device
 from ..kernels.hist_select import kernel as hs_kernel
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .costmodel import CXL_SYSTEM, MemSystem
 from .placement import Placement, apply_plan, demote_idle
 
@@ -98,11 +104,17 @@ HMU_DRAIN_COST_S = 2e-9
 
 # Per-call counters: an epoch is exactly one observe_all and one epoch_step;
 # "hint_refresh" counts host->device hint-rank uploads, "record_sync" the
-# device->host record pulls (ceil(n_epochs / sync_every) per run).  Never
-# zeroed: read them through counting().
-DISPATCH_COUNTS: Dict[str, int] = {
-    "observe_all": 0, "epoch_step": 0, "hint_refresh": 0, "record_sync": 0,
-}
+# device->host record pulls (ceil(n_epochs / sync_every) per run), and
+# "reference" the per-lane reference path's steps (0 until that path is
+# ported).  A CounterDict view over the process metrics registry
+# (repro_dispatch_total, labelled by kind), so the same counts are
+# scrapeable.  Never zeroed: read them through counting().
+DISPATCH_COUNTS = obs_metrics.CounterDict(
+    obs_metrics.REGISTRY.counter(
+        "repro_dispatch_total",
+        help="Host->device dispatches and transfers by kind"),
+    "kind", keys=("observe_all", "epoch_step", "reference",
+                  "hint_refresh", "record_sync"))
 
 
 class _CounterView:
@@ -110,7 +122,7 @@ class _CounterView:
     as (current total) - (total at scope entry).  The live dict is never
     mutated, so nested and overlapping views stay correct."""
 
-    def __init__(self, live: Dict[str, int]):
+    def __init__(self, live: obs_metrics.CounterDict):
         self._live = live
         self._base = dict(live)
 
@@ -454,10 +466,11 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
             torch.where(state.nb_ewma > 0.0,
                         policy.quality_estimate(obs_nb, state.nb_ewma),
                         1.0)])
-        quality_new = policy.quality_smooth(state.quality, q_raw,
-                                            har.quality_beta)
+        quality_new = policy.quality_smooth(
+            state.quality, q_raw, har.quality_beta,
+            torch.arange(3, device=dev) != 1)
         nb_ewma_new = policy.quality_smooth(state.nb_ewma, obs_nb,
-                                            har.quality_beta)
+                                            har.quality_beta, False)
         prev_nb_new = nb_faults
 
     thr = (cfg.reactive_hot_threshold
@@ -665,8 +678,10 @@ class EpochRuntime:
     :class:`~repro_torch.faults.FaultModel`) degrades the collectors and
     ``hardening`` (a :class:`~repro_torch.faults.Hardening`, or a dict of
     :meth:`Hardening.make`'s keywords) makes the lanes cope; the runtime
-    takes a private copy of the model.  The kernels run on the card and
-    their plain versions on the CPU, by the tensors' device.
+    takes a private copy of the model.  ``export`` (a
+    :class:`repro_torch.export.ExportClient`) receives every record at the
+    record pull.  The kernels run on the card and their plain versions on
+    the CPU, by the tensors' device.
     """
 
     def __init__(
@@ -721,8 +736,6 @@ class EpochRuntime:
             hardening = Hardening.make(**dict(hardening))
         if hardening is not None:
             hardening.validate()
-        if export is not None:
-            _not_ported("export= (the export plane)", "11")
         self.device = resolve_device(device)
         self.sync_every = int(sync_every)
         if self.sync_every < 1:
@@ -731,6 +744,11 @@ class EpochRuntime:
         self.k_hot = min(int(k_hot), self.n_blocks)
         self.tenancy = tenancy
         self.hardening = hardening
+        # Optional repro_torch.export client (duck-typed:
+        # export_epoch_record).  It sees the records _flush_records has
+        # already assembled on the host at the record pull: no launch, no
+        # transfer, and the client never raises or blocks.
+        self.export = export
         # per-epoch per-tenant raw accounting ((L, T) int64 arrays, lane
         # order = policies); repro_torch.fleet.accounting slices these into
         # TenantRecord rows with the tenants' own cost-model geometry
@@ -878,9 +896,14 @@ class EpochRuntime:
             updates["prefetch_rank"] = self.prefetch_rank
         if updates:
             DISPATCH_COUNTS["hint_refresh"] += 1
-            self._state = dataclasses.replace(
-                self._state,
-                **{k: upload(v, self.device) for k, v in updates.items()})
+            _tr = obs_trace.get_tracer()
+            cm = (_tr.span("hint_refresh", epoch=self.epoch,
+                           arrays=",".join(sorted(updates)))
+                  if _tr.enabled else obs_trace.NOOP_SPAN)
+            with cm:
+                self._state = dataclasses.replace(
+                    self._state,
+                    **{k: upload(v, self.device) for k, v in updates.items()})
 
     # ---------------------------------------------------------------- step
     def step(self, batches, lookahead: Sequence = ()):
@@ -931,8 +954,16 @@ class EpochRuntime:
 
     def _step_fused(self, batches: np.ndarray):
         state = self._state
+        # spans are attribution only: tracing off uses the shared no-op
+        # context manager (no allocation), tracing on wraps the very same
+        # launches
+        _tr = obs_trace.get_tracer()
         DISPATCH_COUNTS["observe_all"] += 1
-        bundle = tel.observe_all(state.bundle, upload(batches, self.device))
+        cm = (_tr.span("observe_all", epoch=self.epoch)
+              if _tr.enabled else obs_trace.NOOP_SPAN)
+        with cm:
+            bundle = tel.observe_all(state.bundle,
+                                     upload(batches, self.device))
         state = dataclasses.replace(state, bundle=bundle)
         # this epoch's observe_all is already queued when a full buffer
         # forces the previous K epochs' record pull
@@ -943,8 +974,12 @@ class EpochRuntime:
         bound = int(batches.size) // state.bundle.pebs.period + 2
         s_max = min(self.n_blocks, 1 << (bound - 1).bit_length())
         DISPATCH_COUNTS["epoch_step"] += 1
-        self._state = _epoch_step(state, int(batches.size), self._buffered,
-                                  cfg=self._cfg, s_max=s_max)
+        cm = (_tr.span("epoch_step", epoch=self.epoch)
+              if _tr.enabled else obs_trace.NOOP_SPAN)
+        with cm:
+            self._state = _epoch_step(state, int(batches.size),
+                                      self._buffered, cfg=self._cfg,
+                                      s_max=s_max)
         self.epoch += 1
         self._buffered += 1
         if self.sync_every == 1:
@@ -961,7 +996,10 @@ class EpochRuntime:
             return {}
         base = self.epoch - n_buf
         DISPATCH_COUNTS["record_sync"] += 1
-        with sync_allowed(self.device):
+        _tr = obs_trace.get_tracer()
+        cm = (_tr.span("record_sync", epoch_base=base, n_epochs=n_buf)
+              if _tr.enabled else obs_trace.NOOP_SPAN)
+        with cm, sync_allowed(self.device):
             host = self._state.out_buf.cpu().numpy()
         L, T = len(self._lane_names), self._n_tenants
         cols = _out_columns(L, T, quality=self.hardening is not None)
@@ -1002,6 +1040,8 @@ class EpochRuntime:
                 )
                 self.records[name].append(rec)
                 flushed[name].append(rec)
+                if self.export is not None:
+                    self.export.export_epoch_record(rec)
         self._buffered = 0
         return flushed
 

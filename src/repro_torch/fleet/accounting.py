@@ -24,8 +24,9 @@ Conservation: ``n_fast``/``n_slow``/``resident``/``promoted``/``demoted``
 sum across tenants to the global :class:`~repro_torch.core.runtime.
 EpochRecord` exactly (tested); ``coverage`` does not, by construction.
 
-The reference's ``export=`` (its export plane) is not ported yet (ROADMAP
-Queue 1, item 11).
+``export=`` (a :class:`repro_torch.export.ExportClient`) emits every row as
+a ``tenant`` wire record and every per-lane summary as a
+``tenant_lane_summary`` record, both already on the host.
 """
 from __future__ import annotations
 
@@ -62,13 +63,15 @@ class TenantRecord:
         return dataclasses.asdict(self)
 
 
-def tenant_trajectories(rt: EpochRuntime, fleet,
+def tenant_trajectories(rt: EpochRuntime, fleet, export=None,
                         ) -> Dict[str, Dict[str, List[TenantRecord]]]:
     """``{tenant: {lane: [TenantRecord per epoch]}}`` from a fleet run.
 
     Flushes the runtime's batched record sync first, so a caller that
     stepped by hand with ``sync_every > 1`` never reads a partial
-    ``tenant_records`` history."""
+    ``tenant_records`` history.  ``export=`` emits every row as a
+    ``tenant`` wire record tagged by tenant name (the rows rode the same
+    record pull as the global records: no extra transfer)."""
     rt.flush()                      # sync_every=K partial tail, if any
     if rt.tenancy is None or not rt.tenant_records:
         raise ValueError("runtime has no tenant accounting; build it via "
@@ -94,7 +97,7 @@ def tenant_trajectories(rt: EpochRuntime, fleet,
                     promoted + demoted, spec.scenario.block_bytes)
                 share = (n_fast + n_slow) / total if total else 0.0
                 host_tax_s = g.host_tax_s * share
-                out[spec.name][lane].append(TenantRecord(
+                rec = TenantRecord(
                     epoch=e, lane=lane, tenant=spec.name,
                     time_s=access_s + host_tax_s + migration_s,
                     access_s=access_s, host_tax_s=host_tax_s,
@@ -103,16 +106,22 @@ def tenant_trajectories(rt: EpochRuntime, fleet,
                     coverage=inter / hot_k[t_idx],
                     resident=resident, promoted=promoted, demoted=demoted,
                     n_fast=n_fast, n_slow=n_slow, hot_k=hot_k[t_idx],
-                ))
+                )
+                out[spec.name][lane].append(rec)
+                if export is not None:
+                    export.export_tenant_record(rec)
     return out
 
 
 def tenant_summary(rt: EpochRuntime, fleet,
-                   policies: Sequence[str]) -> dict:
+                   policies: Sequence[str], export=None) -> dict:
     """Headline per-tenant numbers: quota, hot-set size, and per-lane
     mean/final coverage + accuracy, mean epoch time, move totals — plus the
-    full per-epoch rows (the machine-readable trajectory)."""
-    trajs = tenant_trajectories(rt, fleet)
+    full per-epoch rows (the machine-readable trajectory).
+
+    The per-lane dicts are wire-conformant ``tenant_lane_summary`` records
+    minus the envelope (units in field names); ``export=`` emits them."""
+    trajs = tenant_trajectories(rt, fleet, export=export)
     caps = rt.tenancy.caps
     summary: Dict[str, dict] = {}
     for t_idx, spec in enumerate(fleet.tenants):
@@ -131,6 +140,9 @@ def tenant_summary(rt: EpochRuntime, fleet,
                 "promoted_total_blocks": int(sum(r.promoted for r in recs)),
                 "demoted_total_blocks": int(sum(r.demoted for r in recs)),
             }
+            if export is not None:
+                export.export_tenant_lane_summary(spec.name, lane,
+                                                  lanes[lane])
         summary[spec.name] = {
             "n_blocks": spec.n_blocks,
             "hot_k": rt.tenancy.hot_k[t_idx],

@@ -30,10 +30,11 @@ The fleet owns exactly the plumbing the runtime must never learn:
 :func:`run_fleet` is the packaging: one six-lane run over the mix, global
 summary plus per-tenant coverage/accuracy/epoch-time rows, optional
 per-tenant solo baselines, and per-tenant fault profiles
-(:meth:`FleetScenario.build_faults`, ``faults=``).  The export plane
-(``export=``), the per-lane reference path (``fused=False``) and sharded
-state (``mesh=``) are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+(:meth:`FleetScenario.build_faults`, ``faults=``), and the export plane
+(``export=``: epoch, tenant, lane-summary and tenant-lane-summary wire
+records).  The per-lane reference path (``fused=False``) and sharded state
+(``mesh=``) are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -283,26 +284,34 @@ def run_fleet(
     the comparison is this tenant under the fleet's faults against this
     tenant alone on healthy telemetry.
 
-    ``export=`` (ROADMAP Queue 1 item 11), ``fused=False`` (item 12) and
-    ``mesh=`` (item 15) raise ``NotImplementedError``.
+    ``export=`` (a :class:`repro_torch.export.ExportClient`) is bound to
+    the fleet's name and receives the epoch records, each lane's summary,
+    and every tenant row and tenant-lane summary; solo baselines export
+    nothing.  ``fused=False`` (ROADMAP Queue 1 item 12) and ``mesh=`` (item
+    15) raise ``NotImplementedError``.
     """
     if hints is True:
         hints = fleet.build_pipeline(depth=lookahead_depth)
     if isinstance(faults, dict):
         faults = fleet.build_faults(faults)
+    exp = export.bind(scenario=fleet.name) if export is not None else None
     rt = EpochRuntime.for_scenario(
         fleet, policies=tuple(policies), hints=hints or None,
         prefetch_overlap=prefetch_overlap, fused=fused, mesh=mesh,
         sync_every=sync_every, faults=faults, hardening=hardening,
-        export=export, device=device, **runtime_overrides)
+        export=exp, device=device, **runtime_overrides)
     traj = rt.run(fleet.epochs() if epochs is None else epochs)
     summary = scenario_summary(rt, traj, policies, fleet.shift_at)
+    if exp is not None:
+        for name in policies:
+            exp.export_lane_summary(name, summary[name])
     out = {
         "trajectory": json.loads(traj.to_json(
             scenario=fleet.name, shift_at=fleet.shift_at,
             capacity=fleet.capacity)),
         "summary": summary,
-        "tenants": accounting.tenant_summary(rt, fleet, policies),
+        "tenants": accounting.tenant_summary(rt, fleet, policies,
+                                             export=exp),
     }
     if solo:
         solos: Dict[str, dict] = {}

@@ -159,20 +159,31 @@ def run_scenario(
     trajectory is byte-identical to the reference's, and a neutral
     ``FaultModel.create()`` to ``faults=None``.
 
-    ``fused=False``, ``mesh=`` and ``export=`` are not ported yet and raise
+    ``export=`` attaches a :class:`repro_torch.export.ExportClient`:
+    per-epoch records stream out at the runtime's record pull and each
+    lane's summary is emitted as a ``lane_summary`` record on completion,
+    all tagged with the scenario's name.  Export is observability-only —
+    trajectories are byte-identical export-on vs export-off and the epoch's
+    launches and pulls are unchanged.
+
+    ``fused=False`` and ``mesh=`` are not ported yet and raise
     ``NotImplementedError``.
 
     Returns ``{"trajectory": per-epoch dict, "summary": headline numbers}``.
     """
     if hints is True:
         hints = build_hints(scenario, depth=lookahead_depth)
+    exp = export.bind(scenario=scenario.name) if export is not None else None
     rt = EpochRuntime.for_scenario(
         scenario, policies=tuple(policies), hints=hints or None,
         prefetch_overlap=prefetch_overlap, fused=fused, mesh=mesh,
         sync_every=sync_every, faults=faults, hardening=hardening,
-        export=export, device=device, **runtime_overrides)
+        export=exp, device=device, **runtime_overrides)
     traj = rt.run(scenario.epochs() if epochs is None else epochs)
     summary = scenario_summary(rt, traj, policies, scenario.shift_at)
+    if exp is not None:
+        for name in policies:
+            exp.export_lane_summary(name, summary[name])
     return {
         "trajectory": json.loads(traj.to_json(scenario=scenario.name,
                                               shift_at=scenario.shift_at)),

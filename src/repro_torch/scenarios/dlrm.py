@@ -108,8 +108,11 @@ def run_online(
     serves.
 
     ``sync_every=K`` batches the record syncs (bit-identical for every K);
-    ``device`` defaults to ``"cuda"`` (raises without one).  ``fused=False``,
-    ``mesh=`` and ``export=`` are not ported yet and raise.
+    ``export=`` streams records through a
+    :class:`repro_torch.export.ExportClient` (observability-only:
+    trajectories are byte-identical either way); ``device`` defaults to
+    ``"cuda"`` (raises without one).  ``fused=False`` and ``mesh=`` are not
+    ported yet and raise.
 
     Returns ``{"trajectory": per-epoch dict, "summary": headline numbers}``.
     """

@@ -734,3 +734,55 @@ def test_faulty_fused_step_makes_no_sync_inside_an_epoch(cuda):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert c.dispatch["record_sync"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync_every", [1, 4])
+def test_traced_exported_small_run_identical_on_gpu_and_cpu(cuda,
+                                                            sync_every):
+    """SMALL with tracing and export on: the card's run gives the CPU's
+    output, the CPU's wire records in order, and the CPU's span sequence
+    (name, epoch, args, depth, thread) on the host thread."""
+    from repro_torch.export import ExportClient, MemorySink
+    from repro_torch.obs import trace as obs_trace
+    scen = dict(n_epochs=4, batches_per_epoch=2, shift_at=2)
+
+    def run(device):
+        sink = MemorySink()
+        client = ExportClient(sink)
+        try:
+            with obs_trace.tracing(profiler_annotations=True) as tr:
+                out = run_scenario(DLRMScenario(**scen), hints=True,
+                                   sync_every=sync_every, device=device,
+                                   export=client)
+            client.flush(timeout=60)
+        finally:
+            client.close()
+        spans = [(s.name, s.epoch, s.args, s.depth, s.tid) for s in tr.spans
+                 if not s.name.startswith("export.write")]
+        return out, sink.snapshot(), spans
+
+    gpu, cpu = run(cuda), run("cpu")
+    assert gpu[0] == cpu[0]
+    assert gpu[1] == cpu[1] and len(gpu[1]) > 0
+    assert gpu[2] == cpu[2]
+    names = [s[0] for s in gpu[2]]
+    assert names.count("observe_all") == names.count("epoch_step") == 4
+    assert names.count("record_sync") == -(-4 // sync_every)
+
+
+@pytest.mark.cuda
+def test_elapsed_s_waits_for_a_cuda_tensor(cuda):
+    """``elapsed_s`` on a tensor queued behind a spin of the card waits for
+    the spin (about 50 ms); without the tensor it reads the clock at
+    once."""
+    from repro_torch.obs import trace as obs_trace
+    x = torch.ones(16, device=cuda)
+    torch.cuda.synchronize()
+    t0 = obs_trace.now_s()
+    torch.cuda._sleep(100_000_000)
+    y = x + 1
+    no_wait = obs_trace.elapsed_s(t0)
+    waited = obs_trace.elapsed_s(t0, y)
+    assert waited > 0.02 and waited > no_wait
+    assert torch.equal(y, x + 1)

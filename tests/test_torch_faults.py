@@ -8,9 +8,9 @@ NB stalls, staleness of one and of two epochs) and all of them together,
 each with and without hardening, for two record-pull periods: the
 trajectories compare as JSON text, and the collector states, the fault
 counters (the Threefry key among them) and the runtime's robustness leaves
-compare leaf by leaf after the run.  Around it: the pieces (model and
-hardening construction and validation, the quality blend against the
-reference's jitted step), a reference model carried across mid-run, the
+compare leaf by leaf after the run; the same whole runs hold the quality
+blend at seven betas.  Around it: the pieces (model and hardening
+construction and validation), a reference model carried across mid-run, the
 reference's own non-sharded fault tests mirrored on the port, the example,
 and the fleet with per-tenant profiles against the reference's.
 
@@ -26,9 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 
-from repro.core import policy as jpolicy  # noqa: E402
 from repro.core import runtime as jrt  # noqa: E402
 from repro.dlrm import datagen as jdata  # noqa: E402
 from repro.faults import FaultModel as JFaultModel  # noqa: E402
@@ -40,7 +38,6 @@ from repro.scenarios import build_hints as jbuild_hints  # noqa: E402
 from repro_torch.convert import (bundle_to_numpy, fault_model_from_numpy,  # noqa: E402
                                  fault_model_to_numpy, fused_state_from_numpy,
                                  hardening_from_fields)
-from repro_torch.core import policy as tpolicy  # noqa: E402
 from repro_torch.core import runtime as trt  # noqa: E402
 from repro_torch.core import telemetry as tel  # noqa: E402
 from repro_torch.core.runtime import ALL_POLICIES, EpochRuntime  # noqa: E402
@@ -246,44 +243,27 @@ def test_hardening_make_equals_reference(kw):
     assert hardening_from_fields(want._asdict()) == got
 
 
-@pytest.mark.parametrize("beta", [0.5, 0.1, 0.3, 0.7, 0.9, 1 / 3, 1.0])
-def test_quality_blend_equals_the_reference_steps_jit(beta):
-    """The hardened step's quality block — the three raw estimates (observed
-    over expected mass, NB's over its own history) and both smoothings —
-    bit for bit against ``jax.jit`` of the reference's, on float32 inputs
-    from a seed.  Inside the step XLA contracts the blend's second product
-    (the carried state's); a jit of the blend alone would contract the
-    first, which the eager ``policy.ewma`` form does."""
-    rng = np.random.default_rng(int(beta * 1000))
-    n = 4_000
-    q_prev = rng.random((n, 3)).astype(np.float32)
-    obs = np.round(rng.random((n, 3)) * 20_000).astype(np.float32)
-    ewma = np.where(rng.random(n) < 0.1, 0.0,
-                    rng.random(n) * 3_000).astype(np.float32)
-    exp = np.float32(16_000)
+BLEND_BETAS = [0.5, 0.1, 0.3, 0.7, 0.9, 1 / 3, 1.0]
+BLEND_CASES = ([pytest.param(b, "all", 1, id=str(b)) for b in BLEND_BETAS]
+               + [pytest.param(0.7, f, 4, id=f"0.7-{f}-K4")
+                  for f in ("drops", "resets")])
 
-    def block(q_prev, obs, exp, ewma):
-        q_raw = jnp.stack([
-            jpolicy.quality_estimate(obs[0], exp),
-            jpolicy.quality_estimate(obs[1], exp),
-            jnp.where(ewma > 0.0, jpolicy.quality_estimate(obs[2], ewma),
-                      1.0)])
-        return (jpolicy.quality_smooth(q_prev, q_raw, beta),
-                jpolicy.quality_smooth(ewma, obs[2], beta))
 
-    want_q, want_e = map(np.asarray, jax.vmap(
-        jax.jit(block), in_axes=(0, 0, None, 0))(q_prev, obs, exp, ewma))
-    tq, to, tw = map(torch.from_numpy, (q_prev, obs, ewma))
-    te = torch.full((), float(exp))
-    q_raw = torch.stack([
-        tpolicy.quality_estimate(to[:, 0], te),
-        tpolicy.quality_estimate(to[:, 1], te),
-        torch.where(tw > 0.0, tpolicy.quality_estimate(to[:, 2], tw), 1.0)],
-        dim=-1)
-    got_q = tpolicy.quality_smooth(tq, q_raw, beta).numpy()
-    got_e = tpolicy.quality_smooth(tw, to[:, 2], beta).numpy()
-    np.testing.assert_array_equal(got_q.view(np.int32), want_q.view(np.int32))
-    np.testing.assert_array_equal(got_e.view(np.int32), want_e.view(np.int32))
+@pytest.mark.parametrize("beta,fault,sync_every", BLEND_CASES)
+def test_quality_blend_equals_the_reference_steps_jit(beta, fault,
+                                                      sync_every):
+    """The hardened quality blend at betas other than the exact 0.5, over
+    whole runs against the reference's jitted step: trajectory JSON byte
+    for byte and every state leaf (``quality`` and ``nb_ewma`` among them)
+    by its bits.  Inside the step XLA contracts a different product per
+    element (the carried state's for HMU and NB quality, the raw value's
+    for PEBS quality and ``nb_ewma``), which a jit of the blend alone
+    does not reproduce, so only the whole step can check it."""
+    port, got, ref, want = run_both(FAULTS[fault],
+                                    dict(HARD, quality_beta=beta), sync_every)
+    assert got.to_json() == want.to_json()
+    assert_states_equal(port, ref)
+    assert min(r.quality for r in got.lane("hinted")) < 1.0
 
 
 def test_faults_require_the_fused_path():
@@ -642,7 +622,7 @@ FLEET_PROFILE = {"scanner": {"pebs_drop_p": 0.5, "hmu_counter_bits": 8},
                  "dlrm": {"pebs_drop_p": 0.2}}
 
 
-@pytest.mark.parametrize("capacity", ["shared", "weighted"])
+@pytest.mark.parametrize("capacity", ["shared", "partition", "weighted"])
 @pytest.mark.parametrize("sync_every", [1, 3])
 def test_faulty_fleet_equals_reference(moe_pair, capacity, sync_every):
     """The 3-tenant DLRM + scanner + MoE mix under a per-tenant profile and

@@ -226,8 +226,35 @@ def test_fleet_rejects_bad_configs():
         TenantSpec(small_scanner(), weight=0.0)
 
 
+def test_export_option_is_accepted_and_leaves_the_run_identical(moe_pair):
+    """``export=`` is ported: the fleet run streams its epoch records, lane
+    summaries, tenant rows and tenant-lane summaries through the client,
+    tagged with the fleet's name, and returns the same output, byte for
+    byte, as the run without it."""
+    from repro_torch.export import ExportClient, MemorySink
+    sink = MemorySink()
+    client = ExportClient(sink)
+    try:
+        on = run_fleet(small_fleet(moe_pair[1]), hints=True, device="cpu",
+                       sync_every=2, export=client)
+        client.flush(timeout=30)
+    finally:
+        client.close()
+    off = run_fleet(small_fleet(moe_pair[1]), hints=True, device="cpu",
+                    sync_every=2)
+    assert json.dumps(on) == json.dumps(off)
+    recs = sink.snapshot()
+    n_l, n_t, n_e = len(ALL_POLICIES), 3, MIX_KW["n_epochs"]
+    kinds = [r["record_type"] for r in recs]
+    assert [kinds.count(k) for k in ("epoch", "lane_summary", "tenant",
+                                     "tenant_lane_summary")] == \
+        [n_e * n_l, n_l, n_e * n_l * n_t, n_l * n_t]
+    assert {r["scenario"] for r in recs} == {"fleet"}
+    assert client.stats()["dropped_invalid"] == 0
+
+
 @pytest.mark.parametrize("option,item", [
-    ("faults", "10"), ("hardening", "10"), ("export", "11"),
+    ("faults", "10"), ("hardening", "10"),
     ("fused", "12"), ("mesh", "15")])
 def test_unported_options_raise_naming_their_item(moe_pair, option, item):
     """Options still to be ported raise naming their ROADMAP item.  Item 10

@@ -3,6 +3,7 @@ raises without one, and refuses the options it does not carry yet.
 
 Everything here is structural (imports, devices, errors), so there is no
 tolerance to state."""
+import json
 import re
 import subprocess
 import sys
@@ -13,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import TieringManager  # noqa: E402
-from repro_torch.core.runtime import EpochRuntime, Tenancy  # noqa: E402
+from repro_torch.core.runtime import ALL_POLICIES, EpochRuntime, Tenancy  # noqa: E402
 from repro_torch.dlrm import datagen, tracesim  # noqa: E402
 from repro_torch.examples import dlrm_tiering  # noqa: E402
 from repro_torch.faults import FaultModel, Hardening  # noqa: E402
@@ -48,7 +49,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.launch.serve, repro_torch.configs, "
             "repro_torch.scenarios.kv_cache, "
             "repro_torch.kernels.flash_attention, repro_torch.faults.prng, "
-            "repro_torch.examples.degraded_telemetry\n"
+            "repro_torch.examples.degraded_telemetry, repro_torch.obs, "
+            "repro_torch.export, repro_torch.examples.runtime_timeline, "
+            "repro_torch.examples.telemetry_export\n"
             "repro_torch.configs.get_config('qwen2-0.5b')\n"
             "repro_torch.scenarios.KVCacheScenario\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -112,7 +115,7 @@ def test_entry_points_run_on_the_cpu_when_asked():
 @pytest.mark.parametrize("option,item", [
     (dict(fused=False), "12"), (dict(mesh=object()), "15"),
     (dict(faults=object()), "10"),
-    (dict(hardening=object()), "10"), (dict(export=object()), "11"),
+    (dict(hardening=object()), "10"),
 ])
 def test_unported_options_raise(option, item):
     """Options still to be ported raise naming their ROADMAP item; item 10
@@ -124,6 +127,27 @@ def test_unported_options_raise(option, item):
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         run_scenario(TINY, device="cpu", **option)
+
+
+def test_export_option_is_accepted_and_leaves_the_run_identical():
+    """``export=`` is ported (the export plane): the run takes a client,
+    streams one epoch record per lane and epoch and one lane summary per
+    lane through it, and its output is byte-identical to the run without
+    one."""
+    from repro_torch.export import ExportClient, MemorySink
+    sink = MemorySink()
+    client = ExportClient(sink)
+    try:
+        on = run_scenario(TINY, device="cpu", export=client)
+        client.flush(timeout=30)
+    finally:
+        client.close()
+    off = run_scenario(TINY, device="cpu")
+    assert json.dumps(on) == json.dumps(off)
+    kinds = [r["record_type"] for r in sink.snapshot()]
+    n_lanes = len(ALL_POLICIES)
+    assert kinds.count("epoch") == TINY.n_epochs * n_lanes
+    assert kinds.count("lane_summary") == n_lanes
 
 
 def test_tenancy_option_runs():
