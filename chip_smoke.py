@@ -108,8 +108,10 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     plain version and with the CUDA-core kernel, beside both bounds (three
     TF32 products at the TF32 rate; one float32 product at the CUDA cores'
     rate) and the TF32 kernel's resident blocks an SM;
-18. the fleet: ``repro_torch.examples.fleet_mix``'s 3-tenant mix (dlrm, kv,
-    scanner; 340 fast slots) on the GPU vs the CPU for capacity in
+18. the fleet: ``repro_torch.examples.fleet_mix``'s 4-tenant mix (dlrm, kv,
+    moe, scanner; 340 fast slots; the KV and MoE streams made on the GPU
+    once, their flash_attention launches checked) on the GPU vs the CPU
+    for capacity in
     {shared, partition, weighted} x sync_every in {1, 4}, trajectory,
     summary and tenant rows identical, the launches checked; then the
     example's own run on the GPU inside the reference example's margins;
@@ -160,9 +162,33 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     ``telemetry_export`` on the GPU with the reference examples' asserts;
     (c) phase 18's mix, shared, sync_every in {1, 4}, with a
     ``MemorySink`` on the GPU and the CPU: wire records equal.  Its files
-    go to fresh directories under the git-ignored ``build/``.
+    go to fresh directories under the git-ignored ``build/``;
+22. the per-lane reference path (``EpochRuntime(fused=False)``) and the
+    MoE family: (a) ``run_scenario(fused=False)`` on SMALL for hints off,
+    hints on and an NB rate limit, and ``run_fleet(fused=False)`` on phase
+    18's mix for shared, partition and weighted, each GPU run byte-
+    identical to the CPU's reference run and to the GPU's fused run, with
+    one observe_scatter launch a batch and one hist_select a lane and
+    epoch (none under quotas); (b) phase 8's paper run on the reference
+    path, K 1: five lanes byte-identical to phase 8's fused trajectory,
+    the hinted lane's differing epochs reported (eager against contracted
+    float32 scores), 12 observe_scatter and 36 hist_select launches, its
+    epoch wall beside phase 8's; (c) Mixtral-8x22B at its published widths
+    with n_layers cut from 56 to 2 (5.41 B float32 parameters, their draw
+    timed): prefill + 31 decode steps at B 4, prompt 64 and 4,096, page
+    16, under ``set_sync_debug_mode("error")``, 2 flash_attention launches
+    a prefill on the tensor cores and none in decode, the decode's expert
+    counts per layer, tokens/s, peak memory; (d) ``MoEExpertScenario()``
+    GPU vs CPU (its forwards on the CUDA-core route), ``run_scenario`` fed
+    the CPU's stream byte-identical for hints x sync_every in {1, 4}, the
+    accesses the GPU's own forwards move, then the port's
+    ``expert_tiering_moe`` example on the GPU; (e) flash_attention at
+    Mixtral's prefill shape (B 4, H 48, KVH 8, S 4,096, d 128, bfloat16,
+    window 4,096) against its plain version, timed beside its bound and
+    ``scaled_dot_product_attention(is_causal=True)`` (the kernel line's
+    ``flash_attention_mixtral`` entry).
 
-Each path (8-11, 14-16, 18-21) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-22) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -1147,7 +1173,7 @@ def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts,
 
 def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
                          d: int, dtype: str = "bfloat16",
-                         s_len: int = 4096) -> dict:
+                         s_len: int = 4096, window=None) -> dict:
     """Phase 17: flash_attention at a causal prefill shape beside its plain
     version, ``F.scaled_dot_product_attention`` (timed in this call) and the
     bound: the function's products, 2*B*H*S^2*d over the causal half, at
@@ -1159,22 +1185,44 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     TF32 route does; that route is also timed in turns with the CUDA-core
     kernel on the same input, whose own bound is the products at the CUDA
     cores' float32 rate.  TFLOP/s are given on the function's work and on
-    the kernel's."""
+    the kernel's.  ``window`` is the model's sliding window (one of at
+    least ``s_len`` masks nothing beyond the causal mask, so
+    ``scaled_dot_product_attention(is_causal=True)`` is the same function).
+    The kernel's output is held against the plain version's within
+    FLASH_TOL on this input."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     q, k, v = qkv(dev, 99, b, h, kvh, s_len, s_len, d, dtype)
     route = fa_kernel.route(q.dtype, d)
+    if window is not None and window < s_len:
+        fail(f"flash_attention_time: window {window} < S {s_len} is not "
+             f"the causal function sdpa computes")
+    kw = dict(q_per_kv=h // kvh, window=window)
     ms, plain_ms = in_turns(
-        lambda: flash_attention(q, k, v, q_per_kv=h // kvh, backend=plain),
-        lambda: flash_attention(q, k, v, q_per_kv=h // kvh), 5)
+        lambda: flash_attention(q, k, v, backend=plain, **kw),
+        lambda: flash_attention(q, k, v, **kw), 5)
+    got = flash_attention(q, k, v, **kw)
+    ref = flash_attention(q, k, v, backend=plain, **kw)
+    diff = (got.float() - ref.float()).abs()
+    share = diff / flash_allowed(ref, dtype)
+    checked = dict(max_abs_err=float(diff.max()),
+                   share_of_tolerance=float(share.max()),
+                   differing_share=float((diff > 0).float().mean()))
+    if not (checked["share_of_tolerance"] <= 1.0
+            and checked["differing_share"]
+            <= FLASH_TOL[dtype].get("differing_share", 1.0)):
+        fail(f"flash_attention differs from its plain version at the "
+             f"{label} prefill shape ({dtype}): {checked}")
+    del got, ref, diff, share
+    free_device_memory()
     q4, k4, v4 = (x.view(b, -1, s_len, d) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True,
                                    enable_gqa=True), 5)
     sdpa_err = float((sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
                       .reshape(q.shape).float()
-                      - flash_attention(q, k, v, q_per_kv=h // kvh).float())
+                      - flash_attention(q, k, v, **kw).float())
                      .abs().max())
     flops = 2 * b * h * s_len * s_len * d
     # (the kernel's products, the fewest products the function needs at
@@ -1188,6 +1236,7 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
                                   + 2 * b * kvh * s_len * d)
     bound, by = bound_ms(n_bytes, flops * needed, rate)
     out = dict(label=label, shape=[b, h, kvh, s_len, d], dtype=dtype,
+               window=window, **checked,
                route=route, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                ms_over_sdpa_ms=ms / sdpa_ms, bound_ms=bound, bound_by=by,
                causal_flops=flops, kernel_flops=kernel_flops, bytes=n_bytes,
@@ -1240,24 +1289,112 @@ def fleet_launches(fleet, runs: dict) -> dict:
             "gather_count": 0, "embedding_bag": 0, "flash_attention": 0}
 
 
-def fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts) -> dict:
-    """Phase 18: the example's 3-tenant mix (``repro_torch.examples.
-    fleet_mix``: dlrm, kv, scanner; 340 fast slots) on the GPU vs the CPU
-    for capacity in {shared, partition, weighted} x sync_every in {1, 4}:
-    trajectory, summary and tenant rows identical; then the example's own
-    run (shared, weighted and every tenant solo) on the GPU inside the
-    reference example's margins.  The KV tenant's stream is decoded on the
-    GPU once and replayed by every fleet on both devices.  Returns the
-    parity runs' launches."""
+def fleet_mix_streams(sc) -> None:
+    """Make the fleet example's model-backed tenant streams once, on the
+    card: the KV decode (one prefill) and the MoE tenant's forwards (one a
+    batch); every fleet built over ``sc`` replays them."""
+    list(sc["kv"].epochs())
+    list(sc["moe"].epochs())
+
+
+# The MoE scenario's stream made on the card against the same scenario's
+# on the CPU (phases 18 and 22d), held to tests/test_torch_moe.py's bounds
+# for the bfloat16 kimi-k2 smoke model: a routing is a top-k over float32
+# probabilities of bf16 activations, and where those differ by a rounding a
+# near-tie may fall the other way.  So a batch row lies within an L1
+# distance of 2 % of its length of the CPU's, a forward's (L, E) counts
+# within 2 % of its routings with the same totals per layer, and its final
+# hidden states (6e-2) and logits (1e-2, atol and rtol) within tolerance on
+# at least 97 % of the elements.
+MOE_STREAM_L1_SHARE = 0.02
+MOE_BF16_TOL = {"hidden": 6e-2, "logits": 1e-2}
+MOE_BF16_WITHIN = 0.97
+
+
+def check_moe_stream(gpu, cpu, label: str) -> dict:
+    """``gpu``'s expert stream (a MoEExpertScenario on the card) against
+    ``cpu``'s (the same scenario on the CPU), row by row; then each token
+    batch's forward again on both devices, its counts, hidden states and
+    logits compared.  Fails outside the bounds above; returns the
+    distances."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import forward, logits_fn
+    g_eps, c_eps = list(gpu.epochs()), list(cpu.epochs())
+    if [e.shape for e in g_eps] != [e.shape for e in c_eps]:
+        fail(f"{label}: MoE stream shapes differ GPU vs CPU")
+    row_l1 = [int(np.abs(np.bincount(gr, minlength=gpu.n_blocks)
+                         - np.bincount(cr, minlength=gpu.n_blocks)).sum())
+              for ge, ce in zip(g_eps, c_eps) for gr, cr in zip(ge, ce)]
+    row_bound = MOE_STREAM_L1_SHARE * gpu.batch_len
+    if max(row_l1) > row_bound:
+        fail(f"{label}: a MoE stream row lies {max(row_l1)} accesses (L1) "
+             f"from the CPU's, above {row_bound}")
+    g_par, c_par = gpu.model_params(), cpu.model_params()
+    within = dict.fromkeys(MOE_BF16_TOL, 1.0)
+    count_l1 = []
+    with torch.no_grad():
+        for toks in gpu.token_batches():
+            tokens = torch.from_numpy(toks)
+            gh, g_aux = forward(g_par, gpu.cfg, tokens=tokens.to(gpu.device))
+            ch, c_aux = forward(c_par, cpu.cfg, tokens=tokens)
+            got = {"hidden": gh, "logits": logits_fn(g_par, gpu.cfg, gh)}
+            want = {"hidden": ch, "logits": logits_fn(c_par, cpu.cfg, ch)}
+            for part, tol in MOE_BF16_TOL.items():
+                g, w = got[part].float().cpu(), want[part].float()
+                if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                    fail(f"{label}: the card's forward {part} is not finite "
+                         f"or of shape {tuple(w.shape)}")
+                ok = (g - w).abs() <= tol + tol * w.abs()
+                within[part] = min(within[part], float(ok.float().mean()))
+            gc, cc = g_aux["expert_counts"].cpu(), c_aux["expert_counts"]
+            if not torch.equal(gc.sum(-1), cc.sum(-1)):
+                fail(f"{label}: the forward's per-layer routings differ "
+                     f"GPU vs CPU")
+            count_l1.append(int((gc - cc).abs().sum()) / int(cc.sum()))
+    if max(count_l1) > MOE_STREAM_L1_SHARE or \
+            min(within.values()) < MOE_BF16_WITHIN:
+        fail(f"{label}: the card's MoE forwards differ from the CPU's: "
+             f"counts L1 share {max(count_l1)} (bound "
+             f"{MOE_STREAM_L1_SHARE}), elements within tolerance {within} "
+             f"(bound {MOE_BF16_WITHIN})")
+    return dict(row_l1_max=max(row_l1), row_l1_bound=row_bound,
+                rows_changed=sum(d > 0 for d in row_l1),
+                accesses_moved=sum(row_l1) // 2, forwards=len(count_l1),
+                forward_counts_l1_share_max=max(count_l1),
+                hidden_within_share=within["hidden"],
+                logits_within_share=within["logits"])
+
+
+def fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts,
+                         read_routes) -> dict:
+    """Phase 18: the example's 4-tenant mix (``repro_torch.examples.
+    fleet_mix``: dlrm, kv, moe, scanner; 340 fast slots) on the GPU vs the
+    CPU for capacity in {shared, partition, weighted} x sync_every in
+    {1, 4}: trajectory, summary and tenant rows identical; then the
+    example's own run (shared, weighted and every tenant solo) on the GPU
+    inside the reference example's margins.  The KV and MoE tenants'
+    streams are made on the GPU once (n_layers flash_attention launches
+    for the KV prefill and n_layers for each MoE batch, all on the CUDA
+    cores at d 16) and replayed by every fleet on both devices.  Returns
+    the parity runs' launches."""
     from repro_torch.examples import fleet_mix
     from repro_torch.fleet import run_fleet
     t0 = time.perf_counter()
     zero_counts()
     sc = fleet_mix.make_scenarios(device=dev)
-    list(sc["kv"].epochs())                 # the KV decode, once
-    kv_launches = read_counts()
-    if kv_launches["flash_attention"] != sc["kv"].cfg.n_layers:
-        fail(f"fleet_mix's KV decode launches {kv_launches}")
+    fleet_mix_streams(sc)
+    stream_launches, stream_routes = read_counts(), read_routes()
+    moe = sc["moe"]
+    n_fa = sc["kv"].cfg.n_layers + moe.cfg.n_layers * (
+        moe.n_epochs * moe.batches_per_epoch)
+    if stream_launches["flash_attention"] != n_fa or \
+            stream_routes["cuda_core"] != n_fa:
+        fail(f"fleet_mix's KV decode and MoE forwards launch "
+             f"{stream_launches}, routes {stream_routes}; expected {n_fa} "
+             f"flash_attention on the CUDA cores")
+    moe_stream = check_moe_stream(
+        moe, fleet_mix.make_scenarios(device="cpu")["moe"], "fleet_mix")
     zero_counts()
     for capacity in ("shared", "partition", "weighted"):
         for k in (1, 4):
@@ -1281,7 +1418,9 @@ def fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts) -> dict:
              f"solo {res['solo_cov']}, shared {res['shared_cov']}, "
              f"weighted {res['fair_cov']}")
     say("fleet_mix", runs=12, identical=True, launches=launches,
-        kv_decode_launches=kv_launches, margins=margins,
+        tenants=list(fleet_mix.TENANTS),
+        stream_launches=stream_launches, moe_stream_vs_cpu=moe_stream,
+        margins=margins,
         solo_cov=res["solo_cov"], shared_cov=res["shared_cov"],
         fair_cov=res["fair_cov"], caps=res["caps"],
         seconds=time.perf_counter() - t0)
@@ -1764,7 +1903,7 @@ def degraded_fleet(dev, zero_counts, read_counts) -> dict:
     from repro_torch.kernels.observe_scatter import kernel as os_kernel
     t0 = time.perf_counter()
     sc = fleet_mix.make_scenarios(device=dev)
-    list(sc["kv"].epochs())                 # the KV decode, once
+    fleet_mix_streams(sc)
     zero_counts()
     for capacity in ("shared", "weighted"):
         for k in (1, 4):
@@ -2056,7 +2195,7 @@ def fleet_export_gpu_vs_cpu(dev, zero_counts, read_counts) -> None:
     from repro_torch.fleet import run_fleet
     t0 = time.perf_counter()
     sc = fleet_mix.make_scenarios(device=dev)
-    list(sc["kv"].epochs())                 # the KV decode, once
+    fleet_mix_streams(sc)
     zero_counts()
     n_recs = {}
     for k in (1, 4):
@@ -2080,6 +2219,365 @@ def fleet_export_gpu_vs_cpu(dev, zero_counts, read_counts) -> None:
         seconds=time.perf_counter() - t0)
 
 
+# phase 22: the per-lane reference path (EpochRuntime(fused=False)) and the
+# MoE family.  Its serving phase runs Mixtral-8x22B at its published widths
+# with n_layers cut from 56 to MIXTRAL_LAYERS (5.41 B parameters in float32,
+# 27 % of the card); (e) times flash_attention at that model's prefill shape
+# (label, B, H, KVH, d) with its sliding window of 4,096.
+MIXTRAL_LAYERS = 2
+MIXTRAL_TIME_SHAPE = ("mixtral-8x22b", 4, 48, 8, 128)
+MIXTRAL_WINDOW = 4096
+# phase 22c's check of one MoE layer at those widths: tokens, and the
+# float32 tolerance of the card test at smoke size (the same products
+# summed in another order by cuBLAS and the CPU's BLAS)
+MOE_CHECK_TOKENS = 48
+MOE_F32_TOL = 2e-5
+NO_KERNELS = {"observe_scatter": 0, "hist_select": 0, "gather_count": 0,
+              "embedding_bag": 0, "flash_attention": 0}
+
+
+def reference_launches(n_batches: int, n_epochs: int,
+                       hist_select_per_epoch: int) -> dict:
+    """The reference path's launches on the card: one observe_scatter a
+    batch (observe_all) and one hist_select for each eager policy's top-k
+    (none where quotas send the lanes through numpy sorts)."""
+    return dict(NO_KERNELS, observe_scatter=n_batches,
+                hist_select=hist_select_per_epoch * n_epochs)
+
+
+def reference_small_parity(dev, datagen, DLRMScenario, run_scenario,
+                           runtime, zero_counts, read_counts) -> dict:
+    """Phase 22a: ``run_scenario(..., fused=False)`` on SMALL for hints
+    off, hints on and an NB rate limit of 37, and ``run_fleet(...,
+    fused=False)`` on the fleet example's 4-tenant mix for capacity in
+    {shared, partition, weighted}: each GPU run byte-identical to the
+    CPU's reference run (trajectory JSON, summary, tenant rows) and to the
+    GPU's fused run, with the launches the code implies (6 hist_select a
+    epoch without quotas, none under them)."""
+    from repro_torch.examples import fleet_mix
+    from repro_torch.fleet import run_fleet
+    t0 = time.perf_counter()
+    sc = DLRMScenario(spec=datagen.SMALL)
+    eps = list(sc.epochs())
+    out = {}
+    for label, hints, kw in (("hints off", False, {}),
+                             ("hints on", True, {}),
+                             ("nb_rate_limit 37", False,
+                              dict(nb_rate_limit=37))):
+        zero_counts()
+        with runtime.counting() as c:
+            gpu = run_scenario(sc, hints=hints, fused=False, epochs=eps,
+                               **kw)
+            gpu_ref = c.dispatch["reference"]
+        launches = read_counts()
+        want = reference_launches(sum(len(e) for e in eps), len(eps), 6)
+        if launches != want:
+            fail(f"reference path ({label}) launches {launches}, expected "
+                 f"{want}")
+        with runtime.counting() as c:
+            cpu = run_scenario(sc, hints=hints, fused=False, epochs=eps,
+                               device="cpu", **kw)
+            cpu_ref = c.dispatch["reference"]
+        fused = run_scenario(sc, hints=hints, epochs=eps, **kw)
+        if json.dumps(gpu, sort_keys=True) != json.dumps(cpu, sort_keys=True):
+            fail(f"reference path ({label}) differs GPU vs CPU")
+        if (gpu["trajectory"], gpu["summary"]) != (fused["trajectory"],
+                                                   fused["summary"]):
+            fail(f"reference path ({label}) differs from the fused run")
+        if gpu_ref != cpu_ref:
+            fail(f"reference path ({label}) dispatch counts differ GPU vs "
+                 f"CPU: {gpu_ref} against {cpu_ref}")
+        out[label] = dict(launches=launches, reference_dispatches=gpu_ref)
+    fsc = fleet_mix.make_scenarios(device=dev)
+    fleet_mix_streams(fsc)
+    for capacity in ("shared", "partition", "weighted"):
+        fl = fleet_mix.fleet(fsc, capacity)
+        f_eps = list(fl.epochs())
+        zero_counts()
+        gpu = run_fleet(fleet_mix.fleet(fsc, capacity), hints=True,
+                        fused=False, epochs=f_eps)
+        launches = read_counts()
+        want = reference_launches(sum(len(e) for e in f_eps), len(f_eps),
+                                  6 if capacity == "shared" else 0)
+        if launches != want:
+            fail(f"fleet reference path ({capacity}) launches {launches}, "
+                 f"expected {want}")
+        cpu = run_fleet(fleet_mix.fleet(fsc, capacity), hints=True,
+                        fused=False, epochs=f_eps, device="cpu")
+        fused = run_fleet(fleet_mix.fleet(fsc, capacity), hints=True,
+                          epochs=f_eps)
+        for part in ("trajectory", "summary", "tenants"):
+            g = json.dumps(gpu[part], sort_keys=True)
+            if g != json.dumps(cpu[part], sort_keys=True):
+                fail(f"fleet reference path {part} differs GPU vs CPU "
+                     f"({capacity})")
+            if g != json.dumps(fused[part], sort_keys=True):
+                fail(f"fleet reference path {part} differs from the fused "
+                     f"run ({capacity})")
+        out["fleet " + capacity] = dict(launches=launches)
+    say("reference_small", runs=out, identical_gpu_cpu=True,
+        identical_to_fused=True, seconds=time.perf_counter() - t0)
+    return out
+
+
+def first_difference(a: list, b: list):
+    """(epochs whose records differ, the first differing (epoch, field))."""
+    differ, first = 0, None
+    for ra, rb in zip(a, b):
+        keys = [key for key in ra if ra[key] != rb.get(key)]
+        if keys:
+            differ += 1
+            if first is None:
+                first = [ra["epoch"], keys[0], ra[keys[0]], rb.get(keys[0])]
+    return differ, first
+
+
+def reference_paper_run(dev, scen, epochs, phase8_lanes, phase8_epoch_s,
+                        build_hints, run_scenario, runtime, zero_counts,
+                        read_counts) -> dict:
+    """Phase 22b: phase 8's paper-scale run (5,242,880 pages, 2.4 M lookups
+    a batch, hints on) on the reference path, K 1: 12 observe_scatter
+    launches (hashed) and 36 hist_select (6 lanes x 6 epochs); five lanes
+    byte-identical to phase 8's fused trajectory.  The hinted lane scores
+    in the reference's eager float32 form, the fused step in its contracted
+    one, so its epochs may differ: how many and where is reported.  Its
+    epoch wall beside phase 8's warm epoch."""
+    import torch
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    free_device_memory()
+    pipeline = build_hints(scen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    with runtime.counting() as c:
+        t0 = time.perf_counter()
+        res = run_scenario(scen, hints=pipeline, fused=False, epochs=epochs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref_dispatches = c.dispatch["reference"]
+    launches, modes = read_counts(), dict(os_kernel.MODE_LAUNCHES)
+    want = reference_launches(12, scen.n_epochs, 6)
+    if launches != want or modes != {"direct": 0, "hashed": 12}:
+        fail(f"reference paper run launches {launches}, modes {modes}; "
+             f"expected {want}, all hashed")
+    lanes = res["trajectory"]["lanes"]
+    hinted_differ, hinted_first = first_difference(phase8_lanes["hinted"],
+                                                   lanes["hinted"])
+    for name in runtime.ALL_POLICIES:
+        if name != "hinted" and lanes[name] != phase8_lanes[name]:
+            n, first = first_difference(phase8_lanes[name], lanes[name])
+            fail(f"reference paper run lane {name} differs from phase 8's "
+                 f"fused run in {n} epochs, first {first}")
+    say("reference_paper_run", n_pages=scen.n_blocks, epochs=scen.n_epochs,
+        wall_s=wall, epoch_wall_s_mean=wall / scen.n_epochs,
+        phase8_warm_epoch_wall_s_mean=phase8_epoch_s,
+        launches=launches, observe_scatter_modes=modes,
+        reference_dispatches=ref_dispatches,
+        identical_lanes=[n for n in runtime.ALL_POLICIES if n != "hinted"],
+        hinted_epochs_differing=hinted_differ,
+        hinted_first_difference=hinted_first,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    return launches
+
+
+def moe_layer_full_width(dev, params, cfg) -> dict:
+    """Phase 22c's MoE layer at Mixtral's widths: layer 0's ``moe_block``
+    on MOE_CHECK_TOKENS tokens in float32, on the card against the CPU on
+    the same weights, at capacity factors 1.25 and 0.3 (experts overflow
+    and tokens drop): counts exact, output and balance loss within
+    MOE_F32_TOL.  Returns the largest differences."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import layer_params, moe_params
+    from repro_torch.models.moe import moe_block
+    par = moe_params(layer_params(params, 0))
+    cpar = type(par)(*[None if v is None else v.cpu() for v in par])
+    x = torch.from_numpy(np.random.default_rng(22).normal(
+        size=(1, MOE_CHECK_TOKENS, cfg.d_model)).astype(np.float32))
+    gx = x.to(dev)
+    out = {}
+    with torch.no_grad():
+        for cf in (1.25, 0.3):
+            g_out, g_aux = moe_block(gx, par, top_k=cfg.moe.top_k,
+                                     capacity_factor=cf)
+            c_out, c_aux = moe_block(x, cpar, top_k=cfg.moe.top_k,
+                                     capacity_factor=cf)
+            g_out = g_out.cpu()
+            err = float((g_out - c_out).abs().max())
+            ok = bool(((g_out - c_out).abs()
+                       <= MOE_F32_TOL + MOE_F32_TOL * c_out.abs()).all())
+            loss_err = abs(float(g_aux["aux_loss"]) - float(c_aux["aux_loss"]))
+            counts = c_aux["counts"]
+            if not (torch.equal(g_aux["counts"].cpu(), counts) and ok
+                    and loss_err <= MOE_F32_TOL * abs(float(c_aux["aux_loss"]))):
+                fail(f"mixtral moe_block (capacity factor {cf}) differs GPU "
+                     f"vs CPU: counts {g_aux['counts'].tolist()} vs "
+                     f"{counts.tolist()}, max |out diff| {err}, aux_loss "
+                     f"diff {loss_err}")
+            capacity = max(int(MOE_CHECK_TOKENS * cfg.moe.top_k * cf
+                               / cfg.moe.n_experts), 4)
+            out[str(cf)] = dict(
+                capacity=capacity, counts=counts.tolist(),
+                dropped=int((counts - capacity).clamp(min=0).sum()),
+                max_abs_err=err, aux_loss_err=loss_err)
+    del par, cpar, gx
+    free_device_memory()
+    return out
+
+
+def moe_serve_full_width(dev, zero_counts, read_counts,
+                         read_routes) -> dict:
+    """Phase 22c: Mixtral-8x22B at its published widths (d_model 6,144, 48
+    heads of 128 with 8 KV heads, 8 experts top-2 of d 16,384, vocab 32,768,
+    window 4,096; float32 parameters, bfloat16 activations), n_layers cut
+    from 56 to MIXTRAL_LAYERS.  The parameter draw is timed; then B 4, prompt
+    64 and 4,096, 32 generated tokens, page 16, prefill and decode called
+    directly under ``set_sync_debug_mode("error")``: 2 flash_attention
+    launches a prefill, all on the tensor cores, none in decode; every
+    decode step routes B x top_k tokens a layer.  Reports the decode's
+    expert counts per layer, tokens/s and peak memory; then holds layer 0's
+    ``moe_block`` against the CPU (``moe_layer_full_width``).  Returns the
+    64-token run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine
+    free_device_memory()
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"),
+                              n_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params["blocks"].values()) + sum(
+        v.numel() for k, v in params.items() if k != "blocks")
+    if n_params != cfg.param_count():
+        fail(f"mixtral params {n_params} != the schema's {cfg.param_count()}")
+    rng = np.random.default_rng(22)
+    b, gen, page, e = 4, 32, 16, cfg.moe.n_experts
+    runs = {}
+    for plen in (64, 4096):
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            logits, cache = engine.prefill(params, cfg, tokens=prompts,
+                                           max_len=plen + gen)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            prefill_launches, prefill_routes = read_counts(), read_routes()
+            tokens = torch.argmax(logits, -1).to(torch.int32)
+            out_tokens, counts = [tokens], []
+            t0 = time.perf_counter()
+            for _ in range(gen - 1):
+                logits, cache, aux = engine.decode_step(
+                    params, cfg, cache, tokens, page_size=page)
+                tokens = torch.argmax(logits, -1).to(torch.int32)
+                out_tokens.append(tokens)
+                counts.append(aux["expert_counts"])
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches, routes = read_counts(), read_routes()
+        want = dict(NO_KERNELS, flash_attention=MIXTRAL_LAYERS)
+        want_routes = {"tensor_core": MIXTRAL_LAYERS, "tf32x3": 0,
+                       "cuda_core": 0}
+        if prefill_launches != want or launches != want or \
+                prefill_routes != want_routes or routes != want_routes:
+            fail(f"mixtral prompt {plen}: prefill launches "
+                 f"{prefill_launches} {prefill_routes}, in all {launches} "
+                 f"{routes}; expected {MIXTRAL_LAYERS} flash_attention on "
+                 f"the tensor cores, none in decode")
+        steps = torch.stack(counts).cpu().numpy()          # (gen-1, L, E)
+        toks = torch.stack(out_tokens, 1).cpu().numpy()
+        if not ((steps.sum(-1) == b * cfg.moe.top_k).all()
+                and steps.shape == (gen - 1, MIXTRAL_LAYERS, e)
+                and toks.shape == (b, gen)
+                and ((toks >= 0) & (toks < cfg.vocab_size)).all()
+                and bool(torch.isfinite(logits.float()).all())):
+            fail(f"mixtral prompt {plen}: decode outputs out of range")
+        runs[plen] = dict(
+            prefill_s=prefill_s, prefill_tok_s=b * plen / prefill_s,
+            decode_s=decode_s, decode_tok_s=b * (gen - 1) / decode_s,
+            decode_expert_counts_per_layer=steps.sum(0).tolist(),
+            launches=launches, flash_attention_routes=routes,
+            peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        say("moe_serve", arch=cfg.name, n_layers=MIXTRAL_LAYERS,
+            reduced="n_layers 56 -> 2", batch=b, prompt_len=plen, gen=gen,
+            page_size=page, **runs[plen])
+        del prompts, logits, cache
+    say("moe_layer_gpu_vs_cpu", arch=cfg.name, tokens=MOE_CHECK_TOKENS,
+        dtype="float32", tolerance=MOE_F32_TOL,
+        by_capacity_factor=moe_layer_full_width(dev, params, cfg))
+    say("moe_serve_params", n_params=n_params,
+        param_gib=n_params * 4 / 2 ** 30, draw_s=draw_s,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, n_experts=e, top_k=cfg.moe.top_k,
+        d_expert=cfg.moe.d_expert, vocab=cfg.vocab_size, window=cfg.window)
+    del params
+    free_device_memory()
+    return runs[64]["launches"]
+
+
+def moe_scenario_gpu_vs_cpu(dev, run_scenario, zero_counts, read_counts,
+                            read_routes) -> dict:
+    """Phase 22d: ``MoEExpertScenario()`` (the kimi-k2 smoke model, 6
+    epochs of 4 batches) on the GPU: one flash_attention launch a layer a
+    batch (d 16: the CUDA-core route); the same on the CPU; the GPU's
+    stream and forwards held to the CPU's (``check_moe_stream``);
+    ``run_scenario`` fed the CPU's stream byte-identical GPU vs CPU for
+    hints in {False, True} x sync_every in {1, 4}; then the port's
+    ``expert_tiering_moe`` example on the GPU.  Returns the forwards'
+    launches by route."""
+    from repro_torch.examples import expert_tiering_moe
+    from repro_torch.scenarios import MoEExpertScenario
+    t0 = time.perf_counter()
+    zero_counts()
+    gpu = MoEExpertScenario()
+    list(gpu.epochs())
+    fwd_launches, fwd_routes = read_counts(), read_routes()
+    n_fa = gpu.cfg.n_layers * gpu.n_epochs * gpu.batches_per_epoch
+    if fwd_launches != dict(NO_KERNELS, flash_attention=n_fa) or \
+            fwd_routes["cuda_core"] != n_fa:
+        fail(f"MoEExpertScenario launches {fwd_launches}, routes "
+             f"{fwd_routes}; expected {n_fa} flash_attention on the CUDA "
+             f"cores")
+    cpu = MoEExpertScenario(device="cpu")
+    c_eps = list(cpu.epochs())
+    stream = check_moe_stream(gpu, cpu, "moe_scenario")
+    zero_counts()
+    for hints in (False, True):
+        for k in (1, 4):
+            g = run_scenario(gpu, hints=hints, sync_every=k, epochs=c_eps)
+            c = run_scenario(cpu, hints=hints, sync_every=k, epochs=c_eps,
+                             device="cpu")
+            if json.dumps(g, sort_keys=True) != json.dumps(c, sort_keys=True):
+                fail(f"MoE trajectory differs GPU vs CPU (hints={hints}, "
+                     f"sync_every={k})")
+    run_launches = read_counts()
+    rows = 4 * gpu.n_epochs * gpu.batches_per_epoch
+    if run_launches != dict(NO_KERNELS, observe_scatter=rows,
+                            hist_select=4 * gpu.n_epochs):
+        fail(f"MoE run_scenario launches {run_launches}")
+    zero_counts()
+    expert_tiering_moe.main(["--device", "cuda"])
+    ex_launches = read_counts()
+    say("moe_scenario", n_blocks=gpu.n_blocks, k_hot=gpu.k_hot,
+        batch_len=gpu.batch_len, forward_launches=fwd_launches,
+        forward_flash_attention_routes=fwd_routes, run_launches=run_launches,
+        trajectories_identical=True, gpu_stream_vs_cpu=stream,
+        accesses=gpu.n_epochs * gpu.batches_per_epoch * gpu.batch_len,
+        example_launches=ex_launches, seconds=time.perf_counter() - t0)
+    return fwd_routes
+
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -2087,7 +2585,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 21) -> None:
+def main(until: int = 22) -> None:
     import numpy as np
     import torch
 
@@ -2621,7 +3119,7 @@ def main(until: int = 21) -> None:
     if until < 18:
         fail(f"stopped after phase {until} (--until)")
     # ------------------- 18. the fleet example's mix, GPU vs CPU, margins
-    fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts)
+    fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts, read_routes)
 
     # --------------------------- 19. a paper-scale fleet at full width
     seg_time = paper_fleet(dev, plain, spec, DLRMScenario, KVCacheScenario,
@@ -2645,6 +3143,23 @@ def main(until: int = 21) -> None:
                        zero_counts, read_counts)
     observability_examples(dev, zero_counts, read_counts)
     fleet_export_gpu_vs_cpu(dev, zero_counts, read_counts)
+
+    if until < 22:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------- 22. the per-lane reference path and the MoE family
+    reference_small_parity(dev, datagen, DLRMScenario, run_scenario, runtime,
+                           zero_counts, read_counts)
+    reference_paper_run(dev, scen, epochs, lanes,
+                        sum(warm_epoch_s) / len(warm_epoch_s), build_hints,
+                        run_scenario, runtime, zero_counts, read_counts)
+    moe_launches = moe_serve_full_width(dev, zero_counts, read_counts,
+                                        read_routes)
+    moe_routes = moe_scenario_gpu_vs_cpu(dev, run_scenario, zero_counts,
+                                         read_counts, read_routes)
+    fa_mixtral = flash_attention_time(dev, plain, *MIXTRAL_TIME_SHAPE,
+                                      window=MIXTRAL_WINDOW)
+    say("moe_flash_attention_routes", mixtral_prefill=moe_launches,
+        moe_scenario_forwards=moe_routes)
 
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
@@ -2741,6 +3256,20 @@ def main(until: int = 21) -> None:
          "plain_ms": keep_time["plain_ms"], "bound_ms": keep_time["bound_ms"],
          "bound_by": keep_time["bound_by"],
          "library_ms": keep_time["library_ms"]},
+        # the tensor-core route on the MoE serving path: its launches in
+        # phase 22c's Mixtral-8x22B prefill (prompt 64, one a layer), its
+        # time and error at Mixtral's own prefill shape (S 4096, window
+        # 4096) beside sdpa(is_causal=True)
+        {"name": "flash_attention_mixtral", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": moe_launches["flash_attention"],
+         "max_abs_err": fa_mixtral["max_abs_err"], "ms": fa_mixtral["ms"],
+         "plain_ms": fa_mixtral["plain_ms"],
+         "bound_ms": fa_mixtral["bound_ms"],
+         "bound_by": fa_mixtral["bound_by"],
+         "library_ms": fa_mixtral["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -2753,4 +3282,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 21)
+    main(int(args[1]) if args[:1] == ["--until"] else 22)

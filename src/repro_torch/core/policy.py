@@ -2,19 +2,18 @@
 
 Two groups:
 
-* the eager per-call policies of the offline path and ``TieredEmbedding``
-  (:func:`oracle_top_k`, :func:`nb_two_touch`, :func:`reactive_watermark`,
-  :func:`proactive_ewma`).  Every ``lax.top_k`` of the reference goes
-  through :func:`repro_torch.core.selectk.select_top_k` (the ``hist_select``
-  kernel on the card), ties lowest index first; float scores join through
-  ``selectk.sortable_key``.  The reference calls these outside ``jit``, so
-  every float op rounds on its own, and so do they here;
+* the eager per-call policies of the offline path, ``TieredEmbedding``
+  and the runtime's per-lane reference path (:func:`oracle_top_k`,
+  :func:`nb_two_touch`, :func:`reactive_watermark`, :func:`proactive_ewma`,
+  :func:`hinted`, :func:`prefetch`).  Every ``lax.top_k`` of the reference
+  goes through :func:`repro_torch.core.selectk.select_top_k` (the
+  ``hist_select`` kernel on the card), ties lowest index first; float
+  scores join through ``selectk.sortable_key``.  The reference calls these
+  outside ``jit``, so every float op rounds on its own, and so do they here
+  (:func:`ewma_eager`, :func:`hinted_score_eager`);
 * the helpers of the fused epoch step, which reproduce the reference's
   *jit* arithmetic (``fma_f32``, ``ewma``, ``hinted_score``, and the
   hardened runtime's ``quality_estimate`` / ``quality_smooth``).
-
-The eager ``hinted`` and ``prefetch`` serve only the unfused reference path
-of the runtime, which is not ported yet (ROADMAP Queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -27,9 +26,10 @@ import torch
 from . import selectk
 
 __all__ = ["MigrationPlan", "cold_streak", "coldest_victims", "ewma",
-           "fma_f32", "hinted_score", "nb_two_touch", "oracle_top_k",
-           "plan_eviction", "proactive_ewma", "quality_estimate",
-           "quality_smooth", "reactive_watermark"]
+           "ewma_eager", "fma_f32", "hinted", "hinted_score",
+           "hinted_score_eager", "nb_two_touch", "oracle_top_k",
+           "plan_eviction", "prefetch", "proactive_ewma", "quality_estimate",
+           "quality_smooth", "reactive_watermark", "stable_rank"]
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -81,16 +81,65 @@ def reactive_watermark(est_counts: torch.Tensor, hot_threshold: int,
     return _plan((counts >= hot_threshold) & (rank < free_slots), ids)
 
 
+def ewma_eager(alpha: float, x: torch.Tensor,
+               prev: torch.Tensor) -> torch.Tensor:
+    """``alpha * x + (1 - alpha) * prev`` in float32, each op rounded on its
+    own as in the reference's eager :func:`proactive_ewma` (unlike
+    :func:`ewma`, which mirrors its fused form)."""
+    return alpha * x.to(torch.float32) + (1.0 - alpha) * prev
+
+
 def proactive_ewma(prev_pred: torch.Tensor, est_counts: torch.Tensor, k: int,
                    alpha: float = 0.5,
                    ) -> Tuple[torch.Tensor, MigrationPlan]:
-    """EWMA trend prediction per block; promote the blocks predicted hot.
-    Each op rounds separately, as in the reference's eager call (unlike
-    :func:`ewma`, which mirrors its fused form).  ``pred`` is non-negative,
-    so its float32 bits order like its values."""
-    pred = alpha * est_counts.to(torch.float32) + (1.0 - alpha) * prev_pred
+    """EWMA trend prediction per block; promote the blocks predicted hot
+    (:func:`ewma_eager`).  ``pred`` is non-negative, so its float32 bits
+    order like its values."""
+    pred = ewma_eager(alpha, est_counts, prev_pred)
     _, ids = _top_k(selectk.sortable_key(pred), min(k, pred.shape[0]))
     return pred, _plan(pred[ids.to(torch.int64)] > 0, ids)
+
+
+def stable_rank(x: torch.Tensor) -> torch.Tensor:
+    """``argsort(argsort(x))`` with stable sorts: each element's position
+    in ascending order, ties by index (int64)."""
+    return torch.argsort(torch.argsort(x, stable=True), stable=True)
+
+
+def hinted_score_eager(est_counts: torch.Tensor, t_rank: torch.Tensor,
+                       hint_rank: torch.Tensor,
+                       hint_weight: float) -> torch.Tensor:
+    """:func:`hinted_score` as the reference computes it outside ``jit``
+    (its eager ``hinted`` and its quota path's hinted key): every op rounds
+    on its own in float32 — ``t_rank / (n - 1)`` a true division, then the
+    product with ``1 - w``, then ``w * hint``, then the sum.  The divisor is
+    a tensor, not a Python scalar: on a CUDA tensor PyTorch turns division
+    by a scalar into a product with its reciprocal."""
+    n = est_counts.shape[0]
+    t = t_rank.to(torch.float32)
+    q = t / torch.full_like(t, float(max(n - 1, 1)))
+    score = (1.0 - hint_weight) * q + hint_weight * hint_rank
+    eligible = (est_counts > 0) | (hint_rank > 0)
+    return torch.where(eligible, score, -1.0)
+
+
+def hinted(est_counts: torch.Tensor, hint_rank: torch.Tensor, k: int,
+           hint_weight: float = 0.25) -> MigrationPlan:
+    """Blend the telemetry rank with a static priority ``hint_rank`` in
+    [0, 1] (:func:`hinted_score_eager`); blocks with neither telemetry nor
+    a hint score -1 and are never promoted."""
+    score = hinted_score_eager(est_counts, stable_rank(est_counts),
+                               hint_rank, hint_weight)
+    _, ids = _top_k(selectk.sortable_key(score), min(k, score.shape[0]))
+    return _plan(score[ids.to(torch.int64)] >= 0, ids)
+
+
+def prefetch(lookahead_rank: torch.Tensor, k: int) -> MigrationPlan:
+    """Promote the blocks the lookahead window says the next epoch touches,
+    heaviest first; rank 0 (outside the window) is never promoted."""
+    _, ids = _top_k(selectk.sortable_key(lookahead_rank),
+                    min(k, lookahead_rank.shape[0]))
+    return _plan(lookahead_rank[ids.to(torch.int64)] > 0, ids)
 
 
 # =============================================  fused-step helpers

@@ -48,6 +48,15 @@ eagerly, so there is no trace to count: the reference's ``TRACE_COUNTS``
 has no counterpart here.  Options the port does not carry
 yet raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 
+``fused=False`` is the reference's per-lane host loop, kept as the
+bit-identity oracle of the fused step: each epoch pulls four full
+estimate arrays and the event scalars to the host, and every lane decides
+by one eager policy call (``policy.oracle_top_k`` ... ``policy.prefetch``,
+each one ``hist_select`` launch on the card) and migrates through host
+numpy maps (:meth:`EpochRuntime._apply_plan`).  It syncs by design, so it
+takes ``sync_every=1`` only and no fault model; its records carry the
+``reference_step`` span.
+
 Policy lanes and their telemetry sources:
 
 =================  =========================  ===============================
@@ -85,7 +94,8 @@ from ..kernels.dispatch import resolve_device
 from ..kernels.hist_select import kernel as hs_kernel
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
-from .costmodel import CXL_SYSTEM, MemSystem
+from . import metrics
+from .costmodel import CXL_SYSTEM, MemSystem, split_accesses_by_tier
 from .placement import Placement, apply_plan, demote_idle
 
 __all__ = [
@@ -105,8 +115,8 @@ HMU_DRAIN_COST_S = 2e-9
 # Per-call counters: an epoch is exactly one observe_all and one epoch_step;
 # "hint_refresh" counts host->device hint-rank uploads, "record_sync" the
 # device->host record pulls (ceil(n_epochs / sync_every) per run), and
-# "reference" the per-lane reference path's steps (0 until that path is
-# ported).  A CounterDict view over the process metrics registry
+# "reference" the per-lane reference path's pulls, decisions and
+# evictions.  A CounterDict view over the process metrics registry
 # (repro_dispatch_total, labelled by kind), so the same counts are
 # scrapeable.  Never zeroed: read them through counting().
 DISPATCH_COUNTS = obs_metrics.CounterDict(
@@ -214,7 +224,9 @@ class Trajectory:
 
 @dataclasses.dataclass
 class _Lane:
-    """Per-lane placement view (host copies)."""
+    """Per-policy placement state of the *reference* path (host numpy maps;
+    the fused path holds the same state lane-stacked in a Placement, and
+    ``EpochRuntime.lanes`` gives host copies of it in this form)."""
     name: str
     slot_to_block: np.ndarray            # (k,) int32, -1 = free
     block_to_slot: np.ndarray            # (n_blocks,) int32, -1 = slow-only
@@ -227,6 +239,14 @@ class _Lane:
     def resident_ids(self) -> np.ndarray:
         s = self.slot_to_block
         return s[s >= 0]
+
+
+def _unique_in_order(ids: np.ndarray, k: int) -> np.ndarray:
+    """Valid plan ids, de-duplicated preserving priority order, capped at k."""
+    ids = np.asarray(ids).reshape(-1)
+    ids = ids[ids >= 0]
+    _, first = np.unique(ids, return_index=True)
+    return ids[np.sort(first)][:k]
 
 
 class Tenancy(NamedTuple):
@@ -682,6 +702,11 @@ class EpochRuntime:
     :class:`repro_torch.export.ExportClient`) receives every record at the
     record pull.  The kernels run on the card and their plain versions on
     the CPU, by the tensors' device.
+
+    ``fused=True`` (default) keeps all lane state on the device and runs
+    decide + migrate + account as :func:`_epoch_step`; ``fused=False`` is
+    the reference's per-lane host loop, the bit-identity oracle (it takes
+    neither ``sync_every > 1`` nor ``faults`` / ``hardening``).
     """
 
     def __init__(
@@ -720,8 +745,6 @@ class EpochRuntime:
                              "fused epoch step; the reference path stays "
                              "the fault-free bit-identity oracle — pass "
                              "fused=True or drop faults/hardening")
-        if not fused:
-            _not_ported("fused=False (the per-lane reference path)", "12")
         if mesh is not None:
             _not_ported("mesh= (sharded state)", "15")
         if faults is not None and not isinstance(faults, FaultModel):
@@ -740,6 +763,12 @@ class EpochRuntime:
         self.sync_every = int(sync_every)
         if self.sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every!r}")
+        if self.sync_every > 1 and not fused:
+            raise ValueError("sync_every > 1 batches record syncs in the "
+                             "fused epoch loop; the reference path stays "
+                             "synchronous (it is the bit-identity oracle) — "
+                             "pass fused=True or sync_every=1")
+        self.fused = bool(fused)
         self.n_blocks = int(n_blocks)
         self.k_hot = min(int(k_hot), self.n_blocks)
         self.tenancy = tenancy
@@ -754,9 +783,11 @@ class EpochRuntime:
         # TenantRecord rows with the tenants' own cost-model geometry
         self.tenant_records: List[Dict[str, np.ndarray]] = []
         if tenancy is not None:
+            # the fused step selects per tenant in one hist_select call,
+            # whose segment count is capped on the card
             tenancy.validate(self.n_blocks, self.k_hot, max_segments=(
-                hs_kernel.max_segments() if self.device.type == "cuda"
-                else None))
+                hs_kernel.max_segments()
+                if self.device.type == "cuda" and self.fused else None))
         self.system = system
         self.bytes_per_access = float(bytes_per_access)
         self.block_bytes = float(block_bytes)
@@ -782,6 +813,26 @@ class EpochRuntime:
         self._prev_pebs_host = 0.0
         self._prev_nb_host = 0.0
         self._buffered = 0          # dispatched epochs not yet record-synced
+        self._n_tenants = 0 if tenancy is None else tenancy.n_tenants
+        bundle = tel.bundle_init(
+            n_blocks, pebs_period=pebs_period, nb_scan_rate=scan,
+            hmu_log_capacity=hmu_log_capacity, faults=faults,
+            device=self.device)
+        if not self.fused:
+            self.bundle = bundle
+            self._ref_lanes = {
+                name: _Lane(
+                    name=name,
+                    slot_to_block=np.full((self.k_hot,), -1, np.int32),
+                    block_to_slot=np.full((self.n_blocks,), -1, np.int32),
+                    pred=(np.zeros((self.n_blocks,), np.float32)
+                          if name == "proactive_ewma" else None))
+                for name in policies}
+            # epoch-delta baselines (host copies)
+            self._prev_true = np.zeros((self.n_blocks,), np.int64)
+            self._prev_hmu = np.zeros((self.n_blocks,), np.int64)
+            self._prev_pebs = np.zeros((self.n_blocks,), np.int64)
+            return
         L = len(self._lane_names)
         self._cfg = _FusedCfg(
             lanes=self._lane_names, n_blocks=self.n_blocks, k_hot=self.k_hot,
@@ -789,7 +840,6 @@ class EpochRuntime:
             nb_rate_limit=self.nb_rate_limit,
             reactive_hot_threshold=self.reactive_hot_threshold,
             tenancy=tenancy, hardening=hardening)
-        self._n_tenants = 0 if tenancy is None else tenancy.n_tenants
         dev = self.device
 
         def zeros_n():
@@ -821,10 +871,7 @@ class EpochRuntime:
             if tenancy.caps is not None:
                 t_caps = t_hot.with_caps(tenancy.caps)
         self._state = _FusedState(
-            bundle=tel.bundle_init(
-                n_blocks, pebs_period=pebs_period, nb_scan_rate=scan,
-                hmu_log_capacity=hmu_log_capacity, faults=faults,
-                device=dev),
+            bundle=bundle,
             placement=Placement.create(self.n_blocks, self.k_hot, lanes=L,
                                        device=dev),
             pred=torch.zeros((self.n_blocks,), dtype=torch.float32,
@@ -862,7 +909,10 @@ class EpochRuntime:
     # ------------------------------------------------------- state accessors
     @property
     def lanes(self) -> Dict[str, _Lane]:
-        """Per-lane placement view (host copies; reads the device)."""
+        """Per-lane placement view (host copies in fused mode, read from the
+        device; the live host state on the reference path)."""
+        if not self.fused:
+            return self._ref_lanes
         s2b = self._state.placement.slot_to_block.cpu().numpy()
         b2s = self._state.placement.block_to_slot.cpu().numpy()
         pred = self._state.pred.cpu().numpy()
@@ -876,15 +926,17 @@ class EpochRuntime:
     def pending_migration_s(self) -> float:
         """Migration time of the prefetch lane's last boundary, not yet
         charged to any record (flushes the record buffer first)."""
-        self._flush_records()
+        if self.fused:
+            self._flush_records()
         return self.system.migration_time_s(self._prefetch_pending,
                                             self.block_bytes)
 
     # ----------------------------------------------------------- hint refresh
     def set_hint_ranks(self, hint_rank: Optional[np.ndarray] = None,
                        prefetch_rank: Optional[np.ndarray] = None) -> None:
-        """Replace the hint arrays the next epoch step reads — a pinned,
-        non-blocking host->device upload counted in
+        """Replace the hint arrays the next epoch step reads — on the fused
+        path a pinned, non-blocking host->device upload; the reference path
+        keeps the host arrays.  Counted in
         ``DISPATCH_COUNTS['hint_refresh']``.  An array that is the SAME
         object as the current one is skipped, as in the reference."""
         updates = {}
@@ -896,6 +948,7 @@ class EpochRuntime:
             updates["prefetch_rank"] = self.prefetch_rank
         if updates:
             DISPATCH_COUNTS["hint_refresh"] += 1
+        if self.fused and updates:
             _tr = obs_trace.get_tracer()
             cm = (_tr.span("hint_refresh", epoch=self.epoch,
                            arrays=",".join(sorted(updates)))
@@ -915,7 +968,9 @@ class EpochRuntime:
             raise ValueError(f"epoch batches must be 2-D, got {batches.shape}")
         if self.hints is not None:
             self.set_hint_ranks(*self.hints.epoch_ranks(batches, lookahead))
-        return self._step_fused(batches)
+        if self.fused:
+            return self._step_fused(batches)
+        return self._step_reference(batches)
 
     def _record(self, name: str, epoch: int, n_fast: float, n_slow: float,
                 host_events: float, promoted: int, demoted: int,
@@ -1046,8 +1101,271 @@ class EpochRuntime:
         return flushed
 
     def flush(self) -> Dict[str, List[EpochRecord]]:
-        """Force the record pull for any still-buffered epochs."""
+        """Force the record pull for any still-buffered epochs (a no-op on
+        the reference path and on an empty buffer)."""
         return self._flush_records()
+
+    def block_until_ready(self) -> "EpochRuntime":
+        """Wait until every launch queued on the device has finished (the
+        stopping point for wall-clock timers; records may already be pulled
+        while the last epoch's state updates are in flight)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self
+
+    # ------------------------------------------------ the reference path
+    def _upload(self, x: np.ndarray, dtype) -> torch.Tensor:
+        return upload(np.asarray(x, dtype), self.device)
+
+    def _apply_plan(self, lane: _Lane, plan: policy.MigrationPlan,
+                    est: np.ndarray) -> Tuple[int, int]:
+        """Promote the plan into the lane's bounded fast tier; evict
+        plan-guarded coldest victims when no slots are free.  Returns
+        (promoted, demoted) block counts."""
+        want = _unique_in_order(plan.promote.cpu().numpy(), self.k_hot)
+        if want.size == 0:
+            return 0, 0
+        new = want[lane.block_to_slot[want] < 0]
+        if new.size == 0:
+            return 0, 0
+        free = np.nonzero(lane.slot_to_block < 0)[0]
+        demoted = 0
+        need = new.size - free.size
+        if need > 0:
+            DISPATCH_COUNTS["reference"] += 1
+            vic = policy.plan_eviction(
+                self._upload(est, np.float32), self._upload(want, np.int32),
+                self._upload(lane.slot_to_block, np.int32),
+                int(need)).cpu().numpy()
+            vic = vic[vic >= 0]
+            if vic.size:
+                slots = lane.block_to_slot[vic]
+                lane.slot_to_block[slots] = -1
+                lane.block_to_slot[vic] = -1
+                demoted = int(vic.size)
+            free = np.nonzero(lane.slot_to_block < 0)[0]
+        take = int(min(new.size, free.size))
+        if take:
+            sel, slots = new[:take], free[:take]
+            lane.slot_to_block[slots] = sel
+            lane.block_to_slot[sel] = slots
+        return take, demoted
+
+    def _demote_untouched(self, lane: _Lane, est: np.ndarray) -> int:
+        """Watermark demotion: free every resident block the epoch never
+        touched (est == 0) so reactive promotion has slots."""
+        resident = lane.resident_ids()
+        idle = resident[est[resident] == 0]
+        if idle.size:
+            slots = lane.block_to_slot[idle]
+            lane.slot_to_block[slots] = -1
+            lane.block_to_slot[idle] = -1
+        return int(idle.size)
+
+    def _reactive_threshold(self, epoch_accesses: int) -> int:
+        if self.reactive_hot_threshold is not None:
+            return self.reactive_hot_threshold
+        return max(2, epoch_accesses // (8 * max(self.k_hot, 1)))
+
+    def _plan_quota(self, lane: _Lane, d_hmu: np.ndarray, d_pebs: np.ndarray,
+                    nb_faults: np.ndarray, epoch_accesses: int,
+                    ) -> Tuple[policy.MigrationPlan, np.ndarray, int]:
+        """Decide under per-tenant quotas: the lane's key is protected per
+        tenant (each tenant's top ``caps[t]`` keys survive, ties lowest
+        index first) and masked to int32 min elsewhere, then the lane's
+        gates run on the globally ordered masked selection — numpy stable
+        sorts, the spec of the fused segment-capped select.  Float keys are
+        the float32 bit patterns the device ranks."""
+        ten, k, n = self.tenancy, self.k_hot, self.n_blocks
+        pre_demoted = 0
+        DISPATCH_COUNTS["reference"] += 1
+
+        def f32_key(x: np.ndarray) -> np.ndarray:
+            return np.ascontiguousarray(
+                np.asarray(x, np.float32)).view(np.int32)
+
+        cap = k
+        if lane.name == "hmu_oracle":
+            est, key, min_key = d_hmu, d_hmu, 1
+        elif lane.name == "nb_two_touch":
+            est, key, min_key = nb_faults, nb_faults, 2
+            if self.nb_rate_limit is not None:
+                cap = min(k, self.nb_rate_limit)
+        elif lane.name == "reactive_watermark":
+            est, key = d_hmu, d_hmu
+            pre_demoted = self._demote_untouched(lane, est)
+            cap = min(k, int(np.sum(lane.slot_to_block < 0)))
+            min_key = self._reactive_threshold(epoch_accesses)
+        elif lane.name == "proactive_ewma":
+            lane.pred = policy.ewma_eager(
+                self.ewma_alpha, self._upload(d_hmu, np.float32),
+                self._upload(lane.pred, np.float32)).cpu().numpy()
+            est, key, min_key = lane.pred, f32_key(lane.pred), 1
+        elif lane.name == "hinted":
+            est = d_pebs
+            est_t = self._upload(est, np.int32)
+            score = policy.hinted_score_eager(
+                est_t, policy.stable_rank(est_t),
+                self._upload(self.hint_rank, np.float32), self.hint_weight)
+            key, min_key = f32_key(score.cpu().numpy()), 0
+        elif lane.name == "prefetch":
+            est = self.prefetch_rank
+            key, min_key = f32_key(est), 1
+        else:  # pragma: no cover - guarded in __init__
+            raise ValueError(lane.name)
+
+        key = np.asarray(key, np.int64)
+        protected = np.zeros((n,), bool)
+        for t, tcap in enumerate(ten.caps):
+            off, end = ten.offsets[t], ten.offsets[t + 1]
+            order = np.argsort(-key[off:end], kind="stable")
+            protected[off + order[:tcap]] = True
+        masked = np.where(protected, key, np.iinfo(np.int32).min)
+        ids = np.argsort(-masked, kind="stable")[:k]
+        ok = (masked[ids] >= min_key) & (np.arange(ids.size) < cap)
+        plan = policy.MigrationPlan(promote=torch.from_numpy(
+            np.where(ok, ids, -1)))
+        return plan, np.asarray(est), pre_demoted
+
+    def _plan(self, lane: _Lane, d_hmu: np.ndarray, d_pebs: np.ndarray,
+              nb_faults: np.ndarray, epoch_accesses: int,
+              ) -> Tuple[policy.MigrationPlan, np.ndarray, int]:
+        """One lane's decide step -> (plan, estimate, pre-demotions): one
+        eager policy call on the device (one ``hist_select`` launch on the
+        card), or the quota path's numpy selection."""
+        if self.tenancy is not None and self.tenancy.caps is not None:
+            return self._plan_quota(lane, d_hmu, d_pebs, nb_faults,
+                                    epoch_accesses)
+        k = self.k_hot
+        pre_demoted = 0
+        DISPATCH_COUNTS["reference"] += 1
+        if lane.name == "hmu_oracle":
+            est = d_hmu
+            plan = policy.oracle_top_k(self._upload(est, np.int32), k)
+        elif lane.name == "nb_two_touch":
+            est = nb_faults
+            plan = policy.nb_two_touch(self._upload(est, np.int32), k,
+                                       self.nb_rate_limit)
+        elif lane.name == "reactive_watermark":
+            est = d_hmu
+            pre_demoted = self._demote_untouched(lane, est)
+            free = int(np.sum(lane.slot_to_block < 0))
+            plan = policy.reactive_watermark(
+                self._upload(est, np.int32),
+                self._reactive_threshold(epoch_accesses), free, max_moves=k)
+        elif lane.name == "proactive_ewma":
+            pred, plan = policy.proactive_ewma(
+                self._upload(lane.pred, np.float32),
+                self._upload(d_hmu, np.float32), k, alpha=self.ewma_alpha)
+            lane.pred = pred.cpu().numpy()
+            est = lane.pred
+        elif lane.name == "hinted":
+            est = d_pebs
+            plan = policy.hinted(self._upload(est, np.int32),
+                                 self._upload(self.hint_rank, np.float32), k,
+                                 hint_weight=self.hint_weight)
+        elif lane.name == "prefetch":
+            est = self.prefetch_rank
+            plan = policy.prefetch(self._upload(est, np.float32), k)
+        else:  # pragma: no cover - guarded in __init__
+            raise ValueError(lane.name)
+        return plan, np.asarray(est), pre_demoted
+
+    def _step_reference(self, batches: np.ndarray) -> Dict[str, EpochRecord]:
+        _tr = obs_trace.get_tracer()
+        cm = (_tr.span("reference_step", epoch=self.epoch)
+              if _tr.enabled else obs_trace.NOOP_SPAN)
+        with cm:
+            return self._step_reference_impl(batches)
+
+    def _step_reference_impl(self, batches: np.ndarray
+                             ) -> Dict[str, EpochRecord]:
+        epoch_accesses = int(batches.size)
+
+        # -- observe (one observe_scatter launch a batch) + drain the HMU log
+        DISPATCH_COUNTS["observe_all"] += 1
+        self.bundle = tel.observe_all(self.bundle,
+                                      upload(batches, self.device))
+        drained = float(self.bundle.hmu.log_used)
+        self.bundle = dataclasses.replace(
+            self.bundle, hmu=tel.hmu_drain_cost(self.bundle.hmu))
+
+        # -- epoch-local estimates (four full-array pulls per epoch)
+        DISPATCH_COUNTS["reference"] += 4
+
+        def pull(x: torch.Tensor) -> np.ndarray:
+            return x.cpu().numpy().astype(np.int64)
+
+        true_now = pull(self.bundle.true_counts)
+        hmu_now = pull(tel.hmu_estimate(self.bundle.hmu))
+        pebs_now = pull(tel.pebs_estimate(self.bundle.pebs))
+        d_true = true_now - self._prev_true
+        d_hmu = hmu_now - self._prev_hmu
+        d_pebs = pebs_now - self._prev_pebs
+        nb_faults = pull(tel.nb_estimate(self.bundle.nb))
+        pebs_host = float(self.bundle.pebs.host_events)
+        nb_host = float(self.bundle.nb.host_events)
+        d_pebs_host = pebs_host - self._prev_pebs_host
+        d_nb_host = nb_host - self._prev_nb_host
+        self._prev_true, self._prev_hmu = true_now, hmu_now
+        self._prev_pebs = pebs_now
+        self._prev_pebs_host, self._prev_nb_host = pebs_host, nb_host
+
+        epoch_hot = metrics.true_top_k(d_true, self.k_hot)
+        ten = self.tenancy
+        if ten is not None:
+            # per-tenant true-hot mask: top hot_k[t] of each tenant's range
+            # (the fused step's stable tie-break)
+            t_hot_mask = np.zeros((self.n_blocks,), bool)
+            for t in range(ten.n_tenants):
+                off, end = ten.offsets[t], ten.offsets[t + 1]
+                t_hot_mask[off + metrics.true_top_k(d_true[off:end],
+                                                    ten.hot_k[t])] = True
+            t_rows = {key: [] for key in _OUT_LANE_FIELDS}
+        out: Dict[str, EpochRecord] = {}
+        for lane in self._ref_lanes.values():
+            # -- account the epoch under the placement that served it
+            served = lane.resident_ids().copy()
+            fast_before = lane.fast_mask.copy()
+            n_fast, n_slow = split_accesses_by_tier(d_true, fast_before)
+            host_events = (d_nb_host if lane.name == "nb_two_touch" else
+                           d_pebs_host if lane.name == "hinted" else
+                           0.0 if lane.name == "prefetch" else drained)
+
+            # -- decide + migrate for the NEXT epoch
+            plan, est, pre_demoted = self._plan(
+                lane, d_hmu, d_pebs, nb_faults, epoch_accesses)
+            promoted, demoted = self._apply_plan(lane, plan, est)
+            inter = int(np.intersect1d(served, epoch_hot).size)
+            if ten is not None:
+                fast_after = lane.fast_mask
+                lane_masks = {
+                    "n_fast": np.where(fast_before, d_true, 0),
+                    "n_slow": np.where(fast_before, 0, d_true),
+                    "inter": fast_before & t_hot_mask,
+                    "resident": fast_before,
+                    "promoted": fast_after & ~fast_before,
+                    "demoted": fast_before & ~fast_after,
+                }
+                for key, arr in lane_masks.items():
+                    t_rows[key].append(np.array([
+                        int(arr[ten.offsets[t]:ten.offsets[t + 1]].sum())
+                        for t in range(ten.n_tenants)], np.int64))
+            rec = self._record(
+                lane.name, epoch=self.epoch, n_fast=n_fast, n_slow=n_slow,
+                host_events=host_events, promoted=promoted,
+                demoted=demoted + pre_demoted,
+                resident=int(served.size), inter=inter,
+            )
+            self.records[lane.name].append(rec)
+            out[lane.name] = rec
+            if self.export is not None:
+                self.export.export_epoch_record(rec)
+        if ten is not None:
+            self.tenant_records.append(
+                {key: np.stack(rows) for key, rows in t_rows.items()})
+        self.epoch += 1
+        return out
 
     # ----------------------------------------------------------------- run
     def run(self, epochs: Iterable) -> Trajectory:

@@ -1,20 +1,20 @@
-"""Multi-tenant fleet: three workloads, one fast tier, two capacity policies
+"""Multi-tenant fleet: four workloads, one fast tier, two capacity policies
 (PyTorch counterpart of ``examples/fleet_mix.py``).
 
 Device-level telemetry matters most when many workloads contend for one
-bounded fast tier.  This walkthrough co-locates three tenants in one
+bounded fast tier.  This walkthrough co-locates four tenants in one
 :class:`~repro_torch.fleet.FleetScenario`:
 
 * **dlrm**    — the §III.B embedding-page trace (the tenant worth protecting),
 * **kv**      — a tiered LLM KV cache fed by decode-time attention mass,
+* **moe**     — MoE expert banks placed from router counters,
 * **scanner** — mmap-bench (§III.A) cranked into a noisy neighbour: a wide,
   internally-uniform region scanned at high volume, whose loud counters
   out-rank everyone else's hot sets.
 
-The reference's example has a fourth tenant, MoE expert banks; it joins
-when the port carries the MoE model (ROADMAP Queue 1, the model stack's
-other families).  The sizes, ``K_HOT = 340`` and the weights are the
-reference's.  The six-lane EpochRuntime runs the interleaved mix twice:
+The sizes, ``K_HOT = 340`` and the weights are the reference's; the KV and
+MoE streams come from the port's own models on ``device``.  The six-lane
+EpochRuntime runs the interleaved mix twice:
 
 * ``capacity="shared"``   — one pool, no quotas: the scanner's counters crowd
   the DLRM hot set out of every lane's top-k selection and its coverage
@@ -34,7 +34,8 @@ from typing import Dict, List, Optional
 
 from ..dlrm import datagen
 from ..fleet import FleetScenario, TenantSpec, run_fleet
-from ..scenarios import DLRMScenario, KVCacheScenario, MmapBenchScenario
+from ..scenarios import (DLRMScenario, KVCacheScenario, MmapBenchScenario,
+                         MoEExpertScenario)
 from ..workloads import mmap_bench
 
 __all__ = ["K_HOT", "LANE", "TENANTS", "fleet", "make_scenarios",
@@ -42,18 +43,21 @@ __all__ = ["K_HOT", "LANE", "TENANTS", "fleet", "make_scenarios",
 
 N_EPOCHS, LANE = 6, "hmu_oracle"
 K_HOT = 340                           # < combined demand: contention is real
-TENANTS = ("dlrm", "kv", "scanner")
+TENANTS = ("dlrm", "kv", "moe", "scanner")
 
 
 def make_scenarios(device="cuda") -> Dict[str, object]:
     """One scenario per tenant, shared by every fleet built over them, so
-    the KV decode stream (run on ``device``) generates once and replays."""
+    the model-backed streams (KV decode, MoE routing; run on ``device``)
+    generate once and replay."""
     return {
         "dlrm": DLRMScenario(
             spec=dataclasses.replace(datagen.SMALL, lookups_per_batch=30_000),
             n_epochs=N_EPOCHS, batches_per_epoch=2, shift_at=0),  # stationary
         "kv": KVCacheScenario(batch=2, n_epochs=N_EPOCHS, batches_per_epoch=2,
                               accesses_per_batch=2_048, device=device),
+        "moe": MoEExpertScenario(n_epochs=N_EPOCHS, batches_per_epoch=2,
+                                 batch=2, shift_at=3, device=device),
         "scanner": MmapBenchScenario(
             spec=mmap_bench.MmapBenchSpec(total_bytes=640 * 4096,
                                           hot_bytes=512 * 4096),
@@ -65,10 +69,11 @@ def make_scenarios(device="cuda") -> Dict[str, object]:
 def tenants(scenarios: Dict[str, object]) -> List[TenantSpec]:
     # weights are the operator's SLO knob: demand-sized for the protected
     # tenants, deliberately small for the scanner
-    kv = scenarios["kv"]
+    kv, moe = scenarios["kv"], scenarios["moe"]
     return [
         TenantSpec(scenarios["dlrm"], weight=250.0, name="dlrm"),
         TenantSpec(kv, weight=float(kv.k_hot), name="kv"),
+        TenantSpec(moe, weight=float(moe.k_hot), name="moe"),
         TenantSpec(scenarios["scanner"], weight=60.0, name="scanner"),
     ]
 

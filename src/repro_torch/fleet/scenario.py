@@ -32,9 +32,9 @@ summary plus per-tenant coverage/accuracy/epoch-time rows, optional
 per-tenant solo baselines, and per-tenant fault profiles
 (:meth:`FleetScenario.build_faults`, ``faults=``), and the export plane
 (``export=``: epoch, tenant, lane-summary and tenant-lane-summary wire
-records).  The per-lane reference path (``fused=False``) and sharded state
-(``mesh=``) are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item.
+records).  ``fused=False`` runs the fleet on the per-lane reference path;
+sharded state (``mesh=``) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -287,8 +287,9 @@ def run_fleet(
     ``export=`` (a :class:`repro_torch.export.ExportClient`) is bound to
     the fleet's name and receives the epoch records, each lane's summary,
     and every tenant row and tenant-lane summary; solo baselines export
-    nothing.  ``fused=False`` (ROADMAP Queue 1 item 12) and ``mesh=`` (item
-    15) raise ``NotImplementedError``.
+    nothing.  ``fused=False`` runs the per-lane reference path (its quotas
+    by numpy stable sorts); ``mesh=`` (ROADMAP Queue 1 item 15) raises
+    ``NotImplementedError``.
     """
     if hints is True:
         hints = fleet.build_pipeline(depth=lookahead_depth)

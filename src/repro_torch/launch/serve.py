@@ -1,7 +1,8 @@
 """Batched serving launcher: prefill a prompt batch, decode N tokens, with
 tiered-KV-cache telemetry (per-page attention mass -> hot-page promotion
 report, the serving analogue of Table 1).  PyTorch port of
-``repro/launch/serve.py``, dense family; it runs on the CUDA device unless
+``repro/launch/serve.py``, dense and MoE families (``--arch mixtral-8x22b``,
+``--arch kimi-k2-1t-a32b``); it runs on the CUDA device unless
 ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \

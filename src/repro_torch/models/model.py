@@ -1,13 +1,16 @@
-"""The causal LM of ``repro/models/model.py`` in PyTorch (dense family).
+"""The causal LM of ``repro/models/model.py`` in PyTorch (dense and MoE
+families).
 
 ``ModelConfig`` describes every family of the reference (``attn``, ``moe``,
 ``rwkv6``, ``zamba2``), and :func:`iter_schema` walks the parameters of all
 of them (it is a pure shape walk, so :meth:`ModelConfig.param_count` works
 for every config).  The forward passes are ported for the dense
 decoder-only transformers (``family == "attn"``: llama3.2, qwen2,
-internlm2, yi, musicgen, qwen2-vl with the token frontend); the ``moe``,
-``rwkv6`` and ``zamba2`` branches raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 13).
+internlm2, yi, musicgen, qwen2-vl with the token frontend) and the routed
+MoE transformers (``family == "moe"``: mixtral, kimi-k2; the FFN is
+:func:`repro_torch.models.moe.moe_block`, whose router counts come back as
+``aux["expert_counts"]``); the ``rwkv6`` and ``zamba2`` branches raise
+``NotImplementedError`` (ROADMAP Queue 1 item 13).
 
 Parameters are a nested dict of tensors in the reference's layout: the
 per-layer leaves are stacked along a leading ``n_layers`` dim under
@@ -24,10 +27,11 @@ import torch
 
 from ..kernels.dispatch import resolve_device
 from .layers import AttnParams, attention_block, rms_norm, swiglu
+from .moe import MoEParams, moe_block
 
 __all__ = ["LeafSpec", "MoECfg", "ModelConfig", "forward", "init_params",
-           "iter_schema", "layer_params", "logits_fn", "require_attn",
-           "transformer_block"]
+           "iter_schema", "layer_params", "logits_fn", "moe_params",
+           "require_attn", "transformer_block"]
 
 
 # =============================================================== configuration
@@ -89,11 +93,12 @@ class ModelConfig:
 
 
 def require_attn(cfg: ModelConfig, what: str) -> None:
-    """The port's model stack carries the dense family only."""
-    if cfg.family != "attn":
+    """The port's model stack carries the attention families (dense and
+    MoE) only."""
+    if cfg.family not in ("attn", "moe"):
         raise NotImplementedError(
             f"{what} for family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 13); the port runs family 'attn'")
+            f"Queue 1 item 13); the port runs families 'attn' and 'moe'")
 
 
 # ============================================================== schema leaves
@@ -264,10 +269,20 @@ def _attn_params(bp: dict) -> AttnParams:
                       bq=bp.get("bq"), bk=bp.get("bk"), bv=bp.get("bv"))
 
 
+def moe_params(bp: dict) -> MoEParams:
+    """One layer's MoE leaves (shared-expert leaves None when absent)."""
+    return MoEParams(router=bp["router"], w_gate=bp["e_gate"],
+                     w_up=bp["e_up"], w_down=bp["e_down"],
+                     shared_w_gate=bp.get("s_gate"),
+                     shared_w_up=bp.get("s_up"),
+                     shared_w_down=bp.get("s_down"))
+
+
 def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
                       positions: torch.Tensor, return_kv: bool = False):
-    """One dense transformer layer -> (x, aux) with aux = None, or
-    (x, (k, v)) with ``return_kv`` (the prefill's cache rows)."""
+    """One dense or MoE transformer layer -> (x, aux), aux the MoE layer's
+    ``{"counts", "aux_loss"}`` or None; with ``return_kv``
+    (x, aux, (k, v)), the prefill's cache rows."""
     require_attn(cfg, "transformer_block")
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     h = attention_block(
@@ -281,9 +296,18 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
     if return_kv:
         h, kv = h
     x = x + h
-    h = swiglu(rms_norm(x, bp["ln2"], cfg.norm_eps), bp["w_gate"], bp["w_up"],
-               bp["w_down"])
-    return x + h, kv
+    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    aux = None
+    if cfg.family == "moe":
+        h, aux = moe_block(h, moe_params(bp), top_k=cfg.moe.top_k,
+                           capacity_factor=cfg.moe.capacity_factor,
+                           groups=cfg.moe_groups or (1, 1),
+                           expert_sharded=cfg.moe_expert_sharded)
+    else:
+        h = swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"])
+    if return_kv:
+        return x + h, aux, kv
+    return x + h, aux
 
 
 # ================================================================== forward
@@ -306,15 +330,25 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced forward pass -> (hidden (B, S, D), aux).  Every layer's
     attention goes through :func:`repro_torch.models.attention.flash_train`,
-    which launches the ``flash_attention`` kernel on a CUDA tensor."""
+    which launches the ``flash_attention`` kernel on a CUDA tensor.  For the
+    MoE family ``aux["expert_counts"]`` is the (L, E) int32 router
+    telemetry and ``aux["moe_aux_loss"]`` the layers' mean balance loss."""
     require_attn(cfg, "forward")
     x = embed_inputs(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
+    layer_aux = []
     for i in range(cfg.n_layers):
-        x, _ = transformer_block(x, layer_params(params, i), cfg, positions)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), {}
+        x, moe_aux = transformer_block(x, layer_params(params, i), cfg,
+                                       positions)
+        layer_aux.append(moe_aux)
+    aux: Dict[str, Any] = {}
+    if cfg.family == "moe":
+        aux["expert_counts"] = torch.stack([a["counts"] for a in layer_aux])
+        aux["moe_aux_loss"] = torch.stack(
+            [a["aux_loss"] for a in layer_aux]).mean()
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor

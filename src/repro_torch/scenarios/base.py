@@ -166,8 +166,9 @@ def run_scenario(
     trajectories are byte-identical export-on vs export-off and the epoch's
     launches and pulls are unchanged.
 
-    ``fused=False`` and ``mesh=`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``fused=False`` runs the per-lane reference path (the bit-identity
+    oracle; ``sync_every`` 1, no faults); ``mesh=`` is not ported yet and
+    raises ``NotImplementedError``.
 
     Returns ``{"trajectory": per-epoch dict, "summary": headline numbers}``.
     """

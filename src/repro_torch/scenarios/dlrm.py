@@ -111,8 +111,8 @@ def run_online(
     ``export=`` streams records through a
     :class:`repro_torch.export.ExportClient` (observability-only:
     trajectories are byte-identical either way); ``device`` defaults to
-    ``"cuda"`` (raises without one).  ``fused=False`` and ``mesh=`` are not
-    ported yet and raise.
+    ``"cuda"`` (raises without one).  ``fused=False`` runs the per-lane
+    reference path; ``mesh=`` is not ported yet and raises.
 
     Returns ``{"trajectory": per-epoch dict, "summary": headline numbers}``.
     """

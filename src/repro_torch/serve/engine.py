@@ -1,6 +1,8 @@
-"""Prefill + single-token decode for the dense family (PyTorch port of
-``repro/serve/engine.py``; the ``moe``, ``rwkv6`` and ``zamba2`` branches
-raise ``NotImplementedError``, ROADMAP Queue 1 item 13).
+"""Prefill + single-token decode for the dense and MoE families (PyTorch
+port of ``repro/serve/engine.py``; the ``rwkv6`` and ``zamba2`` branches
+raise ``NotImplementedError``, ROADMAP Queue 1 item 13).  A MoE decode step
+routes with ``capacity_factor`` 4.0, as the reference's, and returns the
+step's (L, E) router counts as ``aux["expert_counts"]``.
 
 Cache: ``{"k", "v": (L, B, KVH, max_len, hd) in the activation dtype,
 "pos": (B,) int32}``, the reference's layout.  ``decode_step`` writes the
@@ -24,8 +26,9 @@ from ..kernels.dispatch import resolve_device
 from ..models import attention as attn_lib
 from ..models.layers import apply_rope, rms_norm, swiglu
 from ..models.model import (ModelConfig, default_positions, embed_inputs,
-                            layer_params, logits_fn, require_attn,
-                            transformer_block)
+                            layer_params, logits_fn, moe_params,
+                            require_attn, transformer_block)
+from ..models.moe import moe_block
 
 __all__ = ["decode_step", "decode_telemetry", "init_cache",
            "kv_page_geometry", "prefill"]
@@ -63,8 +66,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     cache = init_cache(cfg, b, max_len, device=x.device)
     cache["pos"].fill_(s)
     for i in range(cfg.n_layers):
-        x, (k, v) = transformer_block(x, layer_params(params, i), cfg,
-                                      positions, return_kv=True)
+        x, _, (k, v) = transformer_block(x, layer_params(params, i), cfg,
+                                         positions, return_kv=True)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -78,14 +81,14 @@ def decode_step(params: dict, cfg: ModelConfig, cache: Cache,
     Returns (logits (B, V), cache, telemetry aux); the cache's K/V tensors
     are the given ones, written in place, and its ``pos`` is ``pos + 1``.
     With ``page_size`` aux["kv_page_mass"] is (L, B, ceil(S / page_size))
-    float32."""
+    float32; for the MoE family aux["expert_counts"] is (L, E) int32."""
     require_attn(cfg, "decode_step")
     x = params["embed"][tokens.long()].to(cfg.activ_dtype)       # (B, D)
     pos = cache["pos"]
     b = x.shape[0]
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     ks, vs = cache["k"], cache["v"]
-    masses = []
+    masses, counts = [], []
     for i in range(cfg.n_layers):
         bp = layer_params(params, i)
         h = rms_norm(x[:, None], bp["ln1"], cfg.norm_eps)[:, 0]
@@ -115,9 +118,17 @@ def decode_step(params: dict, cfg: ModelConfig, cache: Cache,
             o = attn_lib.decode_step(q, ks[i], vs[i], pos, window=cfg.window)
         x = x + o.reshape(b, nh * hd) @ bp["wo"].to(h.dtype)
         h2 = rms_norm(x[:, None], bp["ln2"], cfg.norm_eps)
-        x = x + swiglu(h2, bp["w_gate"], bp["w_up"], bp["w_down"])[:, 0]
+        if cfg.family == "moe":
+            h2, moe_aux = moe_block(h2, moe_params(bp), top_k=cfg.moe.top_k,
+                                    capacity_factor=4.0)
+            counts.append(moe_aux["counts"])
+        else:
+            h2 = swiglu(h2, bp["w_gate"], bp["w_up"], bp["w_down"])
+        x = x + h2[:, 0]
     cache = dict(cache, k=ks, v=vs, pos=pos + 1)
     aux: Dict[str, Any] = {}
+    if cfg.family == "moe":
+        aux["expert_counts"] = torch.stack(counts)               # (L, E)
     if page_size:
         aux["kv_page_mass"] = torch.stack(masses)                # (L, B, P)
     else:

@@ -566,8 +566,8 @@ def test_kv_scenario_prefill_launches_flash_attention_per_layer(cuda):
 
 def _fleet_mix_scenarios(cuda):
     from repro_torch.examples import fleet_mix
-    # the KV tenant's stream is decoded once on the card; both devices'
-    # fleets replay it
+    # the KV and MoE tenants' streams are made once on the card; both
+    # devices' fleets replay them
     return fleet_mix, fleet_mix.make_scenarios(device=cuda)
 
 
@@ -576,8 +576,8 @@ def _fleet_mix_scenarios(cuda):
     ("shared", 2), ("partition", 4), ("weighted", 4)])
 def test_fleet_step_on_the_card_equals_the_cpu_step(cuda, capacity,
                                                      hs_per_epoch):
-    """The example's 3-tenant mix (dlrm, kv, scanner), hints on, K=3: the
-    card's run equals the CPU's field for field, tenant rows included.
+    """The example's 4-tenant mix (dlrm, kv, moe, scanner), hints on, K=3:
+    the card's run equals the CPU's field for field, tenant rows included.
     hist_select launches per epoch: with quotas the segment mask, the
     select, the hot set and the tenants' hot sets; shared, the select and
     the tenants' hot sets."""
@@ -786,3 +786,131 @@ def test_elapsed_s_waits_for_a_cuda_tensor(cuda):
     waited = obs_trace.elapsed_s(t0, y)
     assert waited > 0.02 and waited > no_wait
     assert torch.equal(y, x + 1)
+
+
+# ------------------------------------------------ the per-lane reference path
+@pytest.mark.cuda
+@pytest.mark.parametrize("hints", [False, True])
+def test_reference_path_on_the_card_equals_the_cpu(cuda, hints):
+    """``run_scenario(fused=False)`` on SMALL: byte-identical GPU vs CPU
+    and equal to the fused run; on the card one observe_scatter launch a
+    batch and one hist_select launch a lane and epoch (each eager policy's
+    top-k)."""
+    import json
+    from repro_torch.dlrm import datagen
+    scen = DLRMScenario(spec=datagen.SMALL, n_epochs=4, shift_at=2)
+    eps = list(scen.epochs())
+    os0, hs0 = os_kernel.LAUNCHES, hs_kernel.LAUNCHES
+    gpu = run_scenario(scen, hints=hints, fused=False, epochs=eps)
+    assert os_kernel.LAUNCHES - os0 == sum(len(e) for e in eps)
+    assert hs_kernel.LAUNCHES - hs0 == 6 * len(eps)
+    cpu = run_scenario(scen, hints=hints, fused=False, epochs=eps,
+                       device="cpu")
+    assert json.dumps(gpu, sort_keys=True) == json.dumps(cpu, sort_keys=True)
+    fused = run_scenario(scen, hints=hints, epochs=eps)
+    assert fused["trajectory"] == gpu["trajectory"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,hs_per_epoch", [
+    ("shared", 6), ("weighted", 0)])
+def test_fleet_reference_path_on_the_card_equals_the_cpu(cuda, capacity,
+                                                         hs_per_epoch):
+    """The example's mix on the reference path: GPU == CPU, tenant rows
+    included.  Under quotas the lanes select by numpy stable sorts, as the
+    reference's, so no hist_select launches; shared, one a lane."""
+    from repro_torch.fleet import run_fleet
+    fleet_mix, sc = _fleet_mix_scenarios(cuda)
+    eps = list(fleet_mix.fleet(sc, capacity).epochs())
+    hs0 = hs_kernel.LAUNCHES
+    gpu = run_fleet(fleet_mix.fleet(sc, capacity), hints=True, fused=False,
+                    epochs=eps)
+    assert hs_kernel.LAUNCHES - hs0 == hs_per_epoch * len(eps)
+    cpu = run_fleet(fleet_mix.fleet(sc, capacity), hints=True, fused=False,
+                    epochs=eps, device="cpu")
+    assert gpu == cpu
+
+
+# ----------------------------------------------------------------- MoE
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.3])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, arch, capacity_factor):
+    """moe_block in float32 on the same weights and input: counts exact,
+    output and balance loss within 2e-5 (the same float32 products summed
+    in another order), no host sync inside; at capacity 0.3 tokens drop."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as tm
+    from repro_torch.models.moe import moe_block
+    cfg = get_smoke_config(arch)
+    params = tm.init_params(cfg, 0, device="cpu")
+    par = tm.moe_params(tm.layer_params(params, 0))
+    par = par._replace(**{k: v.float() for k, v in par._asdict().items()
+                          if v is not None})
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(3, 40, cfg.d_model)).astype(np.float32))
+    cpu_out, cpu_aux = moe_block(x, par, top_k=cfg.moe.top_k,
+                                 capacity_factor=capacity_factor)
+    gpar = type(par)(*[None if v is None else v.to(cuda) for v in par])
+    gx = x.to(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe_block(gx, gpar, top_k=cfg.moe.top_k,
+                             capacity_factor=capacity_factor)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(aux["counts"].cpu(), cpu_aux["counts"])
+    np.testing.assert_allclose(out.cpu().numpy(), cpu_out.numpy(),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(float(aux["aux_loss"]),
+                               float(cpu_aux["aux_loss"]), rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_moe_scenario_on_the_card_follows_the_cpu(cuda):
+    """MoEExpertScenario's stream on the card: the kimi-k2 smoke forward
+    launches flash_attention once a layer a batch (d 16: the CUDA-core
+    route); every row has the CPU's length and lies within an L1 distance
+    of 2 % of it of the CPU's row; each batch's forward again on both
+    devices gives (L, E) counts within 2 % of the routings (the same
+    totals per layer) and hidden states (6e-2) and logits (1e-2) within
+    tolerance on at least 97 % of the elements (tests/test_torch_moe.py's
+    bfloat16 bounds: a bf16 rounding may flip a routing near-tie); and
+    run_scenario fed the CPU's stream equals the CPU's run."""
+    import json
+    from repro_torch.models.model import forward, logits_fn
+    from repro_torch.scenarios import MoEExpertScenario
+    kw = dict(n_epochs=3, batches_per_epoch=2, shift_at=1, batch=2)
+    gpu_sc = MoEExpertScenario(**kw)
+    before = fa_kernel.ROUTE_LAUNCHES["cuda_core"]
+    gpu_eps = list(gpu_sc.epochs())
+    assert fa_kernel.ROUTE_LAUNCHES["cuda_core"] - before == \
+        gpu_sc.cfg.n_layers * 6
+    cpu_sc = MoEExpertScenario(device="cpu", **kw)
+    cpu_eps = list(cpu_sc.epochs())
+    assert [e.shape for e in gpu_eps] == [e.shape for e in cpu_eps]
+    for ge, ce in zip(gpu_eps, cpu_eps):
+        for gr, cr in zip(ge, ce):
+            l1 = np.abs(np.bincount(gr, minlength=gpu_sc.n_blocks)
+                        - np.bincount(cr, minlength=gpu_sc.n_blocks)).sum()
+            assert l1 <= 0.02 * gpu_sc.batch_len, l1
+    g_par, c_par = gpu_sc.model_params(), cpu_sc.model_params()
+    with torch.no_grad():
+        for toks in gpu_sc.token_batches():
+            t = torch.from_numpy(toks)
+            gh, g_aux = forward(g_par, gpu_sc.cfg, tokens=t.to(cuda))
+            ch, c_aux = forward(c_par, cpu_sc.cfg, tokens=t)
+            gc, cc = g_aux["expert_counts"].cpu(), c_aux["expert_counts"]
+            assert torch.equal(gc.sum(-1), cc.sum(-1))
+            assert int((gc - cc).abs().sum()) <= 0.02 * int(cc.sum())
+            for g, c, tol in (
+                    (gh, ch, 6e-2),
+                    (logits_fn(g_par, gpu_sc.cfg, gh),
+                     logits_fn(c_par, cpu_sc.cfg, ch), 1e-2)):
+                g, c = g.float().cpu(), c.float()
+                assert bool(torch.isfinite(g).all())
+                within = ((g - c).abs() <= tol + tol * c.abs()).float()
+                assert float(within.mean()) >= 0.97
+    gpu = run_scenario(gpu_sc, hints=True, epochs=cpu_eps)
+    cpu = run_scenario(cpu_sc, hints=True, epochs=cpu_eps, device="cpu")
+    assert json.dumps(gpu, sort_keys=True) == json.dumps(cpu, sort_keys=True)

@@ -3,9 +3,11 @@ and the fused epoch step's tenancy branch against the reference.
 
 The centre is the 3-tenant DLRM + scanner + MoE mix of
 ``tests/test_fleet.py``, run by both packages for every capacity policy and
-two record-pull periods.  The port has no MoE model yet, so its MoE tenant
-replays the reference's ``MoEExpertScenario`` epochs as numpy, with the
-reference's geometry (the same stream seam the KV tests use).  The other
+two record-pull periods.  Its MoE tenant replays the reference's
+``MoEExpertScenario`` epochs as numpy, with the reference's geometry (the
+same stream seam the KV tests use): the port's own MoE stream follows the
+reference's only within a bound, since a bf16 rounding can flip a routing
+near-tie (``tests/test_torch_moe.py``).  The other
 cases mirror the reference's non-sharded fleet tests on the port: id
 plumbing, the interleaver, capacity policies, tenancy validation, per-tenant
 conservation, quota isolation and the interference headline; and the
@@ -254,15 +256,14 @@ def test_export_option_is_accepted_and_leaves_the_run_identical(moe_pair):
 
 
 @pytest.mark.parametrize("option,item", [
-    ("faults", "10"), ("hardening", "10"),
-    ("fused", "12"), ("mesh", "15")])
+    ("faults", "10"), ("hardening", "10"), ("mesh", "15")])
 def test_unported_options_raise_naming_their_item(moe_pair, option, item):
     """Options still to be ported raise naming their ROADMAP item.  Item 10
     is ported: ``faults=`` and ``hardening=`` of the wrong type are refused
     naming what they take, and ``build_faults`` refuses an unknown
     tenant."""
     fleet = small_fleet(moe_pair[1])
-    value = False if option == "fused" else object()
+    value = object()
     if item == "10":
         name = "FaultModel" if option == "faults" else "Hardening"
         with pytest.raises(TypeError, match=name):

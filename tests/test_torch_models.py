@@ -116,7 +116,7 @@ def test_params_round_trip_keeps_dtype():
                                   np.asarray(jp["blocks"]["w_up"], np.float32))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
 def test_other_families_are_not_ported_yet(arch):
     cfg = get_smoke_config(arch)
     params = tm.init_params(cfg, 0, device="cpu")     # the schema walk works

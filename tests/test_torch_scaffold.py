@@ -113,7 +113,7 @@ def test_entry_points_run_on_the_cpu_when_asked():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(fused=False), "12"), (dict(mesh=object()), "15"),
+    (dict(mesh=object()), "15"),
     (dict(faults=object()), "10"),
     (dict(hardening=object()), "10"),
 ])

@@ -310,7 +310,7 @@ def test_serving_entry_points_default_to_cuda(monkeypatch, entry):
 
 
 def test_serving_other_families_raise():
-    cfg = get_smoke_config("mixtral-8x22b")
+    cfg = get_smoke_config("zamba2-2.7b")
     with pytest.raises(NotImplementedError, match="item 13"):
         teng.init_cache(cfg, 1, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
