@@ -186,9 +186,32 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     Mixtral's prefill shape (B 4, H 48, KVH 8, S 4,096, d 128, bfloat16,
     window 4,096) against its plain version, timed beside its bound and
     ``scaled_dot_product_attention(is_causal=True)`` (the kernel line's
-    ``flash_attention_mixtral`` entry).
+    ``flash_attention_mixtral`` entry);
+23. the recurrent families, RWKV-6 and Zamba2 (Mamba2 layers and a shared
+    attention block): (a) both smoke models on perturbed weights (every
+    leaf drawn, not the init's zeros), float32 and bfloat16: forward and
+    prefill at S 150 (three chunks of 64, the last padded), then 3 decode
+    steps, under ``set_sync_debug_mode("error")``, every output and cache
+    leaf against the CPU's (RECURRENT_F32_TOL; bfloat16 by the rule of
+    ``tests/_torch_recurrent.py``); zamba2's prefill launches
+    flash_attention once per shared-block invocation (2), on the CUDA-core
+    route, its decode none, rwkv6 none; (b) one block at full width,
+    float32, B 1 x 130 tokens, GPU against CPU within RECURRENT_F32_TOL:
+    rwkv6-3b's layer 0 (output and wkv state), zamba2-2.7b's first group
+    (6 Mamba2 layers, each output and SSM state, then the shared block at
+    invocation 0); (c) both at their published widths through
+    ``launch.serve.main`` (float32 weights, bf16 activations, all layers;
+    B 4, prompts 64 and 4,096, 32 tokens; every prefill and decode step
+    under the sync check): the weights' draw, prefill and decode tokens/s,
+    peak memory, 9 CUDA-core flash_attention launches per zamba2 prefill,
+    none in decode, none for rwkv6; (d) flash_attention at zamba2-2.7b's
+    prefill shape (B 4, H 32, KVH 32, S 4,096, d 80, bfloat16, causal, the
+    CUDA-core route) against its plain version, timed beside
+    ``scaled_dot_product_attention(is_causal=True)``, the tensor-core bf16
+    bound and the CUDA cores' float32 bound (the kernel line's
+    ``flash_attention_zamba2`` entry).
 
-Each path (8-11, 14-16, 18-22) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-23) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -1050,36 +1073,20 @@ def serve_full_width(serve_launcher, dev, zero_counts, read_counts,
     return runs["64"]["launches"]
 
 
-def profile_decode(dev, steps: int = 8) -> dict:
-    """Phase 14, where a serving step's time goes: the full-width
-    qwen2-0.5b (bf16, batch 4, prompt 64) decodes ``steps`` tokens under
-    ``torch.profiler``; device busy time (kernel and copy events) against
-    the wall, device ops per step and the ops that take the most host and
-    device time."""
+def profiled_steps(step, steps: int) -> dict:
+    """``step()`` run ``steps`` times under ``torch.profiler``: the wall
+    and device busy time (kernel and copy events) per step, the idle
+    share, device events per step, host-to-device copies and the ops that
+    take the most device and host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import init_params
-    from repro_torch.serve import engine
-    cfg = get_config("qwen2-0.5b")
-    params = init_params(cfg, 0, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
-                         device=dev)
-    logits, cache = engine.prefill(params, cfg, tokens=toks,
-                                   max_len=64 + steps + 2)
-    tok = torch.argmax(logits, -1)
-    _, cache, _ = engine.decode_step(params, cfg, cache, tok, page_size=16)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache, _ = engine.decode_step(params, cfg, cache, tok,
-                                                  page_size=16)
-            tok = torch.argmax(logits, -1)
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us, host_us, n_dev, h2d = {}, {}, 0, 0
@@ -1095,20 +1102,63 @@ def profile_decode(dev, steps: int = 8) -> dict:
         elif ev.self_cpu_time_total > 0:
             host_us[ev.key] = host_us.get(ev.key, 0.0) + ev.self_cpu_time_total
     busy = sum(dev_us.values()) / 1e6
+    return dict(steps=steps, step_wall_ms=1e3 * wall / steps,
+                step_device_busy_ms=1e3 * busy / steps,
+                device_idle_share=1.0 - busy / wall,
+                device_events_per_step=n_dev / steps,
+                host_to_device_copies=h2d,
+                top_device_ms=top_ms(dev_us, 8, 60),
+                top_host_self_ms=top_ms(host_us, 8, 60))
 
-    def top(table):
-        return {k[:60]: v / 1e3 for k, v in
-                sorted(table.items(), key=lambda kv: -kv[1])[:8]}
-    out = dict(steps=steps, step_wall_ms=1e3 * wall / steps,
-               step_device_busy_ms=1e3 * busy / steps,
-               device_idle_share=1.0 - busy / wall,
-               device_events_per_step=n_dev / steps,
-               host_to_device_copies=h2d, top_device_ms=top(dev_us),
-               top_host_self_ms=top(host_us))
+
+def top_ms(table: dict, n: int, width: int) -> dict:
+    """The ``n`` largest entries of {name: microseconds} in milliseconds,
+    names cut to ``width`` characters (entries whose cut names agree add
+    up under it)."""
+    ms = {}
+    for key, us in table.items():
+        ms[key[:width]] = ms.get(key[:width], 0.0) + us / 1e3
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
+
+
+def profile_decode(dev, steps: int = 8) -> dict:
+    """Phase 14, where a serving step's time goes: the full-width
+    qwen2-0.5b (bf16, batch 4, prompt 64) decodes ``steps`` tokens under
+    ``torch.profiler`` (``profiled_steps``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine
+    cfg = get_config("qwen2-0.5b")
+    params = init_params(cfg, 0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                         device=dev)
+    logits, cache = engine.prefill(params, cfg, tokens=toks,
+                                   max_len=64 + steps + 2)
+    tok = torch.argmax(logits, -1)
+    _, cache, _ = engine.decode_step(params, cfg, cache, tok, page_size=16)
+    out = profiled_steps(decode_steps(params, cfg, cache, tok,
+                                      page_size=16), steps)
     say("serve_decode_profile", **out)
     del params, cache
     free_device_memory()
     return out
+
+
+def decode_steps(params, cfg, cache, tok, **kw):
+    """A step function for ``profiled_steps``: each call decodes one token
+    greedily from the last, carrying the cache."""
+    import torch
+    from repro_torch.serve import engine
+    state = {"cache": cache, "tok": tok}
+
+    def step():
+        logits, state["cache"], _ = engine.decode_step(
+            params, cfg, state["cache"], state["tok"], **kw)
+        state["tok"] = torch.argmax(logits, -1)
+    return step
 
 
 def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts,
@@ -1234,6 +1284,11 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     kernel_flops = int(flops * products)
     n_bytes = q.element_size() * (2 * b * h * s_len * d
                                   + 2 * b * kvh * s_len * d)
+    route_bound = bound_ms(n_bytes, flops * needed, rate)
+    if dtype == "bfloat16":
+        # the card's least time for bf16 products is on the tensor cores,
+        # whichever route the kernel takes
+        rate = TENSOR_BF16_OPS_PER_S
     bound, by = bound_ms(n_bytes, flops * needed, rate)
     out = dict(label=label, shape=[b, h, kvh, s_len, d], dtype=dtype,
                window=window, **checked,
@@ -1243,6 +1298,9 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
                function_tflop_s=flops / ms / 1e9,
                kernel_tflop_s=kernel_flops / ms / 1e9,
                vs_sdpa_max_abs_err=sdpa_err)
+    if route == "cuda_core":
+        out.update(cuda_core_bound_ms=route_bound[0],
+                   cuda_core_bound_by=route_bound[1])
     if (label, dtype) == ("qwen2-0.5b", "bfloat16"):
         out.update(cuda_core_bf16_ms=CUDA_CORE_BF16_QWEN_MS,
                    speedup_over_cuda_core=CUDA_CORE_BF16_QWEN_MS / ms)
@@ -2578,6 +2636,319 @@ def moe_scenario_gpu_vs_cpu(dev, run_scenario, zero_counts, read_counts,
 
 
 
+# phase 23: the recurrent families.  (a) GPU vs CPU on the smoke models at
+# S = RECURRENT_SMOKE_LEN (three chunks of 64, the last padded) and three
+# decode steps; float32 within RECURRENT_F32_TOL (relative and absolute:
+# the same float32 products summed in another order by cuBLAS and the CPU's
+# BLAS, through the layers and the carried state); bfloat16 within
+# RECURRENT_BF16_TOL of the CPU on at least RECURRENT_BF16_WITHIN of the
+# elements and within twice that everywhere, the rule of
+# tests/_torch_recurrent.py (two bfloat16 runs that round at other places;
+# logits and the float32 states at the tighter one).  (b) one block at
+# full width on RECURRENT_CHECK_TOKENS tokens, float32.  (d) flash_attention
+# at zamba2-2.7b's prefill shape (label, B, H, KVH, d).
+RECURRENT_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
+RECURRENT_SMOKE_LEN = 150
+RECURRENT_F32_TOL = 1e-4
+RECURRENT_BF16_TOL = {"hidden": 6e-2, "logits": 1e-2}
+RECURRENT_BF16_WITHIN = 0.99
+RECURRENT_CHECK_TOKENS = 130
+ZAMBA2_TIME_SHAPE = ("zamba2-2.7b", 4, 32, 32, 80)
+
+
+def perturbed_params(cfg, seed: int, leaves=None) -> dict:
+    """``cfg``'s parameters (or the schema leaves whose path starts with one
+    of ``leaves``) drawn by the tests' recipe (``tests/_perturbed_weights.py``:
+    every leaf, not the init's zeros), on the host CPU."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _perturbed_weights import perturbed_tree
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import iter_schema
+    schema = [(p, spec) for p, spec in iter_schema(cfg)
+              if leaves is None or p.startswith(leaves)]
+    return params_from_numpy(perturbed_tree(schema, seed), device="cpu")
+
+
+def to_device(tree, dev):
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def held_to_cpu(label: str, got, want, kind: str) -> float:
+    """Phase 23's comparison of one output (``kind``: "hidden" or "logits",
+    the bfloat16 tolerance; float32 is RECURRENT_F32_TOL) -> max abs err."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+             f"not finite on the GPU")
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if kind == "float32":
+        ok = bool((diff <= RECURRENT_F32_TOL * (1 + want.abs())).all())
+    else:
+        bound = RECURRENT_BF16_TOL[kind] * (1 + want.abs())
+        ok = bool((diff <= 2 * bound).all()) and float(
+            (diff <= bound).float().mean()) >= RECURRENT_BF16_WITHIN
+    if not ok:
+        fail(f"{label} GPU vs CPU ({kind}): max abs err {err}")
+    return err
+
+
+def recurrent_run(params, cfg, toks, dev, read_routes=None):
+    """forward and prefill over toks[:, :-3], then 3 decode steps (under the
+    sync check on the card) -> (outputs by name on the CPU, flash_attention
+    launches by route: (prefill, decode))."""
+    import torch
+    from repro_torch.models.model import forward, logits_fn
+    from repro_torch.serve import engine
+    s = toks.shape[1] - 3
+    toks = torch.from_numpy(toks).to(dev)
+    out, routes = {}, None
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            h, _ = forward(params, cfg, tokens=toks[:, :s])
+            out["hidden"], out["logits"] = h, logits_fn(params, cfg, h[:, -1:])
+            before = read_routes() if read_routes else None
+            out["prefill_logits"], cache = engine.prefill(
+                params, cfg, tokens=toks[:, :s], max_len=s + 3)
+            mid = read_routes() if read_routes else None
+            for k in range(3):
+                out[f"decode_logits_{k}"], cache, aux = engine.decode_step(
+                    params, cfg, cache, toks[:, s + k])
+                if aux:
+                    fail(f"{cfg.name} decode aux {sorted(aux)}: expected {{}}")
+            if read_routes:
+                end = read_routes()
+                routes = ({r: mid[r] - before[r] for r in mid},
+                          {r: end[r] - mid[r] for r in end})
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    out.update({"cache_" + k: v for k, v in cache.items()})
+    return {k: v.cpu() for k, v in out.items()}, routes
+
+
+def recurrent_smoke_gpu_vs_cpu(dev, read_routes) -> dict:
+    """Phase 23a: both smoke models in float32 and bfloat16 on the GPU and
+    on the CPU (``recurrent_run``), the same perturbed weights and tokens.
+    Returns the largest errors by arch and dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    t0 = time.perf_counter()
+    errs = {}
+    for arch in RECURRENT_ARCHS:
+        for act in (torch.float32, torch.bfloat16):
+            cfg = dataclasses.replace(get_smoke_config(arch), activ_dtype=act)
+            name = str(act).split(".")[-1]
+            params = perturbed_params(cfg, 0)
+            toks = np.random.default_rng(23).integers(
+                0, cfg.vocab_size, (2, RECURRENT_SMOKE_LEN + 3))
+            got, routes = recurrent_run(to_device(params, dev), cfg, toks,
+                                        dev, read_routes)
+            want, _ = recurrent_run(params, cfg, toks, torch.device("cpu"))
+            n_fa = cfg.n_shared_attn if cfg.family == "zamba2" else 0
+            if routes != ({"tensor_core": 0, "tf32x3": 0, "cuda_core": n_fa},
+                          {"tensor_core": 0, "tf32x3": 0, "cuda_core": 0}):
+                fail(f"{cfg.name} {name} flash_attention launches (prefill, "
+                     f"decode) {routes}: expected {n_fa} on the CUDA cores "
+                     f"in the prefill, none in decode")
+            if got.keys() != want.keys() or not torch.equal(
+                    got["cache_pos"], want["cache_pos"]):
+                fail(f"{cfg.name} {name}: outputs {sorted(got)} vs "
+                     f"{sorted(want)}")
+            errs[f"{arch} {name}"] = {
+                key: held_to_cpu(
+                    f"{cfg.name} {name} {key}", got[key], want[key],
+                    "float32" if act == torch.float32 else
+                    "logits" if "logits" in key or key in (
+                        "cache_wkv", "cache_ssm") else "hidden")
+                for key in got if key != "cache_pos"}
+    say("recurrent_smoke_gpu_vs_cpu", prompt_len=RECURRENT_SMOKE_LEN,
+        decode_steps=3, max_abs_err=errs, float32_tolerance=RECURRENT_F32_TOL,
+        bfloat16_tolerance=RECURRENT_BF16_TOL,
+        bfloat16_within=RECURRENT_BF16_WITHIN,
+        seconds=time.perf_counter() - t0)
+    return errs
+
+
+def recurrent_block_full_width(dev, read_routes) -> dict:
+    """Phase 23b: one block at the published widths in float32 on B 1 x
+    RECURRENT_CHECK_TOKENS tokens (three chunks, the last padded), GPU
+    against CPU on the same perturbed weights and input: rwkv6-3b's layer 0
+    (output, wkv state); zamba2-2.7b's first group, 6 Mamba2 layers (each
+    output and SSM state) and the shared block at invocation 0 (one
+    flash_attention launch, float32 at d 80: the CUDA-core route)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+    t0 = time.perf_counter()
+    errs = {}
+    pos = torch.arange(RECURRENT_CHECK_TOKENS)[None]
+    for arch in RECURRENT_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(
+            full, activ_dtype=torch.float32,
+            n_layers=1 if full.family == "rwkv6" else full.zamba_attn_every)
+        x = torch.from_numpy(np.random.default_rng(24).normal(
+            size=(1, RECURRENT_CHECK_TOKENS, cfg.d_model)).astype(np.float32))
+        params = perturbed_params(cfg, 1, ("blocks.", "shared_attn."))
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            par = to_device(params, d)
+            h, got = x.to(d), {}
+            before = read_routes()
+            with torch.no_grad():
+                if cfg.family == "rwkv6":
+                    got["out"], got["wkv"] = tm.rwkv6_block(
+                        h, tm.layer_params(par, 0), cfg)
+                else:
+                    for i in range(cfg.n_layers):
+                        h, got[f"ssm_{i}"] = tm.zamba2_mamba_block(
+                            h, tm.layer_params(par, i), cfg)
+                        got[f"out_{i}"] = h
+                    got["shared_out"] = tm.zamba2_shared_attention(
+                        h, par["shared_attn"], cfg, 0, pos.to(d))
+            routes = {r: n - before[r] for r, n in read_routes().items()}
+            outs.append({k: v.cpu() for k, v in got.items()})
+            if d == dev and routes != {"tensor_core": 0, "tf32x3": 0,
+                                       "cuda_core": int(
+                                           cfg.family == "zamba2")}:
+                fail(f"{arch} full-width block flash_attention routes "
+                     f"{routes}")
+            del par, got, h
+        gpu, cpu = outs
+        errs[arch] = {k: held_to_cpu(f"{arch} full-width block {k}", gpu[k],
+                                     cpu[k], "float32") for k in cpu}
+        del params, outs, gpu, cpu
+        free_device_memory()
+    say("recurrent_block_gpu_vs_cpu", tokens=RECURRENT_CHECK_TOKENS,
+        dtype="float32", tolerance=RECURRENT_F32_TOL, max_abs_err=errs,
+        seconds=time.perf_counter() - t0)
+    return errs
+
+
+def recurrent_serve_full_width(serve_launcher, dev, zero_counts, read_counts,
+                               read_routes) -> dict:
+    """Phase 23c: rwkv6-3b and zamba2-2.7b at their published widths
+    through ``launch.serve.main`` (float32 weights drawn from seed 0, bf16
+    activations, all layers): B 4, prompts 64 and 4,096, 32 tokens.  Every
+    prefill and decode step runs under ``set_sync_debug_mode("error")``
+    (``engine.prefill`` / ``decode_step`` wrapped for the call); the
+    weights are drawn once per arch (the launcher's ``init_params``
+    wrapped to hand the 4,096-token run the first run's draw, whose time
+    is the draw's).  Checks: flash_attention n_shared_attn times (9) a
+    zamba2 prefill on the CUDA-core route, none in decode, none for rwkv6,
+    no other kernel; tokens in range, logits finite, no page telemetry.
+    Reports the draw, prefill and decode tokens/s and peak memory.
+    Returns zamba2's 64-token run's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve import engine
+    real = {"prefill": engine.prefill, "decode_step": engine.decode_step,
+            "init_params": serve_launcher.init_params}
+    drawn, seen = {}, {}
+
+    def checked(name):
+        def call(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real[name](*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            seen.setdefault(name, read_counts())
+            seen[name + "_routes"] = read_routes()
+            seen["logits"] = out[0]
+            return out
+        return call
+
+    def draw_once(cfg, seed, device):
+        if cfg.name not in drawn:
+            drawn[cfg.name] = real["init_params"](cfg, seed, device)
+        return drawn[cfg.name]
+
+    runs = {}
+    engine.prefill, engine.decode_step = checked("prefill"), checked(
+        "decode_step")
+    serve_launcher.init_params = draw_once
+    try:
+        for arch in RECURRENT_ARCHS:
+            cfg = get_config(arch)
+            n_fa = cfg.n_shared_attn if cfg.family == "zamba2" else 0
+            # the last arch's weights go before this one's peak is taken
+            drawn.clear()
+            free_device_memory()
+            for plen in (64, 4096):
+                seen.clear()
+                torch.cuda.reset_peak_memory_stats(dev)
+                zero_counts()
+                rep = serve_launcher.main(
+                    ["--arch", arch, "--batch", "4", "--prompt-len",
+                     str(plen), "--gen", "32"])
+                torch.cuda.synchronize()
+                launches, routes = read_counts(), read_routes()
+                want = dict(NO_KERNELS, flash_attention=n_fa)
+                want_routes = {"tensor_core": 0, "tf32x3": 0,
+                               "cuda_core": n_fa}
+                if not (seen["prefill"] == launches == want
+                        and routes == want_routes):
+                    fail(f"{arch} prompt {plen}: prefill launches "
+                         f"{seen['prefill']}, in all {launches} {routes}; "
+                         f"expected {n_fa} flash_attention on the CUDA "
+                         f"cores in the prefill, none in decode")
+                toks = rep["tokens"]
+                if not (toks.shape == (4, 32) and rep["page_mass"] is None
+                        and ((toks >= 0) & (toks < cfg.vocab_size)).all()
+                        and bool(torch.isfinite(seen["logits"].float()).all())):
+                    fail(f"{arch} prompt {plen}: serving outputs out of range")
+                key = f"{arch} {plen}"
+                runs[key] = dict(
+                    init_s=rep["init_s"], prefill_s=rep["prefill_s"],
+                    prefill_tok_s=rep["prefill_tok_s"],
+                    decode_s=rep["decode_s"], decode_tok_s=rep["decode_tok_s"],
+                    launches=launches, flash_attention_routes=routes,
+                    peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+                say("recurrent_serve", arch=arch, batch=4, prompt_len=plen,
+                    gen=32, n_layers=cfg.n_layers,
+                    params=cfg.param_count(),
+                    weights_reused=plen != 64, **runs[key])
+            recurrent_serve_profile(dev, cfg, drawn[cfg.name],
+                                    real["prefill"])
+    finally:
+        engine.prefill, engine.decode_step = real["prefill"], real[
+            "decode_step"]
+        serve_launcher.init_params = real["init_params"]
+        drawn.clear()
+        seen.clear()
+        free_device_memory()
+    return runs["zamba2-2.7b 64"]["launches"]
+
+
+def recurrent_serve_profile(dev, cfg, params, prefill) -> None:
+    """Phase 23c, where the time goes (``profiled_steps``): one prefill of
+    B 4 x 4,096 tokens, then 8 decode steps after a 64-token prefill."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, (4, 4096), generator=gen,
+                         device=dev)
+    with torch.no_grad():
+        prof = profiled_steps(
+            lambda: prefill(params, cfg, tokens=toks, max_len=4096), 1)
+        say("recurrent_prefill_profile", arch=cfg.name, prompt_len=4096,
+            **prof)
+        logits, cache = prefill(params, cfg, tokens=toks[:, :64],
+                                max_len=64 + 9)
+        prof = profiled_steps(decode_steps(params, cfg, cache,
+                                           torch.argmax(logits, -1)), 8)
+    say("recurrent_decode_profile", arch=cfg.name, prompt_len=64, **prof)
+    del toks, logits, cache
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -2585,7 +2956,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 22) -> None:
+def main(until: int = 23) -> None:
     import numpy as np
     import torch
 
@@ -3057,17 +3428,14 @@ def main(until: int = 22) -> None:
         if us > 0:
             into[ev.key] = into.get(ev.key, 0.0) + us
     busy_s = sum(kernel_us.values()) / 1e6
-    def top(table, n):
-        return {key[:80]: us / 1e3 for key, us in
-                sorted(table.items(), key=lambda kv: -kv[1])[:n]}
-
     # the profiler slows the host, so the idle share is given both over the
     # profiled wall and over the mean unprofiled warm wall of phase 8
     warm_mean = sum(warm_wall_s) / len(warm_wall_s)
     say("profile", wall_s=prof_wall, device_busy_s=busy_s,
         device_idle_share_profiled=1.0 - busy_s / prof_wall,
         device_idle_share_warm=1.0 - busy_s / warm_mean,
-        top_op_device_ms=top(op_us, 10), top_kernel_ms=top(kernel_us, 10),
+        top_op_device_ms=top_ms(op_us, 10, 80),
+        top_kernel_ms=top_ms(kernel_us, 10, 80),
         port_kernel_ms={key[:80]: us / 1e3 for key, us in kernel_us.items()
                         if "observe_scatter" in key or "hs_" in key})
 
@@ -3160,6 +3528,15 @@ def main(until: int = 22) -> None:
                                       window=MIXTRAL_WINDOW)
     say("moe_flash_attention_routes", mixtral_prefill=moe_launches,
         moe_scenario_forwards=moe_routes)
+
+    if until < 23:
+        fail(f"stopped after phase {until} (--until)")
+    # ---------------- 23. the recurrent families, RWKV-6 and Zamba2
+    recurrent_smoke_gpu_vs_cpu(dev, read_routes)
+    recurrent_block_full_width(dev, read_routes)
+    zamba2_launches = recurrent_serve_full_width(
+        serve_launcher, dev, zero_counts, read_counts, read_routes)
+    fa_zamba2 = flash_attention_time(dev, plain, *ZAMBA2_TIME_SHAPE)
 
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
@@ -3270,6 +3647,22 @@ def main(until: int = 22) -> None:
          "bound_ms": fa_mixtral["bound_ms"],
          "bound_by": fa_mixtral["bound_by"],
          "library_ms": fa_mixtral["sdpa_ms"]},
+        # the CUDA-core route on zamba2's serving path: its launches in
+        # phase 23c's zamba2-2.7b prefill (prompt 64, one a shared-block
+        # invocation, bf16 at d 80), its time and error at that model's
+        # prefill shape (S 4096) beside sdpa(is_causal=True); the bound is
+        # the bf16 products on the tensor cores (the CUDA cores' float32
+        # bound is in the phase's line)
+        {"name": "flash_attention_zamba2", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": zamba2_launches["flash_attention"],
+         "max_abs_err": fa_zamba2["max_abs_err"], "ms": fa_zamba2["ms"],
+         "plain_ms": fa_zamba2["plain_ms"],
+         "bound_ms": fa_zamba2["bound_ms"],
+         "bound_by": fa_zamba2["bound_by"],
+         "library_ms": fa_zamba2["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -3282,4 +3675,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 22)
+    main(int(args[1]) if args[:1] == ["--until"] else 23)

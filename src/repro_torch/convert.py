@@ -269,12 +269,13 @@ def params_to_numpy(params: Mapping) -> dict:
 
 
 def cache_from_numpy(flat: Flat, device="cuda") -> dict:
-    """A serving cache (``k``, ``v``: (L, B, KVH, S, hd); ``pos``: (B,)
-    int32) from the reference's, on ``device``."""
+    """A serving cache from the reference's, leaf for leaf, on ``device``:
+    any family's layout (``k``, ``v``, ``pos``; rwkv6's ``wkv``,
+    ``sh_mix``, ``sh_ffn``; zamba2's ``ssm``, ``conv``, ``k``, ``v``)."""
     dev = resolve_device(device)
-    return {key: _leaf_from_numpy(flat[key], dev) for key in ("k", "v", "pos")}
+    return _map_tree(flat, lambda x: _leaf_from_numpy(x, dev))
 
 
 def cache_to_numpy(cache: Mapping) -> Dict[str, np.ndarray]:
-    """The cache's ``k``, ``v`` and ``pos`` as numpy (bfloat16 as float32)."""
-    return {key: _leaf_to_numpy(cache[key]) for key in ("k", "v", "pos")}
+    """Every leaf of the cache as numpy (bfloat16 as float32)."""
+    return _map_tree(cache, _leaf_to_numpy)

@@ -1,9 +1,12 @@
 """Batched serving launcher: prefill a prompt batch, decode N tokens, with
 tiered-KV-cache telemetry (per-page attention mass -> hot-page promotion
 report, the serving analogue of Table 1).  PyTorch port of
-``repro/launch/serve.py``, dense and MoE families (``--arch mixtral-8x22b``,
-``--arch kimi-k2-1t-a32b``); it runs on the CUDA device unless
-``--device cpu`` is given.
+``repro/launch/serve.py``, every family: dense, MoE (``--arch
+mixtral-8x22b``), RWKV-6 (``--arch rwkv6-3b``) and Zamba2 (``--arch
+zamba2-2.7b``); it runs on the CUDA device unless ``--device cpu`` is
+given.  The recurrent families keep no per-layer KV cache, so they decode
+without page telemetry and print no ``[kv-tiering]`` lines, as the
+reference.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --batch 4 --prompt-len 64 --gen 32             # on the GPU
@@ -26,7 +29,7 @@ from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..core.costmodel import TPU_V5E_SYSTEM
 from ..core.metrics import pages_for_access_fraction
 from ..kernels.dispatch import resolve_device
-from ..models.model import init_params, require_attn
+from ..models.model import init_params
 from ..serve import engine
 
 
@@ -37,8 +40,9 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv=None) -> dict:
     """Run the launcher; prints the reference's report lines and returns them
-    as numbers (``prefill_s``, ``decode_s``, tokens/s, ``tokens``,
-    ``page_mass`` and the modeled tiering times)."""
+    as numbers (``init_s``, the parameter draw; ``prefill_s``,
+    ``decode_s``, tokens/s, ``tokens``, ``page_mass`` (None without a KV
+    cache) and the modeled tiering times)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -54,16 +58,20 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    require_attn(cfg, "serving")
     if cfg.frontend == "embeddings":
         cfg = type(cfg)(**{**cfg.__dict__, "frontend": "tokens"})
+    _sync(dev)
+    t0 = time.perf_counter()
     params = init_params(cfg, args.seed, dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
     max_len = args.prompt_len + args.gen
     report = {"arch": cfg.name, "device": str(dev), "batch": args.batch,
-              "prompt_len": args.prompt_len, "gen": args.gen}
+              "prompt_len": args.prompt_len, "gen": args.gen,
+              "init_s": init_s}
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -76,15 +84,19 @@ def main(argv=None) -> dict:
     print(f"prefill: {args.batch}x{args.prompt_len} in {t_prefill*1e3:.0f}ms "
           f"({report['prefill_tok_s']:.0f} tok/s)")
 
+    # page telemetry needs a per-layer KV cache (the attn and moe families)
+    has_kv = cfg.family in ("attn", "moe")
+    page_size = args.page_size if has_kv else 0
     tokens = torch.argmax(logits, -1).to(torch.int32)
     out_tokens, masses = [tokens], []
     t0 = time.perf_counter()
     for _ in range(args.gen - 1):
         logits, cache, aux = engine.decode_step(params, cfg, cache, tokens,
-                                                page_size=args.page_size)
+                                                page_size=page_size)
         tokens = torch.argmax(logits, -1).to(torch.int32)
         out_tokens.append(tokens)
-        masses.append(aux["kv_page_mass"])
+        if has_kv:
+            masses.append(aux["kv_page_mass"])
     _sync(dev)
     t_dec = time.perf_counter() - t0
     # one pull at the end: generated tokens and the per-step page masses

@@ -1,16 +1,20 @@
-"""The causal LM of ``repro/models/model.py`` in PyTorch (dense and MoE
-families).
+"""The causal LM of ``repro/models/model.py`` in PyTorch, all four
+families.
 
-``ModelConfig`` describes every family of the reference (``attn``, ``moe``,
-``rwkv6``, ``zamba2``), and :func:`iter_schema` walks the parameters of all
-of them (it is a pure shape walk, so :meth:`ModelConfig.param_count` works
-for every config).  The forward passes are ported for the dense
-decoder-only transformers (``family == "attn"``: llama3.2, qwen2,
-internlm2, yi, musicgen, qwen2-vl with the token frontend) and the routed
-MoE transformers (``family == "moe"``: mixtral, kimi-k2; the FFN is
-:func:`repro_torch.models.moe.moe_block`, whose router counts come back as
-``aux["expert_counts"]``); the ``rwkv6`` and ``zamba2`` branches raise
-``NotImplementedError`` (ROADMAP Queue 1 item 13).
+``ModelConfig`` describes every family of the reference, and
+:func:`iter_schema` walks the parameters of all of them (a pure shape walk,
+so :meth:`ModelConfig.param_count` works for every config).  The forward
+passes:
+
+* ``attn`` — dense decoder-only transformers (llama3.2, qwen2, internlm2,
+  yi, musicgen, qwen2-vl with the token frontend);
+* ``moe`` — routed-FFN transformers (mixtral, kimi-k2; the FFN is
+  :func:`repro_torch.models.moe.moe_block`, whose router counts come back
+  as ``aux["expert_counts"]``);
+* ``rwkv6`` — attention-free RWKV-6 (:mod:`repro_torch.models.rwkv6`);
+* ``zamba2`` — Mamba2 layers (:mod:`repro_torch.models.mamba2`) with a
+  shared attention block after every ``zamba_attn_every`` of them, its
+  q/k/v adapted by a per-invocation LoRA.
 
 Parameters are a nested dict of tensors in the reference's layout: the
 per-layer leaves are stacked along a leading ``n_layers`` dim under
@@ -26,12 +30,18 @@ import numpy as np
 import torch
 
 from ..kernels.dispatch import resolve_device
-from .layers import AttnParams, attention_block, rms_norm, swiglu
+from . import attention as attn_lib
+from .layers import AttnParams, apply_rope, attention_block, rms_norm, swiglu
+from .mamba2 import Mamba2Params, mamba2_mix
 from .moe import MoEParams, moe_block
+from .rwkv6 import (RWKV6FFNParams, RWKV6Params, rwkv6_channel_mix,
+                    rwkv6_mix)
 
 __all__ = ["LeafSpec", "MoECfg", "ModelConfig", "forward", "init_params",
-           "iter_schema", "layer_params", "logits_fn", "moe_params",
-           "require_attn", "transformer_block"]
+           "iter_schema", "layer_params", "logits_fn", "mamba2_params",
+           "moe_params", "rwkv6_ffn_params", "rwkv6_params", "rwkv6_block",
+           "shared_qkv", "transformer_block", "zamba2_mamba_block",
+           "zamba2_shared_attention"]
 
 
 # =============================================================== configuration
@@ -90,15 +100,6 @@ class ModelConfig:
 
     def param_count(self) -> int:
         return sum(int(np.prod(spec.shape)) for _, spec in iter_schema(self))
-
-
-def require_attn(cfg: ModelConfig, what: str) -> None:
-    """The port's model stack carries the attention families (dense and
-    MoE) only."""
-    if cfg.family not in ("attn", "moe"):
-        raise NotImplementedError(
-            f"{what} for family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 13); the port runs families 'attn' and 'moe'")
 
 
 # ============================================================== schema leaves
@@ -283,7 +284,6 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
     """One dense or MoE transformer layer -> (x, aux), aux the MoE layer's
     ``{"counts", "aux_loss"}`` or None; with ``return_kv``
     (x, aux, (k, v)), the prefill's cache rows."""
-    require_attn(cfg, "transformer_block")
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     h = attention_block(
         h, _attn_params(bp),
@@ -310,6 +310,89 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
     return x + h, aux
 
 
+def rwkv6_params(bp: dict) -> RWKV6Params:
+    """One layer's RWKV-6 time-mix leaves."""
+    return RWKV6Params(*(bp[f] for f in RWKV6Params._fields))
+
+
+def rwkv6_ffn_params(bp: dict) -> RWKV6FFNParams:
+    """One layer's RWKV-6 channel-mix leaves (``f_*``)."""
+    return RWKV6FFNParams(*(bp["f_" + f] for f in RWKV6FFNParams._fields))
+
+
+def mamba2_params(bp: dict) -> Mamba2Params:
+    """One layer's Mamba2 leaves."""
+    return Mamba2Params(*(bp[f] for f in Mamba2Params._fields))
+
+
+def rwkv6_block(x: torch.Tensor, bp: dict, cfg: ModelConfig, state=None,
+                return_shift: bool = False):
+    """One RWKV-6 layer -> (x, final wkv state).  Heads of 64 channels
+    (``d_model // 64``, as the reference; not ``cfg.n_heads``).  With
+    ``return_shift`` -> (x, state, (sh_mix, sh_ffn)): the last position's
+    normed inputs of the time mix and of the channel mix, the token shift
+    a decode step continues from."""
+    xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h, state = rwkv6_mix(xn, rwkv6_params(bp), state,
+                         n_heads=cfg.d_model // 64)
+    x = x + h
+    xn2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    x = x + rwkv6_channel_mix(xn2, rwkv6_ffn_params(bp))
+    if return_shift:
+        return x, state, (xn[:, -1], xn2[:, -1])
+    return x, state
+
+
+def zamba2_mamba_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
+                       state=None):
+    """One Zamba2 Mamba2 layer (no MLP) -> (x, final SSM state)."""
+    h, state = mamba2_mix(rms_norm(x, bp["ln1"], cfg.norm_eps),
+                          mamba2_params(bp), state, d_inner=cfg.d_inner,
+                          n_heads=cfg.mamba_heads, d_state=cfg.ssm_state)
+    return x + h, state
+
+
+def shared_qkv(h: torch.Tensor, sp: dict, cfg: ModelConfig, inv: int):
+    """The shared block's q, k, v projections of the normed input ``h``
+    (..., D), each with invocation ``inv``'s LoRA delta (h a) b added:
+    (..., H * hd), (..., KVH * hd), (..., KVH * hd)."""
+    dt, hd = h.dtype, cfg.head_dim
+    out = []
+    for nm, n in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
+                  ("v", cfg.n_kv_heads)):
+        delta = (h @ sp[f"lora_{nm}_a"][inv].to(dt)) \
+            @ sp[f"lora_{nm}_b"][inv].to(dt)
+        out.append(h @ sp["w" + nm].to(dt) + delta[..., :n * hd])
+    return out
+
+
+def zamba2_shared_attention(x: torch.Tensor, sp: dict, cfg: ModelConfig,
+                            inv: int, positions: torch.Tensor,
+                            return_kv: bool = False):
+    """The shared attention block at invocation ``inv``: per-invocation
+    LoRA on q/k/v, RoPE, causal attention through
+    :func:`repro_torch.models.attention.flash_train` (the
+    ``flash_attention`` kernel on a CUDA tensor), the output projection,
+    then the shared SwiGLU.  With ``return_kv`` -> (x, (k, v)), the
+    prefill's cache rows (after RoPE)."""
+    h = rms_norm(x, sp["ln"], cfg.norm_eps)
+    b, s, _ = h.shape
+    hd, nh = cfg.head_dim, cfg.n_heads
+    q, k, v = (t.reshape(b, s, -1, hd).transpose(1, 2)
+               for t in shared_qkv(h, sp, cfg, inv))
+    q = apply_rope(q, positions[:, None], cfg.rope_theta)
+    k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    o = attn_lib.flash_train(q, k, v, causal=True, window=cfg.window,
+                             causal_schedule=cfg.causal_schedule,
+                             block_k=cfg.attn_block_k)
+    x = x + o.transpose(1, 2).reshape(b, s, nh * hd) @ sp["wo"].to(h.dtype)
+    hm = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
+    x = x + swiglu(hm, sp["w_gate"], sp["w_up"], sp["w_down"])
+    if return_kv:
+        return x, (k, v)
+    return x
+
+
 # ================================================================== forward
 def default_positions(cfg: ModelConfig, b: int, s: int,
                       device: torch.device) -> torch.Tensor:
@@ -328,26 +411,44 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens=None, embeds=None
 
 def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Teacher-forced forward pass -> (hidden (B, S, D), aux).  Every layer's
-    attention goes through :func:`repro_torch.models.attention.flash_train`,
-    which launches the ``flash_attention`` kernel on a CUDA tensor.  For the
+    """Teacher-forced forward pass -> (hidden (B, S, D), aux).  Every
+    attention (each layer of the dense and MoE families, each invocation of
+    zamba2's shared block) goes through
+    :func:`repro_torch.models.attention.flash_train`, which launches the
+    ``flash_attention`` kernel on a CUDA tensor; rwkv6 runs none.  For the
     MoE family ``aux["expert_counts"]`` is the (L, E) int32 router
-    telemetry and ``aux["moe_aux_loss"]`` the layers' mean balance loss."""
-    require_attn(cfg, "forward")
+    telemetry and ``aux["moe_aux_loss"]`` the layers' mean balance loss;
+    for the other families ``aux`` is empty."""
     x = embed_inputs(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
-    layer_aux = []
-    for i in range(cfg.n_layers):
-        x, moe_aux = transformer_block(x, layer_params(params, i), cfg,
-                                       positions)
-        layer_aux.append(moe_aux)
     aux: Dict[str, Any] = {}
-    if cfg.family == "moe":
-        aux["expert_counts"] = torch.stack([a["counts"] for a in layer_aux])
-        aux["moe_aux_loss"] = torch.stack(
-            [a["aux_loss"] for a in layer_aux]).mean()
+    if cfg.family in ("attn", "moe"):
+        layer_aux = []
+        for i in range(cfg.n_layers):
+            x, moe_aux = transformer_block(x, layer_params(params, i), cfg,
+                                           positions)
+            layer_aux.append(moe_aux)
+        if cfg.family == "moe":
+            aux["expert_counts"] = torch.stack(
+                [a["counts"] for a in layer_aux])
+            aux["moe_aux_loss"] = torch.stack(
+                [a["aux_loss"] for a in layer_aux]).mean()
+    elif cfg.family == "rwkv6":
+        for i in range(cfg.n_layers):
+            x, _ = rwkv6_block(x, layer_params(params, i), cfg)
+    elif cfg.family == "zamba2":
+        # groups of zamba_attn_every Mamba2 layers, each followed by the
+        # shared block at its invocation index
+        every = cfg.zamba_attn_every
+        for inv in range(cfg.n_shared_attn):
+            for i in range(inv * every, (inv + 1) * every):
+                x, _ = zamba2_mamba_block(x, layer_params(params, i), cfg)
+            x = zamba2_shared_attention(x, params["shared_attn"], cfg, inv,
+                                        positions)
+    else:
+        raise ValueError(cfg.family)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 

@@ -116,14 +116,6 @@ def test_params_round_trip_keeps_dtype():
                                   np.asarray(jp["blocks"]["w_up"], np.float32))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
-def test_other_families_are_not_ported_yet(arch):
-    cfg = get_smoke_config(arch)
-    params = tm.init_params(cfg, 0, device="cpu")     # the schema walk works
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.forward(params, cfg, tokens=torch.zeros((1, 4), dtype=torch.int64))
-
-
 # -------------------------------------------------------------------- layers
 @pytest.mark.parametrize("act", sorted(ACTS))
 def test_rms_norm_and_swiglu(act):

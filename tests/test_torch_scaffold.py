@@ -44,7 +44,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.gather_count, "
             "repro_torch.kernels.embedding_bag, "
             "repro_torch.workloads.mmap_bench, repro_torch.models, "
-            "repro_torch.models.model, repro_torch.serve, "
+            "repro_torch.models.model, repro_torch.models.rwkv6, "
+            "repro_torch.models.mamba2, repro_torch.serve, "
             "repro_torch.serve.engine, repro_torch.launch, "
             "repro_torch.launch.serve, repro_torch.configs, "
             "repro_torch.scenarios.kv_cache, "

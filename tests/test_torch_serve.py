@@ -238,8 +238,8 @@ def test_kv_scenario_own_stream_follows_the_reference(kv_pair):
     """The port's own decode loop (carried weights, bf16 smoke model): its
     masses are within tolerance of the reference's, its stream has the
     reference's shape and totals.  The per-step counts may differ where a
-    last-bit mass difference flips a largest-remainder rounding (ROADMAP
-    Queue 1 item 13); that count is bounded, not zero."""
+    last-bit mass difference flips a largest-remainder rounding; that
+    count is bounded, not zero."""
     j, j_epochs, t = kv_pair
     t_epochs = list(t.epochs())
     assert len(t_epochs) == len(j_epochs) == t.n_epochs
@@ -308,10 +308,3 @@ def test_serving_entry_points_default_to_cuda(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
 
-
-def test_serving_other_families_raise():
-    cfg = get_smoke_config("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        teng.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])
