@@ -10,7 +10,8 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
 2. build: the five kernels' CUDA sources compiled from
    ``src/repro_torch/**/csrc``, one ``nvcc`` each, in parallel (seconds and
    the ``ptxas`` register and spill report of each; the TF32
-   flash_attention kernels must not spill, and their static SASS
+   flash_attention kernels and the tensor-core ones at every head dim
+   (64, 80, 112, 128) must not spill, and the TF32 kernels' static SASS
    instruction mix is printed);
 3. observe_scatter vs its plain version, exact, with and without a keep
    mask, each case on the table mode ``kernel.table_mode`` names (direct:
@@ -72,13 +73,15 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     internlm2-1.8b prefill shapes (S=4096, bfloat16), MQA d=256, a sliding
     window, non-causal, and ragged S in {1, 19, 1000}; then the bfloat16
     tensor-core route at d=64 and 128 with ragged S in {130, 1000},
-    non-causal Sq != Sk and a window, the CUDA-core route at d=80
-    (zamba2-2.7b) and d=112 (kimi-k2), and the float32 TF32 route at d=64
-    and 128: the qwen2-0.5b prefill, ragged S in {130, 1000}, a window edge
-    inside a KV tile, non-causal Sq > Sk and Sq < Sk; each case must take
-    the route that ``kernel.route`` names for its dtype and head dim, and on
-    each TF32 case the CUDA-core kernel, named through ``kernel._launch``,
-    must pass too;
+    non-causal Sq != Sk and a window, the same route at d=80 (zamba2-2.7b,
+    32 heads) and d=112 (kimi-k2, 64 over 8) with S in {130, 512, 1000},
+    non-causal Sq > Sk and Sq < Sk and a window edge inside a KV
+    tile, and the float32 TF32 route at d=64 and 128: the qwen2-0.5b
+    prefill, ragged S in {130, 1000}, a window edge inside a KV tile,
+    non-causal Sq > Sk and Sq < Sk; each case must take the route that
+    ``kernel.route`` names for its dtype and head dim, and on each TF32
+    case and each bfloat16 case at d=80 and 112 the CUDA-core kernel, named
+    through ``kernel._launch``, must pass too;
 14. the serving path at full width:
     ``repro_torch.launch.serve.main(["--arch", "qwen2-0.5b", "--batch",
     "4", "--prompt-len", "64", "--gen", "32", "--page-size", "16"])`` (the
@@ -194,8 +197,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     steps, under ``set_sync_debug_mode("error")``, every output and cache
     leaf against the CPU's (RECURRENT_F32_TOL; bfloat16 by the rule of
     ``tests/_torch_recurrent.py``); zamba2's prefill launches
-    flash_attention once per shared-block invocation (2), on the CUDA-core
-    route, its decode none, rwkv6 none; (b) one block at full width,
+    flash_attention once per shared-block invocation (2), on the route
+    ``kernel.route`` names (d 32: the CUDA cores), its decode none, rwkv6
+    none; (b) one block at full width,
     float32, B 1 x 130 tokens, GPU against CPU within RECURRENT_F32_TOL:
     rwkv6-3b's layer 0 (output and wkv state), zamba2-2.7b's first group
     (6 Mamba2 layers, each output and SSM state, then the shared block at
@@ -203,13 +207,15 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     ``launch.serve.main`` (float32 weights, bf16 activations, all layers;
     B 4, prompts 64 and 4,096, 32 tokens; every prefill and decode step
     under the sync check): the weights' draw, prefill and decode tokens/s,
-    peak memory, 9 CUDA-core flash_attention launches per zamba2 prefill,
-    none in decode, none for rwkv6; (d) flash_attention at zamba2-2.7b's
-    prefill shape (B 4, H 32, KVH 32, S 4,096, d 80, bfloat16, causal, the
-    CUDA-core route) against its plain version, timed beside
-    ``scaled_dot_product_attention(is_causal=True)``, the tensor-core bf16
-    bound and the CUDA cores' float32 bound (the kernel line's
-    ``flash_attention_zamba2`` entry).
+    peak memory, 9 flash_attention launches per zamba2 prefill, all on the
+    tensor cores (bf16 at d 80), none in decode, none for rwkv6; (d)
+    flash_attention at zamba2-2.7b's prefill shape (B 4, H 32, KVH 32, S
+    4,096, d 80, bfloat16, causal, the tensor-core route) and at kimi-k2's
+    (B 2, H 64, KVH 8, S 4,096, d 112) against its plain version, timed
+    beside ``scaled_dot_product_attention(is_causal=True)`` and the bf16
+    tensor-core bound, and in turns with the CUDA-core kernel named
+    through ``kernel._launch`` (the kernel line's ``flash_attention_zamba2``
+    and ``flash_attention_kimi_k2`` entries).
 
 Each path (8-11, 14-16, 18-23) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
@@ -824,9 +830,27 @@ FLASH_CASES = [
     ("non-causal Sq<Sk d=128", 2, 16, 8, 300, 517, 128, "bfloat16", False,
      None),
     ("window 200 d=128", 2, 16, 8, 1000, 1000, 128, "bfloat16", True, 200),
-    # the configs' other head dims, on the CUDA-core route
+    # the tensor-core route at zamba2-2.7b's d=80 (32 heads) and kimi-k2's
+    # d=112 (GQA 64 / 8), whose last 64-column panel runs past d: ragged
+    # tiles, Sq != Sk, a window edge inside a KV tile
     ("zamba2-2.7b d=80", 1, 32, 32, 512, 512, 80, "bfloat16", True, None),
     ("kimi-k2 d=112", 1, 64, 8, 512, 512, 112, "bfloat16", True, None),
+    ("ragged S=130 d=80", 2, 32, 32, 130, 130, 80, "bfloat16", True, None),
+    ("ragged S=1000 d=80", 1, 32, 32, 1000, 1000, 80, "bfloat16", True,
+     None),
+    ("ragged S=130 d=112", 2, 64, 8, 130, 130, 112, "bfloat16", True, None),
+    ("ragged S=1000 d=112", 1, 64, 8, 1000, 1000, 112, "bfloat16", True,
+     None),
+    ("non-causal Sq>Sk d=80", 1, 32, 32, 517, 300, 80, "bfloat16", False,
+     None),
+    ("non-causal Sq<Sk d=80", 1, 32, 32, 300, 517, 80, "bfloat16", False,
+     None),
+    ("non-causal Sq>Sk d=112", 1, 64, 8, 517, 300, 112, "bfloat16", False,
+     None),
+    ("non-causal Sq<Sk d=112", 1, 64, 8, 300, 517, 112, "bfloat16", False,
+     None),
+    ("window 200 d=80", 1, 32, 32, 1000, 1000, 80, "bfloat16", True, 200),
+    ("window 200 d=112", 1, 64, 8, 1000, 1000, 112, "bfloat16", True, 200),
     # the TF32 route (float32, d in 64, 128; "window 128", "non-causal" and
     # "ragged S=1000" above take it too): the qwen2-0.5b prefill, ragged
     # tiles, a window edge inside a KV tile, non-causal Sq != Sk, GQA 14 / 2
@@ -910,10 +934,22 @@ def flash_allowed(ref, dtype: str):
     return atol + tol["rtol"] * ref
 
 
+def flash_verdict(got, ref, dtype: str):
+    """(max |got - ref|, [the largest |err| / FLASH_TOL's bound, the share
+    of outputs that differ at all], whether both are within FLASH_TOL)."""
+    diff = (got.float() - ref.float()).abs()
+    share = [float((diff / flash_allowed(ref, dtype)).max()),
+             float((diff > 0).float().mean())]
+    return float(diff.max()), share, (
+        share[0] <= 1.0
+        and share[1] <= FLASH_TOL[dtype].get("differing_share", 1.0))
+
+
 def check_flash_attention(dev, plain):
     """Phase 13: flash_attention == plain within FLASH_TOL at every case,
     each on the route ``kernel.route`` names, and the CUDA-core kernel,
-    named through ``kernel._launch``, on every case of the TF32 route;
+    named through ``kernel._launch``, on every case of the TF32 route and
+    every bfloat16 case at d 80 and 112 (the tensor-core route there);
     returns ({label: max abs err}, {label: [the largest |err| / allowed,
     the share of outputs that differ at all]}, {label: route}, {label: the
     named CUDA-core kernel's max abs err})."""
@@ -933,28 +969,23 @@ def check_flash_attention(dev, plain):
                  f"{routes[label]} kernel")
         ref = flash_attention(q, k, v, backend=plain, **kw)
         torch.cuda.synchronize()
-        diff = (got.float() - ref.float()).abs()
-        errs[label] = float(diff.max())
-        share = diff / flash_allowed(ref, dtype)
-        shares[label] = [float(share.max()),
-                         float((diff > 0).float().mean())]
-        if not (got.dtype == q.dtype and got.shape == q.shape
-                and shares[label][0] <= 1.0 and shares[label][1]
-                <= FLASH_TOL[dtype].get("differing_share", 1.0)):
+        errs[label], shares[label], ok = flash_verdict(got, ref, dtype)
+        if not (got.dtype == q.dtype and got.shape == q.shape and ok):
             fail(f"flash_attention differs from its plain version ({label}, "
                  f"{dtype}, max abs err {errs[label]}, largest share of the "
                  f"tolerance and share of outputs that differ "
                  f"{shares[label]}, {FLASH_TOL[dtype]})")
-        if routes[label] == "tf32x3":
+        if routes[label] == "tf32x3" or (routes[label] == "tensor_core"
+                                         and d in (80, 112)):
             old = fa_kernel._launch("cuda_core", q, k, v, **kw)
             torch.cuda.synchronize()
-            old_diff = (old - ref).abs()
-            cuda_core[label] = float(old_diff.max())
-            if not bool((old_diff <= flash_allowed(ref, dtype)).all()):
+            cuda_core[label], old_share, ok = flash_verdict(old, ref, dtype)
+            if not ok:
                 fail(f"the CUDA-core kernel named on {label} differs from "
-                     f"the plain version (max abs err {cuda_core[label]})")
-            del old, old_diff
-        del q, k, v, got, ref, diff, share
+                     f"the plain version (max abs err {cuda_core[label]}, "
+                     f"{old_share})")
+            del old
+        del q, k, v, got, ref
     free_device_memory()
     return errs, shares, routes, cuda_core
 
@@ -1229,13 +1260,15 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     bound: the function's products, 2*B*H*S^2*d over the causal half, at
     the card's peak for the dtype, or q, k, v and the output moved once.
     In bfloat16 that is the dense bf16 tensor-core rate (the tensor-core
-    route does 1.5x those products: P.V twice, as P_hi and P_lo).  In
-    float32 it is three TF32 products for each (lo.hi + hi.lo + hi.hi, the
-    least that keeps float32 accuracy) at the dense TF32 rate, which the
-    TF32 route does; that route is also timed in turns with the CUDA-core
-    kernel on the same input, whose own bound is the products at the CUDA
-    cores' float32 rate.  TFLOP/s are given on the function's work and on
-    the kernel's.  ``window`` is the model's sliding window (one of at
+    route does 1.5x those products: P.V twice, as P_hi and P_lo; at d 80
+    and 112 its products stay d wide); the kernel's own floor, its products
+    at that rate, is reported beside it.  In float32 it is three TF32
+    products for each (lo.hi + hi.lo + hi.hi, the least that keeps float32
+    accuracy) at the dense TF32 rate, which the TF32 route does.  The TF32
+    route, and the tensor-core route at d 80 and 112, are also timed in
+    turns with the CUDA-core kernel on the same input, whose own bound is
+    the products at the CUDA cores' float32 rate.  TFLOP/s are given on the
+    function's work and on the kernel's.  ``window`` is the model's sliding window (one of at
     least ``s_len`` masks nothing beyond the causal mask, so
     ``scaled_dot_product_attention(is_causal=True)`` is the same function).
     The kernel's output is held against the plain version's within
@@ -1254,17 +1287,13 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
         lambda: flash_attention(q, k, v, **kw), 5)
     got = flash_attention(q, k, v, **kw)
     ref = flash_attention(q, k, v, backend=plain, **kw)
-    diff = (got.float() - ref.float()).abs()
-    share = diff / flash_allowed(ref, dtype)
-    checked = dict(max_abs_err=float(diff.max()),
-                   share_of_tolerance=float(share.max()),
-                   differing_share=float((diff > 0).float().mean()))
-    if not (checked["share_of_tolerance"] <= 1.0
-            and checked["differing_share"]
-            <= FLASH_TOL[dtype].get("differing_share", 1.0)):
+    err, share, ok = flash_verdict(got, ref, dtype)
+    checked = dict(max_abs_err=err, share_of_tolerance=share[0],
+                   differing_share=share[1])
+    if not ok:
         fail(f"flash_attention differs from its plain version at the "
              f"{label} prefill shape ({dtype}): {checked}")
-    del got, ref, diff, share
+    del got, ref
     free_device_memory()
     q4, k4, v4 = (x.view(b, -1, s_len, d) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1285,6 +1314,7 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     n_bytes = q.element_size() * (2 * b * h * s_len * d
                                   + 2 * b * kvh * s_len * d)
     route_bound = bound_ms(n_bytes, flops * needed, rate)
+    kernel_floor = kernel_flops / rate * 1e3
     if dtype == "bfloat16":
         # the card's least time for bf16 products is on the tensor cores,
         # whichever route the kernel takes
@@ -1297,6 +1327,7 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
                causal_flops=flops, kernel_flops=kernel_flops, bytes=n_bytes,
                function_tflop_s=flops / ms / 1e9,
                kernel_tflop_s=kernel_flops / ms / 1e9,
+               kernel_floor_ms=kernel_floor,
                vs_sdpa_max_abs_err=sdpa_err)
     if route == "cuda_core":
         out.update(cuda_core_bound_ms=route_bound[0],
@@ -1304,16 +1335,16 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     if (label, dtype) == ("qwen2-0.5b", "bfloat16"):
         out.update(cuda_core_bf16_ms=CUDA_CORE_BF16_QWEN_MS,
                    speedup_over_cuda_core=CUDA_CORE_BF16_QWEN_MS / ms)
-    if route == "tf32x3":
+    if route == "tf32x3" or (route == "tensor_core" and d in (80, 112)):
         ms_beside, cc_ms = in_turns(
-            lambda: fa_kernel._launch("cuda_core", q, k, v,
-                                      q_per_kv=h // kvh),
-            lambda: flash_attention(q, k, v, q_per_kv=h // kvh), 5)
+            lambda: fa_kernel._launch("cuda_core", q, k, v, **kw),
+            lambda: flash_attention(q, k, v, **kw), 5)
         cc_bound, cc_by = bound_ms(n_bytes, flops)
         out.update(cuda_core_ms=cc_ms, ms_in_turns_with_cuda_core=ms_beside,
                    speedup_over_cuda_core=cc_ms / ms_beside,
-                   cuda_core_bound_ms=cc_bound, cuda_core_bound_by=cc_by,
-                   blocks_per_sm=fa_kernel.tf32x3_blocks_per_sm(d))
+                   cuda_core_bound_ms=cc_bound, cuda_core_bound_by=cc_by)
+    if route == "tf32x3":
+        out.update(blocks_per_sm=fa_kernel.tf32x3_blocks_per_sm(d))
     say("flash_attention_time", **out)
     del q, k, v, q4, k4, v4
     free_device_memory()
@@ -2654,6 +2685,18 @@ RECURRENT_BF16_TOL = {"hidden": 6e-2, "logits": 1e-2}
 RECURRENT_BF16_WITHIN = 0.99
 RECURRENT_CHECK_TOKENS = 130
 ZAMBA2_TIME_SHAPE = ("zamba2-2.7b", 4, 32, 32, 80)
+# kimi-k2's attention (64 heads over 8, d 112) at B 2: the plain version's
+# float32 scores are then 8.6 GB a tensor
+KIMI_TIME_SHAPE = ("kimi-k2", 2, 64, 8, 112)
+
+
+def fa_routes(dtype, d: int, n: int) -> dict:
+    """flash_attention's launches by route when ``n`` launches take the
+    route ``kernel.route`` names for (dtype, d)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    out = dict.fromkeys(fa_kernel.ROUTE_LAUNCHES, 0)
+    out[fa_kernel.route(dtype, d)] += n
+    return out
 
 
 def perturbed_params(cfg, seed: int, leaves=None) -> dict:
@@ -2751,11 +2794,11 @@ def recurrent_smoke_gpu_vs_cpu(dev, read_routes) -> dict:
                                         dev, read_routes)
             want, _ = recurrent_run(params, cfg, toks, torch.device("cpu"))
             n_fa = cfg.n_shared_attn if cfg.family == "zamba2" else 0
-            if routes != ({"tensor_core": 0, "tf32x3": 0, "cuda_core": n_fa},
-                          {"tensor_core": 0, "tf32x3": 0, "cuda_core": 0}):
+            want_routes = (fa_routes(act, cfg.head_dim, n_fa),
+                           fa_routes(act, cfg.head_dim, 0))
+            if routes != want_routes:
                 fail(f"{cfg.name} {name} flash_attention launches (prefill, "
-                     f"decode) {routes}: expected {n_fa} on the CUDA cores "
-                     f"in the prefill, none in decode")
+                     f"decode) {routes}: expected {want_routes}")
             if got.keys() != want.keys() or not torch.equal(
                     got["cache_pos"], want["cache_pos"]):
                 fail(f"{cfg.name} {name}: outputs {sorted(got)} vs "
@@ -2815,9 +2858,9 @@ def recurrent_block_full_width(dev, read_routes) -> dict:
                         h, par["shared_attn"], cfg, 0, pos.to(d))
             routes = {r: n - before[r] for r, n in read_routes().items()}
             outs.append({k: v.cpu() for k, v in got.items()})
-            if d == dev and routes != {"tensor_core": 0, "tf32x3": 0,
-                                       "cuda_core": int(
-                                           cfg.family == "zamba2")}:
+            if d == dev and routes != fa_routes(
+                    cfg.activ_dtype, cfg.head_dim,
+                    int(cfg.family == "zamba2")):
                 fail(f"{arch} full-width block flash_attention routes "
                      f"{routes}")
             del par, got, h
@@ -2842,8 +2885,8 @@ def recurrent_serve_full_width(serve_launcher, dev, zero_counts, read_counts,
     weights are drawn once per arch (the launcher's ``init_params``
     wrapped to hand the 4,096-token run the first run's draw, whose time
     is the draw's).  Checks: flash_attention n_shared_attn times (9) a
-    zamba2 prefill on the CUDA-core route, none in decode, none for rwkv6,
-    no other kernel; tokens in range, logits finite, no page telemetry.
+    zamba2 prefill on the route ``kernel.route`` names (bf16 at d 80: the
+    tensor cores), none in decode, none for rwkv6, no other kernel; tokens in range, logits finite, no page telemetry.
     Reports the draw, prefill and decode tokens/s and peak memory.
     Returns zamba2's 64-token run's launches."""
     import torch
@@ -2892,14 +2935,13 @@ def recurrent_serve_full_width(serve_launcher, dev, zero_counts, read_counts,
                 torch.cuda.synchronize()
                 launches, routes = read_counts(), read_routes()
                 want = dict(NO_KERNELS, flash_attention=n_fa)
-                want_routes = {"tensor_core": 0, "tf32x3": 0,
-                               "cuda_core": n_fa}
+                want_routes = fa_routes(cfg.activ_dtype, cfg.head_dim, n_fa)
                 if not (seen["prefill"] == launches == want
                         and routes == want_routes):
                     fail(f"{arch} prompt {plen}: prefill launches "
                          f"{seen['prefill']}, in all {launches} {routes}; "
-                         f"expected {n_fa} flash_attention on the CUDA "
-                         f"cores in the prefill, none in decode")
+                         f"expected {n_fa} flash_attention in the prefill "
+                         f"({want_routes}), none in decode")
                 toks = rep["tokens"]
                 if not (toks.shape == (4, 32) and rep["page_mass"] is None
                         and ((toks >= 0) & (toks < cfg.vocab_size)).all()
@@ -3037,11 +3079,17 @@ def main(until: int = 23) -> None:
                        or "C75" in ln] if log.exists() else []
     say("build", seconds=time.perf_counter() - t0, per_kernel=took,
         ptxas=ptxas)
-    tf32_spills = spill_bytes(_build.library_path("flash_attention")
-                              .with_suffix(".log").read_text(), "tf32x3")
+    fa_log = _build.library_path("flash_attention").with_suffix(
+        ".log").read_text()
+    tf32_spills = spill_bytes(fa_log, "tf32x3")
     if len(tf32_spills) != 2 or any(tf32_spills.values()):
         fail(f"the TF32 flash_attention kernels (d = 64, 128) spill or are "
              f"missing from the ptxas report: {tf32_spills}")
+    wgmma_spills = spill_bytes(fa_log, "fa_wgmma_kernel")
+    if len(wgmma_spills) != 4 or any(wgmma_spills.values()):
+        fail(f"the tensor-core flash_attention kernels (d = 64, 80, 112, "
+             f"128) spill or are missing from the ptxas report: "
+             f"{wgmma_spills}")
     # the TF32 kernels' instruction mix: how many instructions the operand
     # splits and the softmax add to each HMMA
     say("build_sass", tf32x3=sass_mix(_build.library_path("flash_attention"),
@@ -3537,6 +3585,7 @@ def main(until: int = 23) -> None:
     zamba2_launches = recurrent_serve_full_width(
         serve_launcher, dev, zero_counts, read_counts, read_routes)
     fa_zamba2 = flash_attention_time(dev, plain, *ZAMBA2_TIME_SHAPE)
+    fa_kimi = flash_attention_time(dev, plain, *KIMI_TIME_SHAPE)
 
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
@@ -3647,15 +3696,15 @@ def main(until: int = 23) -> None:
          "bound_ms": fa_mixtral["bound_ms"],
          "bound_by": fa_mixtral["bound_by"],
          "library_ms": fa_mixtral["sdpa_ms"]},
-        # the CUDA-core route on zamba2's serving path: its launches in
+        # the tensor-core route on zamba2's serving path: its launches in
         # phase 23c's zamba2-2.7b prefill (prompt 64, one a shared-block
         # invocation, bf16 at d 80), its time and error at that model's
         # prefill shape (S 4096) beside sdpa(is_causal=True); the bound is
-        # the bf16 products on the tensor cores (the CUDA cores' float32
-        # bound is in the phase's line)
+        # the bf16 products on the tensor cores (the CUDA-core kernel's
+        # time in turns and its float32 bound are in the phase's line)
         {"name": "flash_attention_zamba2", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention.cu",
+                   "flash_attention_wgmma.cuh",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
          "launches": zamba2_launches["flash_attention"],
          "max_abs_err": fa_zamba2["max_abs_err"], "ms": fa_zamba2["ms"],
@@ -3663,6 +3712,20 @@ def main(until: int = 23) -> None:
          "bound_ms": fa_zamba2["bound_ms"],
          "bound_by": fa_zamba2["bound_by"],
          "library_ms": fa_zamba2["sdpa_ms"]},
+        # the same route at kimi-k2's attention (bf16, d 112, GQA 64 / 8,
+        # B 2, S 4096), beside sdpa(is_causal=True): no path serves kimi-k2
+        # on the card (1 T parameters), so the launches are the route's own
+        # on the main path, phase 23c's zamba2-2.7b prefill
+        {"name": "flash_attention_kimi_k2", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": zamba2_launches["flash_attention"],
+         "max_abs_err": fa_kimi["max_abs_err"], "ms": fa_kimi["ms"],
+         "plain_ms": fa_kimi["plain_ms"],
+         "bound_ms": fa_kimi["bound_ms"],
+         "bound_by": fa_kimi["bound_by"],
+         "library_ms": fa_kimi["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

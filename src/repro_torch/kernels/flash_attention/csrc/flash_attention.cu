@@ -29,16 +29,21 @@
 //     the heaviest query tiles go first, to shorten the causal tail;
 //   * element offsets are 64-bit.
 //
-// Three routes, fixed by dtype and head dim (kernel.py's route()).  At d = 64
-// and 128, the head dims of the published attention configs, bfloat16 runs on
-// the tensor cores through wgmma (flash_attention_wgmma.cuh) and float32 on
-// the TF32 tensor cores through mma.sync, each product split three ways so
-// that it keeps float32 accuracy (flash_attention_tf32x3.cuh): one TF32
-// product misses the float32 tolerance of 2e-5, three of them meet it, and
-// the TF32 rate is 7x the CUDA cores'.  Everything else runs this CUDA-core
-// kernel: float32 at d in {16, 32, 80, 112, 256} and bfloat16 at d in {16,
-// 32, 80, 112, 256}.  It still takes float32 at d = 64 and 128 when it is
-// named (kernel.py's _launch), to be held against the TF32 route.
+// Three routes, fixed by dtype and head dim (kernel.py's route()):
+//   * bfloat16 at d in {64, 80, 112, 128} (the dense configs', zamba2's and
+//     kimi-k2's) runs on the tensor cores through wgmma
+//     (flash_attention_wgmma.cuh; d 80 and 112 with a last shared-memory
+//     panel that TMA fills past d with zeros);
+//   * float32 at d in {64, 128} on the TF32 tensor cores through mma.sync,
+//     each product split three ways so that it keeps float32 accuracy
+//     (flash_attention_tf32x3.cuh): one TF32 product misses the float32
+//     tolerance of 2e-5, three of them meet it, and the TF32 rate is 7x the
+//     CUDA cores';
+//   * everything else on this CUDA-core kernel: float32 at d in {16, 32, 80,
+//     112, 256} and bfloat16 at d in {16, 32, 256}.
+// This kernel still takes float32 at d = 64 and 128 and bfloat16 at d = 80
+// and 112 when it is named (kernel.py's _launch), to be held against the
+// tensor-core routes on the same input.
 //
 // Bound, on this card: operations for long prompts, bytes for short ones.
 // At the qwen2-0.5b prefill shape (B=4, H=14, KVH=2, d=64, S=4096) the
@@ -296,9 +301,10 @@ template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, long long n_bh,
              int sq, int sk, int d, int q_per_kv, int causal, int window,
              float scale, cudaStream_t s) {
-  // bf16 at d = 64 and 128 takes the tensor-core kernel (flash_attention_wgmma.cuh);
-  // f32 there is the TF32 route's (flash_attention_tf32x3.cuh), but is taken
-  // here too when this kernel is named
+  // bf16 at d = 64 and 128 is the tensor-core kernel's alone
+  // (flash_attention_wgmma.cuh); bf16 at 80 and 112 is its too, and f32 at 64
+  // and 128 the TF32 route's (flash_attention_tf32x3.cuh), but both are taken
+  // here when this kernel is named
   constexpr bool kF32 = std::is_same<T, float>::value;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
@@ -323,7 +329,8 @@ extern "C" {
 // The CUDA-core kernel.  q: (n_bh, sq, d); k, v: (n_bh / q_per_kv, sk, d); out
 // like q.  dtype: 0 = float32 (d in 16, 32, 64, 80, 112, 128, 256; at 64 and
 // 128 the TF32 route below is the wrapper's choice), 1 = bfloat16 (d in 16,
-// 32, 80, 112, 256).  window < 0: no window.
+// 32, 80, 112, 256; at 80 and 112 the tensor-core route below is the
+// wrapper's choice).  window < 0: no window.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            long long n_bh, long long sq, long long sk, int d,
                            int q_per_kv, int causal, int window, float scale,
@@ -340,8 +347,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel: bfloat16 q, k, v and out as above, d in 64, 128,
-// sk >= 1, every pointer 16-byte aligned.  Returns a cudaError_t, or a
+// The tensor-core kernel: bfloat16 q, k, v and out as above, d in 64, 80,
+// 112, 128, sk >= 1, every pointer 16-byte aligned.  Returns a cudaError_t, or a
 // negative code for a refused tensor map (fa_wgmma::kNoDriverEntry,
 // fa_wgmma::kEncodeFailed minus the CUresult).
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out,
@@ -351,12 +358,12 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
     return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return fa_wgmma::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
-                                window, scale, s);
-  if (d == 128)
-    return fa_wgmma::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
-                                 window, scale, s);
+  switch (d) {
+    case 64: return fa_wgmma::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 80: return fa_wgmma::launch<80>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 112: return fa_wgmma::launch<112>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 128: return fa_wgmma::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

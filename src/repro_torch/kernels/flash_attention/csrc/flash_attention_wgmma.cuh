@@ -1,5 +1,5 @@
-// flash_attention's bfloat16 route for d = 64 and 128: Hopper's tensor cores
-// (wgmma) fed by TMA, for sm_90a.
+// flash_attention's bfloat16 route for d = 64, 80, 112 and 128: Hopper's
+// tensor cores (wgmma) fed by TMA, for sm_90a.
 //
 // The same function as the CUDA-core kernel in flash_attention.cu (which
 // replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py,
@@ -14,7 +14,10 @@
 // d=64, causal) the function's products are 2*B*H*S^2*d = 120 GFLOP, 0.12 ms
 // at the dense bf16 tensor-core rate (989 TFLOP/s), against 67 MB of q, k, v
 // and output (0.02 ms at 3.35 TB/s).  This kernel does 1.5x those products
-// (the P.V split below), so it cannot come closer than 0.18 ms.
+// (the P.V split below), so it cannot come closer than 0.18 ms.  At
+// zamba2-2.7b's prefill (B=4, H=KVH=32, S=4096, d=80) the function is 343.6
+// GFLOP, 0.347 ms, and the kernel's own floor 0.521 ms; computed at a padded
+// 128 columns it would be 0.834 ms.
 //
 // Shape of the kernel (FA3's):
 //   * one block per (bh, 128-query tile), heaviest causal tiles first; three
@@ -22,14 +25,23 @@
 //     one thread issues the TMA loads.  setmaxnreg moves registers from the
 //     producer (40) to the consumers (232);
 //   * Q is loaded once by TMA; K and V tiles of 128 keys go through a ring of
-//     3 stages in shared memory (224 KB at d = 128), each stage with a "full"
+//     3 stages in shared memory (224 KB at DP = 128), each stage with a "full"
 //     mbarrier (TMA bytes arrived) and an "empty" one (all 256 consumer
 //     threads done with it); KV tiles that the causal mask or the window hides
 //     from every row of the query tile are never loaded;
 //   * the TMA maps are 3-D (rows, s, d): a box that runs past s is zero-filled
 //     and never reads the next head's rows.  Rows are 128-byte-swizzled panels
-//     of 64 columns (d = 128 takes two panels per tile), the layout the wgmma
-//     descriptors below describe;
+//     of 64 columns, the layout the wgmma descriptors below describe; a tile
+//     takes DP / 64 panels, DP being d rounded up to whole panels (64 at d =
+//     64, 128 at d = 80, 112 and 128);
+//   * d that is not whole panels (80: 64 + 16 columns, 112: 64 + 48): the map
+//     has the tensor's real row (160 or 224 bytes), and the last panel's box
+//     runs past d, where TMA fills zeros (the mbarrier still counts the whole
+//     box's bytes).  No product reads those columns: S takes d/16 k-steps,
+//     and the last panel's P.V is an m64nNk16 with N = d - 64 (16 or 48), read
+//     from the first N columns of the same 128-byte-swizzled panel; the
+//     store writes the first d columns of each row.  Shared memory, the ring
+//     and the registers are DP's;
 //   * S = Q.K^T: d/16 wgmma m64n128k16, both operands in shared memory, float32
 //     accumulator (products of bf16 inputs are exact in float32, as in the
 //     plain version).  The scale (times log2 e) and the mask act on the
@@ -40,7 +52,8 @@
 //     float32 p per thread and the quad's partial sums are added at the end;
 //   * P.V from registers: the m64nNk16 accumulator layout of S is the A-operand
 //     fragment layout of the next wgmma, so p is packed in place; V is the
-//     MN-major B operand (transpose bit set), one m64n64k16 per 64-column panel;
+//     MN-major B operand (transpose bit set), one m64n64k16 per whole
+//     64-column panel and one m64nNk16 for a last panel of N < 64 columns;
 //   * overlap (FA3's): a consumer issues the next tile's S and this tile's P.V
 //     back to back, waits for S alone (wait_group 1) and runs the next softmax
 //     while P.V runs; the two consumers take turns at issuing (named barriers
@@ -57,13 +70,14 @@
 // bf16 step plus 1e-3 of the largest output, and at most 1 % of the outputs
 // differing at all.  Rounding p to bf16 before the product (FA2 / FA3) fails
 // that check by far: in a float32 emulation on the CPU at the check's inputs
-// (q scaled by 3, k and v by 1, causal; 14 over 2 heads, S=1024, d=64 and 16
-// over 8, S=512, d=128) 24-26 % of the outputs differ, against 0.02-0.08 %
-// with p in float32.  So p is split, P_hi = bf16(p), P_lo = bf16(p - P_hi) (the
-// difference is exact in float32), and O += P_hi.V + P_lo.V in one float32
-// accumulator: p then carries 16 significant bits, and 0.11-0.13 % of the
-// outputs differ (tests/test_torch_flash_numerics.py runs that emulation).  The cost
-// is a third product per tile, 1.5x the tensor-core work of a bf16 P.
+// (q scaled by 3, k and v by 1, causal; 14 over 2 heads, S=1024, d=64; 16 over
+// 8, S=512, d=128; 32 over 32, S=512, d=80; 64 over 8, S=512, d=112) 23-24 % of
+// the outputs differ, against 0.04-0.05 % with p in float32.  So p is split,
+// P_hi = bf16(p), P_lo = bf16(p - P_hi) (the difference is exact in float32),
+// and O += P_hi.V + P_lo.V in one float32 accumulator: p then carries 16
+// significant bits, and 0.11-0.12 % of the outputs differ
+// (tests/test_torch_flash_numerics.py runs that emulation).  The cost is a
+// third product per tile, 1.5x the tensor-core work of a bf16 P.
 #pragma once
 
 #include <cuda.h>
@@ -86,9 +100,13 @@ constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
 struct Smem {                      // byte offsets from a 1024-aligned base
-  static constexpr int kPanels = D / kPanel;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;          // one K or V tile
+  static_assert(D % 16 == 0 && D <= 2 * kPanel, "d: a multiple of 16, at most 128");
+  static constexpr int kPanels = (D + kPanel - 1) / kPanel;
+  static constexpr int kDP = kPanels * kPanel;            // the compute width
+  static constexpr int kSteps = D / 16;                   // k-steps of S = Q.K^T
+  static constexpr int kTailN = D - (kPanels - 1) * kPanel;   // the last panel's columns
+  static constexpr int kQBytes = kBQ * kDP * 2;
+  static constexpr int kTileBytes = kBK * kDP * 2;        // one K or V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
@@ -175,12 +193,15 @@ __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
-// ties the accumulator registers to this point, so that no read of them is
-// moved above the wait for the asynchronous product that writes them
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+// ties the first N (by default all) accumulator registers to this point, so
+// that no read of them is moved above the wait for the asynchronous product
+// that writes them
+template <int N = -1, int M>
+__device__ __forceinline__ void fence_regs(float (&r)[M]) {
+  constexpr int n = N < 0 ? M : N;
+  static_assert(n <= M, "fence_regs: N > M");
 #pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // operand lists of the wgmma accumulators: FA_R64(FA_ACC) reads and writes
@@ -212,18 +233,42 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
     asm volatile(FA_SS_N128 : FA_R64(FA_SET) : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
-// d (64 x 64, float32) += A (64 x 16 bf16, registers) . B (16 x 64, MN-major, shared)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FA_R32(FA_ACC)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+// d (64 x N, float32: the first N / 2 registers of an m64n64 fragment) += A
+// (64 x 16 bf16, registers) . B (16 x N, MN-major, shared), N = 16, 48 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : FA_R32(FA_ACC)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : FA_R8(FA_ACC, 0), FA_R8(FA_ACC, 8), FA_R8(FA_ACC, 16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else {
+    static_assert(N == 16, "wgmma_rs: N in 16, 48, 64");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : FA_R8(FA_ACC, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
 }
 
 // ---------------------------------------------------------------- kernel
@@ -234,6 +279,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
                 int sq, int sk, int q_per_kv, int causal, int window, float scale_log2, int n_qt) {
   using L = Smem<D>;
   constexpr int NP = L::kPanels;
+  constexpr int NT = L::kTailN;      // columns of the last panel that hold d
   constexpr float kNegInf = -INFINITY;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
@@ -305,7 +351,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       const uint32_t k_tile = s_k + (it % kStages) * L::kTileBytes;
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
+      for (int ks = 0; ks < L::kSteps; ++ks) {
         const int off = (ks / 4) * 128 * 128 + (ks % 4) * 32;   // kBQ = kBK = 128 rows per panel
         if (ks == 0)
           wgmma_ss_n128<false>(s, sw128_desc(q_wg + off), sw128_desc(k_tile + off));
@@ -314,14 +360,21 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       }
       wgmma_commit();
     };
+    // the accumulator registers that hold columns below d: the whole panels'
+    // 32 and the last panel's NT / 2
+    const auto fence_o = [&]() {
+#pragma unroll
+      for (int p = 0; p + 1 < NP; ++p) fence_regs(o[p]);
+      fence_regs<NT / 2>(o[NP - 1]);
+    };
     // O *= alpha, before the P.V that adds the next tile
     const auto rescale_o = [&]() {
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i / 2) % 2];
-#pragma unroll
-      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+        for (int i = 0; i < 32; ++i)
+          if (p + 1 < NP || i < NT / 2) o[p][i] *= alpha[(i / 2) % 2];
+      fence_o();
     };
     // O += P_hi V + P_lo V for tile it, issued and committed
     const auto pv_product = [&](int it) {
@@ -332,8 +385,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         for (int kk = 0; kk < kBK / 16; ++kk) {
           const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3]};
 #pragma unroll
-          for (int p = 0; p < NP; ++p)
-            wgmma_rs_n64(o[p], a, sw128_desc(v_tile + p * kBK * 128 + kk * 2048));
+          for (int p = 0; p + 1 < NP; ++p)
+            wgmma_rs<kPanel>(o[p], a, sw128_desc(v_tile + p * kBK * 128 + kk * 2048));
+          wgmma_rs<NT>(o[NP - 1], a,
+                       sw128_desc(v_tile + (NP - 1) * kBK * 128 + kk * 2048));
         }
       };
       pv(p_hi);
@@ -420,8 +475,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       fence_regs(s);
       softmax(it + 1);
       wgmma_wait<0>();                                 // P.V of tile it
-#pragma unroll
-      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+      fence_o();
       mbar_arrive(bar_empty + 8 * (it % kStages));
       pack_p();
     }
@@ -431,11 +485,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       pv_product(n_tiles - 1);
       if (wg == 0) named_arrive(their_turn);           // warpgroup 1 hands over to no one
       wgmma_wait<0>();
-#pragma unroll
-      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+      fence_o();
     }
 
-    // o / l, rounded once to bf16; rows past sq are not stored
+    // o / l, rounded once to bf16, the first d columns of a row; rows past sq
+    // are not stored
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float lr = l[r];
@@ -448,6 +502,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         for (int p = 0; p < NP; ++p)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
+            if (p * kPanel + 8 * j >= D) continue;
             const float a = lr > 0.f ? o[p][4 * j + 2 * r] / lr : 0.f;
             const float b = lr > 0.f ? o[p][4 * j + 2 * r + 1] / lr : 0.f;
             *reinterpret_cast<__nv_bfloat162*>(orow + p * kPanel + 8 * j + 2 * t4) =
@@ -479,7 +534,9 @@ constexpr int kNoDriverEntry = -1;
 constexpr int kEncodeFailed = -1000;   // minus the CUresult
 
 // a (rows, s, d) bf16 tensor in boxes of 64 columns x box_rows rows x 1,
-// 128-byte swizzle, zero fill past its edges
+// 128-byte swizzle, zero fill past its edges (the last box of a row past d,
+// when d is not a multiple of 64: its row stride, 2d bytes, is a multiple of
+// 16 for d a multiple of 8, as TMA needs)
 inline int make_map(CUtensorMap* map, const void* ptr, long long rows, int s, int d,
                     int box_rows) {
   const EncodeTiled fn = encode_tiled();

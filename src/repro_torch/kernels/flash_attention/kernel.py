@@ -3,13 +3,16 @@ in ``csrc/flash_attention_wgmma.cuh`` and ``csrc/flash_attention_tf32x3.cuh``
 for what they replace, what bounds them and how).
 
 Three kernels, one function.  :func:`route` picks one from the dtype and the
-head dim, fixed in code: at d = 64 and 128, bfloat16 runs on the tensor
-cores (``"tensor_core"``: wgmma fed by TMA) and float32 on the TF32 tensor
-cores with every product split three ways (``"tf32x3"``: mma.sync fed by
-cp.async); everything else runs on the CUDA cores (``"cuda_core"``).  A
-launch that fails raises; no route stands in for another.  The private
-:func:`_launch` names a route, to hold the CUDA-core kernel against the TF32
-one on the same float32 input; no path calls it.
+head dim, fixed in code (``TENSOR_CORE_HEAD_DIMS``): bfloat16 at d = 64, 80,
+112 and 128 runs on the tensor cores (``"tensor_core"``: wgmma fed by TMA;
+80 and 112 in a second 64-column panel that TMA fills with zeros past d);
+float32 at d = 64 and 128 on the TF32 tensor cores with every product split
+three ways (``"tf32x3"``: mma.sync fed by cp.async); everything else runs
+on the CUDA cores (``"cuda_core"``: float32 at d = 16, 32, 80, 112 and 256,
+bfloat16 at 16, 32 and 256).  A launch that fails raises; no route stands
+in for another.  The private :func:`_launch` names a route, to hold the
+CUDA-core kernel against a tensor-core one on the same input (float32 at
+64 / 128, bfloat16 at 80 / 112); no path calls it.
 
 The wrapper checks its inputs, allocates the output, launches on the current
 stream and raises if the launch failed (a launch refused for its shared
@@ -37,8 +40,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernels take: the smoke configs' 16, the published configs'
 # 64 and 128, zamba2's 80 and kimi-k2's 112, and 32 / 256 beside them
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
-# at these, bfloat16 runs on the tensor cores and float32 on the TF32 ones
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+# the head dims each dtype runs at on the tensor cores: bfloat16 on wgmma,
+# float32 on the TF32 ones
+TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (64, 80, 112, 128),
+                         torch.float32: (64, 128)}
+# the head dims the CUDA-core kernel takes, when route() gives it or it is
+# named through _launch
+_CUDA_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 80, 112, 256),
+                        torch.float32: HEAD_DIMS}
 # the routes whose copies (TMA, cp.async) need 16-byte-aligned q, k and v
 _ALIGNED_ROUTES = ("tensor_core", "tf32x3")
 
@@ -50,7 +59,7 @@ def route(dtype: torch.dtype, d: int) -> str:
         raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if d in TENSOR_CORE_HEAD_DIMS:
+    if d in TENSOR_CORE_HEAD_DIMS[dtype]:
         return "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
     return "cuda_core"
 
@@ -99,8 +108,8 @@ def _launch(way: str | None, q: torch.Tensor, k: torch.Tensor,
             sm_scale: float | None = None) -> torch.Tensor:
     """:func:`flash_attention_cuda` on the kernel ``way`` names, or on
     :func:`route`'s when it is None.  ``"cuda_core"`` takes float32 at every
-    head dim; ``"tensor_core"`` and ``"tf32x3"`` only what :func:`route`
-    gives them."""
+    head dim and bfloat16 at every one but 64 and 128; ``"tensor_core"`` and
+    ``"tf32x3"`` only what :func:`route` gives them."""
     global LAUNCHES
     refuse_grad("flash_attention", q, k, v)
     dev = q.device
@@ -118,7 +127,7 @@ def _launch(way: str | None, q: torch.Tensor, k: torch.Tensor,
                          f"be (B*KVH, Sk, {d})")
     which = route(q.dtype, d)
     if way is not None and way != which and not (
-            way == "cuda_core" and q.dtype == torch.float32):
+            way == "cuda_core" and d in _CUDA_CORE_HEAD_DIMS[q.dtype]):
         raise ValueError(f"route {way!r} does not take {q.dtype} at d={d}")
     which = way or which
     if which in _ALIGNED_ROUTES and any(t.data_ptr() % 16 for t in (q, k, v)):

@@ -445,7 +445,7 @@ def _bf16_check(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 112, 128])
 @pytest.mark.parametrize("bh,kvh,sq,sk,causal,window", [
     (14, 2, 1, 1, True, None),          # a one-token prompt
     (14, 2, 19, 19, True, None),        # shorter than one tile
@@ -457,8 +457,9 @@ def _bf16_check(got, ref):
 ])
 def test_flash_attention_tensor_core_route_matches_plain(cuda, d, bh, kvh, sq,
                                                         sk, causal, window):
-    """bfloat16 at d = 64 and 128 runs on the tensor cores (and only
-    there), within the bfloat16 rule of the plain version."""
+    """bfloat16 at d = 64, 80, 112 and 128 runs on the tensor cores (and
+    only there), within the bfloat16 rule of the plain version (at 80 and
+    112 the last 64-column panel runs past d)."""
     rng = np.random.default_rng(sq * d + sk)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
                                 * scale).to(cuda, torch.bfloat16)
@@ -528,6 +529,10 @@ def test_flash_attention_tf32x3_refuses_what_it_does_not_take(cuda):
                           q_per_kv=7)
     with pytest.raises(ValueError, match="tensor_core"):
         fa_kernel._launch("tensor_core", q, k, k, q_per_kv=7)
+    qb, kb = torch.zeros(14, 64, 64, device=cuda, dtype=torch.bfloat16), \
+        torch.zeros(2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cuda_core"):
+        fa_kernel._launch("cuda_core", qb, kb, kb, q_per_kv=7)
     assert fa_kernel.LAUNCHES == before
 
 
@@ -536,19 +541,28 @@ def test_flash_attention_tf32x3_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("bh,kvh,d", [(8, 8, 80),      # zamba2-2.7b
                                       (16, 2, 112)])   # kimi-k2
 def test_flash_attention_head_dims_80_and_112(cuda, dtype, bh, kvh, d):
+    """float32 runs on the CUDA cores, bfloat16 on the tensor cores (the
+    route ``kernel.route`` names); in bfloat16 the CUDA-core kernel, named
+    through ``_launch`` on the same input, passes the same rule."""
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
                                 * scale).to(cuda, dtype)
                for shape, scale in (((bh, 150, d), 3.0), ((kvh, 150, d), 1.0),
                                     ((kvh, 150, d), 1.0)))
-    before = fa_kernel.ROUTE_LAUNCHES["cuda_core"]
+    route = fa_kernel.route(dtype, d)
+    assert route == ("tensor_core" if dtype == torch.bfloat16
+                     else "cuda_core")
+    before = dict(fa_kernel.ROUTE_LAUNCHES)
     got = flash_attention(q, k, v, q_per_kv=bh // kvh)
+    assert fa_kernel.ROUTE_LAUNCHES == {
+        r: n + (r == route) for r, n in before.items()}
     ref = flash_attention(q, k, v, q_per_kv=bh // kvh, backend=PLAIN)
     if dtype == torch.bfloat16:
         _bf16_check(got, ref)
+        _bf16_check(fa_kernel._launch("cuda_core", q, k, v,
+                                      q_per_kv=bh // kvh), ref)
     else:
         torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
-    assert fa_kernel.ROUTE_LAUNCHES["cuda_core"] == before + 1
 
 
 @pytest.mark.cuda

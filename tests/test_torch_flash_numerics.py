@@ -8,15 +8,22 @@ Its card check (``chip_smoke.py``'s ``FLASH_TOL`` for bfloat16, mirrored in
 the outputs differing from the plain version at all — the plain version, as
 the JAX kernel, computes P·V in float32.  Here the kernel's blocked online
 softmax (128-key tiles, float32 max, sum and accumulator, p taken against
-the running max) is emulated in float32 PyTorch with P rounded three ways
-before the product: kept in float32; rounded once to bfloat16 (FA2 / FA3's
-choice); and split as P_hi = bf16(p) plus P_lo = bf16(p - P_hi), two
+the running max, S = Q·Kᵀ summed over 16-column k-steps, P·V in 16-column
+slices of the output) is emulated in float32 PyTorch with P rounded three
+ways before the product: kept in float32; rounded once to bfloat16 (FA2 /
+FA3's choice); and split as P_hi = bf16(p) plus P_lo = bf16(p - P_hi), two
 products into one float32 accumulator (the kernel's choice).  Inputs are
 the card check's: numpy normals, q scaled by 3, k and v by 1, rounded once
-to bfloat16, causal, at qwen2-0.5b's 14 query heads over 2 KV heads (d=64)
-and internlm2-1.8b's 16 over 8 (d=128).  The split must pass with at most
-0.5 % of the outputs differing; the single bfloat16 P must fail the 1 %
-rule, which is why the kernel pays for a third product."""
+to bfloat16, causal, at qwen2-0.5b's 14 query heads over 2 KV heads (d=64),
+internlm2-1.8b's 16 over 8 (d=128), zamba2-2.7b's 32 over 32 (d=80) and
+kimi-k2's 64 over 8 (d=112).  The split must pass with at most 0.5 % of the
+outputs differing; the single bfloat16 P must fail the 1 % rule, which is
+why the kernel pays for a third product.
+
+At d=80 and 112 the kernel holds q, k and v in shared-memory panels of 64
+columns that TMA fills with zeros past d: the emulation on inputs padded
+with zero columns to 128 gives the unpadded result bit for bit in the
+first d columns and exact zeros beyond."""
 import numpy as np
 import pytest
 
@@ -30,7 +37,9 @@ RTOL, ATOL_OF_MAX, DIFFERING_SHARE = 2 ** -7, 1e-3, 0.01
 QKV_SCALE = (3.0, 1.0, 1.0)
 BLOCK_K = 128          # the tensor-core kernel's KV tile
 
-SHAPES = {"qwen2-0.5b": (14, 2, 1024, 64), "internlm2-1.8b": (16, 8, 512, 128)}
+SHAPES = {"qwen2-0.5b": (14, 2, 1024, 64), "internlm2-1.8b": (16, 8, 512, 128),
+          "zamba2-2.7b": (32, 32, 512, 80), "kimi-k2": (64, 8, 512, 112)}
+STEP = 16              # a wgmma k-step, and the width of an output slice
 
 
 def _qkv(seed, h, kvh, s, d):
@@ -51,20 +60,29 @@ def _split(p: torch.Tensor, rounding: str):
     return [hi, (p - hi).to(torch.bfloat16).float()]
 
 
-def _emulated(q, k, v, q_per_kv, rounding):
+def _steps(x):
+    """x's last dim in contiguous slices of STEP columns."""
+    return [x[..., c:c + STEP].contiguous() for c in range(0, x.shape[-1], STEP)]
+
+
+def _emulated(q, k, v, q_per_kv, rounding, scale=None):
     """Causal blocked online softmax in float32, P rounded as ``rounding``
-    before P·V, output rounded once to bfloat16."""
+    before P·V, output rounded once to bfloat16.  Every product is one
+    16-column slice (S over k-steps, P·V slice by slice of the output), so
+    a slice of zero columns adds exact zeros and changes no other slice."""
     h, s, d = q.shape
-    qf = q.float() * d ** -0.5
+    qf = q.float() * (d ** -0.5 if scale is None else scale)
     kf = torch.repeat_interleave(k, q_per_kv, 0).float()
     vf = torch.repeat_interleave(v, q_per_kv, 0).float()
     m = torch.full((h, s, 1), -torch.inf)
     l = torch.zeros((h, s, 1))
     acc = torch.zeros((h, s, d))
     qpos = torch.arange(s)[:, None]
+    q_steps = _steps(qf)
     for k0 in range(0, s, BLOCK_K):
         kt, vt = kf[:, k0:k0 + BLOCK_K], vf[:, k0:k0 + BLOCK_K]
-        sc = qf @ kt.transpose(1, 2)
+        sc = sum(qs @ ks.transpose(1, 2)
+                 for qs, ks in zip(q_steps, _steps(kt)))
         kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
         sc = torch.where(kpos <= qpos, sc, -torch.inf)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
@@ -73,7 +91,7 @@ def _emulated(q, k, v, q_per_kv, rounding):
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha
         for part in _split(p, rounding):
-            acc = acc + part @ vt
+            acc = acc + torch.cat([part @ vs for vs in _steps(vt)], -1)
         m = m_new
     return (acc / l).to(torch.bfloat16)
 
@@ -107,17 +125,34 @@ def test_p_rounding_against_the_bf16_check(shape, rounding, passes,
         assert differing > DIFFERING_SHARE, (largest, differing)
 
 
+@pytest.mark.parametrize("shape", ["zamba2-2.7b", "kimi-k2"])
+def test_zero_padded_columns_change_nothing(shape):
+    """q, k and v padded with zero columns to 128 (the kernel's two
+    shared-memory panels at d=80 and 112), at the unpadded scale d**-0.5:
+    the first d output columns equal the unpadded emulation's bit for bit,
+    the rest are exact zeros."""
+    h, kvh, s, d = SHAPES[shape]
+    q, k, v = _qkv(s + d, h, kvh, s, d)
+    padded = [torch.nn.functional.pad(x, (0, 128 - d)) for x in (q, k, v)]
+    want = _emulated(q, k, v, h // kvh, "bf16_hi_lo")
+    got = _emulated(*padded, h // kvh, "bf16_hi_lo", scale=d ** -0.5)
+    assert got.shape == (h, s, 128)
+    assert torch.equal(got[..., :d], want)
+    assert not got[..., d:].any()
+
+
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "tensor_core"),
     (torch.bfloat16, 128, "tensor_core"),
     (torch.bfloat16, 16, "cuda_core"),
     (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 80, "cuda_core"),
-    (torch.bfloat16, 112, "cuda_core"),
+    (torch.bfloat16, 80, "tensor_core"),
+    (torch.bfloat16, 112, "tensor_core"),
     (torch.bfloat16, 256, "cuda_core"),
     (torch.float32, 64, "tf32x3"),
     (torch.float32, 128, "tf32x3"),
     (torch.float32, 80, "cuda_core"),
+    (torch.float32, 112, "cuda_core"),
 ])
 def test_route_by_dtype_and_head_dim(dtype, d, want):
     assert fa_kernel.route(dtype, d) == want
