@@ -215,9 +215,37 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     beside ``scaled_dot_product_attention(is_causal=True)`` and the bf16
     tensor-core bound, and in turns with the CUDA-core kernel named
     through ``kernel._launch`` (the kernel line's ``flash_attention_zamba2``
-    and ``flash_attention_kimi_k2`` entries).
+    and ``flash_attention_kimi_k2`` entries);
+24. training: (a) ``FlashAttentionFn``'s dq, dk, dv (the kernel's forward,
+    the plain blocked backward) against autograd of the plain version on
+    the card (float32 within 2e-5 of each tensor's largest magnitude,
+    bfloat16 by FLASH_TOL's rule) at qwen2-0.5b's training shape (B 4, H
+    14, KVH 2, S 2,048, d 64) in bfloat16 (the tensor cores) and float32
+    (the TF32 route), zamba2's d 80, Mixtral's d 128 with a window of 1,000
+    and ragged S 1,000, one forward launch each on its route; at the qwen2
+    shape the forward kernel, the plain backward, the plain version's
+    forward + backward and ``scaled_dot_product_attention``'s forward +
+    backward timed in turns, the peak memory of the backwards, the
+    forward's time beside its bound and sdpa's (the kernel line's
+    ``flash_attention_train`` entry); (b) ``launch.train.main`` at
+    qwen2-0.5b's full width (B 4, S 2,048, 12 steps, a checkpoint every 6
+    to a fresh directory under ``build/``, tiering on): finite losses, the
+    last below the first, 2 x 24 flash_attention launches a step, all on
+    the tensor cores (remat "full"), one hist_select launch (step 10's
+    rebalance), every step under ``set_sync_debug_mode("error")``; step
+    wall, tokens/s, peak memory, one more step under ``torch.profiler``;
+    (c) the step-6 checkpoint restored bit for bit, a second run resumed
+    from it through step 12 on the same batches bit for bit, its losses
+    within 1e-3 relative (reported: whether they are equal); (d) one
+    float32 loss and gradient at full width (B 2, S 64) on the card and on
+    the CPU, the loss and gradient norm within FULL_WIDTH_F32_TOL, every
+    gradient leaf within TRAIN_LEAF_TOL_OF_MAX of its largest magnitude,
+    2 x 24 launches on the TF32 route; (e) ``repro_torch.examples.train_100m`` for 5 steps
+    on the card, its launches on the tensor cores; then hist_select at the
+    trainer's rebalance shape (the kernel line's ``hist_select_train``
+    entry).
 
-Each path (8-11, 14-16, 18-23) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-24) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -2991,6 +3019,492 @@ def recurrent_serve_profile(dev, cfg, params, prefill) -> None:
     del toks, logits, cache
 
 
+# ---------------------------------------------------------------- phase 24
+# 24a's gradient cases: (label, B, H, KVH, S, d, dtype, window)
+TRAIN_GRAD_CASES = [
+    ("qwen2-0.5b train", 4, 14, 2, 2048, 64, "bfloat16", None),
+    ("qwen2-0.5b train f32", 4, 14, 2, 2048, 64, "float32", None),
+    ("zamba2-2.7b d=80", 2, 32, 32, 2048, 80, "bfloat16", None),
+    ("mixtral-8x22b d=128 window 1000", 1, 48, 8, 2048, 128, "bfloat16",
+     1000),
+    ("ragged S=1000", 2, 14, 2, 1000, 64, "bfloat16", None),
+]
+# the backward's query rows a block: the configs' attn_block_k
+TRAIN_BLOCK_Q = 512
+# 24a's timed shape, qwen2-0.5b's training attention: (B, H, KVH, S, d)
+TRAIN_TIME_SHAPE = (4, 14, 2, 2048, 64)
+# float32 gradients: within 2e-5 of each tensor's largest magnitude (the
+# same float32 products summed in another order); bfloat16 by FLASH_TOL's
+# rule (both round one float32 result once)
+GRAD_F32_TOL_OF_MAX = 2e-5
+# 24d: each gradient leaf of the full-width float32 step, GPU against CPU,
+# within 1e-4 of that leaf's largest magnitude on the CPU (the rule of the
+# train-step tests on the CPU), so a leaf that is zero or wrong fails even
+# where its entries are small
+TRAIN_LEAF_TOL_OF_MAX = 1e-4
+# 24b: qwen2-0.5b at full width, B 4, S 2048, 12 steps, a checkpoint every 6
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", "4", "--seq", "2048",
+              "--steps", "12", "--ckpt-every", "6"]
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_TOKENS = 12, 6, 4 * 2048
+# 24c: the resumed run's losses against the uninterrupted run's, relative:
+# the embedding gradient's atomic accumulation on the card may sum in
+# another order from run to run
+TRAIN_RESUME_RTOL = 1e-3
+# 24e: the 100M example's steps
+EXAMPLE_STEPS = 5
+
+
+def train_attention_grads(dev) -> dict:
+    """Phase 24a: FlashAttentionFn's dq, dk, dv (the kernel's forward, the
+    plain blocked backward) against autograd of the plain version on the
+    card (in float32, rounded once), at every TRAIN_GRAD_CASES case; each case one forward launch on
+    the route ``kernel.route`` names.  -> {label: its errors and route}."""
+    import torch
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     attention_ref)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    out = {}
+    for i, (label, b, h, kvh, s, d, dtype, window) in enumerate(
+            TRAIN_GRAD_CASES):
+        q, k, v = qkv(dev, 240 + i, b, h, kvh, s, s, d, dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(340 + i)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        g = h // kvh
+        mine = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = dict(fa_kernel.ROUTE_LAUNCHES)
+        o = FlashAttentionFn.apply(*mine, g, True, window, None,
+                                   TRAIN_BLOCK_Q)
+        launched = {r: fa_kernel.ROUTE_LAUNCHES[r] - before[r]
+                    for r in before}
+        got = torch.autograd.grad(o, mine, do)
+        if launched != fa_routes(q.dtype, d, 1):
+            fail(f"FlashAttentionFn ({label}) launched {launched}: "
+                 f"expected one forward on the {fa_kernel.route(q.dtype, d)}"
+                 f" route")
+        # the plain version's autograd in float32, each gradient rounded
+        # once to the inputs' dtype, as the reference's f32 autodiff does
+        # (autograd of the plain version on bf16 leaves would round each
+        # query head's dk, dv to bf16 before repeat_interleave's backward
+        # sums them)
+        theirs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        ref = attention_ref(*theirs, q_per_kv=g, window=window)
+        want = [t.to(q.dtype) for t in torch.autograd.grad(
+            ref, theirs, do.float())]
+        ref = ref.to(q.dtype)
+        torch.cuda.synchronize()
+        res = {"route": fa_kernel.route(q.dtype, d)}
+        err, share, ok = flash_verdict(o.detach(), ref.detach(), dtype)
+        res["forward"] = [err, share]
+        if not ok:
+            fail(f"FlashAttentionFn's forward differs from the plain version"
+                 f" ({label}, {dtype}): max abs err {err}, share of the "
+                 f"tolerance and share differing {share}")
+        for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            if gt.dtype != wt.dtype or gt.shape != wt.shape:
+                fail(f"{label} {name}: {gt.dtype} {tuple(gt.shape)} against "
+                     f"{wt.dtype} {tuple(wt.shape)}")
+            diff = (gt.float() - wt.float()).abs()
+            if dtype == "float32":
+                allowed = GRAD_F32_TOL_OF_MAX * float(wt.abs().max())
+                err = float(diff.max())
+                share = [err / allowed, float((diff > 0).float().mean())]
+                ok = err <= allowed
+            else:
+                err, share, ok = flash_verdict(gt, wt, dtype)
+            res[name] = [err] + share
+            if not ok:
+                fail(f"FlashAttentionFn's {name} differs from autograd of "
+                     f"the plain version ({label}, {dtype}): max abs err "
+                     f"{err}, share of the tolerance and share differing "
+                     f"{share}")
+        out[label] = res
+        del q, k, v, do, mine, theirs, o, ref, got, want
+    free_device_memory()
+    say("train_attention_grad", cases=[list(c) for c in TRAIN_GRAD_CASES],
+        results=out, block_q=TRAIN_BLOCK_Q,
+        float32_tolerance_of_max=GRAD_F32_TOL_OF_MAX,
+        bfloat16_tolerance=FLASH_TOL["bfloat16"])
+    return out
+
+
+def peak_bytes(fn) -> int:
+    """The device memory ``fn()`` takes above what was allocated before
+    it, at its peak."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def train_attention_time(dev) -> dict:
+    """Phase 24a's times at qwen2-0.5b's training shape (B 4, H 14, KVH 2,
+    S 2048, d 64, bfloat16, causal), in turns: the kernel's forward, the
+    plain backward, the plain version's forward + backward (autograd), and
+    ``F.scaled_dot_product_attention``'s forward + backward (the library
+    time); the peak memory of both backwards.  The backward's bound is 2.5
+    times the forward's causal products (2·B·H·S²·d) at the bf16
+    tensor-core rate, or q, k, v, dO read and dq, dk, dv written once."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref,
+                                                     flash_attention)
+    b, h, kvh, s, d = TRAIN_TIME_SHAPE
+    g = h // kvh
+    q, k, v = qkv(dev, 250, b, h, kvh, s, s, d, "bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(350)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+
+    def forward():
+        return flash_attention(q, k, v, q_per_kv=g)
+
+    def backward():
+        return attention_bwd_ref(q, k, v, do, q_per_kv=g,
+                                 block_q=TRAIN_BLOCK_Q)
+
+    def plain_fwd_bwd():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(
+            attention_ref(*leaves, q_per_kv=g), leaves, do)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape4 = [(b, -1, s, d)] * 3
+
+    def sdpa_fwd_bwd():
+        leaves = [t.detach().view(sh).requires_grad_()
+                  for t, sh in zip((q, k, v), shape4)]
+        o = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, leaves, do.view(b, h, s, d))
+
+    fns = {"forward_ms": forward, "backward_ms": backward,
+           "plain_fwd_bwd_ms": plain_fwd_bwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd}
+    runs = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        runs[name].append(time_ms(fns[name], 3))
+    out = {name: sum(t) / len(t) for name, t in runs.items()}
+    flops = 2 * b * h * s * s * d
+    elt = q.element_size()
+    n_bytes = elt * (2 * (2 * b * h * s * d) + 2 * (2 * b * kvh * s * d))
+    bwd_bound, bwd_by = bound_ms(n_bytes, 2.5 * flops, TENSOR_BF16_OPS_PER_S)
+    out.update(shape=[b, h, kvh, s, d], dtype="bfloat16",
+               backward_bound_ms=bwd_bound, backward_bound_by=bwd_by,
+               backward_share_of_bound=bwd_bound / out["backward_ms"],
+               backward_peak_gib=peak_bytes(backward) / 2 ** 30,
+               plain_fwd_bwd_peak_gib=peak_bytes(plain_fwd_bwd) / 2 ** 30,
+               sdpa_fwd_bwd_peak_gib=peak_bytes(sdpa_fwd_bwd) / 2 ** 30,
+               causal_flops=flops)
+    say("train_attention_time", **out)
+    del q, k, v, do
+    free_device_memory()
+    return out
+
+
+def instrumented_train(train_launcher, args, read_counts, read_routes,
+                       capture_step=None):
+    """``train_launcher.main(args)`` with its step function wrapped: each
+    step runs under ``set_sync_debug_mode("error")`` (no host sync inside
+    ``step_fn``; the trainer's loss read comes after it), and its wall, its
+    flash_attention launches by route and its batch's tokens are recorded;
+    the state after step ``capture_step`` is cloned on the card.  ->
+    (the trainer's report, the record)."""
+    import torch
+    from repro_torch.pytree import tree_map
+    rec = {"steps": [], "tokens": [], "state": None, "last": None}
+    real = train_launcher.make_train_step
+
+    def factory(*a, **kw):
+        step = rec["step_fn"] = real(*a, **kw)
+
+        def wrapped(params, opt_state, batch):
+            before = read_routes()
+            hs_before = read_counts()["hist_select"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = step(params, opt_state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = read_routes()
+            n = int(out[1].step)
+            rec["steps"].append(dict(
+                step=n, wall_s=wall,
+                routes={r: after[r] - before[r] for r in after},
+                hist_select=read_counts()["hist_select"] - hs_before))
+            rec["tokens"].append(batch["tokens"].cpu())
+            if n == capture_step:
+                rec["state"] = tree_map(torch.clone, (out[0], out[1]))
+            rec["last"] = (out[0], out[1], batch)
+            return out
+        return wrapped
+
+    train_launcher.make_train_step = factory
+    try:
+        report = train_launcher.main(args)
+    finally:
+        train_launcher.make_train_step = real
+    return report, rec
+
+
+def train_full_width(train_launcher, dev, zero_counts, read_counts,
+                     read_routes):
+    """Phase 24b: ``launch.train.main`` at qwen2-0.5b's full width (B 4, S
+    2048, 12 steps, a checkpoint every 6, tiering on): every loss finite
+    and the last below the first, 2 x 24 flash_attention launches a step
+    (remat "full"), all on the tensor cores, one hist_select launch (step
+    10's rebalance), no host sync inside a step; step wall, tokens/s, peak
+    memory, then one more step under ``torch.profiler``.  -> (the trainer's
+    report, the record with the step-6 state, the checkpoint directory,
+    the run's launches)."""
+    import torch
+    ckdir = obs_dir("train")
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    report, rec = instrumented_train(
+        train_launcher, TRAIN_ARGS + ["--ckpt-dir", str(ckdir)], read_counts,
+        read_routes, capture_step=TRAIN_CKPT_STEP)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = read_counts()
+    losses = report["losses"]
+    per_step = 2 * QWEN_LAYERS
+    if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0]):
+        fail(f"qwen2-0.5b training losses {losses}: expected {TRAIN_STEPS} "
+             f"finite, the last below the first")
+    bad = [s for s in rec["steps"]
+           if s["routes"] != fa_routes(torch.bfloat16, 64, per_step)]
+    if bad or launches != {**NO_KERNELS, "flash_attention":
+                           per_step * TRAIN_STEPS, "hist_select": 1}:
+        fail(f"qwen2-0.5b training launches {launches}, steps off the "
+             f"{per_step} tensor-core launches a step: {bad}")
+    walls = [s["wall_s"] for s in rec["steps"]]
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    params, opt_state, batch = rec.pop("last")
+    step_fn = rec.pop("step_fn")
+    prof = profiled_steps(lambda: step_fn(params, opt_state, batch), 1)
+    del params, opt_state, batch
+    free_device_memory()
+    out = dict(losses=losses, grad_norms=report["grad_norms"],
+               step_wall_s=walls, warm_step_s=warm,
+               tokens_per_s=TRAIN_TOKENS / warm, trainer_step_s=report["step_s"],
+               run_wall_s=wall, peak_mem_gib=peak, launches=launches,
+               flash_attention_per_step=per_step, no_sync_in_step=True,
+               profiled_step=prof)
+    say("train_full_width", **out)
+    return out, rec, ckdir
+
+
+def train_resume(train_launcher, dev, ckdir, first, first_losses,
+                 read_counts, read_routes) -> dict:
+    """Phase 24c: the step-6 checkpoint restores bit for bit (params,
+    optimizer state, step) against ``first``'s state after step 6 (24b's
+    record), and a second trainer run resumed from it continues through
+    step 12 on the uninterrupted run's batches, bit for bit, its losses
+    within TRAIN_RESUME_RTOL of the uninterrupted run's
+    (``first_losses``)."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.pytree import leaves
+    t0 = time.perf_counter()
+    state, extra = CheckpointManager(ckdir).restore(step=TRAIN_CKPT_STEP,
+                                                    device=dev)
+    restore_s = time.perf_counter() - t0
+    params6, opt6 = first.pop("state")
+    same = (all(torch.equal(a, b) for a, b in zip(
+        leaves(state["params"]), leaves(params6)))
+        and all(torch.equal(a, b) for a, b in zip(
+            leaves(state["opt"]["inner"]), leaves(opt6.inner)))
+        and len(leaves(state["params"])) == len(leaves(params6))
+        and state["opt"]["step"].dtype == torch.int32
+        and int(state["opt"]["step"]) == int(opt6.step) == TRAIN_CKPT_STEP
+        and extra["data"]["step"] == TRAIN_CKPT_STEP)
+    if not same:
+        fail("the step-6 checkpoint does not restore the step-6 state bit "
+             "for bit")
+    del state, params6, opt6
+    free_device_memory()
+    resume_dir = obs_dir("train_resume")
+    name = f"step_{TRAIN_CKPT_STEP:08d}"
+    os.rename(ckdir / name, resume_dir / name)
+    report, rec = instrumented_train(
+        train_launcher,
+        TRAIN_ARGS + ["--ckpt-dir", str(resume_dir), "--resume"],
+        read_counts, read_routes)
+    rec.pop("last")
+    first_losses = first_losses[TRAIN_CKPT_STEP:]
+    tokens_equal = len(rec["tokens"]) == TRAIN_STEPS - TRAIN_CKPT_STEP and \
+        all(torch.equal(a, b) for a, b in zip(
+            first["tokens"][TRAIN_CKPT_STEP:], rec["tokens"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(report["losses"],
+                                               first_losses)]
+    if not (report["start_step"] == TRAIN_CKPT_STEP and tokens_equal
+            and len(rel) == len(first_losses)
+            and max(rel) <= TRAIN_RESUME_RTOL):
+        fail(f"resumed run: start {report['start_step']}, batches equal "
+             f"{tokens_equal}, losses {report['losses']} against "
+             f"{first_losses}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    shutil.rmtree(resume_dir, ignore_errors=True)
+    out = dict(restored_bit_for_bit=True, restore_s=restore_s,
+               start_step=report["start_step"], batches_bit_for_bit=True,
+               losses=report["losses"], uninterrupted_losses=first_losses,
+               losses_equal=report["losses"] == first_losses,
+               loss_max_rel_diff=max(rel), tolerance=TRAIN_RESUME_RTOL,
+               deterministic_algorithms=torch.are_deterministic_algorithms_enabled())
+    say("train_resume", **out)
+    return out
+
+
+def train_gpu_vs_cpu(dev, zero_counts, read_routes) -> dict:
+    """Phase 24d: one float32 loss and gradient of qwen2-0.5b at full width
+    (B 2, S 64, the weights drawn once on the host), on the card and on the
+    CPU: the loss and the gradient norm within FULL_WIDTH_F32_TOL (abs +
+    rel, phase 15's), every gradient leaf within TRAIN_LEAF_TOL_OF_MAX of
+    that leaf's largest magnitude; on the card 2 x 24 flash_attention
+    launches on the TF32 route."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.pytree import flatten
+    from repro_torch.train.steps import loss_and_grads
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              activ_dtype=torch.float32)
+    rng = np.random.default_rng(24)
+    batch = {key: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                   .astype(np.int32))
+             for key in ("tokens", "labels")}
+    params = init_params(cfg, 0, "cpu")
+    res = {"cpu": loss_and_grads(params, cfg, batch)}
+    params = to_device(params, dev)
+    zero_counts()
+    res["cuda"] = loss_and_grads(params, cfg, to_device(batch, dev))
+    routes = read_routes()
+    del params
+    if routes != fa_routes(torch.float32, 64, 2 * QWEN_LAYERS):
+        fail(f"full-width float32 training step launches {routes}: expected "
+             f"{2 * QWEN_LAYERS} on the TF32 route")
+    (gl, _, gg), (cl, _, cg) = res["cuda"], res["cpu"]
+    errs, leaf_max, share = {}, {}, {}
+    g_leaves, skeleton = flatten(gg)
+    c_leaves = flatten(cg)[0]
+    names = flatten(tree_paths(skeleton))[0]
+    faults = []
+    for key, g, c in [("loss", gl, cl),
+                      ("grad_norm", global_norm(gg), global_norm(cg))]:
+        g, c = g.float().cpu(), c.float()
+        diff = (g - c).abs()
+        errs[key] = float(diff.max())
+        if not (bool(torch.isfinite(g).all()) and bool(torch.all(
+                diff <= FULL_WIDTH_F32_TOL * (1 + c.abs())))):
+            faults.append(f"{key}: max abs err {errs[key]} over "
+                          f"{FULL_WIDTH_F32_TOL} abs + rel")
+    for key, g, c in zip(names, g_leaves, c_leaves):
+        g, c = g.float().cpu(), c.float()
+        errs[key] = float((g - c).abs().max())
+        leaf_max[key] = float(c.abs().max())
+        allowed = TRAIN_LEAF_TOL_OF_MAX * leaf_max[key]
+        share[key] = errs[key] / allowed if allowed > 0 else float("inf")
+        if not (bool(torch.isfinite(g).all()) and share[key] <= 1.0):
+            faults.append(f"{key}: max abs err {errs[key]} over "
+                          f"{TRAIN_LEAF_TOL_OF_MAX} x its largest "
+                          f"magnitude {leaf_max[key]}")
+    out = dict(batch=2, seq=64, max_abs_err=errs, leaf_max=leaf_max,
+               share_of_tolerance=share, tolerance=FULL_WIDTH_F32_TOL,
+               leaf_tolerance_of_max=TRAIN_LEAF_TOL_OF_MAX,
+               flash_attention_routes=routes,
+               seconds=time.perf_counter() - t0)
+    say("train_gpu_vs_cpu", **out)
+    if faults:
+        fail("full-width float32 training GPU vs CPU: " + "; ".join(faults))
+    del res, gg, cg, g_leaves, c_leaves
+    free_device_memory()
+    return out
+
+
+def tree_paths(tree, prefix: str = ""):
+    """``tree`` with each leaf replaced by its dotted path."""
+    if isinstance(tree, dict):
+        return {k: tree_paths(v, f"{prefix}{k}.") for k, v in tree.items()}
+    return prefix[:-1]
+
+
+def train_example(dev, zero_counts, read_routes) -> dict:
+    """Phase 24e: ``repro_torch.examples.train_100m`` (llama-100m: 12
+    layers, d 768, 12 / 4 heads at d 64) for EXAMPLE_STEPS steps on the
+    card: finite losses, 2 x 12 flash_attention launches a step on the
+    tensor cores."""
+    import shutil
+    import torch
+    from repro_torch.examples import train_100m
+    ckdir = obs_dir("train_100m")
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = train_100m.main(["--steps", str(EXAMPLE_STEPS), "--ckpt-dir",
+                           str(ckdir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = read_routes()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    want = fa_routes(torch.bfloat16, 64, 2 * 12 * EXAMPLE_STEPS)
+    if routes != want or len(rep["losses"]) != EXAMPLE_STEPS or not all(
+            map(math.isfinite, rep["losses"])):
+        fail(f"train_100m: routes {routes} (expected {want}), losses "
+             f"{rep['losses']}")
+    out = dict(losses=rep["losses"], step_s=rep["step_s"], wall_s=wall,
+               flash_attention_routes=routes)
+    say("train_example", **out)
+    return out
+
+
+def hist_select_train_time(dev, plain) -> dict:
+    """hist_select at the trainer's rebalance (qwen2-0.5b: 18,992 blocks of
+    8 embedding rows, k 1,899): the counts of the first 10 steps' tokens
+    (the pipeline's own batches), the kernel against its plain version
+    (exact) and ``torch.topk``, timed in turns."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels.hist_select import kth_key
+    vocab, n_blocks = 151_936, 151_936 // 8
+    pipe = TokenPipeline(DataConfig(vocab_size=vocab, seq_len=2048,
+                                    global_batch=4))
+    counts = np.zeros(n_blocks, np.int64)
+    for step in range(10):
+        np.add.at(counts, pipe.batch(step)["tokens"].reshape(-1) // 8, 1)
+    rows = torch.from_numpy(counts.astype(np.int32)[None]).to(dev)
+    ks = (n_blocks // 10,)
+    err = int((kth_key(rows, None, ks) - kth_key(rows, None, ks,
+                                                 backend=plain)).abs().max())
+    if err:
+        fail(f"hist_select at the trainer's rebalance differs from its "
+             f"plain version by {err}")
+    ms, plain_ms = in_turns(lambda: kth_key(rows, None, ks, backend=plain),
+                            lambda: kth_key(rows, None, ks), 20)
+    topk_ms = time_ms(lambda: torch.topk(rows, ks[0], dim=-1,
+                                         sorted=False), 20)
+    bound, by = bound_ms(4 * rows.numel(), 4 * rows.numel())
+    out = dict(rows=list(rows.shape), k=ks[0], max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, topk_ms=topk_ms, bound_ms=bound,
+               bound_by=by)
+    say("hist_select_train_time", **out)
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -2998,7 +3512,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 23) -> None:
+def main(until: int = 24) -> None:
     import numpy as np
     import torch
 
@@ -3023,6 +3537,7 @@ def main(until: int = 23) -> None:
     from repro_torch.kernels.observe_scatter import kernel as os_kernel
     from repro_torch.kernels.observe_scatter import observe_scatter
     from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
     from repro_torch.scenarios import (DLRMScenario, KVCacheScenario,
                                        build_hints, run_scenario)
     from repro_torch.workloads import mmap_bench
@@ -3587,6 +4102,24 @@ def main(until: int = 23) -> None:
     fa_zamba2 = flash_attention_time(dev, plain, *ZAMBA2_TIME_SHAPE)
     fa_kimi = flash_attention_time(dev, plain, *KIMI_TIME_SHAPE)
 
+    if until < 24:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------------------------------------------------ 24. training
+    t24 = time.perf_counter()
+    grads24 = train_attention_grads(dev)
+    train_attention_time(dev)
+    fa_train = flash_attention_time(dev, plain, "qwen2-0.5b train",
+                                    *FLASH_TIME_SHAPES[0][1:], s_len=2048)
+    full24, rec24, ck24 = train_full_width(
+        train_launcher, dev, zero_counts, read_counts, read_routes)
+    train_resume(train_launcher, dev, ck24, rec24, full24["losses"],
+                 read_counts, read_routes)
+    del rec24
+    train_gpu_vs_cpu(dev, zero_counts, read_routes)
+    train_example(dev, zero_counts, read_routes)
+    hs_train = hist_select_train_time(dev, plain)
+    say("training", seconds=time.perf_counter() - t24)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -3726,6 +4259,30 @@ def main(until: int = 23) -> None:
          "bound_ms": fa_kimi["bound_ms"],
          "bound_by": fa_kimi["bound_by"],
          "library_ms": fa_kimi["sdpa_ms"]},
+        # the tensor-core route on the training path: its launches in
+        # phase 24b's 12 full-width qwen2-0.5b steps (2 a layer and step
+        # under remat), its forward's time and error at that training
+        # shape (B 4, S 2048) beside sdpa(is_causal=True); the backward is
+        # plain PyTorch (phase 24a's line)
+        {"name": "flash_attention_train", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": full24["launches"]["flash_attention"],
+         "max_abs_err": grads24["qwen2-0.5b train"]["forward"][0],
+         "ms": fa_train["ms"], "plain_ms": fa_train["plain_ms"],
+         "bound_ms": fa_train["bound_ms"], "bound_by": fa_train["bound_by"],
+         "library_ms": fa_train["sdpa_ms"]},
+        # hist_select on the training path: its launch at phase 24b's step
+        # 10 rebalance, its time on that rebalance's shape (18,992 blocks,
+        # k 1,899) beside torch.topk
+        {"name": "hist_select_train", "route": "cuda",
+         "source": "src/repro_torch/kernels/hist_select/csrc/hist_select.cu",
+         "replaces": "src/repro/kernels/hist_select/kernel.py:45",
+         "launches": full24["launches"]["hist_select"],
+         "max_abs_err": hs_train["max_abs_err"], "ms": hs_train["ms"],
+         "plain_ms": hs_train["plain_ms"], "bound_ms": hs_train["bound_ms"],
+         "bound_by": hs_train["bound_by"], "library_ms": hs_train["topk_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -3738,4 +4295,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 23)
+    main(int(args[1]) if args[:1] == ["--until"] else 24)

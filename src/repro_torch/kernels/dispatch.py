@@ -13,9 +13,13 @@ the same choice the same way, from the tensor they hold:
 * ``KernelBackend(plain=True)`` is an explicit override that runs the plain
   version on a CUDA tensor too.  Only ``chip_smoke.py`` sets it, to time
   the plain version on the card; nothing sets it implicitly;
-* a kernel has no backward, so a CUDA wrapper whose output would need a
+* a CUDA wrapper has no backward, so one whose output would need a
   gradient raises (:func:`refuse_grad`) rather than return an output that
-  silently carries none.  The plain versions stay differentiable.
+  silently carries none.  Training carries attention's gradient through
+  ``models.attention.flash_train``, which calls
+  ``kernels.flash_attention.FlashAttentionFn`` (the kernel's forward, a
+  plain backward); the direct wrappers still refuse.  The plain versions
+  stay differentiable.
 
 :class:`KernelBackend` mirrors the reference's ``PallasBackend``: hashable,
 so it rides in the runtime's static config.
@@ -75,5 +79,6 @@ def refuse_grad(kernel: str, *inputs: Optional[torch.Tensor]) -> None:
             for t in inputs):
         raise RuntimeError(
             f"{kernel}: an input requires grad, but the kernel has no "
-            f"backward (training's backward is not ported, ROADMAP Queue 1 "
-            f"item 6); call it under torch.no_grad() or on detached inputs")
+            f"backward; call it under torch.no_grad() or on detached "
+            f"inputs (models.attention.flash_train carries attention's "
+            f"gradient through FlashAttentionFn)")

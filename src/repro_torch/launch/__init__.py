@@ -1,1 +1,2 @@
-"""Launchers (PyTorch port of ``repro/launch``): the batched serving launcher."""
+"""Launchers (PyTorch port of ``repro/launch``): the batched serving
+launcher and the trainer."""

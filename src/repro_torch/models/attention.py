@@ -7,7 +7,10 @@
   ``block_k`` pick how XLA lays out the same function in memory (a masked
   scan over KV blocks, or an unrolled triangular schedule); both compute
   ``softmax(q kᵀ · scale, mask) v`` with f32 scores, so the port accepts
-  them and computes that function once, in the kernel.
+  them and computes that function once, in the kernel, through
+  ``FlashAttentionFn``: when q, k or v requires grad (training), its
+  plain PyTorch backward recomputes the scores ``block_k`` query rows at a
+  time.
 * ``decode_step`` — single-token attention against a KV cache with optional
   sliding window and per-KV-page attention-mass telemetry (feeds the tiered
   KV cache manager).  Plain PyTorch, as the reference computes it outside
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import FlashAttentionFn
 
 NEG_INF = -1e30
 
@@ -46,11 +49,13 @@ def flash_train(
     # (B, H) -> B*H rows: query head h of batch row b reads KV row
     # (b*H + h) // (H // KVH) = b*KVH + h // (H // KVH), the reference's
     # group-wise KV head
-    out = flash_attention(
-        q.reshape(b * h, s, d).contiguous(),
-        k.reshape(b * kvh, k.shape[2], d).contiguous(),
-        v.reshape(b * kvh, v.shape[2], d).contiguous(),
-        q_per_kv=h // kvh, causal=causal, window=window, sm_scale=sm_scale)
+    q3 = q.reshape(b * h, s, d).contiguous()
+    k3 = k.reshape(b * kvh, k.shape[2], d).contiguous()
+    v3 = v.reshape(b * kvh, v.shape[2], d).contiguous()
+    # the kernel's forward; under grad, the plain blocked backward over
+    # block_k query rows
+    out = FlashAttentionFn.apply(q3, k3, v3, h // kvh, causal, window,
+                                 sm_scale, block_k)
     return out.reshape(b, h, s, d)
 
 

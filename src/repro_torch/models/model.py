@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.dispatch import resolve_device
 from . import attention as attn_lib
@@ -38,9 +39,9 @@ from .rwkv6 import (RWKV6FFNParams, RWKV6Params, rwkv6_channel_mix,
                     rwkv6_mix)
 
 __all__ = ["LeafSpec", "MoECfg", "ModelConfig", "forward", "init_params",
-           "iter_schema", "layer_params", "logits_fn", "mamba2_params",
-           "moe_params", "rwkv6_ffn_params", "rwkv6_params", "rwkv6_block",
-           "shared_qkv", "transformer_block", "zamba2_mamba_block",
+           "iter_schema", "layer_params", "logits_fn", "loss_fn",
+           "mamba2_params", "moe_params", "rwkv6_ffn_params", "rwkv6_params",
+           "rwkv6_block", "shared_qkv", "transformer_block", "zamba2_mamba_block",
            "zamba2_shared_attention"]
 
 
@@ -409,14 +410,42 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens=None, embeds=None
     return params["embed"][tokens.long()].to(cfg.activ_dtype)
 
 
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` by ``cfg.remat`` when grad
+    mode is on (the reference's ``jax.checkpoint`` per block): its
+    activations are dropped after the forward and recomputed in the
+    backward, so every attention runs its forward twice a training step.
+    ``"dots"`` runs as ``"full"``: the reference's policy saves the matmul
+    outputs, which changes memory and time but not one number.  With grad
+    mode off (prefill, serving) ``fn`` runs as it is."""
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat {cfg.remat!r}")
+    return fn if cfg.remat == "none" else _checkpointed(fn)
+
+
+def _checkpointed(fn):
+    """``fn`` under ``torch.utils.checkpoint`` when grad mode is on, else
+    ``fn`` itself.  Nothing it runs draws random numbers, so the RNG state
+    is not saved (saving it would read the generator's state)."""
+    if not torch.is_grad_enabled():
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
+
+
 def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced forward pass -> (hidden (B, S, D), aux).  Every
     attention (each layer of the dense and MoE families, each invocation of
     zamba2's shared block) goes through
     :func:`repro_torch.models.attention.flash_train`, which launches the
-    ``flash_attention`` kernel on a CUDA tensor; rwkv6 runs none.  For the
-    MoE family ``aux["expert_counts"]`` is the (L, E) int32 router
+    ``flash_attention`` kernel on a CUDA tensor; rwkv6 runs none.  Under
+    grad mode each block is rematerialized by ``cfg.remat`` (zamba2: each
+    Mamba2 layer and each group with its shared block, as the reference).
+    For the MoE family ``aux["expert_counts"]`` is the (L, E) int32 router
     telemetry and ``aux["moe_aux_loss"]`` the layers' mean balance loss;
     for the other families ``aux`` is empty."""
     x = embed_inputs(params, cfg, tokens, embeds)
@@ -427,8 +456,9 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     if cfg.family in ("attn", "moe"):
         layer_aux = []
         for i in range(cfg.n_layers):
-            x, moe_aux = transformer_block(x, layer_params(params, i), cfg,
-                                           positions)
+            x, moe_aux = _remat(
+                lambda x, i=i: transformer_block(x, layer_params(params, i),
+                                                 cfg, positions), cfg)(x)
             layer_aux.append(moe_aux)
         if cfg.family == "moe":
             aux["expert_counts"] = torch.stack(
@@ -437,16 +467,21 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
                 [a["aux_loss"] for a in layer_aux]).mean()
     elif cfg.family == "rwkv6":
         for i in range(cfg.n_layers):
-            x, _ = rwkv6_block(x, layer_params(params, i), cfg)
+            x = _remat(lambda x, i=i: rwkv6_block(
+                x, layer_params(params, i), cfg)[0], cfg)(x)
     elif cfg.family == "zamba2":
         # groups of zamba_attn_every Mamba2 layers, each followed by the
         # shared block at its invocation index
         every = cfg.zamba_attn_every
-        for inv in range(cfg.n_shared_attn):
+
+        def group(x, inv):
             for i in range(inv * every, (inv + 1) * every):
-                x, _ = zamba2_mamba_block(x, layer_params(params, i), cfg)
-            x = zamba2_shared_attention(x, params["shared_attn"], cfg, inv,
-                                        positions)
+                x = _remat(lambda x, i=i: zamba2_mamba_block(
+                    x, layer_params(params, i), cfg)[0], cfg)(x)
+            return zamba2_shared_attention(x, params["shared_attn"], cfg,
+                                           inv, positions)
+        for inv in range(cfg.n_shared_attn):
+            x = _remat(lambda x, inv=inv: group(x, inv), cfg)(x)
     else:
         raise ValueError(cfg.family)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
@@ -456,3 +491,40 @@ def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
               ) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.einsum("bsd,dv->bsv", hidden, head.to(hidden.dtype))
+
+
+def _chunk_nll(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Sum of the masked token NLLs of one chunk: logits in the
+    activation dtype, then f32 (the reference's rounding)."""
+    logits = torch.einsum("bsd,dv->bsv", h, head).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
+def loss_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
+            labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Chunked-vocab softmax cross entropy over ``cfg.loss_chunk``
+    positions at a time (one chunk when it does not divide S).  Under grad
+    mode each chunk is checkpointed, so only one chunk's (B, chunk, V)
+    logits are alive at a time in the backward too."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = head.to(hidden.dtype)
+    b, s, d = hidden.shape
+    chunk = min(cfg.loss_chunk or s, s)
+    n_chunks = s // chunk if s % chunk == 0 else 1
+    if s % chunk != 0:
+        chunk = s
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    nll = _checkpointed(_chunk_nll)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        tot = tot + nll(hidden[:, sl], head, labels[:, sl], mask[:, sl])
+        cnt = cnt + mask[:, sl].sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -298,9 +298,9 @@ def _grad_call(name, cuda, requires_grad):
     def f(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen).to(cuda, dtype) \
             .requires_grad_(requires_grad)
-    if name == "flash_train":
-        q, k, v = (f(1, 2, 64, 64, dtype=torch.bfloat16) for _ in range(3))
-        return lambda: flash_train(q, k, v), fa_kernel
+    if name == "flash_attention":
+        q, k, v = (f(2, 64, 64, dtype=torch.bfloat16) for _ in range(3))
+        return lambda: flash_attention(q, k, v), fa_kernel
     idx = torch.arange(32, dtype=torch.int32, device=cuda)
     counts = torch.zeros(16, dtype=torch.int32, device=cuda)
     storage = f(64, 128)
@@ -313,12 +313,13 @@ def _grad_call(name, cuda, requires_grad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["flash_train", "embedding_bag",
+@pytest.mark.parametrize("name", ["flash_attention", "embedding_bag",
                                   "gather_count"])
 def test_kernels_refuse_a_gradient_they_cannot_carry(cuda, name):
-    """Inputs that require grad: the kernel's call raises before it
+    """Inputs that require grad: the kernel's direct call raises before it
     launches; the same call under no_grad launches it; so does a call
-    whose inputs do not require grad."""
+    whose inputs do not require grad.  (``flash_train`` carries attention's
+    gradient through ``FlashAttentionFn``: the test below.)"""
     call, mod = _grad_call(name, cuda, True)
     before = mod.LAUNCHES
     with pytest.raises(RuntimeError, match="no backward"):
@@ -1010,3 +1011,106 @@ def test_recurrent_family_on_the_card_matches_the_cpu(cuda, arch, act):
         diff, bound = (g - w).abs(), tol + tol * w.abs()
         assert bool((diff <= 2 * bound).all()), key
         assert float((diff <= bound).float().mean()) >= 0.99, key
+
+
+# the training path: FlashAttentionFn's gradients (the kernel's forward,
+# the plain blocked backward) against autograd of the plain version in
+# float32, each gradient rounded once to the inputs' dtype (the reference's
+# f32 autodiff); float32 within 2e-5 of each tensor's largest magnitude,
+# bfloat16 by the rule of _bf16_check
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.bfloat16, 80),
+                                     (torch.bfloat16, 112),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64), (torch.float32, 128),
+                                     (torch.float32, 16)])
+@pytest.mark.parametrize("b,h,kvh,s,window,block", [
+    (2, 14, 2, 300, None, 128),     # GQA 7:1, ragged blocks
+    (1, 8, 8, 257, 40, 64),         # a window, a last block of one row
+])
+def test_flash_train_gradient_on_the_card(cuda, dtype, d, b, h, kvh, s,
+                                          window, block):
+    from repro_torch.kernels.flash_attention import attention_ref
+    rng = np.random.default_rng(s * d + h)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                    * scale).to(cuda, dtype)
+                   for shape, scale in (((b, h, s, d), 3.0),
+                                        ((b, kvh, s, d), 1.0),
+                                        ((b, kvh, s, d), 1.0),
+                                        ((b, h, s, d), 1.0)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa_kernel.ROUTE_LAUNCHES)
+    out = flash_train(*leaves, window=window, block_k=block)
+    got = torch.autograd.grad(out, leaves, do)
+    routes = {r: fa_kernel.ROUTE_LAUNCHES[r] - before[r] for r in before}
+    assert routes[fa_kernel.route(dtype, d)] == 1 and sum(routes.values()) == 1
+    ref_in = [t.reshape(-1, s, d).float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        attention_ref(*ref_in, q_per_kv=h // kvh, window=window), ref_in,
+        do.reshape(-1, s, d).float())
+    for g, w in zip(got, want):
+        w = w.reshape(g.shape).to(dtype)
+        assert g.dtype == dtype
+        if dtype == torch.float32:
+            assert float((g - w).abs().max()) <= 2e-5 * float(w.abs().max())
+        else:
+            _bf16_check(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x22b",
+                                  "zamba2-2.7b"])
+def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One float32 train step of a smoke config on the card (no host sync
+    inside) and on the CPU, the same weights and batch: loss and gradient
+    norm within 1e-4 (abs + rel), the updated params by the rule of
+    ``test_torch_train.py``, the flash_attention launches 2 an attention
+    (remat) on the route for the config's head dim."""
+    import dataclasses
+    from _perturbed_weights import perturbed_tree
+    from repro_torch.configs import get_optimizer_name, get_smoke_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import iter_schema
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.pytree import leaves
+    from repro_torch.train.steps import make_train_step
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              activ_dtype=torch.float32)
+    tree = perturbed_tree(iter_schema(cfg), 0)
+    rng = np.random.default_rng(2)
+    batch = {key: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                   .astype(np.int32))
+             for key in ("tokens", "labels")}
+    opt = get_optimizer(get_optimizer_name(arch))
+    step = make_train_step(cfg, opt, cosine_schedule(1e-3, 10, 100))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        params = params_from_numpy(tree, device=dev)
+        b = {key: t.to(dev) for key, t in batch.items()}
+        before = dict(fa_kernel.ROUTE_LAUNCHES)
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out.append(step(params, opt.init(params), b))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if dev.type == "cuda":
+            n_attn = (cfg.n_shared_attn if cfg.family == "zamba2"
+                      else cfg.n_layers)
+            routes = {r: fa_kernel.ROUTE_LAUNCHES[r] - before[r]
+                      for r in before}
+            want = dict.fromkeys(routes, 0)
+            want[fa_kernel.route(torch.float32, cfg.head_dim)] = 2 * n_attn
+            assert routes == want
+    (gp, _, gm), (cp, _, cm) = out
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(gm[key].cpu(), cm[key], rtol=1e-4,
+                                   atol=1e-4)
+    # AdamW's first step moves a weight by about lr * sign(g): where g is
+    # at the float32 noise floor the two devices may step opposite ways
+    # (test_torch_train.py's rule)
+    lr = float(cm["lr"])
+    diff = torch.cat([(g.cpu() - c).abs().reshape(-1)
+                      for g, c in zip(leaves(gp), leaves(cp))])
+    assert float(diff.max()) <= 2 * lr
+    assert float((diff <= 1e-6).float().mean()) >= 0.999

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import TieringManager  # noqa: E402
 from repro_torch.core.runtime import ALL_POLICIES, EpochRuntime, Tenancy  # noqa: E402
 from repro_torch.dlrm import datagen, tracesim  # noqa: E402
-from repro_torch.examples import dlrm_tiering  # noqa: E402
+from repro_torch.examples import dlrm_tiering, train_100m  # noqa: E402
 from repro_torch.faults import FaultModel, Hardening  # noqa: E402
 from repro_torch.kernels.dispatch import (KernelBackend, refuse_grad,  # noqa: E402
                                           resolve_device, use_kernel)
@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # n
 from repro_torch.kernels.gather_count.kernel import gather_count_cuda  # noqa: E402
 from repro_torch.kernels.hist_select.kernel import kth_key_cuda  # noqa: E402
 from repro_torch.kernels.observe_scatter.kernel import observe_scatter_cuda  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.scenarios import DLRMScenario, run_online, run_scenario  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -52,7 +53,14 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.flash_attention, repro_torch.faults.prng, "
             "repro_torch.examples.degraded_telemetry, repro_torch.obs, "
             "repro_torch.export, repro_torch.examples.runtime_timeline, "
-            "repro_torch.examples.telemetry_export\n"
+            "repro_torch.examples.telemetry_export, repro_torch.optim, "
+            "repro_torch.optim.optimizers, repro_torch.optim.schedule, "
+            "repro_torch.train, repro_torch.train.steps, "
+            "repro_torch.train.compression, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.launch.train, repro_torch.examples.train_100m, "
+            "repro_torch.pytree, "
+            "repro_torch.kernels.flash_attention.autograd\n"
             "repro_torch.configs.get_config('qwen2-0.5b')\n"
             "repro_torch.scenarios.KVCacheScenario\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -98,7 +106,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     lambda: tracesim.run_table1(datagen.SMALL, k_hot=50),
     lambda: tracesim.run_fig3(total_accesses=1_000, n_batches=1),
     lambda: dlrm_tiering.run(dlrm_tiering.SMALL),
-], ids=["TieringManager", "run_table1", "run_fig3", "dlrm_tiering.run"])
+    lambda: train.main(["--arch", "qwen2-0.5b", "--smoke", "--steps", "1"]),
+    lambda: train_100m.main(["--steps", "1"]),
+], ids=["TieringManager", "run_table1", "run_fig3", "dlrm_tiering.run",
+        "launch.train", "train_100m"])
 def test_offline_entry_points_default_to_cuda_and_raise_without_it(
         monkeypatch, entry):
     _no_cuda(monkeypatch)
