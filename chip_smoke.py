@@ -245,7 +245,27 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     trainer's rebalance shape (the kernel line's ``hist_select_train``
     entry).
 
-Each path (8-11, 14-16, 18-24) sets the launch counters to 0 just before it
+25. sharded state (``EpochRuntime(mesh=)``): a 1-rank NCCL group from a
+    ``FileStore`` under a temporary directory and
+    ``launch.mesh.make_telemetry_mesh(1)`` (one rank per GPU: this card is
+    the mesh); (a) phase 8's paper-scale run (5,242,880 pages, 6 epochs x
+    2 batches, hints, sync_every 4) with ``mesh=`` under
+    ``set_sync_debug_mode("error")``: its JSON byte-identical to phase 8's
+    meshless run, 12 observe_scatter and 6 hist_select launches, 2 record
+    pulls, one observe_all and one epoch_step an epoch, the same
+    collectives every epoch (their count and bytes an epoch printed);
+    (b) the warm epoch with the mesh in turns with the meshless one;
+    (c) the ranged observe_scatter (a rank's ``[lo, hi)`` of the id space)
+    on phase 12's draw at lo > 0 (2- and 3-rank splits, with and without
+    keep) against its plain version and the whole histogram cut to the
+    range, exact; the W 1 call in turns with the unranged call, beside
+    ``bincount`` and its bound (the kernel line's
+    ``observe_scatter_sharded`` entry), a 2-rank half in turns with its
+    plain version; (d) ``repro_torch.examples.quickstart`` and
+    ``hinted_prefetch`` on the card, their stdout equal to their CPU
+    run's; the group destroyed; within 60 s.
+
+Each path (8-11, 14-16, 18-25) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -3505,6 +3525,178 @@ def hist_select_train_time(dev, plain) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 25
+def example_stdout(module, device: str) -> str:
+    """What ``python -m repro_torch.examples.<module> --device <device>``
+    prints."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        module.main(["--device", device])
+    return buf.getvalue()
+
+
+def ranged_observe_scatter(dev, plain, paper_ids) -> dict:
+    """Phase 25b: the ranged observe_scatter on phase 12's draw.  A rank of
+    a 2-rank and of a 3-rank split (lo > 0, the last range shorter) against
+    its plain version and against the whole histogram cut to the range,
+    exact, with and without a keep mask; then the W 1 call of the sharded
+    run (lo 0, n_global = n) in turns with the unranged call, and the
+    2-rank split's second half in turns with its plain version."""
+    import torch
+    from repro_torch.core.shard import split
+    from repro_torch.kernels.observe_scatter import observe_scatter
+    n = PAPER_PAGES
+    cursor = torch.zeros((), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    keep = torch.rand(paper_ids.shape, generator=gen, device=dev) < 0.7
+    worst = 0
+    for world, rank in ((2, 1), (3, 2), (3, 1)):
+        lo, hi = split(n, world, rank)
+        for km in (None, keep):
+            whole = observe_scatter(paper_ids, cursor, n_blocks=n,
+                                    period=401, keep=km)
+            got = observe_scatter(paper_ids, cursor, n_blocks=hi - lo,
+                                  period=401, keep=km, lo=lo, n_global=n)
+            ref = observe_scatter(paper_ids, cursor, n_blocks=hi - lo,
+                                  period=401, keep=km, lo=lo, n_global=n,
+                                  backend=plain)
+            for g, r, w in zip(got, ref, whole):
+                err = max(int((g - r).abs().max()),
+                          int((g - w[lo:hi]).abs().max()))
+                worst = max(worst, err)
+                if err:
+                    fail(f"ranged observe_scatter differs (W {world}, rank "
+                         f"{rank}, keep {km is not None}): {err}")
+    m = paper_ids.numel()
+    ranged_ms, unranged_ms = in_turns(
+        lambda: observe_scatter(paper_ids, cursor, n_blocks=n, period=401),
+        lambda: observe_scatter(paper_ids, cursor, n_blocks=n, period=401,
+                                lo=0, n_global=n), 20)
+    ranged_plain_ms = time_ms(
+        lambda: observe_scatter(paper_ids, cursor, n_blocks=n, period=401,
+                                lo=0, n_global=n, backend=plain), 20)
+    bincount_ms = time_ms(lambda: torch.bincount(paper_ids, minlength=n), 20)
+    lo, hi = split(n, 2, 1)
+    half_ms, half_plain_ms = in_turns(
+        lambda: observe_scatter(paper_ids, cursor, n_blocks=hi - lo,
+                                period=401, lo=lo, n_global=n,
+                                backend=plain),
+        lambda: observe_scatter(paper_ids, cursor, n_blocks=hi - lo,
+                                period=401, lo=lo, n_global=n), 20)
+    w1_bound, w1_by = bound_ms(4 * m + 2 * 4 * n, 2 * m)
+    half_bound, half_by = bound_ms(4 * m + 2 * 4 * (hi - lo), 2 * m)
+    return {"max_abs_err": worst, "w1_ms": ranged_ms,
+            "unranged_ms": unranged_ms, "w1_plain_ms": ranged_plain_ms,
+            "bincount_ms": bincount_ms, "w1_bound_ms": w1_bound,
+            "w1_bound_by": w1_by, "half_lo": lo, "half_ms": half_ms,
+            "half_plain_ms": half_plain_ms, "half_bound_ms": half_bound,
+            "half_bound_by": half_by}
+
+
+def sharded_paper_run(dev, plain, scen, epochs, paper_ids, phase8_json: str,
+                      zero_counts, read_counts) -> dict:
+    """Phase 25: phase 8's paper-scale online run with its state sharded
+    over a 1-rank NCCL mesh (one rank per GPU: this card is the world).
+    The group starts from a FileStore under a temporary directory (no TCP
+    port) and is destroyed at the end."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import runtime, shard
+    from repro_torch.examples import hinted_prefetch, quickstart
+    from repro_torch.kernels.observe_scatter import kernel as os_kernel
+    from repro_torch.launch.mesh import make_telemetry_mesh
+    from repro_torch.scenarios import build_hints, run_scenario
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_telemetry_mesh(1)
+        # (a) under the sync check, against phase 8's meshless JSON
+        pipeline = build_hints(scen)
+        zero_counts()
+        torch.cuda.synchronize()
+        before = dict(shard.COLLECTIVES)
+        with runtime.counting() as c:
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                res = run_scenario(scen, hints=pipeline, sync_every=4,
+                                   epochs=epochs, mesh=mesh)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            wall = time.perf_counter() - t0
+        launches = read_counts()
+        modes = dict(os_kernel.MODE_LAUNCHES)
+        coll = {k: shard.COLLECTIVES[k] - before[k] for k in before}
+        dispatch = dict(c.dispatch.items())
+        n_ep = scen.n_epochs
+        same = json.dumps(res, sort_keys=True) == phase8_json
+        if not same:
+            fail("the sharded paper run's JSON differs from phase 8's "
+                 "meshless run")
+        if (launches["observe_scatter"], launches["hist_select"]) != (12, 6):
+            fail(f"sharded paper run launches {launches}, expected 12 "
+                 f"observe_scatter and 6 hist_select")
+        if dispatch["record_sync"] != 2:
+            fail(f"sharded paper run made {dispatch['record_sync']} record "
+                 f"pulls, expected 2")
+        if (dispatch["observe_all"], dispatch["epoch_step"]) != (n_ep, n_ep):
+            fail(f"sharded paper run dispatches {dispatch}")
+        if any(v % n_ep for v in coll.values()):
+            fail(f"collectives {coll} are not the same every epoch")
+        # (b) the warm epoch with the mesh, in turns with the meshless run
+        walls = {True: [], False: []}
+        for on in (True, False, False, True):
+            pipeline = build_hints(scen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_scenario(scen, hints=pipeline, sync_every=4, epochs=epochs,
+                         mesh=mesh if on else None)
+            torch.cuda.synchronize()
+            walls[on].append((time.perf_counter() - t0) / n_ep)
+        # (c) the ranged kernel, exact, and its times
+        ranged = ranged_observe_scatter(dev, plain, paper_ids)
+        # (d) both new examples on the card against their CPU run
+        examples = {}
+        for mod in (quickstart, hinted_prefetch):
+            t0 = time.perf_counter()
+            gpu = example_stdout(mod, "cuda")
+            cpu = example_stdout(mod, "cpu")
+            if gpu != cpu or not gpu.strip():
+                fail(f"{mod.__name__} prints differently on the card and "
+                     f"on the CPU")
+            examples[mod.__name__.rsplit(".", 1)[-1]] = {
+                "lines": len(gpu.splitlines()), "identical": True,
+                "seconds": time.perf_counter() - t0}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"world": 1, "n_pages": PAPER_PAGES, "k_hot": scen.k_hot,
+           "epochs": n_ep, "json_identical_to_phase8": same,
+           "launches": launches, "observe_scatter_modes": modes,
+           "dispatch": dispatch,
+           "collectives_per_epoch": {k: v // n_ep for k, v in coll.items()},
+           "cold_epoch_wall_s": wall / n_ep,
+           "warm_epoch_wall_s_mesh": walls[True],
+           "warm_epoch_wall_s_meshless": walls[False],
+           "warm_ratio": sum(walls[True]) / sum(walls[False]),
+           "ranged_observe_scatter": ranged, "examples": examples,
+           "seconds": time.perf_counter() - t_phase}
+    say("sharded_paper_run", **out)
+    if out["seconds"] > 60:
+        fail(f"phase 25 took {out['seconds']:.1f} s, over its 60 s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -3512,7 +3704,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 24) -> None:
+def main(until: int = 25) -> None:
     import numpy as np
     import torch
 
@@ -3729,6 +3921,7 @@ def main(until: int = 24) -> None:
         record_sync=record_sync, hint_refresh=c.dispatch["hint_refresh"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     say("paper_summary", **res["summary"])
+    phase8_json = json.dumps(res, sort_keys=True)     # phase 25's oracle
     if launches != {"observe_scatter": 12, "hist_select": 6,
                     "gather_count": 0, "embedding_bag": 0,
                     "flash_attention": 0}:
@@ -4120,6 +4313,12 @@ def main(until: int = 24) -> None:
     hs_train = hist_select_train_time(dev, plain)
     say("training", seconds=time.perf_counter() - t24)
 
+    if until < 25:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------------------------------ 25. sharded state, a 1-rank mesh
+    sh25 = sharded_paper_run(dev, plain, scen, epochs, paper_ids,
+                             phase8_json, zero_counts, read_counts)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -4273,6 +4472,22 @@ def main(until: int = 24) -> None:
          "ms": fa_train["ms"], "plain_ms": fa_train["plain_ms"],
          "bound_ms": fa_train["bound_ms"], "bound_by": fa_train["bound_by"],
          "library_ms": fa_train["sdpa_ms"]},
+        # the sharded path: observe_scatter's launches in phase 25's
+        # paper run over a 1-rank mesh, the ranged call's error (lo > 0
+        # cases against the plain version and the whole histogram) and the
+        # W 1 call's time on the online batch (phase 25's line has it in
+        # turns with the unranged call, and a 2-rank split's half)
+        {"name": "observe_scatter_sharded", "route": "cuda",
+         "source": "src/repro_torch/kernels/observe_scatter/csrc/"
+                   "observe_scatter.cu",
+         "replaces": "src/repro/kernels/observe_scatter/kernel.py:34",
+         "launches": sh25["launches"]["observe_scatter"],
+         "max_abs_err": sh25["ranged_observe_scatter"]["max_abs_err"],
+         "ms": sh25["ranged_observe_scatter"]["w1_ms"],
+         "plain_ms": sh25["ranged_observe_scatter"]["w1_plain_ms"],
+         "bound_ms": sh25["ranged_observe_scatter"]["w1_bound_ms"],
+         "bound_by": sh25["ranged_observe_scatter"]["w1_bound_by"],
+         "library_ms": sh25["ranged_observe_scatter"]["bincount_ms"]},
         # hist_select on the training path: its launch at phase 24b's step
         # 10 rebalance, its time on that rebalance's shape (18,992 blocks,
         # k 1,899) beside torch.topk
@@ -4295,4 +4510,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 24)
+    main(int(args[1]) if args[:1] == ["--until"] else 25)

@@ -14,6 +14,14 @@ works on one placement or lane-stacked ((L, n_slots) / (L, n_blocks)).
 ``.at[...].set(mode="drop")`` scatters become writes into one spare column
 past the end, which is cut off again (:func:`_scatter_ids`), so no step
 reads a count back to the host.
+
+Under a :class:`~repro_torch.core.shard.BlockShard` ``block_to_slot`` holds
+the rank's block range and ``slot_to_block`` (global ids) is replicated:
+a read of a per-block leaf by a slot's or a plan's block id is answered by
+the rank that owns the id (:func:`repro_torch.core.shard.lookup`, one
+integer all-reduce), everything on the ``(L, k)`` slot side then runs the
+same on every rank, and each rank writes ``block_to_slot`` only in its
+range.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 
 from ..device import upload
 from . import policy, selectk
+from . import shard as shd
 
 __all__ = ["Placement", "apply_plan", "demote_idle", "plan_promotion"]
 
@@ -78,7 +87,26 @@ def _scatter_ids(arr: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
     return pad[..., :n]
 
 
+def _by_block(leaf: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+    """``leaf[..., gids]`` on a whole block axis, -1 ids reading block 0
+    (the callers mask them)."""
+    return torch.take_along_dim(
+        leaf, torch.clamp(gids, min=0).to(torch.int64), dim=-1)
+
+
+def _scatter_owned(arr: torch.Tensor, gids: torch.Tensor, valid: torch.Tensor,
+                   val: torch.Tensor,
+                   shard: Optional[shd.BlockShard]) -> torch.Tensor:
+    """:func:`_scatter_ids` by global block id into a per-block leaf: under
+    a shard only the ids in the rank's range land."""
+    if shard is None:
+        return _scatter_ids(arr, gids, valid, val)
+    own, idx = shard.owned(gids)
+    return _scatter_ids(arr, idx, valid & own, val)
+
+
 def demote_idle(p: Placement, est: torch.Tensor, enable,
+                shard: Optional[shd.BlockShard] = None,
                 ) -> Tuple[Placement, torch.Tensor]:
     """Watermark demotion: free every resident block whose epoch estimate
     is zero, where ``enable`` (scalar or per-lane bool).  Returns
@@ -86,14 +114,20 @@ def demote_idle(p: Placement, est: torch.Tensor, enable,
     idle = p.fast_mask & (est == 0) & enable
     b2s = torch.where(idle, -1, p.block_to_slot)
     occ = p.slot_to_block >= 0
-    blk = torch.clamp(p.slot_to_block, min=0).to(torch.int64)
-    slot_idle = occ & torch.take_along_dim(idle, blk, dim=-1)
+    if shard is None:
+        slot_idle = occ & _by_block(idle, p.slot_to_block)
+        count = torch.sum(idle, dim=-1, dtype=torch.int32)
+    else:
+        slot_idle = occ & (shd.lookup(shard, [(idle, p.slot_to_block)])[0]
+                           > 0)
+        # an idle block is resident: one idle slot each
+        count = torch.sum(slot_idle, dim=-1, dtype=torch.int32)
     s2b = torch.where(slot_idle, -1, p.slot_to_block)
-    return (Placement(slot_to_block=s2b, block_to_slot=b2s),
-            torch.sum(idle, dim=-1, dtype=torch.int32))
+    return Placement(slot_to_block=s2b, block_to_slot=b2s), count
 
 
 def apply_plan(p: Placement, want: torch.Tensor, est: torch.Tensor,
+               shard: Optional[shd.BlockShard] = None,
                ) -> Tuple[Placement, torch.Tensor, torch.Tensor]:
     """Promote ``want`` (priority-ordered unique block ids, -1 padding) into
     the bounded fast tier, demoting the coldest residents by ``est`` when
@@ -103,11 +137,21 @@ def apply_plan(p: Placement, want: torch.Tensor, est: torch.Tensor,
     s2b, b2s = p.slot_to_block, p.block_to_slot
 
     valid = want >= 0
-    safe_want = torch.clamp(want, min=0).to(torch.int64)
-    wanted = _scatter_ids(torch.zeros(b2s.shape, dtype=torch.bool,
-                                      device=b2s.device),
-                          want, valid, torch.ones_like(valid))
-    new = valid & (torch.take_along_dim(b2s, safe_want, dim=-1) < 0)
+    wanted = _scatter_owned(torch.zeros(b2s.shape, dtype=torch.bool,
+                                        device=b2s.device),
+                            want, valid, torch.ones_like(valid), shard)
+    occ = s2b >= 0
+    if shard is None:
+        b2s_want = _by_block(b2s, want)
+        blk = torch.clamp(s2b, min=0).to(torch.int64)
+        wanted_at = torch.take_along_dim(wanted, blk, dim=-1)
+        est_at = torch.take_along_dim(est.to(torch.float32), blk, dim=-1)
+    else:
+        b2s_want, wanted_at, est_bits = shd.lookup(shard, [
+            (b2s, want), (wanted, s2b), (est.to(torch.float32), s2b)])
+        wanted_at = wanted_at > 0
+        est_at = est_bits.view(torch.float32)
+    new = valid & (b2s_want < 0)
     n_new = torch.sum(new, dim=-1, keepdim=True, dtype=torch.int32)
     n_free = torch.sum(s2b < 0, dim=-1, keepdim=True, dtype=torch.int32)
     need = n_new - n_free
@@ -115,19 +159,13 @@ def apply_plan(p: Placement, want: torch.Tensor, est: torch.Tensor,
     # eviction order: finite-heat residents coldest-first, then free slots,
     # then +inf-guarded wanted residents; the `need` coldest slots come from
     # a threshold selection with lowest-slot-first ties — no sort
-    occ = s2b >= 0
-    blk = torch.clamp(s2b, min=0).to(torch.int64)
-    heat = torch.where(
-        occ,
-        torch.where(torch.take_along_dim(wanted, blk, dim=-1), torch.inf,
-                    torch.take_along_dim(est.to(torch.float32), blk,
-                                         dim=-1)),
-        _FREE_HEAT)
+    heat = torch.where(occ, torch.where(wanted_at, torch.inf, est_at),
+                       _FREE_HEAT)
     victim = occ & selectk.bottom_k_mask(selectk.sortable_key(heat),
                                          need.squeeze(-1))
     demoted = torch.sum(victim, dim=-1, dtype=torch.int32)
 
-    b2s = _scatter_ids(b2s, s2b, victim, torch.full_like(s2b, -1))
+    b2s = _scatter_owned(b2s, s2b, victim, torch.full_like(s2b, -1), shard)
     s2b = torch.where(victim, -1, s2b)
 
     # fill free slots (ascending slot index) with new blocks in plan order:
@@ -141,7 +179,7 @@ def apply_plan(p: Placement, want: torch.Tensor, est: torch.Tensor,
     slot_for = torch.take_along_dim(
         free_slot, torch.clamp(new_rank, 0, k - 1).to(torch.int64), dim=-1)
     s2b = _scatter_ids(s2b, slot_for, assign, want)
-    b2s = _scatter_ids(b2s, want, assign, slot_for)
+    b2s = _scatter_owned(b2s, want, assign, slot_for, shard)
     promoted = torch.sum(assign, dim=-1, dtype=torch.int32)
     return Placement(slot_to_block=s2b, block_to_slot=b2s), promoted, demoted
 

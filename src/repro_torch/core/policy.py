@@ -171,7 +171,8 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
 
 
 def hinted_score(est_counts: torch.Tensor, t_rank: torch.Tensor,
-                 hint_rank: torch.Tensor, hint_weight: float) -> torch.Tensor:
+                 hint_rank: torch.Tensor, hint_weight: float,
+                 n_blocks: Optional[int] = None) -> torch.Tensor:
     """The hinted lane's blended score
     ``(1 - w) * t_rank / (n - 1) + w * hint_rank``: telemetry rank mixed
     with the static priority in rank space, and a -1 sentinel for blocks
@@ -182,8 +183,10 @@ def hinted_score(est_counts: torch.Tensor, t_rank: torch.Tensor,
     ``C = f32(f32(1 - w) * f32(1 / (n - 1)))`` and contracts the first
     product into a fused multiply-add: ``fma(t_rank, C, f32(w * hint))``.
     (The reference's eager call rounds each op separately and differs in
-    the last bit on a few percent of elements.)"""
-    n = est_counts.shape[0]
+    the last bit on a few percent of elements.)  ``n_blocks`` is the
+    length of the block axis the rank counts over (a sharded rank's inputs
+    are its slice of it; default ``est_counts``' length)."""
+    n = est_counts.shape[0] if n_blocks is None else int(n_blocks)
     recip = np.float32(1.0) / np.float32(max(n - 1, 1))
     c = float(np.float32(np.float32(1.0 - hint_weight) * recip))
     score = fma_f32(t_rank.to(torch.float32),

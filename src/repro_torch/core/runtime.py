@@ -45,8 +45,20 @@ reference's spans — ``hint_refresh``, ``observe_all``, ``epoch_step`` and
 ``record_sync`` — and, with ``profiler_annotations``, the same names as
 ``torch.profiler`` ranges around the kernels they launch.  PyTorch runs
 eagerly, so there is no trace to count: the reference's ``TRACE_COUNTS``
-has no counterpart here.  Options the port does not carry
-yet raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+has no counterpart here.
+
+With a mesh (``mesh=``, a ``DeviceMesh``, and ``mesh_axis``) every leaf
+whose last axis is the block axis holds the rank's contiguous range of it
+(:mod:`repro_torch.core.shard`); scalars, ``slot_to_block`` and the record
+buffer are replicated.  Every rank observes the whole epoch and counts its
+own range.  Each selection gathers its int32 key rows into the full block
+vector (one all-gather), runs the unchanged ``select_top_k`` /
+``top_k_mask`` / ``segment_top_k_mask`` there and keeps the rank's slice of
+the masks, so ties stay lowest-index-first and ``hist_select`` launches as
+often as without a mesh.  Reads of a per-block leaf by a slot's or a plan's
+block id are answered by the owning rank in one integer all-reduce, and the
+epoch's record row is summed in one more.  Nothing reduces a float over the
+block axis, so a sharded trajectory is byte-identical to the meshless one.
 
 ``fused=False`` is the reference's per-lane host loop, kept as the
 bit-identity oracle of the fused step: each epoch pulls four full
@@ -87,6 +99,7 @@ import torch
 
 from . import selectk
 from . import policy
+from . import shard as shd
 from . import telemetry as tel
 from ..device import sync_allowed, upload
 from ..faults.model import COLLECTORS, LANE_COLLECTOR, FaultModel, Hardening
@@ -323,6 +336,7 @@ class _FusedCfg(NamedTuple):
     reactive_hot_threshold: Optional[int]
     tenancy: Optional[Tenancy] = None
     hardening: Optional[Hardening] = None
+    shard: Optional[shd.BlockShard] = None   # the rank's range under a mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,12 +413,16 @@ def _out_buf_init(sync_every: int, n_lanes: int, n_tenants: int,
                        device=device)
 
 
-def _per_tenant_sum(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
-    """(L, n_blocks) -> (L, T) int64: a sum over each tenant's id range
-    (the ranges are contiguous and static, so each is a slice; one
+def _per_tenant_sum(x: torch.Tensor, offsets: Sequence[int],
+                    lo: int = 0) -> torch.Tensor:
+    """(L, n) -> (L, T) int64: a sum over each tenant's id range (the
+    ranges are contiguous and static, so each is a slice; one
     ``index_add_`` over the segment ids would instead send every block's
-    value to one of L x T addresses by an atomic add)."""
-    return torch.stack([torch.sum(x[:, a:b], dim=-1, dtype=torch.int64)
+    value to one of L x T addresses by an atomic add).  ``x`` holds the
+    blocks from global id ``lo`` (a sharded rank's range): each range is
+    clipped to it, and a tenant outside it sums to zero."""
+    return torch.stack([torch.sum(x[:, max(a - lo, 0):max(b - lo, 0)],
+                                  dim=-1, dtype=torch.int64)
                         for a, b in zip(offsets, offsets[1:])], dim=-1)
 
 
@@ -425,6 +443,7 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     ``out_row`` of ``state.out_buf``; nothing leaves the device."""
     lanes, k = cfg.lanes, cfg.k_hot
     har = cfg.hardening
+    sh = cfg.shard
     dev = state.pred.device
     b = state.bundle
     faulty = b.faults is not None
@@ -476,10 +495,11 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
         exp_mass = torch.full((), float(max(np.float32(epoch_accesses),
                                             1.0)),
                               dtype=torch.float32, device=dev)
-        obs_hmu = torch.sum(d_hmu, dtype=torch.int64).to(torch.float32)
-        obs_pebs = torch.sum(d_pebs, dtype=torch.int64).to(torch.float32)
         d_nb = torch.clamp_min(nb_faults - state.prev_nb, 0)
-        obs_nb = torch.sum(d_nb, dtype=torch.int64).to(torch.float32)
+        obs = [torch.sum(x, dtype=torch.int64) for x in (d_hmu, d_pebs, d_nb)]
+        if sh is not None:              # integer masses: exact in any order
+            obs = shd.sum_parts(sh, obs)
+        obs_hmu, obs_pebs, obs_nb = (o.to(torch.float32) for o in obs)
         q_raw = torch.stack([
             policy.quality_estimate(obs_hmu, exp_mass),
             policy.quality_estimate(obs_pebs, exp_mass),
@@ -545,10 +565,17 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
             min_key, cap = 1, k
         elif name == "hinted":
             # exact argsort(argsort(d_pebs)): positives are bounded by this
-            # epoch's PEBS samples, so rank the sparse support only
-            t_rank = selectk.stable_rank_sparse(d_pebs, s_max)
+            # epoch's PEBS samples, so rank the sparse support only (a
+            # rank over the whole block axis: under a mesh, of the gathered
+            # vector, and the rank keeps its slice)
+            if sh is None:
+                t_rank = selectk.stable_rank_sparse(d_pebs, s_max)
+            else:
+                t_rank = sh.local(selectk.stable_rank_sparse(
+                    shd.all_gather(sh, d_pebs), s_max))
             score = policy.hinted_score(d_pebs, t_rank, state.hint_rank,
-                                        cfg.hint_weight)
+                                        cfg.hint_weight,
+                                        n_blocks=cfg.n_blocks)
             key, est = selectk.sortable_key(score), d_pebs.to(torch.float32)
             r = row("score", key, est)
             min_key, cap = 0, k
@@ -592,6 +619,20 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     #    Masked entries fail every lane's value gate (all min_keys >= 0).
     ten = cfg.tenancy
     quotas = ten is not None and ten.caps is not None
+    # the hot set is workload truth: under quotas the hmu row is masked,
+    # and with faults or staleness it no longer ranks the truth, so it gets
+    # its own exact top-K; otherwise the oracle row doubles as it
+    own_hot = quotas or faulty or state.stale is not None
+    d_true_all = d_true
+    if sh is not None:
+        # every selection runs on the whole block axis: ONE all-gather of
+        # the key rows, and of the truth where a selection ranks it
+        n_rows = key_rows.shape[0]
+        ranks_true = own_hot or ten is not None
+        whole = shd.all_gather(sh, torch.cat([key_rows, d_true[None]])
+                               if ranks_true else key_rows)
+        key_rows = whole[:n_rows]
+        d_true_all = whole[n_rows] if ranks_true else None
     if quotas:
         protected = selectk.segment_top_k_mask(
             key_rows, ten.offsets, ten.caps, layout=state.tenant_caps)
@@ -604,17 +645,15 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     vals = torch.stack([vals_u[r] for r in lane_row])          # (L, k)
     ids = torch.stack([ids_u[r] for r in lane_row])
 
-    # -- account the epoch under the placement that served it.  The hot
-    #    set is workload truth: under quotas the hmu row is masked, and with
-    #    faults or staleness it no longer ranks the truth, so it gets its
-    #    own exact top-K; otherwise the oracle row doubles as it.
-    hot = (selectk.top_k_mask(d_true, k)
-           if quotas or faulty or state.stale is not None
+    # -- account the epoch under the placement that served it
+    hot = (selectk.top_k_mask(d_true_all, k) if own_hot
            else sel_u[hmu_row])                    # epoch's true top-K set
+    if sh is not None:
+        hot = sh.local(hot)
     fast0 = state.placement.fast_mask              # (L, n)
     d_fast = torch.where(fast0, d_true, 0)
     n_fast = torch.sum(d_fast, dim=-1, dtype=torch.int64)
-    n_slow = torch.sum(d_true, dtype=torch.int64) - n_fast
+    n_true = torch.sum(d_true, dtype=torch.int64)
     inter = torch.sum(fast0 & hot, dim=-1, dtype=torch.int64)
     resident0 = state.placement.resident()
 
@@ -628,7 +667,8 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
                                              fast0)
         demote_enable = demote_enable & (
             cold_streak_new >= har.demote_hysteresis)
-    pl, pre_demoted = demote_idle(state.placement, est_lanes, demote_enable)
+    pl, pre_demoted = demote_idle(state.placement, est_lanes, demote_enable,
+                                  shard=sh)
     free_slots = torch.sum(pl.slot_to_block < 0, dim=-1, dtype=torch.int32)
     cap_eff = torch.where(reactive[:, 0], torch.minimum(cap_col, free_slots),
                           cap_col)
@@ -638,28 +678,37 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     want = torch.where(ok, ids, -1)
 
     # -- migrate: bounded promotion with plan-guarded coldest-victim eviction
-    pl, promoted, demoted = apply_plan(pl, want, est_lanes)
+    pl, promoted, demoted = apply_plan(pl, want, est_lanes, shard=sh)
 
-    parts = [
-        torch.stack([drained.value, bundle.pebs.host_events.value,
-                     bundle.nb.host_events.value]),
-        n_fast, n_slow, inter, resident0.to(torch.int64),
-        promoted.to(torch.int64), (demoted + pre_demoted).to(torch.int64),
-    ]
-    if har is not None:
-        # float32 bits, widened: the int64 row stays one exact transfer
-        parts.append(quality_new.view(torch.int32).to(torch.int64))
+    t_parts = []
     if ten is not None:
         # per-tenant accounting: tenant-range sums of the same masks the
         # lane record sums, and each tenant's own true-hot set (the top
         # hot_k[t] of its id range, all tenants in one segment call); only
         # (L, T) counts join the record row
         t_hot = selectk.segment_top_k_mask(
-            d_true, ten.offsets, ten.hot_k, layout=state.tenant_hot)
+            d_true_all, ten.offsets, ten.hot_k, layout=state.tenant_hot)
+        if sh is not None:
+            t_hot = sh.local(t_hot)
         fast1 = pl.fast_mask
-        parts += [_per_tenant_sum(x, ten.offsets).reshape(-1) for x in (
-            d_fast, d_true - d_fast,
-            fast0 & t_hot, fast0, fast1 & ~fast0, fast0 & ~fast1)]
+        lo = 0 if sh is None else sh.lo
+        t_parts = [_per_tenant_sum(x, ten.offsets, lo).reshape(-1)
+                   for x in (d_fast, d_true - d_fast, fast0 & t_hot, fast0,
+                             fast1 & ~fast0, fast0 & ~fast1)]
+    if sh is not None:
+        # the block-axis sums, whole: ONE integer all-reduce an epoch
+        n_fast, n_true, inter, *t_parts = shd.sum_parts(
+            sh, [n_fast, n_true, inter, *t_parts])
+    parts = [
+        torch.stack([drained.value, bundle.pebs.host_events.value,
+                     bundle.nb.host_events.value]),
+        n_fast, n_true - n_fast, inter, resident0.to(torch.int64),
+        promoted.to(torch.int64), (demoted + pre_demoted).to(torch.int64),
+    ]
+    if har is not None:
+        # float32 bits, widened: the int64 row stays one exact transfer
+        parts.append(quality_new.view(torch.int32).to(torch.int64))
+    parts += t_parts
     # -- this epoch's record row, written in place into the accumulator
     #    (the reference donates the buffer; here the update is in place)
     state.out_buf[out_row] = torch.cat(parts)
@@ -676,10 +725,20 @@ def _epoch_step(state: _FusedState, epoch_accesses: int, out_row: int, *,
     return dataclasses.replace(state, **updates)
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(
-        f"{option} is not ported to repro_torch yet (ROADMAP Queue 1, "
-        f"item {item})")
+def _check_mesh(mesh, axis: str, device: torch.device):
+    """The reference's refusals of a mesh the sharded state cannot use."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh= takes a torch.distributed.device_mesh."
+                        f"DeviceMesh (launch.mesh.make_telemetry_mesh), got "
+                        f"{type(mesh).__name__}")
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise TypeError(f"the mesh has no axis {axis!r} (its axes: "
+                        f"{mesh.mesh_dim_names}); pass mesh_axis=")
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot hold state on "
+                         f"{device}")
 
 
 class EpochRuntime:
@@ -706,7 +765,14 @@ class EpochRuntime:
     ``fused=True`` (default) keeps all lane state on the device and runs
     decide + migrate + account as :func:`_epoch_step`; ``fused=False`` is
     the reference's per-lane host loop, the bit-identity oracle (it takes
-    neither ``sync_every > 1`` nor ``faults`` / ``hardening``).
+    neither ``sync_every > 1`` nor ``faults`` / ``hardening`` nor a mesh).
+
+    ``mesh`` (a ``DeviceMesh`` of ``device``'s type with an axis named
+    ``mesh_axis``: :func:`repro_torch.launch.mesh.make_telemetry_mesh`)
+    shards all per-block state over that axis.  Every rank of the axis
+    builds its runtime with the same arguments and steps it with the same
+    epochs; the records come out the same on every rank, byte-identical to
+    the meshless run's.
     """
 
     def __init__(
@@ -729,6 +795,7 @@ class EpochRuntime:
         prefetch_overlap: float = 1.0,
         fused: bool = True,
         mesh=None,
+        mesh_axis: str = "blocks",
         tenancy=None,
         sync_every: int = 1,
         faults=None,
@@ -740,13 +807,15 @@ class EpochRuntime:
         if unknown:
             raise ValueError(f"unknown policies {sorted(unknown)}; "
                              f"choose from {ALL_POLICIES}")
+        if mesh is not None and not fused:
+            raise ValueError("mesh sharding requires the fused epoch step "
+                             "(the reference path keeps lane state on the "
+                             "host); pass fused=True or drop mesh")
         if (faults is not None or hardening is not None) and not fused:
             raise ValueError("fault injection / hardening run inside the "
                              "fused epoch step; the reference path stays "
                              "the fault-free bit-identity oracle — pass "
                              "fused=True or drop faults/hardening")
-        if mesh is not None:
-            _not_ported("mesh= (sharded state)", "15")
         if faults is not None and not isinstance(faults, FaultModel):
             raise TypeError(f"faults= takes a repro_torch.faults.FaultModel, "
                             f"got {type(faults).__name__}")
@@ -760,6 +829,8 @@ class EpochRuntime:
         if hardening is not None:
             hardening.validate()
         self.device = resolve_device(device)
+        if mesh is not None:
+            _check_mesh(mesh, mesh_axis, self.device)
         self.sync_every = int(sync_every)
         if self.sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every!r}")
@@ -814,10 +885,13 @@ class EpochRuntime:
         self._prev_nb_host = 0.0
         self._buffered = 0          # dispatched epochs not yet record-synced
         self._n_tenants = 0 if tenancy is None else tenancy.n_tenants
+        # the rank's block range under a mesh (None: the whole axis here)
+        self._shard = (None if mesh is None else
+                       shd.from_mesh(mesh, mesh_axis, self.n_blocks))
         bundle = tel.bundle_init(
             n_blocks, pebs_period=pebs_period, nb_scan_rate=scan,
             hmu_log_capacity=hmu_log_capacity, faults=faults,
-            device=self.device)
+            shard=self._shard, device=self.device)
         if not self.fused:
             self.bundle = bundle
             self._ref_lanes = {
@@ -839,12 +913,13 @@ class EpochRuntime:
             ewma_alpha=self.ewma_alpha, hint_weight=self.hint_weight,
             nb_rate_limit=self.nb_rate_limit,
             reactive_hot_threshold=self.reactive_hot_threshold,
-            tenancy=tenancy, hardening=hardening)
+            tenancy=tenancy, hardening=hardening, shard=self._shard)
         dev = self.device
+        # per-block leaves hold the rank's range under a mesh
+        n_here = self.n_blocks if self._shard is None else self._shard.n_local
 
         def zeros_n():
-            return torch.zeros((self.n_blocks,), dtype=torch.int32,
-                               device=dev)
+            return torch.zeros((n_here,), dtype=torch.int32, device=dev)
 
         # robustness leaves exist only when their subsystem is on
         # (reference runtime.py:944-965)
@@ -853,7 +928,7 @@ class EpochRuntime:
             extra["prev_true"] = zeros_n()
             if faults.stale_epochs > 0:
                 extra["stale"] = torch.zeros(
-                    (faults.stale_epochs + 1, 3, self.n_blocks),
+                    (faults.stale_epochs + 1, 3, n_here),
                     dtype=torch.int32, device=dev)
         if hardening is not None:
             extra["quality"] = torch.ones((3,), dtype=torch.float32,
@@ -863,7 +938,7 @@ class EpochRuntime:
             extra["prev_nb"] = zeros_n()
             if hardening.demote_hysteresis > 1:
                 extra["cold_streak"] = torch.zeros(
-                    (L, self.n_blocks), dtype=torch.int32, device=dev)
+                    (L, n_here), dtype=torch.int32, device=dev)
         t_hot = t_caps = None
         if tenancy is not None:
             t_hot = selectk.segment_layout(tenancy.offsets, tenancy.hot_k,
@@ -872,12 +947,11 @@ class EpochRuntime:
                 t_caps = t_hot.with_caps(tenancy.caps)
         self._state = _FusedState(
             bundle=bundle,
-            placement=Placement.create(self.n_blocks, self.k_hot, lanes=L,
+            placement=Placement.create(n_here, self.k_hot, lanes=L,
                                        device=dev),
-            pred=torch.zeros((self.n_blocks,), dtype=torch.float32,
-                             device=dev),
-            hint_rank=upload(self.hint_rank, dev),
-            prefetch_rank=upload(self.prefetch_rank, dev),
+            pred=torch.zeros((n_here,), dtype=torch.float32, device=dev),
+            hint_rank=self._upload_blocks(self.hint_rank),
+            prefetch_rank=self._upload_blocks(self.prefetch_rank),
             prev_hmu=zeros_n(), prev_pebs=zeros_n(),
             out_buf=_out_buf_init(self.sync_every, L, self._n_tenants, dev,
                                   quality=hardening is not None),
@@ -889,6 +963,7 @@ class EpochRuntime:
     def for_scenario(cls, scenario, *, policies: Sequence[str] = ALL_POLICIES,
                      hints=None, prefetch_overlap: float = 1.0,
                      fused: bool = True, mesh=None,
+                     mesh_axis: str = "blocks",
                      **overrides) -> "EpochRuntime":
         """Build a runtime from an access scenario's geometry and cost-model
         parameters; ``overrides`` replace any constructor kwarg."""
@@ -900,22 +975,35 @@ class EpochRuntime:
             pebs_period=scenario.pebs_period,
             nb_scan_rate=scenario.nb_scan_rate,
             hints=hints, prefetch_overlap=prefetch_overlap,
-            fused=fused, mesh=mesh,
+            fused=fused, mesh=mesh, mesh_axis=mesh_axis,
             tenancy=getattr(scenario, "tenancy", None),
         )
         kw.update(overrides)
         return cls(scenario.n_blocks, scenario.k_hot, **kw)
 
     # ------------------------------------------------------- state accessors
+    def _upload_blocks(self, x: np.ndarray) -> torch.Tensor:
+        """A host per-block array onto the device: the rank's range of it
+        under a mesh."""
+        if self._shard is not None:
+            x = self._shard.local(x)
+        return upload(x, self.device)
+
+    def _whole(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-block device leaf over the whole block axis (an all-gather
+        under a mesh: every rank of the axis must call it)."""
+        return x if self._shard is None else shd.all_gather(self._shard, x)
+
     @property
     def lanes(self) -> Dict[str, _Lane]:
         """Per-lane placement view (host copies in fused mode, read from the
-        device; the live host state on the reference path)."""
+        device; the live host state on the reference path).  Under a mesh
+        it gathers the whole block axis, so every rank must read it."""
         if not self.fused:
             return self._ref_lanes
         s2b = self._state.placement.slot_to_block.cpu().numpy()
-        b2s = self._state.placement.block_to_slot.cpu().numpy()
-        pred = self._state.pred.cpu().numpy()
+        b2s = self._whole(self._state.placement.block_to_slot).cpu().numpy()
+        pred = self._whole(self._state.pred).cpu().numpy()
         return {
             name: _Lane(name=name, slot_to_block=s2b[i], block_to_slot=b2s[i],
                         pred=pred if name == "proactive_ewma" else None)
@@ -956,7 +1044,7 @@ class EpochRuntime:
             with cm:
                 self._state = dataclasses.replace(
                     self._state,
-                    **{k: upload(v, self.device) for k, v in updates.items()})
+                    **{k: self._upload_blocks(v) for k, v in updates.items()})
 
     # ---------------------------------------------------------------- step
     def step(self, batches, lookahead: Sequence = ()):

@@ -38,6 +38,17 @@ injects the reference's faults on the device, in the same pass:
 Every draw is the reference's own ``jax.random`` draw, computed by
 :mod:`repro_torch.faults.prng` from the model's key, so faulty states are
 identical to the reference's too.  Ground truth is never faulted.
+
+**Sharded state.**  A bundle built with a
+:class:`~repro_torch.core.shard.BlockShard` (``bundle_init(shard=...)``)
+holds one rank's block range ``[lo, hi)`` of every per-block leaf.  Every
+rank observes the whole batch and counts only the ids in its range (the
+ranged ``observe_scatter``); the PEBS cursor, the HMU log, the fault draws
+and every event scalar stay replicated, the same on every rank without a
+collective, except NB's hint-fault count, a sum over the block axis (one
+integer all-reduce a batch).  The fault model keeps ``pebs_drop_p``
+whole, since the keep draw indexes it by global id, and holds the rank's
+slice of a per-block ``hmu_counter_max``.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ from ..faults.model import (CARRY_BASE, INT32_MAX, Counter64, FaultModel,
                             counter_add, counter_init, counter_scaled_add,
                             counter_zero_like)
 from ..kernels.observe_scatter import observe_scatter
+from . import shard as shd
 
 __all__ = [
     "HMUState", "PEBSState", "NBState", "TelemetryBundle",
@@ -211,16 +223,22 @@ def nb_init(n_blocks: int, scan_rate: int, device="cpu") -> NBState:
 
 
 def _nb_observe(state: NBState, touched: torch.Tensor,
-                stalled: Optional[torch.Tensor] = None) -> NBState:
+                stalled: Optional[torch.Tensor] = None,
+                shard: Optional[shd.BlockShard] = None) -> NBState:
     """One scanner tick, then the batch's touches (``touched = hist > 0``).
     The tick unmaps the cyclic window ``[scan_ptr, scan_ptr + scan_rate)``
     mod n_blocks, written as a mask instead of the reference's scatter: a
     block is in it iff ``(i - scan_ptr) mod n < scan_rate``.  ``stalled``
     (a () bool on the device, from the fault model) makes the tick a no-op
     — no unmapping, no cursor advance — by ``torch.where``, while the
-    touches still re-map pages."""
+    touches still re-map pages.  Under a ``shard`` the window is taken mod
+    the global block count over the rank's global ids."""
     n = state.mapped.shape[0]
-    idx = torch.arange(n, dtype=torch.int64, device=touched.device)
+    lo = 0
+    if shard is not None:
+        n, lo = shard.n_global, shard.lo
+    idx = torch.arange(lo, lo + state.mapped.shape[0], dtype=torch.int64,
+                       device=touched.device)
     in_scan = torch.remainder(idx - state.scan_ptr, n) < state.scan_rate
     advance = state.scan_rate
     if stalled is not None:
@@ -228,13 +246,15 @@ def _nb_observe(state: NBState, touched: torch.Tensor,
         advance = torch.where(stalled, 0, state.scan_rate)
     mapped = state.mapped & ~in_scan
     faulted = touched & ~mapped
+    n_faulted = torch.sum(faulted, dtype=torch.int64)
+    if shard is not None:
+        n_faulted = shd.all_reduce(shard, n_faulted)
     return dataclasses.replace(
         state, mapped=mapped | touched,
         faults=state.faults + faulted.to(torch.int32),
         scan_ptr=torch.remainder(state.scan_ptr + advance,
                                  n).to(torch.int32),
-        host_events=counter_add(state.host_events,
-                                torch.sum(faulted, dtype=torch.int64)))
+        host_events=counter_add(state.host_events, n_faulted))
 
 
 def nb_estimate(state: NBState) -> torch.Tensor:
@@ -250,15 +270,18 @@ class TelemetryBundle:
     nb: NBState
     true_counts: torch.Tensor  # (n_blocks,) int32 exact histogram
     faults: Optional[FaultModel] = None
+    shard: Optional[shd.BlockShard] = None   # the rank's range, if sharded
 
 
 def bundle_init(n_blocks: int, pebs_period: int = 10007,
                 nb_scan_rate: int = 1, hmu_log_capacity: int = 1 << 33,
                 faults: Optional[FaultModel] = None,
+                shard: Optional[shd.BlockShard] = None,
                 device="cpu") -> TelemetryBundle:
     """Fresh collectors on ``device``; with ``faults``, a private copy of
     the model on the same device (its per-block knobs must have
-    ``n_blocks`` entries)."""
+    ``n_blocks`` entries).  With ``shard`` the per-block leaves hold the
+    rank's range of the ``n_blocks`` global blocks."""
     if faults is not None:
         for name in ("pebs_drop_p", "hmu_counter_max"):
             leaf = getattr(faults, name)
@@ -267,44 +290,55 @@ def bundle_init(n_blocks: int, pebs_period: int = 10007,
                                  f"{leaf.shape[0]} entries; this bundle has "
                                  f"n_blocks={n_blocks}")
         faults = faults.to(device)
+    if shard is not None:
+        if faults is not None and faults.hmu_counter_max.dim() == 1:
+            faults = dataclasses.replace(
+                faults, hmu_counter_max=shard.local(faults.hmu_counter_max))
+        n_blocks = shard.n_local
     return TelemetryBundle(
         hmu=hmu_init(n_blocks, log_capacity=hmu_log_capacity, device=device),
         pebs=pebs_init(n_blocks, period=pebs_period, device=device),
         nb=nb_init(n_blocks, scan_rate=nb_scan_rate, device=device),
         true_counts=torch.zeros((n_blocks,), dtype=torch.int32,
                                 device=device),
-        faults=faults)
+        faults=faults, shard=shard)
 
 
 def _bundle_observe(bundle: TelemetryBundle,
                     block_ids: torch.Tensor) -> TelemetryBundle:
-    """One batch: ONE observe_scatter pass feeds all four updates."""
+    """One batch: ONE observe_scatter pass feeds all four updates (under
+    a shard, of the rank's block range)."""
     flat = block_ids.reshape(-1)
     m = flat.shape[0]
     n = bundle.true_counts.shape[0]
+    sh = bundle.shard
+    rng = {} if sh is None else dict(lo=sh.lo, n_global=sh.n_global)
     f = bundle.faults
     if f is None:
         hist, pebs_hist = observe_scatter(flat, bundle.pebs.cursor,
                                           n_blocks=n,
-                                          period=bundle.pebs.period)
+                                          period=bundle.pebs.period, **rng)
         return TelemetryBundle(
             hmu=_hmu_observe(bundle.hmu, m, hist),
             pebs=_pebs_apply(bundle.pebs, m, pebs_hist),
-            nb=_nb_observe(bundle.nb, hist > 0),
-            true_counts=bundle.true_counts + hist)
+            nb=_nb_observe(bundle.nb, hist > 0, shard=sh),
+            true_counts=bundle.true_counts + hist, shard=sh)
     # the reference's per-batch draws (telemetry.py:464-469), same key
     # splits, same words; ground truth is never faulted
     keys = prng.split(f.key, 3)
     if f.pebs_drop_p.dim() == 0:
         drop_p = f.pebs_drop_p
     else:   # jnp's gather: a negative id wraps once, then ids clamp
+        n_all = n if sh is None else sh.n_global   # the leaf is whole
         idx = flat.to(torch.int64)
-        idx = torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+        idx = torch.clamp(torch.where(idx < 0, idx + n_all, idx), 0,
+                          n_all - 1)
         drop_p = f.pebs_drop_p[idx]
     keep = prng.uniform(keys[1], (m,)) >= drop_p
     stalled = prng.bernoulli(keys[2], f.nb_stall_p)
     hist, pebs_hist = observe_scatter(flat, bundle.pebs.cursor, n_blocks=n,
-                                      period=bundle.pebs.period, keep=keep)
+                                      period=bundle.pebs.period, keep=keep,
+                                      **rng)
     hit = _pebs_sample_mask(bundle.pebs, m)
     n_kept = torch.sum(hit & keep, dtype=torch.int64)
     n_dropped = torch.sum(hit & ~keep, dtype=torch.int64)
@@ -312,8 +346,8 @@ def _bundle_observe(bundle: TelemetryBundle,
         hmu=_hmu_observe(bundle.hmu, m, hist,
                          counter_max=f.hmu_counter_max),
         pebs=_pebs_apply(bundle.pebs, m, pebs_hist, n_kept=n_kept),
-        nb=_nb_observe(bundle.nb, hist > 0, stalled=stalled),
-        true_counts=bundle.true_counts + hist,
+        nb=_nb_observe(bundle.nb, hist > 0, stalled=stalled, shard=sh),
+        true_counts=bundle.true_counts + hist, shard=sh,
         faults=dataclasses.replace(
             f, key=keys[0],
             pebs_dropped=counter_add(f.pebs_dropped, n_dropped),

@@ -33,8 +33,7 @@ per-tenant solo baselines, and per-tenant fault profiles
 (:meth:`FleetScenario.build_faults`, ``faults=``), and the export plane
 (``export=``: epoch, tenant, lane-summary and tenant-lane-summary wire
 records).  ``fused=False`` runs the fleet on the per-lane reference path;
-sharded state (``mesh=``) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+``mesh=`` shards all per-block state, the tenant layout's included.
 """
 from __future__ import annotations
 
@@ -247,6 +246,7 @@ def run_fleet(
     prefetch_overlap: float = 1.0,
     fused: bool = True,
     mesh=None,
+    mesh_axis: str = "blocks",
     sync_every: int = 1,
     epochs=None,
     solo: bool = False,
@@ -288,8 +288,9 @@ def run_fleet(
     the fleet's name and receives the epoch records, each lane's summary,
     and every tenant row and tenant-lane summary; solo baselines export
     nothing.  ``fused=False`` runs the per-lane reference path (its quotas
-    by numpy stable sorts); ``mesh=`` (ROADMAP Queue 1 item 15) raises
-    ``NotImplementedError``.
+    by numpy stable sorts).  ``mesh`` shards all per-block state over its
+    ``mesh_axis`` (every rank of the mesh calls this with the same
+    arguments); the solo baselines run without it, as in the reference.
     """
     if hints is True:
         hints = fleet.build_pipeline(depth=lookahead_depth)
@@ -299,7 +300,7 @@ def run_fleet(
     rt = EpochRuntime.for_scenario(
         fleet, policies=tuple(policies), hints=hints or None,
         prefetch_overlap=prefetch_overlap, fused=fused, mesh=mesh,
-        sync_every=sync_every, faults=faults, hardening=hardening,
+        mesh_axis=mesh_axis, sync_every=sync_every, faults=faults, hardening=hardening,
         export=exp, device=device, **runtime_overrides)
     traj = rt.run(fleet.epochs() if epochs is None else epochs)
     summary = scenario_summary(rt, traj, policies, fleet.shift_at)

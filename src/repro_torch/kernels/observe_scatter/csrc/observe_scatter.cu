@@ -11,6 +11,11 @@
 //   * hist[id] += 1;
 //   * pebs[id] += 1 iff (cursor + pos) % period == 0 in int32 and, when a
 //     keep mask is given, keep[pos] != 0.
+// A block range of a sharded state ([lo, lo + n_local) of an id space of
+// n_global blocks) counts the same ids into bins id - lo: a negative id
+// wraps by n_global, and an id outside the range is skipped.  The whole
+// space (lo 0, n_local = n_global) is the call above, bit for bit; the
+// table mode follows n_local.
 //
 // Bound: bytes.  Per paper-scale batch (2.4 M ids, 5,242,880 blocks) it
 // reads 9.6 MB of ids and writes 2 x 21 MB of histograms (the wrapper's
@@ -90,7 +95,8 @@ struct Block {
   int* table;
   int* claimed;      // hashed: slots claimed so far
   bool claiming;     // hashed: new ids may claim slots
-  int n_blocks, period, cursor;
+  int n_blocks, period, cursor;  // n_blocks: the range's bins
+  int lo, n_global;
   int* hist;
   int* pebs;
 };
@@ -143,8 +149,9 @@ __device__ __forceinline__ void flush(const Block& b, int bin, bool ok,
 template <bool kDirect>
 __device__ __forceinline__ void observe(const Block& b, int id, bool in,
                                         long long i, bool kept) {
-  const int bin = id < 0 ? id + b.n_blocks : id;
-  const bool valid = in && bin >= 0 && bin < b.n_blocks;
+  const long long g = id < 0 ? (long long)id + b.n_global : id;
+  const bool valid = in && g >= b.lo && g < (long long)b.lo + b.n_blocks;
+  const int bin = (int)(g - b.lo);
   // int32 stream position, wrapping like the reference's int32 add; a
   // zero remainder is the same for C's % and floor mod
   const int pos = (int)((unsigned)b.cursor + (unsigned)i);
@@ -179,7 +186,8 @@ observe_scatter_kernel(const int* __restrict__ ids,
                        const unsigned char* __restrict__ keep,
                        const int* __restrict__ cursor_ptr, long long m,
                        int head, long long n_vec, long long vec_per_block,
-                       int n_blocks, int period, int* __restrict__ hist,
+                       int n_blocks, int lo, int n_global, int period,
+                       int* __restrict__ hist,
                        int* __restrict__ pebs) {
   extern __shared__ int4 table4[];
   // direct: hist counts at 0, sampled counts at `half`; hashed: keys at 0,
@@ -193,7 +201,7 @@ observe_scatter_kernel(const int* __restrict__ ids,
   __syncthreads();
   int* table = reinterpret_cast<int*>(table4);
   Block b{table, kDirect ? nullptr : table + 3 * kSlots, true, n_blocks,
-          period, *cursor_ptr, hist, pebs};
+          period, *cursor_ptr, lo, n_global, hist, pebs};
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (blockIdx.x == 0 && warp == 0) {
@@ -292,8 +300,8 @@ int blocks_per_sm(int smem) {
 
 template <bool kDirect>
 int launch(const int* ids, const unsigned char* keep, const int* cursor,
-           long long m, int n_blocks, int period, int* hist, int* pebs,
-           cudaStream_t stream) {
+           long long m, int n_blocks, int lo, int n_global, int period,
+           int* hist, int* pebs, cudaStream_t stream) {
   const int smem = table_ints(kDirect, n_blocks) * (int)sizeof(int);
   const long long cap = (long long)blocks_per_sm<kDirect>(smem) *
                         device_attr(cudaDevAttrMultiProcessorCount);
@@ -305,8 +313,8 @@ int launch(const int* ids, const unsigned char* keep, const int* cursor,
   const long long n_vec = (m - head) / 4;
   const long long vec_per_block = (n_vec + grid - 1) / grid;
   observe_scatter_kernel<kDirect><<<(unsigned)grid, kThreads, smem, stream>>>(
-      ids, keep, cursor, m, (int)head, n_vec, vec_per_block, n_blocks,
-      period, hist, pebs);
+      ids, keep, cursor, m, (int)head, n_vec, vec_per_block, n_blocks, lo,
+      n_global, period, hist, pebs);
   return (int)cudaGetLastError();
 }
 
@@ -317,18 +325,21 @@ extern "C" {
 // Largest n_blocks that takes the direct table.
 int observe_scatter_shared_limit() { return kDirectMaxBins; }
 
+// The bins of [lo, lo + n_blocks) of an id space of n_global blocks.
 // direct != 0: the direct table (n_blocks <= kDirectMaxBins), else hashed.
 int observe_scatter_launch(const int* ids, const unsigned char* keep,
                            const int* cursor, long long m, int n_blocks,
-                           int period, int direct, int* hist, int* pebs,
-                           void* stream) {
+                           int lo, int n_global, int period, int direct,
+                           int* hist, int* pebs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lo < 0 || n_blocks > n_global - lo) return (int)cudaErrorInvalidValue;
   if (!direct) {
-    return launch<false>(ids, keep, cursor, m, n_blocks, period, hist, pebs,
-                         s);
+    return launch<false>(ids, keep, cursor, m, n_blocks, lo, n_global,
+                         period, hist, pebs, s);
   }
   if (n_blocks > kDirectMaxBins) return (int)cudaErrorInvalidValue;
-  return launch<true>(ids, keep, cursor, m, n_blocks, period, hist, pebs, s);
+  return launch<true>(ids, keep, cursor, m, n_blocks, lo, n_global, period,
+                      hist, pebs, s);
 }
 
 }  // extern "C"

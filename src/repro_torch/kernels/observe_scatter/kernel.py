@@ -7,6 +7,12 @@ hashed table of the ids it meets (``"hashed"``).  :func:`table_mode` picks
 the mode from ``n_blocks`` and the wrapper passes it to the kernel, which
 refuses the direct table above the limit.
 
+A sharded state's rank passes its block range (``lo`` and ``n_global``;
+``n_blocks`` is then the range's length): the kernel counts the ids in
+``[lo, lo + n_blocks)`` of the ``n_global`` id space and the mode follows
+``n_blocks``.  The defaults (``lo`` 0, ``n_global`` = ``n_blocks``) are the
+whole space.
+
 The wrapper checks its inputs, allocates the zeroed outputs, launches on the
 current stream and raises if the launch failed.  ``LAUNCHES`` counts the
 launches, so a run can show that its main path went through the kernel,
@@ -37,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.observe_scatter_launch.argtypes = [
             _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, _P, _P, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P]
         lib.observe_scatter_launch.restype = ctypes.c_int
         lib.observe_scatter_shared_limit.argtypes = []
         lib.observe_scatter_shared_limit.restype = ctypes.c_int
@@ -58,15 +64,17 @@ def table_mode(n_blocks: int) -> str:
 
 def observe_scatter_cuda(
     ids: torch.Tensor, cursor: torch.Tensor, *, n_blocks: int, period: int,
-    keep: Optional[torch.Tensor] = None,
+    keep: Optional[torch.Tensor] = None, lo: int = 0,
+    n_global: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     return _launch(None, ids, cursor, n_blocks=n_blocks, period=period,
-                   keep=keep)
+                   keep=keep, lo=lo, n_global=n_global)
 
 
 def _launch(
     mode: Optional[str], ids: torch.Tensor, cursor: torch.Tensor, *,
     n_blocks: int, period: int, keep: Optional[torch.Tensor] = None,
+    lo: int = 0, n_global: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`observe_scatter_cuda` on the table ``mode`` names (``None``:
     :func:`table_mode`'s); the hashed table takes any ``n_blocks``, the
@@ -90,6 +98,10 @@ def _launch(
     if not (1 <= n_blocks < 2 ** 31 and 1 <= period < 2 ** 31):
         raise ValueError(f"n_blocks={n_blocks} and period={period} must be "
                          f"positive int32 values")
+    n_global = n_blocks if n_global is None else n_global
+    if not (0 <= lo and lo + n_blocks <= n_global < 2 ** 31):
+        raise ValueError(f"the range [{lo}, {lo + n_blocks}) must lie in "
+                         f"an int32 id space of n_global={n_global}")
     mode = mode or table_mode(n_blocks)
     hist = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
     pebs = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
@@ -99,7 +111,8 @@ def _launch(
     with torch.cuda.device(dev):
         rc = _lib().observe_scatter_launch(
             ids.data_ptr(), None if keep is None else keep.data_ptr(),
-            cursor.data_ptr(), m, n_blocks, period, int(mode == "direct"),
+            cursor.data_ptr(), m, n_blocks, lo, n_global, period,
+            int(mode == "direct"),
             hist.data_ptr(), pebs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

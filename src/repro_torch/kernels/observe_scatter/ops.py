@@ -23,15 +23,20 @@ def observe_scatter(
     n_blocks: int,
     period: int,
     keep: Optional[torch.Tensor] = None,   # (M,) bool survival mask
+    lo: int = 0,                        # block range [lo, lo + n_blocks)
+    n_global: Optional[int] = None,     # of this many ids (n_blocks)
     backend: KernelBackend = DEFAULT_BACKEND,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused epoch-batch telemetry scatter -> (hist, pebs_hist)."""
+    """Fused epoch-batch telemetry scatter -> (hist, pebs_hist) of the
+    ``n_blocks`` bins from ``lo`` (a sharded rank's range; the whole id
+    space by default)."""
     flat = ids.reshape(-1)
     if not use_kernel(flat, backend):
         return observe_scatter_ref(flat, cursor, n_blocks=n_blocks,
-                                   period=period, keep=keep)
+                                   period=period, keep=keep, lo=lo,
+                                   n_global=n_global)
     return observe_scatter_cuda(
         flat.to(torch.int32).contiguous(), cursor.reshape(1),
         n_blocks=n_blocks, period=period,
         keep=None if keep is None else keep.reshape(-1).to(torch.bool)
-        .contiguous())
+        .contiguous(), lo=lo, n_global=n_global)

@@ -129,6 +129,7 @@ def run_scenario(
     prefetch_overlap: float = 1.0,
     fused: bool = True,
     mesh=None,
+    mesh_axis: str = "blocks",
     sync_every: int = 1,
     epochs: Optional[Iterable[np.ndarray]] = None,
     faults=None,
@@ -167,8 +168,10 @@ def run_scenario(
     launches and pulls are unchanged.
 
     ``fused=False`` runs the per-lane reference path (the bit-identity
-    oracle; ``sync_every`` 1, no faults); ``mesh=`` is not ported yet and
-    raises ``NotImplementedError``.
+    oracle; ``sync_every`` 1, no faults).  ``mesh`` (see
+    :func:`repro_torch.launch.mesh.make_telemetry_mesh`) shards all
+    per-block state over its ``mesh_axis``: every rank of the mesh calls
+    this with the same arguments and gets the meshless run's result.
 
     Returns ``{"trajectory": per-epoch dict, "summary": headline numbers}``.
     """
@@ -178,7 +181,7 @@ def run_scenario(
     rt = EpochRuntime.for_scenario(
         scenario, policies=tuple(policies), hints=hints or None,
         prefetch_overlap=prefetch_overlap, fused=fused, mesh=mesh,
-        sync_every=sync_every, faults=faults, hardening=hardening,
+        mesh_axis=mesh_axis, sync_every=sync_every, faults=faults, hardening=hardening,
         export=exp, device=device, **runtime_overrides)
     traj = rt.run(scenario.epochs() if epochs is None else epochs)
     summary = scenario_summary(rt, traj, policies, scenario.shift_at)

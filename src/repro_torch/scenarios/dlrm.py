@@ -91,6 +91,7 @@ def run_online(
     prefetch_overlap: float = 1.0,
     fused: bool = True,
     mesh=None,
+    mesh_axis: str = "blocks",
     sync_every: int = 1,
     export=None,
     device="cuda",
@@ -112,7 +113,9 @@ def run_online(
     :class:`repro_torch.export.ExportClient` (observability-only:
     trajectories are byte-identical either way); ``device`` defaults to
     ``"cuda"`` (raises without one).  ``fused=False`` runs the per-lane
-    reference path; ``mesh=`` is not ported yet and raises.
+    reference path; ``mesh`` (see
+    :func:`repro_torch.launch.mesh.make_telemetry_mesh`) shards all
+    per-page state over its ``mesh_axis``.
 
     Returns ``{"trajectory": per-epoch dict, "summary": headline numbers}``.
     """
@@ -123,5 +126,5 @@ def run_online(
     return run_scenario(
         scenario, policies=policies, hints=hints,
         lookahead_depth=lookahead_depth, prefetch_overlap=prefetch_overlap,
-        fused=fused, mesh=mesh, sync_every=sync_every, export=export,
-        device=device)
+        fused=fused, mesh=mesh, mesh_axis=mesh_axis, sync_every=sync_every,
+        export=export, device=device)

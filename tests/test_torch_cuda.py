@@ -124,6 +124,38 @@ def test_observe_scatter_table_modes(cuda, kind, n_blocks, m, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_global,world,rank,mode", [
+    (50_000, 2, 1, "direct"),       # 25,000 bins: the direct table
+    (5_242_880, 3, 2, "hashed"),    # the paper's pages, the last range
+    (5_242_880, 2, 0, "hashed")])
+def test_observe_scatter_block_range_matches_plain(cuda, n_global, world,
+                                                   rank, mode):
+    """A sharded rank's call (``lo``, ``n_global``) exact against its plain
+    version and against the whole histogram cut to the range, on the table
+    mode its range's length picks."""
+    from repro_torch.core.shard import split
+    lo, hi = split(n_global, world, rank)
+    assert os_kernel.table_mode(hi - lo) == mode
+    rng = np.random.default_rng(n_global + rank)
+    ids = torch.from_numpy(_observe_ids("zipf_head", rng, n_global, 300_001)
+                           ).to(cuda)
+    keep = torch.from_numpy(rng.random(ids.numel()) < 0.6).to(cuda)
+    cursor = torch.tensor(400, dtype=torch.int32, device=cuda)
+    before = dict(os_kernel.MODE_LAUNCHES)
+    for km in (None, keep):
+        got = observe_scatter(ids, cursor, n_blocks=hi - lo, period=401,
+                              keep=km, lo=lo, n_global=n_global)
+        ref = observe_scatter(ids, cursor, n_blocks=hi - lo, period=401,
+                              keep=km, lo=lo, n_global=n_global,
+                              backend=PLAIN)
+        whole = observe_scatter(ids, cursor, n_blocks=n_global, period=401,
+                                keep=km, backend=PLAIN)
+        for g, r, w in zip(got, ref, whole):
+            assert torch.equal(g, r) and torch.equal(g, w[lo:hi])
+    assert os_kernel.MODE_LAUNCHES[mode] == before[mode] + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_blocks", [88, 5_000, "limit"])
 def test_observe_scatter_mode_is_what_runs(cuda, n_blocks):
     """The table mode the wrapper passes is the one the kernel runs: the

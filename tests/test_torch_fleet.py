@@ -258,10 +258,9 @@ def test_export_option_is_accepted_and_leaves_the_run_identical(moe_pair):
 @pytest.mark.parametrize("option,item", [
     ("faults", "10"), ("hardening", "10"), ("mesh", "15")])
 def test_unported_options_raise_naming_their_item(moe_pair, option, item):
-    """Options still to be ported raise naming their ROADMAP item.  Item 10
-    is ported: ``faults=`` and ``hardening=`` of the wrong type are refused
-    naming what they take, and ``build_faults`` refuses an unknown
-    tenant."""
+    """Items 10 and 15 are ported: ``faults=``, ``hardening=`` and
+    ``mesh=`` of the wrong type are refused naming what they take, and
+    ``build_faults`` refuses an unknown tenant."""
     fleet = small_fleet(moe_pair[1])
     value = object()
     if item == "10":
@@ -272,7 +271,7 @@ def test_unported_options_raise_naming_their_item(moe_pair, option, item):
             with pytest.raises(KeyError, match="unknown tenant"):
                 fleet.build_faults({"nope": {"pebs_drop_p": 0.5}})
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_fleet(fleet, device="cpu", **{option: value})
 
 

@@ -71,3 +71,43 @@ def test_large_paper_like_block_count_without_max_blocks():
                   n_blocks=n_blocks, period=101)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("keep_on", [False, True], ids=["no_keep", "keep"])
+@pytest.mark.parametrize("rank", [0, 1, 2], ids=["lo_0", "lo_mid", "lo_last"])
+def test_ranged_plain_version_is_the_reference_histogram_sliced(rank,
+                                                                keep_on):
+    """A sharded rank's call (``lo``, ``n_global``; ``n_blocks`` its
+    range's length) is the reference's whole histogram cut to ``[lo, hi)``:
+    negatives wrap by ``n_global``, ids outside the range drop.  The
+    ranges are ``core.shard.split``'s at W 3 of 1,000 blocks, the last one
+    shorter."""
+    from repro_torch.core.shard import split
+    n_global, m, period, cursor = 1_000, 3_001, 7, 5
+    lo, hi = split(n_global, 3, rank)
+    rng = np.random.default_rng(41 + rank)
+    # both sides of the id space: -n - 3 stays out of range after the wrap
+    ids = rng.integers(-n_global - 3, n_global + 4, size=m).astype(np.int32)
+    keep = rng.random(m) < 0.6 if keep_on else None
+    want = jax_ref(jnp.asarray(ids), jnp.asarray(cursor, jnp.int32),
+                   n_blocks=n_global, period=period,
+                   keep=None if keep is None else jnp.asarray(keep))
+    got = observe_scatter(
+        torch.from_numpy(ids), torch.tensor(cursor, dtype=torch.int32),
+        n_blocks=hi - lo, period=period, lo=lo, n_global=n_global,
+        keep=None if keep is None else torch.from_numpy(keep))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (hi - lo,)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[lo:hi])
+
+
+def test_whole_range_is_the_unranged_call():
+    """``lo`` 0 and ``n_global`` = ``n_blocks`` is the call without a
+    range, bit for bit."""
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(-70, 70, 500).astype(np.int32))
+    cur = torch.tensor(2, dtype=torch.int32)
+    for a, b in zip(observe_scatter(ids, cur, n_blocks=64, period=3),
+                    observe_scatter(ids, cur, n_blocks=64, period=3, lo=0,
+                                    n_global=64)):
+        assert torch.equal(a, b)

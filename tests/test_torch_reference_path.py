@@ -194,7 +194,8 @@ def test_sync_every_equals_the_reference_path_oracle(pipelined_oracle,
 
 def test_reference_path_refuses_what_the_reference_refuses():
     """``tests/test_pipelined.py:101`` and the fault guard: the reference
-    path takes sync_every 1 and no fault model; mesh= stays unported."""
+    path takes sync_every 1, no fault model and no mesh (refused before
+    the mesh's type is looked at)."""
     with pytest.raises(ValueError, match="reference"):
         EpochRuntime(400, 40, fused=False, sync_every=2, device="cpu")
     with pytest.raises(ValueError, match="sync_every"):
@@ -207,7 +208,7 @@ def test_reference_path_refuses_what_the_reference_refuses():
         EpochRuntime(400, 40, fused=False,
                      hardening={"fallback": {"hmu_oracle": "pebs"}},
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="requires the fused epoch step"):
         EpochRuntime(400, 40, fused=False, mesh=object(), device="cpu")
 
 

@@ -130,14 +130,11 @@ def test_entry_points_run_on_the_cpu_when_asked():
     (dict(hardening=object()), "10"),
 ])
 def test_unported_options_raise(option, item):
-    """Options still to be ported raise naming their ROADMAP item; item 10
-    (``faults=``, ``hardening=``) is ported, so a value of the wrong type
-    is refused by a TypeError that names the container it needs."""
-    if item == "10":
-        with pytest.raises(TypeError, match="FaultModel|Hardening"):
-            run_scenario(TINY, device="cpu", **option)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    """Items 10 (``faults=``, ``hardening=``) and 15 (``mesh=``) are
+    ported, so a value of the wrong type is refused by a TypeError that
+    names the container it needs."""
+    with pytest.raises(TypeError, match="FaultModel|Hardening" if item == "10"
+                       else "DeviceMesh"):
         run_scenario(TINY, device="cpu", **option)
 
 
