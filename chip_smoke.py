@@ -265,7 +265,21 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     ``hinted_prefetch`` on the card, their stdout equal to their CPU
     run's; the group destroyed; within 60 s.
 
-Each path (8-11, 14-16, 18-25) sets the launch counters to 0 just before it
+26. the sharded train step (``train.sharded.make_sharded_train_step``): a
+    1-rank NCCL group as phase 25's and a (1, 1) ("data", "model") mesh;
+    qwen2-0.5b at full width (phase 24b's B 4, S 2048, remat "full", AdamW
+    at 3e-4), 3 steps with the mesh in turns with 3 meshless
+    ``make_train_step`` steps from the same params and batches, each under
+    ``set_sync_debug_mode("error")``: losses, grad norms and every param
+    and optimizer leaf equal bit for bit, every leaf on ``named(mesh,
+    model_pspecs / opt_pspecs)``, 48 flash_attention launches a step on
+    the tensor cores and no other kernel, the same collectives every step
+    (their count and bytes printed); the step walls in turns, peak memory;
+    the meshless state saved and restored with ``shardings=`` onto the
+    mesh, bit for bit (the kernel line's ``flash_attention_sharded_train``
+    entry); the group destroyed; within 60 s.
+
+Each path (8-11, 14-16, 18-26) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -3697,6 +3711,173 @@ def sharded_paper_run(dev, plain, scen, epochs, paper_ids, phase8_json: str,
     return out
 
 
+# ---------------------------------------------------------------- phase 26
+# 26: the sharded train step at qwen2-0.5b's full width, phase 24b's shape
+# (B 4, S 2048, remat "full", AdamW), over a (1, 1) ("data", "model") mesh
+SHARDED_STEPS = 3
+SHARDED_LR = (3e-4, 1, 12)        # phase 24b's schedule (12 steps, warmup 1)
+
+
+def sharded_train_step(dev, zero_counts, read_counts, read_routes) -> dict:
+    """Phase 26: ``train.sharded.make_sharded_train_step`` on a 1-rank NCCL
+    group (one rank per GPU: this card is the world) and a (1, 1) ("data",
+    "model") mesh, SHARDED_STEPS steps in turns with the meshless
+    ``make_train_step`` from the same params and batches: losses, grad
+    norms and every param and optimizer leaf equal bit for bit; every leaf
+    on ``named(mesh, model_pspecs / opt_pspecs)``; 2 x 24 flash_attention
+    launches a step, all on the tensor cores; no host sync inside a step;
+    the same collectives every step.  Then the meshless state saved and
+    restored with ``shardings=`` onto the mesh, bit for bit."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptState, cosine_schedule, get_optimizer
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.train import sharded
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    ckdir = obs_dir("train_sharded")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config("qwen2-0.5b")
+        opt = get_optimizer("adamw")
+        sched = cosine_schedule(*SHARDED_LR)
+        params = init_params(cfg, 0, dev)
+        state = opt.init(params)
+        shardings = sharded.state_shardings(mesh, cfg, state)
+        d_params, d_state = sh.distribute((params, state), shardings)
+        step_m = make_train_step(cfg, opt, sched)
+        step_s = sharded.make_sharded_train_step(cfg, opt, sched, mesh)
+        pipeline = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=2048, global_batch=4,
+                                            seed=0))
+        per_step = 2 * QWEN_LAYERS
+        rec = {"mesh": [], "meshless": [], "collectives": [], "routes": [],
+               "launches": []}
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        for i in range(SHARDED_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipeline.batch(i).items()}
+            d_batch = sh.distribute(batch, sh.named(
+                mesh, sh.batch_specs(mesh, cfg, batch)))
+            # in turns: the mesh first on even steps, the meshless on odd
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                if on:
+                    zero_counts()
+                    before = dict(sh.COLLECTIVES)
+                    r0 = read_routes()
+                    (d_params, d_state, m_s), wall = timed(
+                        lambda: step_s(d_params, d_state, d_batch))
+                    r1 = read_routes()
+                    rec["launches"].append(read_counts())
+                    rec["routes"].append({r: r1[r] - r0[r] for r in r1})
+                    rec["collectives"].append(
+                        {k: sh.COLLECTIVES[k] - before[k]
+                         for k in before})
+                else:
+                    (params, state, m_m), wall = timed(
+                        lambda: step_m(params, state, batch))
+                rec["mesh" if on else "meshless"].append(wall)
+            placed = all(tuple(x.placements) == s_.placements
+                         for x, s_ in zip(leaves((d_params, d_state)),
+                                          leaves(shardings)))
+            full = sh.gather((d_params, d_state))
+            same = (torch.equal(m_s["loss"], m_m["loss"])
+                    and torch.equal(m_s["grad_norm"], m_m["grad_norm"])
+                    and all(torch.equal(a, b) for a, b in zip(
+                        leaves(full), leaves((params, state)))))
+            del full
+            if not (placed and same):
+                fail(f"sharded step {i + 1} at W 1: placements as named "
+                     f"{placed}, bit for bit with the meshless step {same} "
+                     f"(losses {float(m_s['loss'])} / {float(m_m['loss'])})")
+            rec.setdefault("losses", []).append(float(m_s["loss"]))
+        bad = [r for r in rec["routes"]
+               if r != fa_routes(torch.bfloat16, 64, per_step)]
+        if bad or any(c != {**NO_KERNELS, "flash_attention": per_step}
+                      for c in rec["launches"]):
+            fail(f"sharded steps' launches {rec['launches']}, routes "
+                 f"{rec['routes']}: expected {per_step} tensor-core "
+                 f"flash_attention a step and no other kernel")
+        if any(c != rec["collectives"][0] for c in rec["collectives"]):
+            fail(f"sharded steps' collectives differ: {rec['collectives']}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        # the meshless state saved, restored onto the mesh
+        ck = CheckpointManager(ckdir)
+        t0 = time.perf_counter()
+        ck.save(SHARDED_STEPS, {"params": params, "opt": state}, block=True)
+        save_s = time.perf_counter() - t0
+        del d_params, d_state
+        free_device_memory()
+        p_sh, o_sh = shardings
+        t0 = time.perf_counter()
+        got, _ = ck.restore(shardings={"params": p_sh, "opt": o_sh})
+        restore_s = time.perf_counter() - t0
+        want = {"params": params, "opt": {"step": state.step,
+                                          "inner": state.inner}}
+        restored = (all(torch.equal(a.to_local(), b) for a, b in zip(
+            leaves(got), leaves(want)))
+            and all(tuple(x.placements) == s_.placements for x, s_ in zip(
+                leaves(got["params"]), leaves(p_sh))))
+        if not restored:
+            fail("the meshless state restored onto the mesh differs")
+        sharded_p = sum(1 for s_ in leaves(shardings)
+                        if any(getattr(p, "dim", None) is not None
+                               for p in s_.placements))
+        del got, want, params, state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    free_device_memory()
+    warm = {k: rec[k][1:] for k in ("mesh", "meshless")}
+    out = {"world": 1, "mesh": [1, 1], "arch": "qwen2-0.5b", "batch": 4,
+           "seq": 2048, "steps": SHARDED_STEPS, "losses": rec["losses"],
+           "bit_for_bit_with_meshless": True, "placements_as_named": True,
+           "leaves_on_a_shard_placement": sharded_p,
+           "no_sync_in_step": True,
+           "flash_attention_per_step": per_step,
+           "routes_per_step": rec["routes"][0],
+           "collectives_per_step": rec["collectives"][0],
+           "step_wall_s_mesh": rec["mesh"],
+           "step_wall_s_meshless": rec["meshless"],
+           "warm_ratio": sum(warm["mesh"]) / sum(warm["meshless"]),
+           "peak_mem_gib": peak, "save_s": save_s, "restore_s": restore_s,
+           "restored_bit_for_bit": True,
+           "launches": {k: sum(c[k] for c in rec["launches"])
+                        for k in rec["launches"][0]},
+           "seconds": time.perf_counter() - t_phase}
+    say("sharded_train_step", **out)
+    if out["seconds"] > 60:
+        fail(f"phase 26 took {out['seconds']:.1f} s, over its 60 s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -3704,7 +3885,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 25) -> None:
+def main(until: int = 26) -> None:
     import numpy as np
     import torch
 
@@ -4319,6 +4500,11 @@ def main(until: int = 25) -> None:
     sh25 = sharded_paper_run(dev, plain, scen, epochs, paper_ids,
                              phase8_json, zero_counts, read_counts)
 
+    if until < 26:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------------------------- 26. the sharded train step, W 1 mesh
+    sh26 = sharded_train_step(dev, zero_counts, read_counts, read_routes)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -4488,6 +4674,19 @@ def main(until: int = 25) -> None:
          "bound_ms": sh25["ranged_observe_scatter"]["w1_bound_ms"],
          "bound_by": sh25["ranged_observe_scatter"]["w1_bound_by"],
          "library_ms": sh25["ranged_observe_scatter"]["bincount_ms"]},
+        # the tensor-core route on the sharded training path: its launches
+        # in phase 26's sharded steps (2 a layer and step under remat), its
+        # forward's time and error at that shape (phase 24's, the same
+        # B 4, S 2048 attention)
+        {"name": "flash_attention_sharded_train", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": sh26["launches"]["flash_attention"],
+         "max_abs_err": grads24["qwen2-0.5b train"]["forward"][0],
+         "ms": fa_train["ms"], "plain_ms": fa_train["plain_ms"],
+         "bound_ms": fa_train["bound_ms"], "bound_by": fa_train["bound_by"],
+         "library_ms": fa_train["sdpa_ms"]},
         # hist_select on the training path: its launch at phase 24b's step
         # 10 rebalance, its time on that rebalance's shape (18,992 blocks,
         # k 1,899) beside torch.topk
@@ -4510,4 +4709,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 25)
+    main(int(args[1]) if args[:1] == ["--until"] else 26)

@@ -21,13 +21,18 @@ Design points for 1000+-node runs:
   * **Restore anywhere**: arrays are stored unsharded-logical (per-leaf
     global layout) in the reference's leaf order (``repro_torch.pytree``:
     dict keys sorted, namedtuple fields in order); ``restore(device=)``
-    puts them on a device.
+    puts them on a device, ``restore(shardings=)`` lays them out on a mesh
+    (any mesh: the one they were saved from or another).  A tree of
+    DTensors saves each leaf's full array: every rank of its mesh gathers
+    (``repro_torch.launch.sharding.full``) and rank 0 of the default
+    group writes.
   * **Retention**: keep_last N checkpoints, garbage-collect older.
 """
 from __future__ import annotations
 
 import json
 import shutil
+import sys
 import threading
 import time
 from pathlib import Path
@@ -35,6 +40,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..pytree import flatten
 
@@ -50,9 +56,17 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
              block: bool = False) -> None:
-        """Snapshot ``tree`` (pytree of arrays) and write asynchronously."""
+        """Snapshot ``tree`` (pytree of arrays) and write asynchronously.
+        A tree holding DTensors is gathered on every rank, and only rank 0
+        of the default group writes: a restore on another rank waits for
+        that write (rank 0's ``wait()``, then a barrier)."""
         self.wait()
         leaves, skeleton = flatten(tree)
+        if any(_is_dtensor(x) for x in leaves):
+            from ..launch.sharding import full
+            leaves = [full(x) if _is_dtensor(x) else x for x in leaves]
+            if dist.get_rank() != 0:
+                return
         # synchronous host snapshot: training can mutate buffers afterwards
         host_leaves = [_host(x) for x in leaves]
         meta = {
@@ -105,10 +119,13 @@ class CheckpointManager:
                        and not p.name.endswith(".tmp"))
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, device=None
-                ) -> tuple[Any, dict]:
-        """Returns (tree, extra): numpy arrays, or tensors on ``device``
-        when one is given."""
+    def restore(self, step: Optional[int] = None, device=None,
+                shardings: Any = None) -> tuple[Any, dict]:
+        """Returns (tree, extra): numpy arrays, tensors on ``device`` when
+        one is given, or DTensors laid out by ``shardings`` (a tree of
+        :class:`repro_torch.launch.sharding.NamedSharding` like the saved
+        one; its namedtuples are read by field, as the tree restores
+        them), each rank keeping its own blocks."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -118,7 +135,11 @@ class CheckpointManager:
                   for i in range(manifest["n_arrays"])]
         if device is not None:
             arrays = [torch.from_numpy(a).to(device) for a in arrays]
-        return _decode_tree(manifest["tree"], arrays), manifest["extra"]
+        tree = _decode_tree(manifest["tree"], arrays)
+        if shardings is not None:
+            from ..launch.sharding import distribute
+            tree = distribute(tree, _fields_as_dicts(shardings))
+        return tree, manifest["extra"]
 
     # ------------------------------------------------------------------- gc
     def _gc(self):
@@ -135,6 +156,24 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True).numpy()
     return np.asarray(x)
+
+
+def _is_dtensor(x) -> bool:
+    # no DTensor exists before its module is imported (which takes seconds)
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _fields_as_dicts(t):
+    """Namedtuples -> dicts keyed by field, as :func:`_decode_tree`
+    restores them."""
+    if hasattr(t, "_fields"):
+        return {k: _fields_as_dicts(v) for k, v in t._asdict().items()}
+    if isinstance(t, dict):
+        return {k: _fields_as_dicts(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_fields_as_dicts(v) for v in t)
+    return t
 
 
 def _encode_tree(t):

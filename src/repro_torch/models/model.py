@@ -24,6 +24,7 @@ reference's ``lax.scan``.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -38,10 +39,11 @@ from .moe import MoEParams, moe_block
 from .rwkv6 import (RWKV6FFNParams, RWKV6Params, rwkv6_channel_mix,
                     rwkv6_mix)
 
-__all__ = ["LeafSpec", "MoECfg", "ModelConfig", "forward", "init_params",
-           "iter_schema", "layer_params", "logits_fn", "loss_fn",
-           "mamba2_params", "moe_params", "rwkv6_ffn_params", "rwkv6_params",
-           "rwkv6_block", "shared_qkv", "transformer_block", "zamba2_mamba_block",
+__all__ = ["LeafSpec", "MoECfg", "ModelConfig", "constrain_batch", "forward",
+           "init_params", "iter_schema", "layer_params", "logits_fn",
+           "loss_fn", "loss_terms", "mamba2_params", "moe_params",
+           "param_pspecs", "rwkv6_ffn_params", "rwkv6_params", "rwkv6_block",
+           "shared_qkv", "transformer_block", "zamba2_mamba_block",
            "zamba2_shared_attention"]
 
 
@@ -83,6 +85,8 @@ class ModelConfig:
     remat: str = "full"             # full | dots | none
     sub_quadratic: bool = False     # eligible for long_500k
     tie_embeddings: bool = False
+    # mesh axes the activation batch dim shards over (set by the sharded
+    # train step; None = no constraint, e.g. single-device runs)
     act_batch_axes: Optional[Tuple[str, ...]] = None
     moe_groups: Optional[Tuple[int, int]] = None
     moe_expert_sharded: bool = False
@@ -260,6 +264,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return tree
 
 
+def param_pspecs(cfg: ModelConfig, rules: Dict[Optional[str], Any]) -> dict:
+    """Each parameter's :class:`repro_torch.launch.sharding.PartitionSpec`:
+    its logical axes mapped through ``rules``."""
+    from ..launch.sharding import PartitionSpec
+    tree: dict = {}
+    for path, spec in iter_schema(cfg):
+        _set(tree, path, PartitionSpec(*(rules.get(a)
+                                         for a in spec.logical_axes)))
+    return tree
+
+
 # ================================================================ block passes
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked ``params["blocks"]`` leaves."""
@@ -281,10 +296,13 @@ def moe_params(bp: dict) -> MoEParams:
 
 
 def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
-                      positions: torch.Tensor, return_kv: bool = False):
+                      positions: torch.Tensor, return_kv: bool = False,
+                      mesh=None):
     """One dense or MoE transformer layer -> (x, aux), aux the MoE layer's
     ``{"counts", "aux_loss"}`` or None; with ``return_kv``
-    (x, aux, (k, v)), the prefill's cache rows."""
+    (x, aux, (k, v)), the prefill's cache rows.  ``mesh``: ``x`` is a
+    rank's slice of a batch split over ``cfg.act_batch_axes`` of it (see
+    :func:`forward`)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     h = attention_block(
         h, _attn_params(bp),
@@ -303,6 +321,7 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
         h, aux = moe_block(h, moe_params(bp), top_k=cfg.moe.top_k,
                            capacity_factor=cfg.moe.capacity_factor,
                            groups=cfg.moe_groups or (1, 1),
+                           batch_axes=cfg.act_batch_axes, mesh=mesh,
                            expert_sharded=cfg.moe_expert_sharded)
     else:
         h = swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"])
@@ -395,6 +414,24 @@ def zamba2_shared_attention(x: torch.Tensor, sp: dict, cfg: ModelConfig,
 
 
 # ================================================================== forward
+def constrain_batch(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pin the activation batch dim to ``cfg.act_batch_axes``: a DTensor is
+    redistributed to ``Shard`` over them on its batch dim; a plain tensor
+    (a rank's own slice, or a single-device run) is returned as it is."""
+    # no DTensor exists before its module is imported (which takes seconds)
+    mod = sys.modules.get("torch.distributed.tensor")
+    if not cfg.act_batch_axes or mod is None or not isinstance(x,
+                                                               mod.DTensor):
+        return x
+    from ..launch.sharding import PartitionSpec, placements
+    axes = tuple(cfg.act_batch_axes)
+    want = placements(x.device_mesh, PartitionSpec(
+        axes if len(axes) > 1 else axes[0], *([None] * (x.ndim - 1))))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def default_positions(cfg: ModelConfig, b: int, s: int,
                       device: torch.device) -> torch.Tensor:
     positions = torch.arange(s, device=device).expand(b, s)
@@ -437,7 +474,8 @@ def _checkpointed(fn):
 
 
 def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
-            positions=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            positions=None, mesh=None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced forward pass -> (hidden (B, S, D), aux).  Every
     attention (each layer of the dense and MoE families, each invocation of
     zamba2's shared block) goes through
@@ -447,18 +485,28 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     Mamba2 layer and each group with its shared block, as the reference).
     For the MoE family ``aux["expert_counts"]`` is the (L, E) int32 router
     telemetry and ``aux["moe_aux_loss"]`` the layers' mean balance loss;
-    for the other families ``aux`` is empty."""
-    x = embed_inputs(params, cfg, tokens, embeds)
+    for the other families ``aux`` is empty.  Each block's input and
+    output pass :func:`constrain_batch`.
+
+    ``mesh`` (the sharded train step's): the inputs are this rank's slice
+    of a batch split over ``cfg.act_batch_axes`` of ``mesh``, and each MoE
+    layer routes as the whole batch would (``moe_block``'s ``batch_axes``),
+    its counts the whole batch's and its balance loss this slice's
+    share."""
+    x = constrain_batch(embed_inputs(params, cfg, tokens, embeds), cfg)
     b, s, _ = x.shape
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
     aux: Dict[str, Any] = {}
     if cfg.family in ("attn", "moe"):
+        def layer(x, i):
+            x, moe_aux = transformer_block(constrain_batch(x, cfg),
+                                           layer_params(params, i), cfg,
+                                           positions, mesh=mesh)
+            return constrain_batch(x, cfg), moe_aux
         layer_aux = []
         for i in range(cfg.n_layers):
-            x, moe_aux = _remat(
-                lambda x, i=i: transformer_block(x, layer_params(params, i),
-                                                 cfg, positions), cfg)(x)
+            x, moe_aux = _remat(lambda x, i=i: layer(x, i), cfg)(x)
             layer_aux.append(moe_aux)
         if cfg.family == "moe":
             aux["expert_counts"] = torch.stack(
@@ -466,18 +514,25 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
             aux["moe_aux_loss"] = torch.stack(
                 [a["aux_loss"] for a in layer_aux]).mean()
     elif cfg.family == "rwkv6":
+        def layer(x, i):
+            x, _ = rwkv6_block(constrain_batch(x, cfg),
+                               layer_params(params, i), cfg)
+            return constrain_batch(x, cfg)
         for i in range(cfg.n_layers):
-            x = _remat(lambda x, i=i: rwkv6_block(
-                x, layer_params(params, i), cfg)[0], cfg)(x)
+            x = _remat(lambda x, i=i: layer(x, i), cfg)(x)
     elif cfg.family == "zamba2":
         # groups of zamba_attn_every Mamba2 layers, each followed by the
         # shared block at its invocation index
         every = cfg.zamba_attn_every
 
+        def layer(x, i):
+            x, _ = zamba2_mamba_block(constrain_batch(x, cfg),
+                                      layer_params(params, i), cfg)
+            return constrain_batch(x, cfg)
+
         def group(x, inv):
             for i in range(inv * every, (inv + 1) * every):
-                x = _remat(lambda x, i=i: zamba2_mamba_block(
-                    x, layer_params(params, i), cfg)[0], cfg)(x)
+                x = _remat(lambda x, i=i: layer(x, i), cfg)(x)
             return zamba2_shared_attention(x, params["shared_attn"], cfg,
                                            inv, positions)
         for inv in range(cfg.n_shared_attn):
@@ -507,9 +562,20 @@ def loss_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
             labels: torch.Tensor, mask: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
     """Chunked-vocab softmax cross entropy over ``cfg.loss_chunk``
-    positions at a time (one chunk when it does not divide S).  Under grad
-    mode each chunk is checkpointed, so only one chunk's (B, chunk, V)
-    logits are alive at a time in the backward too."""
+    positions at a time (one chunk when it does not divide S): the masked
+    token NLL sum of :func:`loss_terms` over its token count."""
+    tot, cnt = loss_terms(params, cfg, hidden, labels, mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_terms(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
+               labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked token NLLs, the mask's count), both float32
+    scalars; a sharded step sums each over the batch's ranks before it
+    divides.  Under grad mode each chunk is checkpointed, so only one
+    chunk's (B, chunk, V) logits are alive at a time in the backward
+    too."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     head = head.to(hidden.dtype)
     b, s, d = hidden.shape
@@ -527,4 +593,4 @@ def loss_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
         sl = slice(c * chunk, (c + 1) * chunk)
         tot = tot + nll(hidden[:, sl], head, labels[:, sl], mask[:, sl])
         cnt = cnt + mask[:, sl].sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt

@@ -13,6 +13,13 @@ The three expert products are batched matmuls in the activation dtype.
 Capacity comes from shapes, never from values, so nothing here reads the
 device back.
 
+Under the sharded train step (``batch_axes`` and ``mesh``) the block sees
+one rank's slice of a batch split over mesh axes and computes the whole
+batch's function on it: the capacity is the whole batch's, and a routed
+token's rank counts the tokens routed to its expert on the slices before
+this one (one (E,) int32 all-gather of the slices' counts), so the same
+tokens drop as in the single-device step.
+
 Expert activation counters come out of the router for free — the MoE
 analogue of the paper's HMU telemetry — and :func:`expert_access_batch`
 turns them into the tiering runtime's access stream.
@@ -67,10 +74,12 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _dispatch_local(xf: torch.Tensor, flat_e: torch.Tensor, k: int, e: int,
-                    capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    capacity: int, before: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Slot assignment and scatter.  xf: (T, D); flat_e: (T*k,) expert ids.
     Returns (x_buf (E, C, D), pos (T*k,)): ``pos`` is each routed token's
-    rank among the tokens sent to its expert (stable in token order)."""
+    rank among the tokens sent to its expert (stable in token order), plus
+    ``before[e]``, the tokens routed to e ahead of this slice, if given."""
     t_k = flat_e.shape[0]
     dev = flat_e.device
     order = torch.argsort(flat_e, stable=True)
@@ -80,6 +89,8 @@ def _dispatch_local(xf: torch.Tensor, flat_e: torch.Tensor, k: int, e: int,
     pos = torch.empty_like(flat_e)
     pos[order] = torch.arange(t_k, dtype=flat_e.dtype, device=dev) \
         - first_occ[sorted_e]
+    if before is not None:
+        pos = pos + before.to(pos.dtype)[flat_e]
     # dropped tokens (pos >= capacity) land in one spare slot per expert,
     # cut off below: the reference's mode="drop" without a host-side mask
     slot = torch.clamp(pos, max=capacity)
@@ -122,10 +133,17 @@ def _shared_ffn(x: torch.Tensor, p: MoEParams) -> torch.Tensor:
 def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
               capacity_factor: float = 1.25,
               groups: Tuple[int, int] = (1, 1),
+              batch_axes: Optional[Tuple[str, ...]] = None, mesh=None,
               expert_sharded: bool = False):
     """x: (B, S, D).  Returns (out (B, S, D), aux) with ``aux["counts"]``
     (E,) int32 — the expert activation telemetry — and ``aux["aux_loss"]``,
-    the switch-style load-balance loss (a float32 scalar)."""
+    the switch-style load-balance loss (a float32 scalar).
+
+    With ``batch_axes`` and a ``mesh``, ``x`` is this rank's slice of a
+    batch split over those mesh axes (major first): the capacity, the slot
+    order, ``counts`` and the loss's routed fractions are the whole
+    batch's, the loss's probability mean this slice's (so the mean of the
+    slices' losses is the whole batch's)."""
     gd, gm = groups
     if gd * gm > 1 and expert_sharded:
         raise NotImplementedError(
@@ -148,14 +166,22 @@ def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
     # maximum back to the host
     counts = torch.sum(flat_e[:, None] == torch.arange(e, device=dev),
                        dim=0, dtype=torch.int32)
+    before, t_all = None, t
+    if batch_axes and mesh is not None:
+        from ..launch.sharding import gather_slices
+        per, i = gather_slices(counts, mesh, batch_axes)    # (n, E)
+        before = per[:i].sum(0)
+        counts = per.sum(0, dtype=torch.int32)
+        t_all = t * per.shape[0]
     routed = counts.to(torch.float32)
-    f_e = routed / torch.full_like(routed, float(max(t * top_k, 1)))
+    f_e = routed / torch.full_like(routed, float(max(t_all * top_k, 1)))
     aux_loss = e * torch.sum(f_e.detach() * probs.mean((0, 1)))
     aux = {"counts": counts, "aux_loss": aux_loss}
 
     # ---- single-program path
-    capacity = max(int(t * top_k * capacity_factor / e), 4)
-    x_buf, pos = _dispatch_local(x.reshape(t, d), flat_e, top_k, e, capacity)
+    capacity = max(int(t_all * top_k * capacity_factor / e), 4)
+    x_buf, pos = _dispatch_local(x.reshape(t, d), flat_e, top_k, e, capacity,
+                                 before)
     y_buf = _expert_ffn(x_buf, p.w_gate, p.w_up, p.w_down)
     out = _combine_local(y_buf, pos, flat_e, topw.reshape(t, top_k),
                          capacity).reshape(b, s, d)

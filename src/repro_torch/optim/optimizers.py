@@ -33,6 +33,10 @@ class OptState(NamedTuple):
 class Optimizer:
     init: Callable[[Any], OptState]
     update: Callable[[Any, OptState, Any, torch.Tensor], Tuple[Any, OptState]]
+    # each element's update reads only that element (AdamW), so it runs on
+    # any block of a leaf; Adafactor's factored means and update RMS read
+    # across the leaf
+    elementwise: bool = False
 
 
 def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
@@ -85,7 +89,7 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         new_p, new_m, new_v = unzip(out, 3)
         return new_p, OptState(step, {"m": new_m, "v": new_v})
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=True)
 
 
 # ---------------------------------------------------------------- Adafactor

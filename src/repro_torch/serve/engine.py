@@ -37,11 +37,12 @@ from ..kernels.dispatch import resolve_device
 from ..models import attention as attn_lib
 from ..models.layers import apply_rope, rms_norm, swiglu
 from ..models.mamba2 import mamba2_mix_step
-from ..models.model import (ModelConfig, default_positions, embed_inputs,
-                            layer_params, logits_fn, mamba2_params,
-                            moe_params, rwkv6_block, rwkv6_ffn_params,
-                            rwkv6_params, shared_qkv, transformer_block,
-                            zamba2_mamba_block, zamba2_shared_attention)
+from ..models.model import (ModelConfig, constrain_batch, default_positions,
+                            embed_inputs, layer_params, logits_fn,
+                            mamba2_params, moe_params, rwkv6_block,
+                            rwkv6_ffn_params, rwkv6_params, shared_qkv,
+                            transformer_block, zamba2_mamba_block,
+                            zamba2_shared_attention)
 from ..models.moe import moe_block
 from ..models.rwkv6 import rwkv6_channel_mix_step, rwkv6_mix_step
 
@@ -101,6 +102,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     cache["pos"].fill_(s)
     if cfg.family in ("attn", "moe"):
         for i in range(cfg.n_layers):
+            x = constrain_batch(x, cfg)
             x, _, (k, v) = transformer_block(x, layer_params(params, i), cfg,
                                              positions, return_kv=True)
             cache["k"][i, :, :, :s] = k
@@ -177,6 +179,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: Cache,
         ks, vs = cache["k"], cache["v"]
         masses, counts = [], []
         for i in range(cfg.n_layers):
+            x = constrain_batch(x, cfg)
             bp = layer_params(params, i)
             h = rms_norm(x[:, None], bp["ln1"], cfg.norm_eps)[:, 0]
 

@@ -1146,3 +1146,91 @@ def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
                       for g, c in zip(leaves(gp), leaves(cp))])
     assert float(diff.max()) <= 2 * lr
     assert float((diff <= 1e-6).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x22b"])
+def test_sharded_step_at_w1_on_the_card_equals_the_meshless_step(
+        cuda, tmp_path, arch):
+    """Two steps of ``train.sharded.make_sharded_train_step`` on a 1-rank
+    NCCL group and a (1, 1) ("data", "model") mesh, in turns with the
+    meshless ``make_train_step`` from the same weights and batches
+    (qwen2-0.5b's smoke config: tied, qkv bias; mixtral-8x22b's: MoE at
+    its own capacity factor, so its routing takes the batch slices'
+    counts; bf16 activations): losses, grad norms and every param and
+    optimizer leaf equal bit for bit, every leaf on its named placements,
+    2 flash_attention launches an attention on the route for its head
+    dim, no host sync inside a step; then the meshless state restored
+    onto the mesh bit for bit."""
+    import torch.distributed as dist
+    from _perturbed_weights import perturbed_tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import iter_schema
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.pytree import leaves
+    from repro_torch.train import sharded
+    from repro_torch.train.steps import make_train_step
+    cfg = get_smoke_config(arch)
+    params = params_from_numpy(perturbed_tree(iter_schema(cfg), 0),
+                               device=cuda)
+    opt = get_optimizer("adamw")
+    sched = cosine_schedule(1e-3, 10, 100)
+    state = opt.init(params)
+    rng = np.random.default_rng(3)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        shardings = sharded.state_shardings(mesh, cfg, state)
+        d_params, d_state = sh.distribute((params, state), shardings)
+        step = make_train_step(cfg, opt, sched)
+        s_step = sharded.make_sharded_train_step(cfg, opt, sched, mesh)
+        per = []
+        for _ in range(2):
+            batch = {k: torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (4, 64)).astype(np.int32)).to(cuda)
+                for k in ("tokens", "labels")}
+            d_batch = sh.distribute(batch, sh.named(
+                mesh, sh.batch_specs(mesh, cfg, batch)))
+            before = dict(fa_kernel.ROUTE_LAUNCHES)
+            c0 = dict(sh.COLLECTIVES)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                d_params, d_state, ms = s_step(d_params, d_state, d_batch)
+                params, state, mm = step(params, state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            routes = {r: fa_kernel.ROUTE_LAUNCHES[r] - before[r]
+                      for r in before}
+            want = dict.fromkeys(routes, 0)
+            want[fa_kernel.route(cfg.activ_dtype, cfg.head_dim)] = \
+                2 * 2 * cfg.n_layers       # both steps, 2 a layer (remat)
+            assert routes == want
+            per.append({k: sh.COLLECTIVES[k] - c0[k] for k in c0})
+            assert torch.equal(ms["loss"], mm["loss"])
+            assert torch.equal(ms["grad_norm"], mm["grad_norm"])
+            assert sorted(ms) == sorted(mm)
+            if "expert_counts" in mm:
+                assert torch.equal(ms["expert_counts"], mm["expert_counts"])
+            assert all(torch.equal(a, b) for a, b in zip(
+                leaves(sh.gather((d_params, d_state))),
+                leaves((params, state))))
+            assert all(tuple(x.placements) == s.placements for x, s in zip(
+                leaves((d_params, d_state)), leaves(shardings)))
+        # one rank: every leaf is its own full tensor, so nothing is
+        # gathered; the gradients still ride the batch axis' all-reduce
+        assert per[0] == per[1] and per[0]["all_reduce"] > 0
+        assert per[0]["all_gather"] == 0
+        ck = CheckpointManager(tmp_path / "ckpt")
+        ck.save(2, {"params": params, "opt": state}, block=True)
+        got, _ = ck.restore(shardings={"params": shardings[0],
+                                       "opt": shardings[1]})
+        assert all(torch.equal(a.to_local(), b) for a, b in zip(
+            leaves(got), leaves({"params": params, "opt": {
+                "step": state.step, "inner": state.inner}})))
+    finally:
+        dist.destroy_process_group()
