@@ -279,7 +279,25 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     mesh, bit for bit (the kernel line's ``flash_attention_sharded_train``
     entry); the group destroyed; within 60 s.
 
-Each path (8-11, 14-16, 18-26) sets the launch counters to 0 just before it
+27. expert parallelism (``models.moe``'s expert-parallel path, the
+    reference's ``_moe_shard_map``): two gloo ranks of CUDA tensors on the
+    one card (NCCL takes one rank a device) and a (1, 2) ("data",
+    "model") mesh.  (a) kimi-k2-1t-a32b at its published widths cut to 1
+    of 61 layers, bf16 (38.8 GB of weights, each rank drawing its 192 of
+    the 384 experts on the card from per-(leaf, expert) seeds):
+    ``engine.prefill`` at B 2, S 4,096 with ``moe_groups`` (1, 2), a first
+    call and EP_CALLS timed ones (wall, tokens/s, each rank's peak memory,
+    the all-to-alls' count, bytes and seconds, 1 flash_attention launch a
+    rank and call on the tensor cores); after the ranks exit, the same
+    weights drawn whole and the prefill run on this process with each MoE
+    layer per group: the counts and every group's dropped pairs exact, the
+    MoE output and the last-token logits within EP_TOL of max(2,
+    max|ref|); (b) the kimi-k2 smoke model's sharded train step (float32),
+    2 steps with AdamW and 2 with Adafactor at the config's capacity
+    factor, against the one-device steps with each MoE layer per group at
+    the train-step bounds, placements and collectives exact; within 90 s.
+
+Each path (8-11, 14-16, 18-27) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -3878,6 +3896,537 @@ def sharded_train_step(dev, zero_counts, read_counts, read_routes) -> dict:
     return out
 
 
+# phase 27: expert parallelism over a (1, 2) ("data", "model") mesh of two
+# gloo ranks on the one card.  (a) kimi-k2's prefill at row 5k's shape; (b)
+# the smoke model's sharded train step.  The MoE output and logits bound:
+# 2^-5 of max(2, max|ref|), half the reference test's 2^-4 at |h| ~ 2
+# (tests/test_distribution.py:207-209): the two sides run the same bf16
+# products but for the expert products' batch shapes.
+EP_ARCH = "kimi-k2-1t-a32b"
+EP_MESH = (1, 2)
+EP_BATCH, EP_SEQ = 2, 4096
+EP_CALLS = 3
+EP_TOL = 2 ** -5
+EP_EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
+# 27b: the kimi-k2 smoke model in float32, B 4, S 32 (two loss chunks and
+# attention blocks of 16), tests/test_torch_moe_ep.py's schedule and bounds
+EP_TRAIN_B, EP_TRAIN_S, EP_TRAIN_CHUNK = 4, 32, 16
+EP_TRAIN_LR = (1e-3, 10, 100)
+EP_TRAIN_SEEDS = (1, 2)
+EP_LOSS_RTOL, EP_GNORM_RTOL, EP_PARAM_TOL, EP_PARAM_WITHIN = \
+    1e-5, 1e-4, 1e-6, 0.999
+EP_PHASE_S = 90
+
+
+def ep_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ep_prefill_config(small: bool):
+    """kimi-k2 cut to one layer (``small``: its smoke config, for a
+    rehearsal on the CPU)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if small else get_config)(EP_ARCH)
+    return dataclasses.replace(cfg, n_layers=1)
+
+
+def ep_train_config(groups=None):
+    """27b's kimi-k2 smoke config in float32, on the expert-parallel path
+    with ``groups``."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    cfg = dataclasses.replace(
+        get_smoke_config(EP_ARCH), param_dtype=torch.float32,
+        activ_dtype=torch.float32, loss_chunk=EP_TRAIN_CHUNK,
+        attn_block_k=EP_TRAIN_CHUNK)
+    if groups is not None:
+        cfg = dataclasses.replace(cfg, moe_groups=groups,
+                                  moe_expert_sharded=True)
+    return cfg
+
+
+def ep_seed(path: str, expert: int = -1) -> int:
+    import zlib
+    return zlib.crc32(f"{path}/{expert}".encode())
+
+
+def ep_params(cfg, dev, experts) -> dict:
+    """``cfg``'s weights drawn on ``dev`` at ``init_params``' scales: a
+    leaf from a seed of its own, an expert leaf expert by expert from a
+    seed of each (leaf, expert), only the experts in ``experts`` (a rank's
+    block, or all of them), so a rank and a whole draw agree."""
+    import torch
+    from repro_torch.models.model import iter_schema
+    gen = torch.Generator(device=dev)
+    tree: dict = {}
+    for path, spec in iter_schema(cfg):
+        dt = spec.dtype or cfg.param_dtype
+        name = path.split(".")[-1]
+        if spec.init in ("zeros", "ones"):
+            val = (torch.zeros if spec.init == "zeros" else torch.ones)(
+                spec.shape, dtype=dt, device=dev)
+        else:
+            scale = 0.02 if spec.init == "normal" else 0.006
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 \
+                else spec.shape[-1]
+            scale = min(scale, fan_in ** -0.5)
+            if name in EP_EXPERT_LEAVES:
+                one = (spec.shape[0],) + tuple(spec.shape[2:])
+                val = torch.empty((spec.shape[0], len(experts)) + one[1:],
+                                  dtype=dt, device=dev)
+                for i, e in enumerate(experts):
+                    gen.manual_seed(ep_seed(path, e))
+                    val[:, i] = (torch.randn(one, generator=gen, device=dev)
+                                 * scale).to(dt)
+            else:
+                gen.manual_seed(ep_seed(path))
+                val = (torch.randn(spec.shape, generator=gen, device=dev)
+                       * scale).to(dt)
+        node = tree
+        *parents, leaf = path.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return tree
+
+
+def ep_tokens(cfg, dev, b: int, s: int, seed: int):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                            .astype(np.int32)).to(dev)
+
+
+def ep_per_group(groups, record: list):
+    """``moe_block``'s function on one device as the expert-parallel path
+    computes it over a mesh of ``groups``: the router, counts and balance
+    loss over the whole batch; each of the gd x gm groups (batch slice i,
+    sequence slice j) dispatched on its own at the reference's local
+    capacity through the port's ``_dispatch_local`` / ``_expert_ffn`` /
+    ``_combine_local`` with all the experts; the shared expert on all of
+    ``x``.  Appends (out, aux) of each call to ``record``."""
+    import torch
+    from repro_torch.models import moe as tmoe
+    gd, gm = groups
+
+    def block(x, p, *, top_k, capacity_factor=1.25, **_):
+        b, s, d = x.shape
+        e = p.router.shape[1]
+        probs, topw, tope = tmoe._route(x, p.router, top_k)
+        counts = torch.sum(tope.reshape(-1)[:, None]
+                           == torch.arange(e, device=x.device), dim=0,
+                           dtype=torch.int32)
+        f_e = counts.to(torch.float32) / float(max(b * s * top_k, 1))
+        aux_loss = e * torch.sum(f_e * probs.mean((0, 1)))
+        bl, sl = b // gd, s // gm
+        cap = max(int(bl * sl * top_k * capacity_factor / e), 2)
+        cap = -(-cap // gm) * gm
+        rows, drops = [], []
+        for i in range(gd):
+            cols, dcols = [], []
+            for j in range(gm):
+                at = (slice(i * bl, (i + 1) * bl), slice(j * sl, (j + 1) * sl))
+                flat_e = tope[at].reshape(-1)
+                x_buf, pos = tmoe._dispatch_local(
+                    x[at].reshape(bl * sl, d), flat_e, top_k, e, cap)
+                y = tmoe._expert_ffn(x_buf, p.w_gate, p.w_up, p.w_down)
+                cols.append(tmoe._combine_local(
+                    y, pos, flat_e, topw[at].reshape(bl * sl, top_k),
+                    cap).reshape(bl, sl, d))
+                dcols.append((pos >= cap).reshape(bl, sl, top_k))
+                del x_buf, y
+            rows.append(torch.cat(cols, 1))
+            drops.append(torch.cat(dcols, 1))
+        out = torch.cat(rows, 0)
+        if p.shared_w_gate is not None:
+            out = out + tmoe._shared_ffn(x, p)
+        aux = {"counts": counts, "aux_loss": aux_loss,
+               "dropped": torch.cat(drops, 0)}
+        record.append((out, aux))
+        return out, aux
+    return block
+
+
+def ep_named(tree, prefix: str = "") -> dict:
+    """``{"a/b": CPU tensor}`` of a tree of dicts and namedtuples."""
+    if hasattr(tree, "_fields"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(ep_named(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree.detach().cpu()}
+
+
+def ep_rank_prefill(mesh, dev, rank: int, out_dir: str, small: bool) -> dict:
+    """27a on one rank: its block of experts drawn, the prefill called
+    1 + EP_CALLS times with the MoE layer's output captured and each
+    all-to-all timed; rank j writes its outputs to ``prefill.<j>.pt``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as tm
+    from repro_torch.serve import engine
+
+    gm = EP_MESH[1]
+    cfg = dataclasses.replace(ep_prefill_config(small), moe_groups=EP_MESH,
+                              moe_expert_sharded=True,
+                              act_batch_axes=("data",))
+    j = mesh.get_local_rank("model")
+    n = cfg.moe.n_experts // gm
+    params = ep_params(cfg, dev, range(j * n, (j + 1) * n))
+    b, s = (2, 64) if small else (EP_BATCH, EP_SEQ)
+    toks = ep_tokens(cfg, dev, b, s, 27)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    record, a2a_s = [], [0.0]
+    real_block, real_a2a = tm.moe_block, sh._tiled_all_to_all
+
+    def captured(*a, **kw):
+        out, aux = real_block(*a, **kw)
+        record[:] = [(out, aux)]
+        return out, aux
+
+    def timed_a2a(*a, **kw):
+        ep_sync(dev)
+        t0 = time.perf_counter()
+        out = real_a2a(*a, **kw)
+        ep_sync(dev)
+        a2a_s[0] += time.perf_counter() - t0
+        return out
+    tm.moe_block, sh._tiled_all_to_all = captured, timed_a2a
+    calls = []
+    try:
+        with torch.no_grad():
+            for _ in range(1 + EP_CALLS):
+                fa_kernel.LAUNCHES = 0
+                for r in fa_kernel.ROUTE_LAUNCHES:
+                    fa_kernel.ROUTE_LAUNCHES[r] = 0
+                before, a2a_s[0] = dict(sh.COLLECTIVES), 0.0
+                ep_sync(dev)
+                t0 = time.perf_counter()
+                logits, cache = engine.prefill(params, cfg, tokens=toks,
+                                               mesh=mesh)
+                ep_sync(dev)
+                calls.append({
+                    "wall_s": time.perf_counter() - t0,
+                    "a2a_s": a2a_s[0],
+                    "flash_attention": fa_kernel.LAUNCHES,
+                    "routes": dict(fa_kernel.ROUTE_LAUNCHES),
+                    "collectives": {k: sh.COLLECTIVES[k] - before[k]
+                                    for k in before}})
+                del cache
+    finally:
+        tm.moe_block, sh._tiled_all_to_all = real_block, real_a2a
+    out, aux = record[0]
+    torch.save({"moe_out": out.cpu(), "logits": logits.cpu(),
+                "counts": aux["counts"].cpu(),
+                "dropped": aux["dropped"].cpu()},
+               f"{out_dir}/prefill.{rank}.pt")
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    return {"calls": calls, "peak_gib": peak, "experts": [j * n, (j + 1) * n]}
+
+
+def ep_rank_train(mesh, dev, rank: int, out_dir: str) -> dict:
+    """27b on one rank: 2 sharded steps with AdamW and 2 with Adafactor;
+    rank 0 writes the gathered state after each step."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.train import sharded
+
+    cfg = ep_train_config(EP_MESH)
+    out = {}
+    for opt_name in ("adamw", "adafactor"):
+        opt = get_optimizer(opt_name)
+        params = ep_params(cfg, dev, range(cfg.moe.n_experts))
+        state = opt.init(params)
+        shardings = sharded.state_shardings(mesh, cfg, state)
+        p, st = sh.distribute((params, state), shardings)
+        step = sharded.make_sharded_train_step(
+            cfg, opt, cosine_schedule(*EP_TRAIN_LR), mesh)
+        rec = {"metrics": [], "collectives": [], "placements_ok": []}
+        saved = {}
+        for i, seed in enumerate(EP_TRAIN_SEEDS, 1):
+            bt = {k: ep_tokens(cfg, dev, EP_TRAIN_B, EP_TRAIN_S, seed + 10 * c)
+                  for c, k in enumerate(("tokens", "labels"))}
+            db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg,
+                                                                 bt)))
+            before = dict(sh.COLLECTIVES)
+            p, st, m = step(p, st, db)
+            rec["collectives"].append({k: sh.COLLECTIVES[k] - before[k]
+                                       for k in before})
+            rec["placements_ok"].append(all(leaves(tree_map(
+                lambda x, s_: tuple(x.placements) == s_.placements,
+                (p, st), shardings))))
+            rec["metrics"].append({k: v.tolist() for k, v in m.items()})
+            full_p, full_s = sh.gather((p, st))
+            saved.update({f"p{i}/{k}": v
+                          for k, v in ep_named(full_p).items()})
+            saved.update({f"s{i}/{k}": v
+                          for k, v in ep_named(full_s).items()})
+        if rank == 0:
+            torch.save(saved, f"{out_dir}/train_{opt_name}.pt")
+        out[opt_name] = rec
+    return out
+
+
+def ep_rank(rank: int, store: str, out_dir: str, small: bool = False
+            ) -> None:
+    """One of phase 27's two ranks (a spawned process; ``small``: the
+    smoke config on the CPU, a rehearsal)."""
+    import datetime
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cpu") if small else torch.device("cuda", 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh(EP_MESH, ("data", "model"), device=dev.type)
+        t0 = time.perf_counter()
+        res = {"prefill": ep_rank_prefill(mesh, dev, rank, out_dir, small)}
+        res["prefill_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            free_device_memory()
+        t0 = time.perf_counter()
+        res["train"] = ep_rank_train(mesh, dev, rank, out_dir)
+        res["train_s"] = time.perf_counter() - t0
+        with open(f"{out_dir}/rank.{rank}.json", "w") as f:
+            json.dump(res, f, sort_keys=True)
+    except BaseException:
+        with open(f"{out_dir}/rank.{rank}.error", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def ep_within(got, ref) -> tuple:
+    """(max |got - ref|, its bound EP_TOL * max(2, max|ref|))."""
+    got, ref = got.float(), ref.float()
+    return (float((got - ref).abs().max()),
+            EP_TOL * max(2.0, float(ref.abs().max())))
+
+
+def ep_train_reference(dev, opt_name: str, got: dict, ranks: list) -> dict:
+    """27b's one-device steps with each MoE layer per group against rank
+    0's saved state and every rank's metrics, at the train-step bounds."""
+    import torch
+    from repro_torch.models import model as tm
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = ep_train_config()
+    opt = get_optimizer(opt_name)
+    step = make_train_step(cfg, opt, cosine_schedule(*EP_TRAIN_LR))
+    params = ep_params(cfg, dev, range(cfg.moe.n_experts))
+    state = opt.init(params)
+    record, real = [], tm.moe_block
+    tm.moe_block = ep_per_group(EP_MESH, record)
+    worst, lr_sum = {"loss": 0.0, "grad_norm": 0.0, "state": 0.0}, 0.0
+    try:
+        for i, seed in enumerate(EP_TRAIN_SEEDS, 1):
+            bt = {k: ep_tokens(cfg, dev, EP_TRAIN_B, EP_TRAIN_S, seed + 10 * c)
+                  for c, k in enumerate(("tokens", "labels"))}
+            params, state, m = step(params, state, bt)
+            gm_ = ranks[0]["train"][opt_name]["metrics"][i - 1]
+            for k in ("loss", "grad_norm"):
+                worst[k] = max(worst[k], abs(gm_[k] - float(m[k]))
+                               / abs(float(m[k])))
+            lr_sum += float(m["lr"])
+            if gm_["expert_counts"] != m["expert_counts"].tolist():
+                fail(f"27b {opt_name} step {i}: expert counts "
+                     f"{gm_['expert_counts']} vs {m['expert_counts'].tolist()}")
+            want = {**{f"p{i}/{k}": v for k, v in ep_named(params).items()},
+                    **{f"s{i}/{k}": v for k, v in ep_named(state).items()}}
+            if sorted(want) != sorted(k for k in got if k[:2] in
+                                      (f"p{i}", f"s{i}")):
+                fail(f"27b {opt_name}: the saved state's leaves differ")
+            diff = torch.cat([(got[k].float() - want[k].float()).abs()
+                              .ravel() for k in want])
+            within = float((diff <= EP_PARAM_TOL).float().mean())
+            worst["state"] = max(worst["state"], float(diff.max()))
+            if float(diff.max()) > 2 * lr_sum or within < EP_PARAM_WITHIN:
+                fail(f"27b {opt_name} step {i}: state off by "
+                     f"{float(diff.max())} (bound {2 * lr_sum}), "
+                     f"{within} within {EP_PARAM_TOL}")
+    finally:
+        tm.moe_block = real
+    if worst["loss"] > EP_LOSS_RTOL or worst["grad_norm"] > EP_GNORM_RTOL:
+        fail(f"27b {opt_name}: loss / grad norm relative errors {worst}")
+    dropped = sum(int(aux["dropped"].sum()) for _, aux in record)
+    per = [r["train"][opt_name] for r in ranks]
+    if not (all(r["metrics"] == per[0]["metrics"] for r in per)
+            and all(all(r["placements_ok"]) for r in per)
+            and all(c == per[0]["collectives"][0]
+                    for r in per for c in r["collectives"])):
+        fail(f"27b {opt_name}: ranks disagree, a leaf is off its placements "
+             f"or the collectives differ across steps: {per}")
+    return {"worst": worst, "dropped_pairs": dropped,
+            "losses": [mm["loss"] for mm in per[0]["metrics"]],
+            "collectives_per_step": per[0]["collectives"][0]}
+
+
+def expert_parallel(dev, smi_line: str, small: bool = False) -> dict:
+    """Phase 27 (see the module doc).  ``small``: a rehearsal on the CPU
+    with the smoke config."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import model as tm
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        free_device_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    out_dir = obs_dir("expert_parallel")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=ep_rank,
+                         args=(r, f"{tmp}/store", str(out_dir), small))
+             for r in range(2)]
+    try:
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(timeout=EP_PHASE_S + 60)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errors = sorted(out_dir.glob("rank.*.error"))
+        if errors or any(pr.exitcode != 0 for pr in procs):
+            fail("phase 27's ranks failed (exit codes "
+                 f"{[pr.exitcode for pr in procs]}): "
+                 + " | ".join(e.read_text()[-3000:] for e in errors))
+        ranks = [json.loads((out_dir / f"rank.{r}.json").read_text())
+                 for r in range(2)]
+        got = [torch.load(out_dir / f"prefill.{r}.pt") for r in range(2)]
+        t_ranks = time.perf_counter() - t_phase
+
+        # ---- 27a: the same draw whole, the prefill on one device per group
+        cfg = ep_prefill_config(small)
+        params = ep_params(cfg, dev, range(cfg.moe.n_experts))
+        b, s = (2, 64) if small else (EP_BATCH, EP_SEQ)
+        toks = ep_tokens(cfg, dev, b, s, 27)
+        record, real = [], tm.moe_block
+        tm.moe_block = ep_per_group(EP_MESH, record)
+        try:
+            with torch.no_grad():
+                fa_kernel.LAUNCHES = 0
+                ep_sync(dev)
+                t0 = time.perf_counter()
+                logits, cache = engine.prefill(params, cfg, tokens=toks)
+                ep_sync(dev)
+                one_wall = time.perf_counter() - t0
+                one_launches = fa_kernel.LAUNCHES
+        finally:
+            tm.moe_block = real
+        ref_out, ref_aux = record[-1]
+        ref_out, logits = ref_out.cpu(), logits.cpu()
+        counts, dropped = ref_aux["counts"].cpu(), ref_aux["dropped"].cpu()
+        del params, cache, record, ref_aux
+        if dev.type == "cuda":
+            free_device_memory()
+        sl = s // EP_MESH[1]
+        errs = {}
+        for r, g in enumerate(got):
+            if not torch.equal(g["counts"], counts):
+                fail(f"27a rank {r}: counts {g['counts'].tolist()} vs "
+                     f"{counts.tolist()}")
+            if not torch.equal(g["dropped"], dropped[:, r * sl:(r + 1) * sl]):
+                fail(f"27a rank {r}: its group's dropped pairs differ "
+                     f"({int(g['dropped'].sum())} vs "
+                     f"{int(dropped[:, r * sl:(r + 1) * sl].sum())})")
+            for name, ref in (("moe_out", ref_out), ("logits", logits)):
+                err, bound = ep_within(g[name], ref)
+                errs[f"{name}_{r}"] = [err, bound]
+                if not err <= bound:
+                    fail(f"27a rank {r}: {name} off by {err} > {bound}")
+        n_e, k = cfg.moe.n_experts, cfg.moe.top_k
+        cap = max(int(b * sl * k * cfg.moe.capacity_factor / n_e), 2)
+        cap = -(-cap // EP_MESH[1]) * EP_MESH[1]
+        a2a_bytes = n_e * cap * cfg.d_model * cfg.activ_dtype.itemsize
+        for r, res in enumerate(ranks):
+            for c in res["prefill"]["calls"]:
+                co = c["collectives"]
+                if (co["all_to_all"], co["all_to_all_bytes"]) \
+                        != (2 * cfg.n_layers, 2 * cfg.n_layers * a2a_bytes):
+                    fail(f"27a rank {r}: all-to-alls {co}, expected "
+                         f"{2 * cfg.n_layers} of {a2a_bytes} bytes")
+                if dev.type == "cuda" and (
+                        c["flash_attention"] != cfg.n_layers
+                        or c["routes"]["tensor_core"] != cfg.n_layers):
+                    fail(f"27a rank {r}: flash_attention {c}, expected "
+                         f"{cfg.n_layers} on the tensor cores a call")
+        timed = [c["wall_s"] for c in ranks[0]["prefill"]["calls"][1:]]
+        pre = {
+            "arch": EP_ARCH, "n_layers": cfg.n_layers, "batch": b, "seq": s,
+            "mesh": list(EP_MESH), "smi": smi_line,
+            "capacity_factor": cfg.moe.capacity_factor, "local_capacity": cap,
+            "wall_s": {r: [c["wall_s"] for c in res["prefill"]["calls"]]
+                       for r, res in enumerate(ranks)},
+            "tokens_per_s": [b * s / w for w in timed],
+            "first_call_s": ranks[0]["prefill"]["calls"][0]["wall_s"],
+            "peak_gib": [res["prefill"]["peak_gib"] for res in ranks],
+            "all_to_all_per_call": ranks[0]["prefill"]["calls"][1][
+                "collectives"],
+            "all_to_all_s": {r: [c["a2a_s"] for c in res["prefill"]["calls"]]
+                             for r, res in enumerate(ranks)},
+            "flash_attention_per_rank_call": ranks[0]["prefill"]["calls"][1][
+                "flash_attention"],
+            "routes_per_rank_call": ranks[0]["prefill"]["calls"][1]["routes"],
+            "one_device_per_group_wall_s": one_wall,
+            "one_device_flash_attention": one_launches,
+            "counts_exact": True, "dropped_exact": True,
+            "dropped_pairs": int(dropped.sum()), "errors": errs,
+            "rank_prefill_s": [res["prefill_s"] for res in ranks]}
+        say("expert_parallel_prefill", **pre)
+
+        # ---- 27b: the sharded train steps against one device per group
+        train = {}
+        for opt_name in ("adamw", "adafactor"):
+            saved = torch.load(out_dir / f"train_{opt_name}.pt")
+            train[opt_name] = ep_train_reference(dev, opt_name, saved, ranks)
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if dev.type == "cuda":
+        free_device_memory()
+    out = {"prefill": pre, "train": train,
+           "flash_attention_launches": sum(
+               c["flash_attention"] for res in ranks
+               for c in res["prefill"]["calls"]),
+           "ranks_s": t_ranks, "rank_train_s": [res["train_s"]
+                                                 for res in ranks],
+           "seconds": time.perf_counter() - t_phase, "smi": smi_line}
+    say("expert_parallel", **{k: v for k, v in out.items() if k != "prefill"})
+    if out["seconds"] > EP_PHASE_S:
+        fail(f"phase 27 took {out['seconds']:.1f} s, over its "
+             f"{EP_PHASE_S} s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -3885,7 +4434,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 26) -> None:
+def main(until: int = 27) -> None:
     import numpy as np
     import torch
 
@@ -4505,6 +5054,11 @@ def main(until: int = 26) -> None:
     # ------------------------------- 26. the sharded train step, W 1 mesh
     sh26 = sharded_train_step(dev, zero_counts, read_counts, read_routes)
 
+    if until < 27:
+        fail(f"stopped after phase {until} (--until)")
+    # ----------------- 27. expert parallelism, two gloo ranks on the card
+    ep27 = expert_parallel(dev, smi_line)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -4631,14 +5185,14 @@ def main(until: int = 26) -> None:
          "bound_by": fa_zamba2["bound_by"],
          "library_ms": fa_zamba2["sdpa_ms"]},
         # the same route at kimi-k2's attention (bf16, d 112, GQA 64 / 8,
-        # B 2, S 4096), beside sdpa(is_causal=True): no path serves kimi-k2
-        # on the card (1 T parameters), so the launches are the route's own
-        # on the main path, phase 23c's zamba2-2.7b prefill
+        # B 2, S 4096), beside sdpa(is_causal=True): its launches in phase
+        # 27a's expert-parallel kimi-k2 prefill at that shape (both ranks,
+        # every call, one a call)
         {"name": "flash_attention_kimi_k2", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_wgmma.cuh",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-         "launches": zamba2_launches["flash_attention"],
+         "launches": ep27["flash_attention_launches"],
          "max_abs_err": fa_kimi["max_abs_err"], "ms": fa_kimi["ms"],
          "plain_ms": fa_kimi["plain_ms"],
          "bound_ms": fa_kimi["bound_ms"],
@@ -4709,4 +5263,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 26)
+    main(int(args[1]) if args[:1] == ["--until"] else 27)

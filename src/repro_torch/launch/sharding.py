@@ -17,8 +17,10 @@ as the reference's do, so they take a stand-in with only ``.shape``; a
 mesh.
 
 The layout helpers and the collectives of the sharded path live here too
-(:func:`distribute`, :func:`gather`, :func:`all_reduce`,
-:func:`gather_slices`), so the train step, the MoE block and checkpoints
+(:func:`distribute`, :func:`gather`, :func:`gather_except`,
+:func:`all_reduce`, :func:`gather_slices`, and the expert-parallel MoE's
+differentiable :func:`all_to_all`, :func:`split_seq` and
+:func:`gather_seq`), so the train step, the MoE block and checkpoints
 share them.  Each collective is counted in :data:`COLLECTIVES` as plain
 integers (calls and bytes), as ``core.shard`` counts the telemetry
 path's.
@@ -36,10 +38,11 @@ from ..models.model import ModelConfig, param_pspecs
 from ..pytree import tree_map
 
 __all__ = ["COLLECTIVES", "NamedSharding", "PartitionSpec", "all_reduce",
-           "apply_overrides", "batch_axes", "batch_pspec", "batch_specs",
-           "cache_pspecs", "default_rules", "distribute", "entry_axes",
-           "full", "gather", "gather_slices", "local_block", "map_specs",
-           "mesh_axes", "model_pspecs", "named", "opt_pspecs", "placements",
+           "all_to_all", "apply_overrides", "batch_axes", "batch_pspec",
+           "batch_specs", "cache_pspecs", "default_rules", "distribute",
+           "entry_axes", "full", "gather", "gather_except", "gather_seq",
+           "gather_slices", "local_block", "map_specs", "mesh_axes",
+           "model_pspecs", "named", "opt_pspecs", "placements", "split_seq",
            "wrap"]
 
 
@@ -312,7 +315,8 @@ def opt_pspecs(param_specs, opt_state):
 
 # ------------------------------------------------ layout and collectives
 COLLECTIVES = {"all_gather": 0, "all_gather_bytes": 0,
-               "all_reduce": 0, "all_reduce_bytes": 0}
+               "all_reduce": 0, "all_reduce_bytes": 0,
+               "all_to_all": 0, "all_to_all_bytes": 0}
 
 
 def local_block(x, sh: NamedSharding) -> torch.Tensor:
@@ -347,19 +351,91 @@ def wrap(local: torch.Tensor, sh: NamedSharding, shape) -> Any:
                               run_check=False, shape=shape, stride=stride)
 
 
-def full(x) -> torch.Tensor:
-    """The full tensor of DTensor ``x`` on every rank (``full_tensor``),
-    counted as one all-gather for each mesh dim of more than one rank that
-    shards ``x`` (gathered last to first, each at the bytes it returns); a
-    leaf sharded nowhere comes back as its local tensor, no collective."""
-    mesh, size = x.device_mesh, x.to_local()
-    size = size.numel() * size.element_size()
+def _chunks(length: int, n: int) -> list:
+    """The lengths of a dim of ``length`` cut ``n`` ways as DTensor's
+    ``Shard`` cuts it (``torch.chunk``, padded with empty chunks)."""
+    c = -(-length // n)
+    return [max(0, min(c, length - i * c)) for i in range(n)]
+
+
+def _all_gather(x: torch.Tensor, group, n: int) -> list:
+    """Every rank's ``x`` of ``group`` (``n`` ranks), in rank order: the
+    list all-gather of ``torch.distributed``, which gloo takes on a CUDA
+    tensor too (DTensor's own gathers go through the functional
+    collectives, whose wait crashes gloo on a CUDA tensor)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    COLLECTIVES["all_gather"] += 1
+    COLLECTIVES["all_gather_bytes"] += n * x.numel() * x.element_size()
+    return parts
+
+
+def _gathered(x, keep: Optional[str] = None) -> torch.Tensor:
+    """DTensor ``x``'s local block gathered over each mesh dim of more than
+    one rank that shards it, last to first, but the mesh axis ``keep``:
+    one all-gather a dim, the parts joined as ``full_tensor`` joins them (a
+    ``_StridedShard``'s parts cut ``split_factor`` ways and taken piece
+    major)."""
+    mesh, pls = x.device_mesh, tuple(x.placements)
+    names = mesh.mesh_dim_names
+    # the length of the dim each mesh dim cuts, before that cut (at this
+    # rank's coordinates; the ranks of that mesh dim's group share it)
+    shape, parent = list(x.shape), []
+    for m, pl in enumerate(pls):
+        if pl.is_replicate():
+            parent.append(None)
+            continue
+        parent.append(shape[pl.dim])
+        shape[pl.dim] = _chunks(shape[pl.dim],
+                                mesh.size(m))[mesh.get_local_rank(m)]
+    if keep is not None:
+        k = names.index(keep)
+        cut = [pl.dim for m, pl in enumerate(pls)
+               if m != k and not pl.is_replicate() and mesh.size(m) > 1]
+        if not pls[k].is_replicate() and pls[k].dim in cut:
+            raise ValueError(f"mesh axis {keep!r} cuts a dim that another "
+                             f"axis cuts too ({pls}): it cannot stay cut "
+                             f"alone")
+    local = x.to_local()
     for m in reversed(range(mesh.ndim)):
-        if not x.placements[m].is_replicate() and mesh.size(m) > 1:
-            size *= mesh.size(m)
-            COLLECTIVES["all_gather"] += 1
-            COLLECTIVES["all_gather_bytes"] += size
-    return x.full_tensor()
+        pl, n = pls[m], mesh.size(m)
+        if pl.is_replicate() or n == 1 or names[m] == keep:
+            continue
+        d, sizes = pl.dim, _chunks(parent[m], n)
+        split = getattr(pl, "split_factor", 1)
+        if split > 1 and parent[m] % (n * split):
+            raise ValueError(f"{pl} of a dim of {parent[m]}: an uneven "
+                             f"strided split is not gathered")
+        if local.shape[d] < sizes[0]:
+            pad = list(local.shape)
+            pad[d] = sizes[0] - local.shape[d]
+            local = torch.cat([local, local.new_zeros(pad)], d)
+        parts = _all_gather(local, mesh.get_group(m), n)
+        if split > 1:
+            local = torch.cat([q.chunk(split, d)[i] for i in range(split)
+                               for q in parts], d)
+        else:
+            local = torch.cat([q.narrow(d, 0, sizes[i])
+                               for i, q in enumerate(parts)], d)
+    return local
+
+
+def full(x) -> torch.Tensor:
+    """The full tensor of DTensor ``x`` on every rank (``full_tensor``'s
+    value), one all-gather for each mesh dim of more than one rank that
+    shards ``x`` (gathered last to first, each counted at the bytes it
+    returns); a leaf sharded nowhere comes back as its local tensor, no
+    collective."""
+    return _gathered(x)
+
+
+def gather_except(x, keep: str) -> torch.Tensor:
+    """DTensor ``x`` gathered over every mesh axis but ``keep``: this
+    rank's block of ``x`` along the dim ``keep`` shards (the whole of that
+    dim if it shards none), full along every other; counted as
+    :func:`full` counts."""
+    return _gathered(x, keep)
 
 
 def gather(tree):
@@ -399,3 +475,95 @@ def gather_slices(x: torch.Tensor, mesh, axes: Sequence[str]
     spec = PartitionSpec(axes, *([None] * x.ndim))
     return full(wrap(x[None], NamedSharding(mesh, spec),
                      (n,) + tuple(x.shape))), index
+
+
+# ------------------------------- the expert-parallel MoE's collectives
+def _axis_group(mesh, axis: str):
+    """(the process group of mesh axis ``axis``, its size, this rank's
+    index on it)."""
+    m = list(mesh.mesh_dim_names).index(axis)
+    return mesh.get_group(m), mesh.size(m), mesh.get_local_rank(m)
+
+
+def _tiled_all_to_all(x: torch.Tensor, group, n: int, split: int,
+                      concat: int) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: dim ``split`` of ``x`` cut into
+    ``n`` chunks, chunk i sent to rank i of ``group``; the chunks received
+    concatenated along dim ``concat`` in source-rank order."""
+    send = x.unflatten(split, (n, -1)).movedim(split, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    COLLECTIVES["all_to_all"] += 1
+    COLLECTIVES["all_to_all_bytes"] += send.numel() * send.element_size()
+    return recv.movedim(0, concat).flatten(concat, concat + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split, concat):
+        ctx.args = (group, n, split, concat)
+        return _tiled_all_to_all(x, group, n, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split, concat = ctx.args
+        return _tiled_all_to_all(g, group, n, concat, split), None, None, \
+            None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, j, dim):
+        ctx.args = (group, n, dim)
+        return x.chunk(n, dim)[j].clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, dim = ctx.args
+        return torch.cat(_all_gather(g, group, n), dim), None, None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, j, dim):
+        ctx.args = (n, j, dim)
+        return torch.cat(_all_gather(x, group, n), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, j, dim = ctx.args
+        return (g.chunk(n, dim)[j].clone(memory_format=torch.contiguous_format),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str = "model", split: int = 0,
+               concat: int = 1) -> torch.Tensor:
+    """The tiled all-to-all of the reference's expert-parallel MoE over
+    mesh axis ``axis``: dim ``split`` cut into one chunk a rank of the
+    axis, the chunks received concatenated along dim ``concat`` in
+    source-rank order; ``(E, C, D)`` -> ``(E / n, n * C, D)`` by default,
+    back with ``split=1, concat=0``.  Differentiable: the backward is the
+    reverse all-to-all.  Counted at the bytes this rank sends."""
+    group, n, _ = _axis_group(mesh, axis)
+    return _AllToAll.apply(x, group, n, split, concat)
+
+
+def split_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
+              ) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim``, cut evenly over mesh axis
+    ``axis`` (``x`` the same on every rank of the axis).  The backward
+    all-gathers the slices' gradients, so the gradient of ``x`` is the
+    whole one on every rank of the axis: the ranks that differ only on
+    ``axis`` compute the same loss, and a stock all-gather's
+    reduce-scatter would sum that gradient once a rank."""
+    group, n, j = _axis_group(mesh, axis)
+    return _SplitSeq.apply(x, group, n, j, dim)
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
+               ) -> torch.Tensor:
+    """The inverse of :func:`split_seq`: the slices of the ranks of mesh
+    axis ``axis`` concatenated along ``dim``; the backward keeps this
+    rank's slice of the (replicated) gradient."""
+    group, n, j = _axis_group(mesh, axis)
+    return _GatherSeq.apply(x, group, n, j, dim)

@@ -491,8 +491,10 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     ``mesh`` (the sharded train step's): the inputs are this rank's slice
     of a batch split over ``cfg.act_batch_axes`` of ``mesh``, and each MoE
     layer routes as the whole batch would (``moe_block``'s ``batch_axes``),
-    its counts the whole batch's and its balance loss this slice's
-    share."""
+    its counts the whole batch's and its balance loss this slice's share;
+    with ``cfg.moe_groups`` and ``cfg.moe_expert_sharded`` it takes the
+    expert-parallel path (``params``' expert leaves this rank's block of
+    experts over "model")."""
     x = constrain_batch(embed_inputs(params, cfg, tokens, embeds), cfg)
     b, s, _ = x.shape
     if positions is None:

@@ -1,6 +1,5 @@
 """Top-k routed Mixture-of-Experts with capacity dropping and expert
-telemetry (PyTorch port of ``repro/models/moe.py``, its single-program
-path).
+telemetry (PyTorch port of ``repro/models/moe.py``).
 
 The router runs in float32; each token goes to its ``top_k`` most probable
 experts (ties to the lowest expert id, as ``lax.top_k``: a stable sort over
@@ -24,12 +23,24 @@ Expert activation counters come out of the router for free — the MoE
 analogue of the paper's HMU telemetry — and :func:`expert_access_batch`
 turns them into the tiering runtime's access stream.
 
-The reference's expert-parallel path (``groups`` across devices, experts
-sharded over a mesh axis, explicit all-to-alls) is distribution, ROADMAP
-Queue 1 item 15; asking for it raises ``NotImplementedError``.
+With ``groups=(gd, gm)`` of more than one member and ``expert_sharded``
+the block takes the reference's expert-parallel path (its
+``_moe_shard_map``) on a ("data", "model")-style ``mesh``: ``x`` is this
+rank's batch slice (one of ``gd``), the rank of "model" j takes slice j of
+its sequence (one of ``gm``), and that group of ``T / (gd gm)`` tokens is
+dispatched on its own at a LOCAL capacity (tokens past it drop, per
+group).  A tiled all-to-all over "model" sends each expert's rows to the
+rank that holds it (``p.w_*`` hold this rank's ``E / gm`` experts), the
+expert products run there, the reverse all-to-all brings the rows back,
+and the group's output is combined and all-gathered over "model" again.
+The router, ``counts`` and the balance loss are the whole batch's as on
+the single-program path, the shared expert runs on all of ``x``.  The
+collectives are ``launch.sharding``'s (``all_to_all``, ``split_seq``,
+``gather_seq``): differentiable, and counted.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -71,6 +82,17 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     lowest index first (a stable descending sort)."""
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], ids[..., :k]
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """The float32 router -> (probs (B, S, E), topw (B, S, k) renormalised
+    over the k, tope (B, S, k) expert ids)."""
+    logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
+                          router.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    topw, tope = _top_k(probs, top_k)
+    return probs, topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9), \
+        tope
 
 
 def _dispatch_local(xf: torch.Tensor, flat_e: torch.Tensor, k: int, e: int,
@@ -136,31 +158,34 @@ def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
               batch_axes: Optional[Tuple[str, ...]] = None, mesh=None,
               expert_sharded: bool = False):
     """x: (B, S, D).  Returns (out (B, S, D), aux) with ``aux["counts"]``
-    (E,) int32 — the expert activation telemetry — and ``aux["aux_loss"]``,
-    the switch-style load-balance loss (a float32 scalar).
+    (E,) int32 — the expert activation telemetry — ``aux["aux_loss"]``,
+    the switch-style load-balance loss (a float32 scalar), and
+    ``aux["dropped"]``, (B, S, k) bool: the routed (token, expert) pairs
+    past their expert's capacity (on the expert-parallel path this rank's
+    group's, (B, S / gm, k)).
 
     With ``batch_axes`` and a ``mesh``, ``x`` is this rank's slice of a
-    batch split over those mesh axes (major first): the capacity, the slot
-    order, ``counts`` and the loss's routed fractions are the whole
-    batch's, the loss's probability mean this slice's (so the mean of the
-    slices' losses is the whole batch's)."""
+    batch split over those mesh axes (major first): ``counts`` and the
+    loss's routed fractions are the whole batch's, the loss's probability
+    mean this slice's (so the mean of the slices' losses is the whole
+    batch's).  On the single-program path the capacity and the slot order
+    are the whole batch's too; on the expert-parallel path (``groups``
+    ``(gd, gm)`` of more than one member and ``expert_sharded``; see the
+    module doc) they are each group's, ``gd`` the batch axes' size and
+    ``gm`` the size of the mesh's "model" axis."""
     gd, gm = groups
-    if gd * gm > 1 and expert_sharded:
-        raise NotImplementedError(
-            "the expert-parallel MoE path (groups across devices, experts "
-            "sharded over a mesh axis) is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, item 15)")
+    ep = gd * gm > 1 and expert_sharded
+    if ep and mesh is None:
+        raise ValueError(
+            f"the expert-parallel MoE path (groups {groups}, experts "
+            f"sharded) needs the mesh its groups live on: pass mesh=")
     b, s, d = x.shape
     e = p.router.shape[1]
     t = b * s
     dev = x.device
 
     # ---- router (float32) + telemetry + balance loss
-    logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
-                          p.router.to(torch.float32))
-    probs = torch.softmax(logits, dim=-1)
-    topw, tope = _top_k(probs, top_k)                     # (B, S, k)
-    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    probs, topw, tope = _route(x, p.router, top_k)
     flat_e = tope.reshape(-1)
     # a comparison sum, not bincount: CUDA's bincount reads its input's
     # maximum back to the host
@@ -178,13 +203,71 @@ def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
     aux_loss = e * torch.sum(f_e.detach() * probs.mean((0, 1)))
     aux = {"counts": counts, "aux_loss": aux_loss}
 
-    # ---- single-program path
-    capacity = max(int(t_all * top_k * capacity_factor / e), 4)
-    x_buf, pos = _dispatch_local(x.reshape(t, d), flat_e, top_k, e, capacity,
-                                 before)
-    y_buf = _expert_ffn(x_buf, p.w_gate, p.w_up, p.w_down)
-    out = _combine_local(y_buf, pos, flat_e, topw.reshape(t, top_k),
-                         capacity).reshape(b, s, d)
+    if ep:
+        out, dropped = _moe_expert_parallel(x, p, tope, topw, top_k,
+                                            capacity_factor, groups,
+                                            batch_axes, mesh)
+    else:
+        # ---- single-program path
+        capacity = max(int(t_all * top_k * capacity_factor / e), 4)
+        x_buf, pos = _dispatch_local(x.reshape(t, d), flat_e, top_k, e,
+                                     capacity, before)
+        y_buf = _expert_ffn(x_buf, p.w_gate, p.w_up, p.w_down)
+        out = _combine_local(y_buf, pos, flat_e, topw.reshape(t, top_k),
+                             capacity).reshape(b, s, d)
+        dropped = (pos >= capacity).reshape(b, s, top_k)
+    aux["dropped"] = dropped
     if p.shared_w_gate is not None:
         out = out + _shared_ffn(x, p)
     return out, aux
+
+
+def _moe_expert_parallel(x: torch.Tensor, p: MoEParams, tope: torch.Tensor,
+                         topw: torch.Tensor, top_k: int,
+                         capacity_factor: float, groups: Tuple[int, int],
+                         batch_axes, mesh
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts' output on the expert-parallel path (the
+    reference's ``_moe_shard_map`` without its shared expert) -> (out
+    (B, S, D), this rank's group's dropped pairs (B, S / gm, k)).
+
+    The local capacity is the reference's: ``max(int(t_l k cf / E), 2)``
+    rounded up to a multiple of ``gm``, ``t_l = T / (gd gm)``; so each
+    all-to-all moves ``E C D`` elements a direction a rank."""
+    from ..launch.sharding import (all_to_all, gather_seq, mesh_axes,
+                                   split_seq)
+    b, s, d = x.shape
+    e = p.router.shape[1]
+    gd, gm = groups
+    sizes = mesh_axes(mesh)
+    axes = (batch_axes,) if isinstance(batch_axes, str) else \
+        tuple(batch_axes or ())
+    n_slices = math.prod(sizes[a] for a in axes)
+    if "model" not in sizes or groups != (n_slices, sizes["model"]):
+        raise ValueError(
+            f"groups {groups} are not (the batch axes {axes}' size "
+            f"{n_slices}, the mesh's \"model\" size {sizes.get('model')}): "
+            f"the batch of {b * n_slices} must split into gd slices over "
+            f"the batch axes and the experts over \"model\"")
+    for what, n, by in (("sequence", s, gm), ("experts", e, gm)):
+        if n % by:
+            raise ValueError(f"the {what} ({n}) does not split into "
+                             f"{by} groups over \"model\"")
+    if p.w_gate.shape[0] != e // gm:
+        raise ValueError(f"the expert weights hold {p.w_gate.shape[0]} "
+                         f"experts, not this rank's block of {e} / {gm}")
+    t_l = b * (s // gm)
+    capacity = max(int(t_l * top_k * capacity_factor / e), 2)
+    capacity = -(-capacity // gm) * gm
+    j = mesh.get_local_rank("model")
+    x_l = split_seq(x, mesh, "model")
+    w_l = split_seq(topw, mesh, "model").reshape(t_l, top_k)
+    flat_e = tope.chunk(gm, 1)[j].reshape(-1)
+    x_buf, pos = _dispatch_local(x_l.reshape(t_l, d), flat_e, top_k, e,
+                                 capacity)
+    x_recv = all_to_all(x_buf, mesh, "model")        # (E/gm, gm C, D)
+    y_recv = _expert_ffn(x_recv, p.w_gate, p.w_up, p.w_down)
+    y_buf = all_to_all(y_recv, mesh, "model", split=1, concat=0)
+    out = _combine_local(y_buf, pos, flat_e, w_l, capacity)
+    out = gather_seq(out.reshape(b, s // gm, d), mesh, "model")
+    return out, (pos >= capacity).reshape(b, s // gm, top_k)

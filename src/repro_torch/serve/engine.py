@@ -82,13 +82,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
-            positions=None, max_len: Optional[int] = None
+            positions=None, max_len: Optional[int] = None, mesh=None
             ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence pass that also builds the cache.  Returns (last-token
     logits (B, V), cache).  On a CUDA device every attention runs the
     ``flash_attention`` kernel once: each layer of the attn and moe
     families, each of zamba2's ``n_shared_attn`` shared-block invocations,
-    none for rwkv6."""
+    none for rwkv6.
+
+    ``mesh`` as :func:`repro_torch.models.model.forward` takes it: the
+    inputs are this rank's slice of a batch split over
+    ``cfg.act_batch_axes``, and each MoE layer routes by ``cfg``'s
+    ``moe_groups`` / ``moe_expert_sharded`` (the expert-parallel path,
+    ``params``' expert leaves this rank's block), as the reference's
+    prefill passes them; the cache is this rank's slice's."""
     # the reference swaps the triangular schedule for the masked one at
     # prefill (an XLA layout choice; the same function here)
     if cfg.causal_schedule == "triangular":
@@ -104,7 +111,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
         for i in range(cfg.n_layers):
             x = constrain_batch(x, cfg)
             x, _, (k, v) = transformer_block(x, layer_params(params, i), cfg,
-                                             positions, return_kv=True)
+                                             positions, return_kv=True,
+                                             mesh=mesh)
             cache["k"][i, :, :, :s] = k
             cache["v"][i, :, :, :s] = v
     elif cfg.family == "rwkv6":

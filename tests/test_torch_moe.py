@@ -177,16 +177,17 @@ def test_moe_block_ties_break_lowest_expert_first(carried):
     close(to, jo, HIDDEN_TOL["float32"])
 
 
-def test_moe_block_refuses_the_expert_parallel_path(carried):
+@pytest.mark.parametrize("groups", [(2, 1), (1, 4), (2, 2)])
+def test_moe_block_expert_parallel_path_needs_a_mesh(carried, groups):
     """The reference takes its shard-map path only with groups of more
-    than one member AND experts sharded; that path is not ported."""
+    than one member AND experts sharded, over its ambient mesh; the port
+    takes the mesh as an argument and refuses the path without one
+    (tests/test_torch_moe_ep.py drives it over gloo meshes)."""
     _, tc, _, tp = carried["mixtral-8x22b", "float32"]
     x = torch.zeros((1, 4, tc.d_model))
     par = tm.moe_params(tm.layer_params(tp, 0))
-    for groups in ((2, 1), (1, 4), (2, 2)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tmoe.moe_block(x, par, top_k=2, groups=groups,
-                           expert_sharded=True)
+    with pytest.raises(ValueError, match="needs the mesh"):
+        tmoe.moe_block(x, par, top_k=2, groups=groups, expert_sharded=True)
 
 
 @pytest.mark.parametrize("groups,expert_sharded",
