@@ -297,7 +297,24 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     factor, against the one-device steps with each MoE layer per group at
     the train-step bounds, placements and collectives exact; within 90 s.
 
-Each path (8-11, 14-16, 18-27) sets the launch counters to 0 just before it
+28. the dry run (``launch.dryrun``), held to a real step: (a)
+    qwen2-0.5b's single-device train step at phase 24b's shape (B 4,
+    S 2048, bf16 activations, remat "full", AdamW) counted by
+    ``dryrun.count_step`` on meta tensors, then run on the card (a
+    warm-up, a timed step, a step under ``FlopCounterMode`` with each
+    flash_attention launch's shape recorded): the card's FLOPs plus the
+    meta route's charge for each launch equal the dry run's FLOPs exactly,
+    the launches (48, tensor-core) equal its calls shape by shape, its
+    argument bytes equal the storage of the card's params, optimizer state
+    and batch; the predicted peak beside ``max_memory_allocated``, the warm
+    step against its roofline time (max of the FLOPs at the bf16 peak and
+    the bytes at the memory rate); (b) in a spawned process, rank 0 of a
+    fake group of 512 ranks, ``dryrun.run_cell`` of kimi-k2-1t-a32b x
+    train_4k x 16x16: status "ok" on the expert-parallel path (6 all-to-
+    alls a layer), its FLOPs, collective bytes, argument and peak bytes
+    and trace time printed; within 90 s.
+
+Each path (8-11, 14-16, 18-28) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -4427,6 +4444,230 @@ def expert_parallel(dev, smi_line: str, small: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 28
+# 28: the dry run (launch.dryrun) held to the card.  (a) qwen2-0.5b's
+# single-device train step at phase 24b's shape (B 4, S 2048, bf16
+# activations, remat "full", AdamW), counted on meta tensors, then run on
+# the card; (b) one production cell in a process of its own (the fake
+# group of 512 ranks cannot share this process's groups).
+DRY_BATCH, DRY_SEQ = 4, 2048
+DRY_CELL = ("kimi-k2-1t-a32b", "train_4k")
+DRY_PHASE_S = 90
+
+
+def dry_run_card_step(dev, zero_counts, read_counts, read_routes) -> dict:
+    """Phase 28a: ``dryrun.count_step`` of the step on meta tensors, then
+    the same step on the card: a warm-up, a timed step, and a step under
+    ``FlopCounterMode`` with each flash_attention launch's shape recorded.
+    The ctypes kernel is invisible to that mode, so the card's count plus
+    the meta route's charge for each launch must equal the dry run's
+    FLOPs exactly; the launches must equal the dry run's calls, shape by
+    shape; the dry run's argument bytes must equal the storage of the
+    card's params, optimizer state and batch (and the allocator's growth
+    those bytes rounded up to its 512-byte blocks)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec, input_specs
+    from repro_torch.models.model import abstract_params, init_params
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.pytree import leaves
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config("qwen2-0.5b")
+    opt = get_optimizer("adamw")
+    step = make_train_step(cfg, opt, cosine_schedule(*SHARDED_LR))
+    t0 = time.perf_counter()
+    meta = abstract_params(cfg)
+    rec = dryrun.count_step(step, (meta, opt.init(meta), input_specs(
+        cfg, ShapeSpec("train_card", DRY_SEQ, DRY_BATCH, "train"))))
+    trace_s = time.perf_counter() - t0
+    del meta
+
+    free_device_memory()
+    base = torch.cuda.memory_allocated(dev)
+    params = init_params(cfg, 0, dev)
+    state = opt.init(params)
+    rng = np.random.default_rng(28)
+    toks = rng.integers(0, cfg.vocab_size, (DRY_BATCH, DRY_SEQ + 1)) \
+        .astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+    torch.cuda.synchronize(dev)
+    held = leaves((params, state, batch))
+    alloc = torch.cuda.memory_allocated(dev) - base
+    storage = sum(t.untyped_storage().nbytes() for t in held)
+    del held
+    args_bytes = rec["memory"]["argument_bytes"]
+    # the allocator's blocks round each tensor up (to 512 bytes, a large
+    # one to the rest of its segment when less than 1 MiB would be left)
+    if not (args_bytes == storage <= alloc):
+        fail(f"28a: the dry run's argument bytes {args_bytes} against the "
+             f"storage of the card's params + optimizer state + batch "
+             f"{storage} (the allocator's growth {alloc})")
+
+    params, state, _ = step(params, state, batch)        # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    seen: dict = {}
+    real = fa_ops.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
+                                 causal=kw["causal"], window=kw["window"])
+        seen[key] = seen.get(key, 0) + 1
+        return real(q, k, v, **kw)
+
+    zero_counts()
+    r0 = read_routes()
+    fa_ops.flash_attention_cuda = recorded
+    try:
+        with FlopCounterMode(display=False) as fc:
+            params, state, m = step(params, state, batch)
+        torch.cuda.synchronize(dev)
+    finally:
+        fa_ops.flash_attention_cuda = real
+    launches = read_counts()
+    routes = {k: v - r0[k] for k, v in read_routes().items()}
+    card_flops = fc.get_total_flops()
+    charged = sum(n * fa_kernel.charge(key)[0] for key, n in seen.items())
+    kern = rec["kernels"]["flash_attention"]
+    meta_calls = {(c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"],
+                   c["causal"], c["window"], c["dtype"]): c["calls"]
+                  for c in kern["calls"]}
+    card_calls = {key[:-1] + (str(key[-1]).split(".")[-1],): n
+                  for key, n in seen.items()}
+    per_step = 2 * QWEN_LAYERS
+    if card_flops + charged != rec["executed"]["flops"]:
+        fail(f"28a: the card's FLOPs {card_flops} + the flash_attention "
+             f"charges {charged} != the dry run's "
+             f"{rec['executed']['flops']}")
+    if not (launches == {**NO_KERNELS, "flash_attention": per_step}
+            and kern["launches"] == per_step and card_calls == meta_calls
+            and routes == fa_routes(torch.bfloat16, 64, per_step)):
+        fail(f"28a: the card's launches {launches} (routes {routes}, "
+             f"shapes {card_calls}) against the dry run's {kern['launches']}"
+             f" ({meta_calls}); expected {per_step} on the tensor cores")
+    if not math.isfinite(float(m["loss"])):
+        fail(f"28a: the card step's loss is {float(m['loss'])}")
+    ex = rec["executed"]
+    roof = max(ex["flops"] / TENSOR_BF16_OPS_PER_S,
+               ex["hbm_bytes"] / HBM_BYTES_PER_S)
+    del params, state, batch, m
+    free_device_memory()
+    return {"arch": "qwen2-0.5b", "batch": DRY_BATCH, "seq": DRY_SEQ,
+            "trace_s": trace_s, "flops": ex["flops"],
+            "card_flops": card_flops, "flash_attention_charge": charged,
+            "flops_equal": True, "hbm_bytes": ex["hbm_bytes"],
+            "launches": launches["flash_attention"],
+            "dry_run_launches": kern["launches"],
+            "argument_bytes": args_bytes, "card_storage_bytes": storage,
+            "card_allocated_bytes": alloc,
+            "predicted_peak_bytes": rec["memory"]["peak_bytes"],
+            "card_peak_bytes": peak, "warm_step_s": wall,
+            "roofline_s": roof,
+            "roofline_bound_by": ("operations" if ex["flops"]
+                                  / TENSOR_BF16_OPS_PER_S
+                                  >= ex["hbm_bytes"] / HBM_BYTES_PER_S
+                                  else "bytes"),
+            "roofline_share": roof / wall}
+
+
+def dry_run_cell_rank(out: str) -> None:
+    """28b's process: rank 0 of a fake group of 512 ranks (this module's
+    path to ``src`` set up first), ``dryrun.run_cell`` on DRY_CELL at
+    16 x 16, the record written to ``out``/record.json (a traceback to
+    ``out``/error.txt)."""
+    import traceback
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.launch import dryrun
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=dryrun.FAKE_WORLD)
+        try:
+            rec = dryrun.run_cell(*DRY_CELL, False, Path(out))
+        finally:
+            dist.destroy_process_group()
+        (Path(out) / "record.json").write_text(json.dumps(rec))
+    except BaseException:
+        (Path(out) / "error.txt").write_text(traceback.format_exc())
+        raise
+
+
+def dry_run(dev, zero_counts, read_counts, read_routes, smi_line) -> dict:
+    """Phase 28 (see the module doc): 28b's process starts first and runs
+    beside 28a."""
+    import multiprocessing
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out_dir = obs_dir("dry_run")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=dry_run_cell_rank, args=(str(out_dir),))
+    try:
+        proc.start()
+        card = dry_run_card_step(dev, zero_counts, read_counts, read_routes)
+        say("dry_run_card_step", smi=smi_line, **card)
+        proc.join(timeout=DRY_PHASE_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        err = out_dir / "error.txt"
+        if proc.exitcode != 0 or err.exists():
+            fail(f"28b: the cell's process failed (exit {proc.exitcode}): "
+                 + (err.read_text()[-3000:] if err.exists() else ""))
+        rec = json.loads((out_dir / "record.json").read_text())
+    finally:
+        if proc.is_alive():
+            proc.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    n_layers = get_config(DRY_CELL[0]).n_layers
+    ex, mem = rec.get("executed", {}), rec.get("memory", {})
+    fa = rec.get("kernels", {}).get("flash_attention", {})
+    # expert parallelism: two all-to-alls a MoE layer's forward, run three
+    # times a step (forward, remat's recompute, backward)
+    if not (rec["status"] == "ok"
+            and ex["collective_count"]["all-to-all"] == 6 * n_layers
+            and fa["launches"] == 2 * n_layers):
+        fail(f"28b: {DRY_CELL} x 16x16 ended {rec['status']} "
+             f"({rec.get('reason')}), all-to-alls "
+             f"{ex.get('collective_count')}, flash_attention calls "
+             f"{fa.get('launches')}: expected 'ok' on the expert-parallel "
+             f"path, {6 * n_layers} all-to-alls and {2 * n_layers} calls")
+    cell = {"arch": DRY_CELL[0], "shape": DRY_CELL[1], "mesh": rec["mesh"],
+            "status": rec["status"], "devices": rec["devices"],
+            "flops": ex["flops"], "hbm_bytes": ex["hbm_bytes"],
+            "collective_count": ex["collective_count"],
+            "collective_wire_bytes": ex["collective_wire_bytes"],
+            "collective_total_bytes": ex["collective_total_bytes"],
+            "argument_bytes": mem["argument_bytes"],
+            "peak_bytes": mem["peak_bytes"],
+            "flash_attention_calls": fa["launches"],
+            "trace_s": rec["trace_s"]}
+    say("dry_run_cell", **cell)
+    out = {"card": card, "cell": cell,
+           "seconds": time.perf_counter() - t_phase}
+    say("dry_run", seconds=out["seconds"], smi=smi_line)
+    if out["seconds"] > DRY_PHASE_S:
+        fail(f"phase 28 took {out['seconds']:.1f} s, over its "
+             f"{DRY_PHASE_S} s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -4434,7 +4675,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 27) -> None:
+def main(until: int = 28) -> None:
     import numpy as np
     import torch
 
@@ -5059,6 +5300,11 @@ def main(until: int = 27) -> None:
     # ----------------- 27. expert parallelism, two gloo ranks on the card
     ep27 = expert_parallel(dev, smi_line)
 
+    if until < 28:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------------- 28. the dry run, held to a real step on the card
+    dry_run(dev, zero_counts, read_counts, read_routes, smi_line)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -5263,4 +5509,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 27)
+    main(int(args[1]) if args[:1] == ["--until"] else 28)

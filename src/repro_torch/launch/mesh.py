@@ -12,8 +12,9 @@ CPU the group is ``gloo``, on the card ``nccl`` with one rank per GPU.
     mesh = make_telemetry_mesh(device="cpu")
     run_online(..., mesh=mesh, device="cpu")
 
-The reference's ``make_production_mesh`` (the v5e pod shape) is not ported
-here: its only caller is the dry-run launcher.
+:func:`make_production_mesh` is the reference's production shape, one pod
+of 16 x 16 or two of them; its caller is the dry run (``launch.dryrun``),
+which builds it over a fake process group of that many ranks.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import torch.distributed as dist
 
 from ..kernels.dispatch import resolve_device
 
-__all__ = ["current_mesh", "make_mesh", "make_telemetry_mesh", "use_mesh"]
+__all__ = ["current_mesh", "make_mesh", "make_production_mesh",
+           "make_telemetry_mesh", "use_mesh"]
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
@@ -55,6 +57,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda"):
                          f"{dist.get_world_size()}-rank process group")
     return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh over the default group: one pod
+    (16, 16) over ("data", "model"), or two (2, 16, 16) over ("pod",
+    "data", "model").  "pod" is the outer data-parallel axis, "data" FSDP
+    and batch, "model" tensor and expert parallel.  Raises ``ValueError``
+    when the group has fewer ranks than the mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
 
 
 def make_telemetry_mesh(n_devices: Optional[int] = None,

@@ -23,10 +23,12 @@ differentiable :func:`all_to_all`, :func:`split_seq` and
 :func:`gather_seq`), so the train step, the MoE block and checkpoints
 share them.  Each collective is counted in :data:`COLLECTIVES` as plain
 integers (calls and bytes), as ``core.shard`` counts the telemetry
-path's.
+path's; inside a :func:`recording` block each is also logged with its
+group's size (the dry run's wire bytes).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections.abc import Mapping
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -42,8 +44,8 @@ __all__ = ["COLLECTIVES", "NamedSharding", "PartitionSpec", "all_reduce",
            "batch_specs", "cache_pspecs", "default_rules", "distribute",
            "entry_axes", "full", "gather", "gather_except", "gather_seq",
            "gather_slices", "local_block", "map_specs", "mesh_axes",
-           "model_pspecs", "named", "opt_pspecs", "placements", "split_seq",
-           "wrap"]
+           "model_pspecs", "named", "opt_pspecs", "placements", "recording",
+           "split_seq", "wrap"]
 
 
 class PartitionSpec(tuple):
@@ -317,6 +319,28 @@ def opt_pspecs(param_specs, opt_state):
 COLLECTIVES = {"all_gather": 0, "all_gather_bytes": 0,
                "all_reduce": 0, "all_reduce_bytes": 0,
                "all_to_all": 0, "all_to_all_bytes": 0}
+_LOGS: list = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a list that gets ``(kind, bytes, group size)`` of every
+    collective counted in :data:`COLLECTIVES` inside the block, ``kind`` a
+    key of it ("all_gather", "all_reduce", "all_to_all") and ``bytes`` as
+    counted there (the bytes the call returns)."""
+    log: list = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+def _count(kind: str, nbytes: int, group_size: int) -> None:
+    COLLECTIVES[kind] += 1
+    COLLECTIVES[kind + "_bytes"] += nbytes
+    for log in _LOGS:
+        log.append((kind, nbytes, group_size))
 
 
 def local_block(x, sh: NamedSharding) -> torch.Tensor:
@@ -366,8 +390,7 @@ def _all_gather(x: torch.Tensor, group, n: int) -> list:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    COLLECTIVES["all_gather"] += 1
-    COLLECTIVES["all_gather_bytes"] += n * x.numel() * x.element_size()
+    _count("all_gather", n * x.numel() * x.element_size(), n)
     return parts
 
 
@@ -453,8 +476,8 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     buf = x.contiguous()
     for a in axes:
         dist.all_reduce(buf, group=mesh.get_group(names.index(a)))
-        COLLECTIVES["all_reduce"] += 1
-        COLLECTIVES["all_reduce_bytes"] += buf.numel() * buf.element_size()
+        _count("all_reduce", buf.numel() * buf.element_size(),
+               mesh.size(names.index(a)))
     if buf is not x:
         x.copy_(buf)
     return x
@@ -493,8 +516,7 @@ def _tiled_all_to_all(x: torch.Tensor, group, n: int, split: int,
     send = x.unflatten(split, (n, -1)).movedim(split, 0).contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    COLLECTIVES["all_to_all"] += 1
-    COLLECTIVES["all_to_all_bytes"] += send.numel() * send.element_size()
+    _count("all_to_all", send.numel() * send.element_size(), n)
     return recv.movedim(0, concat).flatten(concat, concat + 1)
 
 

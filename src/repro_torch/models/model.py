@@ -39,9 +39,10 @@ from .moe import MoEParams, moe_block
 from .rwkv6 import (RWKV6FFNParams, RWKV6Params, rwkv6_channel_mix,
                     rwkv6_mix)
 
-__all__ = ["LeafSpec", "MoECfg", "ModelConfig", "constrain_batch", "forward",
-           "init_params", "iter_schema", "layer_params", "logits_fn",
-           "loss_fn", "loss_terms", "mamba2_params", "moe_params",
+__all__ = ["LeafSpec", "MoECfg", "ModelConfig", "abstract_params",
+           "constrain_batch", "forward", "init_params", "iter_schema",
+           "layer_params", "logits_fn", "loss_fn", "loss_terms",
+           "mamba2_params", "moe_params",
            "param_pspecs", "rwkv6_ffn_params", "rwkv6_params", "rwkv6_block",
            "shared_qkv", "transformer_block", "zamba2_mamba_block",
            "zamba2_shared_attention"]
@@ -261,6 +262,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
             val = (torch.randn(spec.shape, generator=gen, dtype=torch.float32)
                    * scale).to(dt).to(dev)
         _set(tree, path, val)
+    return tree
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """Every parameter as a ``meta`` tensor of its shape and dtype (the
+    reference's ``jax.ShapeDtypeStruct`` tree): nothing is allocated."""
+    tree: dict = {}
+    for path, spec in iter_schema(cfg):
+        _set(tree, path, torch.empty(spec.shape,
+                                     dtype=spec.dtype or cfg.param_dtype,
+                                     device="meta"))
     return tree
 
 

@@ -46,7 +46,7 @@ from ..models.model import (ModelConfig, constrain_batch, default_positions,
 from ..models.moe import moe_block
 from ..models.rwkv6 import rwkv6_channel_mix_step, rwkv6_mix_step
 
-__all__ = ["decode_step", "decode_telemetry", "init_cache",
+__all__ = ["abstract_cache", "decode_step", "decode_telemetry", "init_cache",
            "kv_page_geometry", "prefill"]
 
 Cache = Dict[str, Any]
@@ -54,7 +54,12 @@ Cache = Dict[str, Any]
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Cache:
-    dev = resolve_device(device)
+    """A zeroed cache of ``batch`` sequences of ``max_len`` positions on
+    ``device`` (``"meta"``: shapes and dtypes only, see
+    :func:`abstract_cache`)."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
     dtype = dtype or cfg.activ_dtype
     L, kvh, hd, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
 
@@ -79,6 +84,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     else:
         raise ValueError(cfg.family)
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
+    """:func:`init_cache`'s tree as ``meta`` tensors (the reference's
+    ``jax.eval_shape`` of it): nothing is allocated."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,

@@ -163,7 +163,9 @@ def sharded_loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any],
         if moe:
             loss = loss + 0.01 * share
             value = value + 0.01 * packed[2].to(torch.float32)
-        grads = torch.autograd.grad(loss, leaves_)
+        # a leaf the loss does not read gets a zero gradient (jax.grad's)
+        grads = torch.autograd.grad(loss, leaves_, allow_unused=True,
+                                    materialize_grads=True)
     aux = {"expert_counts": aux["expert_counts"]} if moe else {}
     return value.detach(), aux, unflatten(skeleton, list(grads))
 

@@ -39,12 +39,15 @@ def compute_loss(params, cfg: ModelConfig, batch: Dict[str, Any]):
 
 def loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any]):
     """(loss, aux, grads): the loss and aux of :func:`compute_loss`
-    (detached) and its gradient, a tree like ``params``."""
+    (detached) and its gradient, a tree like ``params``.  A leaf the loss
+    does not read (``embed`` under the embeddings frontend) gets a zero
+    gradient, as ``jax.grad`` gives it."""
     flat, skeleton = flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
         loss, aux = compute_loss(unflatten(skeleton, leaves), cfg, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     aux = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
                    else t, aux)
     return loss.detach(), aux, unflatten(skeleton, list(grads))

@@ -1,0 +1,115 @@
+"""The dry run's fake-process-group cases, in a process of their own (a
+fake default group cannot live beside the other tests' groups).  Imports
+only ``repro_torch``.
+
+``python tests/_torch_dryrun_worker.py OUT``: writes ``OUT/cases.json``,
+and the CLI's record under ``OUT/cli`` (or ``OUT/error.txt``).
+
+1. A fake group of 4 ranks, rank 0: the qwen2-0.5b smoke model's sharded
+   train step (B 4, S 64) counted by ``dryrun.count_step`` at the meshes
+   (2, 2), (1, 4) and (4, 1) over ("data", "model"), beside the
+   single-device step's count, and ``launch.sharding.COLLECTIVES``'
+   change over each trace; ``make_production_mesh`` on too few ranks.
+2. A fake group of 512 ranks: ``make_production_mesh`` one pod and two.
+3. No group: ``dryrun.main`` on qwen2-0.5b x train_4k x 16x16, which
+   starts its own fake group of 512.
+"""
+import json
+import os
+import sys
+import traceback
+
+ARCH = "qwen2-0.5b"
+MESHES = ((2, 2), (1, 4), (4, 1))
+BATCH, SEQ = 4, 64
+
+
+def fake_group(world: int) -> None:
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def small_group_cases(out: dict) -> None:
+    import torch.distributed as dist
+    from repro_torch.configs import get_sharding_overrides, get_smoke_config
+    from repro_torch.launch import dryrun, sharding as sh
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.launch.shapes import ShapeSpec, input_specs
+    from repro_torch.models.model import abstract_params
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_smoke_config(ARCH)
+    shape = ShapeSpec("train_smoke", SEQ, BATCH, "train")
+    opt = get_optimizer(dryrun.get_optimizer_name_from_cfg(cfg))
+    step = make_train_step(cfg, opt, cosine_schedule(3e-4, 100, 10000))
+    params = abstract_params(cfg)
+    one = dryrun.count_step(step, (params, opt.init(params),
+                                   input_specs(cfg, shape)))
+    out["single_device_flops"] = one["executed"]["flops"]
+    fake_group(4)
+    try:
+        for shp in MESHES:
+            mesh = make_mesh(shp, ("data", "model"), device="cpu")
+            fn, args = dryrun.build_step(cfg, shape, mesh,
+                                         get_sharding_overrides(ARCH))
+            before = dict(sh.COLLECTIVES)
+            rec = dryrun.count_step(fn, args)
+            out[f"mesh {shp[0]}x{shp[1]}"] = {
+                "flops": rec["executed"]["flops"],
+                "collectives": rec["collectives"],
+                "executed": rec["executed"],
+                "counted": {k: sh.COLLECTIVES[k] - before[k] for k in before},
+                "memory": rec["memory"]}
+        try:
+            make_production_mesh(device="cpu")
+            out["too_small"] = None
+        except ValueError as e:
+            out["too_small"] = str(e)
+    finally:
+        dist.destroy_process_group()
+
+
+def production_cases(out: dict) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    fake_group(512)
+    try:
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi, device="cpu")
+            out[f"production multi_pod={multi}"] = {
+                "shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
+                "device_type": mesh.device_type, "size": mesh.size()}
+    finally:
+        dist.destroy_process_group()
+
+
+def cli_case(out_dir: str, out: dict) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    try:
+        dryrun.main(["--arch", ARCH, "--shape", "train_4k", "--out",
+                     os.path.join(out_dir, "cli")])
+    except SystemExit as e:
+        out["cli_exit"] = e.code
+    out["cli_left_a_group"] = dist.is_initialized()
+
+
+def main(out_dir: str) -> None:
+    out: dict = {}
+    try:
+        small_group_cases(out)
+        production_cases(out)
+        cli_case(out_dir, out)
+        with open(os.path.join(out_dir, "cases.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, "error.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

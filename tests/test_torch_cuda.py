@@ -1298,3 +1298,69 @@ def test_expert_parallel_sharded_step_on_the_card(cuda, tmp_path):
             per = res["collectives"]
             assert per[0] == per[1] == per_rank[0]["collectives"][0]
             assert per[0]["all_to_all"] == 6 * 2      # 2 layers, remat
+
+
+@pytest.mark.cuda
+def test_dry_run_counts_the_card_step(cuda):
+    """``chip_smoke.py`` phase 28a's twin at a shorter cut: qwen2-0.5b at
+    its published widths with 2 of its 24 layers (bf16 activations, remat
+    "full", AdamW), B 2, S 512.  ``launch.dryrun.count_step`` on meta
+    tensors against the same step on the card under ``FlopCounterMode``
+    (which cannot see the ctypes kernel): the card's FLOPs plus the meta
+    route's charge for each recorded launch equal the dry run's exactly;
+    the launches equal the dry run's calls, shape by shape (2 a layer,
+    tensor-core route); the dry run's argument bytes equal the storage of
+    the card's params, optimizer state and batch."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec, input_specs
+    from repro_torch.models.model import abstract_params, init_params
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.pytree import leaves
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2)
+    b, s = 2, 512
+    opt = get_optimizer("adamw")
+    step = make_train_step(cfg, opt, cosine_schedule(3e-4, 1, 12))
+    meta = abstract_params(cfg)
+    rec = dryrun.count_step(step, (meta, opt.init(meta), input_specs(
+        cfg, ShapeSpec("train_card", s, b, "train"))))
+    params = init_params(cfg, 0, cuda)
+    state = opt.init(params)
+    toks = np.random.default_rng(28).integers(0, cfg.vocab_size, (b, s))
+    batch = {k: torch.from_numpy(toks.astype(np.int32)).to(cuda)
+             for k in ("tokens", "labels")}
+    assert rec["memory"]["argument_bytes"] == sum(
+        t.untyped_storage().nbytes() for t in leaves((params, state, batch)))
+    params, state, _ = step(params, state, batch)        # warm-up
+    seen = {}
+    real = fa_ops.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
+                                 causal=kw["causal"], window=kw["window"])
+        seen[key] = seen.get(key, 0) + 1
+        return real(q, k, v, **kw)
+
+    before = dict(fa_kernel.ROUTE_LAUNCHES)
+    fa_ops.flash_attention_cuda = recorded
+    try:
+        with FlopCounterMode(display=False) as fc:
+            step(params, state, batch)
+        torch.cuda.synchronize()
+    finally:
+        fa_ops.flash_attention_cuda = real
+    charged = sum(n * fa_kernel.charge(key)[0] for key, n in seen.items())
+    assert fc.get_total_flops() + charged == rec["executed"]["flops"]
+    kern = rec["kernels"]["flash_attention"]
+    assert {key[:-1] + (str(key[-1]).split(".")[-1],): n
+            for key, n in seen.items()} == {
+        (c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"], c["causal"],
+         c["window"], c["dtype"]): c["calls"] for c in kern["calls"]}
+    assert kern["launches"] == 2 * cfg.n_layers
+    assert fa_kernel.ROUTE_LAUNCHES["tensor_core"] \
+        - before["tensor_core"] == 2 * cfg.n_layers
