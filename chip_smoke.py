@@ -11,7 +11,7 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
    ``src/repro_torch/**/csrc``, one ``nvcc`` each, in parallel (seconds and
    the ``ptxas`` register and spill report of each; the TF32
    flash_attention kernels and the tensor-core ones at every head dim
-   (64, 80, 112, 128) must not spill, and the TF32 kernels' static SASS
+   (16, 32, 64, 80, 112, 128, 256) must not spill, and the TF32 kernels' static SASS
    instruction mix is printed);
 3. observe_scatter vs its plain version, exact, with and without a keep
    mask, each case on the table mode ``kernel.table_mode`` names (direct:
@@ -78,10 +78,14 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     non-causal Sq > Sk and Sq < Sk and a window edge inside a KV
     tile, and the float32 TF32 route at d=64 and 128: the qwen2-0.5b
     prefill, ragged S in {130, 1000}, a window edge inside a KV tile,
-    non-causal Sq > Sk and Sq < Sk; each case must take the route that
-    ``kernel.route`` names for its dtype and head dim, and on each TF32
-    case and each bfloat16 case at d=80 and 112 the CUDA-core kernel, named
-    through ``kernel._launch``, must pass too;
+    non-causal Sq > Sk and Sq < Sk; the TF32 route at d=16, 32, 80, 112 and
+    256 and the tensor-core route at d=16, 32 and 256, each with ragged S
+    and GQA, a window edge inside a KV tile and non-causal Sq != Sk; each
+    case must take the route that ``kernel.route`` names for its dtype and
+    head dim (no (dtype, d) is the CUDA-core kernel's), and on each case of
+    a (dtype, d) that the CUDA-core kernel takes (float32 at every d,
+    bfloat16 at 16, 32, 80, 112 and 256) that kernel, named through
+    ``kernel._launch``, must pass too;
 14. the serving path at full width:
     ``repro_torch.launch.serve.main(["--arch", "qwen2-0.5b", "--batch",
     "4", "--prompt-len", "64", "--gen", "32", "--page-size", "16"])`` (the
@@ -98,7 +102,8 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     zeroed before it: 24 flash_attention launches, on the TF32 route in
     float32 and on the tensor cores in bfloat16;
 16. ``KVCacheScenario()`` on the GPU vs the CPU: 2 flash_attention launches
-    (one prefill of the 2-layer smoke model, d=16: the CUDA-core route),
+    (one prefill of the 2-layer smoke model, bfloat16 at d=16: the
+    tensor-core route),
     decode masses within a
     tolerance, ``run_scenario`` fed the CPU's stream byte-identical for
     hints on x sync_every in {1, 4}, and how many access counts the GPU's
@@ -110,7 +115,13 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     qwen2-0.5b shape in float32 on the TF32 route, timed in turns with the
     plain version and with the CUDA-core kernel, beside both bounds (three
     TF32 products at the TF32 rate; one float32 product at the CUDA cores'
-    rate) and the TF32 kernel's resident blocks an SM;
+    rate) and the TF32 kernel's resident blocks an SM; then the shapes
+    that took the CUDA-core kernel before every (dtype, d) had a tensor-core
+    route (``ROW5B_TIME_SHAPES``: zamba2-2.7b and kimi-k2 in float32,
+    qwen2-0.5b's heads at d=16 and 32 and phase 13's MQA heads at d=256 in
+    both dtypes), each in turns with the CUDA-core kernel named through
+    ``kernel._launch``, beside ``scaled_dot_product_attention`` and the
+    bounds, with the softmax's exponentials a second;
 18. the fleet: ``repro_torch.examples.fleet_mix``'s 4-tenant mix (dlrm, kv,
     moe, scanner; 340 fast slots; the KV and MoE streams made on the GPU
     once, their flash_attention launches checked) on the GPU vs the CPU
@@ -182,7 +193,8 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     16, under ``set_sync_debug_mode("error")``, 2 flash_attention launches
     a prefill on the tensor cores and none in decode, the decode's expert
     counts per layer, tokens/s, peak memory; (d) ``MoEExpertScenario()``
-    GPU vs CPU (its forwards on the CUDA-core route), ``run_scenario`` fed
+    GPU vs CPU (its forwards on the route ``kernel.route`` names),
+    ``run_scenario`` fed
     the CPU's stream byte-identical for hints x sync_every in {1, 4}, the
     accesses the GPU's own forwards move, then the port's
     ``expert_tiering_moe`` example on the GPU; (e) flash_attention at
@@ -198,12 +210,14 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     leaf against the CPU's (RECURRENT_F32_TOL; bfloat16 by the rule of
     ``tests/_torch_recurrent.py``); zamba2's prefill launches
     flash_attention once per shared-block invocation (2), on the route
-    ``kernel.route`` names (d 32: the CUDA cores), its decode none, rwkv6
+    ``kernel.route`` names (d 32: the tensor cores in bfloat16, the TF32
+    route in float32), its decode none, rwkv6
     none; (b) one block at full width,
     float32, B 1 x 130 tokens, GPU against CPU within RECURRENT_F32_TOL:
     rwkv6-3b's layer 0 (output and wkv state), zamba2-2.7b's first group
     (6 Mamba2 layers, each output and SSM state, then the shared block at
-    invocation 0); (c) both at their published widths through
+    invocation 0, one flash_attention launch, float32 at d 80: the TF32
+    route); (c) both at their published widths through
     ``launch.serve.main`` (float32 weights, bf16 activations, all layers;
     B 4, prompts 64 and 4,096, 32 tokens; every prefill and decode step
     under the sync check): the weights' draw, prefill and decode tokens/s,
@@ -357,31 +371,43 @@ def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, sort_keys=True), flush=True)
 
 
+def sass_text(library: Path, marker: str) -> dict:
+    """{function: its SASS instructions, addresses and encodings taken
+    out} of the functions in ``library`` whose (mangled) names hold
+    ``marker``."""
+    from repro_torch.kernels import _build
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
+                           "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            fn = head.group(1) if marker in head.group(1) else None
+            if fn:
+                out[fn] = []
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;", ln)
+        if fn and op:
+            out[fn].append(op.group(1))
+    return out
+
+
 def sass_mix(library: Path, marker: str) -> dict:
     """{function: [instructions, HMMA instructions, {opcode: count} of the
     ten most common]} of the functions in ``library``'s SASS (``cuobjdump
     -sass``, beside ``nvcc``) whose (mangled) names hold ``marker``; static
     counts."""
     import collections
-    from repro_torch.kernels import _build
-    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
-                           "-sass", str(library)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    mix, fn = {}, None
-    for ln in sass.splitlines():
-        head = re.search(r"Function : (\S+)", ln)
-        if head:
-            fn = head.group(1) if marker in head.group(1) else None
-            if fn:
-                mix[fn] = collections.Counter()
-            continue
-        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                      ln)
-        if fn and op:
-            mix[fn][op.group(1)] += 1
-    return {f: [sum(c.values()),
-                sum(n for op, n in c.items() if op.startswith("HMMA")),
-                dict(c.most_common(10))] for f, c in mix.items()}
+    out = {}
+    for fn, body in sass_text(library, marker).items():
+        c = collections.Counter(
+            m.group(1) for m in (re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                                          ins) for ins in body) if m)
+        out[fn] = [sum(c.values()),
+                   sum(n for op, n in c.items() if op.startswith("HMMA")),
+                   dict(c.most_common(10))]
+    return out
 
 
 def spill_bytes(ptxas_log: str, marker: str) -> dict:
@@ -965,6 +991,52 @@ FLASH_CASES = [
      None),
     ("f32 non-causal Sq<Sk d=128", 2, 16, 8, 300, 517, 128, "float32",
      False, None),
+    # the head dims that took the CUDA-core kernel before every (dtype, d)
+    # had a tensor-core route: the TF32 route at d 16 and 32 (the smoke
+    # configs'), 80 (zamba2-2.7b, 32 heads), 112 (kimi-k2, 64 over 8) and
+    # 256 ("mqa d=256" above takes it too), the tensor-core route at d 16
+    # ("ragged S=19" above), 32 and 256: ragged tiles with GQA, a window
+    # edge inside a KV tile, non-causal Sq != Sk
+    ("f32 ragged S=1000 d=16", 2, 14, 2, 1000, 1000, 16, "float32", True,
+     None),
+    ("f32 window 200 d=16", 2, 14, 2, 1000, 1000, 16, "float32", True, 200),
+    ("f32 non-causal Sq>Sk d=16", 2, 14, 2, 517, 300, 16, "float32", False,
+     None),
+    ("f32 ragged S=1000 d=32", 2, 14, 2, 1000, 1000, 32, "float32", True,
+     None),
+    ("f32 window 200 d=32", 2, 14, 2, 1000, 1000, 32, "float32", True, 200),
+    ("f32 non-causal Sq<Sk d=32", 2, 14, 2, 300, 517, 32, "float32", False,
+     None),
+    ("f32 ragged S=1000 d=80", 1, 32, 32, 1000, 1000, 80, "float32", True,
+     None),
+    ("f32 window 200 d=80", 1, 32, 32, 1000, 1000, 80, "float32", True, 200),
+    ("f32 non-causal Sq>Sk d=80", 1, 32, 32, 517, 300, 80, "float32", False,
+     None),
+    ("f32 ragged S=1000 d=112", 1, 64, 8, 1000, 1000, 112, "float32", True,
+     None),
+    ("f32 window 200 d=112", 1, 64, 8, 1000, 1000, 112, "float32", True,
+     200),
+    ("f32 non-causal Sq<Sk d=112", 1, 64, 8, 300, 517, 112, "float32",
+     False, None),
+    ("f32 ragged S=1000 d=256", 2, 8, 1, 1000, 1000, 256, "float32", True,
+     None),
+    ("f32 window 200 d=256", 2, 8, 2, 1000, 1000, 256, "float32", True,
+     200),
+    ("f32 non-causal Sq>Sk d=256", 2, 8, 1, 517, 300, 256, "float32", False,
+     None),
+    ("ragged S=1000 d=16", 2, 14, 2, 1000, 1000, 16, "bfloat16", True, None),
+    ("window 200 d=16", 2, 14, 2, 1000, 1000, 16, "bfloat16", True, 200),
+    ("non-causal Sq<Sk d=16", 2, 14, 2, 300, 517, 16, "bfloat16", False,
+     None),
+    ("ragged S=1000 d=32", 2, 14, 2, 1000, 1000, 32, "bfloat16", True, None),
+    ("window 200 d=32", 2, 14, 2, 1000, 1000, 32, "bfloat16", True, 200),
+    ("non-causal Sq>Sk d=32", 2, 14, 2, 517, 300, 32, "bfloat16", False,
+     None),
+    ("ragged S=1000 d=256", 2, 8, 1, 1000, 1000, 256, "bfloat16", True,
+     None),
+    ("window 200 d=256", 2, 8, 2, 1000, 1000, 256, "bfloat16", True, 200),
+    ("non-causal Sq<Sk d=256", 2, 8, 1, 300, 517, 256, "bfloat16", False,
+     None),
 ]
 # |got - plain| <= atol + rtol * |plain|.  float32: 2e-5 both, the JAX
 # kernel tests' own.  bfloat16: both compute in float32 and round once to
@@ -991,6 +1063,16 @@ KV_MASS_TOL = 5e-4          # bf16 smoke model, GPU vs CPU (phase 16)
 # phase 17's causal prefill shapes at S=4096: (label, B, H, KVH, d)
 FLASH_TIME_SHAPES = (("qwen2-0.5b", 4, 14, 2, 64),
                      ("internlm2-1.8b", 2, 16, 8, 128))
+# phase 17's shapes of the (dtype, d) that took the CUDA-core kernel before
+# every one had a tensor-core route, causal at S=4096: (label, B, H, KVH, d,
+# dtypes); zamba2-2.7b's and kimi-k2's prefill in float32, qwen2-0.5b's
+# heads at the smoke configs' d 16 and 32, phase 13's MQA heads at d 256
+ROW5B_TIME_SHAPES = (
+    ("zamba2-2.7b", 4, 32, 32, 80, ("float32",)),
+    ("kimi-k2", 2, 64, 8, 112, ("float32",)),
+    ("qwen2-0.5b heads", 4, 14, 2, 16, ("bfloat16", "float32")),
+    ("qwen2-0.5b heads", 4, 14, 2, 32, ("bfloat16", "float32")),
+    ("mqa d=256", 2, 8, 1, 256, ("bfloat16", "float32")))
 # the CUDA-core kernel's time at the qwen2-0.5b shape in bfloat16, before
 # bfloat16 at d=64 moved to the tensor cores (PERF.md's kernel table; NVIDIA
 # H100 80GB HBM3, 700 W)
@@ -1045,8 +1127,8 @@ def flash_verdict(got, ref, dtype: str):
 def check_flash_attention(dev, plain):
     """Phase 13: flash_attention == plain within FLASH_TOL at every case,
     each on the route ``kernel.route`` names, and the CUDA-core kernel,
-    named through ``kernel._launch``, on every case of the TF32 route and
-    every bfloat16 case at d 80 and 112 (the tensor-core route there);
+    named through ``kernel._launch``, on every case whose (dtype, d) it
+    takes (float32 at every d, bfloat16 at 16, 32, 80, 112 and 256);
     returns ({label: max abs err}, {label: [the largest |err| / allowed,
     the share of outputs that differ at all]}, {label: route}, {label: the
     named CUDA-core kernel's max abs err})."""
@@ -1072,8 +1154,7 @@ def check_flash_attention(dev, plain):
                  f"{dtype}, max abs err {errs[label]}, largest share of the "
                  f"tolerance and share of outputs that differ "
                  f"{shares[label]}, {FLASH_TOL[dtype]})")
-        if routes[label] == "tf32x3" or (routes[label] == "tensor_core"
-                                         and d in (80, 112)):
+        if d in fa_kernel._CUDA_CORE_HEAD_DIMS[q.dtype]:
             old = fa_kernel._launch("cuda_core", q, k, v, **kw)
             torch.cuda.synchronize()
             cuda_core[label], old_share, ok = flash_verdict(old, ref, dtype)
@@ -1292,8 +1373,9 @@ def decode_steps(params, cfg, cache, tok, **kw):
 def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts,
                   read_routes) -> dict:
     """Phase 16: ``KVCacheScenario()`` (internlm2-1.8b smoke) on the GPU vs
-    the CPU: one prefill = n_layers flash_attention launches (d=16: the
-    CUDA-core route), decode masses within KV_MASS_TOL, and the GPU's
+    the CPU: one prefill = n_layers flash_attention launches (bfloat16 at
+    d=16: the tensor-core route), decode masses within KV_MASS_TOL, and
+    the GPU's
     ``run_scenario`` fed the CPU's stream byte-identical to the CPU's for
     hints on x sync_every in {1, 4}.  Returns the prefill's launches by
     route."""
@@ -1304,13 +1386,15 @@ def kv_gpu_vs_cpu(KVCacheScenario, run_scenario, zero_counts, read_counts,
     gpu_epochs = list(kv_gpu.epochs())
     prefill_launches, prefill_routes = read_counts(), read_routes()
     n_layers = kv_gpu.cfg.n_layers
+    want_routes = fa_routes(kv_gpu.cfg.activ_dtype, kv_gpu.cfg.head_dim,
+                            n_layers)
     if prefill_launches != {"observe_scatter": 0, "hist_select": 0,
                             "gather_count": 0, "embedding_bag": 0,
                             "flash_attention": n_layers} or prefill_routes \
-            != {"tensor_core": 0, "tf32x3": 0, "cuda_core": n_layers}:
+            != want_routes:
         fail(f"KVCacheScenario launches {prefill_launches}, routes "
              f"{prefill_routes}: expected {n_layers} flash_attention (one "
-             f"prefill, on the CUDA cores)")
+             f"prefill), {want_routes}")
     kv_cpu = KVCacheScenario(device="cpu")
     cpu_epochs = list(kv_cpu.epochs())
     mass_err = float(np.abs(kv_gpu.masses - kv_cpu.masses).max())
@@ -1361,11 +1445,13 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     and 112 its products stay d wide); the kernel's own floor, its products
     at that rate, is reported beside it.  In float32 it is three TF32
     products for each (lo.hi + hi.lo + hi.hi, the least that keeps float32
-    accuracy) at the dense TF32 rate, which the TF32 route does.  The TF32
-    route, and the tensor-core route at d 80 and 112, are also timed in
-    turns with the CUDA-core kernel on the same input, whose own bound is
+    accuracy) at the dense TF32 rate, which the TF32 route does.  Every
+    (dtype, d) that the CUDA-core kernel takes (float32 at every d, bfloat16
+    at 16, 32, 80, 112 and 256) is also timed in turns with that kernel,
+    named through ``kernel._launch``, on the same input, whose own bound is
     the products at the CUDA cores' float32 rate.  TFLOP/s are given on the
-    function's work and on the kernel's.  ``window`` is the model's sliding window (one of at
+    function's work and on the kernel's, and the softmax's exponentials (one
+    a kept (query, key) pair) a second.  ``window`` is the model's sliding window (one of at
     least ``s_len`` masks nothing beyond the causal mask, so
     ``scaled_dot_product_attention(is_causal=True)`` is the same function).
     The kernel's output is held against the plain version's within
@@ -1405,13 +1491,12 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     # that rate: three TF32 ones for each float32 one, the rate)
     products, needed, rate = {
         "tensor_core": (1.5, 1, TENSOR_BF16_OPS_PER_S),
-        "tf32x3": (3, 3, TENSOR_TF32_OPS_PER_S),
-        "cuda_core": (1, 1, SCALAR_OPS_PER_S)}[route]
+        "tf32x3": (3, 3, TENSOR_TF32_OPS_PER_S)}[route]
     kernel_flops = int(flops * products)
     n_bytes = q.element_size() * (2 * b * h * s_len * d
                                   + 2 * b * kvh * s_len * d)
-    route_bound = bound_ms(n_bytes, flops * needed, rate)
     kernel_floor = kernel_flops / rate * 1e3
+    exps = b * h * fa_kernel.kept_pairs(s_len, s_len, True, window)
     if dtype == "bfloat16":
         # the card's least time for bf16 products is on the tensor cores,
         # whichever route the kernel takes
@@ -1421,18 +1506,17 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
                window=window, **checked,
                route=route, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                ms_over_sdpa_ms=ms / sdpa_ms, bound_ms=bound, bound_by=by,
+               share_of_bound=bound / ms,
                causal_flops=flops, kernel_flops=kernel_flops, bytes=n_bytes,
                function_tflop_s=flops / ms / 1e9,
                kernel_tflop_s=kernel_flops / ms / 1e9,
-               kernel_floor_ms=kernel_floor,
+               kernel_floor_ms=kernel_floor, exps=exps,
+               exps_per_s=exps / ms * 1e3,
                vs_sdpa_max_abs_err=sdpa_err)
-    if route == "cuda_core":
-        out.update(cuda_core_bound_ms=route_bound[0],
-                   cuda_core_bound_by=route_bound[1])
     if (label, dtype) == ("qwen2-0.5b", "bfloat16"):
         out.update(cuda_core_bf16_ms=CUDA_CORE_BF16_QWEN_MS,
                    speedup_over_cuda_core=CUDA_CORE_BF16_QWEN_MS / ms)
-    if route == "tf32x3" or (route == "tensor_core" and d in (80, 112)):
+    if d in fa_kernel._CUDA_CORE_HEAD_DIMS[q.dtype]:
         ms_beside, cc_ms = in_turns(
             lambda: fa_kernel._launch("cuda_core", q, k, v, **kw),
             lambda: flash_attention(q, k, v, **kw), 5)
@@ -1446,6 +1530,86 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     del q, k, v, q4, k4, v4
     free_device_memory()
     return out
+
+
+def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
+    """The tensor-core route (bfloat16) and the TF32 route (float32) at d
+    64 and 128, at FLASH_TIME_SHAPES (causal, S=4096), in turns with a build
+    of other sources of the same kernels: ``parent_csrc`` holds an earlier
+    ``csrc/`` of flash_attention (e.g. ``git archive <commit>
+    src/repro_torch/kernels/flash_attention/csrc``, unpacked under the
+    git-ignored ``build/``), built here with ``_build.NVCC_FLAGS``.  Order:
+    other, this, this, other; both outputs within FLASH_TOL of the plain
+    version.  Also whether the two builds' SASS of each of those
+    instantiations is the same, instruction for instruction."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    lib_path = ROOT / "build" / "parent_flash" / "flash_attention.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    # -fno-gnu-unique: the launchers' function-local statics (the shared
+    # memory opt-in done once) would otherwise bind to this build's, loaded
+    # first, and the other build's kernels would launch without opting in
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler",
+                    "-fno-gnu-unique", "-o", str(lib_path),
+                    str(parent_csrc / "flash_attention.cu")], check=True,
+                   capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    P = ctypes.c_void_p
+    for name in ("flash_attention_wgmma_launch",
+                 "flash_attention_tf32x3_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+
+    def parent(q, k, v, q_per_kv):
+        bh, sq, d = q.shape
+        out = torch.empty_like(q)
+        fn = (lib.flash_attention_wgmma_launch if q.dtype == torch.bfloat16
+              else lib.flash_attention_tf32x3_launch)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bh, sq, k.shape[1], d, q_per_kv, 1, -1, d ** -0.5,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            fail(f"the other build's flash_attention launch failed: {rc}")
+        return out
+
+    res = {}
+    for label, b, h, kvh, d in FLASH_TIME_SHAPES:
+        for dtype in ("bfloat16", "float32"):
+            q, k, v = qkv(dev, 99, b, h, kvh, 4096, 4096, d, dtype)
+            kw = dict(q_per_kv=h // kvh)
+            ms, other_ms = in_turns(lambda: parent(q, k, v, h // kvh),
+                                    lambda: flash_attention(q, k, v, **kw), 5)
+            ref = flash_attention(q, k, v, backend=plain, **kw)
+            errs = []
+            for got in (flash_attention(q, k, v, **kw),
+                        parent(q, k, v, h // kvh)):
+                err, share, ok = flash_verdict(got, ref, dtype)
+                if not ok:
+                    fail(f"flash_attention ({label}, {dtype}) differs from "
+                         f"its plain version: {err}, {share}")
+                errs.append(err)
+            res[f"{label} {dtype}"] = dict(
+                route=fa_kernel.route(q.dtype, d), ms=ms, other_ms=other_ms,
+                ms_over_other_ms=ms / other_ms, max_abs_err=errs[0],
+                other_max_abs_err=errs[1])
+            del q, k, v, ref
+            free_device_memory()
+    ours = _build.library_path("flash_attention")
+    same = {}
+    for marker in ("fa_wgmma_kernelILi64E", "fa_wgmma_kernelILi128E",
+                   "tf32x3_kernelILi64E", "tf32x3_kernelILi128E"):
+        a, b_ = sass_text(ours, marker), sass_text(lib_path, marker)
+        same[marker] = [len(x) for x in a.values()] + [
+            len(x) for x in b_.values()] + [list(a.values())
+                                            == list(b_.values())]
+    say("flash_parent_in_turns", times=res, sass_lengths_and_same=same)
+    return res
 
 
 class Replay:
@@ -1561,8 +1725,9 @@ def fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts,
     example's own run (shared, weighted and every tenant solo) on the GPU
     inside the reference example's margins.  The KV and MoE tenants'
     streams are made on the GPU once (n_layers flash_attention launches
-    for the KV prefill and n_layers for each MoE batch, all on the CUDA
-    cores at d 16) and replayed by every fleet on both devices.  Returns
+    for the KV prefill and n_layers for each MoE batch, each on the route
+    ``kernel.route`` names) and replayed by every fleet on both devices.
+    Returns
     the parity runs' launches."""
     from repro_torch.examples import fleet_mix
     from repro_torch.fleet import run_fleet
@@ -1572,13 +1737,18 @@ def fleet_mix_gpu_vs_cpu(dev, zero_counts, read_counts,
     fleet_mix_streams(sc)
     stream_launches, stream_routes = read_counts(), read_routes()
     moe = sc["moe"]
-    n_fa = sc["kv"].cfg.n_layers + moe.cfg.n_layers * (
-        moe.n_epochs * moe.batches_per_epoch)
+    n_moe = moe.cfg.n_layers * moe.n_epochs * moe.batches_per_epoch
+    n_fa = sc["kv"].cfg.n_layers + n_moe
+    want_routes = fa_routes(sc["kv"].cfg.activ_dtype, sc["kv"].cfg.head_dim,
+                            sc["kv"].cfg.n_layers)
+    for r, n in fa_routes(moe.cfg.activ_dtype, moe.cfg.head_dim,
+                          n_moe).items():
+        want_routes[r] += n
     if stream_launches["flash_attention"] != n_fa or \
-            stream_routes["cuda_core"] != n_fa:
+            stream_routes != want_routes:
         fail(f"fleet_mix's KV decode and MoE forwards launch "
              f"{stream_launches}, routes {stream_routes}; expected {n_fa} "
-             f"flash_attention on the CUDA cores")
+             f"flash_attention, {want_routes}")
     moe_stream = check_moe_stream(
         moe, fleet_mix.make_scenarios(device="cpu")["moe"], "fleet_mix")
     zero_counts()
@@ -2715,7 +2885,8 @@ def moe_scenario_gpu_vs_cpu(dev, run_scenario, zero_counts, read_counts,
                             read_routes) -> dict:
     """Phase 22d: ``MoEExpertScenario()`` (the kimi-k2 smoke model, 6
     epochs of 4 batches) on the GPU: one flash_attention launch a layer a
-    batch (d 16: the CUDA-core route); the same on the CPU; the GPU's
+    batch, on the route ``kernel.route`` names; the same on the CPU; the
+    GPU's
     stream and forwards held to the CPU's (``check_moe_stream``);
     ``run_scenario`` fed the CPU's stream byte-identical GPU vs CPU for
     hints in {False, True} x sync_every in {1, 4}; then the port's
@@ -2729,11 +2900,12 @@ def moe_scenario_gpu_vs_cpu(dev, run_scenario, zero_counts, read_counts,
     list(gpu.epochs())
     fwd_launches, fwd_routes = read_counts(), read_routes()
     n_fa = gpu.cfg.n_layers * gpu.n_epochs * gpu.batches_per_epoch
+    want_routes = fa_routes(gpu.cfg.activ_dtype, gpu.cfg.head_dim, n_fa)
     if fwd_launches != dict(NO_KERNELS, flash_attention=n_fa) or \
-            fwd_routes["cuda_core"] != n_fa:
+            fwd_routes != want_routes:
         fail(f"MoEExpertScenario launches {fwd_launches}, routes "
-             f"{fwd_routes}; expected {n_fa} flash_attention on the CUDA "
-             f"cores")
+             f"{fwd_routes}; expected {n_fa} flash_attention, "
+             f"{want_routes}")
     cpu = MoEExpertScenario(device="cpu")
     c_eps = list(cpu.epochs())
     stream = check_moe_stream(gpu, cpu, "moe_scenario")
@@ -2921,7 +3093,8 @@ def recurrent_block_full_width(dev, read_routes) -> dict:
     against CPU on the same perturbed weights and input: rwkv6-3b's layer 0
     (output, wkv state); zamba2-2.7b's first group, 6 Mamba2 layers (each
     output and SSM state) and the shared block at invocation 0 (one
-    flash_attention launch, float32 at d 80: the CUDA-core route)."""
+    flash_attention launch, float32 at d 80: the TF32 route).  Returns
+    zamba2-2.7b's flash_attention launches by route."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2960,6 +3133,8 @@ def recurrent_block_full_width(dev, read_routes) -> dict:
                     int(cfg.family == "zamba2")):
                 fail(f"{arch} full-width block flash_attention routes "
                      f"{routes}")
+            if d == dev and cfg.family == "zamba2":
+                zamba2_routes = routes
             del par, got, h
         gpu, cpu = outs
         errs[arch] = {k: held_to_cpu(f"{arch} full-width block {k}", gpu[k],
@@ -2969,7 +3144,7 @@ def recurrent_block_full_width(dev, read_routes) -> dict:
     say("recurrent_block_gpu_vs_cpu", tokens=RECURRENT_CHECK_TOKENS,
         dtype="float32", tolerance=RECURRENT_F32_TOL, max_abs_err=errs,
         seconds=time.perf_counter() - t0)
-    return errs
+    return zamba2_routes
 
 
 def recurrent_serve_full_width(serve_launcher, dev, zero_counts, read_counts,
@@ -4759,15 +4934,17 @@ def main(until: int = 28) -> None:
         ptxas=ptxas)
     fa_log = _build.library_path("flash_attention").with_suffix(
         ".log").read_text()
+    n_dims = len(fa_kernel.HEAD_DIMS)
     tf32_spills = spill_bytes(fa_log, "tf32x3")
-    if len(tf32_spills) != 2 or any(tf32_spills.values()):
-        fail(f"the TF32 flash_attention kernels (d = 64, 128) spill or are "
-             f"missing from the ptxas report: {tf32_spills}")
+    if len(tf32_spills) != n_dims or any(tf32_spills.values()):
+        fail(f"the TF32 flash_attention kernels (d in "
+             f"{fa_kernel.HEAD_DIMS}) spill or are missing from the ptxas "
+             f"report: {tf32_spills}")
     wgmma_spills = spill_bytes(fa_log, "fa_wgmma_kernel")
-    if len(wgmma_spills) != 4 or any(wgmma_spills.values()):
-        fail(f"the tensor-core flash_attention kernels (d = 64, 80, 112, "
-             f"128) spill or are missing from the ptxas report: "
-             f"{wgmma_spills}")
+    if len(wgmma_spills) != n_dims or any(wgmma_spills.values()):
+        fail(f"the tensor-core flash_attention kernels (d in "
+             f"{fa_kernel.HEAD_DIMS}) spill or are missing from the ptxas "
+             f"report: {wgmma_spills}")
     # the TF32 kernels' instruction mix: how many instructions the operand
     # splits and the softmax add to each HMMA
     say("build_sass", tf32x3=sass_mix(_build.library_path("flash_attention"),
@@ -5179,10 +5356,12 @@ def main(until: int = 28) -> None:
     t0 = time.perf_counter()
     fa_errs, fa_shares, fa_routes, fa_named = check_flash_attention(dev,
                                                                     plain)
-    for route in fa_kernel.ROUTE_LAUNCHES:
+    # each route's worst case; the CUDA-core kernel's from its named runs
+    for route in ("tensor_core", "tf32x3"):
         errors["flash_attention_" + route] = max(
             err for label, err in fa_errs.items()
             if fa_routes[label] == route)
+    errors["flash_attention_cuda_core"] = max(fa_named.values())
     say("flash_attention", cases=[list(c) for c in FLASH_CASES],
         routes=fa_routes, max_abs_err=fa_errs, share_of_tolerance=fa_shares,
         cuda_core_named_max_abs_err=fa_named, tolerance=FLASH_TOL,
@@ -5210,6 +5389,10 @@ def main(until: int = 28) -> None:
     fa_tc = fa_times[0]
     fa_f32 = flash_attention_time(dev, plain, *FLASH_TIME_SHAPES[0],
                                   dtype="float32")
+    fa_row5b = {(d, dt): flash_attention_time(dev, plain, label, b, h, kvh,
+                                              d, dtype=dt)
+                for label, b, h, kvh, d, dtypes in ROW5B_TIME_SHAPES
+                for dt in dtypes}
 
     if until < 18:
         fail(f"stopped after phase {until} (--until)")
@@ -5260,7 +5443,7 @@ def main(until: int = 28) -> None:
         fail(f"stopped after phase {until} (--until)")
     # ---------------- 23. the recurrent families, RWKV-6 and Zamba2
     recurrent_smoke_gpu_vs_cpu(dev, read_routes)
-    recurrent_block_full_width(dev, read_routes)
+    zamba2_f32_routes = recurrent_block_full_width(dev, read_routes)
     zamba2_launches = recurrent_serve_full_width(
         serve_launcher, dev, zero_counts, read_counts, read_routes)
     fa_zamba2 = flash_attention_time(dev, plain, *ZAMBA2_TIME_SHAPE)
@@ -5351,15 +5534,17 @@ def main(until: int = 28) -> None:
          "ms": fa_tc["ms"], "plain_ms": fa_tc["plain_ms"],
          "bound_ms": fa_tc["bound_ms"], "bound_by": fa_tc["bound_by"],
          "library_ms": fa_tc["sdpa_ms"]},
-        # the CUDA-core route (bfloat16 at d outside 64, 128; float32 at
-        # d outside 64, 128): its launches in the KV scenario's prefill, its
-        # time at the same shape in float32, named through _launch in turns
-        # with the TF32 route
+        # the CUDA-core kernel, which no route gives: its launches on the
+        # paths that took it before (the KV scenario's prefill, the MoE
+        # scenario's forwards, zamba2's float32 block), each checked to be
+        # 0; its time at the qwen2-0.5b shape in float32, named through
+        # _launch in turns with the TF32 route
         {"name": "flash_attention_cuda_core", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-         "launches": kv_routes["cuda_core"],
+         "launches": kv_routes["cuda_core"] + moe_routes["cuda_core"]
+         + zamba2_f32_routes["cuda_core"],
          "max_abs_err": errors["flash_attention_cuda_core"],
          "ms": fa_f32["cuda_core_ms"], "plain_ms": fa_f32["plain_ms"],
          "bound_ms": fa_f32["cuda_core_bound_ms"],
@@ -5376,6 +5561,34 @@ def main(until: int = 28) -> None:
          "ms": fa_f32["ms"], "plain_ms": fa_f32["plain_ms"],
          "bound_ms": fa_f32["bound_ms"], "bound_by": fa_f32["bound_by"],
          "library_ms": fa_f32["sdpa_ms"]},
+        # the tensor-core route at d 16: its launches in the KV scenario's
+        # prefill (phase 16, bfloat16, one a layer), its time at qwen2-0.5b's
+        # heads at d 16 (phase 17)
+        {"name": "flash_attention_d16", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": kv_routes["tensor_core"],
+         "max_abs_err": fa_row5b[(16, "bfloat16")]["max_abs_err"],
+         "ms": fa_row5b[(16, "bfloat16")]["ms"],
+         "plain_ms": fa_row5b[(16, "bfloat16")]["plain_ms"],
+         "bound_ms": fa_row5b[(16, "bfloat16")]["bound_ms"],
+         "bound_by": fa_row5b[(16, "bfloat16")]["bound_by"],
+         "library_ms": fa_row5b[(16, "bfloat16")]["sdpa_ms"]},
+        # the TF32 route at d 80: its launch in zamba2-2.7b's full-width
+        # float32 block (phase 23b), its time at zamba2-2.7b's prefill shape
+        # in float32 (phase 17)
+        {"name": "flash_attention_tf32x3_zamba2", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_tf32x3.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": zamba2_f32_routes["tf32x3"],
+         "max_abs_err": fa_row5b[(80, "float32")]["max_abs_err"],
+         "ms": fa_row5b[(80, "float32")]["ms"],
+         "plain_ms": fa_row5b[(80, "float32")]["plain_ms"],
+         "bound_ms": fa_row5b[(80, "float32")]["bound_ms"],
+         "bound_by": fa_row5b[(80, "float32")]["bound_by"],
+         "library_ms": fa_row5b[(80, "float32")]["sdpa_ms"]},
         # the fleet path: hist_select's launches in phase 19's weighted-fair
         # run (half of them on the segment route, S = 3), and the segment
         # call's time at that fleet's shape beside torch.topk on each

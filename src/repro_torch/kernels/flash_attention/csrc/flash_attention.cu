@@ -1,4 +1,5 @@
-// flash_attention for Hopper (sm_90a): the CUDA-core kernel.
+// flash_attention for Hopper (sm_90a): the C entry points of its two routes,
+// and the CUDA-core kernel that they replaced, kept as a yardstick.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_kernel, flash_attention_pallas): blocked attention with an online
@@ -29,21 +30,21 @@
 //     the heaviest query tiles go first, to shorten the causal tail;
 //   * element offsets are 64-bit.
 //
-// Three routes, fixed by dtype and head dim (kernel.py's route()):
-//   * bfloat16 at d in {64, 80, 112, 128} (the dense configs', zamba2's and
-//     kimi-k2's) runs on the tensor cores through wgmma
-//     (flash_attention_wgmma.cuh; d 80 and 112 with a last shared-memory
-//     panel that TMA fills past d with zeros);
-//   * float32 at d in {64, 128} on the TF32 tensor cores through mma.sync,
-//     each product split three ways so that it keeps float32 accuracy
+// Two routes, fixed by dtype (kernel.py's route()), each at every head dim
+// (16, 32, 64, 80, 112, 128, 256):
+//   * bfloat16 runs on the tensor cores through wgmma
+//     (flash_attention_wgmma.cuh; d that is not whole 64-column panels, 16,
+//     32, 80 and 112, with a last shared-memory panel that TMA fills past d
+//     with zeros; d 256 in four panels, with 64-key tiles in 2 stages);
+//   * float32 on the TF32 tensor cores through mma.sync, each product split
+//     three ways so that it keeps float32 accuracy
 //     (flash_attention_tf32x3.cuh): one TF32 product misses the float32
 //     tolerance of 2e-5, three of them meet it, and the TF32 rate is 7x the
-//     CUDA cores';
-//   * everything else on this CUDA-core kernel: float32 at d in {16, 32, 80,
-//     112, 256} and bfloat16 at d in {16, 32, 256}.
-// This kernel still takes float32 at d = 64 and 128 and bfloat16 at d = 80
-// and 112 when it is named (kernel.py's _launch), to be held against the
-// tensor-core routes on the same input.
+//     CUDA cores'.
+// No path launches the CUDA-core kernel below.  It takes float32 at every d
+// and bfloat16 at d in {16, 32, 80, 112, 256} when it is named (kernel.py's
+// _launch), to be held against the tensor-core routes on the same input and
+// timed in turns with them.
 //
 // Bound, on this card: operations for long prompts, bytes for short ones.
 // At the qwen2-0.5b prefill shape (B=4, H=14, KVH=2, d=64, S=4096) the
@@ -301,10 +302,8 @@ template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, long long n_bh,
              int sq, int sk, int d, int q_per_kv, int causal, int window,
              float scale, cudaStream_t s) {
-  // bf16 at d = 64 and 128 is the tensor-core kernel's alone
-  // (flash_attention_wgmma.cuh); bf16 at 80 and 112 is its too, and f32 at 64
-  // and 128 the TF32 route's (flash_attention_tf32x3.cuh), but both are taken
-  // here when this kernel is named
+  // every (dtype, d) is a tensor-core route's; this kernel takes the ones
+  // below when it is named (bf16 at d = 64 and 128 never)
   constexpr bool kF32 = std::is_same<T, float>::value;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
@@ -326,11 +325,10 @@ int launch_d(const void* q, const void* k, const void* v, void* out, long long n
 
 extern "C" {
 
-// The CUDA-core kernel.  q: (n_bh, sq, d); k, v: (n_bh / q_per_kv, sk, d); out
-// like q.  dtype: 0 = float32 (d in 16, 32, 64, 80, 112, 128, 256; at 64 and
-// 128 the TF32 route below is the wrapper's choice), 1 = bfloat16 (d in 16,
-// 32, 80, 112, 256; at 80 and 112 the tensor-core route below is the
-// wrapper's choice).  window < 0: no window.
+// The CUDA-core kernel, named only.  q: (n_bh, sq, d); k, v: (n_bh / q_per_kv,
+// sk, d); out like q.  dtype: 0 = float32 (d in 16, 32, 64, 80, 112, 128,
+// 256), 1 = bfloat16 (d in 16, 32, 80, 112, 256); the routes below are the
+// wrapper's choice at each.  window < 0: no window.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            long long n_bh, long long sq, long long sk, int d,
                            int q_per_kv, int causal, int window, float scale,
@@ -347,8 +345,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel: bfloat16 q, k, v and out as above, d in 64, 80,
-// 112, 128, sk >= 1, every pointer 16-byte aligned.  Returns a cudaError_t, or a
+// The tensor-core kernel: bfloat16 q, k, v and out as above, d in 16, 32, 64,
+// 80, 112, 128, 256, sk >= 1, every pointer 16-byte aligned.  Returns a cudaError_t, or a
 // negative code for a refused tensor map (fa_wgmma::kNoDriverEntry,
 // fa_wgmma::kEncodeFailed minus the CUresult).
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out,
@@ -359,17 +357,20 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
   if (sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
     return (int)cudaErrorInvalidValue;
   switch (d) {
+    case 16: return fa_wgmma::launch<16>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 32: return fa_wgmma::launch<32>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
     case 64: return fa_wgmma::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
     case 80: return fa_wgmma::launch<80>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
     case 112: return fa_wgmma::launch<112>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
     case 128: return fa_wgmma::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 256: return fa_wgmma::launch<256>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The TF32 tensor-core kernel (3xTF32 mma.sync): float32 q, k, v and out as
-// above, d in 64, 128, every pointer 16-byte aligned (cp.async).  Returns a
-// cudaError_t.
+// above, d in 16, 32, 64, 80, 112, 128, 256, every pointer 16-byte aligned
+// (cp.async).  Returns a cudaError_t.
 int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v, void* out,
                                   long long n_bh, long long sq, long long sk, int d,
                                   int q_per_kv, int causal, int window, float scale,
@@ -377,20 +378,30 @@ int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v, v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
     return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return fa_tf32x3::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
-                                 window, scale, s);
-  if (d == 128)
-    return fa_tf32x3::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal,
-                                  window, scale, s);
+  switch (d) {
+    case 16: return fa_tf32x3::launch<16>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 32: return fa_tf32x3::launch<32>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 64: return fa_tf32x3::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 80: return fa_tf32x3::launch<80>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 112: return fa_tf32x3::launch<112>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 128: return fa_tf32x3::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 256: return fa_tf32x3::launch<256>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// The TF32 kernel's resident blocks an SM at head dim d (64 or 128), or minus
-// the cudaError_t that stopped the query.
+// The TF32 kernel's resident blocks an SM at head dim d, or minus the
+// cudaError_t that stopped the query.
 int flash_attention_tf32x3_blocks_per_sm(int d) {
-  if (d == 64) return fa_tf32x3::blocks_per_sm<64>();
-  if (d == 128) return fa_tf32x3::blocks_per_sm<128>();
+  switch (d) {
+    case 16: return fa_tf32x3::blocks_per_sm<16>();
+    case 32: return fa_tf32x3::blocks_per_sm<32>();
+    case 64: return fa_tf32x3::blocks_per_sm<64>();
+    case 80: return fa_tf32x3::blocks_per_sm<80>();
+    case 112: return fa_tf32x3::blocks_per_sm<112>();
+    case 128: return fa_tf32x3::blocks_per_sm<128>();
+    case 256: return fa_tf32x3::blocks_per_sm<256>();
+  }
   return -(int)cudaErrorInvalidValue;
 }
 

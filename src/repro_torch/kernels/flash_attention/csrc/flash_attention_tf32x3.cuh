@@ -1,6 +1,7 @@
-// flash_attention's float32 route for d = 64 and 128: the TF32 tensor cores
-// through warp-level mma.sync (m16n8k8), each product split three ways
-// (3xTF32) so that the result keeps float32 accuracy, for sm_90a.
+// flash_attention's float32 route, at every head dim (16, 32, 64, 80, 112,
+// 128, 256): the TF32 tensor cores through warp-level mma.sync (m16n8k8),
+// each product split three ways (3xTF32) so that the result keeps float32
+// accuracy, for sm_90a.
 //
 // The same function as the CUDA-core kernel in flash_attention.cu (which
 // replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py,
@@ -28,15 +29,19 @@
 // Shape of the kernel (FlashAttention-2's, on Ampere-style warp mma):
 //   * one block of 4 warps per (bh, 64-query tile), heaviest causal tiles
 //     first; each warp owns 16 query rows, the m16 of the mma;
-//   * Q is staged once in shared memory; K and V tiles (64 keys at d = 64, 32
-//     at d = 128) go through a ring of 2 stages filled by 16-byte cp.async
+//   * Q is staged once in shared memory; K and V tiles (64 keys at d <= 64,
+//     32 at d = 80, 112 and 128, 8 at d = 256, where Q alone takes 66,560
+//     bytes: 32-key tiles left one block of 4 warps an SM, 6.38 ms against
+//     4.67 at 8 keys and two blocks, PERF.md) go through a ring of 2 stages
+//     filled by 16-byte cp.async
 //     (tile t+1 is in flight while tile t is multiplied).  Rows past sq or sk
 //     are zero-filled by the copy; KV tiles that the causal mask or the
 //     window hides from every row of the query tile are never loaded;
 //   * rows are padded against bank conflicts: Q and K rows hold d + 4 floats,
 //     so the A fragment (row g, column t) and K's B fragment (key g, column t)
 //     fall on 32 banks; V rows hold d + 8, for its B fragment (key t, column
-//     g);
+//     g).  At every d here (d + 4) mod 32 is 4 or 20 and (d + 8) mod 32 is 8
+//     or 24, so both layouts hold;
 //   * each value is split into hi and lo as it is loaded into a fragment, not
 //     when it is staged, which would double the ring; the raw values of the
 //     next k step are loaded while the current one is split and multiplied;
@@ -52,19 +57,30 @@
 //   * the mma adds into its accumulator rounding toward zero, so a long sum
 //     in one accumulator drifts toward zero.  S sums only d products, but
 //     O would take 3 x S/8 truncating adds a row; so each KV tile's P.V
-//     goes into a fresh accumulator, 64 output columns at a time, and is
-//     added to O by one rounded fma (O = alpha O + P.V), which also does
-//     the online softmax's rescaling;
+//     goes into a fresh accumulator, 64 output columns (8 column blocks) at a
+//     time and the d mod 64 left in one last pass (d 80: 8 + 2 blocks, 112:
+//     8 + 6, 16: 2, 32: 4; d 256 in 8 passes of 4 blocks, to keep it in
+//     registers), and is added to O by one rounded fma (O = alpha
+//     O + P.V), which also does the online softmax's rescaling.  S takes
+//     3 x d/8 truncating adds in one accumulator up to d = 128 (48 adds);
+//     at d = 256 (96) it is summed 64 columns of d at a time in fresh
+//     accumulators joined by rounded adds: in the truncating emulation of
+//     tests/test_torch_flash_tf32x3.py one accumulator came to 0.83 of the
+//     float32 check there, the 64-column ones to 0.27;
 //   * element offsets are 64-bit.
 //
-// Shared memory: d = 64, 106,496 bytes (Q 17,408, the ring 71,680, P 17,408);
-// d = 128, 111,616 (Q 33,792, the ring 68,608, P 9,216); two blocks fit an
-// SM's 228 KB.  Registers at d = 128: the O accumulator is 64 floats a
-// thread, a tile's P.V 32, S 16.
+// Shared memory (Tile<D>::kSmemBytes): d = 16, 45,056 bytes; 32, 65,536; 64,
+// 106,496 (Q 17,408, the ring 71,680, P 17,408); 80, 74,752; 112, 99,328;
+// 128, 111,616 (Q 33,792, the ring 68,608, P 9,216); 256, 103,168 (Q 66,560,
+// the ring 33,536, P 3,072).  Two blocks fit an SM's 228 KB at every d (three
+// at 16 and 32).  Registers: the O accumulator is d/2 floats a thread (128
+// at d = 256), a tile's P.V 32 (16 at d = 256), S BK/2.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fa_tf32x3 {
 
@@ -76,7 +92,9 @@ constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
 struct Tile {
-  static constexpr int BK = D <= 64 ? 64 : 32;     // keys per KV tile
+  // keys per KV tile: at d = 256, 8, so that two blocks fit an SM (Q alone
+  // takes 66,560 bytes; with 32-key tiles one block of 4 warps held an SM)
+  static constexpr int BK = D <= 64 ? 64 : D <= 128 ? 32 : 8;
   static constexpr int QSTR = D + 4, KSTR = D + 4, VSTR = D + 8, PSTR = BK + 4;
   static constexpr int Q_FLOATS = kBQ * QSTR;
   static constexpr int K_FLOATS = BK * KSTR;
@@ -240,6 +258,24 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS][4], float (&m)[2], f
   }
 }
 
+// O = alpha O + P.V on the N column blocks c0, c0 + 1, ..: the tile's
+// products go into a fresh accumulator, added to O by one rounded fma.  B
+// fragment b0 (k = t, n = g) is V[key t][col 8n + g], b1 key t + 4.
+template <int N, int BK, int PSTR, int VSTR, int NO>
+__device__ __forceinline__ void pv_pass(float (&o)[NO][4], int c0, const float (&alpha)[2],
+                                        const float* p, const float* v) {
+  float acc[N][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  mma_rows<N, BK, PSTR, 8, VSTR>(acc, p, v + c0 * 8);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c0 + n][e] = fmaf(o[c0 + n][e], alpha[e >> 1], acc[n][e]);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -248,8 +284,11 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
                               int window, float scale, int n_qt) {
   using T = Tile<D>;
   constexpr int BK = T::BK, NS = BK / 8, NO = D / 8;
-  constexpr int NC = 8;                          // output column blocks of one P.V pass
-  static_assert(NO % NC == 0, "d a multiple of 64");
+  // output column blocks of one P.V pass: 8 (64 columns); 4 at d = 256,
+  // where the O accumulator takes 128 registers a thread (passes of 8
+  // spilled 400 bytes in a build with 32-key tiles)
+  constexpr int NC = D <= 128 ? 8 : 4;
+  static_assert(D % 16 == 0, "d a multiple of 16");
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [kBQ][QSTR]
   float* ring = Qs + T::Q_FLOATS;                // 2 x ([BK][KSTR] K, [BK][VSTR] V)
@@ -257,12 +296,17 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;        // the fragments' row group and column
-  const long long bh = (long long)blockIdx.x % n_bh;
+  // the head: 64-bit up to d = 128; an int at d = 256 (the grid holds
+  // under 2^31 blocks), where a 64-bit one kept bh * sq live across the
+  // loop and ptxas spilled it (as an int at d = 64 the kernel ran 2.5 %
+  // slower, PERF.md)
+  using Head = std::conditional_t<(D <= 128), long long, int>;
+  const Head bh = (Head)((long long)blockIdx.x % n_bh);
   const int q0 = (n_qt - 1 - (int)((long long)blockIdx.x / n_bh)) * kBQ;
-  const long long kv = bh / q_per_kv;
-  const float* qb = q + bh * sq * D;
-  const float* kb = k + kv * sk * D;
-  const float* vb = v + kv * sk * D;
+  const Head kv = bh / q_per_kv;
+  const float* qb = q + (long long)bh * sq * D;
+  const float* kb = k + (long long)kv * sk * D;
+  const float* vb = v + (long long)kv * sk * D;
 
   // the KV tiles some row of this query tile can see
   const int q_last = min(q0 + kBQ, sq) - 1;
@@ -307,8 +351,30 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma_rows<NS, D, T::QSTR, 8 * T::KSTR, 1>(s, Qw + g * T::QSTR + tq,
-                                              Ks + g * T::KSTR + tq);
+    if constexpr (D <= 128) {
+      mma_rows<NS, D, T::QSTR, 8 * T::KSTR, 1>(s, Qw + g * T::QSTR + tq,
+                                                Ks + g * T::KSTR + tq);
+    } else {
+      // 64 columns of d at a time, each in a fresh accumulator added to S
+      // by rounded adds, so that no accumulator takes more than 24
+      // truncating adds
+      mma_rows<NS, 64, T::QSTR, 8 * T::KSTR, 1>(s, Qw + g * T::QSTR + tq,
+                                                 Ks + g * T::KSTR + tq);
+#pragma unroll 1
+      for (int c0 = 64; c0 < D; c0 += 64) {
+        float part[NS][4];
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+        mma_rows<NS, 64, T::QSTR, 8 * T::KSTR, 1>(part, Qw + g * T::QSTR + tq + c0,
+                                                   Ks + g * T::KSTR + tq + c0);
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+      }
+    }
 
     // only tiles that cross the diagonal, the window edge, sq or sk for some
     // row of this warp are masked
@@ -333,26 +399,18 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     }
     __syncwarp();
 
-    // O = alpha O + P.V, 64 columns at a time.  The tile's P.V goes into a
-    // fresh accumulator, added to O by one rounded fma: the mma truncates
-    // its sum toward zero, and 3 x 512 truncating adds into O itself over a
-    // 4,096-key row biased the output by more than the tolerance (PERF.md).
-    // B fragment b0 (k = t, n = g) is V[key t][col 8n + g], b1 key t + 4.
+    // O = alpha O + P.V, NC column blocks at a time, then the rest.  The
+    // tile's P.V goes into a fresh accumulator, added to O by one rounded
+    // fma: the mma truncates its sum toward zero, and 3 x 512 truncating
+    // adds into O itself over a 4,096-key row biased the output by more
+    // than the tolerance (PERF.md).
+    const float* pa = Pw + g * T::PSTR + tq;
+    const float* vb0 = Vs + tq * T::VSTR + g;
 #pragma unroll
-    for (int c0 = 0; c0 < NO; c0 += NC) {
-      float acc[NC][4];
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-      mma_rows<NC, BK, T::PSTR, 8, T::VSTR>(acc, Pw + g * T::PSTR + tq,
-                                            Vs + tq * T::VSTR + c0 * 8 + g);
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[c0 + n][e] = fmaf(o[c0 + n][e], alpha[e >> 1], acc[n][e]);
-    }
+    for (int c0 = 0; c0 + NC <= NO; c0 += NC)
+      pv_pass<NC, BK, T::PSTR, T::VSTR>(o, c0, alpha, pa, vb0);
+    if constexpr (NO % NC != 0)
+      pv_pass<NO % NC, BK, T::PSTR, T::VSTR>(o, NO - NO % NC, alpha, pa, vb0);
     __syncthreads();                   // every warp is done with this stage and its P
   }
 
@@ -361,7 +419,7 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     const int qr = row0 + 8 * r;
     if (qr >= sq) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
-    float* orow = out + (bh * sq + qr) * D;
+    float* orow = out + ((long long)bh * sq + qr) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<float2*>(orow + n * 8 + 2 * tq) =

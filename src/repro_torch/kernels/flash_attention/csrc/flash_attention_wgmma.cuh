@@ -1,5 +1,5 @@
-// flash_attention's bfloat16 route for d = 64, 80, 112 and 128: Hopper's
-// tensor cores (wgmma) fed by TMA, for sm_90a.
+// flash_attention's bfloat16 route, at every head dim (16, 32, 64, 80, 112,
+// 128, 256): Hopper's tensor cores (wgmma) fed by TMA, for sm_90a.
 //
 // The same function as the CUDA-core kernel in flash_attention.cu (which
 // replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py,
@@ -25,7 +25,8 @@
 //     one thread issues the TMA loads.  setmaxnreg moves registers from the
 //     producer (40) to the consumers (232);
 //   * Q is loaded once by TMA; K and V tiles of 128 keys go through a ring of
-//     3 stages in shared memory (224 KB at DP = 128), each stage with a "full"
+//     3 stages in shared memory (224 KB at DP = 128; at d = 256, tiles of 64
+//     keys in 2 stages, 192 KB), each stage with a "full"
 //     mbarrier (TMA bytes arrived) and an "empty" one (all 256 consumer
 //     threads done with it); KV tiles that the causal mask or the window hides
 //     from every row of the query tile are never loaded;
@@ -33,16 +34,18 @@
 //     and never reads the next head's rows.  Rows are 128-byte-swizzled panels
 //     of 64 columns, the layout the wgmma descriptors below describe; a tile
 //     takes DP / 64 panels, DP being d rounded up to whole panels (64 at d =
-//     64, 128 at d = 80, 112 and 128);
-//   * d that is not whole panels (80: 64 + 16 columns, 112: 64 + 48): the map
-//     has the tensor's real row (160 or 224 bytes), and the last panel's box
-//     runs past d, where TMA fills zeros (the mbarrier still counts the whole
-//     box's bytes).  No product reads those columns: S takes d/16 k-steps,
-//     and the last panel's P.V is an m64nNk16 with N = d - 64 (16 or 48), read
-//     from the first N columns of the same 128-byte-swizzled panel; the
-//     store writes the first d columns of each row.  Shared memory, the ring
-//     and the registers are DP's;
-//   * S = Q.K^T: d/16 wgmma m64n128k16, both operands in shared memory, float32
+//     16, 32 and 64, 128 at d = 80, 112 and 128, 256 at d = 256);
+//   * d that is not whole panels (16, 32: one panel of 16 or 32 columns; 80:
+//     64 + 16; 112: 64 + 48): the map has the tensor's real row (32, 64, 160
+//     or 224 bytes), and the last panel's box runs past d, where TMA fills
+//     zeros (the mbarrier still counts the whole box's bytes).  No product
+//     reads those columns: S takes d/16 k-steps, and the last panel's P.V is
+//     an m64nNk16 with N = d - 64 (P - 1) (16, 32 or 48), read from the first
+//     N columns of the same 128-byte-swizzled panel; the store writes the
+//     first d columns of each row.  Shared memory, the ring and the registers
+//     are DP's (at d = 16, three quarters of each panel hold zeros);
+//   * S = Q.K^T: d/16 wgmma m64nBKk16 (BK the keys of a tile, 128 or 64),
+//     both operands in shared memory, float32
 //     accumulator (products of bf16 inputs are exact in float32, as in the
 //     plain version).  The scale (times log2 e) and the mask act on the
 //     accumulator fragment; only tiles that cross the diagonal, the window edge
@@ -91,8 +94,6 @@
 namespace fa_wgmma {
 
 constexpr int kBQ = 128;           // query rows per block
-constexpr int kBK = 128;           // keys per KV tile
-constexpr int kStages = 3;         // K/V ring depth
 constexpr int kConsumers = 256;    // two consumer warpgroups
 constexpr int kThreads = 384;      // and one producer warpgroup
 constexpr int kPanel = 64;         // bf16 columns per 128-byte swizzled row
@@ -100,7 +101,11 @@ constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
 struct Smem {                      // byte offsets from a 1024-aligned base
-  static_assert(D % 16 == 0 && D <= 2 * kPanel, "d: a multiple of 16, at most 128");
+  static_assert(D % 16 == 0 && D <= 4 * kPanel, "d: a multiple of 16, at most 256");
+  // keys per KV tile and the K/V ring's depth: at d = 256, Q (64 KB) and 3
+  // stages of 128-key tiles (384 KB) would not fit a block's 227 KB
+  static constexpr int kBK = D <= 2 * kPanel ? 128 : 64;
+  static constexpr int kStages = D <= 2 * kPanel ? 3 : 2;
   static constexpr int kPanels = (D + kPanel - 1) / kPanel;
   static constexpr int kDP = kPanels * kPanel;            // the compute width
   static constexpr int kSteps = D / 16;                   // k-steps of S = Q.K^T
@@ -213,8 +218,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[M]) {
 #define FA_R32(M) FA_R8(M, 0), FA_R8(M, 8), FA_R8(M, 16), FA_R8(M, 24)
 #define FA_R64(M) FA_R32(M), FA_R8(M, 32), FA_R8(M, 40), FA_R8(M, 48), FA_R8(M, 56)
 
-// d (64 x 128, float32) = A (64 x 16, K-major, shared) . B (128 x 16, K-major,
-// shared)^T, plus d when ACC
+// d (64 x N, float32) = A (64 x 16, K-major, shared) . B (N x 16, K-major,
+// shared)^T, plus d when ACC; N = 128 or 64
 #define FA_SS_N128                                                                      \
   "{\n.reg .pred p;\n"                                                                  \
   "setp.ne.b32 p, %66, 0;\n"                                                            \
@@ -225,16 +230,33 @@ __device__ __forceinline__ void fence_regs(float (&r)[M]) {
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"      \
   "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
 
-template <bool ACC>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  if constexpr (ACC)
-    asm volatile(FA_SS_N128 : FA_R64(FA_ACC) : "l"(desc_a), "l"(desc_b), "r"(1));
-  else
-    asm volatile(FA_SS_N128 : FA_R64(FA_SET) : "l"(desc_a), "l"(desc_b), "r"(0));
+#define FA_SS_N64                                                                       \
+  "{\n.reg .pred p;\n"                                                                  \
+  "setp.ne.b32 p, %34, 0;\n"                                                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"      \
+  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+
+template <bool ACC, int M>
+__device__ __forceinline__ void wgmma_ss(float (&d)[M], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (M == 64) {
+    if constexpr (ACC)
+      asm volatile(FA_SS_N128 : FA_R64(FA_ACC) : "l"(desc_a), "l"(desc_b), "r"(1));
+    else
+      asm volatile(FA_SS_N128 : FA_R64(FA_SET) : "l"(desc_a), "l"(desc_b), "r"(0));
+  } else {
+    static_assert(M == 32, "wgmma_ss: N in 128, 64");
+    if constexpr (ACC)
+      asm volatile(FA_SS_N64 : FA_R32(FA_ACC) : "l"(desc_a), "l"(desc_b), "r"(1));
+    else
+      asm volatile(FA_SS_N64 : FA_R32(FA_SET) : "l"(desc_a), "l"(desc_b), "r"(0));
+  }
 }
 
 // d (64 x N, float32: the first N / 2 registers of an m64n64 fragment) += A
-// (64 x 16 bf16, registers) . B (16 x N, MN-major, shared), N = 16, 48 or 64
+// (64 x 16 bf16, registers) . B (16 x N, MN-major, shared), N = 16, 32, 48 or
+// 64
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
@@ -258,8 +280,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
         : FA_R8(FA_ACC, 0), FA_R8(FA_ACC, 8), FA_R8(FA_ACC, 16)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : FA_R8(FA_ACC, 0), FA_R8(FA_ACC, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
   } else {
-    static_assert(N == 16, "wgmma_rs: N in 16, 48, 64");
+    static_assert(N == 16, "wgmma_rs: N in 16, 32, 48, 64");
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %13, 0;\n"
@@ -280,6 +311,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   using L = Smem<D>;
   constexpr int NP = L::kPanels;
   constexpr int NT = L::kTailN;      // columns of the last panel that hold d
+  constexpr int kBK = L::kBK, kStages = L::kStages;
+  constexpr int SN = kBK / 2;        // S accumulator registers a thread
   constexpr float kNegInf = -INFINITY;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
@@ -337,13 +370,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     const int row = r_first + warp * 16 + lane / 4;    // this thread's: row, row + 8
     // accumulator fragment of an m64nN tile: element 4j + 2r + c is row
     // (row + 8r), column 8j + 2*t4 + c
-    float o[NP][32], s[64];
+    float o[NP][32], s[SN];
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
-    uint32_t p_hi[32], p_lo[32];
+    uint32_t p_hi[SN / 2], p_lo[SN / 2];
     const uint32_t q_wg = s_q + wg * 64 * 128;
 
     // S = Q K^T for tile it, issued and committed (not waited for)
@@ -352,11 +385,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < L::kSteps; ++ks) {
-        const int off = (ks / 4) * 128 * 128 + (ks % 4) * 32;   // kBQ = kBK = 128 rows per panel
+        // panel ks / 4 (kBQ rows of Q, kBK of K), 16 columns (32 bytes) a step
+        const int q_off = (ks / 4) * kBQ * 128 + (ks % 4) * 32;
+        const int k_off = (ks / 4) * kBK * 128 + (ks % 4) * 32;
         if (ks == 0)
-          wgmma_ss_n128<false>(s, sw128_desc(q_wg + off), sw128_desc(k_tile + off));
+          wgmma_ss<false>(s, sw128_desc(q_wg + q_off), sw128_desc(k_tile + k_off));
         else
-          wgmma_ss_n128<true>(s, sw128_desc(q_wg + off), sw128_desc(k_tile + off));
+          wgmma_ss<true>(s, sw128_desc(q_wg + q_off), sw128_desc(k_tile + k_off));
       }
       wgmma_commit();
     };
@@ -380,7 +415,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     const auto pv_product = [&](int it) {
       const uint32_t v_tile = s_v + (it % kStages) * L::kTileBytes;
       wgmma_fence();
-      const auto pv = [&](const uint32_t (&pk)[32]) {
+      const auto pv = [&](const uint32_t (&pk)[SN / 2]) {
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
           const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3]};
@@ -403,20 +438,20 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
                           (window >= 0 && k0 < r_first + 63 - window);
       if (masked) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < SN; ++i) {
           const int kp = k0 + 8 * (i / 4) + 2 * t4 + (i % 2), qp = row + 8 * ((i / 2) % 2);
           const bool ok = kp < sk && (!causal || kp <= qp) && (window < 0 || kp >= qp - window);
           s[i] = ok ? s[i] * scale_log2 : kNegInf;
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+        for (int i = 0; i < SN; ++i) s[i] *= scale_log2;
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = kNegInf;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        for (int j = 0; j < SN / 4; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
         const float m_new = fmaxf(m[r], mx);
@@ -425,7 +460,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         m[r] = m_new;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < SN / 4; ++j)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const float p = ex2(s[4 * j + 2 * r + c] - sub);
@@ -438,7 +473,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     // p = P_hi + P_lo, each packed as the A fragments of the P.V products
     const auto pack_p = [&]() {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < SN / 2; ++i) {
         const __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
         const float2 hf = __bfloat1622float2(h);
         p_hi[i] = bf16x2_bits(h);
@@ -535,8 +570,9 @@ constexpr int kEncodeFailed = -1000;   // minus the CUresult
 
 // a (rows, s, d) bf16 tensor in boxes of 64 columns x box_rows rows x 1,
 // 128-byte swizzle, zero fill past its edges (the last box of a row past d,
-// when d is not a multiple of 64: its row stride, 2d bytes, is a multiple of
-// 16 for d a multiple of 8, as TMA needs)
+// when d is not a multiple of 64, and at d = 16 or 32 the only box, wider
+// than the row: its row stride, 2d bytes, is a multiple of 16 for d a
+// multiple of 8, as TMA needs)
 inline int make_map(CUtensorMap* map, const void* ptr, long long rows, int s, int d,
                     int box_rows) {
   const EncodeTiled fn = encode_tiled();
@@ -568,8 +604,8 @@ int launch(const void* q, const void* k, const void* v, void* out, long long n_b
   if (sk < 1 || n_bh > 0x7fffffffLL || grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
   int rc = make_map(&tm_q, q, n_bh, sq, D, kBQ);
-  if (rc == 0) rc = make_map(&tm_k, k, n_bh / q_per_kv, sk, D, kBK);
-  if (rc == 0) rc = make_map(&tm_v, v, n_bh / q_per_kv, sk, D, kBK);
+  if (rc == 0) rc = make_map(&tm_k, k, n_bh / q_per_kv, sk, D, Smem<D>::kBK);
+  if (rc == 0) rc = make_map(&tm_v, v, n_bh / q_per_kv, sk, D, Smem<D>::kBK);
   if (rc != 0) return rc;
   fa_wgmma_kernel<D><<<(unsigned)grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), (int)n_bh, sq, sk, q_per_kv, causal,

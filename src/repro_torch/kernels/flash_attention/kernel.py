@@ -2,17 +2,18 @@
 in ``csrc/flash_attention_wgmma.cuh`` and ``csrc/flash_attention_tf32x3.cuh``
 for what they replace, what bounds them and how).
 
-Three kernels, one function.  :func:`route` picks one from the dtype and the
-head dim, fixed in code (``TENSOR_CORE_HEAD_DIMS``): bfloat16 at d = 64, 80,
-112 and 128 runs on the tensor cores (``"tensor_core"``: wgmma fed by TMA;
-80 and 112 in a second 64-column panel that TMA fills with zeros past d);
-float32 at d = 64 and 128 on the TF32 tensor cores with every product split
-three ways (``"tf32x3"``: mma.sync fed by cp.async); everything else runs
-on the CUDA cores (``"cuda_core"``: float32 at d = 16, 32, 80, 112 and 256,
-bfloat16 at 16, 32 and 256).  A launch that fails raises; no route stands
-in for another.  The private :func:`_launch` names a route, to hold the
-CUDA-core kernel against a tensor-core one on the same input (float32 at
-64 / 128, bfloat16 at 80 / 112); no path calls it.
+Three kernels, one function.  :func:`route` picks one from the dtype, at
+every head dim in ``HEAD_DIMS``: bfloat16 runs
+on the tensor cores (``"tensor_core"``: wgmma fed by TMA; d that is not
+whole 64-column panels, 16, 32, 80 and 112, in a last panel that TMA fills
+with zeros past d; d 256 in four panels over 64-key tiles), float32 on the
+TF32 tensor cores with every product split three ways (``"tf32x3"``:
+mma.sync fed by cp.async).  The third kernel runs on the CUDA cores
+(``"cuda_core"``) and no route gives it: the private :func:`_launch` names
+it, to hold it against a tensor-core route on the same input and to time it
+in turns with one (float32 at every d, bfloat16 at 16, 32, 80, 112 and
+256); no path calls it.  A launch that fails raises; no route stands in
+for another.
 
 The wrapper checks its inputs, allocates the output, launches on the current
 stream and raises if the launch failed (a launch refused for its shared
@@ -38,11 +39,12 @@ from .. import _build
 from ..dispatch import refuse_grad
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "META_CALLS", "ROUTE_LAUNCHES",
-           "TENSOR_CORE_HEAD_DIMS", "charge", "flash_attention_cuda",
+           "charge", "flash_attention_cuda",
            "flash_attention_meta", "kept_pairs", "meta_key", "route",
            "tf32x3_blocks_per_sm"]
 
 LAUNCHES = 0
+# launches by route; "cuda_core" counts only the named comparisons
 ROUTE_LAUNCHES = {"tensor_core": 0, "tf32x3": 0, "cuda_core": 0}
 # calls on meta tensors: meta_key(...) -> calls (nothing launched)
 META_CALLS: dict = {}
@@ -50,30 +52,26 @@ META_CALLS: dict = {}
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernels take: the smoke configs' 16, the published configs'
-# 64 and 128, zamba2's 80 and kimi-k2's 112, and 32 / 256 beside them
+# 64 and 128, zamba2's 80 and kimi-k2's 112, and 32 / 256 beside them; each
+# dtype runs at every one on the tensor cores (bfloat16 on wgmma, float32 on
+# the TF32 ones)
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
-# the head dims each dtype runs at on the tensor cores: bfloat16 on wgmma,
-# float32 on the TF32 ones
-TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (64, 80, 112, 128),
-                         torch.float32: (64, 128)}
-# the head dims the CUDA-core kernel takes, when route() gives it or it is
-# named through _launch
+# the head dims the CUDA-core kernel takes when it is named through _launch
 _CUDA_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 80, 112, 256),
                         torch.float32: HEAD_DIMS}
-# the routes whose copies (TMA, cp.async) need 16-byte-aligned q, k and v
+# the routes whose copies (TMA, cp.async) need 16-byte-aligned q, k and v:
+# both that route() gives
 _ALIGNED_ROUTES = ("tensor_core", "tf32x3")
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel that computes (dtype, d): ``"tensor_core"``, ``"tf32x3"``
-    or ``"cuda_core"``."""
+    """The kernel that computes (dtype, d): ``"tensor_core"`` (bfloat16) or
+    ``"tf32x3"`` (float32)."""
     if dtype not in _DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if d in TENSOR_CORE_HEAD_DIMS[dtype]:
-        return "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
-    return "cuda_core"
+    return "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _lib() -> ctypes.CDLL:
@@ -155,7 +153,7 @@ def _launch(way: str | None, q: torch.Tensor, k: torch.Tensor,
     """:func:`flash_attention_cuda` on the kernel ``way`` names, or on
     :func:`route`'s when it is None.  ``"cuda_core"`` takes float32 at every
     head dim and bfloat16 at every one but 64 and 128; ``"tensor_core"`` and
-    ``"tf32x3"`` only what :func:`route` gives them."""
+    ``"tf32x3"`` only what :func:`route` gives them (their dtype)."""
     global LAUNCHES
     which = _check(way, q, k, v, q_per_kv, window, "cuda")
     bh, sq, d = q.shape

@@ -574,9 +574,9 @@ def test_flash_attention_tf32x3_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("bh,kvh,d", [(8, 8, 80),      # zamba2-2.7b
                                       (16, 2, 112)])   # kimi-k2
 def test_flash_attention_head_dims_80_and_112(cuda, dtype, bh, kvh, d):
-    """float32 runs on the CUDA cores, bfloat16 on the tensor cores (the
-    route ``kernel.route`` names); in bfloat16 the CUDA-core kernel, named
-    through ``_launch`` on the same input, passes the same rule."""
+    """float32 runs on the TF32 route, bfloat16 on the tensor cores (the
+    route ``kernel.route`` names); the CUDA-core kernel, named through
+    ``_launch`` on the same input, passes the same rule."""
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
                                 * scale).to(cuda, dtype)
@@ -584,16 +584,51 @@ def test_flash_attention_head_dims_80_and_112(cuda, dtype, bh, kvh, d):
                                     ((kvh, 150, d), 1.0)))
     route = fa_kernel.route(dtype, d)
     assert route == ("tensor_core" if dtype == torch.bfloat16
-                     else "cuda_core")
+                     else "tf32x3")
     before = dict(fa_kernel.ROUTE_LAUNCHES)
     got = flash_attention(q, k, v, q_per_kv=bh // kvh)
     assert fa_kernel.ROUTE_LAUNCHES == {
         r: n + (r == route) for r, n in before.items()}
     ref = flash_attention(q, k, v, q_per_kv=bh // kvh, backend=PLAIN)
+    old = fa_kernel._launch("cuda_core", q, k, v, q_per_kv=bh // kvh)
     if dtype == torch.bfloat16:
         _bf16_check(got, ref)
-        _bf16_check(fa_kernel._launch("cuda_core", q, k, v,
-                                      q_per_kv=bh // kvh), ref)
+        _bf16_check(old, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(old, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 112, 128, 256])
+@pytest.mark.parametrize("bh,kvh,sq,sk,causal,window", [
+    (14, 2, 200, 200, True, None),      # GQA, a ragged KV tile
+    (16, 8, 200, 200, True, 33),        # a window edge inside a tile
+    (8, 2, 200, 130, False, None),      # non-causal, Sq > Sk
+    (8, 2, 130, 300, False, None),      # non-causal, Sq < Sk
+])
+def test_flash_attention_every_head_dim_on_its_route(cuda, dtype, d, bh, kvh,
+                                                     sq, sk, causal, window):
+    """Every (dtype, d) of ``HEAD_DIMS`` runs on the route ``kernel.route``
+    names (the tensor cores in bfloat16, the TF32 route in float32; never
+    the CUDA cores), within the plain version's tolerance."""
+    rng = np.random.default_rng(sq * d + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to(cuda, dtype)
+               for shape, scale in (((bh, sq, d), 3.0), ((kvh, sk, d), 1.0),
+                                    ((kvh, sk, d), 1.0)))
+    kw = dict(q_per_kv=bh // kvh, causal=causal, window=window)
+    route = fa_kernel.route(dtype, d)
+    assert route == ("tensor_core" if dtype == torch.bfloat16 else "tf32x3")
+    before = dict(fa_kernel.ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, **kw)
+    assert fa_kernel.ROUTE_LAUNCHES == {
+        r: n + (r == route) for r, n in before.items()}
+    ref = flash_attention(q, k, v, backend=PLAIN, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16:
+        _bf16_check(got, ref)
     else:
         torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
 
@@ -916,8 +951,8 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda, arch, capacity_factor):
 @pytest.mark.cuda
 def test_moe_scenario_on_the_card_follows_the_cpu(cuda):
     """MoEExpertScenario's stream on the card: the kimi-k2 smoke forward
-    launches flash_attention once a layer a batch (d 16: the CUDA-core
-    route); every row has the CPU's length and lies within an L1 distance
+    launches flash_attention once a layer a batch, on the route
+    ``kernel.route`` names (bfloat16 at d 16: the tensor cores); every row has the CPU's length and lies within an L1 distance
     of 2 % of it of the CPU's row; each batch's forward again on both
     devices gives (L, E) counts within 2 % of the routings (the same
     totals per layer) and hidden states (6e-2) and logits (1e-2) within
@@ -929,10 +964,12 @@ def test_moe_scenario_on_the_card_follows_the_cpu(cuda):
     from repro_torch.scenarios import MoEExpertScenario
     kw = dict(n_epochs=3, batches_per_epoch=2, shift_at=1, batch=2)
     gpu_sc = MoEExpertScenario(**kw)
-    before = fa_kernel.ROUTE_LAUNCHES["cuda_core"]
+    route = fa_kernel.route(gpu_sc.cfg.activ_dtype, gpu_sc.cfg.head_dim)
+    before = dict(fa_kernel.ROUTE_LAUNCHES)
     gpu_eps = list(gpu_sc.epochs())
-    assert fa_kernel.ROUTE_LAUNCHES["cuda_core"] - before == \
-        gpu_sc.cfg.n_layers * 6
+    assert fa_kernel.ROUTE_LAUNCHES == {
+        r: n + (gpu_sc.cfg.n_layers * 6 if r == route else 0)
+        for r, n in before.items()}
     cpu_sc = MoEExpertScenario(device="cpu", **kw)
     cpu_eps = list(cpu_sc.epochs())
     assert [e.shape for e in gpu_eps] == [e.shape for e in cpu_eps]
@@ -1005,7 +1042,8 @@ def test_recurrent_family_on_the_card_matches_the_cpu(cuda, arch, act):
     init's zeros): forward and prefill at S 150 (three chunks, the last
     padded), then 3 decode steps, with no host sync inside on the card;
     zamba2's prefill launches flash_attention once per shared-block
-    invocation, on the CUDA-core route (d 32), its decode none; rwkv6
+    invocation, on the route ``kernel.route`` names (d 32: the tensor
+    cores in bfloat16, the TF32 route in float32), its decode none; rwkv6
     none.  Every output and cache leaf against the CPU's: float32 1e-4,
     relative and absolute (the same float32 products summed in another
     order, through the layers and the carried state); bfloat16 within 6e-2
@@ -1025,7 +1063,9 @@ def test_recurrent_family_on_the_card_matches_the_cpu(cuda, arch, act):
     want, _ = _recurrent_run(params_from_numpy(tree, device="cpu"), cfg,
                              toks, torch.device("cpu"))
     n_fa = cfg.n_shared_attn if arch == "zamba2-2.7b" else 0
-    assert routes == [{"tensor_core": 0, "tf32x3": 0, "cuda_core": n_fa},
+    route = fa_kernel.route(act, cfg.head_dim)
+    assert routes == [{r: n_fa if r == route else 0
+                       for r in ("tensor_core", "tf32x3", "cuda_core")},
                       {"tensor_core": 0, "tf32x3": 0, "cuda_core": 0}]
     assert got.keys() == want.keys()
     for key, g in got.items():

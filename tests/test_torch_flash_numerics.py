@@ -1,29 +1,36 @@
 """The numerics that flash_attention's tensor-core route rests on, on the CPU
 (no GPU, no JAX), and the route rule itself.
 
-The route multiplies P·V on the tensor cores, whose A operand is bfloat16.
+The route (every head dim in bfloat16) multiplies P·V on the tensor cores,
+whose A operand is bfloat16.
 Its card check (``chip_smoke.py``'s ``FLASH_TOL`` for bfloat16, mirrored in
 ``tests/test_torch_cuda.py``) holds every output within one bfloat16 step
 (2**-7 of the value) plus 1e-3 of the largest output, with at most 1 % of
 the outputs differing from the plain version at all — the plain version, as
 the JAX kernel, computes P·V in float32.  Here the kernel's blocked online
-softmax (128-key tiles, float32 max, sum and accumulator, p taken against
+softmax (128-key tiles, 64 at d=256; float32 max, sum and accumulator, p
+taken against
 the running max, S = Q·Kᵀ summed over 16-column k-steps, P·V in 16-column
 slices of the output) is emulated in float32 PyTorch with P rounded three
 ways before the product: kept in float32; rounded once to bfloat16 (FA2 /
 FA3's choice); and split as P_hi = bf16(p) plus P_lo = bf16(p - P_hi), two
 products into one float32 accumulator (the kernel's choice).  Inputs are
 the card check's: numpy normals, q scaled by 3, k and v by 1, rounded once
-to bfloat16, causal, at qwen2-0.5b's 14 query heads over 2 KV heads (d=64),
-internlm2-1.8b's 16 over 8 (d=128), zamba2-2.7b's 32 over 32 (d=80) and
-kimi-k2's 64 over 8 (d=112).  The split must pass with at most 0.5 % of the
-outputs differing; the single bfloat16 P must fail the 1 % rule, which is
-why the kernel pays for a third product.
+to bfloat16, causal, at qwen2-0.5b's 14 query heads over 2 KV heads (d=64,
+and at the smoke configs' d=16 and 32), internlm2-1.8b's 16 over 8
+(d=128), zamba2-2.7b's 32 over 32 (d=80), kimi-k2's 64 over 8 (d=112) and
+8 over 1 at d=256.  The split must pass with at most 0.5 % of the outputs
+differing; the single bfloat16 P must fail the 1 % rule, which is why the
+kernel pays for a third product.
 
-At d=80 and 112 the kernel holds q, k and v in shared-memory panels of 64
-columns that TMA fills with zeros past d: the emulation on inputs padded
-with zero columns to 128 gives the unpadded result bit for bit in the
-first d columns and exact zeros beyond."""
+At d=16, 32, 80 and 112 the kernel holds q, k and v in shared-memory
+panels of 64 columns that TMA fills with zeros past d: the emulation on
+inputs padded with zero columns to whole panels gives the unpadded result
+bit for bit in the first d columns and exact zeros beyond.
+
+The route rule: every (dtype, d) in ``HEAD_DIMS`` has a tensor-core route,
+bfloat16 on wgmma (``"tensor_core"``) and float32 on the TF32 tensor cores
+(``"tf32x3"``); none is the CUDA-core kernel's."""
 import numpy as np
 import pytest
 
@@ -35,10 +42,16 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 # chip_smoke.py's FLASH_TOL["bfloat16"] and FLASH_QKV_SCALE
 RTOL, ATOL_OF_MAX, DIFFERING_SHARE = 2 ** -7, 1e-3, 0.01
 QKV_SCALE = (3.0, 1.0, 1.0)
-BLOCK_K = 128          # the tensor-core kernel's KV tile
-
 SHAPES = {"qwen2-0.5b": (14, 2, 1024, 64), "internlm2-1.8b": (16, 8, 512, 128),
-          "zamba2-2.7b": (32, 32, 512, 80), "kimi-k2": (64, 8, 512, 112)}
+          "zamba2-2.7b": (32, 32, 512, 80), "kimi-k2": (64, 8, 512, 112),
+          "qwen2-0.5b d=16": (14, 2, 512, 16),
+          "qwen2-0.5b d=32": (14, 2, 512, 32), "mqa d=256": (8, 1, 512, 256)}
+PANEL = 64             # the kernel's shared-memory panel, in columns
+
+
+def _block_k(d):
+    """The tensor-core kernel's KV tile."""
+    return 128 if d <= 128 else 64
 STEP = 16              # a wgmma k-step, and the width of an output slice
 
 
@@ -79,8 +92,9 @@ def _emulated(q, k, v, q_per_kv, rounding, scale=None):
     acc = torch.zeros((h, s, d))
     qpos = torch.arange(s)[:, None]
     q_steps = _steps(qf)
-    for k0 in range(0, s, BLOCK_K):
-        kt, vt = kf[:, k0:k0 + BLOCK_K], vf[:, k0:k0 + BLOCK_K]
+    bk = _block_k(d)
+    for k0 in range(0, s, bk):
+        kt, vt = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
         sc = sum(qs @ ks.transpose(1, 2)
                  for qs, ks in zip(q_steps, _steps(kt)))
         kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
@@ -125,18 +139,20 @@ def test_p_rounding_against_the_bf16_check(shape, rounding, passes,
         assert differing > DIFFERING_SHARE, (largest, differing)
 
 
-@pytest.mark.parametrize("shape", ["zamba2-2.7b", "kimi-k2"])
+@pytest.mark.parametrize("shape", ["zamba2-2.7b", "kimi-k2",
+                                   "qwen2-0.5b d=16", "qwen2-0.5b d=32"])
 def test_zero_padded_columns_change_nothing(shape):
-    """q, k and v padded with zero columns to 128 (the kernel's two
-    shared-memory panels at d=80 and 112), at the unpadded scale d**-0.5:
-    the first d output columns equal the unpadded emulation's bit for bit,
-    the rest are exact zeros."""
+    """q, k and v padded with zero columns to whole 64-column panels (the
+    kernel's shared-memory panels: two at d=80 and 112, one at 16 and 32),
+    at the unpadded scale d**-0.5: the first d output columns equal the
+    unpadded emulation's bit for bit, the rest are exact zeros."""
     h, kvh, s, d = SHAPES[shape]
+    dp = -(-d // PANEL) * PANEL
     q, k, v = _qkv(s + d, h, kvh, s, d)
-    padded = [torch.nn.functional.pad(x, (0, 128 - d)) for x in (q, k, v)]
+    padded = [torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v)]
     want = _emulated(q, k, v, h // kvh, "bf16_hi_lo")
     got = _emulated(*padded, h // kvh, "bf16_hi_lo", scale=d ** -0.5)
-    assert got.shape == (h, s, 128)
+    assert got.shape == (h, s, dp)
     assert torch.equal(got[..., :d], want)
     assert not got[..., d:].any()
 
@@ -144,18 +160,27 @@ def test_zero_padded_columns_change_nothing(shape):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "tensor_core"),
     (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 16, "cuda_core"),
-    (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 16, "tensor_core"),
+    (torch.bfloat16, 32, "tensor_core"),
     (torch.bfloat16, 80, "tensor_core"),
     (torch.bfloat16, 112, "tensor_core"),
-    (torch.bfloat16, 256, "cuda_core"),
+    (torch.bfloat16, 256, "tensor_core"),
     (torch.float32, 64, "tf32x3"),
     (torch.float32, 128, "tf32x3"),
-    (torch.float32, 80, "cuda_core"),
-    (torch.float32, 112, "cuda_core"),
+    (torch.float32, 80, "tf32x3"),
+    (torch.float32, 112, "tf32x3"),
+    (torch.float32, 16, "tf32x3"),
+    (torch.float32, 32, "tf32x3"),
+    (torch.float32, 256, "tf32x3"),
 ])
 def test_route_by_dtype_and_head_dim(dtype, d, want):
     assert fa_kernel.route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
+def test_route_never_names_the_cuda_core_kernel(dtype, d):
+    assert fa_kernel.route(dtype, d) in ("tensor_core", "tf32x3")
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64),

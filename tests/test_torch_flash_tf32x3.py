@@ -1,12 +1,13 @@
 """The numerics that flash_attention's float32 route (``"tf32x3"``) rests on,
 on the CPU (no GPU, no JAX).
 
-The route multiplies on the TF32 tensor cores, whose operands keep 10
-mantissa bits.  Its card check (``chip_smoke.py``'s ``FLASH_TOL`` for
+The route (every head dim in float32) multiplies on the TF32 tensor cores,
+whose operands keep 10 mantissa bits.  Its card check (``chip_smoke.py``'s ``FLASH_TOL`` for
 float32, and ``tests/test_torch_cuda.py``) holds every output within 2e-5,
 relative and absolute, of the plain version, which computes in float32.
-Here the kernel's blocked online softmax (KV tiles of 64 keys at d=64 and 32
-at d=128, float32 max, sum and accumulator) is emulated in float32 PyTorch
+Here the kernel's blocked online softmax (KV tiles of 64 keys at d <= 64, 32
+at d = 80, 112 and 128, 8 at d = 256; float32 max, sum and accumulator) is
+emulated in float32 PyTorch
 with both products, S = Q·Kᵀ and P·V, taken three ways: in float32; with
 each operand rounded once to TF32; and with each operand split as
 hi = tf32(x) plus lo = tf32(x - hi), three products (lo·hi + hi·lo + hi·hi)
@@ -15,16 +16,21 @@ TF32 values is exact in float32, as in the tensor core.  Rounding is
 ``cvt.rna.tf32.f32``'s: to nearest, ties away from zero, emulated on the
 int32 view (add 0x1000, clear the 13 low bits).  Inputs are the card
 check's: numpy normals, q scaled by 3, k and v by 1, causal, at qwen2-0.5b's
-14 query heads over 2 KV heads (d=64) and internlm2-1.8b's 16 over 8
-(d=128).  The split must pass the float32 check; one TF32 product must fail
-it, which is why the kernel pays for three.
+14 query heads over 2 KV heads (d=64, and at the smoke configs' d=16 and
+32), internlm2-1.8b's 16 over 8 (d=128), zamba2-2.7b's 32 over 32 (d=80),
+kimi-k2's 64 over 8 (d=112) and 8 over 1 at d=256.  The split must pass the
+float32 check; one TF32 product must fail it, which is why the kernel pays
+for three.
 
 The tensor core also rounds each of its sums toward zero (an mma adds its
 8 products to the accumulator and truncates).  A second emulation models
 that, one mma of 8 products at a time, and holds the kernel's choice of a
 fresh accumulator for each KV tile's P·V (added to O by a rounded fma)
 against summing P·V into O itself: the latter drifts toward zero with the
-row's length (on the card it failed the check at S=4096)."""
+row's length (on the card it failed the check at S=4096).  S sums 3 x d/8
+truncating mma adds a row; at d=256 (96 of them) the kernel sums it 64
+columns of d at a time in fresh accumulators, joined by rounded adds, which
+the emulation holds against one accumulator."""
 import numpy as np
 import pytest
 
@@ -35,9 +41,16 @@ from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
 # chip_smoke.py's FLASH_TOL["float32"] and FLASH_QKV_SCALE
 RTOL = ATOL = 2e-5
 QKV_SCALE = (3.0, 1.0, 1.0)
-BLOCK_K = {64: 64, 128: 32}      # the TF32 kernel's KV tile
+# the TF32 kernel's KV tile, and the columns of d its S sums in one
+# accumulator
+BLOCK_K = {16: 64, 32: 64, 64: 64, 80: 32, 112: 32, 128: 32, 256: 8}
+S_CHUNK = {256: 64}
 
-SHAPES = {"qwen2-0.5b": (14, 2, 1024, 64), "internlm2-1.8b": (16, 8, 512, 128)}
+SHAPES = {"qwen2-0.5b": (14, 2, 1024, 64), "internlm2-1.8b": (16, 8, 512, 128),
+          "qwen2-0.5b d=16": (14, 2, 256, 16),
+          "qwen2-0.5b d=32": (14, 2, 256, 32),
+          "zamba2-2.7b": (32, 32, 256, 80), "kimi-k2": (64, 8, 256, 112),
+          "mqa d=256": (8, 1, 256, 256)}
 
 
 def rna_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -132,10 +145,22 @@ def _mma3_truncating(c, a, b):
     return c
 
 
-def _emulated_truncating(q, k, v, q_per_kv, q0, fresh):
+def _s_truncating(q, kt, chunk):
+    """S = q kᵀ summed as :func:`_mma3_truncating`, ``chunk`` columns of d
+    at a time in fresh accumulators joined by rounded float32 adds."""
+    s = torch.zeros(q.shape[:2] + kt.shape[1:2])
+    for c0 in range(0, q.shape[-1], chunk):
+        s = s + _mma3_truncating(torch.zeros_like(s), q[..., c0:c0 + chunk],
+                                 kt[..., c0:c0 + chunk].transpose(1, 2))
+    return s
+
+
+def _emulated_truncating(q, k, v, q_per_kv, q0, fresh, s_chunk=None):
     """Rows q0.. of the causal blocked online softmax with every product
     summed as :func:`_mma3_truncating`; each KV tile's P·V into a fresh
-    accumulator added to O by a rounded fma (``fresh``), or into O."""
+    accumulator added to O by a rounded fma (``fresh``), or into O; S in
+    ``s_chunk`` columns of d at a time (:func:`_s_truncating`; all of d by
+    default)."""
     _, s, d = q.shape
     kf = torch.repeat_interleave(k, q_per_kv, 0)
     vf = torch.repeat_interleave(v, q_per_kv, 0)
@@ -148,8 +173,7 @@ def _emulated_truncating(q, k, v, q_per_kv, q0, fresh):
     for k0 in range(0, s, bk):
         kt, vt = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
         ok = torch.arange(k0, k0 + kt.shape[1])[None, :] <= qpos
-        sc = _mma3_truncating(torch.zeros(qs.shape[:2] + kt.shape[1:2]), qs,
-                              kt.transpose(1, 2)) * d ** -0.5
+        sc = _s_truncating(qs, kt, s_chunk or d) * d ** -0.5
         sc = torch.where(ok, sc, -1e30)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -182,6 +206,23 @@ def test_a_fresh_accumulator_per_kv_tile_keeps_the_truncation_off_o():
                           .max())
             assert worst <= 0.5, worst
     assert drift[False] > 4 * max(drift[True], 0.0), drift
+
+
+def test_s_in_64_column_accumulators_at_d_256():
+    """d=256, 8 over 1 heads, S=256, every row: S summed 64 columns at a time
+    (the kernel's S_CHUNK) keeps the output within a third of the check,
+    and nearer the plain version than S in one accumulator (96 truncating
+    adds a row)."""
+    h, kvh, s, d = SHAPES["mqa d=256"]
+    q, k, v = _qkv(s + d, h, kvh, s, d)
+    ref = attention_ref(q, k, v, q_per_kv=h // kvh, causal=True)
+    worst = {}
+    for chunk in (S_CHUNK[d], d):
+        got = _emulated_truncating(q, k, v, h // kvh, 0, True, chunk)
+        worst[chunk] = float(((got - ref).abs()
+                              / (ATOL + RTOL * ref.abs())).max())
+    assert worst[S_CHUNK[d]] <= 1 / 3, worst
+    assert worst[S_CHUNK[d]] < worst[d], worst
 
 
 # (float32 bits, the bits cvt.rna.tf32.f32 gives)
