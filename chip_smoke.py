@@ -10,8 +10,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
 2. build: the five kernels' CUDA sources compiled from
    ``src/repro_torch/**/csrc``, one ``nvcc`` each, in parallel (seconds and
    the ``ptxas`` register and spill report of each; the TF32
-   flash_attention kernels and the tensor-core ones at every head dim
-   (16, 32, 64, 80, 112, 128, 256) must not spill, and the TF32 kernels' static SASS
+   flash_attention kernels, the tensor-core ones and the backward's four
+   kernels (dq and dk / dv of each route) at every head dim (16, 32, 64, 80,
+   112, 128, 256) must not spill, and the TF32 kernels' static SASS
    instruction mix is printed);
 3. observe_scatter vs its plain version, exact, with and without a keep
    mask, each case on the table mode ``kernel.table_mode`` names (direct:
@@ -231,21 +232,29 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     through ``kernel._launch`` (the kernel line's ``flash_attention_zamba2``
     and ``flash_attention_kimi_k2`` entries);
 24. training: (a) ``FlashAttentionFn``'s dq, dk, dv (the kernel's forward,
-    the plain blocked backward) against autograd of the plain version on
-    the card (float32 within 2e-5 of each tensor's largest magnitude,
-    bfloat16 by FLASH_TOL's rule) at qwen2-0.5b's training shape (B 4, H
-    14, KVH 2, S 2,048, d 64) in bfloat16 (the tensor cores) and float32
-    (the TF32 route), zamba2's d 80, Mixtral's d 128 with a window of 1,000
-    and ragged S 1,000, one forward launch each on its route; at the qwen2
-    shape the forward kernel, the plain backward, the plain version's
-    forward + backward and ``scaled_dot_product_attention``'s forward +
-    backward timed in turns, the peak memory of the backwards, the
-    forward's time beside its bound and sdpa's (the kernel line's
-    ``flash_attention_train`` entry); (b) ``launch.train.main`` at
+    the backward kernels) against autograd of the plain version on the
+    card and against the plain backward ``attention_bwd_ref`` (float32
+    within 2e-5 of each tensor's largest magnitude, bfloat16 by FLASH_TOL's
+    rule) at every TRAIN_GRAD_CASES case: qwen2-0.5b's training shape (B 4,
+    H 14, KVH 2, S 2,048, d 64) in bfloat16 (the tensor cores) and float32
+    (the TF32 route), zamba2's d 80, Mixtral's d 128 with a window of 1,000,
+    ragged S 1,000, non-causal Sq > Sk, and d 16, 32, 112 and 256 in both
+    dtypes and float32 at 80 and 128 (a window, ragged S, rows without any
+    key, whose dq must be 0); one forward and one backward launch each on
+    its route, and a second backward bit for bit equal to the first; at
+    the qwen2 shape, in both dtypes, the backward kernels, the plain
+    backward, ``scaled_dot_product_attention``'s backward alone and its
+    forward + backward (and in bfloat16 the forward kernel and the plain
+    version's forward + backward) timed in turns, beside the backward's
+    bound and the kernels' own floor, with the peak memory of the
+    backwards (the kernel line's ``flash_attention_bwd`` and
+    ``flash_attention_bwd_tf32x3`` entries), the forward's time beside its
+    bound and sdpa's (``flash_attention_train``); (b) ``launch.train.main`` at
     qwen2-0.5b's full width (B 4, S 2,048, 12 steps, a checkpoint every 6
     to a fresh directory under ``build/``, tiering on): finite losses, the
-    last below the first, 2 x 24 flash_attention launches a step, all on
-    the tensor cores (remat "full"), one hist_select launch (step 10's
+    last below the first, 2 x 24 flash_attention launches and 24 backward
+    calls a step, all on the tensor cores (remat "full"), none of the plain
+    backward, one hist_select launch (step 10's
     rebalance), every step under ``set_sync_debug_mode("error")``; step
     wall, tokens/s, peak memory, one more step under ``torch.profiler``;
     (c) the step-6 checkpoint restored bit for bit, a second run resumed
@@ -254,8 +263,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     float32 loss and gradient at full width (B 2, S 64) on the card and on
     the CPU, the loss and gradient norm within FULL_WIDTH_F32_TOL, every
     gradient leaf within TRAIN_LEAF_TOL_OF_MAX of its largest magnitude,
-    2 x 24 launches on the TF32 route; (e) ``repro_torch.examples.train_100m`` for 5 steps
-    on the card, its launches on the tensor cores; then hist_select at the
+    2 x 24 launches and 24 backward calls on the TF32 route; (e)
+    ``repro_torch.examples.train_100m`` for 5 steps on the card, its
+    launches and backward calls on the tensor cores; then hist_select at the
     trainer's rebalance shape (the kernel line's ``hist_select_train``
     entry).
 
@@ -286,8 +296,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     ``make_train_step`` steps from the same params and batches, each under
     ``set_sync_debug_mode("error")``: losses, grad norms and every param
     and optimizer leaf equal bit for bit, every leaf on ``named(mesh,
-    model_pspecs / opt_pspecs)``, 48 flash_attention launches a step on
-    the tensor cores and no other kernel, the same collectives every step
+    model_pspecs / opt_pspecs)``, 48 flash_attention launches and 24
+    backward calls a step on the tensor cores and no other kernel, none of
+    the plain backward, the same collectives every step
     (their count and bytes printed); the step walls in turns, peak memory;
     the meshless state saved and restored with ``shardings=`` onto the
     mesh, bit for bit (the kernel line's ``flash_attention_sharded_train``
@@ -316,9 +327,10 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     S 2048, bf16 activations, remat "full", AdamW) counted by
     ``dryrun.count_step`` on meta tensors, then run on the card (a
     warm-up, a timed step, a step under ``FlopCounterMode`` with each
-    flash_attention launch's shape recorded): the card's FLOPs plus the
-    meta route's charge for each launch equal the dry run's FLOPs exactly,
-    the launches (48, tensor-core) equal its calls shape by shape, its
+    flash_attention launch's and backward call's shape recorded): the
+    card's FLOPs plus the meta route's charge for each launch and backward
+    call equal the dry run's FLOPs exactly, the launches (48, tensor-core)
+    and the backward calls (24) equal its calls shape by shape, its
     argument bytes equal the storage of the card's params, optimizer state
     and batch; the predicted peak beside ``max_memory_allocated``, the warm
     step against its roofline time (max of the FLOPs at the bf16 peak and
@@ -336,6 +348,7 @@ kernel table (JSON), the ``nvidia-smi`` name and power limit, and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2968,6 +2981,39 @@ def fa_routes(dtype, d: int, n: int) -> dict:
     return out
 
 
+def bwd_routes(dtype, d: int, n: int) -> dict:
+    """The backward's calls by route (``kernel.BWD_ROUTE_LAUNCHES``) when
+    ``n`` take the route of (dtype, d)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    out = dict.fromkeys(fa_kernel.BWD_ROUTE_LAUNCHES, 0)
+    out[fa_kernel.route(dtype, d)] += n
+    return out
+
+
+def read_bwd_routes() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    return dict(fa_kernel.BWD_ROUTE_LAUNCHES)
+
+
+@contextlib.contextmanager
+def plain_backward_calls():
+    """Counts the calls of the plain backward (``attention_bwd_ref``)
+    through ``flash_attention_bwd``'s dispatch while the block runs:
+    yields a dict whose ``"calls"`` the block reads at its end."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    real, seen = fa_ops.attention_bwd_ref, {"calls": 0}
+
+    def counted(*a, **kw):
+        seen["calls"] += 1
+        return real(*a, **kw)
+
+    fa_ops.attention_bwd_ref = counted
+    try:
+        yield seen
+    finally:
+        fa_ops.attention_bwd_ref = real
+
+
 def perturbed_params(cfg, seed: int, leaves=None) -> dict:
     """``cfg``'s parameters (or the schema leaves whose path starts with one
     of ``leaves``) drawn by the tests' recipe (``tests/_perturbed_weights.py``:
@@ -3264,14 +3310,33 @@ def recurrent_serve_profile(dev, cfg, params, prefill) -> None:
 
 
 # ---------------------------------------------------------------- phase 24
-# 24a's gradient cases: (label, B, H, KVH, S, d, dtype, window)
+# 24a's gradient cases: (label, B, H, KVH, Sq, Sk, d, dtype, causal,
+# window): the training shapes of qwen2-0.5b, zamba2's d 80 and Mixtral's
+# d 128 with a window; then every other (dtype, d) of the backward kernels,
+# with ragged S, GQA, windows whose edge falls inside a tile, non-causal
+# Sq != Sk, and (Sq 700 over Sk 300, window 100) rows 400-699 without any key
 TRAIN_GRAD_CASES = [
-    ("qwen2-0.5b train", 4, 14, 2, 2048, 64, "bfloat16", None),
-    ("qwen2-0.5b train f32", 4, 14, 2, 2048, 64, "float32", None),
-    ("zamba2-2.7b d=80", 2, 32, 32, 2048, 80, "bfloat16", None),
-    ("mixtral-8x22b d=128 window 1000", 1, 48, 8, 2048, 128, "bfloat16",
-     1000),
-    ("ragged S=1000", 2, 14, 2, 1000, 64, "bfloat16", None),
+    ("qwen2-0.5b train", 4, 14, 2, 2048, 2048, 64, "bfloat16", True, None),
+    ("qwen2-0.5b train f32", 4, 14, 2, 2048, 2048, 64, "float32", True,
+     None),
+    ("zamba2-2.7b d=80", 2, 32, 32, 2048, 2048, 80, "bfloat16", True, None),
+    ("mixtral-8x22b d=128 window 1000", 1, 48, 8, 2048, 2048, 128,
+     "bfloat16", True, 1000),
+    ("ragged S=1000", 2, 14, 2, 1000, 1000, 64, "bfloat16", True, None),
+    ("non-causal Sq=1000 Sk=600", 2, 14, 2, 1000, 600, 64, "bfloat16",
+     False, None),
+    ("zamba2-2.7b d=80 f32", 2, 32, 32, 1000, 1000, 80, "float32", True,
+     None),
+    ("mixtral-8x22b d=128 window 300 f32", 1, 48, 8, 1000, 1000, 128,
+     "float32", True, 300),
+] + [
+    (f"{label} {dtype}", b, h, kvh, sq, sk, d, dtype, causal, window)
+    for dtype in ("bfloat16", "float32")
+    for label, b, h, kvh, sq, sk, d, causal, window in (
+        ("d=16 ragged S=1000", 2, 14, 2, 1000, 1000, 16, True, None),
+        ("d=32 window 200", 2, 8, 2, 1000, 1000, 32, True, 200),
+        ("kimi-k2 d=112", 1, 64, 8, 1024, 1024, 112, True, None),
+        ("d=256 rows without keys", 1, 8, 1, 700, 300, 256, True, 100))
 ]
 # the backward's query rows a block: the configs' attn_block_k
 TRAIN_BLOCK_Q = 512
@@ -3298,72 +3363,105 @@ TRAIN_RESUME_RTOL = 1e-3
 EXAMPLE_STEPS = 5
 
 
+def grad_verdict(got, want, dtype: str):
+    """(max |got - want|, [its share of the bound, the share of elements
+    that differ at all], within the bound): float32 within
+    GRAD_F32_TOL_OF_MAX of want's largest magnitude, bfloat16 by
+    FLASH_TOL's rule."""
+    if dtype == "bfloat16":
+        return flash_verdict(got, want, dtype)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    allowed = GRAD_F32_TOL_OF_MAX * float(want.abs().max())
+    return err, [err / allowed if allowed > 0 else float(err > 0),
+                 float((diff > 0).float().mean())], err <= allowed
+
+
 def train_attention_grads(dev) -> dict:
     """Phase 24a: FlashAttentionFn's dq, dk, dv (the kernel's forward, the
-    plain blocked backward) against autograd of the plain version on the
-    card (in float32, rounded once), at every TRAIN_GRAD_CASES case; each case one forward launch on
-    the route ``kernel.route`` names.  -> {label: its errors and route}."""
+    backward kernels) at every TRAIN_GRAD_CASES case, against autograd of
+    the plain version on the card (in float32, rounded once) and against
+    the plain backward ``attention_bwd_ref`` on the same inputs, by
+    ``grad_verdict``; one forward and one backward launch on the route
+    ``kernel.route`` names, a second backward bit for bit equal to the
+    first, and dq 0 on the rows that see no key.  -> {label: its errors,
+    route and whether the repeat was equal}."""
     import torch
     from repro_torch.kernels.flash_attention import (FlashAttentionFn,
-                                                     attention_ref)
+                                                     attention_bwd_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     out = {}
-    for i, (label, b, h, kvh, s, d, dtype, window) in enumerate(
+    for i, (label, b, h, kvh, sq, sk, d, dtype, causal, window) in enumerate(
             TRAIN_GRAD_CASES):
-        q, k, v = qkv(dev, 240 + i, b, h, kvh, s, s, d, dtype)
+        q, k, v = qkv(dev, 240 + i, b, h, kvh, sq, sk, d, dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(340 + i)
         do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
         g = h // kvh
+        kw = dict(q_per_kv=g, causal=causal, window=window)
         mine = [t.detach().requires_grad_() for t in (q, k, v)]
         before = dict(fa_kernel.ROUTE_LAUNCHES)
-        o = FlashAttentionFn.apply(*mine, g, True, window, None,
+        o = FlashAttentionFn.apply(*mine, g, causal, window, None,
                                    TRAIN_BLOCK_Q)
         launched = {r: fa_kernel.ROUTE_LAUNCHES[r] - before[r]
                     for r in before}
+        b_before = read_bwd_routes()
         got = torch.autograd.grad(o, mine, do)
-        if launched != fa_routes(q.dtype, d, 1):
-            fail(f"FlashAttentionFn ({label}) launched {launched}: "
-                 f"expected one forward on the {fa_kernel.route(q.dtype, d)}"
-                 f" route")
+        b_launched = {r: n - b_before[r] for r, n in read_bwd_routes().items()}
+        if launched != fa_routes(q.dtype, d, 1) \
+                or b_launched != bwd_routes(q.dtype, d, 1):
+            fail(f"FlashAttentionFn ({label}) launched {launched} forward "
+                 f"and {b_launched} backward: expected one each on the "
+                 f"{fa_kernel.route(q.dtype, d)} route")
+        again = flash_attention_bwd(q, k, v, do, **kw)
+        repeat_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
         # the plain version's autograd in float32, each gradient rounded
         # once to the inputs' dtype, as the reference's f32 autodiff does
         # (autograd of the plain version on bf16 leaves would round each
         # query head's dk, dv to bf16 before repeat_interleave's backward
         # sums them)
         theirs = [t.detach().float().requires_grad_() for t in (q, k, v)]
-        ref = attention_ref(*theirs, q_per_kv=g, window=window)
+        ref = attention_ref(*theirs, **kw)
         want = [t.to(q.dtype) for t in torch.autograd.grad(
             ref, theirs, do.float())]
         ref = ref.to(q.dtype)
+        plain = attention_bwd_ref(q, k, v, do, block_q=TRAIN_BLOCK_Q, **kw)
         torch.cuda.synchronize()
-        res = {"route": fa_kernel.route(q.dtype, d)}
+        # the rows that see no key: dq exactly 0 there
+        keyless = [r for r in range(sq)
+                   if (min(r, sk - 1) if causal else sk - 1)
+                   < (0 if window is None else max(0, r - window))]
+        res = {"route": fa_kernel.route(q.dtype, d),
+               "repeat_bit_equal": repeat_equal, "keyless_rows": len(keyless)}
         err, share, ok = flash_verdict(o.detach(), ref.detach(), dtype)
         res["forward"] = [err, share]
         if not ok:
             fail(f"FlashAttentionFn's forward differs from the plain version"
                  f" ({label}, {dtype}): max abs err {err}, share of the "
                  f"tolerance and share differing {share}")
-        for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        for name, gt, wt, pt in zip(("dq", "dk", "dv"), got, want, plain):
             if gt.dtype != wt.dtype or gt.shape != wt.shape:
                 fail(f"{label} {name}: {gt.dtype} {tuple(gt.shape)} against "
                      f"{wt.dtype} {tuple(wt.shape)}")
-            diff = (gt.float() - wt.float()).abs()
-            if dtype == "float32":
-                allowed = GRAD_F32_TOL_OF_MAX * float(wt.abs().max())
-                err = float(diff.max())
-                share = [err / allowed, float((diff > 0).float().mean())]
-                ok = err <= allowed
-            else:
-                err, share, ok = flash_verdict(gt, wt, dtype)
+            err, share, ok = grad_verdict(gt, wt, dtype)
+            p_err, p_share, p_ok = grad_verdict(gt, pt, dtype)
             res[name] = [err] + share
-            if not ok:
+            res[name + "_vs_plain_backward"] = [p_err] + p_share
+            if not (ok and p_ok):
                 fail(f"FlashAttentionFn's {name} differs from autograd of "
                      f"the plain version ({label}, {dtype}): max abs err "
                      f"{err}, share of the tolerance and share differing "
-                     f"{share}")
+                     f"{share}; from attention_bwd_ref: {p_err}, {p_share}")
+        if keyless and bool(got[0][:, keyless].any()):
+            fail(f"{label}: dq is not 0 on the {len(keyless)} rows that see "
+                 f"no key")
+        if not repeat_equal:
+            fail(f"{label}: two backward calls on the same input differ")
         out[label] = res
-        del q, k, v, do, mine, theirs, o, ref, got, want
+        del q, k, v, do, mine, theirs, o, ref, got, want, plain
     free_device_memory()
     say("train_attention_grad", cases=[list(c) for c in TRAIN_GRAD_CASES],
         results=out, block_q=TRAIN_BLOCK_Q,
@@ -3385,67 +3483,101 @@ def peak_bytes(fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def train_attention_time(dev) -> dict:
+def train_attention_time(dev, plain) -> dict:
     """Phase 24a's times at qwen2-0.5b's training shape (B 4, H 14, KVH 2,
-    S 2048, d 64, bfloat16, causal), in turns: the kernel's forward, the
-    plain backward, the plain version's forward + backward (autograd), and
-    ``F.scaled_dot_product_attention``'s forward + backward (the library
-    time); the peak memory of both backwards.  The backward's bound is 2.5
-    times the forward's causal products (2·B·H·S²·d) at the bf16
-    tensor-core rate, or q, k, v, dO read and dq, dk, dv written once."""
+    S 2048, d 64, causal), in bfloat16 (the tensor-core route) and float32
+    (the TF32 route), each in turns: the backward kernels
+    (``flash_attention_bwd``), the plain backward (``attention_bwd_ref``),
+    ``F.scaled_dot_product_attention``'s backward alone (the library time)
+    and its forward + backward, and in bfloat16 the kernel's forward and
+    the plain version's forward + backward (autograd); the peak memory of
+    the backwards.  The backward's bound: its five products (2.5 times the
+    forward's causal 2·B·H·S²·d) at the dtype's tensor-core rate (in
+    float32 three TF32 products each, the fewest that keep float32
+    accuracy), or q, k, v, dO read and dq, dk, dv written once.  The
+    kernels' own floor: their products at that rate, twelve of the
+    forward's halves in bfloat16 (S and dP in both kernels and again in the
+    dq kernel's second sweep, dq, dk and dv twice for the hi / lo split),
+    nine in float32, three TF32 products each.  -> {dtype: its times}."""
     import torch
-    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
-                                                     attention_ref,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
     b, h, kvh, s, d = TRAIN_TIME_SHAPE
     g = h // kvh
-    q, k, v = qkv(dev, 250, b, h, kvh, s, s, d, "bfloat16")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(350)
-    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-
-    def forward():
-        return flash_attention(q, k, v, q_per_kv=g)
-
-    def backward():
-        return attention_bwd_ref(q, k, v, do, q_per_kv=g,
-                                 block_q=TRAIN_BLOCK_Q)
-
-    def plain_fwd_bwd():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        return torch.autograd.grad(
-            attention_ref(*leaves, q_per_kv=g), leaves, do)
-
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shape4 = [(b, -1, s, d)] * 3
-
-    def sdpa_fwd_bwd():
-        leaves = [t.detach().view(sh).requires_grad_()
-                  for t, sh in zip((q, k, v), shape4)]
-        o = sdpa(*leaves, is_causal=True, enable_gqa=True)
-        return torch.autograd.grad(o, leaves, do.view(b, h, s, d))
-
-    fns = {"forward_ms": forward, "backward_ms": backward,
-           "plain_fwd_bwd_ms": plain_fwd_bwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd}
-    runs = {name: [] for name in fns}
-    for name in list(fns) + list(fns)[::-1]:
-        runs[name].append(time_ms(fns[name], 3))
-    out = {name: sum(t) / len(t) for name, t in runs.items()}
     flops = 2 * b * h * s * s * d
-    elt = q.element_size()
-    n_bytes = elt * (2 * (2 * b * h * s * d) + 2 * (2 * b * kvh * s * d))
-    bwd_bound, bwd_by = bound_ms(n_bytes, 2.5 * flops, TENSOR_BF16_OPS_PER_S)
-    out.update(shape=[b, h, kvh, s, d], dtype="bfloat16",
-               backward_bound_ms=bwd_bound, backward_bound_by=bwd_by,
-               backward_share_of_bound=bwd_bound / out["backward_ms"],
-               backward_peak_gib=peak_bytes(backward) / 2 ** 30,
-               plain_fwd_bwd_peak_gib=peak_bytes(plain_fwd_bwd) / 2 ** 30,
-               sdpa_fwd_bwd_peak_gib=peak_bytes(sdpa_fwd_bwd) / 2 ** 30,
-               causal_flops=flops)
-    say("train_attention_time", **out)
-    del q, k, v, do
-    free_device_memory()
-    return out
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = qkv(dev, 250, b, h, kvh, s, s, d, dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(350)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        leaves4 = [t.detach().view(sh).requires_grad_()
+                   for t, sh in zip((q, k, v), shape4)]
+        o4 = sdpa(*leaves4, is_causal=True, enable_gqa=True)
+        do4 = do.view(b, h, s, d)
+
+        def kernel_bwd():
+            return flash_attention_bwd(q, k, v, do, q_per_kv=g)
+
+        def plain_bwd():
+            return flash_attention_bwd(q, k, v, do, q_per_kv=g,
+                                       block_q=TRAIN_BLOCK_Q, backend=plain)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o4, leaves4, do4, retain_graph=True)
+
+        def sdpa_fwd_bwd():
+            leaves = [t.detach().view(sh).requires_grad_()
+                      for t, sh in zip((q, k, v), shape4)]
+            o = sdpa(*leaves, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(o, leaves, do4)
+
+        def forward():
+            return flash_attention(q, k, v, q_per_kv=g)
+
+        def plain_fwd_bwd():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(
+                attention_ref(*leaves, q_per_kv=g), leaves, do)
+
+        fns = {"ms": kernel_bwd, "plain_ms": plain_bwd,
+               "sdpa_bwd_ms": sdpa_bwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd}
+        if dtype == "bfloat16":
+            fns.update(forward_ms=forward, plain_fwd_bwd_ms=plain_fwd_bwd)
+        runs = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            runs[name].append(time_ms(fns[name], 3))
+        out = {name: sum(t) / len(t) for name, t in runs.items()}
+        elt = q.element_size()
+        n_bytes = elt * (3 * b * h * s * d + 4 * b * kvh * s * d)
+        if dtype == "bfloat16":
+            rate, needed, kernel_flops = TENSOR_BF16_OPS_PER_S, 2.5, 6 * flops
+        else:
+            rate, needed, kernel_flops = (TENSOR_TF32_OPS_PER_S, 3 * 2.5,
+                                          3 * 4.5 * flops)
+        bound, by = bound_ms(n_bytes, needed * flops, rate)
+        out.update(shape=[b, h, kvh, s, d], dtype=dtype,
+                   route="tensor_core" if dtype == "bfloat16" else "tf32x3",
+                   bound_ms=bound, bound_by=by, share_of_bound=bound / out["ms"],
+                   kernel_flops=kernel_flops,
+                   kernel_floor_ms=kernel_flops / rate * 1e3,
+                   function_tflop_s=2.5 * flops / out["ms"] / 1e9,
+                   ms_over_sdpa_bwd_ms=out["ms"] / out["sdpa_bwd_ms"],
+                   speedup_over_plain=out["plain_ms"] / out["ms"],
+                   peak_gib=peak_bytes(kernel_bwd) / 2 ** 30,
+                   plain_peak_gib=peak_bytes(plain_bwd) / 2 ** 30,
+                   sdpa_fwd_bwd_peak_gib=peak_bytes(sdpa_fwd_bwd) / 2 ** 30,
+                   causal_flops=flops, bytes=n_bytes)
+        if dtype == "bfloat16":
+            out["plain_fwd_bwd_peak_gib"] = peak_bytes(plain_fwd_bwd) / 2 ** 30
+        say("train_attention_time", **out)
+        res[dtype] = out
+        del q, k, v, do, leaves4, o4, do4
+        free_device_memory()
+    return res
 
 
 def instrumented_train(train_launcher, args, read_counts, read_routes,
@@ -3453,9 +3585,10 @@ def instrumented_train(train_launcher, args, read_counts, read_routes,
     """``train_launcher.main(args)`` with its step function wrapped: each
     step runs under ``set_sync_debug_mode("error")`` (no host sync inside
     ``step_fn``; the trainer's loss read comes after it), and its wall, its
-    flash_attention launches by route and its batch's tokens are recorded;
-    the state after step ``capture_step`` is cloned on the card.  ->
-    (the trainer's report, the record)."""
+    flash_attention launches and backward calls by route and its batch's
+    tokens are recorded; the state after step ``capture_step`` is cloned on
+    the card; ``rec["plain_backward"]`` counts the calls of the plain
+    backward in the run.  -> (the trainer's report, the record)."""
     import torch
     from repro_torch.pytree import tree_map
     rec = {"steps": [], "tokens": [], "state": None, "last": None}
@@ -3465,7 +3598,7 @@ def instrumented_train(train_launcher, args, read_counts, read_routes,
         step = rec["step_fn"] = real(*a, **kw)
 
         def wrapped(params, opt_state, batch):
-            before = read_routes()
+            before, b_before = read_routes(), read_bwd_routes()
             hs_before = read_counts()["hist_select"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3476,11 +3609,12 @@ def instrumented_train(train_launcher, args, read_counts, read_routes,
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            after = read_routes()
+            after, b_after = read_routes(), read_bwd_routes()
             n = int(out[1].step)
             rec["steps"].append(dict(
                 step=n, wall_s=wall,
                 routes={r: after[r] - before[r] for r in after},
+                bwd_routes={r: b_after[r] - b_before[r] for r in b_after},
                 hist_select=read_counts()["hist_select"] - hs_before))
             rec["tokens"].append(batch["tokens"].cpu())
             if n == capture_step:
@@ -3491,9 +3625,11 @@ def instrumented_train(train_launcher, args, read_counts, read_routes,
 
     train_launcher.make_train_step = factory
     try:
-        report = train_launcher.main(args)
+        with plain_backward_calls() as seen:
+            report = train_launcher.main(args)
     finally:
         train_launcher.make_train_step = real
+    rec["plain_backward"] = seen["calls"]
     return report, rec
 
 
@@ -3501,8 +3637,9 @@ def train_full_width(train_launcher, dev, zero_counts, read_counts,
                      read_routes):
     """Phase 24b: ``launch.train.main`` at qwen2-0.5b's full width (B 4, S
     2048, 12 steps, a checkpoint every 6, tiering on): every loss finite
-    and the last below the first, 2 x 24 flash_attention launches a step
-    (remat "full"), all on the tensor cores, one hist_select launch (step
+    and the last below the first, 2 x 24 flash_attention launches and 24
+    backward calls a step (remat "full"), all on the tensor cores, none of
+    the plain backward, one hist_select launch (step
     10's rebalance), no host sync inside a step; step wall, tokens/s, peak
     memory, then one more step under ``torch.profiler``.  -> (the trainer's
     report, the record with the step-6 state, the checkpoint directory,
@@ -3518,7 +3655,7 @@ def train_full_width(train_launcher, dev, zero_counts, read_counts,
         read_routes, capture_step=TRAIN_CKPT_STEP)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    launches = read_counts()
+    launches, b_launches = read_counts(), read_bwd_routes()
     losses = report["losses"]
     per_step = 2 * QWEN_LAYERS
     if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
@@ -3526,11 +3663,16 @@ def train_full_width(train_launcher, dev, zero_counts, read_counts,
         fail(f"qwen2-0.5b training losses {losses}: expected {TRAIN_STEPS} "
              f"finite, the last below the first")
     bad = [s for s in rec["steps"]
-           if s["routes"] != fa_routes(torch.bfloat16, 64, per_step)]
-    if bad or launches != {**NO_KERNELS, "flash_attention":
-                           per_step * TRAIN_STEPS, "hist_select": 1}:
-        fail(f"qwen2-0.5b training launches {launches}, steps off the "
-             f"{per_step} tensor-core launches a step: {bad}")
+           if s["routes"] != fa_routes(torch.bfloat16, 64, per_step)
+           or s["bwd_routes"] != bwd_routes(torch.bfloat16, 64, QWEN_LAYERS)]
+    if bad or rec["plain_backward"] or launches != {
+            **NO_KERNELS, "flash_attention": per_step * TRAIN_STEPS,
+            "hist_select": 1} or b_launches != bwd_routes(
+                torch.bfloat16, 64, QWEN_LAYERS * TRAIN_STEPS):
+        fail(f"qwen2-0.5b training launches {launches}, plain backward "
+             f"calls {rec['plain_backward']}, steps off the {per_step} "
+             f"tensor-core launches and {QWEN_LAYERS} backward calls a "
+             f"step: {bad}")
     walls = [s["wall_s"] for s in rec["steps"]]
     warm = sorted(walls[1:])[len(walls[1:]) // 2]
     params, opt_state, batch = rec.pop("last")
@@ -3542,8 +3684,10 @@ def train_full_width(train_launcher, dev, zero_counts, read_counts,
                step_wall_s=walls, warm_step_s=warm,
                tokens_per_s=TRAIN_TOKENS / warm, trainer_step_s=report["step_s"],
                run_wall_s=wall, peak_mem_gib=peak, launches=launches,
-               flash_attention_per_step=per_step, no_sync_in_step=True,
-               profiled_step=prof)
+               flash_attention_per_step=per_step,
+               backward_calls=b_launches["tensor_core"],
+               plain_backward_calls=rec["plain_backward"],
+               no_sync_in_step=True, profiled_step=prof)
     say("train_full_width", **out)
     return out, rec, ckdir
 
@@ -3617,7 +3761,7 @@ def train_gpu_vs_cpu(dev, zero_counts, read_routes) -> dict:
     CPU: the loss and the gradient norm within FULL_WIDTH_F32_TOL (abs +
     rel, phase 15's), every gradient leaf within TRAIN_LEAF_TOL_OF_MAX of
     that leaf's largest magnitude; on the card 2 x 24 flash_attention
-    launches on the TF32 route."""
+    launches and 24 backward calls on the TF32 route."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3637,11 +3781,13 @@ def train_gpu_vs_cpu(dev, zero_counts, read_routes) -> dict:
     params = to_device(params, dev)
     zero_counts()
     res["cuda"] = loss_and_grads(params, cfg, to_device(batch, dev))
-    routes = read_routes()
+    routes, b_routes = read_routes(), read_bwd_routes()
     del params
-    if routes != fa_routes(torch.float32, 64, 2 * QWEN_LAYERS):
-        fail(f"full-width float32 training step launches {routes}: expected "
-             f"{2 * QWEN_LAYERS} on the TF32 route")
+    if routes != fa_routes(torch.float32, 64, 2 * QWEN_LAYERS) \
+            or b_routes != bwd_routes(torch.float32, 64, QWEN_LAYERS):
+        fail(f"full-width float32 training step launches {routes}, backward"
+             f" calls {b_routes}: expected {2 * QWEN_LAYERS} and "
+             f"{QWEN_LAYERS} on the TF32 route")
     (gl, _, gg), (cl, _, cg) = res["cuda"], res["cpu"]
     errs, leaf_max, share = {}, {}, {}
     g_leaves, skeleton = flatten(gg)
@@ -3670,7 +3816,7 @@ def train_gpu_vs_cpu(dev, zero_counts, read_routes) -> dict:
     out = dict(batch=2, seq=64, max_abs_err=errs, leaf_max=leaf_max,
                share_of_tolerance=share, tolerance=FULL_WIDTH_F32_TOL,
                leaf_tolerance_of_max=TRAIN_LEAF_TOL_OF_MAX,
-               flash_attention_routes=routes,
+               flash_attention_routes=routes, backward_routes=b_routes,
                seconds=time.perf_counter() - t0)
     say("train_gpu_vs_cpu", **out)
     if faults:
@@ -3690,8 +3836,8 @@ def tree_paths(tree, prefix: str = ""):
 def train_example(dev, zero_counts, read_routes) -> dict:
     """Phase 24e: ``repro_torch.examples.train_100m`` (llama-100m: 12
     layers, d 768, 12 / 4 heads at d 64) for EXAMPLE_STEPS steps on the
-    card: finite losses, 2 x 12 flash_attention launches a step on the
-    tensor cores."""
+    card: finite losses, 2 x 12 flash_attention launches and 12 backward
+    calls a step on the tensor cores."""
     import shutil
     import torch
     from repro_torch.examples import train_100m
@@ -3702,15 +3848,17 @@ def train_example(dev, zero_counts, read_routes) -> dict:
                            str(ckdir)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    routes = read_routes()
+    routes, b_routes = read_routes(), read_bwd_routes()
     shutil.rmtree(ckdir, ignore_errors=True)
     want = fa_routes(torch.bfloat16, 64, 2 * 12 * EXAMPLE_STEPS)
-    if routes != want or len(rep["losses"]) != EXAMPLE_STEPS or not all(
+    b_want = bwd_routes(torch.bfloat16, 64, 12 * EXAMPLE_STEPS)
+    if routes != want or b_routes != b_want \
+            or len(rep["losses"]) != EXAMPLE_STEPS or not all(
             map(math.isfinite, rep["losses"])):
-        fail(f"train_100m: routes {routes} (expected {want}), losses "
-             f"{rep['losses']}")
+        fail(f"train_100m: routes {routes} (expected {want}), backward "
+             f"{b_routes} (expected {b_want}), losses {rep['losses']}")
     out = dict(losses=rep["losses"], step_s=rep["step_s"], wall_s=wall,
-               flash_attention_routes=routes)
+               flash_attention_routes=routes, backward_routes=b_routes)
     say("train_example", **out)
     return out
 
@@ -3977,7 +4125,7 @@ def sharded_train_step(dev, zero_counts, read_counts, read_routes) -> dict:
                                             seed=0))
         per_step = 2 * QWEN_LAYERS
         rec = {"mesh": [], "meshless": [], "collectives": [], "routes": [],
-               "launches": []}
+               "launches": [], "bwd_routes": [], "plain_backward": []}
 
         def timed(fn):
             torch.cuda.synchronize()
@@ -4001,11 +4149,14 @@ def sharded_train_step(dev, zero_counts, read_counts, read_routes) -> dict:
                     zero_counts()
                     before = dict(sh.COLLECTIVES)
                     r0 = read_routes()
-                    (d_params, d_state, m_s), wall = timed(
-                        lambda: step_s(d_params, d_state, d_batch))
+                    with plain_backward_calls() as seen:
+                        (d_params, d_state, m_s), wall = timed(
+                            lambda: step_s(d_params, d_state, d_batch))
                     r1 = read_routes()
                     rec["launches"].append(read_counts())
                     rec["routes"].append({r: r1[r] - r0[r] for r in r1})
+                    rec["bwd_routes"].append(read_bwd_routes())
+                    rec["plain_backward"].append(seen["calls"])
                     rec["collectives"].append(
                         {k: sh.COLLECTIVES[k] - before[k]
                          for k in before})
@@ -4028,12 +4179,17 @@ def sharded_train_step(dev, zero_counts, read_counts, read_routes) -> dict:
                      f"(losses {float(m_s['loss'])} / {float(m_m['loss'])})")
             rec.setdefault("losses", []).append(float(m_s["loss"]))
         bad = [r for r in rec["routes"]
-               if r != fa_routes(torch.bfloat16, 64, per_step)]
-        if bad or any(c != {**NO_KERNELS, "flash_attention": per_step}
-                      for c in rec["launches"]):
+               if r != fa_routes(torch.bfloat16, 64, per_step)] + [
+            r for r in rec["bwd_routes"]
+            if r != bwd_routes(torch.bfloat16, 64, QWEN_LAYERS)]
+        if bad or any(rec["plain_backward"]) or any(
+                c != {**NO_KERNELS, "flash_attention": per_step}
+                for c in rec["launches"]):
             fail(f"sharded steps' launches {rec['launches']}, routes "
-                 f"{rec['routes']}: expected {per_step} tensor-core "
-                 f"flash_attention a step and no other kernel")
+                 f"{rec['routes']}, backward {rec['bwd_routes']}, plain "
+                 f"backward {rec['plain_backward']}: expected {per_step} "
+                 f"tensor-core flash_attention and {QWEN_LAYERS} backward "
+                 f"calls a step and no other kernel")
         if any(c != rec["collectives"][0] for c in rec["collectives"]):
             fail(f"sharded steps' collectives differ: {rec['collectives']}")
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -4633,11 +4789,12 @@ DRY_PHASE_S = 90
 def dry_run_card_step(dev, zero_counts, read_counts, read_routes) -> dict:
     """Phase 28a: ``dryrun.count_step`` of the step on meta tensors, then
     the same step on the card: a warm-up, a timed step, and a step under
-    ``FlopCounterMode`` with each flash_attention launch's shape recorded.
-    The ctypes kernel is invisible to that mode, so the card's count plus
-    the meta route's charge for each launch must equal the dry run's
-    FLOPs exactly; the launches must equal the dry run's calls, shape by
-    shape; the dry run's argument bytes must equal the storage of the
+    ``FlopCounterMode`` with each flash_attention launch's and backward
+    call's shape recorded.  The ctypes kernels are invisible to that mode,
+    so the card's count plus the meta routes' charge for each launch and
+    backward call must equal the dry run's FLOPs exactly; the launches and
+    backward calls must equal the dry run's calls, shape by shape, and no
+    plain backward run; the dry run's argument bytes must equal the storage of the
     card's params, optimizer state and batch (and the allocator's growth
     those bytes rounded up to its 512-byte blocks)."""
     import numpy as np
@@ -4695,7 +4852,8 @@ def dry_run_card_step(dev, zero_counts, read_counts, read_routes) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) - base
 
     seen: dict = {}
-    real = fa_ops.flash_attention_cuda
+    seen_bwd: dict = {}
+    real, real_bwd = fa_ops.flash_attention_cuda, fa_ops.flash_attention_bwd_cuda
 
     def recorded(q, k, v, **kw):
         key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
@@ -4703,36 +4861,62 @@ def dry_run_card_step(dev, zero_counts, read_counts, read_routes) -> dict:
         seen[key] = seen.get(key, 0) + 1
         return real(q, k, v, **kw)
 
+    def recorded_bwd(q, k, v, do, **kw):
+        key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
+                                 causal=kw["causal"], window=kw["window"])
+        seen_bwd[key] = seen_bwd.get(key, 0) + 1
+        return real_bwd(q, k, v, do, **kw)
+
+    def by_shape(calls: dict) -> dict:
+        return {key[:-1] + (str(key[-1]).split(".")[-1],): n
+                for key, n in calls.items()}
+
+    def meta_by_shape(kern: dict) -> dict:
+        return {(c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"],
+                 c["causal"], c["window"], c["dtype"]): c["calls"]
+                for c in kern["calls"]}
+
     zero_counts()
     r0 = read_routes()
     fa_ops.flash_attention_cuda = recorded
+    fa_ops.flash_attention_bwd_cuda = recorded_bwd
     try:
-        with FlopCounterMode(display=False) as fc:
+        with FlopCounterMode(display=False) as fc, \
+                plain_backward_calls() as plain_seen:
             params, state, m = step(params, state, batch)
         torch.cuda.synchronize(dev)
     finally:
         fa_ops.flash_attention_cuda = real
+        fa_ops.flash_attention_bwd_cuda = real_bwd
     launches = read_counts()
     routes = {k: v - r0[k] for k, v in read_routes().items()}
+    b_routes = read_bwd_routes()
     card_flops = fc.get_total_flops()
     charged = sum(n * fa_kernel.charge(key)[0] for key, n in seen.items())
+    charged_bwd = sum(n * fa_kernel.bwd_charge(key)[0]
+                      for key, n in seen_bwd.items())
     kern = rec["kernels"]["flash_attention"]
-    meta_calls = {(c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"],
-                   c["causal"], c["window"], c["dtype"]): c["calls"]
-                  for c in kern["calls"]}
-    card_calls = {key[:-1] + (str(key[-1]).split(".")[-1],): n
-                  for key, n in seen.items()}
+    kern_bwd = rec["kernels"]["flash_attention_bwd"]
     per_step = 2 * QWEN_LAYERS
-    if card_flops + charged != rec["executed"]["flops"]:
+    if card_flops + charged + charged_bwd != rec["executed"]["flops"]:
         fail(f"28a: the card's FLOPs {card_flops} + the flash_attention "
-             f"charges {charged} != the dry run's "
-             f"{rec['executed']['flops']}")
+             f"charges {charged} + the backward's {charged_bwd} != the dry "
+             f"run's {rec['executed']['flops']}")
     if not (launches == {**NO_KERNELS, "flash_attention": per_step}
-            and kern["launches"] == per_step and card_calls == meta_calls
-            and routes == fa_routes(torch.bfloat16, 64, per_step)):
+            and kern["launches"] == per_step
+            and by_shape(seen) == meta_by_shape(kern)
+            and routes == fa_routes(torch.bfloat16, 64, per_step)
+            and kern_bwd["launches"] == QWEN_LAYERS
+            and by_shape(seen_bwd) == meta_by_shape(kern_bwd)
+            and b_routes == bwd_routes(torch.bfloat16, 64, QWEN_LAYERS)
+            and plain_seen["calls"] == 0):
         fail(f"28a: the card's launches {launches} (routes {routes}, "
-             f"shapes {card_calls}) against the dry run's {kern['launches']}"
-             f" ({meta_calls}); expected {per_step} on the tensor cores")
+             f"shapes {by_shape(seen)}; backward {b_routes}, "
+             f"{by_shape(seen_bwd)}; plain backward {plain_seen['calls']}) "
+             f"against the dry run's {kern['launches']} "
+             f"({meta_by_shape(kern)}) and {kern_bwd['launches']} "
+             f"({meta_by_shape(kern_bwd)}); expected {per_step} and "
+             f"{QWEN_LAYERS} on the tensor cores")
     if not math.isfinite(float(m["loss"])):
         fail(f"28a: the card step's loss is {float(m['loss'])}")
     ex = rec["executed"]
@@ -4743,9 +4927,12 @@ def dry_run_card_step(dev, zero_counts, read_counts, read_routes) -> dict:
     return {"arch": "qwen2-0.5b", "batch": DRY_BATCH, "seq": DRY_SEQ,
             "trace_s": trace_s, "flops": ex["flops"],
             "card_flops": card_flops, "flash_attention_charge": charged,
+            "flash_attention_bwd_charge": charged_bwd,
             "flops_equal": True, "hbm_bytes": ex["hbm_bytes"],
             "launches": launches["flash_attention"],
             "dry_run_launches": kern["launches"],
+            "backward_calls": sum(b_routes.values()),
+            "dry_run_backward_calls": kern_bwd["launches"],
             "argument_bytes": args_bytes, "card_storage_bytes": storage,
             "card_allocated_bytes": alloc,
             "predicted_peak_bytes": rec["memory"]["peak_bytes"],
@@ -4898,6 +5085,9 @@ def main(until: int = 28) -> None:
                 mod.ROUTE_LAUNCHES[route] = 0
         for mode in os_kernel.MODE_LAUNCHES:
             os_kernel.MODE_LAUNCHES[mode] = 0
+        fa_kernel.BWD_LAUNCHES = 0
+        for route in fa_kernel.BWD_ROUTE_LAUNCHES:
+            fa_kernel.BWD_ROUTE_LAUNCHES[route] = 0
 
     def read_counts() -> dict:
         return {name: mod.LAUNCHES for name, mod in kernel_modules.items()}
@@ -4935,7 +5125,7 @@ def main(until: int = 28) -> None:
     fa_log = _build.library_path("flash_attention").with_suffix(
         ".log").read_text()
     n_dims = len(fa_kernel.HEAD_DIMS)
-    tf32_spills = spill_bytes(fa_log, "tf32x3")
+    tf32_spills = spill_bytes(fa_log, "flash_attention_tf32x3_kernel")
     if len(tf32_spills) != n_dims or any(tf32_spills.values()):
         fail(f"the TF32 flash_attention kernels (d in "
              f"{fa_kernel.HEAD_DIMS}) spill or are missing from the ptxas "
@@ -4945,10 +5135,16 @@ def main(until: int = 28) -> None:
         fail(f"the tensor-core flash_attention kernels (d in "
              f"{fa_kernel.HEAD_DIMS}) spill or are missing from the ptxas "
              f"report: {wgmma_spills}")
+    # the backward's dq and dk / dv kernels of both routes
+    bwd_spills = spill_bytes(fa_log, "fa_bwd")
+    if len(bwd_spills) != 4 * n_dims or any(bwd_spills.values()):
+        fail(f"the backward flash_attention kernels (d in "
+             f"{fa_kernel.HEAD_DIMS}) spill or are missing from the ptxas "
+             f"report: {bwd_spills}")
     # the TF32 kernels' instruction mix: how many instructions the operand
     # splits and the softmax add to each HMMA
     say("build_sass", tf32x3=sass_mix(_build.library_path("flash_attention"),
-                                      "tf32x3"))
+                                      "flash_attention_tf32x3_kernel"))
 
     rng = np.random.default_rng(0)
     errors = {}
@@ -5454,7 +5650,7 @@ def main(until: int = 28) -> None:
     # ------------------------------------------------------ 24. training
     t24 = time.perf_counter()
     grads24 = train_attention_grads(dev)
-    train_attention_time(dev)
+    bwd24 = train_attention_time(dev, plain)
     fa_train = flash_attention_time(dev, plain, "qwen2-0.5b train",
                                     *FLASH_TIME_SHAPES[0][1:], s_len=2048)
     full24, rec24, ck24 = train_full_width(
@@ -5462,7 +5658,7 @@ def main(until: int = 28) -> None:
     train_resume(train_launcher, dev, ck24, rec24, full24["losses"],
                  read_counts, read_routes)
     del rec24
-    train_gpu_vs_cpu(dev, zero_counts, read_routes)
+    f32_24 = train_gpu_vs_cpu(dev, zero_counts, read_routes)
     train_example(dev, zero_counts, read_routes)
     hs_train = hist_select_train_time(dev, plain)
     say("training", seconds=time.perf_counter() - t24)
@@ -5660,8 +5856,8 @@ def main(until: int = 28) -> None:
         # the tensor-core route on the training path: its launches in
         # phase 24b's 12 full-width qwen2-0.5b steps (2 a layer and step
         # under remat), its forward's time and error at that training
-        # shape (B 4, S 2048) beside sdpa(is_causal=True); the backward is
-        # plain PyTorch (phase 24a's line)
+        # shape (B 4, S 2048) beside sdpa(is_causal=True); the backward's
+        # entries follow
         {"name": "flash_attention_train", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_wgmma.cuh",
@@ -5671,6 +5867,40 @@ def main(until: int = 28) -> None:
          "ms": fa_train["ms"], "plain_ms": fa_train["plain_ms"],
          "bound_ms": fa_train["bound_ms"], "bound_by": fa_train["bound_by"],
          "library_ms": fa_train["sdpa_ms"]},
+        # the backward on the tensor cores (bf16 mma.sync, P and dS split
+        # hi / lo): its calls in phase 24b's 12 steps (one a layer and
+        # step, two kernels each), its largest error over dq, dk, dv at
+        # qwen2-0.5b's training shape (phase 24a, against autograd of the
+        # plain version in float32), its time there in turns with the plain
+        # backward and sdpa's backward alone; the reference's backward is
+        # XLA's autodiff of flash_train, not a Pallas kernel
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cuh",
+         "replaces": "src/repro/models/attention.py:33",
+         "launches": full24["backward_calls"],
+         "max_abs_err": max(grads24["qwen2-0.5b train"][n][0]
+                            for n in ("dq", "dk", "dv")),
+         "ms": bwd24["bfloat16"]["ms"],
+         "plain_ms": bwd24["bfloat16"]["plain_ms"],
+         "bound_ms": bwd24["bfloat16"]["bound_ms"],
+         "bound_by": bwd24["bfloat16"]["bound_by"],
+         "library_ms": bwd24["bfloat16"]["sdpa_bwd_ms"]},
+        # the backward's TF32 route (float32, 3xTF32 mma.sync): its calls
+        # in phase 24d's full-width float32 gradient, its error and time at
+        # the training shape in float32
+        {"name": "flash_attention_bwd_tf32x3", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cuh",
+         "replaces": "src/repro/models/attention.py:33",
+         "launches": f32_24["backward_routes"]["tf32x3"],
+         "max_abs_err": max(grads24["qwen2-0.5b train f32"][n][0]
+                            for n in ("dq", "dk", "dv")),
+         "ms": bwd24["float32"]["ms"],
+         "plain_ms": bwd24["float32"]["plain_ms"],
+         "bound_ms": bwd24["float32"]["bound_ms"],
+         "bound_by": bwd24["float32"]["bound_by"],
+         "library_ms": bwd24["float32"]["sdpa_bwd_ms"]},
         # the sharded path: observe_scatter's launches in phase 25's
         # paper run over a 1-rank mesh, the ranged call's error (lo > 0
         # cases against the plain version and the whole histogram) and the

@@ -17,9 +17,9 @@ the same choice the same way, from the tensor they hold:
   gradient raises (:func:`refuse_grad`) rather than return an output that
   silently carries none.  Training carries attention's gradient through
   ``models.attention.flash_train``, which calls
-  ``kernels.flash_attention.FlashAttentionFn`` (the kernel's forward, a
-  plain backward); the direct wrappers still refuse.  The plain versions
-  stay differentiable.
+  ``kernels.flash_attention.FlashAttentionFn`` (the forward kernel, and
+  the backward kernels by this same rule); the direct wrappers still
+  refuse.  The plain versions stay differentiable.
 
 :class:`KernelBackend` mirrors the reference's ``PallasBackend``: hashable,
 so it rides in the runtime's static config.

@@ -1,5 +1,6 @@
-// flash_attention for Hopper (sm_90a): the C entry points of its two routes,
-// and the CUDA-core kernel that they replaced, kept as a yardstick.
+// flash_attention for Hopper (sm_90a): the C entry points of its two routes
+// and of their backward (flash_attention_bwd.cuh), and the CUDA-core kernel
+// that the routes replaced, kept as a yardstick.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_kernel, flash_attention_pallas): blocked attention with an online
@@ -64,6 +65,7 @@
 
 #include <type_traits>
 
+#include "flash_attention_bwd.cuh"
 #include "flash_attention_tf32x3.cuh"
 #include "flash_attention_wgmma.cuh"
 
@@ -403,6 +405,52 @@ int flash_attention_tf32x3_blocks_per_sm(int d) {
     case 256: return fa_tf32x3::blocks_per_sm<256>();
   }
   return -(int)cudaErrorInvalidValue;
+}
+
+// The backward (flash_attention_bwd.cuh): dq, dk, dv of the function above
+// for q, k, v and dout (the output's gradient, q's shape and dtype), each
+// pointer 16-byte aligned (cp.async); dq like q, dk and dv like k; scratch:
+// stats, float32, 3 x n_bh x ceil(sq / 64) * 64; with q_per_kv > 1 parts,
+// float32, n_bh x 2 x ceil(sk / 64) * 64 x d, and tickets, int32, n_bh /
+// q_per_kv x ceil(sk / 32), zero.  d in 16, 32, 64, 80, 112, 128, 256;
+// sq, sk >= 1.  bf16: the tensor-core route (mma.sync m16n8k16, P
+// and dS split hi + lo); float32: the TF32 route (3xTF32 mma.sync m16n8k8).
+// Returns a cudaError_t.
+#define FA_BWD_ARGS q, k, v, dout, dq, dk, dv, stats, parts, tickets, n_bh, (int)sq, (int)sk, \
+                    q_per_kv, \
+                    causal, window, scale, s
+#define FA_BWD_SWITCH(BF16)                                                   \
+  switch (d) {                                                                \
+    case 16: return fa_bwd::launch<16, BF16>(FA_BWD_ARGS);                    \
+    case 32: return fa_bwd::launch<32, BF16>(FA_BWD_ARGS);                    \
+    case 64: return fa_bwd::launch<64, BF16>(FA_BWD_ARGS);                    \
+    case 80: return fa_bwd::launch<80, BF16>(FA_BWD_ARGS);                    \
+    case 112: return fa_bwd::launch<112, BF16>(FA_BWD_ARGS);                  \
+    case 128: return fa_bwd::launch<128, BF16>(FA_BWD_ARGS);                  \
+    case 256: return fa_bwd::launch<256, BF16>(FA_BWD_ARGS);                  \
+  }                                                                           \
+  return (int)cudaErrorInvalidValue;
+
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* dout,
+                               void* dq, void* dk, void* dv, void* stats, void* parts,
+                               void* tickets, long long n_bh, long long sq, long long sk, int d,
+                               int q_per_kv, int causal, int window, float scale,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sq < 1 || sk < 1 || sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
+    return (int)cudaErrorInvalidValue;
+  FA_BWD_SWITCH(true)
+}
+
+int flash_attention_bwd_tf32x3_launch(const void* q, const void* k, const void* v,
+                                      const void* dout, void* dq, void* dk, void* dv,
+                                      void* stats, void* parts, void* tickets, long long n_bh,
+                                      long long sq, long long sk, int d, int q_per_kv,
+                                      int causal, int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sq < 1 || sk < 1 || sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
+    return (int)cudaErrorInvalidValue;
+  FA_BWD_SWITCH(false)
 }
 
 }  // extern "C"

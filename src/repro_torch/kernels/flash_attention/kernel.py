@@ -27,6 +27,19 @@ kernel's shape; it adds the call to ``META_CALLS`` (keyed by :func:`meta_key`)
 and leaves ``LAUNCHES`` alone.  :func:`charge` is a call's own work: the
 FLOPs of its products over the (query, key) pairs the mask keeps, and q, k,
 v read and the output written once.
+
+The backward (``csrc/flash_attention_bwd.cuh``): :func:`flash_attention_bwd_cuda`
+gives dq, dk and dv on the route :func:`route` names for the forward's dtype
+(bfloat16 on the tensor cores through mma.sync, P and dS split hi + lo;
+float32 on 3xTF32 mma.sync), two kernels a call (dq, then dk / dv, through a
+float32 scratch of each row's max, 1 / sum and D; under GQA the dk / dv
+blocks take a query head each and sum the heads' parts in head order).  ``BWD_LAUNCHES`` counts its
+calls, ``BWD_ROUTE_LAUNCHES`` each route's; the forward's counts do not see
+them.  On ``meta`` tensors :func:`flash_attention_bwd_meta` makes its checks
+and records the call in ``BWD_META_CALLS``; :func:`bwd_charge` is its work:
+five products (Q·Kᵀ again, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q) over the kept pairs,
+10 · d · B·H · pairs FLOPs (the hi / lo split uncounted, as the forward's
+charge counts none), and q, k, v, dO read and dq, dk, dv written once.
 """
 from __future__ import annotations
 
@@ -38,16 +51,22 @@ import torch
 from .. import _build
 from ..dispatch import refuse_grad
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "META_CALLS", "ROUTE_LAUNCHES",
-           "charge", "flash_attention_cuda",
-           "flash_attention_meta", "kept_pairs", "meta_key", "route",
-           "tf32x3_blocks_per_sm"]
+__all__ = ["BWD_LAUNCHES", "BWD_META_CALLS", "BWD_ROUTE_LAUNCHES", "HEAD_DIMS",
+           "LAUNCHES", "META_CALLS", "ROUTE_LAUNCHES", "bwd_charge", "charge",
+           "flash_attention_bwd_cuda", "flash_attention_bwd_meta",
+           "flash_attention_cuda", "flash_attention_meta", "kept_pairs",
+           "meta_key", "route", "tf32x3_blocks_per_sm"]
 
 LAUNCHES = 0
 # launches by route; "cuda_core" counts only the named comparisons
 ROUTE_LAUNCHES = {"tensor_core": 0, "tf32x3": 0, "cuda_core": 0}
 # calls on meta tensors: meta_key(...) -> calls (nothing launched)
 META_CALLS: dict = {}
+# the backward's calls (each launches its route's two kernels), by route,
+# and its calls on meta tensors
+BWD_LAUNCHES = 0
+BWD_ROUTE_LAUNCHES = {"tensor_core": 0, "tf32x3": 0}
+BWD_META_CALLS: dict = {}
 
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,6 +107,12 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_tf32x3_launch.restype = ctypes.c_int
         lib.flash_attention_tf32x3_blocks_per_sm.argtypes = [ctypes.c_int]
         lib.flash_attention_tf32x3_blocks_per_sm.restype = ctypes.c_int
+        bwd = [_P] * 10 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, _P]
+        for fn in (lib.flash_attention_bwd_launch,
+                   lib.flash_attention_bwd_tf32x3_launch):
+            fn.argtypes = bwd
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -237,3 +262,96 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key = meta_key(q, k, q_per_kv=q_per_kv, causal=causal, window=window)
     META_CALLS[key] = META_CALLS.get(key, 0) + 1
     return torch.empty_like(q)
+
+
+# ------------------------------------------------------------ the backward
+# the backward's entry point by route
+_BWD_ENTRY = {"tensor_core": "flash_attention_bwd_launch",
+              "tf32x3": "flash_attention_bwd_tf32x3_launch"}
+
+
+def _check_bwd(q, k, v, do, q_per_kv, window, device_type) -> str:
+    """The forward's checks, and dO's: q's shape, dtype and device,
+    contiguous -> the route."""
+    which = _check(None, q, k, v, q_per_kv, window, device_type)
+    if do.device != q.device or do.dtype != q.dtype or do.shape != q.shape \
+            or not do.is_contiguous():
+        raise ValueError(f"do must be a contiguous {q.dtype} tensor of q's "
+                         f"shape {tuple(q.shape)} on {q.device}")
+    return which
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, *,
+                             q_per_kv: int, causal: bool = True,
+                             window: int | None = None,
+                             sm_scale: float | None = None):
+    """(dq, dk, dv) of :func:`flash_attention_cuda`'s output for its
+    gradient ``do`` (q's shape and dtype), in q's, k's and v's dtype, on the
+    backward kernels of :func:`route`'s route; dk and dv summed over each KV
+    head's ``q_per_kv`` query heads."""
+    global BWD_LAUNCHES
+    which = _check_bwd(q, k, v, do, q_per_kv, window, "cuda")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("the backward's copies need q, k, v and do to start "
+                         "on 16-byte boundaries")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if bh == 0 or sq == 0 or sk == 0:   # nothing to launch: no pair is kept
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # scratch: each query row's max, 1 / sum and D (written by the dq kernel,
+    # read by the dk / dv one), whole 64-row tiles; with q_per_kv > 1 each
+    # query head's part of dk and dv and a zeroed ticket a key block (the
+    # dk / dv kernel's blocks take a head each and the last to finish sums
+    # the parts in head order)
+    stats = torch.empty((3, bh, -(-sq // 64) * 64), dtype=torch.float32,
+                        device=q.device)
+    parts = tickets = stats[:0]
+    if q_per_kv > 1:
+        parts = torch.empty((bh, 2, -(-sk // 64) * 64, d),
+                            dtype=torch.float32, device=q.device)
+        tickets = torch.zeros((bh // q_per_kv, -(-sk // 32)),
+                              dtype=torch.int32, device=q.device)
+    args = (bh, sq, sk, d, q_per_kv, int(causal),
+            -1 if window is None else min(int(window), 2 ** 31 - 1),
+            float(sm_scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(_lib(), _BWD_ENTRY[which])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            parts.data_ptr(), tickets.data_ptr(), *args, stream)
+    BWD_LAUNCHES += 1
+    BWD_ROUTE_LAUNCHES[which] += 1
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward ({which}) launch "
+                           f"failed: CUDA error {rc}")
+    return dq, dk, dv
+
+
+def bwd_charge(key: tuple) -> tuple:
+    """(FLOPs, bytes) of one backward call at :func:`meta_key` ``key``: 10 ·
+    d · B·H · the pairs the mask keeps (five products, two FLOPs a
+    multiply-add), and q, k, v, dO read and dq, dk, dv written once."""
+    bh, sq, sk, d, q_per_kv, causal, window, dtype = key
+    flops = 10 * d * bh * kept_pairs(sq, sk, causal, window)
+    elems = 3 * bh * sq * d + 4 * (bh // q_per_kv) * sk * d
+    return flops, elems * dtype.itemsize
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, *,
+                             q_per_kv: int, causal: bool = True,
+                             window: int | None = None,
+                             sm_scale: float | None = None):
+    """:func:`flash_attention_bwd_cuda`'s checks on ``meta`` tensors and
+    its outputs' shapes and dtypes, with no launch: the call is added to
+    ``BWD_META_CALLS`` (``BWD_LAUNCHES`` counts launches only)."""
+    _check_bwd(q, k, v, do, q_per_kv, window, "meta")
+    key = meta_key(q, k, q_per_kv=q_per_kv, causal=causal, window=window)
+    BWD_META_CALLS[key] = BWD_META_CALLS.get(key, 0) + 1
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

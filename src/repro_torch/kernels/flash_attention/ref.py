@@ -3,9 +3,10 @@
 ``attention_ref`` is the reference's ``ref.py``: repeat each KV head for its
 query heads, f32 scores, mask with -1e30, softmax, zero the rows that have
 no valid key, cast to q's dtype.  ``attention_bwd_ref`` is its backward,
-blocked over query rows (``FlashAttentionFn``'s backward on every device:
-the reference's gradient is XLA's autodiff of its pure-JAX ``flash_train``,
-computed outside any Pallas kernel)."""
+blocked over query rows: ``FlashAttentionFn``'s backward on a CPU tensor
+(the reference's gradient is XLA's autodiff of its pure-JAX
+``flash_train``, computed outside any Pallas kernel), and the plain version
+the backward kernels (``csrc/flash_attention_bwd.cuh``) are held to."""
 from __future__ import annotations
 
 import torch

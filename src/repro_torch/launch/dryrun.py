@@ -9,13 +9,16 @@ storage) as one rank, rank 0, of a fake process group the size of the
 production mesh, and counts what that rank's program does:
 
 * ``executed.flops``: ``torch.utils.flop_counter.FlopCounterMode``'s total
-  plus the work the ``flash_attention`` kernel would do: on meta tensors
-  its wrapper checks its inputs, returns a meta output and records the
-  call (``kernels.flash_attention.kernel.META_CALLS``), and each call is
-  charged ``kernel.charge`` (4 · d · B·H · the pairs the mask keeps);
+  plus the work the ``flash_attention`` kernels would do: on meta tensors
+  the forward's and the backward's wrappers check their inputs, return
+  meta outputs and record the call (``kernels.flash_attention.kernel``'s
+  ``META_CALLS`` and ``BWD_META_CALLS``), and each call is charged
+  ``kernel.charge`` (4 · d · B·H · the pairs the mask keeps) or
+  ``kernel.bwd_charge`` (10 · d · B·H · the pairs);
 * ``executed.hbm_bytes``: the tensor inputs and outputs of every aten op
-  that is not a view (nor an allocation alone), plus the kernel's own
-  bytes (q, k, v read once, the output written once);
+  that is not a view (nor an allocation alone), plus the kernels' own
+  bytes (q, k, v read once, the output written once; the backward's q, k,
+  v, dO read and dq, dk, dv written once);
 * ``executed.collective_*``: the collectives counted at the port's call
   sites (``launch.sharding.recording``), by the reference's kind, wire
   bytes from ``hloanalysis.wire_bytes`` at each call's group size;
@@ -318,12 +321,12 @@ class _Traffic(TorchDispatchMode):
         return out
 
 
-def _kernel_calls() -> dict:
-    """``flash_attention``'s meta calls: launches, own FLOPs and bytes,
-    and the calls by shape."""
+def _kernel_calls(meta_calls: dict, charge) -> dict:
+    """A kernel's meta calls (``meta_calls``, each charged ``charge``):
+    launches, own FLOPs and bytes, and the calls by shape."""
     calls, flops, nbytes = [], 0, 0
-    for key, n in sorted(fa_kernel.META_CALLS.items(), key=str):
-        f, b = fa_kernel.charge(key)
+    for key, n in sorted(meta_calls.items(), key=str):
+        f, b = charge(key)
         flops += n * f
         nbytes += n * b
         bh, sq, sk, d, q_per_kv, causal, window, dtype = key
@@ -340,18 +343,24 @@ def count_step(fn, args) -> dict:
     (flops, hbm_bytes, collectives by the reference's kind), ``memory``
     (argument, output, temp and peak bytes), ``collectives`` (the counted
     collectives' output bytes and calls, the form of
-    :func:`collective_bytes`) and ``kernels`` (``flash_attention``'s
-    calls on the meta route, with their own FLOPs and bytes)."""
+    :func:`collective_bytes`) and ``kernels`` (``flash_attention``'s and
+    its backward's calls on the meta route, ``flash_attention`` and
+    ``flash_attention_bwd``, with their own FLOPs and bytes)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     arg_bytes = _storage_bytes(_tensors(args))
     fa_kernel.META_CALLS.clear()
+    fa_kernel.BWD_META_CALLS.clear()
     traffic = _Traffic(args)
     with sh.recording() as log, FlopCounterMode(display=False) as flops, \
             traffic:
         out = fn(*args)
-    kern = _kernel_calls()
+    kern = {"flash_attention": _kernel_calls(fa_kernel.META_CALLS,
+                                             fa_kernel.charge),
+            "flash_attention_bwd": _kernel_calls(fa_kernel.BWD_META_CALLS,
+                                                 fa_kernel.bwd_charge)}
     fa_kernel.META_CALLS.clear()
+    fa_kernel.BWD_META_CALLS.clear()
     out_bytes = _storage_bytes(_tensors(out))
     wire = {c: 0.0 for c in _COLLECTIVES}
     raw = {c: 0 for c in _COLLECTIVES}
@@ -363,8 +372,10 @@ def count_step(fn, args) -> dict:
         count[k] += 1
     return {
         "executed": {
-            "flops": float(flops.get_total_flops() + kern["flops"]),
-            "hbm_bytes": float(traffic.hbm_bytes + kern["bytes"]),
+            "flops": float(flops.get_total_flops()
+                           + sum(k["flops"] for k in kern.values())),
+            "hbm_bytes": float(traffic.hbm_bytes
+                               + sum(k["bytes"] for k in kern.values())),
             "collective_wire_bytes": wire,
             "collective_count": count,
             "collective_total_bytes": float(sum(wire.values())),
@@ -374,7 +385,7 @@ def count_step(fn, args) -> dict:
         "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
                    "temp_bytes": traffic.peak - arg_bytes,
                    "peak_bytes": traffic.peak},
-        "kernels": {"flash_attention": kern},
+        "kernels": kern,
     }
 
 

@@ -9,8 +9,9 @@
   ``softmax(q kᵀ · scale, mask) v`` with f32 scores, so the port accepts
   them and computes that function once, in the kernel, through
   ``FlashAttentionFn``: when q, k or v requires grad (training), its
-  plain PyTorch backward recomputes the scores ``block_k`` query rows at a
-  time.
+  backward runs the hand-written backward kernels on a CUDA tensor and the
+  plain ``attention_bwd_ref`` on a CPU tensor, which recomputes the scores
+  ``block_k`` query rows at a time.
 * ``decode_step`` — single-token attention against a KV cache with optional
   sliding window and per-KV-page attention-mass telemetry (feeds the tiered
   KV cache manager).  Plain PyTorch, as the reference computes it outside
@@ -52,8 +53,8 @@ def flash_train(
     q3 = q.reshape(b * h, s, d).contiguous()
     k3 = k.reshape(b * kvh, k.shape[2], d).contiguous()
     v3 = v.reshape(b * kvh, v.shape[2], d).contiguous()
-    # the kernel's forward; under grad, the plain blocked backward over
-    # block_k query rows
+    # the kernel's forward; under grad, the backward kernels (the plain
+    # blocked backward over block_k query rows on the CPU)
     out = FlashAttentionFn.apply(q3, k3, v3, h // kvh, causal, window,
                                  sm_scale, block_k)
     return out.reshape(b, h, s, d)

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from repro_torch.examples import dlrm_tiering  # noqa: E402
 from repro_torch.kernels.dispatch import KernelBackend  # noqa: E402
@@ -1086,9 +1088,9 @@ def test_recurrent_family_on_the_card_matches_the_cpu(cuda, arch, act):
 
 
 # the training path: FlashAttentionFn's gradients (the kernel's forward,
-# the plain blocked backward) against autograd of the plain version in
-# float32, each gradient rounded once to the inputs' dtype (the reference's
-# f32 autodiff); float32 within 2e-5 of each tensor's largest magnitude,
+# the backward kernels) against autograd of the plain version in float32,
+# each gradient rounded once to the inputs' dtype (the reference's f32
+# autodiff); float32 within 2e-5 of each tensor's largest magnitude,
 # bfloat16 by the rule of _bf16_check
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.bfloat16, 80),
@@ -1112,10 +1114,15 @@ def test_flash_train_gradient_on_the_card(cuda, dtype, d, b, h, kvh, s,
                                         ((b, h, s, d), 1.0)))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = dict(fa_kernel.ROUTE_LAUNCHES)
+    b_before = dict(fa_kernel.BWD_ROUTE_LAUNCHES)
     out = flash_train(*leaves, window=window, block_k=block)
     got = torch.autograd.grad(out, leaves, do)
     routes = {r: fa_kernel.ROUTE_LAUNCHES[r] - before[r] for r in before}
     assert routes[fa_kernel.route(dtype, d)] == 1 and sum(routes.values()) == 1
+    b_routes = {r: fa_kernel.BWD_ROUTE_LAUNCHES[r] - b_before[r]
+                for r in b_before}
+    assert b_routes[fa_kernel.route(dtype, d)] == 1 \
+        and sum(b_routes.values()) == 1
     ref_in = [t.reshape(-1, s, d).float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(
         attention_ref(*ref_in, q_per_kv=h // kvh, window=window), ref_in,
@@ -1127,6 +1134,64 @@ def test_flash_train_gradient_on_the_card(cuda, dtype, d, b, h, kvh, s,
             assert float((g - w).abs().max()) <= 2e-5 * float(w.abs().max())
         else:
             _bf16_check(g, w)
+
+
+# the backward kernels alone against the plain backward, attention_bwd_ref,
+# on the same card inputs (both round one float32 result once): float32
+# within 2e-5 of each gradient's largest magnitude, bfloat16 by the rule of
+# _bf16_check; GQA with ragged S, rows without any key (dq 0 there), and
+# non-causal Sq < Sk with a window
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("b,h,kvh,sq,sk,causal,window", [
+    (2, 14, 2, 300, 300, True, None),
+    (1, 4, 1, 190, 70, True, 3),        # rows 73-189 see no key
+    (1, 4, 2, 130, 200, False, 17),
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype,
+                                                  d, b, h, kvh, sq, sk,
+                                                  causal, window):
+    """One backward call adds one to its route's BWD_ROUTE_LAUNCHES (and
+    nothing to the forward's counts) and reaches no plain code; a second
+    call on the same input gives the same bits."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    rng = np.random.default_rng(sq * d + sk)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                    * scale).to(cuda, dtype)
+                   for shape, scale in (((b * h, sq, d), 3.0),
+                                        ((b * kvh, sk, d), 1.0),
+                                        ((b * kvh, sk, d), 1.0),
+                                        ((b * h, sq, d), 1.0)))
+    kw = dict(q_per_kv=h // kvh, causal=causal, window=window)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain backward ran on the card")
+
+    before = (dict(fa_kernel.BWD_ROUTE_LAUNCHES), fa_kernel.LAUNCHES)
+    with monkeypatch.context() as mp:
+        mp.setattr(fa_ops, "attention_bwd_ref", plain)
+        got = flash_attention_bwd(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        b_routes = {r: n - before[0][r]
+                    for r, n in fa_kernel.BWD_ROUTE_LAUNCHES.items()}
+        again = flash_attention_bwd(q, k, v, do, **kw)
+    want = dict.fromkeys(b_routes, 0)
+    want[fa_kernel.route(dtype, d)] = 1
+    assert b_routes == want and fa_kernel.LAUNCHES == before[1]
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ref = attention_bwd_ref(q, k, v, do, **kw)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if dtype == torch.float32:
+            assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max())
+        else:
+            _bf16_check(g, r)
+    keyless = [i for i in range(sq) if (min(i, sk - 1) if causal else sk - 1)
+               < (0 if window is None else max(0, i - window))]
+    assert not got[0][:, keyless].any()
 
 
 @pytest.mark.cuda
@@ -1160,6 +1225,7 @@ def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
         params = params_from_numpy(tree, device=dev)
         b = {key: t.to(dev) for key, t in batch.items()}
         before = dict(fa_kernel.ROUTE_LAUNCHES)
+        b_before = dict(fa_kernel.BWD_ROUTE_LAUNCHES)
         if dev.type == "cuda":
             torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1174,6 +1240,11 @@ def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
             want = dict.fromkeys(routes, 0)
             want[fa_kernel.route(torch.float32, cfg.head_dim)] = 2 * n_attn
             assert routes == want
+            b_routes = {r: fa_kernel.BWD_ROUTE_LAUNCHES[r] - b_before[r]
+                        for r in b_before}
+            want = dict.fromkeys(b_routes, 0)
+            want[fa_kernel.route(torch.float32, cfg.head_dim)] = n_attn
+            assert b_routes == want
     (gp, _, gm), (cp, _, cm) = out
     for key in ("loss", "grad_norm"):
         torch.testing.assert_close(gm[key].cpu(), cm[key], rtol=1e-4,
@@ -1346,11 +1417,12 @@ def test_dry_run_counts_the_card_step(cuda):
     its published widths with 2 of its 24 layers (bf16 activations, remat
     "full", AdamW), B 2, S 512.  ``launch.dryrun.count_step`` on meta
     tensors against the same step on the card under ``FlopCounterMode``
-    (which cannot see the ctypes kernel): the card's FLOPs plus the meta
-    route's charge for each recorded launch equal the dry run's exactly;
-    the launches equal the dry run's calls, shape by shape (2 a layer,
-    tensor-core route); the dry run's argument bytes equal the storage of
-    the card's params, optimizer state and batch."""
+    (which cannot see the ctypes kernels): the card's FLOPs plus the meta
+    routes' charge for each recorded launch and backward call equal the dry
+    run's exactly; the launches and backward calls equal the dry run's
+    calls, shape by shape (2 and 1 a layer, tensor-core route); the dry
+    run's argument bytes equal the storage of the card's params, optimizer
+    state and batch."""
     import dataclasses
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
@@ -1377,8 +1449,8 @@ def test_dry_run_counts_the_card_step(cuda):
     assert rec["memory"]["argument_bytes"] == sum(
         t.untyped_storage().nbytes() for t in leaves((params, state, batch)))
     params, state, _ = step(params, state, batch)        # warm-up
-    seen = {}
-    real = fa_ops.flash_attention_cuda
+    seen, seen_bwd = {}, {}
+    real, real_bwd = fa_ops.flash_attention_cuda, fa_ops.flash_attention_bwd_cuda
 
     def recorded(q, k, v, **kw):
         key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
@@ -1386,21 +1458,36 @@ def test_dry_run_counts_the_card_step(cuda):
         seen[key] = seen.get(key, 0) + 1
         return real(q, k, v, **kw)
 
+    def recorded_bwd(q, k, v, do, **kw):
+        key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
+                                 causal=kw["causal"], window=kw["window"])
+        seen_bwd[key] = seen_bwd.get(key, 0) + 1
+        return real_bwd(q, k, v, do, **kw)
+
     before = dict(fa_kernel.ROUTE_LAUNCHES)
+    b_before = dict(fa_kernel.BWD_ROUTE_LAUNCHES)
     fa_ops.flash_attention_cuda = recorded
+    fa_ops.flash_attention_bwd_cuda = recorded_bwd
     try:
         with FlopCounterMode(display=False) as fc:
             step(params, state, batch)
         torch.cuda.synchronize()
     finally:
         fa_ops.flash_attention_cuda = real
-    charged = sum(n * fa_kernel.charge(key)[0] for key, n in seen.items())
+        fa_ops.flash_attention_bwd_cuda = real_bwd
+    charged = sum(n * fa_kernel.charge(key)[0] for key, n in seen.items()) \
+        + sum(n * fa_kernel.bwd_charge(key)[0] for key, n in seen_bwd.items())
     assert fc.get_total_flops() + charged == rec["executed"]["flops"]
-    kern = rec["kernels"]["flash_attention"]
-    assert {key[:-1] + (str(key[-1]).split(".")[-1],): n
-            for key, n in seen.items()} == {
-        (c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"], c["causal"],
-         c["window"], c["dtype"]): c["calls"] for c in kern["calls"]}
-    assert kern["launches"] == 2 * cfg.n_layers
+    for calls, name in ((seen, "flash_attention"),
+                        (seen_bwd, "flash_attention_bwd")):
+        kern = rec["kernels"][name]
+        assert {key[:-1] + (str(key[-1]).split(".")[-1],): n
+                for key, n in calls.items()} == {
+            (c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"], c["causal"],
+             c["window"], c["dtype"]): c["calls"] for c in kern["calls"]}
+    assert rec["kernels"]["flash_attention"]["launches"] == 2 * cfg.n_layers
+    assert rec["kernels"]["flash_attention_bwd"]["launches"] == cfg.n_layers
     assert fa_kernel.ROUTE_LAUNCHES["tensor_core"] \
         - before["tensor_core"] == 2 * cfg.n_layers
+    assert fa_kernel.BWD_ROUTE_LAUNCHES["tensor_core"] \
+        - b_before["tensor_core"] == cfg.n_layers

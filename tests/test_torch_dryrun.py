@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
@@ -46,6 +48,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_sharding_overrides  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,  # noqa: E402
+                                                 attention_bwd_ref,
                                                  attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -214,12 +217,31 @@ def attention_ref_flops(call: dict) -> int:
     return f.get_total_flops()
 
 
+def attention_bwd_ref_flops(call: dict) -> int:
+    """FlopCounterMode's count of the plain backward at a recorded
+    backward call's shape, in blocks of 512 query rows (the configs'
+    ``attn_block_k``, which ``flash_train`` passes it)."""
+    dt = getattr(torch, call["dtype"])
+    q = torch.empty(call["bh"], call["sq"], call["d"], dtype=dt,
+                    device="meta")
+    k = torch.empty(call["bh"] // call["q_per_kv"], call["sk"], call["d"],
+                    dtype=dt, device="meta")
+    with FlopCounterMode(display=False) as f:
+        attention_bwd_ref(q, k, k, q, q_per_kv=call["q_per_kv"],
+                          causal=call["causal"], window=call["window"],
+                          block_q=512)
+    return f.get_total_flops()
+
+
 def swapped(rec: dict) -> float:
     """``count_step``'s FLOPs with each flash_attention charge swapped for
-    the plain version's count at its shape."""
+    the plain version's count at its shape, and each backward charge for
+    the plain backward's."""
     flops = rec["executed"]["flops"]
     for c in rec["kernels"]["flash_attention"]["calls"]:
         flops += c["calls"] * (attention_ref_flops(c) - c["flops"])
+    for c in rec["kernels"]["flash_attention_bwd"]["calls"]:
+        flops += c["calls"] * (attention_bwd_ref_flops(c) - c["flops"])
     return flops
 
 
@@ -283,10 +305,13 @@ def reference_flops(arch: str, kind: str) -> float:
 def test_meta_trace_follows_the_program(arch, kind):
     rec, cpu_flops = port_counts(arch, kind)
     calls = rec["kernels"]["flash_attention"]["launches"]
+    bwd_calls = rec["kernels"]["flash_attention_bwd"]["launches"]
     if get_smoke_config(arch).family == "rwkv6" or kind == "decode":
         assert calls == 0
     else:
         assert calls > 0
+    # one backward an attention under grad (the train step's), none else
+    assert bwd_calls == (calls // 2 if kind == "train" else 0)
     assert swapped(rec) == cpu_flops
 
 

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.embedding_bag import (embedding_bag as jax_bag,  # noqa: E402

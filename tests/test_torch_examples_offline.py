@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from repro_torch.examples import hinted_prefetch, quickstart  # noqa: E402
 

@@ -38,6 +38,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from repro.dlrm import datagen as jdata  # noqa: E402
 from repro.export import ExportClient as JExportClient  # noqa: E402

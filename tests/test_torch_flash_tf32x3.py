@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
 

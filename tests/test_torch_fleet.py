@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from _hypothesis_compat import given, settings, st  # noqa: E402
 from repro.dlrm import datagen as jdata  # noqa: E402

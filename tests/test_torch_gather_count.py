@@ -11,6 +11,8 @@ import pytest
 from _hypothesis_compat import given, settings, st
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.gather_count import gather_count as jax_gather_count  # noqa: E402

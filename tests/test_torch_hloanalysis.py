@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

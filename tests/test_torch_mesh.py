@@ -25,6 +25,8 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 import _torch_mesh_worker as mw  # noqa: E402
 from repro.dlrm import datagen as jdata  # noqa: E402

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from repro.scenarios import MmapBenchScenario as JMmap  # noqa: E402
 from repro.scenarios import build_hints as jbuild_hints  # noqa: E402

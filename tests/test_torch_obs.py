@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 import repro.export as jexport  # noqa: E402
 import repro.obs as jobs  # noqa: E402

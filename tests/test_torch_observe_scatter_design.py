@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from _hypothesis_compat import given, settings, st  # noqa: E402
 from repro_torch.dlrm import datagen  # noqa: E402

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from repro_torch.core import TieringManager  # noqa: E402
 from repro_torch.core.runtime import ALL_POLICIES, EpochRuntime, Tenancy  # noqa: E402

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import selectk as jsel  # noqa: E402

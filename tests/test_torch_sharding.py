@@ -11,6 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import _torch_threads
+_torch_threads.limit()
 
 from repro.configs import ARCH_IDS
 from repro.configs import get_config as j_config

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

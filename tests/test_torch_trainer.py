@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
+_torch_threads.limit()
 
 from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.examples import train_100m  # noqa: E402
