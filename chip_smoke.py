@@ -3342,6 +3342,9 @@ TRAIN_GRAD_CASES = [
 TRAIN_BLOCK_Q = 512
 # 24a's timed shape, qwen2-0.5b's training attention: (B, H, KVH, S, d)
 TRAIN_TIME_SHAPE = (4, 14, 2, 2048, 64)
+# the __global__ kernels one backward call launches (flash_attention_bwd.cuh's
+# launch: dq_kernel, then dkv_kernel); BWD_ROUTE_LAUNCHES counts calls
+BWD_KERNELS_A_CALL = 2
 # float32 gradients: within 2e-5 of each tensor's largest magnitude (the
 # same float32 products summed in another order); bfloat16 by FLASH_TOL's
 # rule (both round one float32 result once)
@@ -3483,7 +3486,7 @@ def peak_bytes(fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def train_attention_time(dev, plain) -> dict:
+def train_attention_time(dev) -> dict:
     """Phase 24a's times at qwen2-0.5b's training shape (B 4, H 14, KVH 2,
     S 2048, d 64, causal), in bfloat16 (the tensor-core route) and float32
     (the TF32 route), each in turns: the backward kernels
@@ -3500,7 +3503,8 @@ def train_attention_time(dev, plain) -> dict:
     dq kernel's second sweep, dq, dk and dv twice for the hi / lo split),
     nine in float32, three TF32 products each.  -> {dtype: its times}."""
     import torch
-    from repro_torch.kernels.flash_attention import (attention_ref,
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref,
                                                      flash_attention,
                                                      flash_attention_bwd)
     b, h, kvh, s, d = TRAIN_TIME_SHAPE
@@ -3523,8 +3527,8 @@ def train_attention_time(dev, plain) -> dict:
             return flash_attention_bwd(q, k, v, do, q_per_kv=g)
 
         def plain_bwd():
-            return flash_attention_bwd(q, k, v, do, q_per_kv=g,
-                                       block_q=TRAIN_BLOCK_Q, backend=plain)
+            return attention_bwd_ref(q, k, v, do, q_per_kv=g,
+                                     block_q=TRAIN_BLOCK_Q)
 
         def sdpa_bwd():
             return torch.autograd.grad(o4, leaves4, do4, retain_graph=True)
@@ -5650,7 +5654,7 @@ def main(until: int = 28) -> None:
     # ------------------------------------------------------ 24. training
     t24 = time.perf_counter()
     grads24 = train_attention_grads(dev)
-    bwd24 = train_attention_time(dev, plain)
+    bwd24 = train_attention_time(dev)
     fa_train = flash_attention_time(dev, plain, "qwen2-0.5b train",
                                     *FLASH_TIME_SHAPES[0][1:], s_len=2048)
     full24, rec24, ck24 = train_full_width(
@@ -5868,17 +5872,19 @@ def main(until: int = 28) -> None:
          "bound_ms": fa_train["bound_ms"], "bound_by": fa_train["bound_by"],
          "library_ms": fa_train["sdpa_ms"]},
         # the backward on the tensor cores (bf16 mma.sync, P and dS split
-        # hi / lo): its calls in phase 24b's 12 steps (one a layer and
-        # step, two kernels each), its largest error over dq, dk, dv at
-        # qwen2-0.5b's training shape (phase 24a, against autograd of the
-        # plain version in float32), its time there in turns with the plain
-        # backward and sdpa's backward alone; the reference's backward is
-        # XLA's autodiff of flash_train, not a Pallas kernel
+        # hi / lo): its wrapper calls in phase 24b's 12 steps (one a layer
+        # and step) and its kernel launches (two a call), its largest
+        # error over dq, dk, dv at qwen2-0.5b's training shape (phase 24a,
+        # against autograd of the plain version in float32), its time there
+        # in turns with the plain backward and sdpa's backward alone; the
+        # reference's backward is XLA's autodiff of flash_train, not a
+        # Pallas kernel
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cuh",
          "replaces": "src/repro/models/attention.py:33",
-         "launches": full24["backward_calls"],
+         "calls": full24["backward_calls"],
+         "launches": BWD_KERNELS_A_CALL * full24["backward_calls"],
          "max_abs_err": max(grads24["qwen2-0.5b train"][n][0]
                             for n in ("dq", "dk", "dv")),
          "ms": bwd24["bfloat16"]["ms"],
@@ -5887,13 +5893,14 @@ def main(until: int = 28) -> None:
          "bound_by": bwd24["bfloat16"]["bound_by"],
          "library_ms": bwd24["bfloat16"]["sdpa_bwd_ms"]},
         # the backward's TF32 route (float32, 3xTF32 mma.sync): its calls
-        # in phase 24d's full-width float32 gradient, its error and time at
-        # the training shape in float32
+        # and kernel launches in phase 24d's full-width float32 gradient,
+        # its error and time at the training shape in float32
         {"name": "flash_attention_bwd_tf32x3", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cuh",
          "replaces": "src/repro/models/attention.py:33",
-         "launches": f32_24["backward_routes"]["tf32x3"],
+         "calls": f32_24["backward_routes"]["tf32x3"],
+         "launches": BWD_KERNELS_A_CALL * f32_24["backward_routes"]["tf32x3"],
          "max_abs_err": max(grads24["qwen2-0.5b train f32"][n][0]
                             for n in ("dq", "dk", "dv")),
          "ms": bwd24["float32"]["ms"],

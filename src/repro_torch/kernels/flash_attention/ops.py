@@ -51,17 +51,18 @@ def flash_attention_bwd(
     window: int | None = None,
     sm_scale: float | None = None,
     block_q: int = 512,
-    backend: KernelBackend = DEFAULT_BACKEND,
 ):
     """(dq, dk, dv) of :func:`flash_attention` for the output's gradient
-    ``do``.  ``block_q``: the query rows a block of the plain version
-    (``attention_bwd_ref``); the kernels take their own tiles."""
+    ``do``: a CUDA tensor always launches the kernels (there is no plain
+    route on the card), a CPU tensor runs ``attention_bwd_ref``.
+    ``block_q``: the query rows a block of that plain version; the kernels
+    take their own tiles."""
     kw = dict(q_per_kv=q_per_kv, causal=causal, window=window,
               sm_scale=sm_scale)
     if q.device.type == "meta":
         return flash_attention_bwd_meta(q.contiguous(), k.contiguous(),
                                         v.contiguous(), do.contiguous(), **kw)
-    if not use_kernel(q, backend):
+    if not use_kernel(q):
         return attention_bwd_ref(q, k, v, do, block_q=block_q, **kw)
     return flash_attention_bwd_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), do.contiguous(), **kw)
