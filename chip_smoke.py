@@ -12,8 +12,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
    the ``ptxas`` register and spill report of each; the TF32
    flash_attention kernels, the tensor-core ones and the backward's four
    kernels (dq and dk / dv of each route) at every head dim (16, 32, 64, 80,
-   112, 128, 256) must not spill, and the TF32 kernels' static SASS
-   instruction mix is printed);
+   112, 128, 256) must not spill, the bf16 backward's two kernels at d 64
+   and 128 must issue wgmma (HGMMA in their SASS) and no warp-level HMMA,
+   and the TF32 kernels' static SASS instruction mix is printed);
 3. observe_scatter vs its plain version, exact, with and without a keep
    mask, each case on the table mode ``kernel.table_mode`` names (direct:
    slot = id; hashed): 5,000 blocks (SMALL) and 88 (the KV scenario);
@@ -241,8 +242,10 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     ragged S 1,000, non-causal Sq > Sk, and d 16, 32, 112 and 256 in both
     dtypes and float32 at 80 and 128 (a window, ragged S, rows without any
     key, whose dq must be 0); one forward and one backward launch each on
-    its route, and a second backward bit for bit equal to the first; at
-    the qwen2 shape, in both dtypes, the backward kernels, the plain
+    its route, a second backward (from the forward's saved lse and float32
+    output) bit for bit equal to the first, and that lse against
+    ``attention_lse_ref`` (LSE_TOL); at the qwen2 shape, in both dtypes,
+    the backward kernels (from the saved lse and output), the plain
     backward, ``scaled_dot_product_attention``'s backward alone and its
     forward + backward (and in bfloat16 the forward kernel and the plain
     version's forward + backward) timed in turns, beside the backward's
@@ -384,14 +387,21 @@ def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, sort_keys=True), flush=True)
 
 
+_SASS: dict = {}
+
+
 def sass_text(library: Path, marker: str) -> dict:
     """{function: its SASS instructions, addresses and encodings taken
     out} of the functions in ``library`` whose (mangled) names hold
-    ``marker``."""
+    ``marker`` (``cuobjdump -sass`` once a library and process)."""
     from repro_torch.kernels import _build
-    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
-                           "-sass", str(library)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
+    key = str(library)
+    if key not in _SASS:
+        _SASS[key] = subprocess.run(
+            [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+             str(library)], capture_output=True, text=True, timeout=120,
+            check=True).stdout
+    sass = _SASS[key]
     out, fn = {}, None
     for ln in sass.splitlines():
         head = re.search(r"Function : (\S+)", ln)
@@ -1545,21 +1555,23 @@ def flash_attention_time(dev, plain, label: str, b: int, h: int, kvh: int,
     return out
 
 
-def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
-    """The tensor-core route (bfloat16) and the TF32 route (float32) at d
-    64 and 128, at FLASH_TIME_SHAPES (causal, S=4096), in turns with a build
-    of other sources of the same kernels: ``parent_csrc`` holds an earlier
-    ``csrc/`` of flash_attention (e.g. ``git archive <commit>
+_PARENT_LIBS: dict = {}
+
+
+def parent_flash_library(parent_csrc: Path):
+    """(library, new_abi): ``parent_csrc``, an earlier ``csrc/`` of
+    flash_attention (e.g. ``git archive <commit>
     src/repro_torch/kernels/flash_attention/csrc``, unpacked under the
-    git-ignored ``build/``), built here with ``_build.NVCC_FLAGS``.  Order:
-    other, this, this, other; both outputs within FLASH_TOL of the plain
-    version.  Also whether the two builds' SASS of each of those
-    instantiations is the same, instruction for instruction."""
+    git-ignored ``build/``), built here once with ``_build.NVCC_FLAGS`` and
+    bound with ctypes.  ``new_abi``: its launchers take the saved lse (and
+    bf16 float32 output) and its backward takes them (the ABI since the
+    forward saves its lse); before that the forward launchers took neither
+    and the backward recomputed them from q, k, v and dO."""
     import ctypes
-    import torch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    key = str(parent_csrc)
+    if key in _PARENT_LIBS:
+        return _PARENT_LIBS[key]
     lib_path = ROOT / "build" / "parent_flash" / "flash_attention.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     # -fno-gnu-unique: the launchers' function-local statics (the shared
@@ -1570,49 +1582,96 @@ def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
                     str(parent_csrc / "flash_attention.cu")], check=True,
                    capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(lib_path))
-    P = ctypes.c_void_p
-    for name in ("flash_attention_wgmma_launch",
-                 "flash_attention_tf32x3_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float, P]
-        fn.restype = ctypes.c_int
+    new_abi = "void* lse" in (parent_csrc / "flash_attention.cu").read_text()
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    common = [P, P, P, P, LL, LL, LL, I, I, I, I, ctypes.c_float]
+    lib.flash_attention_wgmma_launch.argtypes = common + (
+        [P, P, P] if new_abi else [P])
+    lib.flash_attention_tf32x3_launch.argtypes = common + (
+        [P, P] if new_abi else [P])
+    for fn in (lib.flash_attention_bwd_launch,
+               lib.flash_attention_bwd_tf32x3_launch):
+        fn.argtypes = ([P] * 12 + [LL] * 3 + [I] * 4 + [ctypes.c_float, LL, P]
+                       if new_abi else
+                       [P] * 10 + [LL] * 3 + [I] * 4 + [ctypes.c_float, P])
+    for fn in (lib.flash_attention_wgmma_launch,
+               lib.flash_attention_tf32x3_launch,
+               lib.flash_attention_bwd_launch,
+               lib.flash_attention_bwd_tf32x3_launch):
+        fn.restype = I
+    _PARENT_LIBS[key] = (lib, new_abi, lib_path)
+    return _PARENT_LIBS[key]
 
-    def parent(q, k, v, q_per_kv):
+
+def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
+    """The forward in turns with a build of other sources of the same
+    kernels (``parent_flash_library``), causal: the tensor-core route
+    (bfloat16) and the TF32 route (float32) at FLASH_TIME_SHAPES (S 4,096;
+    rows 5 and 5c), the tensor-core route at ZAMBA2_TIME_SHAPE and
+    KIMI_TIME_SHAPE (rows 5z and 5k), no lse asked of either, as in
+    serving; and at qwen2-0.5b's training shape (S 2,048, bfloat16, row 5t)
+    this build's saving forward (``return_lse``: the lse and the float32
+    output written too, FlashAttentionFn's) against the other's forward as
+    FlashAttentionFn ran it there (with the lse, where its ABI takes one).
+    Order: other, this, this, other; both outputs within FLASH_TOL of the
+    plain version.  Also whether the two builds' SASS of the d 64 and 128
+    instantiations is the same, instruction for instruction."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    lib, new_abi, lib_path = parent_flash_library(parent_csrc)
+
+    def parent(q, k, v, q_per_kv, saving=False):
         bh, sq, d = q.shape
         out = torch.empty_like(q)
-        fn = (lib.flash_attention_wgmma_launch if q.dtype == torch.bfloat16
+        bf16 = q.dtype == torch.bfloat16
+        fn = (lib.flash_attention_wgmma_launch if bf16
               else lib.flash_attention_tf32x3_launch)
+        extra = ()
+        if new_abi:
+            lse, out32 = fa_kernel._saved(out) if saving else (None, None)
+            extra = (None if lse is None else lse.data_ptr(),) + (
+                (None if out32 is None else out32.data_ptr(),) if bf16 else ())
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bh, sq, k.shape[1], d, q_per_kv, 1, -1, d ** -0.5,
+                bh, sq, k.shape[1], d, q_per_kv, 1, -1, d ** -0.5, *extra,
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             fail(f"the other build's flash_attention launch failed: {rc}")
         return out
 
+    cases = [(label, b, h, kvh, d, dtype, 4096, False)
+             for label, b, h, kvh, d in FLASH_TIME_SHAPES
+             for dtype in ("bfloat16", "float32")]
+    cases += [(label, b, h, kvh, d, "bfloat16", 4096, False)
+              for label, b, h, kvh, d in (ZAMBA2_TIME_SHAPE, KIMI_TIME_SHAPE)]
+    cases.append(("qwen2-0.5b train, saving", *FLASH_TIME_SHAPES[0][1:],
+                  "bfloat16", 2048, True))
     res = {}
-    for label, b, h, kvh, d in FLASH_TIME_SHAPES:
-        for dtype in ("bfloat16", "float32"):
-            q, k, v = qkv(dev, 99, b, h, kvh, 4096, 4096, d, dtype)
-            kw = dict(q_per_kv=h // kvh)
-            ms, other_ms = in_turns(lambda: parent(q, k, v, h // kvh),
-                                    lambda: flash_attention(q, k, v, **kw), 5)
-            ref = flash_attention(q, k, v, backend=plain, **kw)
-            errs = []
-            for got in (flash_attention(q, k, v, **kw),
-                        parent(q, k, v, h // kvh)):
-                err, share, ok = flash_verdict(got, ref, dtype)
-                if not ok:
-                    fail(f"flash_attention ({label}, {dtype}) differs from "
-                         f"its plain version: {err}, {share}")
-                errs.append(err)
-            res[f"{label} {dtype}"] = dict(
-                route=fa_kernel.route(q.dtype, d), ms=ms, other_ms=other_ms,
-                ms_over_other_ms=ms / other_ms, max_abs_err=errs[0],
-                other_max_abs_err=errs[1])
-            del q, k, v, ref
-            free_device_memory()
+    for label, b, h, kvh, d, dtype, s_len, saving in cases:
+        q, k, v = qkv(dev, 99, b, h, kvh, s_len, s_len, d, dtype)
+        kw = dict(q_per_kv=h // kvh)
+
+        def ours():
+            out = flash_attention(q, k, v, return_lse=saving, **kw)
+            return out[0] if saving else out
+        ms, other_ms = in_turns(lambda: parent(q, k, v, h // kvh, saving),
+                                ours, 5)
+        ref = flash_attention(q, k, v, backend=plain, **kw)
+        errs = []
+        for got in (ours(), parent(q, k, v, h // kvh, saving)):
+            err, share, ok = flash_verdict(got, ref, dtype)
+            if not ok:
+                fail(f"flash_attention ({label}, {dtype}) differs from "
+                     f"its plain version: {err}, {share}")
+            errs.append(err)
+        res[f"{label} {dtype}"] = dict(
+            route=fa_kernel.route(q.dtype, d), shape=[b, h, kvh, s_len, d],
+            saving=saving, ms=ms, other_ms=other_ms,
+            ms_over_other_ms=ms / other_ms, max_abs_err=errs[0],
+            other_max_abs_err=errs[1])
+        del q, k, v, ref
+        free_device_memory()
     ours = _build.library_path("flash_attention")
     same = {}
     for marker in ("fa_wgmma_kernelILi64E", "fa_wgmma_kernelILi128E",
@@ -1622,6 +1681,83 @@ def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
             len(x) for x in b_.values()] + [list(a.values())
                                             == list(b_.values())]
     say("flash_parent_in_turns", times=res, sass_lengths_and_same=same)
+    return res
+
+
+def flash_bwd_parent_in_turns(dev, parent_csrc: Path) -> dict:
+    """The backward at TRAIN_TIME_SHAPE (qwen2-0.5b's training attention),
+    bfloat16 and float32, in turns with the backward of another build
+    (``parent_flash_library``): other, this, this, other.  This build's is
+    timed from the forward's saved lse and float32 output, as phase 24a's
+    time; the other's from what its ABI takes (q, k, v and dO alone before
+    the forward saved its lse).  Both within ``grad_verdict`` of
+    ``attention_bwd_ref`` on the same input."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    lib, new_abi, _ = parent_flash_library(parent_csrc)
+    b, h, kvh, s, d = TRAIN_TIME_SHAPE
+    g = h // kvh
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = qkv(dev, 250, b, h, kvh, s, s, d, dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(350)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        _, lse, o32 = flash_attention(q, k, v, q_per_kv=g, return_lse=True)
+        fn = (lib.flash_attention_bwd_launch if dtype == "bfloat16"
+              else lib.flash_attention_bwd_tf32x3_launch)
+        f32 = dict(dtype=torch.float32, device=dev)
+
+        def parent():
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            tickets = torch.zeros((b * kvh, -(-s // 32)), dtype=torch.int32,
+                                  device=dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if new_abi:
+                pad = -(-s // 128) * 128
+                stats = torch.empty((2, b * h, pad), **f32)
+                parts = torch.empty((b * h, 2, pad, -(-d // 64) * 64), **f32)
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o32.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        stats.data_ptr(), parts.data_ptr(),
+                        tickets.data_ptr(), b * h, s, s, d, g, 1, -1,
+                        d ** -0.5, pad, stream)
+            else:
+                pad = -(-s // 64) * 64
+                stats = torch.empty((3, b * h, pad), **f32)
+                parts = torch.empty((b * h, 2, pad, d), **f32)
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), stats.data_ptr(), parts.data_ptr(),
+                        tickets.data_ptr(), b * h, s, s, d, g, 1, -1,
+                        d ** -0.5, stream)
+            if rc != 0:
+                fail(f"the other build's backward launch failed: {rc}")
+            return dq, dk, dv
+
+        def ours():
+            return flash_attention_bwd(q, k, v, o32, do, lse, q_per_kv=g)
+
+        ms, other_ms = in_turns(parent, ours, 3)
+        want = attention_bwd_ref(q, k, v, do, q_per_kv=g,
+                                 block_q=TRAIN_BLOCK_Q)
+        errs = {}
+        for who, got in (("ms", ours()), ("other_ms", parent())):
+            for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+                err, share, ok = grad_verdict(gt, wt, dtype)
+                if not ok:
+                    fail(f"the backward ({who}, {dtype}) {name} differs from "
+                         f"attention_bwd_ref: {err}, {share}")
+                errs[f"{who}_{name}"] = [err] + share
+        res[dtype] = dict(ms=ms, other_ms=other_ms,
+                          ms_over_other_ms=ms / other_ms, errors=errs,
+                          other_abi="saved" if new_abi else "recompute")
+        del q, k, v, do, lse, o32, want
+        free_device_memory()
+    say("flash_bwd_parent_in_turns", **res)
     return res
 
 
@@ -3343,12 +3479,17 @@ TRAIN_BLOCK_Q = 512
 # 24a's timed shape, qwen2-0.5b's training attention: (B, H, KVH, S, d)
 TRAIN_TIME_SHAPE = (4, 14, 2, 2048, 64)
 # the __global__ kernels one backward call launches (flash_attention_bwd.cuh's
-# launch: dq_kernel, then dkv_kernel); BWD_ROUTE_LAUNCHES counts calls
+# and flash_attention_bwd_wgmma.cuh's launch: the dq kernel, then the dk / dv
+# kernel); BWD_ROUTE_LAUNCHES counts calls
 BWD_KERNELS_A_CALL = 2
 # float32 gradients: within 2e-5 of each tensor's largest magnitude (the
 # same float32 products summed in another order); bfloat16 by FLASH_TOL's
 # rule (both round one float32 result once)
 GRAD_F32_TOL_OF_MAX = 2e-5
+# the forward's saved lse (log2 units) against attention_lse_ref's: within
+# 1e-5 of max(1, its largest magnitude) (float32 sums in another order, the
+# kernels' exp2 approximate to 2 ulp)
+LSE_TOL = 1e-5
 # 24d: each gradient leaf of the full-width float32 step, GPU against CPU,
 # within 1e-4 of that leaf's largest magnitude on the CPU (the rule of the
 # train-step tests on the CPU), so a leaf that is zero or wrong fails even
@@ -3386,13 +3527,18 @@ def train_attention_grads(dev) -> dict:
     the plain version on the card (in float32, rounded once) and against
     the plain backward ``attention_bwd_ref`` on the same inputs, by
     ``grad_verdict``; one forward and one backward launch on the route
-    ``kernel.route`` names, a second backward bit for bit equal to the
-    first, and dq 0 on the rows that see no key.  -> {label: its errors,
-    route and whether the repeat was equal}."""
+    ``kernel.route`` names, a second backward (from the forward's saved
+    lse and float32 output, ``flash_attention(return_lse=True)``) bit for
+    bit equal to the first, dq 0 on the rows that see no key, and that lse
+    against ``attention_lse_ref`` (+inf on the same rows, elsewhere within
+    LSE_TOL of max(1, |lse|)).  -> {label: its errors, route and whether
+    the repeat was equal}."""
     import torch
     from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                      attention_bwd_ref,
+                                                     attention_lse_ref,
                                                      attention_ref,
+                                                     flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     out = {}
@@ -3418,9 +3564,16 @@ def train_attention_grads(dev) -> dict:
             fail(f"FlashAttentionFn ({label}) launched {launched} forward "
                  f"and {b_launched} backward: expected one each on the "
                  f"{fa_kernel.route(q.dtype, d)} route")
-        again = flash_attention_bwd(q, k, v, do, **kw)
+        _, lse, o32 = flash_attention(q, k, v, return_lse=True, **kw)
+        again = flash_attention_bwd(q, k, v, o32, do, lse, **kw)
         repeat_equal = all(torch.equal(x, y) for x, y in zip(got, again))
-        del again
+        want_lse = attention_lse_ref(q, k, **kw)
+        fin = want_lse.isfinite()
+        lse_err = float((lse[fin] - want_lse[fin]).abs().max()) \
+            if bool(fin.any()) else 0.0
+        lse_ok = torch.equal(lse.isinf(), ~fin) and lse_err <= LSE_TOL * max(
+            1.0, float(want_lse[fin].abs().max()) if bool(fin.any()) else 1.0)
+        del again, o32
         # the plain version's autograd in float32, each gradient rounded
         # once to the inputs' dtype, as the reference's f32 autodiff does
         # (autograd of the plain version on bf16 leaves would round each
@@ -3438,7 +3591,12 @@ def train_attention_grads(dev) -> dict:
                    if (min(r, sk - 1) if causal else sk - 1)
                    < (0 if window is None else max(0, r - window))]
         res = {"route": fa_kernel.route(q.dtype, d),
-               "repeat_bit_equal": repeat_equal, "keyless_rows": len(keyless)}
+               "repeat_bit_equal": repeat_equal, "keyless_rows": len(keyless),
+               "lse_max_abs_err": lse_err}
+        if not lse_ok:
+            fail(f"{label}: the forward's lse differs from attention_lse_ref "
+                 f"(max abs err {lse_err} on the finite rows, or +inf on "
+                 f"other rows)")
         err, share, ok = flash_verdict(o.detach(), ref.detach(), dtype)
         res["forward"] = [err, share]
         if not ok:
@@ -3464,12 +3622,12 @@ def train_attention_grads(dev) -> dict:
         if not repeat_equal:
             fail(f"{label}: two backward calls on the same input differ")
         out[label] = res
-        del q, k, v, do, mine, theirs, o, ref, got, want, plain
+        del q, k, v, do, mine, theirs, o, ref, got, want, plain, lse
     free_device_memory()
     say("train_attention_grad", cases=[list(c) for c in TRAIN_GRAD_CASES],
         results=out, block_q=TRAIN_BLOCK_Q,
         float32_tolerance_of_max=GRAD_F32_TOL_OF_MAX,
-        bfloat16_tolerance=FLASH_TOL["bfloat16"])
+        bfloat16_tolerance=FLASH_TOL["bfloat16"], lse_tolerance=LSE_TOL)
     return out
 
 
@@ -3494,14 +3652,18 @@ def train_attention_time(dev) -> dict:
     ``F.scaled_dot_product_attention``'s backward alone (the library time)
     and its forward + backward, and in bfloat16 the kernel's forward and
     the plain version's forward + backward (autograd); the peak memory of
-    the backwards.  The backward's bound: its five products (2.5 times the
-    forward's causal 2·B·H·S²·d) at the dtype's tensor-core rate (in
-    float32 three TF32 products each, the fewest that keep float32
-    accuracy), or q, k, v, dO read and dq, dk, dv written once.  The
-    kernels' own floor: their products at that rate, twelve of the
-    forward's halves in bfloat16 (S and dP in both kernels and again in the
-    dq kernel's second sweep, dq, dk and dv twice for the hi / lo split),
-    nine in float32, three TF32 products each.  -> {dtype: its times}."""
+    the backwards, and in bfloat16 the saving forward (FlashAttentionFn's,
+    which writes the lse and the float32 output too).  The kernels'
+    backward is timed from what the forward saved (its lse and float32 output, ``flash_attention(return_lse=True)``
+    once before), as ``sdpa``'s backward is timed from its saved forward.
+    The backward's bound: its five products (2.5 times the forward's causal
+    2·B·H·S²·d) at the dtype's tensor-core rate (in float32 three TF32
+    products each, the fewest that keep float32 accuracy), or q, k, v, dO
+    read and dq, dk, dv written once.  The kernels' own floor: their
+    products at that rate, eleven of the forward's halves in bfloat16 (S
+    and dP in both kernels, dq, dk and dv twice for the hi / lo split, and
+    the dq kernel's P_hi.K for D's residual), seven in float32, three TF32
+    products each.  -> {dtype: its times}."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_ref,
@@ -3523,8 +3685,10 @@ def train_attention_time(dev) -> dict:
         o4 = sdpa(*leaves4, is_causal=True, enable_gqa=True)
         do4 = do.view(b, h, s, d)
 
+        _, lse, o32 = flash_attention(q, k, v, q_per_kv=g, return_lse=True)
+
         def kernel_bwd():
-            return flash_attention_bwd(q, k, v, do, q_per_kv=g)
+            return flash_attention_bwd(q, k, v, o32, do, lse, q_per_kv=g)
 
         def plain_bwd():
             return attention_bwd_ref(q, k, v, do, q_per_kv=g,
@@ -3542,6 +3706,9 @@ def train_attention_time(dev) -> dict:
         def forward():
             return flash_attention(q, k, v, q_per_kv=g)
 
+        def forward_saving():
+            return flash_attention(q, k, v, q_per_kv=g, return_lse=True)
+
         def plain_fwd_bwd():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             return torch.autograd.grad(
@@ -3550,7 +3717,8 @@ def train_attention_time(dev) -> dict:
         fns = {"ms": kernel_bwd, "plain_ms": plain_bwd,
                "sdpa_bwd_ms": sdpa_bwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd}
         if dtype == "bfloat16":
-            fns.update(forward_ms=forward, plain_fwd_bwd_ms=plain_fwd_bwd)
+            fns.update(forward_ms=forward, forward_saving_ms=forward_saving,
+                       plain_fwd_bwd_ms=plain_fwd_bwd)
         runs = {name: [] for name in fns}
         for name in list(fns) + list(fns)[::-1]:
             runs[name].append(time_ms(fns[name], 3))
@@ -3558,10 +3726,10 @@ def train_attention_time(dev) -> dict:
         elt = q.element_size()
         n_bytes = elt * (3 * b * h * s * d + 4 * b * kvh * s * d)
         if dtype == "bfloat16":
-            rate, needed, kernel_flops = TENSOR_BF16_OPS_PER_S, 2.5, 6 * flops
+            rate, needed, kernel_flops = TENSOR_BF16_OPS_PER_S, 2.5, 5.5 * flops
         else:
             rate, needed, kernel_flops = (TENSOR_TF32_OPS_PER_S, 3 * 2.5,
-                                          3 * 4.5 * flops)
+                                          3 * 3.5 * flops)
         bound, by = bound_ms(n_bytes, needed * flops, rate)
         out.update(shape=[b, h, kvh, s, d], dtype=dtype,
                    route="tensor_core" if dtype == "bfloat16" else "tf32x3",
@@ -3579,7 +3747,7 @@ def train_attention_time(dev) -> dict:
             out["plain_fwd_bwd_peak_gib"] = peak_bytes(plain_fwd_bwd) / 2 ** 30
         say("train_attention_time", **out)
         res[dtype] = out
-        del q, k, v, do, leaves4, o4, do4
+        del q, k, v, do, leaves4, o4, do4, lse, o32
         free_device_memory()
     return res
 
@@ -4861,24 +5029,26 @@ def dry_run_card_step(dev, zero_counts, read_counts, read_routes) -> dict:
 
     def recorded(q, k, v, **kw):
         key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
-                                 causal=kw["causal"], window=kw["window"])
+                                 causal=kw["causal"], window=kw["window"],
+                                 saves=kw.get("return_lse", False))
         seen[key] = seen.get(key, 0) + 1
         return real(q, k, v, **kw)
 
-    def recorded_bwd(q, k, v, do, **kw):
+    def recorded_bwd(q, k, v, o, do, lse, **kw):
         key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
-                                 causal=kw["causal"], window=kw["window"])
+                                 causal=kw["causal"], window=kw["window"],
+                                 saves=True)
         seen_bwd[key] = seen_bwd.get(key, 0) + 1
-        return real_bwd(q, k, v, do, **kw)
+        return real_bwd(q, k, v, o, do, lse, **kw)
 
     def by_shape(calls: dict) -> dict:
-        return {key[:-1] + (str(key[-1]).split(".")[-1],): n
+        return {key[:7] + (str(key[7]).split(".")[-1], key[8]): n
                 for key, n in calls.items()}
 
     def meta_by_shape(kern: dict) -> dict:
         return {(c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"],
-                 c["causal"], c["window"], c["dtype"]): c["calls"]
-                for c in kern["calls"]}
+                 c["causal"], c["window"], c["dtype"], c["saves"]):
+                c["calls"] for c in kern["calls"]}
 
     zero_counts()
     r0 = read_routes()
@@ -5145,10 +5315,29 @@ def main(until: int = 28) -> None:
         fail(f"the backward flash_attention kernels (d in "
              f"{fa_kernel.HEAD_DIMS}) spill or are missing from the ptxas "
              f"report: {bwd_spills}")
+    # the bf16 backward's kernels at the trained head dims (64: qwen2-0.5b,
+    # 128: Mixtral) on wgmma alone: HGMMA in each, no warp-level HMMA
+    fa_lib = _build.library_path("flash_attention")
+    bwd_mix = {}
+    for marker in ("fa_bwd_wg_dq_kernelILi64E", "fa_bwd_wg_dkv_kernelILi64E",
+                   "fa_bwd_wg_dq_kernelILi128E",
+                   "fa_bwd_wg_dkv_kernelILi128E"):
+        body = [ins for fn in sass_text(fa_lib, marker).values()
+                for ins in fn]
+        ops = [re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ins)
+               for ins in body]
+        ops = [m.group(1) for m in ops if m]
+        bwd_mix[marker] = [len(ops),
+                           sum(o.startswith("HGMMA") for o in ops),
+                           sum(o.startswith("HMMA") for o in ops)]
+        if not bwd_mix[marker][1] or bwd_mix[marker][2]:
+            fail(f"the bf16 backward kernel {marker}: {bwd_mix[marker][1]} "
+                 f"HGMMA and {bwd_mix[marker][2]} HMMA instructions "
+                 f"(expected wgmma alone)")
     # the TF32 kernels' instruction mix: how many instructions the operand
     # splits and the softmax add to each HMMA
-    say("build_sass", tf32x3=sass_mix(_build.library_path("flash_attention"),
-                                      "flash_attention_tf32x3_kernel"))
+    say("build_sass", tf32x3=sass_mix(fa_lib, "flash_attention_tf32x3_kernel"),
+        bf16_backward_instructions_hgmma_hmma=bwd_mix)
 
     rng = np.random.default_rng(0)
     errors = {}
@@ -5871,17 +6060,18 @@ def main(until: int = 28) -> None:
          "ms": fa_train["ms"], "plain_ms": fa_train["plain_ms"],
          "bound_ms": fa_train["bound_ms"], "bound_by": fa_train["bound_by"],
          "library_ms": fa_train["sdpa_ms"]},
-        # the backward on the tensor cores (bf16 mma.sync, P and dS split
-        # hi / lo): its wrapper calls in phase 24b's 12 steps (one a layer
-        # and step) and its kernel launches (two a call), its largest
-        # error over dq, dk, dv at qwen2-0.5b's training shape (phase 24a,
-        # against autograd of the plain version in float32), its time there
-        # in turns with the plain backward and sdpa's backward alone; the
+        # the backward on the tensor cores (bf16 wgmma fed by TMA from the
+        # forward's saved lse and float32 output, P and dS split hi / lo):
+        # its wrapper calls in phase 24b's 12 steps (one a layer and step)
+        # and its kernel launches (two a call), its largest error over dq,
+        # dk, dv at qwen2-0.5b's training shape (phase 24a, against
+        # autograd of the plain version in float32), its time there in
+        # turns with the plain backward and sdpa's backward alone; the
         # reference's backward is XLA's autodiff of flash_train, not a
         # Pallas kernel
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention_bwd.cuh",
+                   "flash_attention_bwd_wgmma.cuh",
          "replaces": "src/repro/models/attention.py:33",
          "calls": full24["backward_calls"],
          "launches": BWD_KERNELS_A_CALL * full24["backward_calls"],

@@ -9,7 +9,7 @@ forward passes; ``FlashAttentionFn`` carries its gradient
 """
 from .autograd import FlashAttentionFn
 from .ops import flash_attention, flash_attention_bwd
-from .ref import attention_bwd_ref, attention_ref
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
-__all__ = ["FlashAttentionFn", "attention_bwd_ref", "attention_ref",
-           "flash_attention", "flash_attention_bwd"]
+__all__ = ["FlashAttentionFn", "attention_bwd_ref", "attention_lse_ref",
+           "attention_ref", "flash_attention", "flash_attention_bwd"]

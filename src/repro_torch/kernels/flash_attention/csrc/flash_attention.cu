@@ -1,5 +1,6 @@
 // flash_attention for Hopper (sm_90a): the C entry points of its two routes
-// and of their backward (flash_attention_bwd.cuh), and the CUDA-core kernel
+// and of their backward (flash_attention_bwd.cuh,
+// flash_attention_bwd_wgmma.cuh), and the CUDA-core kernel
 // that the routes replaced, kept as a yardstick.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
@@ -66,6 +67,7 @@
 #include <type_traits>
 
 #include "flash_attention_bwd.cuh"
+#include "flash_attention_bwd_wgmma.cuh"
 #include "flash_attention_tf32x3.cuh"
 #include "flash_attention_wgmma.cuh"
 
@@ -348,46 +350,52 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
 }
 
 // The tensor-core kernel: bfloat16 q, k, v and out as above, d in 16, 32, 64,
-// 80, 112, 128, 256, sk >= 1, every pointer 16-byte aligned.  Returns a cudaError_t, or a
-// negative code for a refused tensor map (fa_wgmma::kNoDriverEntry,
+// 80, 112, 128, 256, sk >= 1, every pointer 16-byte aligned.  lse (float32,
+// n_bh x sq: each row's log-sum-exp in log2 units) and out32 (float32, out's
+// shape: the output before its rounding to bf16) are written when not null
+// (FlashAttentionFn's forward, for the backward).  Returns a cudaError_t, or
+// a negative code for a refused tensor map (fa_wgmma::kNoDriverEntry,
 // fa_wgmma::kEncodeFailed minus the CUresult).
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out,
                                  long long n_bh, long long sq, long long sk, int d,
-                                 int q_per_kv, int causal, int window, float scale,
-                                 void* stream) {
+                                 int q_per_kv, int causal, int window, float scale, void* lse,
+                                 void* out32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
     return (int)cudaErrorInvalidValue;
+#define FA_FWD_ARGS q, k, v, out, lse, out32, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s
   switch (d) {
-    case 16: return fa_wgmma::launch<16>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 32: return fa_wgmma::launch<32>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 64: return fa_wgmma::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 80: return fa_wgmma::launch<80>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 112: return fa_wgmma::launch<112>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 128: return fa_wgmma::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 256: return fa_wgmma::launch<256>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 16: return fa_wgmma::launch<16>(FA_FWD_ARGS);
+    case 32: return fa_wgmma::launch<32>(FA_FWD_ARGS);
+    case 64: return fa_wgmma::launch<64>(FA_FWD_ARGS);
+    case 80: return fa_wgmma::launch<80>(FA_FWD_ARGS);
+    case 112: return fa_wgmma::launch<112>(FA_FWD_ARGS);
+    case 128: return fa_wgmma::launch<128>(FA_FWD_ARGS);
+    case 256: return fa_wgmma::launch<256>(FA_FWD_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The TF32 tensor-core kernel (3xTF32 mma.sync): float32 q, k, v and out as
 // above, d in 16, 32, 64, 80, 112, 128, 256, every pointer 16-byte aligned
-// (cp.async).  Returns a cudaError_t.
+// (cp.async); lse as the tensor-core kernel's, written when not null.
+// Returns a cudaError_t.
 int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v, void* out,
                                   long long n_bh, long long sq, long long sk, int d,
-                                  int q_per_kv, int causal, int window, float scale,
+                                  int q_per_kv, int causal, int window, float scale, void* lse,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
     return (int)cudaErrorInvalidValue;
+#define FA_TF32_ARGS q, k, v, out, lse, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s
   switch (d) {
-    case 16: return fa_tf32x3::launch<16>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 32: return fa_tf32x3::launch<32>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 64: return fa_tf32x3::launch<64>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 80: return fa_tf32x3::launch<80>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 112: return fa_tf32x3::launch<112>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 128: return fa_tf32x3::launch<128>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
-    case 256: return fa_tf32x3::launch<256>(q, k, v, out, n_bh, (int)sq, (int)sk, q_per_kv, causal, window, scale, s);
+    case 16: return fa_tf32x3::launch<16>(FA_TF32_ARGS);
+    case 32: return fa_tf32x3::launch<32>(FA_TF32_ARGS);
+    case 64: return fa_tf32x3::launch<64>(FA_TF32_ARGS);
+    case 80: return fa_tf32x3::launch<80>(FA_TF32_ARGS);
+    case 112: return fa_tf32x3::launch<112>(FA_TF32_ARGS);
+    case 128: return fa_tf32x3::launch<128>(FA_TF32_ARGS);
+    case 256: return fa_tf32x3::launch<256>(FA_TF32_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -407,50 +415,62 @@ int flash_attention_tf32x3_blocks_per_sm(int d) {
   return -(int)cudaErrorInvalidValue;
 }
 
-// The backward (flash_attention_bwd.cuh): dq, dk, dv of the function above
-// for q, k, v and dout (the output's gradient, q's shape and dtype), each
-// pointer 16-byte aligned (cp.async); dq like q, dk and dv like k; scratch:
-// stats, float32, 3 x n_bh x ceil(sq / 64) * 64; with q_per_kv > 1 parts,
-// float32, n_bh x 2 x ceil(sk / 64) * 64 x d, and tickets, int32, n_bh /
-// q_per_kv x ceil(sk / 32), zero.  d in 16, 32, 64, 80, 112, 128, 256;
-// sq, sk >= 1.  bf16: the tensor-core route (mma.sync m16n8k16, P
-// and dS split hi + lo); float32: the TF32 route (3xTF32 mma.sync m16n8k8).
-// Returns a cudaError_t.
-#define FA_BWD_ARGS q, k, v, dout, dq, dk, dv, stats, parts, tickets, n_bh, (int)sq, (int)sk, \
-                    q_per_kv, \
-                    causal, window, scale, s
-#define FA_BWD_SWITCH(BF16)                                                   \
-  switch (d) {                                                                \
-    case 16: return fa_bwd::launch<16, BF16>(FA_BWD_ARGS);                    \
-    case 32: return fa_bwd::launch<32, BF16>(FA_BWD_ARGS);                    \
-    case 64: return fa_bwd::launch<64, BF16>(FA_BWD_ARGS);                    \
-    case 80: return fa_bwd::launch<80, BF16>(FA_BWD_ARGS);                    \
-    case 112: return fa_bwd::launch<112, BF16>(FA_BWD_ARGS);                  \
-    case 128: return fa_bwd::launch<128, BF16>(FA_BWD_ARGS);                  \
-    case 256: return fa_bwd::launch<256, BF16>(FA_BWD_ARGS);                  \
-  }                                                                           \
-  return (int)cudaErrorInvalidValue;
-
-int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* dout,
-                               void* dq, void* dk, void* dv, void* stats, void* parts,
-                               void* tickets, long long n_bh, long long sq, long long sk, int d,
-                               int q_per_kv, int causal, int window, float scale,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sq < 1 || sk < 1 || sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
+// The backward (flash_attention_bwd.cuh, flash_attention_bwd_wgmma.cuh): dq,
+// dk, dv of the function above for q, k, v, o32 (the forward's output in
+// float32), dout (the output's gradient, q's shape and dtype) and lse (the
+// forward's log-sum-exp, float32, n_bh x sq), each pointer 16-byte aligned;
+// dq like q, dk and dv like k; scratch: stats, float32, 2 x n_bh x sq_pad
+// (sq_pad a multiple of 128 at or above sq); with q_per_kv > 1 parts,
+// float32, n_bh x 2 x ceil(sk / 128) * 128 x d rounded up to a multiple of
+// 64, and tickets, int32, n_bh / q_per_kv x ceil(sk / 32), zero.  d in 16,
+// 32, 64, 80, 112, 128, 256; sq, sk >= 1.  bf16: wgmma fed by TMA (mma.sync
+// m16n8k16 at d 256), P and dS split hi + lo; float32: the TF32 route
+// (3xTF32 mma.sync m16n8k8).  Returns a cudaError_t, or a negative code for
+// a refused tensor map.
+#define FA_BWD_ARGS q, k, v, o32, dout, lse, dq, dk, dv, stats, parts, tickets, n_bh, (int)sq, \
+                    (int)sk, q_per_kv, causal, window, scale, (int)sq_pad, s
+#define FA_BWD_CHECK                                                                    \
+  if (sq < 1 || sk < 1 || sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1 ||     \
+      sq_pad < sq || sq_pad % 128 != 0 || sq_pad > 0x7fffffffLL)                         \
     return (int)cudaErrorInvalidValue;
-  FA_BWD_SWITCH(true)
+
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o32,
+                               const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                               void* stats, void* parts, void* tickets, long long n_bh,
+                               long long sq, long long sk, int d, int q_per_kv, int causal,
+                               int window, float scale, long long sq_pad, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FA_BWD_CHECK
+  switch (d) {
+    case 16: return fa_bwd_wgmma::launch<16>(FA_BWD_ARGS);
+    case 32: return fa_bwd_wgmma::launch<32>(FA_BWD_ARGS);
+    case 64: return fa_bwd_wgmma::launch<64>(FA_BWD_ARGS);
+    case 80: return fa_bwd_wgmma::launch<80>(FA_BWD_ARGS);
+    case 112: return fa_bwd_wgmma::launch<112>(FA_BWD_ARGS);
+    case 128: return fa_bwd_wgmma::launch<128>(FA_BWD_ARGS);
+    case 256: return fa_bwd::launch<256, true>(FA_BWD_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int flash_attention_bwd_tf32x3_launch(const void* q, const void* k, const void* v,
-                                      const void* dout, void* dq, void* dk, void* dv,
-                                      void* stats, void* parts, void* tickets, long long n_bh,
-                                      long long sq, long long sk, int d, int q_per_kv,
-                                      int causal, int window, float scale, void* stream) {
+                                      const void* o32, const void* dout, const void* lse,
+                                      void* dq, void* dk, void* dv, void* stats, void* parts,
+                                      void* tickets, long long n_bh, long long sq, long long sk,
+                                      int d, int q_per_kv, int causal, int window, float scale,
+                                      long long sq_pad, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sq < 1 || sk < 1 || sq > 0x7fffffffLL || sk > 0x7fffffffLL || q_per_kv < 1)
-    return (int)cudaErrorInvalidValue;
-  FA_BWD_SWITCH(false)
+  FA_BWD_CHECK
+  switch (d) {
+    case 16: return fa_bwd::launch<16, false>(FA_BWD_ARGS);
+    case 32: return fa_bwd::launch<32, false>(FA_BWD_ARGS);
+    case 64: return fa_bwd::launch<64, false>(FA_BWD_ARGS);
+    case 80: return fa_bwd::launch<80, false>(FA_BWD_ARGS);
+    case 112: return fa_bwd::launch<112, false>(FA_BWD_ARGS);
+    case 128: return fa_bwd::launch<128, false>(FA_BWD_ARGS);
+    case 256: return fa_bwd::launch<256, false>(FA_BWD_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@
 //   s_ij = scale * q[bh, i] . k[kv, j],  kv = bh / q_per_kv,
 // over the keys j the causal / window mask lets through (a row with no valid
 // key gives 0 and takes no gradient).  With dP = dO.V^T and
-// D_i = sum_j p_ij dP_ij:
+// D_i = sum_j p_ij dP_ij = dO_i . o_i:
 //   dS = P * (dP - D),  dq = scale dS.K,  dk = scale dS^T.Q,  dv = P^T.dO,
 // dk and dv summed over the q_per_kv query heads of each KV head.
 //
@@ -20,59 +20,72 @@
 // / 2 = 30.06 GFLOP; the backward's five (S = Q.K^T again, dP, dv, dq, dk)
 // are 2.5 times that, 75.2 GFLOP, 0.076 ms at the dense bf16 rate (989
 // TFLOP/s), against 29 MB of q, k, v, dO, dq, dk and dv (0.009 ms at 3.35
-// TB/s).
+// TB/s), and 29 MB more of the forward's float32 o and its log-sum-exp.
 //
-// Two routes, fixed by dtype as the forward's (kernel.py's bwd_route):
-//   * bfloat16 on the tensor cores through warp-level mma.sync m16n8k16 with
-//     float32 accumulators (wgmma and TMA are later work).  Q.K^T and dO.V^T
-//     are exact bf16 products.  P and dS are float32 and are split, as the
-//     forward splits P for P.V (flash_attention_wgmma.cuh): x_hi = bf16(x),
-//     x_lo = bf16(x - x_hi), and each of P^T.dO, dS.K and dS^T.Q is two
-//     products into one accumulator.  Rounding P or dS to bf16 once would make
-//     a quarter of the bf16 outputs differ from the float32 gradient rounded
-//     once (the forward's emulation, 23-24 % against the check's 1 %;
-//     tests/test_torch_flash_bwd.py emulates the backward's split);
+// What the forward saves (FlashAttentionFn): q, k, v, each row's log-sum-exp
+// in log2 units (lse = m log2 e + log2 l, +inf for a row with no valid key)
+// and the float32 output o (the bf16 route's forward writes it beside its
+// bf16 output).  So P = exp2(scale log2 e S - lse) needs no sweep of its own,
+// and D0 = rowsum(dO o) is a prologue of the dq kernel.  D from the bf16
+// output would make a fifth to a half of the bf16 gradient's elements
+// differ from the float32 gradient rounded once.  The bf16 forward's float32
+// o is no exact sum either: its P.V multiplies P split in two bf16 (16
+// bits), so D0 is off by about 2^-17 of |D|, which a peaked softmax turns
+// into 1-2.4 % of dq and dk differing (the check allows 1 %).  So the bf16
+// dq kernels correct it from their own sweep: res = sum_j dS_ij = D - D0 to
+// float32 rounding (sum_j P_ij = 1), dq = dS.K - res (P.K), P.K taken from
+// P_hi (its 9 bits suffice for a term that small), and D = D0 + res goes to
+// the dk / dv kernel; one more product (P_hi.K) than the function's.  The
+// TF32 route's o is float32-exact enough (3xTF32, fresh accumulators), and
+// its D0 needs no correction (tests/test_torch_flash_bwd.py's twin holds
+// each of these).
+//
+// Two routes, fixed by dtype as the forward's (kernel.py's route):
+//   * bfloat16 on the tensor cores: wgmma fed by TMA at every d but 256
+//     (flash_attention_bwd_wgmma.cuh); at d 256 through warp-level mma.sync
+//     m16n8k16 below, since a warpgroup's dk and dv of 64 keys would take 256
+//     registers a thread.  Q.K^T and dO.V^T are exact bf16 products.  P and
+//     dS are float32 and are split, as the forward splits P for P.V
+//     (flash_attention_wgmma.cuh): x_hi = bf16(x), x_lo = bf16(x - x_hi), and
+//     each of P^T.dO, dS.K and dS^T.Q is two products into one accumulator.
+//     Rounding P or dS to bf16 once would make a quarter of the bf16 outputs
+//     differ from the float32 gradient rounded once (the forward's emulation,
+//     23-24 % against the check's 1 %; tests/test_torch_flash_bwd.py emulates
+//     the backward's split);
 //   * float32 on the TF32 tensor cores through mma.sync m16n8k8 with every
 //     operand split three ways (3xTF32, flash_attention_tf32x3.cuh's helpers),
 //     so that the gradient keeps float32 accuracy (2e-5 of its largest
 //     magnitude).
 //
-// The schedule, two kernels a route, deterministic (no atomics, so a
-// backward repeats bit for bit):
-//   (a) dq: one block per (query head, 64 query rows), 4 warps of 16 rows.
-//       Sweep 1 over the KV tiles the mask lets through computes S and
-//       dP = dO.V^T and carries the row's max m, its sum l and
-//       D = sum p dP online (l and D rescaled together when m moves): D comes
-//       from the float32 products of the same rows, never from the saved
-//       bf16 output, which carries a rounding the reference's float32 autodiff
-//       does not.  Sweep 2 over the same tiles recomputes S and dP, forms
-//       P = exp(S - m) / l and dS, and accumulates dq = dS.K.  It writes m,
-//       1 / l and D (float32, one row of 64 a block past sq included) for (b);
-//   (b) dk, dv: one block per (KV head, 64 keys), a warp of 16 keys each
-//       (32 keys and 2 warps for float32 at d 256).  It loops over the KV
-//       head's q_per_kv query heads and, for each, over the query tiles the
-//       mask lets through: S^T = K.Q^T, dP^T = V.dO^T, P^T and dS^T from the
-//       saved m, 1 / l, D, then dv += P^T.dO and dk += dS^T.Q.  The heads are
-//       summed in float32, as the reference's float32 autodiff sums them, and
-//       rounded once at the end.
-// Both sweeps of (a) run through one ring of KV tiles, so the second sweep's
-// first tile is in flight while the first sweep's last one is multiplied.
+// The schedule, two kernels a call, deterministic (no atomics on dq, dk or
+// dv, so a backward repeats bit for bit):
+//   (a) dq: a block per (query head, query rows).  Its prologue computes D0
+//       of its rows and writes their lse (float32, +inf past sq) to the
+//       stats scratch for (b).  One sweep over the KV tiles the mask lets
+//       through: S, dP, P = exp2(c S - lse), dS = P (dP - D0), dq += dS.K
+//       (and on the bf16 route the residual above); D to the stats;
+//   (b) dk, dv: a block per (query head, key tile; two heads on the wgmma
+//       kernels): over the query tiles the mask lets through, S^T = K.Q^T,
+//       dP^T = V.dO^T, P^T and dS^T from the stats, then dv += P^T.dO and
+//       dk += dS^T.Q.  The blocks' float32 parts are summed in head order by
+//       the last block of a key tile to finish (an integer ticket, so the
+//       sum's bits do not depend on which block that is) and rounded once.
 //
 // The mma adds into its accumulator rounding toward zero, so a long sum in
 // one accumulator drifts toward zero (the forward's TF32 route measured it,
 // flash_attention_tf32x3.cuh).  So no product accumulates across tiles: each
 // tile's dq, dk or dv goes into a fresh accumulator, 64 output columns at a
-// time, and is added to the running sum by rounded float32 adds.  The
+// time, and is added to the running sum by rounded float32 adds.  Here the
 // running sums live in shared memory in the accumulator's own layout (a
 // float4 a lane and 8-column block), which no other lane touches: at d 256 a
 // warp's 16 rows of dk and dv in registers would take 256 a thread.
 //
 // Masks: a tile whose every (query, key) pair is valid skips the mask; a
-// masked pair has P = 0 (explicitly: a row with no valid key has m = -1e30,
-// and exp(s - m) would not vanish), and such a row has 1 / l = 0 and D = 0,
-// so its dq is 0 and it adds nothing to dk or dv.  Rows past sq and keys past
-// sk are zero-filled by the copies and masked.  Only the (query tile, KV
-// tile) pairs with some valid pair are visited.
+// masked pair has P = 0 explicitly (a row with no valid key has lse = +inf,
+// which makes P 0 as well, and D = 0), so such a row's dq is 0 and it adds
+// nothing to dk or dv.  Rows past sq and keys past sk are zero-filled by the
+// copies and masked.  Only the (query tile, KV tile) pairs with some valid
+// pair are visited.
 //
 // Shared rows: bf16 rows of d + 8 elements (an odd number of 16-byte units,
 // so ldmatrix's 8 rows fall on distinct banks at every d); float32 rows of
@@ -82,6 +95,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -189,26 +203,62 @@ __device__ __forceinline__ void write_sum(T* out, const float* warp_sum, int row
   }
 }
 
-// The end of sweep 1 for rows g and g + 8 of a warp: the quad's parts of l
-// and D summed, 1 / l (0 for a row with no valid key) and D = sum p dP / l,
-// and the rows' m, 1 / l and D written to the stats by the lanes of t 0
-// (at: row g's index in a plane of n_bh x sq_pad).
-__device__ __forceinline__ void finish_stats(const float (&m)[2], float (&l)[2], float (&dd)[2],
-                                             float (&inv_l)[2], float* stats, long long plane,
-                                             long long at, int tq) {
+// 8 consecutive elements (16-byte aligned) as float32
+__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(kFull, l[r], 1);
-    l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    dd[r] += __shfl_xor_sync(kFull, dd[r], 1);
-    dd[r] += __shfl_xor_sync(kFull, dd[r], 2);
-    inv_l[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    dd[r] *= inv_l[r];
-    if (tq == 0) {
-      stats[at + 8 * r] = m[r];
-      stats[plane + at + 8 * r] = inv_l[r];
-      stats[2 * plane + at + 8 * r] = dd[r];
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h;
+    memcpy(&h, &w[i], sizeof h);
+    const float2 f = __bfloat1622float2(h);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+// The prologue of a dq kernel: for its ROWS query rows from q0 of head bh,
+// D = rowsum(dO o) in float32 (0 past sq) and the forward's lse (+inf past
+// sq), into row_l / row_d (shared) and into the stats the dk / dv kernel
+// reads (plane 0 the lse, plane 1 D, when WRITE_D: the bf16 kernels write
+// their corrected D at their end; n_bh rows of sq_pad each).  Two threads a
+// row: the threads below 2 ROWS, whole warps; the others return at once.
+// 16-byte loads, four chunks' issued before their products (all of them up
+// to d 64).
+template <typename E, int D, int ROWS, bool WRITE_D>
+__device__ __forceinline__ void row_stats(const E* dout, const float* o32, const float* lse,
+                                          float* stats, float* row_l, float* row_d, int bh,
+                                          int q0, int sq, int n_bh, int sq_pad, int tid) {
+  static_assert(D % 16 == 0, "whole 8-element chunks a half row");
+  constexpr int kChunks = D / 16;                  // of 8 elements, a half row
+  if (tid >= 2 * ROWS) return;
+  const int r = tid >> 1, half = tid & 1, qi = q0 + r;
+  float acc = 0.f;
+  if (qi < sq) {
+    const long long at = ((long long)bh * sq + qi) * D + half * (D / 2);
+#pragma unroll 4
+    for (int c = 0; c < kChunks; ++c) {
+      float o[8], g[8];
+      load8(o32 + at + 8 * c, o);
+      load8(dout + at + 8 * c, g);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(o[e], g[e], acc);
     }
+  }
+  acc += __shfl_xor_sync(kFull, acc, 1);
+  if (half == 0) {
+    const float l = qi < sq ? lse[(long long)bh * sq + qi] : INFINITY;
+    row_l[r] = l;
+    row_d[r] = acc;
+    const long long at = (long long)bh * sq_pad + q0 + r;
+    stats[at] = l;
+    if (WRITE_D) stats[(long long)n_bh * sq_pad + at] = acc;
   }
 }
 
@@ -221,7 +271,7 @@ __device__ __forceinline__ void stage_kv(E* st, const E* kb, const E* vb, int k0
 }
 
 // A dk / dv block's query step: BQ rows at qs of head bh's Q and dO (rows
-// of STR), then their m, 1 / l and D, into a stage of its ring
+// of STR), then their lse and D, into a stage of its ring
 template <typename E, int D, int BQ, int STR, int THREADS>
 __device__ __forceinline__ void stage_q(E* st, const E* q, const E* dout, const float* stats,
                                         int bh, int qs, int sq, int n_bh, int sq_pad, int tid) {
@@ -229,7 +279,7 @@ __device__ __forceinline__ void stage_q(E* st, const E* q, const E* dout, const 
   stage_rows<E, D, BQ, STR, THREADS>(st + BQ * STR, dout + (long long)bh * sq * D, qs, sq, tid);
   float* f = reinterpret_cast<float*>(st + 2 * BQ * STR);
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
+  for (int a = 0; a < 2; ++a)
     stage_floats<BQ, THREADS>(f + a * BQ, stats + ((long long)a * n_bh + bh) * sq_pad + qs, tid);
 }
 
@@ -246,11 +296,11 @@ __device__ __forceinline__ bool whole(int i0, int ni, int j0, int nj, int sq, in
          (window < 0 || j0 >= i0 + ni - 1 - window);
 }
 
-// The KV tiles of BK keys that some row of [q0, q0 + 64) sees: [*t0, *t1).
-template <int BK>
+// The KV tiles of BK keys that some row of [q0, q0 + ROWS) sees: [*t0, *t1).
+template <int BK, int ROWS = kRows>
 __device__ __forceinline__ void kv_tiles(int q0, int sq, int sk, int causal, int window, int* t0,
                                          int* t1) {
-  const int q_last = min(q0 + kRows, sq) - 1;
+  const int q_last = min(q0 + ROWS, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const int k_begin = window >= 0 ? max(0, q0 - window) : 0;
   *t0 = k_begin / BK;
@@ -382,6 +432,24 @@ __device__ __forceinline__ void mma_split_b(float (&acc)[N][4], const uint32_t (
   }
 }
 
+// acc[n] += hi . B, as mma_split_b without the lo fragments
+template <int N, int KS, int SB>
+__device__ __forceinline__ void mma_hi_b(float (&acc)[N][4], const uint32_t (&hi)[KS][4],
+                                         const bf16* b, int c0, int lane) {
+  static_assert(N % 2 == 0, "two n-tiles an ldmatrix");
+  const bf16* pb = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * SB + c0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int n = 0; n < N; n += 2) {
+      uint32_t bf[4];
+      ldsm_t(bf, pb + ks * 16 * SB + n * 8);
+      mma(acc[n], hi[ks], bf[0], bf[1]);
+      mma(acc[n + 1], hi[ks], bf[2], bf[3]);
+    }
+  }
+}
+
 // x, y -> bf16 pairs hi = bf16(x, y), lo = bf16(x - hi, y - hi): the pair
 // carries 16 significant bits (the difference is exact in float32)
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
@@ -420,26 +488,31 @@ constexpr int blocks_per_sm(size_t smem) {
   return n < 1 ? 1 : n > 3 ? 3 : n;
 }
 
+// the bf16 mma.sync kernels' tiles, at d 256 (every other d runs on
+// flash_attention_bwd_wgmma.cuh).  The dq kernel's running sums of dS.K and
+// P_hi.K take 128 KB, so its KV tiles of 16 keys go through one stage; the
+// dk / dv kernel takes 16 query rows a step, one stage
 template <int D>
 struct Bf16Dq {
+  static_assert(D == 256, "the bf16 mma.sync kernels serve d 256 alone");
   static constexpr int kWarps = 4, kThreads = 32 * kWarps;
-  static constexpr int BK = D <= 64 ? 64 : 32;        // keys a KV tile
+  static constexpr int BK = 16, kStages = 1;            // keys a KV tile
   static constexpr int STR = D + 8;
   static constexpr int Q_ELEMS = kRows * STR;          // Q, then dO
   static constexpr int STAGE_ELEMS = 2 * BK * STR;     // K, then V
   static constexpr size_t kSmemBytes =
-      sizeof(bf16) * (2 * (size_t)Q_ELEMS + 2 * (size_t)STAGE_ELEMS) +
-      sizeof(float) * (size_t)kRows * D;
+      sizeof(bf16) * (2 * (size_t)Q_ELEMS + kStages * (size_t)STAGE_ELEMS) +
+      sizeof(float) * 2 * (size_t)kRows * D;
 };
 
 template <int D>
 struct Bf16Dkv {
+  static_assert(D == 256, "the bf16 mma.sync kernels serve d 256 alone");
   static constexpr int kWarps = 4, kThreads = 32 * kWarps;
-  static constexpr int BQ = D <= 128 ? 64 : 16;        // query rows a step
-  static constexpr int kStages = D <= 128 ? 2 : 1;
+  static constexpr int BQ = 16, kStages = 1;           // query rows a step
   static constexpr int STR = D + 8;
   static constexpr int KV_ELEMS = kRows * STR;         // K, then V
-  static constexpr int STAGE_BYTES = 2 * BQ * STR * (int)sizeof(bf16) + 3 * BQ * (int)sizeof(float);
+  static constexpr int STAGE_BYTES = 2 * BQ * STR * (int)sizeof(bf16) + 2 * BQ * (int)sizeof(float);
   static constexpr size_t kSmemBytes = sizeof(bf16) * 2 * (size_t)KV_ELEMS +
                                        (size_t)kStages * STAGE_BYTES +
                                        sizeof(float) * 2 * (size_t)kRows * D;
@@ -449,15 +522,18 @@ template <int D>
 __global__ void __launch_bounds__(Bf16Dq<D>::kThreads, blocks_per_sm(Bf16Dq<D>::kSmemBytes))
 fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ o32, const float* __restrict__ lse,
                  bf16* __restrict__ dq, float* __restrict__ stats, int n_bh, int sq, int sk,
-                 int q_per_kv, int causal, int window, float scale, int n_qt) {
+                 int q_per_kv, int causal, int window, float scale, int n_qt, int sq_pad) {
   using T = Bf16Dq<D>;
   constexpr int BK = T::BK, STR = T::STR, NS = BK / 8, KS = BK / 16, NO = D / 8;
+  constexpr int S = T::kStages;
   extern __shared__ float4 smem4[];
+  __shared__ float row_l[kRows], row_d[kRows];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);
   bf16* dOs = Qs + T::Q_ELEMS;
   bf16* ring = dOs + T::Q_ELEMS;
-  float* sums = reinterpret_cast<float*>(ring + 2 * T::STAGE_ELEMS);
+  float* sums = reinterpret_cast<float*>(ring + S * T::STAGE_ELEMS);   // dS.K, then P_hi.K
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -468,7 +544,6 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* dob = dout + (long long)bh * sq * D;
   const bf16* kb = k + (long long)kv * sk * D;
   const bf16* vb = v + (long long)kv * sk * D;
-  const int sq_pad = n_qt * kRows;
   const float c = scale * kLog2e;
 
   int t_begin, t_end;
@@ -477,31 +552,35 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row0 = q0 + warp * 16;                  // this warp's rows
   float* wsum = sums + warp * 16 * D;
+  float* wb = sums + kRows * D + warp * 16 * D;
   zero_sum<NO>(wsum, lane);
+  zero_sum<NO>(wb, lane);
 
   if (nt > 0) {
     stage_rows<bf16, D, kRows, STR, T::kThreads>(Qs, qb, q0, sq, tid);
     stage_rows<bf16, D, kRows, STR, T::kThreads>(dOs, dob, q0, sq, tid);
-    stage_kv<bf16, D, BK, STR, T::kThreads>(ring, kb, vb, t_begin * BK, sk, tid);
+    if (S > 1) stage_kv<bf16, D, BK, STR, T::kThreads>(ring, kb, vb, t_begin * BK, sk, tid);
     commit();
   }
+  row_stats<bf16, D, kRows, false>(dout, o32, lse, stats, row_l, row_d, bh, q0, sq, n_bh, sq_pad,
+                                   tid);
+  __syncthreads();
+  // rows g and g + 8 of the warp: their lse and D0 = dO.o, and this lane's
+  // part of their residual sum_j dS_ij (flash_attention_bwd_wgmma.cuh's dq
+  // kernel explains the correction)
+  const float lse_r[2] = {row_l[warp * 16 + g], row_l[warp * 16 + g + 8]};
+  const float d_r[2] = {row_d[warp * 16 + g], row_d[warp * 16 + g + 8]};
+  float res[2] = {0.f, 0.f};
 
-  // rows g and g + 8 of the warp: the running max (log2 units), this lane's
-  // part of the sum l and of D = sum p dP; then 1 / l and D
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f}, inv_l[2];
-  const long long plane = (long long)n_bh * sq_pad, at = (long long)bh * sq_pad + row0 + g;
-  if (nt == 0) finish_stats(m, l, dd, inv_l, stats, plane, at, tq);
-
-  for (int it = 0; it < 2 * nt; ++it) {
-    const int k0 = (t_begin + it % nt) * BK;
-    const bool second = it >= nt;
-    const bf16* Ks = ring + (it & 1) * T::STAGE_ELEMS;
+  for (int it = 0; it < nt; ++it) {
+    const int k0 = (t_begin + it) * BK;
+    const bf16* Ks = ring + (it % S) * T::STAGE_ELEMS;
     const bf16* Vs = Ks + BK * STR;
-    if (it + 1 < 2 * nt)                       // that stage's readers passed the last barrier
-      stage_kv<bf16, D, BK, STR, T::kThreads>(ring + ((it + 1) & 1) * T::STAGE_ELEMS, kb, vb,
-                                              (t_begin + (it + 1) % nt) * BK, sk, tid);
-    commit();                                  // (an empty group on the last tile)
-    wait_group<1>();
+    if (it + S - 1 < nt)                       // that stage's readers passed the last barrier
+      stage_kv<bf16, D, BK, STR, T::kThreads>(ring + ((it + S - 1) % S) * T::STAGE_ELEMS, kb,
+                                              vb, (t_begin + it + S - 1) * BK, sk, tid);
+    commit();
+    wait_group<S - 1>();
     __syncthreads();
 
     float s[NS][4], dp[NS][4];
@@ -516,65 +595,53 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = row0 + g + 8 * r;
-      float mx = kNegInf;
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          float& x = s[n][2 * r + j];
           const bool ok = all || valid(qi, k0 + 8 * n + 2 * tq + j, sq, sk, causal, window);
-          x = ok ? x * c : kNegInf;
-          mx = fmaxf(mx, x);
+          const float p = ok ? ex2(s[n][2 * r + j] * c - lse_r[r]) : 0.f;
+          s[n][2 * r + j] = p * (dp[n][2 * r + j] - d_r[r]);     // dS
+          res[r] += s[n][2 * r + j];
+          dp[n][2 * r + j] = p;                                  // P
         }
-      if (!second) {
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        const float alpha = ex2(m[r] - m_new);
-        m[r] = m_new;
-        float ls = 0.f, ds = 0.f;
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float x = s[n][2 * r + j];
-            const float p = x > kNegInf ? ex2(x - m_new) : 0.f;
-            ls += p;
-            ds += p * dp[n][2 * r + j];
-          }
-        l[r] = l[r] * alpha + ls;
-        dd[r] = dd[r] * alpha + ds;
-      } else {
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float x = s[n][2 * r + j];
-            const float p = x > kNegInf ? ex2(x - m[r]) * inv_l[r] : 0.f;
-            s[n][2 * r + j] = p * (dp[n][2 * r + j] - dd[r]);     // dS
-          }
-      }
     }
-    if (second) {
-      // dq += dS.K, a fresh accumulator a tile and 64 columns
-      uint32_t hi[KS][4], lo[KS][4];
-      to_a<KS>(s, hi, lo);
+    // dq += dS.K and the residual's direction += P_hi.K, a fresh
+    // accumulator a tile and 64 columns
+    uint32_t hi[KS][4], lo[KS][4];
+    to_a<KS>(dp, hi, lo);
 #pragma unroll
-      for (int c0 = 0; c0 + kNC <= NO; c0 += kNC) {
-        float part[kNC][4] = {};
-        mma_split_b<kNC, KS, STR>(part, hi, lo, Ks, c0 * 8, lane);
-        add_sum<kNC>(wsum, c0, part, lane);
-      }
-      if constexpr (NO % kNC != 0) {
-        constexpr int R = NO % kNC;
-        float part[R][4] = {};
-        mma_split_b<R, KS, STR>(part, hi, lo, Ks, (NO - R) * 8, lane);
-        add_sum<R>(wsum, NO - R, part, lane);
-      }
-    } else if (it == nt - 1) {
-      finish_stats(m, l, dd, inv_l, stats, plane, at, tq);
+    for (int c0 = 0; c0 + kNC <= NO; c0 += kNC) {
+      float part[kNC][4] = {};
+      mma_hi_b<kNC, KS, STR>(part, hi, Ks, c0 * 8, lane);
+      add_sum<kNC>(wb, c0, part, lane);
+    }
+    to_a<KS>(s, hi, lo);
+#pragma unroll
+    for (int c0 = 0; c0 + kNC <= NO; c0 += kNC) {
+      float part[kNC][4] = {};
+      mma_split_b<kNC, KS, STR>(part, hi, lo, Ks, c0 * 8, lane);
+      add_sum<kNC>(wsum, c0, part, lane);
     }
     __syncthreads();                           // every warp is done with this stage
+  }
+  // dq = dS.K - res P.K; D = D0 + res for the dk / dv kernel
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    res[r] += __shfl_xor_sync(kFull, res[r], 1);
+    res[r] += __shfl_xor_sync(kFull, res[r], 2);
+    if (tq == 0)
+      stats[((long long)n_bh + bh) * sq_pad + row0 + g + 8 * r] = d_r[r] + res[r];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float4* x = reinterpret_cast<float4*>(wsum) + n * 32 + lane;
+    const float4 y = reinterpret_cast<const float4*>(wb)[n * 32 + lane];
+    x->x -= res[0] * y.x;
+    x->y -= res[0] * y.y;
+    x->z -= res[1] * y.z;
+    x->w -= res[1] * y.w;
   }
   __syncwarp();
   write_sum<bf16, D>(dq + (long long)bh * sq * D, wsum, row0, sq, scale, lane);
@@ -587,7 +654,7 @@ fa_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dk, bf16* __restrict__ dv,
                   const float* __restrict__ stats, float* __restrict__ parts,
                   int* __restrict__ tickets, int n_bh, int sq, int sk, int q_per_kv,
-                  int causal, int window, float scale, int n_qt) {
+                  int causal, int window, float scale, int sq_pad) {
   using T = Bf16Dkv<D>;
   constexpr int BQ = T::BQ, STR = T::STR, NQ = BQ / 8, KQ = BQ / 16, NO = D / 8;
   constexpr int S = T::kStages;
@@ -606,7 +673,6 @@ fa_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kt = blockIdx.x / q_per_kv / n_bkh, k0 = kt * kRows, bh = kv * q_per_kv + gq;
   const bf16* kb = k + (long long)kv * sk * D;
   const bf16* vb = v + (long long)kv * sk * D;
-  const int sq_pad = n_qt * kRows;
   const float c = scale * kLog2e;
 
   int qt_begin, qt_end;
@@ -640,9 +706,8 @@ fa_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const char* st = ring + (it % S) * T::STAGE_BYTES;
     const bf16* Qs = reinterpret_cast<const bf16*>(st);
     const bf16* dOs = Qs + BQ * STR;
-    const float* ms = reinterpret_cast<const float*>(dOs + BQ * STR);
-    const float* ils = ms + BQ;
-    const float* ds = ils + BQ;
+    const float* ls = reinterpret_cast<const float*>(dOs + BQ * STR);
+    const float* ds = ls + BQ;
 
     // S^T = K.Q^T, dP^T = V.dO^T: rows the warp's 16 keys, columns BQ queries
     float s[NQ][4], dp[NQ][4];
@@ -656,16 +721,14 @@ fa_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool all = whole(qs, BQ, key0, 16, sq, sk, causal, window);
 #pragma unroll
     for (int n = 0; n < NQ; ++n) {
-      const float2 m2 = *reinterpret_cast<const float2*>(ms + 8 * n + 2 * tq);
-      const float2 il2 = *reinterpret_cast<const float2*>(ils + 8 * n + 2 * tq);
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * tq);
       const float2 d2 = *reinterpret_cast<const float2*>(ds + 8 * n + 2 * tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = qs + 8 * n + 2 * tq + (e & 1), kj = key0 + g + 8 * (e >> 1);
         const bool ok = all || valid(qi, kj, sq, sk, causal, window);
-        const float mi = (e & 1) ? m2.y : m2.x, il = (e & 1) ? il2.y : il2.x;
-        const float di = (e & 1) ? d2.y : d2.x;
-        const float p = ok ? ex2(s[n][e] * c - mi) * il : 0.f;
+        const float li = (e & 1) ? l2.y : l2.x, di = (e & 1) ? d2.y : d2.x;
+        const float p = ok ? ex2(s[n][e] * c - li) : 0.f;
         s[n][e] = p;                                  // P^T
         dp[n][e] = p * (dp[n][e] - di);               // dS^T
       }
@@ -682,15 +745,6 @@ fa_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float part2[kNC][4] = {};
       mma_split_b<kNC, KQ, STR>(part2, s_hi, s_lo, Qs, c0 * 8, lane);
       add_sum<kNC>(wk, c0, part2, lane);
-    }
-    if constexpr (NO % kNC != 0) {
-      constexpr int R = NO % kNC;
-      float part[R][4] = {};
-      mma_split_b<R, KQ, STR>(part, p_hi, p_lo, dOs, (NO - R) * 8, lane);
-      add_sum<R>(wv, NO - R, part, lane);
-      float part2[R][4] = {};
-      mma_split_b<R, KQ, STR>(part2, s_hi, s_lo, Qs, (NO - R) * 8, lane);
-      add_sum<R>(wk, NO - R, part2, lane);
     }
     __syncthreads();                             // every warp is done with this stage
   }
@@ -790,7 +844,7 @@ struct F32Dkv {
   static constexpr int kStages = D <= 128 ? 2 : 1;
   static constexpr int KSTR = D + 4, QSTR = D + 4, PSTR = BQ + 4;
   static constexpr int KV_FLOATS = kKeys * KSTR;
-  static constexpr int STAGE_FLOATS = 2 * BQ * QSTR + 3 * BQ;   // Q, dO, m, 1 / l, D
+  static constexpr int STAGE_FLOATS = 2 * BQ * QSTR + 2 * BQ;   // Q, dO, lse, D
   static constexpr int P_FLOATS = kWarps * 16 * PSTR;
   static constexpr size_t kSmemBytes =
       sizeof(float) * (2 * (size_t)KV_FLOATS + kStages * (size_t)STAGE_FLOATS + P_FLOATS +
@@ -801,12 +855,15 @@ template <int D>
 __global__ void __launch_bounds__(F32Dq<D>::kThreads, blocks_per_sm(F32Dq<D>::kSmemBytes))
 fa_bwd_tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ o32, const float* __restrict__ lse,
                         float* __restrict__ dq, float* __restrict__ stats, int n_bh, int sq,
-                        int sk, int q_per_kv, int causal, int window, float scale, int n_qt) {
+                        int sk, int q_per_kv, int causal, int window, float scale, int n_qt,
+                        int sq_pad) {
   using T = F32Dq<D>;
   constexpr int BK = T::BK, NS = BK / 8, NO = D / 8, S = T::kStages;
   constexpr int QSTR = T::QSTR, KSTR = T::KSTR, PSTR = T::PSTR;
   extern __shared__ float4 smem4[];
+  __shared__ float row_l[kRows], row_d[kRows];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* dOs = Qs + T::Q_FLOATS;
   float* ring = dOs + T::Q_FLOATS;
@@ -822,7 +879,6 @@ fa_bwd_tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* dob = dout + (long long)bh * sq * D;
   const float* kb = k + (long long)kv * sk * D;
   const float* vb = v + (long long)kv * sk * D;
-  const int sq_pad = n_qt * kRows;
   const float c = scale * kLog2e;
 
   int t_begin, t_end;
@@ -840,19 +896,19 @@ fa_bwd_tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (S > 1) stage_kv<float, D, BK, KSTR, T::kThreads>(ring, kb, vb, t_begin * BK, sk, tid);
     commit();
   }
+  row_stats<float, D, kRows, true>(dout, o32, lse, stats, row_l, row_d, bh, q0, sq, n_bh,
+                                   sq_pad, tid);
+  __syncthreads();
+  const float lse_r[2] = {row_l[warp * 16 + g], row_l[warp * 16 + g + 8]};
+  const float d_r[2] = {row_d[warp * 16 + g], row_d[warp * 16 + g + 8]};
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f}, inv_l[2];
-  const long long plane = (long long)n_bh * sq_pad, at = (long long)bh * sq_pad + row0 + g;
-  if (nt == 0) finish_stats(m, l, dd, inv_l, stats, plane, at, tq);
-
-  for (int it = 0; it < 2 * nt; ++it) {
-    const int k0 = (t_begin + it % nt) * BK;
-    const bool second = it >= nt;
+  for (int it = 0; it < nt; ++it) {
+    const int k0 = (t_begin + it) * BK;
     const float* Ks = ring + (it % S) * T::STAGE_FLOATS;
     const float* Vs = Ks + BK * KSTR;
-    if (it + S - 1 < 2 * nt)
+    if (it + S - 1 < nt)
       stage_kv<float, D, BK, KSTR, T::kThreads>(ring + ((it + S - 1) % S) * T::STAGE_FLOATS, kb,
-                                                vb, (t_begin + (it + S - 1) % nt) * BK, sk, tid);
+                                                vb, (t_begin + it + S - 1) * BK, sk, tid);
     commit();
     wait_group<S - 1>();
     __syncthreads();
@@ -865,54 +921,20 @@ fa_bwd_tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = row0 + g + 8 * r;
-      float mx = kNegInf;
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          float& x = s[n][2 * r + j];
           const bool ok = all || valid(qi, k0 + 8 * n + 2 * tq + j, sq, sk, causal, window);
-          x = ok ? x * c : kNegInf;
-          mx = fmaxf(mx, x);
+          const float p = ok ? ex2(s[n][2 * r + j] * c - lse_r[r]) : 0.f;
+          s[n][2 * r + j] = p * (dp[n][2 * r + j] - d_r[r]);
         }
-      if (!second) {
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        const float alpha = ex2(m[r] - m_new);
-        m[r] = m_new;
-        float ls = 0.f, ds = 0.f;
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float x = s[n][2 * r + j];
-            const float p = x > kNegInf ? ex2(x - m_new) : 0.f;
-            ls += p;
-            ds += p * dp[n][2 * r + j];
-          }
-        l[r] = l[r] * alpha + ls;
-        dd[r] = dd[r] * alpha + ds;
-      } else {
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float x = s[n][2 * r + j];
-            const float p = x > kNegInf ? ex2(x - m[r]) * inv_l[r] : 0.f;
-            s[n][2 * r + j] = p * (dp[n][2 * r + j] - dd[r]);
-          }
-      }
     }
-    if (second) {
-      // dq += dS.K through the warp's tile: B(k = key, n = column) = K[key][column]
-      to_tile<NS, PSTR>(Pw, s, lane);
-      __syncwarp();
-      tf32_ab_into<D, BK, PSTR, KSTR>(wsum, Pw + g * PSTR + tq, Ks + tq * KSTR + g, lane);
-      __syncwarp();
-    } else if (it == nt - 1) {
-      finish_stats(m, l, dd, inv_l, stats, plane, at, tq);
-    }
+    // dq += dS.K through the warp's tile: B(k = key, n = column) = K[key][column]
+    to_tile<NS, PSTR>(Pw, s, lane);
+    __syncwarp();
+    tf32_ab_into<D, BK, PSTR, KSTR>(wsum, Pw + g * PSTR + tq, Ks + tq * KSTR + g, lane);
+    __syncwarp();
     __syncthreads();
   }
   __syncwarp();
@@ -926,7 +948,7 @@ fa_bwd_tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ dk, float* __restrict__ dv,
                          const float* __restrict__ stats, float* __restrict__ parts,
                          int* __restrict__ tickets, int n_bh, int sq, int sk, int q_per_kv,
-                         int causal, int window, float scale, int n_qt) {
+                         int causal, int window, float scale, int sq_pad) {
   using T = F32Dkv<D>;
   constexpr int BQ = T::BQ, NQ = BQ / 8, NO = D / 8, S = T::kStages, KEYS = T::kKeys;
   constexpr int QSTR = T::QSTR, KSTR = T::KSTR, PSTR = T::PSTR;
@@ -944,7 +966,6 @@ fa_bwd_tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int kt = blockIdx.x / q_per_kv / n_bkh, k0 = kt * KEYS, bh = kv * q_per_kv + gq;
   const float* kb = k + (long long)kv * sk * D;
   const float* vb = v + (long long)kv * sk * D;
-  const int sq_pad = n_qt * kRows;
   const float c = scale * kLog2e;
 
   int qt_begin, qt_end;
@@ -975,9 +996,8 @@ fa_bwd_tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     __syncthreads();
     const float* Qs = ring + (it % S) * T::STAGE_FLOATS;
     const float* dOs = Qs + BQ * QSTR;
-    const float* ms = dOs + BQ * QSTR;
-    const float* ils = ms + BQ;
-    const float* ds = ils + BQ;
+    const float* ls = dOs + BQ * QSTR;
+    const float* ds = ls + BQ;
 
     float s[NQ][4], dp[NQ][4];
     tf32_abt<NQ, D, KSTR, QSTR>(s, Ks + (warp * 16 + g) * KSTR + tq, Qs + g * QSTR + tq);
@@ -986,16 +1006,14 @@ fa_bwd_tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     const bool all = whole(qs, BQ, key0, 16, sq, sk, causal, window);
 #pragma unroll
     for (int n = 0; n < NQ; ++n) {
-      const float2 m2 = *reinterpret_cast<const float2*>(ms + 8 * n + 2 * tq);
-      const float2 il2 = *reinterpret_cast<const float2*>(ils + 8 * n + 2 * tq);
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * tq);
       const float2 d2 = *reinterpret_cast<const float2*>(ds + 8 * n + 2 * tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = qs + 8 * n + 2 * tq + (e & 1), kj = key0 + g + 8 * (e >> 1);
         const bool ok = all || valid(qi, kj, sq, sk, causal, window);
-        const float mi = (e & 1) ? m2.y : m2.x, il = (e & 1) ? il2.y : il2.x;
-        const float di = (e & 1) ? d2.y : d2.x;
-        const float p = ok ? ex2(s[n][e] * c - mi) * il : 0.f;
+        const float li = (e & 1) ? l2.y : l2.x, di = (e & 1) ? d2.y : d2.x;
+        const float p = ok ? ex2(s[n][e] * c - li) : 0.f;
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - di);
       }
@@ -1034,20 +1052,24 @@ cudaError_t opt_in(Kern kernel, size_t smem, bool& done) {
 }
 
 // The dq kernel, then the dk / dv kernel (a block a key tile and query head),
-// on stream s.  Scratch: stats, 3 x n_bh x ceil(sq / 64) * 64 float32 (m,
-// 1 / l, D), written by the first and read by the second; with q_per_kv > 1,
-// parts, n_bh x 2 x ceil(sk / 64) * 64 x d float32 (each head's dk and dv),
-// and tickets, n_bh / q_per_kv x ceil(sk / 32) int32, zero.  sq, sk >= 1.
+// on stream s.  o32: the forward's float32 output; lse: its log-sum-exp
+// (n_bh x sq).  Scratch: stats, 2 x n_bh x sq_pad float32 (lse, D; sq_pad
+// a multiple of 128 at or above sq), written by the first and read by the
+// second; with q_per_kv > 1, parts (each head's dk and dv, 2 x KEYS x d
+// float32 a block) and tickets, n_bh / q_per_kv x ceil(sk / 32) int32, zero.
+// sq, sk >= 1.
 template <typename Dq, typename Dkv, int KEYS, typename E>
-int launch_pair(void (*dq_kernel)(const E*, const E*, const E*, const E*, E*, float*, int, int,
-                                  int, int, int, int, float, int),
+int launch_pair(void (*dq_kernel)(const E*, const E*, const E*, const E*, const float*,
+                                  const float*, E*, float*, int, int, int, int, int, int, float,
+                                  int, int),
                 void (*dkv_kernel)(const E*, const E*, const E*, const E*, E*, E*,
                                    const float*, float*, int*, int, int, int, int, int, int,
                                    float, int),
                 bool& dq_done, bool& dkv_done, const void* q, const void* k, const void* v,
-                const void* dout, void* dq, void* dk, void* dv, void* stats, void* parts,
-                void* tickets, long long n_bh, int sq, int sk, int q_per_kv, int causal,
-                int window, float scale, cudaStream_t s) {
+                const void* o32, const void* dout, const void* lse, void* dq, void* dk,
+                void* dv, void* stats, void* parts, void* tickets, long long n_bh, int sq,
+                int sk, int q_per_kv, int causal, int window, float scale, int sq_pad,
+                cudaStream_t s) {
   cudaError_t err = opt_in(dq_kernel, Dq::kSmemBytes, dq_done);
   if (err == cudaSuccess) err = opt_in(dkv_kernel, Dkv::kSmemBytes, dkv_done);
   if (err != cudaSuccess) return (int)err;
@@ -1061,32 +1083,35 @@ int launch_pair(void (*dq_kernel)(const E*, const E*, const E*, const E*, E*, fl
   const E* ve = static_cast<const E*>(v);
   const E* de = static_cast<const E*>(dout);
   dq_kernel<<<(unsigned)grid_dq, Dq::kThreads, Dq::kSmemBytes, s>>>(
-      qe, ke, ve, de, static_cast<E*>(dq), static_cast<float*>(stats), (int)n_bh, sq, sk,
-      q_per_kv, causal, window, scale, n_qt);
+      qe, ke, ve, de, static_cast<const float*>(o32), static_cast<const float*>(lse),
+      static_cast<E*>(dq), static_cast<float*>(stats), (int)n_bh, sq, sk, q_per_kv, causal,
+      window, scale, n_qt, sq_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dkv_kernel<<<(unsigned)grid_dkv, Dkv::kThreads, Dkv::kSmemBytes, s>>>(
       qe, ke, ve, de, static_cast<E*>(dk), static_cast<E*>(dv),
       static_cast<const float*>(stats), static_cast<float*>(parts), static_cast<int*>(tickets),
-      (int)n_bh, sq, sk, q_per_kv, causal, window, scale, n_qt);
+      (int)n_bh, sq, sk, q_per_kv, causal, window, scale, sq_pad);
   return (int)cudaGetLastError();
 }
 
-// BF16: the tensor-core route (bf16 mma.sync); else the TF32 one (3xTF32)
+// BF16: the bf16 mma.sync kernels (d 256); else the TF32 ones (3xTF32)
 template <int D, bool BF16>
-int launch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-           void* dv, void* stats, void* parts, void* tickets, long long n_bh, int sq, int sk,
-           int q_per_kv, int causal, int window, float scale, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, const void* o32, const void* dout,
+           const void* lse, void* dq, void* dk, void* dv, void* stats, void* parts,
+           void* tickets, long long n_bh, int sq, int sk, int q_per_kv, int causal, int window,
+           float scale, int sq_pad, cudaStream_t s) {
   static bool dq_done = false, dkv_done = false;   // per instantiation, once per process
   if constexpr (BF16)
     return launch_pair<Bf16Dq<D>, Bf16Dkv<D>, kRows>(
-        fa_bwd_dq_kernel<D>, fa_bwd_dkv_kernel<D>, dq_done, dkv_done, q, k, v, dout, dq, dk,
-        dv, stats, parts, tickets, n_bh, sq, sk, q_per_kv, causal, window, scale, s);
+        fa_bwd_dq_kernel<D>, fa_bwd_dkv_kernel<D>, dq_done, dkv_done, q, k, v, o32, dout, lse,
+        dq, dk, dv, stats, parts, tickets, n_bh, sq, sk, q_per_kv, causal, window, scale,
+        sq_pad, s);
   else
     return launch_pair<F32Dq<D>, F32Dkv<D>, F32Dkv<D>::kKeys>(
         fa_bwd_tf32x3_dq_kernel<D>, fa_bwd_tf32x3_dkv_kernel<D>, dq_done, dkv_done, q, k, v,
-        dout, dq, dk, dv, stats, parts, tickets, n_bh, sq, sk, q_per_kv, causal, window, scale,
-        s);
+        o32, dout, lse, dq, dk, dv, stats, parts, tickets, n_bh, sq, sk, q_per_kv, causal,
+        window, scale, sq_pad, s);
 }
 
 }  // namespace fa_bwd

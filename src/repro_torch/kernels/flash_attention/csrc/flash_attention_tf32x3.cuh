@@ -78,6 +78,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -280,7 +281,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, float* __restrict__ out,
-                              long long n_bh, int sq, int sk, int q_per_kv, int causal,
+                              float* __restrict__ lse, long long n_bh, int sq, int sk,
+                              int q_per_kv, int causal,
                               int window, float scale, int n_qt) {
   using T = Tile<D>;
   constexpr int BK = T::BK, NS = BK / 8, NO = D / 8;
@@ -419,6 +421,10 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     const int qr = row0 + 8 * r;
     if (qr >= sq) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
+    // for the backward (FlashAttentionFn), when given: the row's log-sum-exp
+    // in log2 units, m log2 e + log2 l (+inf for a row with no valid key)
+    if (lse != nullptr && tq == 0)
+      lse[(long long)bh * sq + qr] = l[r] > 0.f ? m[r] * 1.4426950408889634f + log2f(l[r]) : INFINITY;
     float* orow = out + ((long long)bh * sq + qr) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -443,8 +449,8 @@ cudaError_t opt_in() {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, long long n_bh, int sq,
-           int sk, int q_per_kv, int causal, int window, float scale, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, long long n_bh,
+           int sq, int sk, int q_per_kv, int causal, int window, float scale, cudaStream_t s) {
   const cudaError_t err = opt_in<D>();
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (sq + kBQ - 1) / kBQ;
@@ -452,8 +458,8 @@ int launch(const void* q, const void* k, const void* v, void* out, long long n_b
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attention_tf32x3_kernel<D><<<(unsigned)grid, kThreads, Tile<D>::kSmemBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), n_bh, sq, sk, q_per_kv,
-      causal, window, scale, n_qt);
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), n_bh,
+      sq, sk, q_per_kv, causal, window, scale, n_qt);
   return (int)cudaGetLastError();
 }
 

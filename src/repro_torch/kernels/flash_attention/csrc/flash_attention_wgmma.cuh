@@ -306,8 +306,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int n_bh,
-                int sq, int sk, int q_per_kv, int causal, int window, float scale_log2, int n_qt) {
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, float* __restrict__ out32, int n_bh, int sq, int sk,
+                int q_per_kv, int causal, int window, float scale_log2, int n_qt) {
   using L = Smem<D>;
   constexpr int NP = L::kPanels;
   constexpr int NT = L::kTailN;      // columns of the last panel that hold d
@@ -524,7 +525,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     }
 
     // o / l, rounded once to bf16, the first d columns of a row; rows past sq
-    // are not stored
+    // are not stored.  For the backward (FlashAttentionFn), when the pointers
+    // are given: each row's log-sum-exp in log2 units, m + log2 l (+inf for a
+    // row with no valid key, so that the backward's exp2(s - lse) is 0), and
+    // o / l in float32 before the rounding (the backward's D = rowsum(dO o)
+    // needs it: from the bf16 output a third or more of the gradient's bf16
+    // elements would differ, tests/test_torch_flash_bwd.py)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float lr = l[r];
@@ -532,7 +538,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       lr += __shfl_xor_sync(kFull, lr, 2);
       const int qp = row + 8 * r;
       if (qp < sq) {
-        __nv_bfloat16* orow = out + ((long long)bh * sq + qp) * D;
+        const long long at = (long long)bh * sq + qp;
+        if (lse != nullptr && t4 == 0) lse[at] = lr > 0.f ? m[r] + log2f(lr) : INFINITY;
+        __nv_bfloat16* orow = out + at * D;
 #pragma unroll
         for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -542,6 +550,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
             const float b = lr > 0.f ? o[p][4 * j + 2 * r + 1] / lr : 0.f;
             *reinterpret_cast<__nv_bfloat162*>(orow + p * kPanel + 8 * j + 2 * t4) =
                 __floats2bfloat162_rn(a, b);
+            if (out32 != nullptr)
+              *reinterpret_cast<float2*>(out32 + at * D + p * kPanel + 8 * j + 2 * t4) =
+                  make_float2(a, b);
           }
       }
     }
@@ -589,8 +600,9 @@ inline int make_map(CUtensorMap* map, const void* ptr, long long rows, int s, in
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, long long n_bh, int sq, int sk,
-           int q_per_kv, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, void* out32,
+           long long n_bh, int sq, int sk, int q_per_kv, int causal, int window, float scale,
+           cudaStream_t stream) {
   constexpr int smem = Smem<D>::kAlloc;
   static bool opted_in = false;      // per instantiation, once per process
   if (!opted_in) {
@@ -608,8 +620,9 @@ int launch(const void* q, const void* k, const void* v, void* out, long long n_b
   if (rc == 0) rc = make_map(&tm_v, v, n_bh / q_per_kv, sk, D, Smem<D>::kBK);
   if (rc != 0) return rc;
   fa_wgmma_kernel<D><<<(unsigned)grid, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), (int)n_bh, sq, sk, q_per_kv, causal,
-      window, scale * 1.4426950408889634f, n_qt);
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      static_cast<float*>(out32), (int)n_bh, sq, sk, q_per_kv, causal, window,
+      scale * 1.4426950408889634f, n_qt);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 
 ``attention_ref`` is the reference's ``ref.py``: repeat each KV head for its
 query heads, f32 scores, mask with -1e30, softmax, zero the rows that have
-no valid key, cast to q's dtype.  ``attention_bwd_ref`` is its backward,
+no valid key, cast to q's dtype.  ``attention_lse_ref`` is the log-sum-exp
+of those scores over the valid keys, in log2 units (what the forward saves
+for the backward kernels).  ``attention_bwd_ref`` is its backward,
 blocked over query rows: ``FlashAttentionFn``'s backward on a CPU tensor
 (the reference's gradient is XLA's autodiff of its pure-JAX
 ``flash_train``, computed outside any Pallas kernel), and the plain version
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def attention_ref(
@@ -24,6 +27,17 @@ def attention_ref(
     window: int | None = None,
     sm_scale: float | None = None,
 ) -> torch.Tensor:
+    return attention_ref_saving(q, k, v, q_per_kv=q_per_kv, causal=causal,
+                                window=window, sm_scale=sm_scale,
+                                saves=False).to(q.dtype)
+
+
+def attention_ref_saving(q, k, v, *, q_per_kv, causal=True, window=None,
+                         sm_scale=None, saves=True):
+    """:func:`attention_ref`'s float32 output before its rounding to q's
+    dtype and, when ``saves``, the lse of the same scores
+    (:func:`attention_lse_ref`'s): what ``FlashAttentionFn``'s forward saves
+    for the backward, from one product of the scores."""
     _, sq, d = q.shape
     sk = k.shape[1]
     if sm_scale is None:
@@ -41,8 +55,30 @@ def attention_ref(
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     # rows with no valid key (can happen with windows) -> zeros
-    p = torch.where(mask[None].any(-1, keepdim=True), p, 0.0)
-    return torch.einsum("hqk,hkd->hqd", p, vv).to(q.dtype)
+    keyed = mask[None].any(-1, keepdim=True)
+    p = torch.where(keyed, p, 0.0)
+    out = torch.einsum("hqk,hkd->hqd", p, vv)
+    if not saves:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, torch.where(keyed[..., 0], lse * LOG2E, torch.inf)
+
+
+def attention_lse_ref(
+    q: torch.Tensor,   # (BH, Sq, D)
+    k: torch.Tensor,   # (BKH, Sk, D)
+    *,
+    q_per_kv: int,
+    causal: bool = True,
+    window: int | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """(BH, Sq) float32: log2 of the sum over the valid keys of 2 ** (s ·
+    log2 e), s :func:`attention_ref`'s scores, i.e. their natural
+    log-sum-exp times log2 e (so that the backward's p = 2 ** (s · log2 e −
+    lse)); +inf for a row with no valid key (p = 0 there)."""
+    return attention_ref_saving(q, k, k, q_per_kv=q_per_kv, causal=causal,
+                                window=window, sm_scale=sm_scale)[1]
 
 
 def attention_bwd_ref(

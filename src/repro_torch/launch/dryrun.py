@@ -329,11 +329,11 @@ def _kernel_calls(meta_calls: dict, charge) -> dict:
         f, b = charge(key)
         flops += n * f
         nbytes += n * b
-        bh, sq, sk, d, q_per_kv, causal, window, dtype = key
+        bh, sq, sk, d, q_per_kv, causal, window, dtype, saves = key
         calls.append({"bh": bh, "sq": sq, "sk": sk, "d": d,
                       "q_per_kv": q_per_kv, "causal": causal,
                       "window": window, "dtype": str(dtype).split(".")[-1],
-                      "calls": n, "flops": f, "bytes": b})
+                      "saves": saves, "calls": n, "flops": f, "bytes": b})
     return {"launches": sum(c["calls"] for c in calls), "flops": flops,
             "bytes": nbytes, "calls": calls}
 

@@ -1156,6 +1156,8 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype,
     nothing to the forward's counts) and reaches no plain code; a second
     call on the same input gives the same bits."""
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.flash_attention import ops as fa_ops
     rng = np.random.default_rng(sq * d + sk)
@@ -1166,6 +1168,14 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype,
                                         ((b * kvh, sk, d), 1.0),
                                         ((b * h, sq, d), 1.0)))
     kw = dict(q_per_kv=h // kvh, causal=causal, window=window)
+    # what the forward saves: its lse (both +inf on the rows without a key)
+    # and its float32 output
+    _, lse, o32 = flash_attention(q, k, v, return_lse=True, **kw)
+    want_lse = attention_lse_ref(q, k, **kw)
+    assert torch.equal(lse.isinf(), want_lse.isinf())
+    fin = want_lse.isfinite()
+    assert float((lse[fin] - want_lse[fin]).abs().max()) \
+        <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
 
     def plain(*a, **k):
         raise AssertionError("the plain backward ran on the card")
@@ -1173,11 +1183,11 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype,
     before = (dict(fa_kernel.BWD_ROUTE_LAUNCHES), fa_kernel.LAUNCHES)
     with monkeypatch.context() as mp:
         mp.setattr(fa_ops, "attention_bwd_ref", plain)
-        got = flash_attention_bwd(q, k, v, do, **kw)
+        got = flash_attention_bwd(q, k, v, o32, do, lse, **kw)
         torch.cuda.synchronize()
         b_routes = {r: n - before[0][r]
                     for r, n in fa_kernel.BWD_ROUTE_LAUNCHES.items()}
-        again = flash_attention_bwd(q, k, v, do, **kw)
+        again = flash_attention_bwd(q, k, v, o32, do, lse, **kw)
     want = dict.fromkeys(b_routes, 0)
     want[fa_kernel.route(dtype, d)] = 1
     assert b_routes == want and fa_kernel.LAUNCHES == before[1]
@@ -1454,15 +1464,17 @@ def test_dry_run_counts_the_card_step(cuda):
 
     def recorded(q, k, v, **kw):
         key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
-                                 causal=kw["causal"], window=kw["window"])
+                                 causal=kw["causal"], window=kw["window"],
+                                 saves=kw.get("return_lse", False))
         seen[key] = seen.get(key, 0) + 1
         return real(q, k, v, **kw)
 
-    def recorded_bwd(q, k, v, do, **kw):
+    def recorded_bwd(q, k, v, o, do, lse, **kw):
         key = fa_kernel.meta_key(q, k, q_per_kv=kw["q_per_kv"],
-                                 causal=kw["causal"], window=kw["window"])
+                                 causal=kw["causal"], window=kw["window"],
+                                 saves=True)
         seen_bwd[key] = seen_bwd.get(key, 0) + 1
-        return real_bwd(q, k, v, do, **kw)
+        return real_bwd(q, k, v, o, do, lse, **kw)
 
     before = dict(fa_kernel.ROUTE_LAUNCHES)
     b_before = dict(fa_kernel.BWD_ROUTE_LAUNCHES)
@@ -1481,10 +1493,11 @@ def test_dry_run_counts_the_card_step(cuda):
     for calls, name in ((seen, "flash_attention"),
                         (seen_bwd, "flash_attention_bwd")):
         kern = rec["kernels"][name]
-        assert {key[:-1] + (str(key[-1]).split(".")[-1],): n
+        assert {key[:7] + (str(key[7]).split(".")[-1], key[8]): n
                 for key, n in calls.items()} == {
             (c["bh"], c["sq"], c["sk"], c["d"], c["q_per_kv"], c["causal"],
-             c["window"], c["dtype"]): c["calls"] for c in kern["calls"]}
+             c["window"], c["dtype"], c["saves"]): c["calls"]
+            for c in kern["calls"]}
     assert rec["kernels"]["flash_attention"]["launches"] == 2 * cfg.n_layers
     assert rec["kernels"]["flash_attention_bwd"]["launches"] == cfg.n_layers
     assert fa_kernel.ROUTE_LAUNCHES["tensor_core"] \

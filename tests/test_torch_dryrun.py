@@ -330,7 +330,9 @@ def test_meta_route_charge_at_row_5_and_no_launch():
     """qwen2-0.5b's prefill attention (B 4, H 14, KVH 2, S 4096, d 64,
     bf16): 4 · d · B·H · the causal pairs, 120.3 GFLOP; q, k, v and the
     output once; recorded, no LAUNCHES; the training forward
-    (``FlashAttentionFn``) takes the same route."""
+    (``FlashAttentionFn``) takes the same route, recorded under its own key
+    (it saves the lse and the float32 output: their bytes written once
+    more)."""
     q = torch.empty(56, 4096, 64, dtype=torch.bfloat16, device="meta")
     k = torch.empty(8, 4096, 64, dtype=torch.bfloat16, device="meta")
     launches = fa_kernel.LAUNCHES
@@ -338,7 +340,7 @@ def test_meta_route_charge_at_row_5_and_no_launch():
     out = flash_attention(q, k, k, q_per_kv=7)
     assert out.device.type == "meta" and out.shape == q.shape \
         and out.dtype == q.dtype
-    key = (56, 4096, 4096, 64, 7, True, None, torch.bfloat16)
+    key = (56, 4096, 4096, 64, 7, True, None, torch.bfloat16, False)
     assert fa_kernel.META_CALLS == {key: 1}
     pairs = 4096 * 4097 // 2
     assert fa_kernel.charge(key) == (4 * 64 * 56 * pairs,
@@ -346,7 +348,11 @@ def test_meta_route_charge_at_row_5_and_no_launch():
     assert fa_kernel.charge(key)[0] == 120_288_444_416
     FlashAttentionFn.apply(q.requires_grad_(True), k, k, 7, True, None,
                            None, 512)
-    assert fa_kernel.META_CALLS == {key: 2}
+    saving = key[:-1] + (True,)
+    assert fa_kernel.META_CALLS == {key: 1, saving: 1}
+    assert fa_kernel.charge(saving) == (
+        fa_kernel.charge(key)[0],
+        fa_kernel.charge(key)[1] + 4 * 56 * 4096 * (64 + 1))
     assert fa_kernel.LAUNCHES == launches
     # windows keep fewer pairs: Mixtral's window 4096 keeps all causal ones
     assert fa_kernel.kept_pairs(4096, 4096, True, 4096) == pairs
