@@ -343,7 +343,34 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     alls a layer), its FLOPs, collective bytes, argument and peak bytes
     and trace time printed; within 90 s.
 
-Each path (8-11, 14-16, 18-28) sets the launch counters to 0 just before it
+29. tensor parallelism over "model" (``train.sharded``, tensor parallel):
+    two gloo ranks of CUDA tensors on the one card and a (1, 2) ("data",
+    "model") mesh; qwen2-0.5b at its published widths cut to TP_LAYERS of
+    24 layers, B 4, S 2048, remat "full", the same weights on both ranks
+    (``init_params`` seed 0), each rank its 7 of the 14 query heads and 1
+    of the 2 KV heads, its half of the MLP columns and of the vocabulary.
+    (a) float32: the sharded step's gradient (local blocks gathered over
+    "model") and one sharded AdamW step against the single-device
+    ``loss_and_grads`` and ``make_train_step`` on rank 0: loss and grad
+    norm within FULL_WIDTH_F32_TOL (abs + rel), every gradient leaf within
+    TRAIN_LEAF_TOL_OF_MAX of its largest magnitude; the same for the two
+    other attention layouts of TP_VARIANTS at TP_VARIANT_LAYERS layer
+    (one KV head that each rank slices; 7 heads of d 128 that the rules
+    cut through a head, q gathered over "model"); (b) the bf16 training
+    config (bf16 activations), 2 steps: finite losses, on each rank and
+    step 2 x TP_LAYERS flash_attention launches on the tensor cores and
+    TP_LAYERS backward calls on the tensor-core route, every attention at
+    (7, 1) heads, no call of the plain backward, the same collectives
+    every step, each step under ``set_sync_debug_mode("error")`` but for
+    the gloo calls themselves (gloo stages a CUDA tensor through the host
+    and syncs there by design); then, on this process, flash_attention
+    and its backward at a rank's shape (B 4, H 7, KVH 1, S 2048, d 64,
+    bf16) beside their plain versions and ``sdpa``, the backward's
+    gradient held as phase 24a holds it (the kernel line's
+    ``flash_attention_tp_train`` and ``flash_attention_bwd_tp_train``
+    entries); within TP_PHASE_S.
+
+Each path (8-11, 14-16, 18-29) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -1700,7 +1727,7 @@ def flash_bwd_parent_in_turns(dev, parent_csrc: Path) -> dict:
     b, h, kvh, s, d = TRAIN_TIME_SHAPE
     g = h // kvh
     res = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in dtypes:
         q, k, v = qkv(dev, 250, b, h, kvh, s, s, d, dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(350)
@@ -3521,7 +3548,7 @@ def grad_verdict(got, want, dtype: str):
                  float((diff > 0).float().mean())], err <= allowed
 
 
-def train_attention_grads(dev) -> dict:
+def train_attention_grads(dev, cases=TRAIN_GRAD_CASES) -> dict:
     """Phase 24a: FlashAttentionFn's dq, dk, dv (the kernel's forward, the
     backward kernels) at every TRAIN_GRAD_CASES case, against autograd of
     the plain version on the card (in float32, rounded once) and against
@@ -3531,8 +3558,9 @@ def train_attention_grads(dev) -> dict:
     lse and float32 output, ``flash_attention(return_lse=True)``) bit for
     bit equal to the first, dq 0 on the rows that see no key, and that lse
     against ``attention_lse_ref`` (+inf on the same rows, elsewhere within
-    LSE_TOL of max(1, |lse|)).  -> {label: its errors, route and whether
-    the repeat was equal}."""
+    LSE_TOL of max(1, |lse|)).  ``cases``: others of that form (phase
+    29's rank).  -> {label: its errors, route and whether the repeat was
+    equal}."""
     import torch
     from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                      attention_bwd_ref,
@@ -3543,7 +3571,7 @@ def train_attention_grads(dev) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     out = {}
     for i, (label, b, h, kvh, sq, sk, d, dtype, causal, window) in enumerate(
-            TRAIN_GRAD_CASES):
+            cases):
         q, k, v = qkv(dev, 240 + i, b, h, kvh, sq, sk, d, dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(340 + i)
@@ -3624,7 +3652,7 @@ def train_attention_grads(dev) -> dict:
         out[label] = res
         del q, k, v, do, mine, theirs, o, ref, got, want, plain, lse
     free_device_memory()
-    say("train_attention_grad", cases=[list(c) for c in TRAIN_GRAD_CASES],
+    say("train_attention_grad", cases=[list(c) for c in cases],
         results=out, block_q=TRAIN_BLOCK_Q,
         float32_tolerance_of_max=GRAD_F32_TOL_OF_MAX,
         bfloat16_tolerance=FLASH_TOL["bfloat16"], lse_tolerance=LSE_TOL)
@@ -3644,7 +3672,8 @@ def peak_bytes(fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def train_attention_time(dev) -> dict:
+def train_attention_time(dev, shape=TRAIN_TIME_SHAPE,
+                         dtypes=("bfloat16", "float32")) -> dict:
     """Phase 24a's times at qwen2-0.5b's training shape (B 4, H 14, KVH 2,
     S 2048, d 64, causal), in bfloat16 (the tensor-core route) and float32
     (the TF32 route), each in turns: the backward kernels
@@ -3663,19 +3692,20 @@ def train_attention_time(dev) -> dict:
     products at that rate, eleven of the forward's halves in bfloat16 (S
     and dP in both kernels, dq, dk and dv twice for the hi / lo split, and
     the dq kernel's P_hi.K for D's residual), seven in float32, three TF32
-    products each.  -> {dtype: its times}."""
+    products each.  ``shape`` (B, H, KVH, S, d) and ``dtypes`` another
+    shape's times (phase 29's rank).  -> {dtype: its times}."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_ref,
                                                      flash_attention,
                                                      flash_attention_bwd)
-    b, h, kvh, s, d = TRAIN_TIME_SHAPE
+    b, h, kvh, s, d = shape
     g = h // kvh
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shape4 = [(b, -1, s, d)] * 3
     flops = 2 * b * h * s * s * d
     res = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in dtypes:
         q, k, v = qkv(dev, 250, b, h, kvh, s, s, d, dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(350)
@@ -5204,6 +5234,385 @@ def dry_run(dev, zero_counts, read_counts, read_routes, smi_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 29
+# 29: tensor parallelism over "model": two gloo ranks on the one card, a
+# (1, 2) ("data", "model") mesh, qwen2-0.5b at its widths cut to TP_LAYERS
+TP_ARCH = "qwen2-0.5b"
+TP_MESH = (1, 2)
+TP_LAYERS = 4
+TP_BATCH, TP_SEQ = 4, 2048
+TP_STEPS = 2
+TP_LR = (3e-4, 1, 12)
+TP_LOCAL_HEADS = (7, 1)           # 14 / 2 query heads, 2 / 2 KV heads
+TP_TIME_SHAPE = (4, 7, 1, 2048, 64)
+TP_GRAD_CASE = ("qwen2-0.5b TP rank", 4, 7, 1, 2048, 2048, 64, "bfloat16",
+                True, None)
+TP_PHASE_S = 120
+# 29a's other attention layouts at 2 "model" ranks, each a float32 step of
+# TP_VARIANT_LAYERS layers at qwen2-0.5b's other widths: name -> (config
+# changes, the smoke config's changes, the expected (heads, kv) layout).
+# One KV head stays whole and each rank slices it; 7 heads of d 128 are
+# cut through a head (q gathered over "model")
+TP_VARIANTS = {
+    "kv-sliced": ({"n_kv_heads": 1}, {"n_kv_heads": 1}, ["whole", "sliced"]),
+    "heads-cut": ({"n_heads": 7, "head_dim": 128, "n_kv_heads": 1},
+                  {"n_heads": 3, "head_dim": 16, "n_kv_heads": 1},
+                  ["cut", None])}
+TP_VARIANT_LAYERS = 1
+
+
+def tp_phase_config(small: bool, dtype, changes=None,
+                    layers: int = TP_LAYERS):
+    """qwen2-0.5b cut to ``layers`` layers (``small``: its smoke config, a
+    rehearsal on the CPU) with ``dtype`` activations and ``changes``."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if small else get_config)(TP_ARCH)
+    return dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers),
+                               activ_dtype=dtype, **(changes or {}))
+
+
+@contextlib.contextmanager
+def sync_checked_but_collectives(on: bool):
+    """The block under ``set_sync_debug_mode("error")`` (``on``), but for
+    the calls of ``torch.distributed.all_reduce`` / ``all_gather``, which
+    run with the check off: gloo copies a CUDA tensor to the host and back
+    and synchronises its stream there, which the mode, a setting of the
+    whole process, would refuse in gloo's own thread."""
+    import torch
+    import torch.distributed as dist
+    if not on:
+        yield
+        return
+    real = {name: getattr(dist, name) for name in ("all_reduce",
+                                                   "all_gather")}
+
+    def unchecked(fn):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+    for name, fn in real.items():
+        setattr(dist, name, unchecked(fn))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def tp_rank_f32(mesh, dev, rank: int, params, batch, cfg) -> dict:
+    """29a on one rank: the float32 sharded gradient and step of ``cfg``;
+    rank 0 holds them against the single-device ones."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.pytree import flatten
+    from repro_torch.train import sharded
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    opt, sched = get_optimizer("adamw"), cosine_schedule(*TP_LR)
+    state = opt.init(params)
+    shardings = sharded.state_shardings(mesh, cfg, state)
+    p, st = sh.distribute((params, state), shardings)
+    db = sh.distribute(batch, sh.named(mesh, sh.batch_specs(mesh, cfg,
+                                                            batch)))
+    t0 = time.perf_counter()
+    loss, _, grads, local, _ = sharded.sharded_grads(cfg, mesh, p, db)
+    whole = sharded.gather_local(grads, local, p, shardings[0])
+    _, _, m = sharded.make_sharded_train_step(cfg, opt, sched, mesh)(p, st,
+                                                                      db)
+    ep_sync(dev)
+    out = {"seconds": time.perf_counter() - t0, "loss": float(loss),
+           "step_loss": float(m["loss"]),
+           "step_grad_norm": float(m["grad_norm"])}
+    if rank != 0:
+        return out
+    one_loss, _, one_grads = loss_and_grads(params, cfg, batch)
+    _, _, one_m = make_train_step(cfg, opt, sched)(params, opt.init(params),
+                                                   batch)
+    errs, faults = {}, []
+    for key, g, c in (("loss", loss, one_loss),
+                      ("step_loss", m["loss"], one_m["loss"]),
+                      ("grad_norm", global_norm(whole), global_norm(one_grads)),
+                      ("step_grad_norm", m["grad_norm"], one_m["grad_norm"])):
+        g, c = float(g), float(c)
+        errs[key] = abs(g - c)
+        if not (math.isfinite(g) and errs[key]
+                <= FULL_WIDTH_F32_TOL * (1 + abs(c))):
+            faults.append(f"{key}: {g} vs {c}")
+    g_leaves, skeleton = flatten(whole)
+    names = flatten(tree_paths(skeleton))[0]
+    share = {}
+    for key, g, c in zip(names, g_leaves, flatten(one_grads)[0]):
+        err = float((g.float() - c.float()).abs().max())
+        allowed = TRAIN_LEAF_TOL_OF_MAX * float(c.abs().max())
+        share[key] = err / allowed if allowed > 0 else float("inf")
+        if not (bool(torch.isfinite(g).all()) and share[key] <= 1.0):
+            faults.append(f"{key}: max abs err {err} over {allowed}")
+    out.update(errors=errs, share_of_tolerance=share, faults=faults,
+               local=sorted(k for k, v in zip(names, flatten(local)[0]) if v))
+    return out
+
+
+def tp_rank_bf16(mesh, dev, rank: int, params, pipeline, small: bool) -> dict:
+    """29b on one rank: TP_STEPS bf16 sharded steps, each's launches,
+    backward calls, attention head counts, collectives and wall."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import attention as attn
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.train import sharded
+
+    cfg = tp_phase_config(small, torch.bfloat16)
+    opt = get_optimizer("adamw")
+    state = opt.init(params)
+    shardings = sharded.state_shardings(mesh, cfg, state)
+    p, st = sh.distribute((params, state), shardings)
+    step = sharded.make_sharded_train_step(cfg, opt, cosine_schedule(*TP_LR),
+                                           mesh)
+    heads, real = set(), attn.flash_train
+
+    def seen(q, k, v, **kw):
+        heads.add((q.shape[1], k.shape[1]))
+        return real(q, k, v, **kw)
+    rec = []
+    attn.flash_train = seen
+    try:
+        for i in range(TP_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipeline.batch(100 + i).items()}
+            db = sh.distribute(batch, sh.named(mesh, sh.batch_specs(
+                mesh, cfg, batch)))
+            fa_kernel.LAUNCHES = fa_kernel.BWD_LAUNCHES = 0
+            for counts in (fa_kernel.ROUTE_LAUNCHES,
+                           fa_kernel.BWD_ROUTE_LAUNCHES):
+                for r in counts:
+                    counts[r] = 0
+            heads.clear()
+            before = dict(sh.COLLECTIVES)
+            ep_sync(dev)
+            t0 = time.perf_counter()
+            with plain_backward_calls() as plain, \
+                    sync_checked_but_collectives(dev.type == "cuda"):
+                p, st, m = step(p, st, db)
+            ep_sync(dev)
+            rec.append({
+                "wall_s": time.perf_counter() - t0,
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "flash_attention": fa_kernel.LAUNCHES,
+                "routes": dict(fa_kernel.ROUTE_LAUNCHES),
+                "bwd_routes": dict(fa_kernel.BWD_ROUTE_LAUNCHES),
+                "plain_backward": plain["calls"],
+                "heads": sorted(heads),
+                "collectives": {k: sh.COLLECTIVES[k] - before[k]
+                                for k in before}})
+    finally:
+        attn.flash_train = real
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    return {"steps": rec, "peak_gib": peak}
+
+
+def tp_rank(rank: int, store: str, out_dir: str, small: bool = False) -> None:
+    """One of phase 29's two ranks (a spawned process; ``small``: the smoke
+    config on the CPU, a rehearsal)."""
+    import datetime
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cpu") if small else torch.device("cuda", 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.data import DataConfig, TokenPipeline
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.model import init_params, tp_layout
+        from repro_torch.train.sharded import tp_config
+        mesh = make_mesh(TP_MESH, ("data", "model"), device=dev.type)
+        cfg = tp_phase_config(small, torch.float32)
+        b, s = (4, 64) if small else (TP_BATCH, TP_SEQ)
+        t0 = time.perf_counter()
+        params = init_params(cfg, 0, dev)
+        pipeline = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=s, global_batch=b,
+                                            seed=29))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipeline.batch(0).items()}
+        res = {"draw_s": time.perf_counter() - t0}
+        res["f32"] = tp_rank_f32(mesh, dev, rank, params, batch, cfg)
+        res["variants"] = {}
+        for name, (full_w, smoke_w, _) in TP_VARIANTS.items():
+            vcfg = tp_phase_config(small, torch.float32,
+                                   smoke_w if small else full_w,
+                                   TP_VARIANT_LAYERS)
+            got = tp_rank_f32(mesh, dev, rank, init_params(vcfg, 0, dev),
+                              batch, vcfg)
+            got["layout"] = list(tp_layout(tp_config(vcfg, mesh),
+                                           TP_MESH[1])[:2])
+            res["variants"][name] = got
+        if dev.type == "cuda":
+            free_device_memory()
+        res["bf16"] = tp_rank_bf16(mesh, dev, rank, params, pipeline, small)
+        with open(f"{out_dir}/rank.{rank}.json", "w") as f:
+            json.dump(res, f, sort_keys=True)
+    except BaseException:
+        with open(f"{out_dir}/rank.{rank}.error", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def tensor_parallel(dev, plain, smi_line: str, small: bool = False) -> dict:
+    """Phase 29 (see the module doc).  ``small``: a rehearsal of the ranks
+    on the CPU with the smoke config (no kernel times)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        free_device_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    out_dir = obs_dir("tensor_parallel")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank,
+                         args=(r, f"{tmp}/store", str(out_dir), small))
+             for r in range(2)]
+    try:
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(timeout=TP_PHASE_S + 60)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errors = sorted(out_dir.glob("rank.*.error"))
+        if errors or any(pr.exitcode != 0 for pr in procs):
+            fail("phase 29's ranks failed (exit codes "
+                 f"{[pr.exitcode for pr in procs]}): "
+                 + " | ".join(e.read_text()[-3000:] for e in errors))
+        ranks = [json.loads((out_dir / f"rank.{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    t_ranks = time.perf_counter() - t_phase
+    f32 = ranks[0]["f32"]
+    if f32["faults"]:
+        fail("29a: the float32 tensor-parallel step against the single-"
+             "device step: " + "; ".join(f32["faults"]))
+    if any(r["f32"]["step_loss"] != f32["step_loss"]
+           or r["f32"]["step_grad_norm"] != f32["step_grad_norm"]
+           for r in ranks):
+        fail(f"29a: the ranks' metrics differ: {[r['f32'] for r in ranks]}")
+    for name, (_, _, layout) in TP_VARIANTS.items():
+        got = [r["variants"][name] for r in ranks]
+        if got[0]["faults"]:
+            fail(f"29a {name}: the float32 tensor-parallel step against the "
+                 "single-device step: " + "; ".join(got[0]["faults"]))
+        if any(g["layout"] != layout for g in got):
+            fail(f"29a {name}: layout {[g['layout'] for g in got]}, "
+                 f"expected {layout}")
+        if any((g["step_loss"], g["step_grad_norm"])
+               != (got[0]["step_loss"], got[0]["step_grad_norm"])
+               for g in got):
+            fail(f"29a {name}: the ranks' metrics differ: {got}")
+    layers = tp_phase_config(small, torch.float32).n_layers
+    per_step = 2 * layers
+    for r, res in enumerate(ranks):
+        steps = res["bf16"]["steps"]
+        for i, st in enumerate(steps):
+            if not math.isfinite(st["loss"]) or st["loss"] != \
+                    ranks[0]["bf16"]["steps"][i]["loss"]:
+                fail(f"29b rank {r} step {i + 1}: loss {st['loss']} (rank 0 "
+                     f"{ranks[0]['bf16']['steps'][i]['loss']})")
+            if st["collectives"] != steps[0]["collectives"]:
+                fail(f"29b rank {r}: collectives differ across steps: "
+                     f"{[x['collectives'] for x in steps]}")
+            if dev.type != "cuda":
+                continue
+            if (st["flash_attention"] != per_step
+                    or st["routes"] != fa_routes(torch.bfloat16, 64, per_step)
+                    or st["bwd_routes"] != bwd_routes(torch.bfloat16, 64,
+                                                      layers)
+                    or st["plain_backward"]
+                    or st["heads"] != [list(TP_LOCAL_HEADS)]):
+                fail(f"29b rank {r} step {i + 1}: launches "
+                     f"{st['flash_attention']} {st['routes']}, backward "
+                     f"{st['bwd_routes']}, plain backward "
+                     f"{st['plain_backward']}, heads {st['heads']}: expected "
+                     f"{per_step} tensor-core launches and {layers} backward "
+                     f"calls at {TP_LOCAL_HEADS} heads")
+    out = {"arch": TP_ARCH, "n_layers": layers, "mesh": list(TP_MESH),
+           "batch": TP_BATCH, "seq": TP_SEQ, "smi": smi_line,
+           "f32_errors": f32["errors"],
+           "f32_worst_leaf_share": max(f32["share_of_tolerance"].values()),
+           "local_leaves": f32["local"],
+           "variants": {name: {
+               "layout": r0["layout"], "layers": TP_VARIANT_LAYERS,
+               "changes": TP_VARIANTS[name][1 if small else 0],
+               "f32_errors": r0["errors"],
+               "f32_worst_leaf_share": max(r0["share_of_tolerance"].values()),
+               "local_leaves": r0["local"],
+               "f32_seconds": [r["variants"][name]["seconds"]
+                               for r in ranks]}
+               for name, r0 in ranks[0]["variants"].items()},
+           "f32_seconds": [r["f32"]["seconds"] for r in ranks],
+           "bf16_losses": [st["loss"] for st in ranks[0]["bf16"]["steps"]],
+           "bf16_step_wall_s": {r: [st["wall_s"] for st in
+                                    res["bf16"]["steps"]]
+                                for r, res in enumerate(ranks)},
+           "flash_attention_per_rank_step":
+               ranks[0]["bf16"]["steps"][0]["flash_attention"],
+           "backward_calls_per_rank_step":
+               ranks[0]["bf16"]["steps"][0]["bwd_routes"],
+           "heads": ranks[0]["bf16"]["steps"][0]["heads"],
+           "collectives_per_step": ranks[0]["bf16"]["steps"][0]["collectives"],
+           "peak_gib": [r["bf16"]["peak_gib"] for r in ranks],
+           "draw_s": [r["draw_s"] for r in ranks],
+           "no_sync_in_step_but_gloo": dev.type == "cuda",
+           "launches": sum(st["flash_attention"] for r in ranks
+                           for st in r["bf16"]["steps"]),
+           "backward_calls": sum(sum(st["bwd_routes"].values()) for r in ranks
+                                 for st in r["bf16"]["steps"]),
+           "ranks_s": t_ranks}
+    if dev.type == "cuda":
+        b, h, kvh, s_len, d = TP_TIME_SHAPE
+        out["forward"] = flash_attention_time(dev, plain, "qwen2-0.5b TP rank",
+                                              b, h, kvh, d, s_len=s_len)
+        grads = train_attention_grads(dev, [TP_GRAD_CASE])[TP_GRAD_CASE[0]]
+        out["backward"] = train_attention_time(dev, TP_TIME_SHAPE,
+                                               ("bfloat16",))["bfloat16"]
+        out["backward"]["max_abs_err"] = max(grads[n][0]
+                                             for n in ("dq", "dk", "dv"))
+    out["seconds"] = time.perf_counter() - t_phase
+    say("tensor_parallel", **{k: v for k, v in out.items()
+                              if k not in ("forward", "backward")})
+    if out["seconds"] > TP_PHASE_S:
+        fail(f"phase 29 took {out['seconds']:.1f} s, over its {TP_PHASE_S} s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -5211,7 +5620,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 28) -> None:
+def main(until: int = 29) -> None:
     import numpy as np
     import torch
 
@@ -5877,6 +6286,11 @@ def main(until: int = 28) -> None:
     # ------------------- 28. the dry run, held to a real step on the card
     dry_run(dev, zero_counts, read_counts, read_routes, smi_line)
 
+    if until < 29:
+        fail(f"stopped after phase {until} (--until)")
+    # ---------- 29. tensor parallelism over "model", two gloo ranks
+    tp29 = tensor_parallel(dev, plain, smi_line)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -6137,6 +6551,37 @@ def main(until: int = 28) -> None:
          "max_abs_err": hs_train["max_abs_err"], "ms": hs_train["ms"],
          "plain_ms": hs_train["plain_ms"], "bound_ms": hs_train["bound_ms"],
          "bound_by": hs_train["bound_by"], "library_ms": hs_train["topk_ms"]},
+        # the tensor-core route on the tensor-parallel training path: its
+        # launches on both ranks in phase 29b's bf16 steps (2 a layer and
+        # step under remat, at a rank's 7 / 1 heads), its error and time at
+        # that shape (B 4, H 7, KVH 1, S 2048, d 64)
+        {"name": "flash_attention_tp_train", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": tp29["launches"],
+         "max_abs_err": tp29["forward"]["max_abs_err"],
+         "ms": tp29["forward"]["ms"], "plain_ms": tp29["forward"]["plain_ms"],
+         "bound_ms": tp29["forward"]["bound_ms"],
+         "bound_by": tp29["forward"]["bound_by"],
+         "library_ms": tp29["forward"]["sdpa_ms"]},
+        # its backward there: the calls and kernel launches of phase 29b
+        # on both ranks, its time at a rank's shape beside the plain
+        # backward's and sdpa's backward (the error: 29a's float32 step
+        # holds the gradient; at this shape the kernels' bf16 dq against
+        # the plain version's)
+        {"name": "flash_attention_bwd_tp_train", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd_wgmma.cuh",
+         "replaces": "src/repro/models/attention.py:33",
+         "calls": tp29["backward_calls"],
+         "launches": BWD_KERNELS_A_CALL * tp29["backward_calls"],
+         "max_abs_err": tp29["backward"]["max_abs_err"],
+         "ms": tp29["backward"]["ms"],
+         "plain_ms": tp29["backward"]["plain_ms"],
+         "bound_ms": tp29["backward"]["bound_ms"],
+         "bound_by": tp29["backward"]["bound_by"],
+         "library_ms": tp29["backward"]["sdpa_bwd_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -6149,4 +6594,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 28)
+    main(int(args[1]) if args[:1] == ["--until"] else 29)

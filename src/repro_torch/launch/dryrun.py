@@ -36,9 +36,15 @@ counterpart of the reference's ``XLA_FLAGS`` line.
 Each cell's step is what the port's program runs, which is not what GSPMD
 would compile:
 
-* **train**: ``train.sharded.make_sharded_train_step`` (every param leaf
-  gathered once a step, the batch split over the batch axes, the ranks
-  of "model" repeating it but for the expert-parallel MoE layers);
+* **train**: ``train.sharded.make_sharded_train_step``, tensor parallel
+  over "model" (the batch split over the batch axes; the attention's
+  q / o and its k / v where the rules split them, the dense MLP, the
+  embedding and the loss's head on the rank's block over "model", the
+  attention at the rank's heads, two all-reduces over "model" a block;
+  where the rules cut through a head, the projections on the rank's
+  columns and the attention on all heads; every other leaf gathered once
+  a step; MoE layers single-program or expert parallel, rwkv6's and
+  Mamba2's blocks whole on every rank);
 * **prefill**: ``serve.engine.prefill(mesh=)`` on the rank's batch slice,
   with full params but, under expert parallelism, the expert leaves' block
   of ``E / gm`` experts;
@@ -365,7 +371,7 @@ def count_step(fn, args) -> dict:
     wire = {c: 0.0 for c in _COLLECTIVES}
     raw = {c: 0 for c in _COLLECTIVES}
     count = {c: 0 for c in _COLLECTIVES}
-    for kind, nbytes, group in log:
+    for kind, nbytes, group, _ in log:
         k = _KIND[kind]
         wire[k] += hloanalysis.wire_bytes(k, nbytes, group)
         raw[k] += nbytes

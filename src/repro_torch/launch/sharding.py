@@ -18,13 +18,15 @@ mesh.
 
 The layout helpers and the collectives of the sharded path live here too
 (:func:`distribute`, :func:`gather`, :func:`gather_except`,
-:func:`all_reduce`, :func:`gather_slices`, and the expert-parallel MoE's
+:func:`all_reduce`, :func:`gather_slices`, the expert-parallel MoE's
 differentiable :func:`all_to_all`, :func:`split_seq` and
-:func:`gather_seq`), so the train step, the MoE block and checkpoints
-share them.  Each collective is counted in :data:`COLLECTIVES` as plain
-integers (calls and bytes), as ``core.shard`` counts the telemetry
-path's; inside a :func:`recording` block each is also logged with its
-group's size (the dry run's wire bytes).
+:func:`gather_seq`, and tensor parallelism's :func:`to_model` and
+:func:`from_model`), so the train step, the model's blocks and
+checkpoints share them.  Each collective is counted in
+:data:`COLLECTIVES` as plain integers (calls and bytes), as
+``core.shard`` counts the telemetry path's; inside a :func:`recording`
+block each is also logged with its group's size (the dry run's wire
+bytes) and its mesh axis.
 """
 from __future__ import annotations
 
@@ -42,10 +44,10 @@ from ..pytree import tree_map
 __all__ = ["COLLECTIVES", "NamedSharding", "PartitionSpec", "all_reduce",
            "all_to_all", "apply_overrides", "batch_axes", "batch_pspec",
            "batch_specs", "cache_pspecs", "default_rules", "distribute",
-           "entry_axes", "full", "gather", "gather_except", "gather_seq",
-           "gather_slices", "local_block", "map_specs", "mesh_axes",
-           "model_pspecs", "named", "opt_pspecs", "placements", "recording",
-           "split_seq", "wrap"]
+           "entry_axes", "from_model", "full", "gather", "gather_except",
+           "gather_seq", "gather_slices", "local_block", "map_specs",
+           "mesh_axes", "model_pspecs", "named", "opt_pspecs", "placements",
+           "recording", "split_seq", "to_model", "wrap"]
 
 
 class PartitionSpec(tuple):
@@ -324,10 +326,11 @@ _LOGS: list = []
 
 @contextlib.contextmanager
 def recording():
-    """Yields a list that gets ``(kind, bytes, group size)`` of every
+    """Yields a list that gets ``(kind, bytes, group size, axis)`` of every
     collective counted in :data:`COLLECTIVES` inside the block, ``kind`` a
-    key of it ("all_gather", "all_reduce", "all_to_all") and ``bytes`` as
-    counted there (the bytes the call returns)."""
+    key of it ("all_gather", "all_reduce", "all_to_all"), ``bytes`` as
+    counted there (the bytes the call returns) and ``axis`` the mesh axis
+    whose group it ran over."""
     log: list = []
     _LOGS.append(log)
     try:
@@ -336,11 +339,11 @@ def recording():
         _LOGS.remove(log)
 
 
-def _count(kind: str, nbytes: int, group_size: int) -> None:
+def _count(kind: str, nbytes: int, group_size: int, axis: str) -> None:
     COLLECTIVES[kind] += 1
     COLLECTIVES[kind + "_bytes"] += nbytes
     for log in _LOGS:
-        log.append((kind, nbytes, group_size))
+        log.append((kind, nbytes, group_size, axis))
 
 
 def local_block(x, sh: NamedSharding) -> torch.Tensor:
@@ -382,15 +385,16 @@ def _chunks(length: int, n: int) -> list:
     return [max(0, min(c, length - i * c)) for i in range(n)]
 
 
-def _all_gather(x: torch.Tensor, group, n: int) -> list:
-    """Every rank's ``x`` of ``group`` (``n`` ranks), in rank order: the
+def _all_gather(x: torch.Tensor, group, n: int, axis: str) -> list:
+    """Every rank's ``x`` of ``group`` (``n`` ranks of mesh axis ``axis``),
+    in rank order: the
     list all-gather of ``torch.distributed``, which gloo takes on a CUDA
     tensor too (DTensor's own gathers go through the functional
     collectives, whose wait crashes gloo on a CUDA tensor)."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    _count("all_gather", n * x.numel() * x.element_size(), n)
+    _count("all_gather", n * x.numel() * x.element_size(), n, axis)
     return parts
 
 
@@ -434,7 +438,7 @@ def _gathered(x, keep: Optional[str] = None) -> torch.Tensor:
             pad = list(local.shape)
             pad[d] = sizes[0] - local.shape[d]
             local = torch.cat([local, local.new_zeros(pad)], d)
-        parts = _all_gather(local, mesh.get_group(m), n)
+        parts = _all_gather(local, mesh.get_group(m), n, names[m])
         if split > 1:
             local = torch.cat([q.chunk(split, d)[i] for i in range(split)
                                for q in parts], d)
@@ -467,17 +471,19 @@ def gather(tree):
     return tree_map(full, tree)
 
 
-def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """In-place SUM of ``x`` over the mesh axes ``axes`` (one call an
-    axis); returns ``x``.  A non-contiguous ``x`` (a gradient of a
-    transposed use) is reduced in a contiguous copy and copied back, since
-    NCCL refuses it, so it keeps its strides."""
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
+               op=None) -> torch.Tensor:
+    """In-place SUM (or ``op``, a ``dist.ReduceOp``) of ``x`` over the mesh
+    axes ``axes`` (one call an axis); returns ``x``.  A non-contiguous
+    ``x`` (a gradient of a transposed use) is reduced in a contiguous copy
+    and copied back, since NCCL refuses it, so it keeps its strides."""
     names = list(mesh.mesh_dim_names)
     buf = x.contiguous()
     for a in axes:
-        dist.all_reduce(buf, group=mesh.get_group(names.index(a)))
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM if op is None else op,
+                        group=mesh.get_group(names.index(a)))
         _count("all_reduce", buf.numel() * buf.element_size(),
-               mesh.size(names.index(a)))
+               mesh.size(names.index(a)), a)
     if buf is not x:
         x.copy_(buf)
     return x
@@ -509,53 +515,54 @@ def _axis_group(mesh, axis: str):
 
 
 def _tiled_all_to_all(x: torch.Tensor, group, n: int, split: int,
-                      concat: int) -> torch.Tensor:
+                      concat: int, axis: str) -> torch.Tensor:
     """``lax.all_to_all(..., tiled=True)``: dim ``split`` of ``x`` cut into
     ``n`` chunks, chunk i sent to rank i of ``group``; the chunks received
     concatenated along dim ``concat`` in source-rank order."""
     send = x.unflatten(split, (n, -1)).movedim(split, 0).contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    _count("all_to_all", send.numel() * send.element_size(), n)
+    _count("all_to_all", send.numel() * send.element_size(), n, axis)
     return recv.movedim(0, concat).flatten(concat, concat + 1)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, split, concat):
-        ctx.args = (group, n, split, concat)
-        return _tiled_all_to_all(x, group, n, split, concat)
+    def forward(ctx, x, group, n, split, concat, axis):
+        ctx.args = (group, n, split, concat, axis)
+        return _tiled_all_to_all(x, group, n, split, concat, axis)
 
     @staticmethod
     def backward(ctx, g):
-        group, n, split, concat = ctx.args
-        return _tiled_all_to_all(g, group, n, concat, split), None, None, \
-            None, None
+        group, n, split, concat, axis = ctx.args
+        return _tiled_all_to_all(g, group, n, concat, split, axis), None, \
+            None, None, None, None
 
 
 class _SplitSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, j, dim):
-        ctx.args = (group, n, dim)
+    def forward(ctx, x, axis, group, n, j, dim):
+        ctx.args = (axis, group, n, dim)
         return x.chunk(n, dim)[j].clone(memory_format=torch.contiguous_format)
 
     @staticmethod
     def backward(ctx, g):
-        group, n, dim = ctx.args
-        return torch.cat(_all_gather(g, group, n), dim), None, None, None, None
+        axis, group, n, dim = ctx.args
+        return (torch.cat(_all_gather(g, group, n, axis), dim), None, None,
+                None, None, None)
 
 
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, j, dim):
+    def forward(ctx, x, axis, group, n, j, dim):
         ctx.args = (n, j, dim)
-        return torch.cat(_all_gather(x, group, n), dim)
+        return torch.cat(_all_gather(x, group, n, axis), dim)
 
     @staticmethod
     def backward(ctx, g):
         n, j, dim = ctx.args
         return (g.chunk(n, dim)[j].clone(memory_format=torch.contiguous_format),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str = "model", split: int = 0,
@@ -567,7 +574,7 @@ def all_to_all(x: torch.Tensor, mesh, axis: str = "model", split: int = 0,
     back with ``split=1, concat=0``.  Differentiable: the backward is the
     reverse all-to-all.  Counted at the bytes this rank sends."""
     group, n, _ = _axis_group(mesh, axis)
-    return _AllToAll.apply(x, group, n, split, concat)
+    return _AllToAll.apply(x, group, n, split, concat, axis)
 
 
 def split_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
@@ -579,7 +586,7 @@ def split_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
     ``axis`` compute the same loss, and a stock all-gather's
     reduce-scatter would sum that gradient once a rank."""
     group, n, j = _axis_group(mesh, axis)
-    return _SplitSeq.apply(x, group, n, j, dim)
+    return _SplitSeq.apply(x, axis, group, n, j, dim)
 
 
 def gather_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
@@ -588,4 +595,43 @@ def gather_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
     axis ``axis`` concatenated along ``dim``; the backward keeps this
     rank's slice of the (replicated) gradient."""
     group, n, j = _axis_group(mesh, axis)
-    return _GatherSeq.apply(x, group, n, j, dim)
+    return _GatherSeq.apply(x, axis, group, n, j, dim)
+
+
+# ------------------------------ tensor parallelism's collectives ("model")
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        g = g.clone(memory_format=torch.contiguous_format)
+        return all_reduce(g, mesh, (axis,)), None, None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, (axis,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def to_model(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """Where a tensor the same on every rank of mesh axis ``axis`` enters
+    a block each rank computes a part of: the identity forward; the
+    backward sums the ranks' partial gradients (one all-reduce)."""
+    return _ToModel.apply(x, mesh, axis)
+
+
+def from_model(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """Where such a block's partial results join: their sum over the ranks
+    of mesh axis ``axis`` (one all-reduce); the backward is the identity
+    (the gradient of the sum is the same on every rank)."""
+    return _FromModel.apply(x, mesh, axis)

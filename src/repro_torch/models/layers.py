@@ -1,9 +1,34 @@
 """Shared building blocks: norms, RoPE/M-RoPE, SwiGLU, attention block
 (PyTorch port of ``repro/models/layers.py``; same layouts: activations
-``(B, S, D)``, heads ``(B, H, S, hd)``)."""
+``(B, S, D)``, heads ``(B, H, S, hd)``).
+
+Tensor parallelism (``tp``, a :class:`TensorParallel`; only the sharded
+train step sets it): :func:`swiglu` and :func:`attention_block` then run
+on this rank's block of their weights over the mesh axis "model", the
+rules' layout (``launch.sharding.default_rules``).  The block's input
+enters through ``launch.sharding.to_model`` (the backward sums the ranks'
+partial input gradients) and its partial outputs join through
+``from_model`` (one all-reduce), two all-reduces a block and step, and
+one more for each forward again under remat.  The attention:
+
+* ``heads == "whole"`` (H divisible by the ranks): the rank projects and
+  attends its H / m query heads.  Its KV heads are its own block when the
+  rules split them (``kv == "local"``); when they stay replicated
+  (``kv == "sliced"``: internlm2's 16 / 8 at 16 ranks) the rank slices the
+  KV heads its query heads read from the whole ``wk`` / ``wv``, whose
+  gradient is then a partial sum on each rank (the step sums it over
+  "model").
+* ``heads == "cut"``: the rules split the fused H·hd dim through a head
+  (qwen2-0.5b's 14 heads at 16 ranks).  q is projected on the rank's
+  columns and all-gathered over "model" (the backward keeps the rank's
+  slice), k and v are projected whole from the input before
+  ``to_model``, and every rank attends all the heads; the rank's columns
+  of the output go into its rows of ``wo``.  GSPMD must do the same with
+  that layout: RoPE and the softmax read a whole head.
+"""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -62,12 +87,68 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
     return _rotate(x, angles)
 
 
+# ------------------------------------------------------- tensor parallelism
+class TensorParallel(NamedTuple):
+    """Tensor parallelism over the mesh axis "model" (``size`` ranks, this
+    one ``rank``): ``heads`` "whole" / "cut" / None and ``kv`` "local" /
+    "sliced" / None as the module doc says, ``mlp`` (the dense MLP on its
+    block of columns), ``vocab`` (the embedding and the loss on its block
+    of the vocabulary)."""
+    mesh: Any
+    size: int
+    rank: int
+    heads: Optional[str]
+    kv: Optional[str]
+    mlp: bool
+    vocab: bool
+
+
+def kv_heads_read(n_heads: int, n_kv_heads: int, size: int, rank: int):
+    """The KV heads that rank ``rank`` of ``size``'s query heads read, in
+    order: the range they fall in when each of them serves the same number
+    of the rank's heads, else one KV head a query head (repeated)."""
+    per = n_heads // size
+    group = n_heads // n_kv_heads
+    kv = [h // group for h in range(rank * per, (rank + 1) * per)]
+    first, n = kv[0], kv[-1] - kv[0] + 1
+    if per % n == 0 and kv == [first + i // (per // n) for i in range(per)]:
+        return list(range(first, first + n))
+    return kv
+
+
+def pick(t: Optional[torch.Tensor], sel):
+    """Columns ``sel`` of the last dim of ``t``: ``(first, count)``, an
+    index tensor, or None (all of them)."""
+    if t is None or sel is None:
+        return t
+    if isinstance(sel, tuple):
+        return t.narrow(-1, *sel)
+    return t.index_select(-1, sel)
+
+
+def _head_cols(heads, head_dim: int, device):
+    """The columns of a fused (..., n·hd) projection that hold ``heads``:
+    ``(first, count)`` for a run of heads, else an index tensor."""
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return (heads[0] * head_dim, len(heads) * head_dim)
+    idx = torch.tensor(heads, device=device)[:, None] * head_dim
+    return (idx + torch.arange(head_dim, device=device)).reshape(-1)
+
+
 # --------------------------------------------------------------------- SwiGLU
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, tp: Optional[TensorParallel] = None
+           ) -> torch.Tensor:
+    """``tp``: the weights are this rank's block of the mlp dim (columns
+    of ``w_gate`` / ``w_up``, rows of ``w_down``); the ranks' outputs
+    summed."""
+    if tp is not None:
+        from ..launch.sharding import from_model, to_model
+        x = to_model(x, tp.mesh)
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
-    return (F.silu(g) * u) @ w_down.to(x.dtype)
+    out = (F.silu(g) * u) @ w_down.to(x.dtype)
+    return out if tp is None else from_model(out, tp.mesh)
 
 
 # ------------------------------------------------------------ attention block
@@ -100,19 +181,56 @@ def attention_block(
     causal_schedule: str = "masked",
     block_k: int = 512,
     return_kv: bool = False,
+    tp: Optional[TensorParallel] = None,
+    proj: Optional[Callable] = None,
 ):
+    """``tp``: on this rank's heads and blocks of ``p`` (see the module
+    doc; not with ``return_kv``).  ``proj(h, name, sel, local)``, in place
+    of ``p``'s weights and biases (zamba2's shared block adds its LoRA
+    delta): projection ``name`` ("q", "k", "v") of ``h`` on columns ``sel``
+    of the whole projection (None: all of them), its weight already this
+    rank's block of them where ``local``."""
     b, s, _ = x.shape
     dt = x.dtype
+    hd = head_dim
 
-    def proj(w, bias, nh):
-        y = x @ w.to(dt)
+    def own_proj(h, name, sel, local):
+        w, bias = getattr(p, "w" + name), getattr(p, "b" + name)
+        y = h @ (w if local else pick(w, sel)).to(dt)
         if bias is not None:
-            y = y + bias.to(dt)
-        return y.reshape(b, s, nh, head_dim).transpose(1, 2)
+            y = y + (bias if local else pick(bias, sel)).to(dt)
+        return y
 
-    q = proj(p.wq, p.bq, n_heads)          # (B,H,S,hd)
-    k = proj(p.wk, p.bk, n_kv_heads)
-    v = proj(p.wv, p.bv, n_kv_heads)
+    def heads(t):
+        return t.reshape(b, s, -1, hd).transpose(1, 2)   # (B,heads,S,hd)
+
+    proj = proj or own_proj
+    if tp is None:
+        q, k, v = (heads(proj(x, n, None, False)) for n in ("q", "k", "v"))
+    else:
+        from ..launch.sharding import gather_seq, to_model
+        if return_kv:
+            raise ValueError("a tensor-parallel attention returns no cache")
+        m, r = tp.size, tp.rank
+        qw, kvw = n_heads * hd, n_kv_heads * hd
+        xm = to_model(x, tp.mesh)
+        q = proj(xm, "q", (r * qw // m, qw // m), True)
+        if tp.heads == "whole":
+            q = heads(q)
+            if tp.kv == "local":
+                k, v = (heads(proj(xm, n, (r * kvw // m, kvw // m), True))
+                        for n in ("k", "v"))
+            else:
+                cols = _head_cols(kv_heads_read(n_heads, n_kv_heads, m, r),
+                                  hd, x.device)
+                k, v = (heads(proj(xm, n, cols, False)) for n in ("k", "v"))
+        elif tp.heads == "cut":
+            q = heads(gather_seq(q, tp.mesh, "model", -1))
+            # whole on every rank, so from the input before to_model: their
+            # gradient is already the whole one
+            k, v = (heads(proj(x, n, None, False)) for n in ("k", "v"))
+        else:
+            raise ValueError(f"tensor parallel heads {tp.heads!r}")
 
     if rope_mode == "rope":
         q = apply_rope(q, positions[:, None], rope_theta)
@@ -124,8 +242,14 @@ def attention_block(
 
     o = attn_lib.flash_train(q, k, v, causal=True, window=window,
                              causal_schedule=causal_schedule, block_k=block_k)
-    o = o.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    if tp is not None and tp.heads == "cut":
+        from ..launch.sharding import split_seq
+        o = split_seq(o, tp.mesh, "model", -1)
     out = o @ p.wo.to(dt)
+    if tp is not None:
+        from ..launch.sharding import from_model
+        return from_model(out, tp.mesh)
     if return_kv:
         return out, (k, v)
     return out

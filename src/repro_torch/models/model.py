@@ -32,8 +32,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.dispatch import resolve_device
-from . import attention as attn_lib
-from .layers import AttnParams, apply_rope, attention_block, rms_norm, swiglu
+from .layers import (AttnParams, TensorParallel, attention_block, pick,
+                     rms_norm, swiglu)
 from .mamba2 import Mamba2Params, mamba2_mix
 from .moe import MoEParams, moe_block
 from .rwkv6 import (RWKV6FFNParams, RWKV6Params, rwkv6_channel_mix,
@@ -44,7 +44,8 @@ __all__ = ["LeafSpec", "MoECfg", "ModelConfig", "abstract_params",
            "layer_params", "logits_fn", "loss_fn", "loss_terms",
            "mamba2_params", "moe_params",
            "param_pspecs", "rwkv6_ffn_params", "rwkv6_params", "rwkv6_block",
-           "shared_qkv", "transformer_block", "zamba2_mamba_block",
+           "shared_qkv", "tensor_parallel", "tp_layout", "tp_roles",
+           "transformer_block", "zamba2_mamba_block",
            "zamba2_shared_attention"]
 
 
@@ -89,6 +90,10 @@ class ModelConfig:
     # mesh axes the activation batch dim shards over (set by the sharded
     # train step; None = no constraint, e.g. single-device runs)
     act_batch_axes: Optional[Tuple[str, ...]] = None
+    # logical axes ("heads", "kv_heads", "mlp", "vocab") the rules put on
+    # the mesh axis "model" (set by the sharded train step at more than one
+    # "model" rank; None = no tensor parallelism): see tensor_parallel()
+    tp_axes: Optional[Tuple[str, ...]] = None
     moe_groups: Optional[Tuple[int, int]] = None
     moe_expert_sharded: bool = False
 
@@ -287,6 +292,80 @@ def param_pspecs(cfg: ModelConfig, rules: Dict[Optional[str], Any]) -> dict:
     return tree
 
 
+# ======================================================= tensor parallelism
+def tp_layout(cfg: ModelConfig, size: int):
+    """(heads, kv, mlp, vocab) of :class:`layers.TensorParallel` for
+    ``cfg.tp_axes`` at ``size`` "model" ranks: which modules run on their
+    rank's block of the leaves the rules split over "model".  The dense
+    and MoE attention and zamba2's shared block split their heads; the
+    dense MLP and zamba2's shared MLP their columns (the MoE layers keep
+    their own route, and rwkv6's and Mamba2's blocks run whole); the
+    embedding and the loss their vocabulary when it splits evenly."""
+    axes = cfg.tp_axes or ()
+    heads = kv = None
+    if "heads" in axes and cfg.family in ("attn", "moe", "zamba2"):
+        if cfg.n_heads % size == 0:
+            heads = "whole"
+        elif cfg.n_heads * cfg.head_dim % size == 0:
+            heads = "cut"
+    if heads == "whole":
+        kv = ("local" if "kv_heads" in axes and cfg.n_kv_heads % size == 0
+              else "sliced")
+    elif "kv_heads" in axes and cfg.family in ("attn", "moe", "zamba2"):
+        raise ValueError(f"{cfg.name}: KV heads split over {size} \"model\" "
+                         f"ranks while the query heads are not split whole")
+    mlp = "mlp" in axes and cfg.family in ("attn", "zamba2")
+    vocab = "vocab" in axes and cfg.vocab_size % size == 0
+    return heads, kv, mlp, vocab
+
+
+def tp_roles(cfg: ModelConfig, size: int) -> Dict[str, str]:
+    """``{path: role}`` of the leaves :func:`tp_layout` changes: "local"
+    for a leaf the step hands over as this rank's block over "model" (its
+    gradient is that block's), "partial" for a whole leaf whose gradient
+    is a partial sum on each rank (the step sums it over "model")."""
+    heads, kv, mlp, vocab = tp_layout(cfg, size)
+    out: Dict[str, str] = {}
+    paths = {path for path, _ in iter_schema(cfg)}
+
+    def put(path: str, role: str) -> None:
+        if path in paths:
+            out[path] = role
+    if vocab:
+        put("embed", "local")
+        put("lm_head", "local")
+    prefix = "shared_attn." if cfg.family == "zamba2" else "blocks."
+    if heads is not None:
+        for w in ("wq", "bq", "wo"):
+            put(prefix + w, "local")
+        kv_role = {"local": "local", "sliced": "partial"}.get(kv)
+        if kv_role:
+            for w in ("wk", "wv", "bk", "bv"):
+                put(prefix + w, kv_role)
+        # zamba2's LoRA on q / k / v: both factors whole, each rank using
+        # its columns of the product; partial where the projection splits
+        for nm in (("q", "k", "v") if kv_role else ("q",)):
+            put(f"shared_attn.lora_{nm}_a", "partial")
+            put(f"shared_attn.lora_{nm}_b", "partial")
+    if mlp:
+        for w in ("w_gate", "w_up", "w_down"):
+            put(prefix + w, "local")
+    return out
+
+
+def tensor_parallel(cfg: ModelConfig, mesh) -> Optional[TensorParallel]:
+    """The blocks' :class:`layers.TensorParallel` on ``mesh``, or None
+    without ``cfg.tp_axes``, without a mesh or at one "model" rank."""
+    if not cfg.tp_axes or mesh is None \
+            or "model" not in mesh.mesh_dim_names:
+        return None
+    size = mesh.size(list(mesh.mesh_dim_names).index("model"))
+    if size == 1:
+        return None
+    return TensorParallel(mesh, size, mesh.get_local_rank("model"),
+                          *tp_layout(cfg, size))
+
+
 # ================================================================ block passes
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked ``params["blocks"]`` leaves."""
@@ -314,7 +393,9 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
     ``{"counts", "aux_loss"}`` or None; with ``return_kv``
     (x, aux, (k, v)), the prefill's cache rows.  ``mesh``: ``x`` is a
     rank's slice of a batch split over ``cfg.act_batch_axes`` of it (see
-    :func:`forward`)."""
+    :func:`forward`), and with ``cfg.tp_axes`` the attention and the dense
+    MLP run on this rank's blocks (:func:`tensor_parallel`)."""
+    tp = tensor_parallel(cfg, mesh)
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     h = attention_block(
         h, _attn_params(bp),
@@ -322,6 +403,7 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
         positions=positions, rope_mode=cfg.rope, rope_theta=cfg.rope_theta,
         window=cfg.window, causal_schedule=cfg.causal_schedule,
         block_k=cfg.attn_block_k, return_kv=return_kv,
+        tp=tp if tp is not None and tp.heads else None,
     )
     kv = None
     if return_kv:
@@ -336,7 +418,8 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
                            batch_axes=cfg.act_batch_axes, mesh=mesh,
                            expert_sharded=cfg.moe_expert_sharded)
     else:
-        h = swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"])
+        h = swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"],
+                   tp=tp if tp is not None and tp.mlp else None)
     if return_kv:
         return x + h, aux, kv
     return x + h, aux
@@ -388,40 +471,55 @@ def shared_qkv(h: torch.Tensor, sp: dict, cfg: ModelConfig, inv: int):
     """The shared block's q, k, v projections of the normed input ``h``
     (..., D), each with invocation ``inv``'s LoRA delta (h a) b added:
     (..., H * hd), (..., KVH * hd), (..., KVH * hd)."""
-    dt, hd = h.dtype, cfg.head_dim
-    out = []
-    for nm, n in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
-                  ("v", cfg.n_kv_heads)):
-        delta = (h @ sp[f"lora_{nm}_a"][inv].to(dt)) \
-            @ sp[f"lora_{nm}_b"][inv].to(dt)
-        out.append(h @ sp["w" + nm].to(dt) + delta[..., :n * hd])
-    return out
+    return [_shared_proj(h, sp, cfg, inv, nm) for nm in ("q", "k", "v")]
+
+
+def _shared_proj(h: torch.Tensor, sp: dict, cfg: ModelConfig, inv: int,
+                 nm: str, sel=None, local: bool = False) -> torch.Tensor:
+    """Projection ``nm`` of the shared block with its LoRA delta, on
+    columns ``sel`` (``layers.pick``; None: all), ``sp``'s weight already
+    this rank's block of them where ``local`` (the LoRA factors are always
+    whole)."""
+    dt = h.dtype
+    width = (cfg.n_heads if nm == "q" else cfg.n_kv_heads) * cfg.head_dim
+    w = sp["w" + nm]
+    delta = (h @ sp[f"lora_{nm}_a"][inv].to(dt)) \
+        @ sp[f"lora_{nm}_b"][inv].to(dt)
+    return h @ (w if local else pick(w, sel)).to(dt) \
+        + pick(delta[..., :width], sel)
 
 
 def zamba2_shared_attention(x: torch.Tensor, sp: dict, cfg: ModelConfig,
                             inv: int, positions: torch.Tensor,
-                            return_kv: bool = False):
+                            return_kv: bool = False, mesh=None):
     """The shared attention block at invocation ``inv``: per-invocation
     LoRA on q/k/v, RoPE, causal attention through
     :func:`repro_torch.models.attention.flash_train` (the
     ``flash_attention`` kernel on a CUDA tensor), the output projection,
     then the shared SwiGLU.  With ``return_kv`` -> (x, (k, v)), the
-    prefill's cache rows (after RoPE)."""
+    prefill's cache rows (after RoPE).  ``mesh`` with ``cfg.tp_axes``:
+    the attention and the MLP on this rank's blocks (:func:`tensor_parallel`;
+    the LoRA factors whole, each rank using its columns of the delta)."""
+    tp = tensor_parallel(cfg, mesh)
     h = rms_norm(x, sp["ln"], cfg.norm_eps)
-    b, s, _ = h.shape
-    hd, nh = cfg.head_dim, cfg.n_heads
-    q, k, v = (t.reshape(b, s, -1, hd).transpose(1, 2)
-               for t in shared_qkv(h, sp, cfg, inv))
-    q = apply_rope(q, positions[:, None], cfg.rope_theta)
-    k = apply_rope(k, positions[:, None], cfg.rope_theta)
-    o = attn_lib.flash_train(q, k, v, causal=True, window=cfg.window,
-                             causal_schedule=cfg.causal_schedule,
-                             block_k=cfg.attn_block_k)
-    x = x + o.transpose(1, 2).reshape(b, s, nh * hd) @ sp["wo"].to(h.dtype)
-    hm = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
-    x = x + swiglu(hm, sp["w_gate"], sp["w_up"], sp["w_down"])
+    o = attention_block(
+        h, AttnParams(sp["wq"], sp["wk"], sp["wv"], sp["wo"], None, None,
+                      None),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, positions=positions, rope_mode="rope",
+        rope_theta=cfg.rope_theta, window=cfg.window,
+        causal_schedule=cfg.causal_schedule, block_k=cfg.attn_block_k,
+        return_kv=return_kv, tp=tp if tp is not None and tp.heads else None,
+        proj=lambda t, nm, sel, local: _shared_proj(t, sp, cfg, inv, nm, sel,
+                                                    local))
     if return_kv:
-        return x, (k, v)
+        o, kv = o
+    x = x + o
+    hm = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
+    x = x + swiglu(hm, sp["w_gate"], sp["w_up"], sp["w_down"],
+                   tp=tp if tp is not None and tp.mlp else None)
+    if return_kv:
+        return x, kv
     return x
 
 
@@ -452,11 +550,23 @@ def default_positions(cfg: ModelConfig, b: int, s: int,
     return positions
 
 
-def embed_inputs(params: dict, cfg: ModelConfig, tokens=None, embeds=None
-                 ) -> torch.Tensor:
+def embed_inputs(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
+                 mesh=None) -> torch.Tensor:
+    """The input activations; with a tensor-parallel vocabulary
+    (:func:`tensor_parallel`) ``params["embed"]`` is this rank's block of
+    rows: a token outside it gives 0, and the ranks' rows are summed."""
     if embeds is not None:
         return embeds.to(cfg.activ_dtype)
-    return params["embed"][tokens.long()].to(cfg.activ_dtype)
+    tp = tensor_parallel(cfg, mesh)
+    if tp is None or not tp.vocab:
+        return params["embed"][tokens.long()].to(cfg.activ_dtype)
+    from ..launch.sharding import from_model
+    table = params["embed"]
+    idx = tokens.long() - tp.rank * table.shape[0]
+    here = (idx >= 0) & (idx < table.shape[0])
+    rows = table[torch.where(here, idx, 0)]
+    rows = torch.where(here[..., None], rows, 0).to(cfg.activ_dtype)
+    return from_model(rows, tp.mesh)
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -506,8 +616,11 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     its counts the whole batch's and its balance loss this slice's share;
     with ``cfg.moe_groups`` and ``cfg.moe_expert_sharded`` it takes the
     expert-parallel path (``params``' expert leaves this rank's block of
-    experts over "model")."""
-    x = constrain_batch(embed_inputs(params, cfg, tokens, embeds), cfg)
+    experts over "model"); with ``cfg.tp_axes`` the leaves of
+    :func:`tp_roles` are this rank's blocks over "model" and the
+    embedding, attention and MLP run tensor-parallel
+    (:func:`tensor_parallel`)."""
+    x = constrain_batch(embed_inputs(params, cfg, tokens, embeds, mesh), cfg)
     b, s, _ = x.shape
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
@@ -548,7 +661,7 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
             for i in range(inv * every, (inv + 1) * every):
                 x = _remat(lambda x, i=i: layer(x, i), cfg)(x)
             return zamba2_shared_attention(x, params["shared_attn"], cfg,
-                                           inv, positions)
+                                           inv, positions, mesh=mesh)
         for inv in range(cfg.n_shared_attn):
             x = _remat(lambda x, inv=inv: group(x, inv), cfg)(x)
     else:
@@ -582,16 +695,50 @@ def loss_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _chunk_nll_tp(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, first: int, mesh) -> torch.Tensor:
+    """:func:`_chunk_nll` from this rank's block of the vocabulary
+    (``head``'s columns, from ``first``): the row max and the sums of
+    exponentials summed over "model", the gold logit from the rank that
+    holds it (every rank takes part in every collective)."""
+    import torch.distributed as dist
+    from ..launch.sharding import all_reduce, from_model
+    logits = torch.einsum("bsd,dv->bsv", h, head).to(torch.float32)
+    top = logits.detach().amax(-1)
+    all_reduce(top, mesh, ("model",), op=dist.ReduceOp.MAX)
+    idx = labels.long() - first
+    here = (idx >= 0) & (idx < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(here, idx, 0)[..., None])
+    gold = torch.where(here, gold[..., 0], 0.0)
+    part = torch.stack([torch.exp(logits - top[..., None]).sum(-1), gold], -1)
+    total, gold = from_model(part, mesh).unbind(-1)
+    return ((top + torch.log(total) - gold) * mask).sum()
+
+
 def loss_terms(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
-               labels: torch.Tensor, mask: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of the masked token NLLs, the mask's count), both float32
     scalars; a sharded step sums each over the batch's ranks before it
     divides.  Under grad mode each chunk is checkpointed, so only one
     chunk's (B, chunk, V) logits are alive at a time in the backward
-    too."""
+    too.  With a tensor-parallel vocabulary (:func:`tensor_parallel` of
+    ``mesh``) the head is this rank's block of it, (B, chunk, V / m)
+    logits a chunk, and both terms are the whole vocabulary's on every
+    rank."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     head = head.to(hidden.dtype)
+    tp = tensor_parallel(cfg, mesh)
+    if tp is not None and tp.vocab:
+        from ..launch.sharding import to_model
+        hidden = to_model(hidden, tp.mesh)
+        part = _checkpointed(_chunk_nll_tp)
+
+        def nll(h, head, labels, mask):
+            return part(h, head, labels, mask, tp.rank * head.shape[1],
+                        tp.mesh)
+    else:
+        nll = _checkpointed(_chunk_nll)
     b, s, d = hidden.shape
     chunk = min(cfg.loss_chunk or s, s)
     n_chunks = s // chunk if s % chunk == 0 else 1
@@ -600,7 +747,6 @@ def loss_terms(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    nll = _checkpointed(_chunk_nll)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(n_chunks):

@@ -8,9 +8,9 @@ At rest every leaf is a DTensor whose placements are
 ``opt_pspecs``, the batch by ``batch_specs``.  A step, on every rank of
 the mesh (the caller's process group; this module never starts one):
 
-1. all-gathers each parameter leaf into the full tensor, once a step (an
-   expert leaf under expert parallelism over every axis but "model": the
-   rank keeps its block of experts);
+1. all-gathers each parameter leaf into the full tensor, once a step,
+   but a leaf local to "model" over every axis but "model" (the rank
+   keeps its block: see below);
 2. runs forward and backward on plain local tensors (the rank's slice of
    the batch over the batch axes), so the kernels launch as they do
    without a mesh;
@@ -19,25 +19,37 @@ the mesh (the caller's process group; this module never starts one):
    NLL sum over the global count) and, for MoE, the balance loss (each
    rank its share; the routing itself follows the whole batch, see
    ``models.moe``);
-4. all-reduces the gradients over the batch axes, takes the gradient norm
-   once from the reduced gradient (an expert leaf's block's squares summed
-   over "model" too) and clips;
+4. all-reduces the gradients over the batch axes (a whole leaf whose
+   gradient is a partial sum on each rank over "model" too), takes the
+   gradient norm once from the reduced gradient (the squares of the local
+   leaves' blocks summed over "model") and clips;
 5. updates each leaf's local block (AdamW: an elementwise update), or, for
    an optimizer whose update reads across a leaf (Adafactor's factored
-   means and update RMS), the full leaf and keeps its block (an expert
+   means and update RMS), the full leaf and keeps its block (a local
    leaf's gradient all-gathered over "model" for it).
 
-Ranks that differ only on "model" compute the same batch slice and the
-same loss, except for the MoE layers of a config with ``moe_groups`` and
-``moe_expert_sharded`` (expert parallelism, the reference's
-``_moe_shard_map``): there each rank of "model" routes its sequence slice
-to the experts it holds (``models.moe``), and an expert leaf (one whose
-spec puts "model" on its experts dim) is a distinct block a rank of
-"model", its gradient summed over the batch axes only.  The layout
-helpers and the collectives (counted in ``launch.sharding.COLLECTIVES``)
-are ``launch.sharding``'s.  Under remat every block's forward, its
-collectives with it, runs again in the backward, in the same order on
-every rank.
+Ranks that differ only on "model" compute the same batch slice, each its
+part of it.  At more than one "model" rank the step is tensor parallel
+over "model" as the rules lay the leaves out: the config's ``tp_axes``
+names the logical axes the rules put on "model" (heads, kv_heads, mlp,
+vocab), and ``models.model.tp_roles`` the leaves whose module runs on its
+rank's block: the attention's q / o (and k / v where they split), the
+dense MLP, the embedding and the loss's head (``models.layers``' module
+doc has the forms, and the fallback where the rule cuts through a head).
+Those leaves stay this rank's block over "model", their gradients that
+block's; the activations' partial sums meet in two all-reduces over
+"model" a block (``launch.sharding.to_model`` / ``from_model``).  The MoE
+layers keep their route: the single program, or with ``moe_groups`` and
+``moe_expert_sharded`` expert parallelism (the reference's
+``_moe_shard_map``), where each rank of "model" routes its sequence slice
+to the experts it holds (``models.moe``) and an expert leaf (one whose
+spec puts "model" on its experts dim) is local to "model" too.
+rwkv6's and Mamba2's blocks run whole on every rank.  At one "model"
+rank, or without a mesh, every op is the single-device step's.  The
+layout helpers and the collectives (counted in
+``launch.sharding.COLLECTIVES``) are ``launch.sharding``'s.  Under remat
+every block's forward, its collectives with it, runs again in the
+backward, in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -48,16 +60,20 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..launch.sharding import (NamedSharding, PartitionSpec, all_reduce,
-                               batch_specs, distribute, entry_axes, full,
-                               gather, gather_except, local_block, map_specs,
+                               apply_overrides, batch_specs, default_rules,
+                               distribute, entry_axes, full, gather,
+                               gather_except, local_block, map_specs,
                                mesh_axes, model_pspecs, named, opt_pspecs,
                                wrap)
-from ..models.model import ModelConfig, forward, loss_terms
+from ..models.model import ModelConfig, forward, loss_terms, tp_roles
 from ..optim.optimizers import OptState, Optimizer
 from ..pytree import flatten, leaves, tree_map, unflatten
 
-__all__ = ["make_sharded_train_step", "sharded_loss_and_grads",
-           "state_shardings"]
+__all__ = ["gather_local", "make_sharded_train_step", "sharded_grads",
+           "sharded_loss_and_grads", "state_shardings", "tp_config"]
+
+# the logical axes whose leaves a module can use as its block over "model"
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
 def state_shardings(mesh, cfg: ModelConfig, opt_state: OptState,
@@ -85,20 +101,42 @@ def _check_layout(tree, shardings, what: str) -> None:
 
 
 # ------------------------------------------------------------- the step
-def _expert_leaves(cfg: ModelConfig, pspecs) -> Any:
-    """A tree of bools like the params: True at an expert leaf under
-    expert parallelism (``cfg.moe_groups`` of more than one member and
-    ``cfg.moe_expert_sharded``), one whose spec puts "model" on the
-    experts dim (dim 1 of the stacked ``e_gate`` / ``e_up`` /
-    ``e_down``)."""
-    tree = map_specs(lambda spec: False, pspecs)
+def tp_config(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
+              ) -> ModelConfig:
+    """``cfg`` with ``tp_axes``: the logical axes of ``TP_AXES`` that the
+    rules (with ``overrides``) put on "model", at more than one "model"
+    rank of ``mesh`` (else ``cfg`` itself)."""
+    if mesh_axes(mesh).get("model", 1) == 1:
+        return cfg
+    rules = apply_overrides(default_rules(mesh, cfg), overrides or {})
+    return dataclasses.replace(cfg, tp_axes=tuple(
+        a for a in TP_AXES if rules.get(a) == "model"))
+
+
+def _roles(cfg: ModelConfig, mesh, pspecs) -> Tuple[Any, Any]:
+    """(local, partial): trees of bools like the params.  Local: a leaf
+    handed over as this rank's block over "model" (an expert leaf under
+    expert parallelism, ``cfg.moe_groups`` of more than one member and
+    ``cfg.moe_expert_sharded``, whose spec puts "model" on its experts dim;
+    a leaf of ``tp_roles``).  Partial: a whole leaf whose gradient is a
+    partial sum on each rank of "model"."""
+    local = map_specs(lambda spec: False, pspecs)
+    partial = map_specs(lambda spec: False, pspecs)
     groups = cfg.moe_groups or (1, 1)
-    if cfg.moe is None or not cfg.moe_expert_sharded \
-            or groups[0] * groups[1] == 1:
-        return tree
-    for k in ("e_gate", "e_up", "e_down"):
-        tree["blocks"][k] = "model" in entry_axes(pspecs["blocks"][k][1])
-    return tree
+    if cfg.moe is not None and cfg.moe_expert_sharded \
+            and groups[0] * groups[1] > 1:
+        for k in ("e_gate", "e_up", "e_down"):
+            local["blocks"][k] = "model" in entry_axes(
+                pspecs["blocks"][k][1])
+    if cfg.tp_axes:
+        size = mesh_axes(mesh)["model"]
+        for path, role in tp_roles(cfg, size).items():
+            *parents, leaf = path.split(".")
+            node = local if role == "local" else partial
+            for p in parents:
+                node = node[p]
+            node[leaf] = True
+    return local, partial
 
 
 def _only(spec: PartitionSpec, keep: bool) -> PartitionSpec:
@@ -108,12 +146,12 @@ def _only(spec: PartitionSpec, keep: bool) -> PartitionSpec:
                                  if (a == "model") == keep) for e in spec))
 
 
-def _clip(grads, experts, mesh, max_norm: float = 1.0):
-    """``clip_by_global_norm`` of the whole gradient, an expert leaf's
-    block's squares summed over "model" (without expert leaves, the same
+def _clip(grads, local, mesh, max_norm: float = 1.0):
+    """``clip_by_global_norm`` of the whole gradient, a local leaf's
+    block's squares summed over "model" (without local leaves, the same
     operations in the same order)."""
     sq = [(torch.sum(torch.square(g.to(torch.float32))), ex)
-          for g, ex in zip(leaves(grads), leaves(experts))]
+          for g, ex in zip(leaves(grads), leaves(local))]
     total = sum(q for q, ex in sq if not ex)
     blocks = [q for q, ex in sq if ex]
     if blocks:
@@ -134,10 +172,11 @@ def sharded_loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any],
                            mesh, axes: Tuple[str, ...]):
     """(loss, aux, grads) of the GLOBAL batch from a rank's slice ``batch``
     (plain tensors, split over the mesh axes ``axes``; ``()``: the whole
-    batch on every rank) and the full ``params``: the loss and
-    ``aux["expert_counts"]`` are the whole batch's; ``grads`` is this
-    rank's share, whose sum over ``axes`` is the whole batch's
-    gradient."""
+    batch on every rank) and the full ``params`` (with ``cfg.tp_axes``,
+    the leaves of ``tp_roles`` this rank's blocks over "model"): the loss
+    and ``aux["expert_counts"]`` are the whole batch's; ``grads`` is this
+    rank's share, whose sum over ``axes`` (and over "model" for a partial
+    leaf) is the whole batch's gradient (a local leaf's block of it)."""
     n_ranks = math.prod(mesh_axes(mesh)[a] for a in axes)
     cfg = dataclasses.replace(cfg, act_batch_axes=axes)
     flat, skeleton = flatten(params)
@@ -148,7 +187,7 @@ def sharded_loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any],
                               embeds=batch.get("embeds"),
                               positions=batch.get("positions"), mesh=mesh)
         tot, cnt = loss_terms(p, cfg, hidden, batch["labels"],
-                              batch.get("mask"))
+                              batch.get("mask"), mesh=mesh)
         moe = "moe_aux_loss" in aux
         parts = [tot.detach(), cnt]
         if moe:
@@ -170,6 +209,41 @@ def sharded_loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any],
     return value.detach(), aux, unflatten(skeleton, list(grads))
 
 
+def sharded_grads(cfg: ModelConfig, mesh, params, batch: Dict[str, Any],
+                  overrides: Optional[dict] = None):
+    """(loss, aux, grads, local, full params) of one sharded step before
+    its update, from DTensor ``params`` and ``batch`` laid out as
+    :func:`make_sharded_train_step` takes them: ``grads`` the whole
+    batch's gradient, reduced (a local leaf's as this rank's block over
+    "model"; ``local`` marks those leaves), not yet clipped; the full
+    params as the step used them."""
+    pspecs = model_pspecs(mesh, cfg, overrides)
+    step_cfg = tp_config(cfg, mesh, overrides)
+    local, partial = _roles(step_cfg, mesh, pspecs)
+    axes = _batch_axes(mesh, batch_specs(mesh, cfg, batch)["labels"])
+    full_p = tree_map(lambda x, loc: gather_except(x, "model") if loc
+                      else full(x), params, local)
+    l_batch = tree_map(lambda x: x.to_local(), batch)
+    loss, aux, grads = sharded_loss_and_grads(full_p, step_cfg, l_batch,
+                                              mesh, axes)
+    for g, part in zip(leaves(grads), leaves(partial)):
+        all_reduce(g, mesh, axes + ("model",) if part else axes)
+    return loss, aux, grads, local, full_p
+
+
+def gather_local(grads, local, params, shardings):
+    """``grads`` as :func:`sharded_grads` gives them, each local leaf's
+    block (``local``) all-gathered over "model" into the whole leaf's
+    gradient: the whole gradient of every leaf.  ``params``: the DTensor
+    params of the step, ``shardings`` their ``named`` layouts."""
+    def one(g, loc, x, sh):
+        if not loc:
+            return g
+        return full(wrap(g, NamedSharding(sh.mesh, _only(sh.spec, keep=True)),
+                         x.shape))
+    return tree_map(one, grads, local, params, shardings)
+
+
 def make_sharded_train_step(
     cfg: ModelConfig,
     optimizer: Optimizer,
@@ -185,55 +259,44 @@ def make_sharded_train_step(
     laid out as the old.  Every rank of the mesh calls it with its own
     DTensors; ``metrics`` (loss, grad_norm, lr, and expert_counts for MoE)
     are plain tensors, the same on every rank.  Gradients clip at a global
-    norm of 1.0, as ``make_train_step``'s default.  A MoE config runs the
-    single-program route, or with ``moe_groups`` and
-    ``moe_expert_sharded`` the expert-parallel one (see the module doc).
-    A batch that does not split runs whole on every rank."""
+    norm of 1.0, as ``make_train_step``'s default.  Tensor parallel over
+    "model", and a MoE config on the single-program route or with
+    ``moe_groups`` and ``moe_expert_sharded`` the expert-parallel one (see
+    the module doc).  A batch that does not split runs whole on every
+    rank."""
     pspecs = model_pspecs(mesh, cfg, overrides)
     p_sh = named(mesh, pspecs)
-    experts = _expert_leaves(cfg, pspecs)
 
-    def block(g, sh, ex):
-        # an expert leaf's gradient is already this rank's block of experts
-        if ex:
+    def block(g, sh, loc):
+        # a local leaf's gradient is already this rank's block over "model"
+        if loc:
             sh = NamedSharding(mesh, _only(sh.spec, keep=False))
         return local_block(g, sh).contiguous()
 
-    def whole(g, x, sh, ex):
-        if not ex:
-            return g
-        return full(wrap(g, NamedSharding(mesh, _only(sh.spec, keep=True)),
-                         x.shape))
-
     def train_step(params, opt_state: OptState, batch: Dict[str, Any]):
         o_sh = named(mesh, opt_pspecs(pspecs, opt_state))
-        b_specs = batch_specs(mesh, cfg, batch)
         _check_layout(params, p_sh, "params")
         _check_layout(opt_state, o_sh, "optimizer state")
-        _check_layout(batch, named(mesh, b_specs), "batch")
-        l_params, l_state, l_batch = tree_map(lambda x: x.to_local(),
-                                              (params, opt_state, batch))
-        full_p = tree_map(lambda x, ex: gather_except(x, "model") if ex
-                          else full(x), params, experts)
-        axes = _batch_axes(mesh, b_specs["labels"])
-        loss, aux, grads = sharded_loss_and_grads(full_p, cfg, l_batch,
-                                                  mesh, axes)
-        for g in leaves(grads):
-            all_reduce(g, mesh, axes)
-        grads, gnorm = _clip(grads, experts, mesh)
+        _check_layout(batch, named(mesh, batch_specs(mesh, cfg, batch)),
+                      "batch")
+        l_params, l_state = tree_map(lambda x: x.to_local(),
+                                     (params, opt_state))
+        loss, aux, grads, local, full_p = sharded_grads(cfg, mesh, params,
+                                                        batch, overrides)
+        grads, gnorm = _clip(grads, local, mesh)
         lr = lr_schedule(l_state.step + 1)
         if optimizer.elementwise:
-            blocks = tree_map(block, grads, p_sh, experts)
+            blocks = tree_map(block, grads, p_sh, local)
             new_p, new_s = optimizer.update(blocks, l_state, l_params, lr)
             new_p = tree_map(lambda x, sh, old: wrap(x, sh, old.shape),
                              new_p, p_sh, params)
             new_s = tree_map(lambda x, sh, old: wrap(x, sh, old.shape),
                              new_s, o_sh, opt_state)
         else:
-            full_p = tree_map(lambda fp, x, ex: full(x) if ex else fp,
-                              full_p, params, experts)
+            full_p = tree_map(lambda fp, x, loc: full(x) if loc else fp,
+                              full_p, params, local)
             new_p, new_s = optimizer.update(
-                tree_map(whole, grads, params, p_sh, experts),
+                gather_local(grads, local, params, p_sh),
                 gather(opt_state), full_p, lr)
             new_p, new_s = distribute((new_p, new_s), (p_sh, o_sh))
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}

@@ -8,8 +8,10 @@ and the CLI's record under ``OUT/cli`` (or ``OUT/error.txt``).
 1. A fake group of 4 ranks, rank 0: the qwen2-0.5b smoke model's sharded
    train step (B 4, S 64) counted by ``dryrun.count_step`` at the meshes
    (2, 2), (1, 4) and (4, 1) over ("data", "model"), beside the
-   single-device step's count, and ``launch.sharding.COLLECTIVES``'
-   change over each trace; ``make_production_mesh`` on too few ranks.
+   single-device step's count, ``launch.sharding.COLLECTIVES``' change
+   over each trace, and ``FlopCounterMode``'s count of the same step run
+   on CPU tensors (the fake group's collectives move nothing, which
+   changes no count); ``make_production_mesh`` on too few ranks.
 2. A fake group of 512 ranks: ``make_production_mesh`` one pod and two.
 3. No group: ``dryrun.main`` on qwen2-0.5b x train_4k x 16x16, which
    starts its own fake group of 512.
@@ -36,9 +38,12 @@ def small_group_cases(out: dict) -> None:
     from repro_torch.configs import get_sharding_overrides, get_smoke_config
     from repro_torch.launch import dryrun, sharding as sh
     from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch.shapes import ShapeSpec, input_specs
-    from repro_torch.models.model import abstract_params
+    from repro_torch.models.model import abstract_params, init_params
     from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.train.sharded import state_shardings
     from repro_torch.train.steps import make_train_step
 
     cfg = get_smoke_config(ARCH)
@@ -57,11 +62,28 @@ def small_group_cases(out: dict) -> None:
                                          get_sharding_overrides(ARCH))
             before = dict(sh.COLLECTIVES)
             rec = dryrun.count_step(fn, args)
+            counted = {k: sh.COLLECTIVES[k] - before[k] for k in before}
+            step_cfg = dryrun.step_config(cfg, shape, mesh,
+                                          get_sharding_overrides(ARCH))
+            params_cpu = init_params(step_cfg, 0, "cpu")
+            state_cpu = opt.init(params_cpu)
+            toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                                 generator=torch.Generator().manual_seed(0),
+                                 dtype=torch.int32)
+            batch = {"tokens": toks, "labels": toks}
+            cpu_args = sh.distribute(
+                (params_cpu, state_cpu, batch),
+                (*state_shardings(mesh, step_cfg, state_cpu),
+                 sh.named(mesh, sh.batch_specs(mesh, step_cfg, batch))))
+            with FlopCounterMode(display=False) as f:
+                fn(*cpu_args)
             out[f"mesh {shp[0]}x{shp[1]}"] = {
                 "flops": rec["executed"]["flops"],
                 "collectives": rec["collectives"],
                 "executed": rec["executed"],
-                "counted": {k: sh.COLLECTIVES[k] - before[k] for k in before},
+                "kernels": rec["kernels"],
+                "cpu_flops": f.get_total_flops(),
+                "counted": counted,
                 "memory": rec["memory"]}
         try:
             make_production_mesh(device="cpu")

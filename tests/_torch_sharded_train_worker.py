@@ -4,17 +4,26 @@ of a 4-rank gloo group, importing only ``repro_torch``.
 Every rank builds the meshes of the module (subgroups of the one group:
 ``new_group`` is collective over the whole group), then runs every case:
 
-* ``<case>``: two sharded train steps at a (2, 2) ("data", "model") mesh
-  from CASES' inputs, then the first step's reduced gradient again;
-  rank 0 writes ``<case>.npz`` (the gathered state after each step, the
-  metrics, the gradient), every rank ``<case>.<rank>.json`` (each leaf's
-  placements against ``named``, the collectives of each step);
+* ``<case>``: two sharded train steps at the case's ("data", "model")
+  mesh, (2, 2) or (1, 4), from CASES' inputs (tensor parallel over
+  "model"), then the first step's reduced gradient again; rank 0 writes
+  ``<case>.npz`` (the gathered state after each step, the metrics, the
+  gradient), every rank ``<case>.<rank>.json`` (each leaf's placements
+  against ``named``, the collectives of each step and those over "model"
+  of the gradient (``launch.sharding.recording``), and the leaves the
+  step gathers over "model" or sums over it);
 * ``restore``: the first case's state after its two steps saved from the
   (2, 2) mesh, restored at a (4,) ("data",) mesh and with no mesh, then
   one more sharded step at (4,);
 * ``major_first``: a ("pod", "data") spec on meshes ordered ("pod",
   "data") and ("data", "pod"): which rank holds which block;
-* ``constrain``: ``constrain_batch`` on a DTensor over a 2-rank mesh.
+* ``constrain``: ``constrain_batch`` on a DTensor over a 2-rank mesh;
+* ``units``: at a (1, 2) mesh, the tensor-parallel ``swiglu``,
+  ``attention_block`` (KV heads local, sliced, and heads cut), the
+  vocab-parallel loss (tied and untied) and the embedding lookup against
+  their unsharded calls, outputs and gradients (ranks 0 and 1);
+* ``digest``: two steps at a (1, 1) mesh and two without a mesh, hashed,
+  and the (1, 1) run's arrays in ``digest-<case>.npz`` (rank 0).
 
 A rank that fails writes ``<case>.<rank>.error`` and leaves the group, so
 the others fail at their next collective instead of waiting forever.
@@ -32,20 +41,29 @@ import numpy as np
 from _perturbed_weights import perturbed_tree
 
 N_RANKS = 4
-# case -> (arch, MoE capacity factor): the smoke config of each family,
-# dense (the reference test's case), dense with a tied embedding and qkv
-# bias, the two MoE (Adafactor on kimi-k2) at capacity factor 8 (no token
-# drops), the two recurrent; then the two MoE at their configs' own
-# capacity factor (1.25), where experts overflow and which tokens drop
-# follows the whole batch's order
-CASES = {"llama3.2-3b": ("llama3.2-3b", None),
-         "qwen2-0.5b": ("qwen2-0.5b", None),
-         "mixtral-8x22b": ("mixtral-8x22b", 8.0),
-         "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", 8.0),
-         "rwkv6-3b": ("rwkv6-3b", None),
-         "zamba2-2.7b": ("zamba2-2.7b", None),
-         "mixtral-8x22b-drops": ("mixtral-8x22b", None),
-         "kimi-k2-1t-a32b-drops": ("kimi-k2-1t-a32b", None)}
+# a variant whose heads the rules cut at 4 "model" ranks: 6 heads of d 16
+# (96 columns, 24 a rank: a head and a half), GQA over 2 KV heads
+CUT = {"n_heads": 6, "head_dim": 16}
+# case -> (arch, MoE capacity factor, mesh, config changes): at (2, 2) the
+# smoke config of each family, dense (the reference test's case), dense
+# with a tied embedding and qkv bias, the two MoE (Adafactor on kimi-k2)
+# at capacity factor 8 (no token drops), the two recurrent; then the two
+# MoE at their configs' own capacity factor (1.25), where experts overflow
+# and which tokens drop follows the whole batch's order; at (1, 4) the
+# dense config (4 heads over 2 KV heads: each rank slices the KV head its
+# query head reads), the tied one (with qkv bias) and the cut variant
+CASES = {"llama3.2-3b": ("llama3.2-3b", None, "mesh22", {}),
+         "qwen2-0.5b": ("qwen2-0.5b", None, "mesh22", {}),
+         "mixtral-8x22b": ("mixtral-8x22b", 8.0, "mesh22", {}),
+         "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", 8.0, "mesh22", {}),
+         "rwkv6-3b": ("rwkv6-3b", None, "mesh22", {}),
+         "zamba2-2.7b": ("zamba2-2.7b", None, "mesh22", {}),
+         "mixtral-8x22b-drops": ("mixtral-8x22b", None, "mesh22", {}),
+         "kimi-k2-1t-a32b-drops": ("kimi-k2-1t-a32b", None, "mesh22", {}),
+         "llama3.2-3b-1x4": ("llama3.2-3b", None, "mesh14", {}),
+         "qwen2-0.5b-1x4": ("qwen2-0.5b", None, "mesh14", {}),
+         "llama3.2-3b-cut-1x4": ("llama3.2-3b", None, "mesh14", CUT)}
+MESH_SHAPES = {"mesh22": (2, 2), "mesh14": (1, 4)}
 B, S, CHUNK = 4, 48, 16
 LR = (1e-3, 10, 100)          # peak, warmup, total: lr(1) = 1e-4
 STEP_SEEDS = (1, 2)           # the two steps' batches
@@ -54,13 +72,14 @@ RESTORE_SEED = 3              # the step after the restore
 
 def config(case: str):
     """The case's smoke config in float32, S 48 in three loss chunks and
-    three attention blocks, at the case's MoE capacity factor."""
+    three attention blocks, at the case's MoE capacity factor, with its
+    changes."""
     import torch
     from repro_torch.configs import get_smoke_config
-    arch, capacity_factor = CASES[case]
+    arch, capacity_factor, _, changes = CASES[case]
     cfg = dataclasses.replace(get_smoke_config(arch), param_dtype=torch.float32,
                               activ_dtype=torch.float32, loss_chunk=CHUNK,
-                              attn_block_k=CHUNK)
+                              attn_block_k=CHUNK, **changes)
     if capacity_factor is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=capacity_factor))
@@ -79,6 +98,10 @@ def inputs(case: str):
     params = tree_map(torch.from_numpy, perturbed_tree(iter_schema(cfg)))
     return (cfg, params, get_optimizer(get_optimizer_name(CASES[case][0])),
             cosine_schedule(*LR))
+
+
+def mesh_size(case: str, axis: str) -> int:
+    return dict(zip(("data", "model"), MESH_SHAPES[CASES[case][2]]))[axis]
 
 
 def batch_np(cfg, seed: int) -> dict:
@@ -117,9 +140,54 @@ def _placements_ok(tree, shardings) -> list:
                            tree, shardings))
 
 
+def _model_leaves(cfg, mesh) -> dict:
+    """The step's leaves by what it does with them over "model": the paths
+    of the whole leaves it all-gathers over "model" (their spec puts
+    "model" on a dim), of the local leaves (each rank its block) and of
+    the partial ones (the gradient summed over "model")."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train import sharded
+    pspecs = sh.model_pspecs(mesh, cfg)
+    local, partial = sharded._roles(sharded.tp_config(cfg, mesh), mesh,
+                                    pspecs)
+    specs = named_specs(pspecs)
+    loc, part = named_leaves_of(local), named_leaves_of(partial)
+    return {"gathered": sorted(k for k, sp in specs.items()
+                               if not loc[k] and any(
+                                   "model" in sh.entry_axes(e) for e in sp)),
+            "local": sorted(k for k in loc if loc[k]),
+            "partial": sorted(k for k in part if part[k])}
+
+
+def named_specs(tree, prefix: str = "") -> dict:
+    from repro_torch.launch.sharding import PartitionSpec
+    if isinstance(tree, PartitionSpec):
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(named_specs(v, f"{prefix}{k}/"))
+    return out
+
+
+def named_leaves_of(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(named_leaves_of(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _by_axis(log: list, axis: str) -> dict:
+    out = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
+    for kind, _, _, a in log:
+        if a == axis:
+            out[kind] += 1
+    return out
+
+
 def run_case(case: str, mesh, rank: int, out_dir: str) -> dict:
     from repro_torch.launch import sharding as sh
-    from repro_torch.pytree import leaves
     from repro_torch.train import sharded
 
     cfg, params, opt, sched = inputs(case)
@@ -127,7 +195,8 @@ def run_case(case: str, mesh, rank: int, out_dir: str) -> dict:
     shardings = sharded.state_shardings(mesh, cfg, state)
     p, s = sh.distribute((params, state), shardings)
     step = sharded.make_sharded_train_step(cfg, opt, sched, mesh)
-    res = {"placements_ok": [], "collectives": [], "metrics": []}
+    res = {"placements_ok": [], "collectives": [], "metrics": [],
+           "leaves": _model_leaves(cfg, mesh)}
     save = {}
     for i, seed in enumerate(STEP_SEEDS, 1):
         bt = batch(cfg, seed)
@@ -142,17 +211,15 @@ def run_case(case: str, mesh, rank: int, out_dir: str) -> dict:
         full_p, full_s = sh.gather((p, s))
         save.update({f"p{i}/{k}": v for k, v in named_leaves(full_p).items()})
         save.update({f"s{i}/{k}": v for k, v in named_leaves(full_s).items()})
-    # the first step's gradient (from the same params), reduced over the
-    # batch axes
+    # the first step's gradient (from the same params), reduced as the step
+    # reduces it, the local leaves' blocks gathered over "model"
     bt = batch(cfg, STEP_SEEDS[0])
-    axes = ("data",)
-    local = {k: sh.local_block(v, sh.named(mesh, spec))
-             for (k, v), spec in zip(bt.items(),
-                                     sh.batch_specs(mesh, cfg, bt).values())}
-    _, _, grads = sharded.sharded_loss_and_grads(params, cfg, local, mesh,
-                                                 axes)
-    for g in leaves(grads):
-        sh.all_reduce(g, mesh, axes)
+    p0 = sh.distribute(params, shardings[0])
+    db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg, bt)))
+    with sh.recording() as log:
+        _, _, grads, local, _ = sharded.sharded_grads(cfg, mesh, p0, db)
+    res["grads_over_model"] = _by_axis(log, "model")
+    grads = sharded.gather_local(grads, local, p0, shardings[0])
     save.update({f"g/{k}": v for k, v in named_leaves(grads).items()})
     if rank == 0:
         np.savez(os.path.join(out_dir, f"{case}.npz"), **save)
@@ -280,6 +347,217 @@ def run_constrain(meshes: dict, rank: int) -> dict:
     }
 
 
+# ------------------------------------------- the tensor-parallel modules
+UNIT_B, UNIT_S = 2, 32
+# attention layouts at 2 "model" ranks: (heads, KV heads, head dim) ->
+# "whole" with its KV heads local, "whole" with one replicated KV head
+# each rank slices, "whole" with 3 heads a rank over KV heads of 2 (rank 0
+# reads KV heads 0, 0, 1: one KV head a query head, repeated), heads cut
+# (3 heads of 16: 24 columns a rank)
+UNIT_ATTENTION = {"attention-kv-local": (4, 2, 16),
+                  "attention-kv-sliced": (4, 1, 16),
+                  "attention-kv-repeated": (6, 3, 16),
+                  "attention-heads-cut": (3, 1, 16)}
+UNITS = ("swiglu",) + tuple(UNIT_ATTENTION) + ("loss-tied", "loss-untied",
+                                               "embedding")
+
+
+def _err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    import torch
+    return float((got - want).abs().max()
+                 / torch.clamp(want.abs().max(), min=1e-30))
+
+
+def _unit_case(name: str, mesh, rank: int) -> dict:
+    """One module tensor-parallel at ``mesh`` (1, 2) against its unsharded
+    call on the same draw: the output and, from the same cotangent, the
+    gradients of the input and of every weight (a local weight's against
+    its block of the whole gradient; a whole weight's summed over "model"
+    first when the module marks it partial)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import layers, model as tm
+    from repro_torch.train import sharded
+
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    m = 2
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              param_dtype=torch.float32,
+                              activ_dtype=torch.float32, loss_chunk=CHUNK)
+    d = cfg.d_model
+    if name in UNIT_ATTENTION:
+        h, kvh, hd = UNIT_ATTENTION[name]
+        cfg = dataclasses.replace(cfg, n_heads=h, n_kv_heads=kvh,
+                                  head_dim=hd)
+    cfg = sharded.tp_config(cfg, mesh)
+    tp = tm.tensor_parallel(cfg, mesh)
+    x = rnd(UNIT_B, UNIT_S, d)
+    pos = torch.arange(UNIT_S).expand(UNIT_B, UNIT_S)
+    if name == "swiglu":
+        w = {"w_gate": rnd(d, 128, scale=0.1), "w_up": rnd(d, 128, scale=0.1),
+             "w_down": rnd(128, d, scale=0.1)}
+        cut = {"w_gate": -1, "w_up": -1, "w_down": 0}
+        partial = set()
+
+        def run(w, x, tp):
+            return layers.swiglu(x, w["w_gate"], w["w_up"], w["w_down"],
+                                 tp=tp)
+    elif name in UNIT_ATTENTION:
+        h, kvh, hd = UNIT_ATTENTION[name]
+        w = {"wq": rnd(d, h * hd, scale=0.1), "wk": rnd(d, kvh * hd, scale=0.1),
+             "wv": rnd(d, kvh * hd, scale=0.1), "wo": rnd(h * hd, d, scale=0.1),
+             "bq": rnd(h * hd, scale=0.1), "bk": rnd(kvh * hd, scale=0.1),
+             "bv": rnd(kvh * hd, scale=0.1)}
+        roles = {k.split(".")[-1]: r for k, r in tm.tp_roles(cfg, m).items()
+                 if k.startswith("blocks.")}
+        cut = {k: (0 if k == "wo" else -1) for k, r in roles.items()
+               if r == "local"}
+        partial = {k for k, r in roles.items() if r == "partial"}
+
+        def run(w, x, tp):
+            return layers.attention_block(
+                x, layers.AttnParams(**w), n_heads=h, n_kv_heads=kvh,
+                head_dim=hd, positions=pos, rope_theta=cfg.rope_theta,
+                block_k=CHUNK, tp=tp)
+    elif name.startswith("loss"):
+        tied = name == "loss-tied"
+        cfg = dataclasses.replace(cfg, tie_embeddings=tied)
+        key = "embed" if tied else "lm_head"
+        w = {key: rnd(*((cfg.vocab_size, d) if tied
+                        else (d, cfg.vocab_size)), scale=0.5)}
+        cut = {key: 0 if tied else -1}
+        partial = set()
+        labels = torch.randint(0, cfg.vocab_size, (UNIT_B, UNIT_S),
+                               generator=g)
+        mask = (torch.rand((UNIT_B, UNIT_S), generator=g) > 0.2).float()
+
+        def run(w, x, tp):
+            tot, cnt = tm.loss_terms(w, cfg, x, labels, mask,
+                                     mesh=mesh if tp else None)
+            return torch.stack([tot, cnt])
+    else:
+        w = {"embed": rnd(cfg.vocab_size, d)}
+        cut = {"embed": 0}
+        partial = set()
+        tokens = torch.randint(0, cfg.vocab_size, (UNIT_B, UNIT_S),
+                               generator=g)
+
+        def run(w, x, tp):
+            return tm.embed_inputs(w, cfg, tokens, mesh=mesh if tp else None)
+    if tp is None:
+        raise AssertionError(f"{name}: no tensor parallelism at {mesh}")
+
+    def leaves_of(w, x):
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        return ws, x.clone().requires_grad_(True)
+
+    ws, xs = leaves_of(w, x)
+    want = run(ws, xs, None)
+    cot = torch.randn(want.shape, generator=g)
+    want_g = torch.autograd.grad((want * cot).sum(), [xs, *ws.values()],
+                                 allow_unused=True, materialize_grads=True)
+    blocks = {k: (v.chunk(m, cut[k])[rank] if k in cut else v)
+              for k, v in w.items()}
+    wl, xl = leaves_of(blocks, x)
+    got = run(wl, xl, tp)
+    got_g = torch.autograd.grad((got * cot).sum(), [xl, *wl.values()],
+                                allow_unused=True, materialize_grads=True)
+    errs = {"out": _err(got, want), "x": _err(got_g[0], want_g[0])}
+    for k, gg, wg in zip(w, got_g[1:], want_g[1:]):
+        if k in partial:
+            sh.all_reduce(gg, mesh, ("model",))
+        if k in cut:
+            wg = wg.chunk(m, cut[k])[rank]
+        errs[k] = _err(gg, wg)
+    return {"errors": errs, "local": sorted(cut), "partial": sorted(partial),
+            "heads": tp.heads, "kv": tp.kv}
+
+
+def run_units(meshes: dict, rank: int) -> dict:
+    return {name: _unit_case(name, meshes["mesh12"], rank) for name in UNITS}
+
+
+# ------------------------------------- one "model" rank: the step as it was
+DIGEST_CASES = ("qwen2-0.5b", "kimi-k2-1t-a32b")
+
+
+def digest_platform() -> str:
+    """What the digests' float32 bytes depend on besides the program: the
+    torch build and the CPU's instruction set (one thread)."""
+    import platform
+    import torch
+    return (f"torch {torch.__version__} {platform.machine()} "
+            f"{torch.backends.cpu.get_cpu_capability()}")
+
+
+def step_digest(case: str, mesh) -> tuple:
+    """(sha256 of two steps of ``case``, their metrics, the gathered state
+    after each step and the first step's gradient as ``run_case`` saves
+    them) with ``mesh`` None the single-device ``make_train_step``, else
+    the sharded step on it.  The hash covers every leaf of the params and
+    optimizer state after each step and the metrics' bytes, in named
+    order."""
+    import hashlib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train import sharded
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    cfg, params, opt, sched = inputs(case)
+    state = opt.init(params)
+    bt = batch(cfg, STEP_SEEDS[0])
+    if mesh is None:
+        step = make_train_step(cfg, opt, sched)
+        grads = loss_and_grads(params, cfg, bt)[2]
+    else:
+        shardings = sharded.state_shardings(mesh, cfg, state)
+        params, state = sh.distribute((params, state), shardings)
+        db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg, bt)))
+        _, _, grads, local, _ = sharded.sharded_grads(cfg, mesh, params, db)
+        grads = sharded.gather_local(grads, local, params, shardings[0])
+        step = sharded.make_sharded_train_step(cfg, opt, sched, mesh)
+    h = hashlib.sha256()
+    save = {f"g/{k}": v for k, v in named_leaves(grads).items()}
+    metrics = []
+    for i, seed in enumerate(STEP_SEEDS, 1):
+        bt = batch(cfg, seed)
+        if mesh is not None:
+            bt = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg,
+                                                                 bt)))
+        params, state, m = step(params, state, bt)
+        tree = (params, state) if mesh is None else sh.gather((params,
+                                                               state))
+        named = named_leaves({"p": tree[0], "s": tree[1]})
+        for k, v in sorted(named.items()):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        for k in sorted(m):
+            h.update(k.encode())
+            h.update(m[k].detach().cpu().numpy().tobytes())
+        save.update({f"{k[0]}{i}{k[1:]}": v for k, v in named.items()})
+        metrics.append(_metrics(m))
+    return h.hexdigest(), metrics, save
+
+
+def run_digest(meshes: dict, out_dir: str) -> dict:
+    """Each digest case without a mesh and at the (1, 1) mesh: the
+    digests and metrics; ``digest-<case>.npz`` holds the (1, 1) run's
+    arrays."""
+    out = {"platform": digest_platform()}
+    for case in DIGEST_CASES:
+        out[case] = {}
+        for name, mesh in (("meshless", None), ("mesh11", meshes["mesh11"])):
+            digest, metrics, save = step_digest(case, mesh)
+            out[case][name] = {"digest": digest, "metrics": metrics}
+        np.savez(os.path.join(out_dir, f"digest-{case}.npz"), **save)
+    return out
+
+
 def worker(rank: int, store_path: str, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
@@ -291,6 +569,9 @@ def worker(rank: int, store_path: str, out_dir: str) -> None:
     from repro_torch.launch.mesh import make_mesh
 
     meshes = {"mesh22": make_mesh((2, 2), ("data", "model"), device="cpu"),
+              "mesh14": make_mesh((1, 4), ("data", "model"), device="cpu"),
+              "mesh12": make_mesh((1, 2), ("data", "model"), device="cpu"),
+              "mesh11": make_mesh((1, 1), ("data", "model"), device="cpu"),
               "data4": make_mesh((4,), ("data",), device="cpu"),
               "pod_data": make_mesh((2, 2), ("pod", "data"), device="cpu"),
               "data_pod": make_mesh((2, 2), ("data", "pod"), device="cpu"),
@@ -299,7 +580,7 @@ def worker(rank: int, store_path: str, out_dir: str) -> None:
     try:
         first = None
         for name in CASES:
-            res = run_case(name, meshes["mesh22"], rank, out_dir)
+            res = run_case(name, meshes[CASES[name][2]], rank, out_dir)
             state = res.pop("state")
             first = first or state
             _write(out_dir, name, rank, res)
@@ -311,6 +592,12 @@ def worker(rank: int, store_path: str, out_dir: str) -> None:
         name = "constrain"
         if rank < 2:
             _write(out_dir, name, rank, run_constrain(meshes, rank))
+        name = "units"
+        if rank < 2:
+            _write(out_dir, name, rank, run_units(meshes, rank))
+        name = "digest"
+        if rank == 0:
+            _write(out_dir, name, rank, run_digest(meshes, out_dir))
     except BaseException:
         with open(os.path.join(out_dir, f"{name}.{rank}.error"), "w") as f:
             f.write(traceback.format_exc())

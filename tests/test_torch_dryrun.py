@@ -3,8 +3,10 @@
 meta trace against the same step on CPU tensors and against
 ``repro.launch.hloanalysis.analyze`` of the reference's compiled step;
 ``flash_attention``'s meta route; and, in one subprocess on fake process
-groups (``tests/_torch_dryrun_worker.py``), per-rank FLOPs and collectives
-over meshes of 4, ``make_production_mesh`` and one CLI run.
+groups (``tests/_torch_dryrun_worker.py``), per-rank FLOPs of the
+tensor-parallel train step against the count worked out from the config,
+and collectives, over meshes of 4, ``make_production_mesh`` and one CLI
+run.
 
 Tolerances.  Shapes, dtypes, decisions, FLOPs on CPU tensors, per-rank
 FLOPs, collectives and the meta route's charge: exact.  Against the
@@ -390,14 +392,68 @@ def test_other_wrappers_raise_on_meta(name):
 
 
 # ---------------------------------------- the fake-group cases (worker)
+def tp_rank_flops(cfg, b: int, s: int, m: int):
+    """(split, kv, whether kv splits): the FLOPs of a rank's train step of
+    the dense config ``cfg`` on its ``b`` rows of ``s`` tokens at ``m``
+    "model" ranks, tensor parallel as the rules lay it out, worked out from
+    the config.  Split: the matmuls whose weight the rules split over
+    "model" (q and o on H / m heads, the MLP on d_ff / m columns, the head
+    on vocab / m) and the attention kernels' charges at the rank's H / m
+    heads; kv: the k and v projections, on KVH / m heads where the rules
+    split them, else on the KV heads the rank's query heads read, sliced
+    from whole weights.  Each
+    matmul runs 4 times (forward, the recompute under remat, the two
+    products of its backward), but the MLP's down projection 3: it is a
+    block's last product, and the checkpoint stops recomputing once the
+    tensors it saved are back.  Each attention is charged twice forward
+    (4 · d · B·H · kept pairs) and once backward (10 · ...)."""
+    t, hd, d = b * s, cfg.head_dim, cfg.d_model
+    heads = cfg.n_heads // m
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv_split = cfg.n_kv_heads % m == 0
+    kv_heads = cfg.n_kv_heads // m if kv_split else -(-heads // group)
+
+    def mm(k, n, times=4):
+        return times * 2 * t * k * n
+    split = cfg.n_layers * (mm(d, heads * hd) + mm(heads * hd, d)
+                            + 2 * mm(d, cfg.d_ff // m)
+                            + mm(cfg.d_ff // m, d, times=3)) \
+        + mm(d, cfg.vocab_size // m)
+    split += cfg.n_layers * (2 * 4 + 10) * hd * b * heads \
+        * fa_kernel.kept_pairs(s, s, True, None)
+    return split, cfg.n_layers * 2 * mm(d, kv_heads * hd), kv_split
+
+
 @pytest.mark.parametrize("mesh", ["2x2", "1x4", "4x1"])
 def test_per_rank_flops_conserve_over_the_fake_group(worker, mesh):
-    """A rank's FLOPs times the batch axis's ranks are the single-device
-    step's: the batch splits over "data", the "model" ranks repeat it."""
+    """A rank's FLOPs are exactly the count worked out from the config
+    (:func:`tp_rank_flops`): the batch splits over "data"; the matmuls the
+    rules split over "model" and the attention at the rank's heads count
+    1/m, the rest whole.  Summed over the mesh the split part is the
+    single-device step's; the single-device count is the formula at one
+    rank."""
     cases = worker.read()
-    data = int(mesh.split("x")[0])
-    assert cases[f"mesh {mesh}"]["flops"] * data \
-        == cases["single_device_flops"]
+    data, model = map(int, mesh.split("x"))
+    cfg = get_smoke_config("qwen2-0.5b")
+    b, s = 4, 64
+    split, kv, kv_split = tp_rank_flops(cfg, b // data, s, model)
+    assert cases[f"mesh {mesh}"]["flops"] == split + kv
+    one_split, one_kv, _ = tp_rank_flops(cfg, b, s, 1)
+    assert one_split + one_kv == cases["single_device_flops"]
+    assert data * model * split == one_split
+    # at (1, 4) each rank slices 1 of the 2 KV heads: 2x over the mesh
+    assert (data * model * kv == one_kv) == kv_split
+    assert kv_split == (mesh != "1x4")
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4", "4x1"])
+def test_tp_meta_count_follows_the_step_on_cpu_tensors(worker, mesh):
+    """The tensor-parallel step's meta count (each attention's charge
+    swapped for the plain version's count at its local heads) equals
+    ``FlopCounterMode``'s count of the same step on CPU tensors over the
+    fake group, exactly."""
+    case = worker.read()[f"mesh {mesh}"]
+    assert swapped(case) == case["cpu_flops"]
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x4", "4x1"])
@@ -409,7 +465,10 @@ def test_collectives_equal_the_counted(worker, mesh):
                            ("all_to_all", "all-to-all")):
         assert got["count"][ref_kind] == counted[kind]
         assert got["bytes"][ref_kind] == counted[kind + "_bytes"]
-    assert got["count"]["all-gather"] > 0 and got["count"]["all-reduce"] > 0
+    assert got["count"]["all-reduce"] > 0
+    # FSDP gathers over "data"; at one "data" rank the tensor-parallel step
+    # gathers nothing: every leaf the rules split is local to "model"
+    assert (got["count"]["all-gather"] > 0) == (mesh != "1x4")
     assert got["total_bytes"] == sum(counted[k] for k in counted
                                      if k.endswith("_bytes"))
     ex = case["executed"]

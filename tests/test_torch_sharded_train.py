@@ -1,8 +1,15 @@
-"""The sharded train step (``repro_torch.train.sharded``) at a (2, 2)
-("data", "model") gloo mesh against the port's single-device
-``train.steps.make_train_step`` and against the reference's single-device
-``make_train_step`` (jitted) on the same inputs, for one smoke config of
-each family; checkpoints across meshes; the major-first split; and
+"""The sharded train step (``repro_torch.train.sharded``), tensor parallel
+over "model", at (2, 2) and (1, 4) ("data", "model") gloo meshes against
+the port's single-device ``train.steps.make_train_step`` and against the
+reference's single-device ``make_train_step`` (jitted) on the same inputs,
+for one smoke config of each family at (2, 2) and at (1, 4) a dense one
+(each rank slicing the KV head its query head reads), a tied one and one
+whose heads the rules cut; the collectives over "model"; the
+tensor-parallel modules against their unsharded calls at (1, 2); the step
+at one "model" rank against the step without a mesh, bit for bit, and
+against the reference (on the platform where they were taken, against the
+digests of the step before tensor parallelism too); checkpoints across
+meshes; the major-first split; and
 ``constrain_batch`` on a DTensor.
 
 The reference defines its sharded step to equal the single-device one
@@ -25,8 +32,11 @@ within 1e-4 of that leaf's largest magnitude, the params and optimizer
 state within 2·lr a step taken everywhere (AdamW moves a weight by about
 lr·sign(g), and where g is at the float32 noise floor the two sides may
 step opposite ways) and within 1e-6 on at least 99.9 % of elements; router
-counts, placements and restored checkpoints exact."""
+counts, placements, collective counts, the step at one "model" rank
+against the step without a mesh, and restored checkpoints exact; a tensor-parallel module's output and gradients within
+1e-5 of their largest magnitude."""
 import dataclasses
+import functools
 import json
 import multiprocessing
 import os
@@ -139,15 +149,16 @@ def single_device(case: str):
     return out, metrics
 
 
+@functools.cache
 def reference(case: str):
     """The reference's single-device ``make_train_step`` under
     ``jax.jit`` on the workers' inputs, in :func:`single_device`'s form
     (the first step's gradient is the one the step's ``jax.grad`` hands
     its ``grad_transform``)."""
-    arch, capacity_factor = sw.CASES[case]
+    arch, capacity_factor, _, changes = sw.CASES[case]
     jc = dataclasses.replace(j_smoke(arch), param_dtype=jnp.float32,
                              activ_dtype=jnp.float32, loss_chunk=sw.CHUNK,
-                             attn_block_k=sw.CHUNK)
+                             attn_block_k=sw.CHUNK, **changes)
     if capacity_factor is not None:
         jc = dataclasses.replace(jc, moe=dataclasses.replace(
             jc.moe, capacity_factor=capacity_factor))
@@ -237,7 +248,11 @@ def test_sharded_step_matches_the_single_device_step(ranks, case):
         assert all(all(ok) for ok in res["placements_ok"])
         per = res["collectives"]
         assert per[0] == per[1] == per_rank[0]["collectives"][0], per
-        assert per[0]["all_gather"] >= 1 and per[0]["all_reduce"] >= 1
+        # FSDP's gathers over "data" (at one "data" rank every leaf the
+        # rules split is local to "model" in a dense config)
+        assert per[0]["all_reduce"] >= 1
+        if sw.mesh_size(case, "data") > 1:
+            assert per[0]["all_gather"] >= 1
 
 
 @pytest.mark.parametrize("case", list(sw.CASES))
@@ -249,6 +264,106 @@ def test_sharded_step_matches_the_reference_step(ranks, case):
         assert_experts_overflow(case, want_m)
     assert_matches(ranks.arrays(case), ranks.results(case)[0]["metrics"],
                    want, want_m, lr_rel=1e-7)
+
+
+# the step's all-reduces over "model" in a dense config whose tokens are
+# embedded: 5 a layer (the attention's and the MLP's from_model in the
+# forward, the attention's again in the recompute under remat: the
+# checkpoint stops recomputing once the tensors it saved are back, before
+# the MLP's; the two to_model in the backward), 1 of the embedding, 1 of
+# the loss's to_model, 4 a loss chunk (its row max and its packed sums,
+# again in the chunk's recompute) and one a partial leaf's gradient (the
+# clip's squares take one more after these)
+def dense_model_all_reduces(cfg, n_partial: int) -> int:
+    return 5 * cfg.n_layers + 1 + 1 + 4 * (sw.S // sw.CHUNK) + n_partial
+
+
+@pytest.mark.parametrize("case", list(sw.CASES))
+def test_collectives_over_model(ranks, case):
+    """No leaf that the rules split over "model" on its heads, KV heads,
+    mlp or vocab dim is all-gathered over "model" in a dense or MoE
+    attention, the embedding or the loss: each rank uses its block.  The
+    all-gathers over "model" recorded in the step's gradient (its forward,
+    backward and reduction; Adafactor's update gathers after it) are
+    exactly the whole leaves the step gathers (MoE's expert leaves,
+    rwkv6's and Mamba2's blocks, zamba2's LoRA factors) and, where the
+    rules cut through a head, 3 of q's or o's columns a layer (the
+    forward, the recompute and the backward of o's split); a dense layer
+    takes 5 all-reduces over "model"."""
+    cfg = sw.config(case)
+    per_rank = ranks.results(case)
+    leaves = per_rank[0]["leaves"]
+    assert "embed" in leaves["local"]
+    if cfg.family in ("attn", "moe"):
+        assert {"blocks/wq", "blocks/wo"} <= set(leaves["local"])
+        assert set(leaves["gathered"]) <= {f"blocks/{k}" for k in (
+            "e_gate", "e_up", "e_down", "s_gate", "s_up", "s_down")}, leaves
+    if cfg.family == "attn":
+        assert not leaves["gathered"]
+        assert {"blocks/w_gate", "blocks/w_up", "blocks/w_down"} \
+            <= set(leaves["local"])
+    cut = cfg.n_heads % sw.mesh_size(case, "model") != 0
+    if cfg.family in ("attn", "moe"):
+        sliced = not cut \
+            and cfg.n_kv_heads % sw.mesh_size(case, "model") != 0
+        kv = {"blocks/wk", "blocks/wv"}
+        assert (kv <= set(leaves["partial"])) == sliced
+        assert (kv <= set(leaves["local"])) == (not cut and not sliced)
+    for res in per_rank:
+        assert res["leaves"] == leaves
+        over = res["grads_over_model"]
+        assert over["all_gather"] == len(leaves["gathered"]) \
+            + (3 * cfg.n_layers if cut else 0), (over, leaves)
+        if cfg.family == "attn" and cfg.frontend == "tokens":
+            assert over["all_reduce"] == dense_model_all_reduces(
+                cfg, len(leaves["partial"])), over
+
+
+@pytest.mark.parametrize("unit", sw.UNITS)
+def test_tensor_parallel_module_matches_the_unsharded_call(ranks, unit):
+    """At (1, 2): the module on each rank's blocks (the heads, the mlp
+    columns, the vocabulary) against the unsharded call on the same draw;
+    output and every gradient within 1e-5 of their largest magnitude."""
+    want_layout = {"attention-kv-local": ("whole", "local"),
+                   "attention-kv-sliced": ("whole", "sliced"),
+                   "attention-kv-repeated": ("whole", "sliced"),
+                   "attention-heads-cut": ("cut", None)}
+    for res in ranks.results("units", world=2):
+        got = res[unit]
+        if unit in want_layout:
+            assert (got["heads"], got["kv"]) == want_layout[unit]
+        assert got["local"], got
+        assert max(got["errors"].values()) <= 1e-5, got["errors"]
+
+
+# the digests of two steps of each case, taken with the step as it was
+# before tensor parallelism (parent of the change that added it), one
+# thread, without a mesh and at a (1, 1) mesh alike, on the platform named
+# (float32 bytes depend on the torch build and the CPU's kernels)
+DIGEST_PLATFORM = "torch 2.13.0+cpu x86_64 AVX512"
+DIGESTS = {
+    "qwen2-0.5b":
+        "e2674a2d056b63a3d570ea63e9e4d982273b2bb8b50e817700fc44489bc8f213",
+    "kimi-k2-1t-a32b":
+        "37bd715d02ac3463d3ed8dc392614c4c95bb461fe319adc445e9e6c4d34480de"}
+
+
+@pytest.mark.parametrize("case", sw.DIGEST_CASES)
+def test_one_model_rank_is_the_step_as_it_was(ranks, case):
+    """Without a mesh and at a (1, 1) mesh the step is the same bit for
+    bit: the params, optimizer state and metrics of two steps hash alike
+    (AdamW on the tied qwen2 config, Adafactor on kimi-k2).  The (1, 1)
+    run is held to the reference's single-device step at the module's
+    bounds, and on the platform where the digests of the step before
+    tensor parallelism were taken, to those digests."""
+    res = ranks.results("digest", world=1)[0]
+    got = res[case]
+    assert got["meshless"] == got["mesh11"]
+    want, want_m = reference(case)
+    assert_matches(ranks.arrays(f"digest-{case}"), got["mesh11"]["metrics"],
+                   want, want_m, lr_rel=1e-7)
+    if res["platform"] == DIGEST_PLATFORM:
+        assert got["mesh11"]["digest"] == DIGESTS[case]
 
 
 def test_checkpoint_restores_across_meshes_bit_for_bit(ranks):
