@@ -368,7 +368,19 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     bf16) beside their plain versions and ``sdpa``, the backward's
     gradient held as phase 24a holds it (the kernel line's
     ``flash_attention_tp_train`` and ``flash_attention_bwd_tp_train``
-    entries); within TP_PHASE_S.
+    entries).  FSDP over "data" on the same two ranks, a (2, 1) mesh
+    (FSDP_MESH): (a-fsdp) 29a's float32 gradient and step at TP_LAYERS
+    layers, each leaf the rules put "data" on held as the rank's half,
+    gathered where its block reads it and its gradient reduce-scattered,
+    held to the single-device step within the same bounds; (c) the bf16
+    training config at qwen2-0.5b's full depth (24 layers, B 4: 2
+    sequences a rank), FSDP_STEPS steps: finite losses equal on both
+    ranks, 48 flash_attention launches on the tensor cores and 24
+    backward calls a rank and step at (14, 2) heads, no plain backward,
+    no sync but gloo's own, and the all-gathers, reduce-scatters and
+    all-reduces over "data" a step, count and bytes, equal to those worked
+    out from the config (``fsdp_expected``); the step walls and each
+    rank's peak memory printed; within TP_PHASE_S.
 
 Each path (8-11, 14-16, 18-29) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
@@ -5247,7 +5259,7 @@ TP_LOCAL_HEADS = (7, 1)           # 14 / 2 query heads, 2 / 2 KV heads
 TP_TIME_SHAPE = (4, 7, 1, 2048, 64)
 TP_GRAD_CASE = ("qwen2-0.5b TP rank", 4, 7, 1, 2048, 2048, 64, "bfloat16",
                 True, None)
-TP_PHASE_S = 120
+TP_PHASE_S = 125
 # 29a's other attention layouts at 2 "model" ranks, each a float32 step of
 # TP_VARIANT_LAYERS layers at qwen2-0.5b's other widths: name -> (config
 # changes, the smoke config's changes, the expected (heads, kv) layout).
@@ -5259,32 +5271,42 @@ TP_VARIANTS = {
                   {"n_heads": 3, "head_dim": 16, "n_kv_heads": 1},
                   ["cut", None])}
 TP_VARIANT_LAYERS = 1
+# 29's FSDP layout: a (2, 1) ("data", "model") mesh, each rank its half of
+# every leaf the rules put "data" on (an "embed" dim), gathered at use and
+# its gradient reduce-scattered; 29a-fsdp at TP_LAYERS in float32, 29c at
+# qwen2-0.5b's full depth in bf16 (B 4: 2 sequences a rank)
+FSDP_MESH = (2, 1)
+FSDP_STEPS = 2
 
 
 def tp_phase_config(small: bool, dtype, changes=None,
-                    layers: int = TP_LAYERS):
-    """qwen2-0.5b cut to ``layers`` layers (``small``: its smoke config, a
-    rehearsal on the CPU) with ``dtype`` activations and ``changes``."""
+                    layers: int | None = TP_LAYERS):
+    """qwen2-0.5b cut to ``layers`` layers (None: all of them; ``small``:
+    its smoke config, a rehearsal on the CPU) with ``dtype`` activations
+    and ``changes``."""
     from repro_torch.configs import get_config, get_smoke_config
     cfg = (get_smoke_config if small else get_config)(TP_ARCH)
-    return dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers),
+    return dataclasses.replace(cfg, n_layers=min(layers or cfg.n_layers,
+                                                 cfg.n_layers),
                                activ_dtype=dtype, **(changes or {}))
 
 
 @contextlib.contextmanager
 def sync_checked_but_collectives(on: bool):
     """The block under ``set_sync_debug_mode("error")`` (``on``), but for
-    the calls of ``torch.distributed.all_reduce`` / ``all_gather``, which
-    run with the check off: gloo copies a CUDA tensor to the host and back
-    and synchronises its stream there, which the mode, a setting of the
-    whole process, would refuse in gloo's own thread."""
+    the calls of ``torch.distributed.all_reduce`` / ``all_gather`` /
+    ``reduce_scatter``, which run with the check off: gloo copies a CUDA
+    tensor to the host and back and synchronises its stream there, which
+    the mode, a setting of the whole process, would refuse in gloo's own
+    thread."""
     import torch
     import torch.distributed as dist
     if not on:
         yield
         return
     real = {name: getattr(dist, name) for name in ("all_reduce",
-                                                   "all_gather")}
+                                                   "all_gather",
+                                                   "reduce_scatter")}
 
     def unchecked(fn):
         def call(*a, **kw):
@@ -5320,11 +5342,12 @@ def tp_rank_f32(mesh, dev, rank: int, params, batch, cfg) -> dict:
     state = opt.init(params)
     shardings = sharded.state_shardings(mesh, cfg, state)
     p, st = sh.distribute((params, state), shardings)
+    local, _ = sharded.leaf_roles(cfg, mesh)
     db = sh.distribute(batch, sh.named(mesh, sh.batch_specs(mesh, cfg,
                                                             batch)))
     t0 = time.perf_counter()
-    loss, _, grads, local, _ = sharded.sharded_grads(cfg, mesh, p, db)
-    whole = sharded.gather_local(grads, local, p, shardings[0])
+    loss, _, grads = sharded.sharded_grads(cfg, mesh, p, db)
+    whole = sharded.gather_local(grads, p, shardings[0])
     _, _, m = sharded.make_sharded_train_step(cfg, opt, sched, mesh)(p, st,
                                                                       db)
     ep_sync(dev)
@@ -5356,13 +5379,18 @@ def tp_rank_f32(mesh, dev, rank: int, params, batch, cfg) -> dict:
         if not (bool(torch.isfinite(g).all()) and share[key] <= 1.0):
             faults.append(f"{key}: max abs err {err} over {allowed}")
     out.update(errors=errs, share_of_tolerance=share, faults=faults,
-               local=sorted(k for k, v in zip(names, flatten(local)[0]) if v))
+               local=sorted(k for k, v in zip(names, flatten(local)[0]) if v),
+               data_cut=sorted(k for k, x in zip(names, flatten(p)[0])
+                               if "data" in sh.cut_axes(x)))
     return out
 
 
-def tp_rank_bf16(mesh, dev, rank: int, params, pipeline, small: bool) -> dict:
-    """29b on one rank: TP_STEPS bf16 sharded steps, each's launches,
-    backward calls, attention head counts, collectives and wall."""
+def tp_rank_bf16(mesh, dev, rank: int, params, pipeline, cfg,
+                 steps: int = TP_STEPS) -> dict:
+    """29b / 29c on one rank: ``steps`` bf16 sharded steps of ``cfg``,
+    each's launches, backward calls, attention head counts, collectives
+    (and those over "data" by kind: count and bytes) and wall; the peak
+    memory of the steps."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import sharding as sh
@@ -5370,7 +5398,8 @@ def tp_rank_bf16(mesh, dev, rank: int, params, pipeline, small: bool) -> dict:
     from repro_torch.optim import cosine_schedule, get_optimizer
     from repro_torch.train import sharded
 
-    cfg = tp_phase_config(small, torch.bfloat16)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     opt = get_optimizer("adamw")
     state = opt.init(params)
     shardings = sharded.state_shardings(mesh, cfg, state)
@@ -5385,7 +5414,7 @@ def tp_rank_bf16(mesh, dev, rank: int, params, pipeline, small: bool) -> dict:
     rec = []
     attn.flash_train = seen
     try:
-        for i in range(TP_STEPS):
+        for i in range(steps):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in pipeline.batch(100 + i).items()}
             db = sh.distribute(batch, sh.named(mesh, sh.batch_specs(
@@ -5399,11 +5428,18 @@ def tp_rank_bf16(mesh, dev, rank: int, params, pipeline, small: bool) -> dict:
             before = dict(sh.COLLECTIVES)
             ep_sync(dev)
             t0 = time.perf_counter()
-            with plain_backward_calls() as plain, \
+            with plain_backward_calls() as plain, sh.recording() as log, \
                     sync_checked_but_collectives(dev.type == "cuda"):
                 p, st, m = step(p, st, db)
             ep_sync(dev)
+            over_data = {}
+            for kind, nbytes, _, axis in log:
+                if axis == "data":
+                    got = over_data.setdefault(kind, [0, 0])
+                    got[0] += 1
+                    got[1] += nbytes
             rec.append({
+                "over_data": over_data,
                 "wall_s": time.perf_counter() - t0,
                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                 "flash_attention": fa_kernel.LAUNCHES,
@@ -5418,6 +5454,49 @@ def tp_rank_bf16(mesh, dev, rank: int, params, pipeline, small: bool) -> dict:
     peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
             if dev.type == "cuda" else None)
     return {"steps": rec, "peak_gib": peak}
+
+
+def fsdp_expected(cfg, data: int) -> dict:
+    """29c's all-gathers and reduce-scatters over "data" a rank and step,
+    worked out from the dense config ``cfg`` at ``data`` "data" ranks:
+    ``{kind: [count, bytes]}``.  Each leaf the rules put "data" on (its
+    "embed" dim) is gathered whole at each use in each forward of its
+    block (a layer's leaves once a layer, twice under remat: the forward
+    and the recompute; the embedding once, and once more as the tied
+    head), each gather returning the use padded to ``data`` equal chunks,
+    and its gradient comes back in one reduce-scatter a use, returning a
+    chunk.  The all-reduces over "data": one of each other leaf's whole
+    gradient, the loss's packed terms (two float64) and the clip's sum of
+    the cut leaves' squares (one float32)."""
+    import math
+    from repro_torch.models.model import iter_schema
+    if cfg.family != "attn" or cfg.remat == "none":
+        raise ValueError(f"{cfg.name}: 29c counts a dense, rematerialized "
+                         f"step")
+    gathers = scatters = gathered = scattered = 0
+    reduces, reduced = 2, 2 * 8 + 4
+    for path, spec in iter_schema(cfg):
+        if "embed" not in spec.logical_axes:
+            reduces += 1
+            reduced += math.prod(spec.shape) * cfg.param_dtype.itemsize
+            continue
+        shape, axes = list(spec.shape), spec.logical_axes
+        if path.startswith("blocks."):
+            shape, axes = shape[1:], axes[1:]
+            uses, runs = cfg.n_layers, 2
+        else:
+            uses = 2 if path == "embed" and cfg.tie_embeddings else 1
+            runs = 1
+        d = axes.index("embed")
+        shape[d] = -(-shape[d] // data) * data
+        nbytes = math.prod(shape) * cfg.param_dtype.itemsize
+        gathers += uses * runs
+        gathered += uses * runs * nbytes
+        scatters += uses
+        scattered += uses * nbytes // data
+    return {"all_gather": [gathers, gathered],
+            "reduce_scatter": [scatters, scattered],
+            "all_reduce": [reduces, reduced]}
 
 
 def tp_rank(rank: int, store: str, out_dir: str, small: bool = False) -> None:
@@ -5444,6 +5523,7 @@ def tp_rank(rank: int, store: str, out_dir: str, small: bool = False) -> None:
         from repro_torch.models.model import init_params, tp_layout
         from repro_torch.train.sharded import tp_config
         mesh = make_mesh(TP_MESH, ("data", "model"), device=dev.type)
+        fsdp_mesh = make_mesh(FSDP_MESH, ("data", "model"), device=dev.type)
         cfg = tp_phase_config(small, torch.float32)
         b, s = (4, 64) if small else (TP_BATCH, TP_SEQ)
         t0 = time.perf_counter()
@@ -5465,9 +5545,23 @@ def tp_rank(rank: int, store: str, out_dir: str, small: bool = False) -> None:
             got["layout"] = list(tp_layout(tp_config(vcfg, mesh),
                                            TP_MESH[1])[:2])
             res["variants"][name] = got
+        res["fsdp_f32"] = tp_rank_f32(fsdp_mesh, dev, rank, params, batch,
+                                      cfg)
         if dev.type == "cuda":
             free_device_memory()
-        res["bf16"] = tp_rank_bf16(mesh, dev, rank, params, pipeline, small)
+        res["bf16"] = tp_rank_bf16(mesh, dev, rank, params, pipeline,
+                                   tp_phase_config(small, torch.bfloat16))
+        del params
+        if dev.type == "cuda":
+            free_device_memory()
+        deep = tp_phase_config(small, torch.bfloat16, layers=None)
+        t0 = time.perf_counter()
+        params = init_params(deep, 0, dev)
+        res["fsdp_draw_s"] = time.perf_counter() - t0
+        res["fsdp_expected"] = fsdp_expected(deep, FSDP_MESH[0])
+        res["fsdp_bf16"] = tp_rank_bf16(fsdp_mesh, dev, rank, params,
+                                        pipeline, deep, FSDP_STEPS)
+        res["fsdp_bf16"]["n_layers"] = deep.n_layers
         with open(f"{out_dir}/rank.{rank}.json", "w") as f:
             json.dump(res, f, sort_keys=True)
     except BaseException:
@@ -5537,6 +5631,45 @@ def tensor_parallel(dev, plain, smi_line: str, small: bool = False) -> dict:
                != (got[0]["step_loss"], got[0]["step_grad_norm"])
                for g in got):
             fail(f"29a {name}: the ranks' metrics differ: {got}")
+    fsdp = ranks[0]["fsdp_f32"]
+    if fsdp["faults"]:
+        fail("29a-fsdp: the float32 FSDP step against the single-device "
+             "step: " + "; ".join(fsdp["faults"]))
+    if any((r["fsdp_f32"]["step_loss"], r["fsdp_f32"]["step_grad_norm"])
+           != (fsdp["step_loss"], fsdp["step_grad_norm"]) for r in ranks):
+        fail(f"29a-fsdp: the ranks' metrics differ: "
+             f"{[r['fsdp_f32'] for r in ranks]}")
+    if fsdp["local"] or not fsdp["data_cut"]:
+        fail(f"29a-fsdp: leaves local to \"model\" {fsdp['local']}, cut "
+             f"over \"data\" {fsdp['data_cut']}")
+    deep_layers = ranks[0]["fsdp_bf16"]["n_layers"]
+    want = ranks[0]["fsdp_expected"]
+    for r, res in enumerate(ranks):
+        steps = res["fsdp_bf16"]["steps"]
+        for i, st in enumerate(steps):
+            if not math.isfinite(st["loss"]) or st["loss"] != \
+                    ranks[0]["fsdp_bf16"]["steps"][i]["loss"]:
+                fail(f"29c rank {r} step {i + 1}: loss {st['loss']}")
+            got = {k: st["over_data"].get(k) for k in want}
+            if got != want or st["collectives"] != steps[0]["collectives"]:
+                fail(f"29c rank {r} step {i + 1}: over \"data\" {got}, "
+                     f"worked out from the config {want}; collectives "
+                     f"{[x['collectives'] for x in steps]}")
+            if dev.type != "cuda":
+                continue
+            if (st["flash_attention"] != 2 * deep_layers
+                    or st["routes"] != fa_routes(torch.bfloat16, 64,
+                                                 2 * deep_layers)
+                    or st["bwd_routes"] != bwd_routes(torch.bfloat16, 64,
+                                                      deep_layers)
+                    or st["plain_backward"]
+                    or st["heads"] != [[14, 2]]):
+                fail(f"29c rank {r} step {i + 1}: launches "
+                     f"{st['flash_attention']} {st['routes']}, backward "
+                     f"{st['bwd_routes']}, plain backward "
+                     f"{st['plain_backward']}, heads {st['heads']}: expected "
+                     f"{2 * deep_layers} tensor-core launches and "
+                     f"{deep_layers} backward calls at (14, 2) heads")
     layers = tp_phase_config(small, torch.float32).n_layers
     per_step = 2 * layers
     for r, res in enumerate(ranks):
@@ -5595,7 +5728,37 @@ def tensor_parallel(dev, plain, smi_line: str, small: bool = False) -> dict:
                            for st in r["bf16"]["steps"]),
            "backward_calls": sum(sum(st["bwd_routes"].values()) for r in ranks
                                  for st in r["bf16"]["steps"]),
-           "ranks_s": t_ranks}
+           "ranks_s": t_ranks,
+           "fsdp": {
+               "mesh": list(FSDP_MESH), "layers_f32": layers,
+               "f32_errors": fsdp["errors"],
+               "f32_worst_leaf_share": max(
+                   fsdp["share_of_tolerance"].values()),
+               "f32_seconds": [r["fsdp_f32"]["seconds"] for r in ranks],
+               "data_cut_leaves": fsdp["data_cut"],
+               "n_layers": deep_layers, "batch": TP_BATCH, "seq": TP_SEQ,
+               "draw_s": [r["fsdp_draw_s"] for r in ranks],
+               "bf16_losses": [st["loss"] for st in
+                               ranks[0]["fsdp_bf16"]["steps"]],
+               "bf16_step_wall_s": {r: [st["wall_s"] for st in
+                                        res["fsdp_bf16"]["steps"]]
+                                    for r, res in enumerate(ranks)},
+               "peak_gib": [r["fsdp_bf16"]["peak_gib"] for r in ranks],
+               "over_data_per_step":
+                   ranks[0]["fsdp_bf16"]["steps"][0]["over_data"],
+               "over_data_worked_out": want,
+               "collectives_per_step":
+                   ranks[0]["fsdp_bf16"]["steps"][0]["collectives"],
+               "flash_attention_per_rank_step":
+                   ranks[0]["fsdp_bf16"]["steps"][0]["flash_attention"],
+               "backward_calls_per_rank_step":
+                   ranks[0]["fsdp_bf16"]["steps"][0]["bwd_routes"],
+               "heads": ranks[0]["fsdp_bf16"]["steps"][0]["heads"],
+               "launches": sum(st["flash_attention"] for r in ranks
+                               for st in r["fsdp_bf16"]["steps"]),
+               "backward_calls": sum(sum(st["bwd_routes"].values())
+                                     for r in ranks
+                                     for st in r["fsdp_bf16"]["steps"])}}
     if dev.type == "cuda":
         b, h, kvh, s_len, d = TP_TIME_SHAPE
         out["forward"] = flash_attention_time(dev, plain, "qwen2-0.5b TP rank",

@@ -36,15 +36,18 @@ counterpart of the reference's ``XLA_FLAGS`` line.
 Each cell's step is what the port's program runs, which is not what GSPMD
 would compile:
 
-* **train**: ``train.sharded.make_sharded_train_step``, tensor parallel
-  over "model" (the batch split over the batch axes; the attention's
-  q / o and its k / v where the rules split them, the dense MLP, the
-  embedding and the loss's head on the rank's block over "model", the
-  attention at the rank's heads, two all-reduces over "model" a block;
-  where the rules cut through a head, the projections on the rank's
-  columns and the attention on all heads; every other leaf gathered once
-  a step; MoE layers single-program or expert parallel, rwkv6's and
-  Mamba2's blocks whole on every rank);
+* **train**: ``train.sharded.make_sharded_train_step``, FSDP over "data"
+  and tensor parallel over "model" (the batch split over the batch axes;
+  each leaf the rank's block at rest, all-gathered inside the block that
+  reads it and again in its recompute, its gradient reduce-scattered over
+  "data" and Adafactor's state updated on the rank's blocks; the
+  attention's q / o and its k / v where the rules split them, the dense
+  MLP, the embedding and the loss's head on the rank's block over
+  "model", the attention at the rank's heads, two all-reduces over
+  "model" a block; where the rules cut through a head, the projections on
+  the rank's columns and the attention on all heads; MoE layers
+  single-program or expert parallel, rwkv6's and Mamba2's blocks whole on
+  every rank, gathered block by block);
 * **prefill**: ``serve.engine.prefill(mesh=)`` on the rank's batch slice,
   with full params but, under expert parallelism, the expert leaves' block
   of ``E / gm`` experts;
@@ -105,7 +108,7 @@ _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 # launch.sharding's counted kinds -> the reference's
 _KIND = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-         "all_to_all": "all-to-all"}
+         "all_to_all": "all-to-all", "reduce_scatter": "reduce-scatter"}
 
 
 def _shape_bytes(hlo_type: str) -> int:

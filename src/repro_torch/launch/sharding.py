@@ -17,8 +17,9 @@ as the reference's do, so they take a stand-in with only ``.shape``; a
 mesh.
 
 The layout helpers and the collectives of the sharded path live here too
-(:func:`distribute`, :func:`gather`, :func:`gather_except`,
-:func:`all_reduce`, :func:`gather_slices`, the expert-parallel MoE's
+(:func:`distribute`, :func:`gather`, :func:`all_reduce`,
+:func:`gather_slices`, FSDP's :func:`at_use` (a leaf gathered where a
+block reads it, its gradient reduce-scattered), the expert-parallel MoE's
 differentiable :func:`all_to_all`, :func:`split_seq` and
 :func:`gather_seq`, and tensor parallelism's :func:`to_model` and
 :func:`from_model`), so the train step, the model's blocks and
@@ -33,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from collections.abc import Mapping
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,13 +42,14 @@ import torch.distributed as dist
 from ..models.model import ModelConfig, param_pspecs
 from ..pytree import tree_map
 
-__all__ = ["COLLECTIVES", "NamedSharding", "PartitionSpec", "all_reduce",
-           "all_to_all", "apply_overrides", "batch_axes", "batch_pspec",
-           "batch_specs", "cache_pspecs", "default_rules", "distribute",
-           "entry_axes", "from_model", "full", "gather", "gather_except",
-           "gather_seq", "gather_slices", "local_block", "map_specs",
-           "mesh_axes", "model_pspecs", "named", "opt_pspecs", "placements",
-           "recording", "split_seq", "to_model", "wrap"]
+__all__ = ["AtUse", "COLLECTIVES", "NamedSharding", "PartitionSpec",
+           "all_reduce", "all_to_all", "apply_overrides", "at_use",
+           "batch_axes", "batch_pspec", "batch_specs", "cache_pspecs",
+           "cut_axes", "default_rules", "distribute", "entry_axes",
+           "from_model", "full", "gather", "gather_seq", "gather_slices",
+           "local_block", "map_specs", "mesh_axes", "model_pspecs", "named",
+           "opt_pspecs", "placements", "recording", "split_seq", "to_model",
+           "wrap"]
 
 
 class PartitionSpec(tuple):
@@ -320,7 +322,8 @@ def opt_pspecs(param_specs, opt_state):
 # ------------------------------------------------ layout and collectives
 COLLECTIVES = {"all_gather": 0, "all_gather_bytes": 0,
                "all_reduce": 0, "all_reduce_bytes": 0,
-               "all_to_all": 0, "all_to_all_bytes": 0}
+               "all_to_all": 0, "all_to_all_bytes": 0,
+               "reduce_scatter": 0, "reduce_scatter_bytes": 0}
 _LOGS: list = []
 
 
@@ -328,7 +331,8 @@ _LOGS: list = []
 def recording():
     """Yields a list that gets ``(kind, bytes, group size, axis)`` of every
     collective counted in :data:`COLLECTIVES` inside the block, ``kind`` a
-    key of it ("all_gather", "all_reduce", "all_to_all"), ``bytes`` as
+    key of it ("all_gather", "all_reduce", "all_to_all",
+    "reduce_scatter"), ``bytes`` as
     counted there (the bytes the call returns) and ``axis`` the mesh axis
     whose group it ran over."""
     log: list = []
@@ -370,12 +374,18 @@ def distribute(tree, shardings):
 
 def wrap(local: torch.Tensor, sh: NamedSharding, shape) -> Any:
     """``local``, this rank's block, as the DTensor of global ``shape``
-    laid out by ``sh`` (no collective, no check)."""
+    laid out by ``sh`` (no collective, no check).  Its contiguous strides
+    are worked out, not read off a tensor of ``shape``: a meta tensor of
+    the whole leaf would count as live in the dry run's trace."""
     from torch.distributed.tensor import DTensor
     shape = torch.Size(shape)
-    stride = torch.empty(shape, device="meta").stride()
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.append(step)
+        step *= max(n, 1)
     return DTensor.from_local(local, sh.mesh, sh.placements,
-                              run_check=False, shape=shape, stride=stride)
+                              run_check=False, shape=shape,
+                              stride=tuple(reversed(stride)))
 
 
 def _chunks(length: int, n: int) -> list:
@@ -398,12 +408,42 @@ def _all_gather(x: torch.Tensor, group, n: int, axis: str) -> list:
     return parts
 
 
-def _gathered(x, keep: Optional[str] = None) -> torch.Tensor:
-    """DTensor ``x``'s local block gathered over each mesh dim of more than
-    one rank that shards it, last to first, but the mesh axis ``keep``:
-    one all-gather a dim, the parts joined as ``full_tensor`` joins them (a
-    ``_StridedShard``'s parts cut ``split_factor`` ways and taken piece
-    major)."""
+def _reduce_scatter(parts: list, group, n: int, axis: str) -> torch.Tensor:
+    """The sum over the ``n`` ranks of ``group`` (mesh axis ``axis``) of
+    their ``parts[r]``, on rank ``r``: the list reduce-scatter of
+    ``torch.distributed`` (not DTensor's functional one, as
+    :func:`_all_gather`), counted at the bytes it returns.  A backend
+    that cannot reduce-scatter raises."""
+    parts = [q.contiguous() for q in parts]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    _count("reduce_scatter", out.numel() * out.element_size(), n, axis)
+    return out
+
+
+class _Cut(NamedTuple):
+    """One mesh dim's cut of a leaf: mesh axis ``axis`` (its ``group`` of
+    ``n`` ranks, this one ``rank``) cuts tensor dim ``dim``, whose length
+    before the cut is ``sum(sizes)``, into chunks of ``sizes`` (a
+    ``_StridedShard``'s pieces ``split`` ways, taken piece major).
+    ``sums``: the gather's backward sums the ranks' gradients
+    (reduce-scatter) rather than keeping this rank's slice of its own."""
+    axis: str
+    group: Any
+    n: int
+    rank: int
+    dim: int
+    sizes: Tuple[int, ...]
+    split: int
+    sums: bool
+
+
+def _cuts(x, keep: Optional[str] = None, sums: Sequence[str] = ()
+          ) -> Tuple[_Cut, ...]:
+    """DTensor ``x``'s cuts over each mesh dim of more than one rank that
+    shards it, but the mesh axis ``keep``, last mesh dim first (the order
+    :func:`_join` undoes them in); ``sums`` the axes whose gather's
+    backward reduce-scatters."""
     mesh, pls = x.device_mesh, tuple(x.placements)
     names = mesh.mesh_dim_names
     # the length of the dim each mesh dim cuts, before that cut (at this
@@ -424,27 +464,83 @@ def _gathered(x, keep: Optional[str] = None) -> torch.Tensor:
             raise ValueError(f"mesh axis {keep!r} cuts a dim that another "
                              f"axis cuts too ({pls}): it cannot stay cut "
                              f"alone")
-    local = x.to_local()
+    out = []
     for m in reversed(range(mesh.ndim)):
         pl, n = pls[m], mesh.size(m)
         if pl.is_replicate() or n == 1 or names[m] == keep:
             continue
-        d, sizes = pl.dim, _chunks(parent[m], n)
         split = getattr(pl, "split_factor", 1)
         if split > 1 and parent[m] % (n * split):
             raise ValueError(f"{pl} of a dim of {parent[m]}: an uneven "
                              f"strided split is not gathered")
-        if local.shape[d] < sizes[0]:
-            pad = list(local.shape)
-            pad[d] = sizes[0] - local.shape[d]
-            local = torch.cat([local, local.new_zeros(pad)], d)
-        parts = _all_gather(local, mesh.get_group(m), n, names[m])
-        if split > 1:
-            local = torch.cat([q.chunk(split, d)[i] for i in range(split)
-                               for q in parts], d)
-        else:
-            local = torch.cat([q.narrow(d, 0, sizes[i])
-                               for i, q in enumerate(parts)], d)
+        out.append(_Cut(names[m], mesh.get_group(m), n,
+                        mesh.get_local_rank(m), pl.dim,
+                        tuple(_chunks(parent[m], n)), split,
+                        names[m] in sums))
+    return tuple(out)
+
+
+def cut_axes(x, dims: Optional[Sequence[int]] = None) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that shard DTensor ``x`` (those
+    that cut one of its dims ``dims``, negative ones counted from the end;
+    None: any), in mesh order."""
+    want = None if dims is None else {d % x.ndim for d in dims}
+    return tuple(c.axis for c in reversed(_cuts(x))
+                 if want is None or c.dim in want)
+
+
+def _pad(t: torch.Tensor, d: int, length: int) -> torch.Tensor:
+    """``t`` padded with zeros along dim ``d`` to ``length``."""
+    if t.shape[d] >= length:
+        return t
+    pad = list(t.shape)
+    pad[d] = length - t.shape[d]
+    return torch.cat([t, t.new_zeros(pad)], d)
+
+
+def _join(t: torch.Tensor, c: _Cut) -> torch.Tensor:
+    """Cut ``c`` undone: this rank's block ``t`` all-gathered over
+    ``c.axis`` (an uneven chunk padded to the first's length) and the
+    parts joined as ``full_tensor`` joins them."""
+    d = c.dim
+    parts = _all_gather(_pad(t, d, c.sizes[0]), c.group, c.n, c.axis)
+    if c.split > 1:
+        return torch.cat([q.chunk(c.split, d)[i] for i in range(c.split)
+                          for q in parts], d)
+    return torch.cat([q.narrow(d, 0, c.sizes[i])
+                      for i, q in enumerate(parts)], d)
+
+
+def _block(g: torch.Tensor, c: _Cut, q: int) -> torch.Tensor:
+    """Rank ``q``'s block, along ``c.dim``, of ``g`` joined as
+    :func:`_join` joins (a view where it is one piece)."""
+    if c.split > 1:
+        pieces = g.chunk(c.split * c.n, c.dim)
+        return torch.cat([pieces[i * c.n + q] for i in range(c.split)],
+                         c.dim)
+    return g.narrow(c.dim, sum(c.sizes[:q]), c.sizes[q])
+
+
+def _part(g: torch.Tensor, c: _Cut) -> torch.Tensor:
+    """The backward of :func:`_join`: this rank's block of the gradient
+    ``g`` of the joined tensor, summed over ``c.axis`` where ``c.sums``
+    (one reduce-scatter, every rank's block padded to the first's length
+    and the padding stripped after), else taken from ``g`` alone."""
+    if not c.sums:
+        return _block(g, c, c.rank).clone(
+            memory_format=torch.contiguous_format)
+    blocks = [_pad(_block(g, c, q), c.dim, c.sizes[0]) for q in range(c.n)]
+    return _reduce_scatter(blocks, c.group, c.n, c.axis).narrow(
+        c.dim, 0, c.sizes[c.rank])
+
+
+def _gathered(x) -> torch.Tensor:
+    """DTensor ``x``'s local block gathered over each mesh dim of more than
+    one rank that shards it, last to first: one all-gather a dim, the parts
+    joined as ``full_tensor`` joins them."""
+    local = x.to_local()
+    for c in _cuts(x):
+        local = _join(local, c)
     return local
 
 
@@ -457,12 +553,58 @@ def full(x) -> torch.Tensor:
     return _gathered(x)
 
 
-def gather_except(x, keep: str) -> torch.Tensor:
-    """DTensor ``x`` gathered over every mesh axis but ``keep``: this
-    rank's block of ``x`` along the dim ``keep`` shards (the whole of that
-    dim if it shards none), full along every other; counted as
-    :func:`full` counts."""
-    return _gathered(x, keep)
+# ----------------------------------------- FSDP: gather at use ("data")
+class _GatherAtUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, cuts):
+        ctx.cuts = cuts
+        for c in cuts:
+            local = _join(local, c)
+        return local
+
+    @staticmethod
+    def backward(ctx, g):
+        for c in reversed(ctx.cuts):
+            g = _part(g, c)
+        return g, None
+
+
+class AtUse:
+    """A parameter leaf as the sharded train step hands it to the model:
+    ``local``, this rank's block of it (the tensor the gradient is taken
+    of), and its ``cuts``.  A block gathers it where it reads it
+    (:meth:`gather`, differentiable: one all-gather a cut, and in the
+    backward this rank's block of the gradient, reduce-scattered over an
+    axis whose ranks each hold a part of the gradient); under remat the
+    recompute gathers again, so the whole leaf lives only inside the block
+    that reads it.  ``at[i]`` is layer ``i``'s slice of a stacked leaf
+    (its leading dim whole), gathered alone."""
+    __slots__ = ("local", "cuts")
+
+    def __init__(self, local: torch.Tensor, cuts: Tuple[_Cut, ...]):
+        self.local, self.cuts = local, cuts
+
+    def __getitem__(self, i: int) -> "AtUse":
+        if any(c.dim == 0 for c in self.cuts):
+            raise ValueError("a leaf cut on its leading dim is not sliced "
+                             "before it is gathered")
+        return AtUse(self.local[i], tuple(c._replace(dim=c.dim - 1)
+                                          for c in self.cuts))
+
+    def gather(self) -> torch.Tensor:
+        return _GatherAtUse.apply(self.local, self.cuts)
+
+
+def at_use(x, keep: Optional[str] = None, sums: Sequence[str] = ()):
+    """DTensor ``x`` as the sharded step hands it to the model: an
+    :class:`AtUse` of its local block, gathered at use over every mesh
+    axis of more than one rank that cuts it but ``keep`` (the gradient
+    reduce-scattered over the axes of ``sums``, this rank's slice of it
+    taken over the others), or the local block itself where no such axis
+    cuts it."""
+    cuts = _cuts(x, keep, sums)
+    local = x.to_local()
+    return AtUse(local, cuts) if cuts else local
 
 
 def gather(tree):

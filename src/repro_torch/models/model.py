@@ -19,7 +19,12 @@ passes:
 Parameters are a nested dict of tensors in the reference's layout: the
 per-layer leaves are stacked along a leading ``n_layers`` dim under
 ``params["blocks"]``, and a Python loop over layers takes the place of the
-reference's ``lax.scan``.
+reference's ``lax.scan``.  The sharded train step hands :func:`forward`
+and :func:`loss_terms` each leaf as this rank's block
+(``launch.sharding.AtUse``): every block gathers the leaves it reads
+inside itself (:func:`gathered`; a stacked leaf sliced to its layer
+first), the embedding, the loss's head and the final norm where they are
+read.
 """
 from __future__ import annotations
 
@@ -40,8 +45,8 @@ from .rwkv6 import (RWKV6FFNParams, RWKV6Params, rwkv6_channel_mix,
                     rwkv6_mix)
 
 __all__ = ["LeafSpec", "MoECfg", "ModelConfig", "abstract_params",
-           "constrain_batch", "forward", "init_params", "iter_schema",
-           "layer_params", "logits_fn", "loss_fn", "loss_terms",
+           "constrain_batch", "forward", "gathered", "init_params",
+           "iter_schema", "layer_params", "logits_fn", "loss_fn", "loss_terms",
            "mamba2_params", "moe_params",
            "param_pspecs", "rwkv6_ffn_params", "rwkv6_params", "rwkv6_block",
            "shared_qkv", "tensor_parallel", "tp_layout", "tp_roles",
@@ -372,6 +377,15 @@ def layer_params(params: dict, i: int) -> dict:
     return {k: v[i] for k, v in params["blocks"].items()}
 
 
+def gathered(tree):
+    """A tree of leaves as a block reads them: a leaf the sharded train
+    step hands over as this rank's block (``launch.sharding.AtUse``)
+    gathered now, a tensor as it is."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    return tree if isinstance(tree, torch.Tensor) else tree.gather()
+
+
 def _attn_params(bp: dict) -> AttnParams:
     return AttnParams(wq=bp["wq"], wk=bp["wk"], wv=bp["wv"], wo=bp["wo"],
                       bq=bp.get("bq"), bk=bp.get("bk"), bv=bp.get("bv"))
@@ -558,10 +572,10 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     if embeds is not None:
         return embeds.to(cfg.activ_dtype)
     tp = tensor_parallel(cfg, mesh)
+    table = gathered(params["embed"])
     if tp is None or not tp.vocab:
-        return params["embed"][tokens.long()].to(cfg.activ_dtype)
+        return table[tokens.long()].to(cfg.activ_dtype)
     from ..launch.sharding import from_model
-    table = params["embed"]
     idx = tokens.long() - tp.rank * table.shape[0]
     here = (idx >= 0) & (idx < table.shape[0])
     rows = table[torch.where(here, idx, 0)]
@@ -619,7 +633,9 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     experts over "model"); with ``cfg.tp_axes`` the leaves of
     :func:`tp_roles` are this rank's blocks over "model" and the
     embedding, attention and MLP run tensor-parallel
-    (:func:`tensor_parallel`)."""
+    (:func:`tensor_parallel`).  A leaf handed over as a
+    ``launch.sharding.AtUse`` is gathered inside each block that reads it
+    (:func:`gathered`)."""
     x = constrain_batch(embed_inputs(params, cfg, tokens, embeds, mesh), cfg)
     b, s, _ = x.shape
     if positions is None:
@@ -628,8 +644,8 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     if cfg.family in ("attn", "moe"):
         def layer(x, i):
             x, moe_aux = transformer_block(constrain_batch(x, cfg),
-                                           layer_params(params, i), cfg,
-                                           positions, mesh=mesh)
+                                           gathered(layer_params(params, i)),
+                                           cfg, positions, mesh=mesh)
             return constrain_batch(x, cfg), moe_aux
         layer_aux = []
         for i in range(cfg.n_layers):
@@ -643,7 +659,7 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     elif cfg.family == "rwkv6":
         def layer(x, i):
             x, _ = rwkv6_block(constrain_batch(x, cfg),
-                               layer_params(params, i), cfg)
+                               gathered(layer_params(params, i)), cfg)
             return constrain_batch(x, cfg)
         for i in range(cfg.n_layers):
             x = _remat(lambda x, i=i: layer(x, i), cfg)(x)
@@ -654,19 +670,20 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
 
         def layer(x, i):
             x, _ = zamba2_mamba_block(constrain_batch(x, cfg),
-                                      layer_params(params, i), cfg)
+                                      gathered(layer_params(params, i)),
+                                      cfg)
             return constrain_batch(x, cfg)
 
         def group(x, inv):
             for i in range(inv * every, (inv + 1) * every):
                 x = _remat(lambda x, i=i: layer(x, i), cfg)(x)
-            return zamba2_shared_attention(x, params["shared_attn"], cfg,
-                                           inv, positions, mesh=mesh)
+            return zamba2_shared_attention(x, gathered(params["shared_attn"]),
+                                           cfg, inv, positions, mesh=mesh)
         for inv in range(cfg.n_shared_attn):
             x = _remat(lambda x, inv=inv: group(x, inv), cfg)(x)
     else:
         raise ValueError(cfg.family)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    return rms_norm(x, gathered(params["final_norm"]), cfg.norm_eps), aux
 
 
 def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
@@ -726,8 +743,8 @@ def loss_terms(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
     ``mesh``) the head is this rank's block of it, (B, chunk, V / m)
     logits a chunk, and both terms are the whole vocabulary's on every
     rank."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    head = head.to(hidden.dtype)
+    head = gathered(params["embed" if cfg.tie_embeddings else "lm_head"])
+    head = (head.T if cfg.tie_embeddings else head).to(hidden.dtype)
     tp = tensor_parallel(cfg, mesh)
     if tp is not None and tp.vocab:
         from ..launch.sharding import to_model

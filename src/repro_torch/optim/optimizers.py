@@ -32,11 +32,10 @@ class OptState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], OptState]
-    update: Callable[[Any, OptState, Any, torch.Tensor], Tuple[Any, OptState]]
-    # each element's update reads only that element (AdamW), so it runs on
-    # any block of a leaf; Adafactor's factored means and update RMS read
-    # across the leaf
-    elementwise: bool = False
+    # update(grads, state, params, lr, means=None): ``means`` (see
+    # :func:`adafactor`) lets an update that reads across a leaf run on
+    # blocks of it; AdamW's reads each element alone and ignores it
+    update: Callable[..., Tuple[Any, OptState]]
 
 
 def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
@@ -69,7 +68,7 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         return OptState(_step0(params), inner)
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, means=None):
         step = state.step + 1
         t = step.to(torch.float32)
         c1, c2 = 1 - b1 ** t, 1 - b2 ** t
@@ -89,14 +88,20 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         new_p, new_m, new_v = unzip(out, 3)
         return new_p, OptState(step, {"m": new_m, "v": new_v})
 
-    return Optimizer(init, update, elementwise=True)
+    return Optimizer(init, update)
 
 
 # ---------------------------------------------------------------- Adafactor
 def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
               weight_decay=0.0) -> Optimizer:
     """Factored second-moment estimator (Shazeer & Stern 2018), no
-    momentum."""
+    momentum.
+
+    ``update(..., means=)`` updates blocks of leaves (the sharded train
+    step's): ``means`` a tree like the params whose leaf is None for a leaf
+    whole on the rank, else ``mean(t, dim, of)``, the whole leaf's mean
+    over ``dim`` of ``t`` from this block's (``of``: the leaf's dims that
+    ``dim`` stands for, None for all of them)."""
 
     def _factored(p):
         return p.dim() >= 2 and p.shape[-1] >= 8 and p.shape[-2] >= 8
@@ -110,19 +115,21 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
         return OptState(_step0(params), tree_map(one, params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, means=None):
         step = state.step + 1
         t = step.to(torch.float32)
         beta = 1.0 - t ** (-decay)
 
-        def upd(p, g, s):
+        def upd(p, g, s, mean):
+            mean = mean or (lambda t, dim, of: torch.mean(t) if dim is None
+                            else t.mean(dim))
             g = g.to(torch.float32)
             g2 = g * g + eps
             if "vr" in s:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
+                vr = beta * s["vr"] + (1 - beta) * mean(g2, -1, (-1,))
+                vc = beta * s["vc"] + (1 - beta) * mean(g2, -2, (-2,))
                 denom = (vr[..., None] * vc[..., None, :]) / torch.clamp(
-                    vr.mean(-1)[..., None, None], min=eps)
+                    mean(vr, -1, (-2,))[..., None, None], min=eps)
                 u = g * torch.rsqrt(denom + eps)
                 new_s = {"vr": vr, "vc": vc}
             else:
@@ -130,7 +137,7 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
                 u = g * torch.rsqrt(v + eps)
                 new_s = {"v": v}
             # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(u * u))
+            rms = torch.sqrt(mean(u * u, None, None))
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             pf = p.to(torch.float32)
             new_p = pf - lr * u
@@ -138,7 +145,10 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
                 new_p = new_p - lr * weight_decay * pf
             return new_p.to(p.dtype), new_s
 
-        new_p, new_s = unzip(tree_map(upd, params, grads, state.inner), 2)
+        if means is None:
+            means = tree_map(lambda p: None, params)
+        new_p, new_s = unzip(tree_map(upd, params, grads, state.inner,
+                                      means), 2)
         return new_p, OptState(step, new_s)
 
     return Optimizer(init, update)

@@ -6,11 +6,17 @@ At rest every leaf is a DTensor whose placements are
 ``named(mesh, spec).placements``: params by ``model_pspecs`` (FSDP over
 "data", the head / mlp / vocab dims over "model"), optimizer state by
 ``opt_pspecs``, the batch by ``batch_specs``.  A step, on every rank of
-the mesh (the caller's process group; this module never starts one):
+the mesh (the caller's process group; this module never starts one),
+holds no whole leaf, gradient or optimizer state beyond the block that
+reads it (the reference's FSDP, "embed" on "data": gather at use):
 
-1. all-gathers each parameter leaf into the full tensor, once a step,
-   but a leaf local to "model" over every axis but "model" (the rank
-   keeps its block: see below);
+1. hands each parameter leaf to the model as this rank's block
+   (``launch.sharding.AtUse``); each block of the model all-gathers the
+   leaves it reads inside itself (a stacked leaf sliced to its layer
+   first; the embedding, the loss's head and the final norm where they
+   are read), over every axis that cuts them but "model" for a leaf the
+   rank keeps as its block over "model" (see below), and gathers again
+   when remat recomputes the block;
 2. runs forward and backward on plain local tensors (the rank's slice of
    the batch over the batch axes), so the kernels launch as they do
    without a mesh;
@@ -19,14 +25,19 @@ the mesh (the caller's process group; this module never starts one):
    NLL sum over the global count) and, for MoE, the balance loss (each
    rank its share; the routing itself follows the whole batch, see
    ``models.moe``);
-4. all-reduces the gradients over the batch axes (a whole leaf whose
-   gradient is a partial sum on each rank over "model" too), takes the
-   gradient norm once from the reduced gradient (the squares of the local
-   leaves' blocks summed over "model") and clips;
-5. updates each leaf's local block (AdamW: an elementwise update), or, for
-   an optimizer whose update reads across a leaf (Adafactor's factored
-   means and update RMS), the full leaf and keeps its block (a local
-   leaf's gradient all-gathered over "model" for it).
+4. gets each leaf's gradient as this rank's block: each gather's backward
+   reduce-scatters over "data" where "data" is a batch axis (and over
+   "model" for a leaf whose gradient is a partial sum there), else keeps
+   this rank's slice (a batch that does not split: every "data" rank holds
+   the same gradient, which a sum would count once a rank); then
+   all-reduces over the batch axes no gather summed ("pod") and over
+   "model" for a partial leaf "model" does not cut;
+5. takes the gradient norm once from the blocks (each block's squares
+   summed over the axes that cut it) and clips;
+6. updates each leaf's block: AdamW elementwise, Adafactor with its
+   factored means and update RMS over a cut dim summed locally,
+   all-reduced over the axes that cut it and divided by the whole length
+   (a leaf whole on the rank takes the single-device update as it is).
 
 Ranks that differ only on "model" compute the same batch slice, each its
 part of it.  At more than one "model" rank the step is tensor parallel
@@ -44,12 +55,12 @@ layers keep their route: the single program, or with ``moe_groups`` and
 ``_moe_shard_map``), where each rank of "model" routes its sequence slice
 to the experts it holds (``models.moe``) and an expert leaf (one whose
 spec puts "model" on its experts dim) is local to "model" too.
-rwkv6's and Mamba2's blocks run whole on every rank.  At one "model"
-rank, or without a mesh, every op is the single-device step's.  The
-layout helpers and the collectives (counted in
+rwkv6's and Mamba2's blocks run whole on every rank, each gathered block
+by block.  At one rank on every axis, or without a mesh, every op is the
+single-device step's.  The layout helpers and the collectives (counted in
 ``launch.sharding.COLLECTIVES``) are ``launch.sharding``'s.  Under remat
-every block's forward, its collectives with it, runs again in the
-backward, in the same order on every rank.
+every block's forward, its gathers and collectives with it, runs again
+in the backward, in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -59,17 +70,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..launch.sharding import (NamedSharding, PartitionSpec, all_reduce,
-                               apply_overrides, batch_specs, default_rules,
-                               distribute, entry_axes, full, gather,
-                               gather_except, local_block, map_specs,
-                               mesh_axes, model_pspecs, named, opt_pspecs,
-                               wrap)
+from ..launch.sharding import (AtUse, all_reduce, apply_overrides,
+                               at_use, batch_specs, cut_axes, default_rules,
+                               entry_axes, full, map_specs, mesh_axes,
+                               model_pspecs, named, opt_pspecs, wrap)
 from ..models.model import ModelConfig, forward, loss_terms, tp_roles
 from ..optim.optimizers import OptState, Optimizer
 from ..pytree import flatten, leaves, tree_map, unflatten
 
-__all__ = ["gather_local", "make_sharded_train_step", "sharded_grads",
+__all__ = ["block_means", "gather_local", "leaf_roles",
+           "make_sharded_train_step", "sharded_grads",
            "sharded_loss_and_grads", "state_shardings", "tp_config"]
 
 # the logical axes whose leaves a module can use as its block over "model"
@@ -113,13 +123,17 @@ def tp_config(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
         a for a in TP_AXES if rules.get(a) == "model"))
 
 
-def _roles(cfg: ModelConfig, mesh, pspecs) -> Tuple[Any, Any]:
-    """(local, partial): trees of bools like the params.  Local: a leaf
-    handed over as this rank's block over "model" (an expert leaf under
-    expert parallelism, ``cfg.moe_groups`` of more than one member and
+def leaf_roles(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
+               ) -> Tuple[Any, Any]:
+    """(local, partial) of the step on ``mesh`` (rules with
+    ``overrides``): trees of bools like the params.  Local: a leaf handed
+    over as this rank's block over "model" (an expert leaf under expert
+    parallelism, ``cfg.moe_groups`` of more than one member and
     ``cfg.moe_expert_sharded``, whose spec puts "model" on its experts dim;
     a leaf of ``tp_roles``).  Partial: a whole leaf whose gradient is a
     partial sum on each rank of "model"."""
+    pspecs = model_pspecs(mesh, cfg, overrides)
+    cfg = tp_config(cfg, mesh, overrides)
     local = map_specs(lambda spec: False, pspecs)
     partial = map_specs(lambda spec: False, pspecs)
     groups = cfg.moe_groups or (1, 1)
@@ -139,24 +153,18 @@ def _roles(cfg: ModelConfig, mesh, pspecs) -> Tuple[Any, Any]:
     return local, partial
 
 
-def _only(spec: PartitionSpec, keep: bool) -> PartitionSpec:
-    """``spec`` with only its "model" entries (``keep``) or without
-    them."""
-    return PartitionSpec(*(tuple(a for a in entry_axes(e)
-                                 if (a == "model") == keep) for e in spec))
-
-
-def _clip(grads, local, mesh, max_norm: float = 1.0):
-    """``clip_by_global_norm`` of the whole gradient, a local leaf's
-    block's squares summed over "model" (without local leaves, the same
-    operations in the same order)."""
-    sq = [(torch.sum(torch.square(g.to(torch.float32))), ex)
-          for g, ex in zip(leaves(grads), leaves(local))]
-    total = sum(q for q, ex in sq if not ex)
-    blocks = [q for q, ex in sq if ex]
-    if blocks:
-        part = sum(blocks)
-        all_reduce(part, mesh, ("model",))
+def _clip(grads, cuts, mesh, max_norm: float = 1.0):
+    """``clip_by_global_norm`` of the whole gradient from the rank's blocks
+    (``cuts``: each leaf's :func:`launch.sharding.cut_axes`, in leaf
+    order): the squares of the blocks of the leaves each set of axes cuts
+    summed over those axes, a leaf no axis cuts counted once (without cut
+    leaves, the same operations in the same order)."""
+    sq = [(torch.sum(torch.square(g.to(torch.float32))), ax)
+          for g, ax in zip(leaves(grads), cuts)]
+    total = sum(q for q, ax in sq if not ax)
+    for axes in dict.fromkeys(ax for _, ax in sq if ax):
+        part = sum(q for q, ax in sq if ax == axes)
+        all_reduce(part, mesh, axes)
         total = total + part
     norm = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
@@ -172,17 +180,21 @@ def sharded_loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any],
                            mesh, axes: Tuple[str, ...]):
     """(loss, aux, grads) of the GLOBAL batch from a rank's slice ``batch``
     (plain tensors, split over the mesh axes ``axes``; ``()``: the whole
-    batch on every rank) and the full ``params`` (with ``cfg.tp_axes``,
-    the leaves of ``tp_roles`` this rank's blocks over "model"): the loss
-    and ``aux["expert_counts"]`` are the whole batch's; ``grads`` is this
-    rank's share, whose sum over ``axes`` (and over "model" for a partial
-    leaf) is the whole batch's gradient (a local leaf's block of it)."""
+    batch on every rank) and ``params`` as the model reads them (each leaf
+    a tensor or a ``launch.sharding.AtUse`` of this rank's block, gathered
+    at use; with ``cfg.tp_axes``, the leaves of ``tp_roles`` this rank's
+    blocks over "model"): the loss and ``aux["expert_counts"]`` are the
+    whole batch's; ``grads`` holds each leaf's gradient as the shape it
+    was handed over in (an ``AtUse``'s as its block), this rank's share:
+    what the gathers' backward did not sum is summed by the caller."""
     n_ranks = math.prod(mesh_axes(mesh)[a] for a in axes)
     cfg = dataclasses.replace(cfg, act_batch_axes=axes)
     flat, skeleton = flatten(params)
-    leaves_ = [p.detach().requires_grad_(True) for p in flat]
+    leaves_ = [(p.local if isinstance(p, AtUse) else p).detach()
+               .requires_grad_(True) for p in flat]
     with torch.enable_grad():
-        p = unflatten(skeleton, leaves_)
+        p = unflatten(skeleton, [AtUse(x, f.cuts) if isinstance(f, AtUse)
+                                 else x for x, f in zip(leaves_, flat)])
         hidden, aux = forward(p, cfg, tokens=batch.get("tokens"),
                               embeds=batch.get("embeds"),
                               positions=batch.get("positions"), mesh=mesh)
@@ -211,37 +223,65 @@ def sharded_loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any],
 
 def sharded_grads(cfg: ModelConfig, mesh, params, batch: Dict[str, Any],
                   overrides: Optional[dict] = None):
-    """(loss, aux, grads, local, full params) of one sharded step before
-    its update, from DTensor ``params`` and ``batch`` laid out as
+    """(loss, aux, grads) of one sharded step before its update, from
+    DTensor ``params`` and ``batch`` laid out as
     :func:`make_sharded_train_step` takes them: ``grads`` the whole
-    batch's gradient, reduced (a local leaf's as this rank's block over
-    "model"; ``local`` marks those leaves), not yet clipped; the full
-    params as the step used them."""
-    pspecs = model_pspecs(mesh, cfg, overrides)
+    batch's gradient, reduced, each leaf's as this rank's block of it (the
+    local block of ``params``' leaf), not yet clipped.
+
+    Each leaf goes to the model as an ``AtUse`` over the axes that cut it
+    (but "model" for a leaf of ``leaf_roles``' local ones): where "data"
+    is a batch axis the gathers' backward reduce-scatters over it, else it
+    keeps this rank's slice (each "data" rank then holds the same whole
+    gradient); over "model" it reduce-scatters a partial leaf's and keeps
+    the slice of any other's.  What is left is all-reduced: over the batch
+    axes no gather summed, and over "model" for a partial leaf "model"
+    does not cut."""
     step_cfg = tp_config(cfg, mesh, overrides)
-    local, partial = _roles(step_cfg, mesh, pspecs)
+    local, partial = leaf_roles(cfg, mesh, overrides)
     axes = _batch_axes(mesh, batch_specs(mesh, cfg, batch)["labels"])
-    full_p = tree_map(lambda x, loc: gather_except(x, "model") if loc
-                      else full(x), params, local)
+    handed = tree_map(lambda x, loc, part: at_use(
+        x, "model" if loc else None,
+        tuple(a for a in axes if a == "data") + (("model",) if part else ())),
+        params, local, partial)
     l_batch = tree_map(lambda x: x.to_local(), batch)
-    loss, aux, grads = sharded_loss_and_grads(full_p, step_cfg, l_batch,
+    loss, aux, grads = sharded_loss_and_grads(handed, step_cfg, l_batch,
                                               mesh, axes)
-    for g, part in zip(leaves(grads), leaves(partial)):
-        all_reduce(g, mesh, axes + ("model",) if part else axes)
-    return loss, aux, grads, local, full_p
+    for g, x, part in zip(leaves(grads), leaves(params), leaves(partial)):
+        cut = cut_axes(x)
+        rest = tuple(a for a in axes if a not in cut)
+        all_reduce(g, mesh, rest + ("model",) if part and "model" not in cut
+                   else rest)
+    return loss, aux, grads
 
 
-def gather_local(grads, local, params, shardings):
-    """``grads`` as :func:`sharded_grads` gives them, each local leaf's
-    block (``local``) all-gathered over "model" into the whole leaf's
-    gradient: the whole gradient of every leaf.  ``params``: the DTensor
-    params of the step, ``shardings`` their ``named`` layouts."""
-    def one(g, loc, x, sh):
-        if not loc:
-            return g
-        return full(wrap(g, NamedSharding(sh.mesh, _only(sh.spec, keep=True)),
-                         x.shape))
-    return tree_map(one, grads, local, params, shardings)
+def gather_local(grads, params, shardings):
+    """``grads`` as :func:`sharded_grads` gives them (each leaf's block)
+    all-gathered into the whole gradient of every leaf.  ``params``: the
+    DTensor params of the step, ``shardings`` their ``named`` layouts."""
+    return tree_map(lambda g, x, sh: full(wrap(g, sh, x.shape)), grads,
+                    params, shardings)
+
+
+def block_means(params, mesh):
+    """The optimizers' ``means`` for the ranks' blocks of DTensor
+    ``params`` (``optim.optimizers.adafactor``'s; AdamW reads none): each
+    leaf's None where no axis cuts it, else ``mean(t, dim, of)``, which
+    sums ``t`` over its ``dim`` (all of it for None), all-reduces the sum
+    over the axes that cut the leaf's dims ``of`` (every dim for None) and
+    divides by their whole length."""
+    def one(x):
+        if not cut_axes(x):
+            return None
+        shape = tuple(x.shape)
+
+        def mean(t, dim, of):
+            dims = range(len(shape)) if of is None else of
+            total = t.sum() if dim is None else t.sum(dim)
+            all_reduce(total, mesh, cut_axes(x, dims))
+            return total / math.prod(shape[d] for d in dims)
+        return mean
+    return tree_map(one, params)
 
 
 def make_sharded_train_step(
@@ -263,15 +303,11 @@ def make_sharded_train_step(
     "model", and a MoE config on the single-program route or with
     ``moe_groups`` and ``moe_expert_sharded`` the expert-parallel one (see
     the module doc).  A batch that does not split runs whole on every
-    rank."""
+    rank.  FSDP over "data": each leaf gathered where a block reads it,
+    its gradient reduce-scattered, Adafactor on the rank's blocks (the
+    module doc)."""
     pspecs = model_pspecs(mesh, cfg, overrides)
     p_sh = named(mesh, pspecs)
-
-    def block(g, sh, loc):
-        # a local leaf's gradient is already this rank's block over "model"
-        if loc:
-            sh = NamedSharding(mesh, _only(sh.spec, keep=False))
-        return local_block(g, sh).contiguous()
 
     def train_step(params, opt_state: OptState, batch: Dict[str, Any]):
         o_sh = named(mesh, opt_pspecs(pspecs, opt_state))
@@ -281,24 +317,16 @@ def make_sharded_train_step(
                       "batch")
         l_params, l_state = tree_map(lambda x: x.to_local(),
                                      (params, opt_state))
-        loss, aux, grads, local, full_p = sharded_grads(cfg, mesh, params,
-                                                        batch, overrides)
-        grads, gnorm = _clip(grads, local, mesh)
+        loss, aux, grads = sharded_grads(cfg, mesh, params, batch, overrides)
+        grads, gnorm = _clip(grads, [cut_axes(x) for x in leaves(params)],
+                             mesh)
         lr = lr_schedule(l_state.step + 1)
-        if optimizer.elementwise:
-            blocks = tree_map(block, grads, p_sh, local)
-            new_p, new_s = optimizer.update(blocks, l_state, l_params, lr)
-            new_p = tree_map(lambda x, sh, old: wrap(x, sh, old.shape),
-                             new_p, p_sh, params)
-            new_s = tree_map(lambda x, sh, old: wrap(x, sh, old.shape),
-                             new_s, o_sh, opt_state)
-        else:
-            full_p = tree_map(lambda fp, x, loc: full(x) if loc else fp,
-                              full_p, params, local)
-            new_p, new_s = optimizer.update(
-                gather_local(grads, local, params, p_sh),
-                gather(opt_state), full_p, lr)
-            new_p, new_s = distribute((new_p, new_s), (p_sh, o_sh))
+        new_p, new_s = optimizer.update(grads, l_state, l_params, lr,
+                                        means=block_means(params, mesh))
+        new_p = tree_map(lambda x, sh, old: wrap(x, sh, old.shape),
+                         new_p, p_sh, params)
+        new_s = tree_map(lambda x, sh, old: wrap(x, sh, old.shape),
+                         new_s, o_sh, opt_state)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         if "expert_counts" in aux:
             metrics["expert_counts"] = aux["expert_counts"]

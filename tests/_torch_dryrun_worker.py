@@ -11,11 +11,14 @@ and the CLI's record under ``OUT/cli`` (or ``OUT/error.txt``).
    single-device step's count, ``launch.sharding.COLLECTIVES``' change
    over each trace, and ``FlopCounterMode``'s count of the same step run
    on CPU tensors (the fake group's collectives move nothing, which
-   changes no count); ``make_production_mesh`` on too few ranks.
+   changes no count); at (4, 1) the same step's memory at the config's
+   layers and at twice as many; ``make_production_mesh`` on too few
+   ranks.
 2. A fake group of 512 ranks: ``make_production_mesh`` one pod and two.
 3. No group: ``dryrun.main`` on qwen2-0.5b x train_4k x 16x16, which
    starts its own fake group of 512.
 """
+import dataclasses
 import json
 import os
 import sys
@@ -85,6 +88,13 @@ def small_group_cases(out: dict) -> None:
                 "cpu_flops": f.get_total_flops(),
                 "counted": counted,
                 "memory": rec["memory"]}
+        mesh = make_mesh((4, 1), ("data", "model"), device="cpu")
+        for layers in (cfg.n_layers, 2 * cfg.n_layers):
+            deep = dataclasses.replace(cfg, n_layers=layers)
+            fn, args = dryrun.build_step(deep, shape, mesh,
+                                         get_sharding_overrides(ARCH))
+            out[f"memory 4x1 layers={layers}"] = dryrun.count_step(
+                fn, args)["memory"]
         try:
             make_production_mesh(device="cpu")
             out["too_small"] = None

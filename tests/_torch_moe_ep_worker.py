@@ -11,8 +11,8 @@ Every rank builds the meshes of the module, (1, 2), (2, 2) and (1, 4)
   each rank its batch slice and its block of experts;
 * ``train-<opt>-<cf>``: two sharded train steps at (2, 2) with expert
   parallelism; rank 0 writes the gathered state after each step, every
-  rank the metrics, the placements, the collectives of each step and the
-  shapes of the leaves the step gathered whole;
+  rank the metrics, the placements, and the collectives of each step
+  (counted, and each call's kind, bytes, group size and axis);
 * ``block-<mesh>-<cf>``: the kimi-k2 smoke ``moe_block`` on the expert-
   parallel path, its inputs read from ``block.npz`` (which the parent
   writes with its oracle meanwhile); each rank of the mesh writes its
@@ -259,37 +259,27 @@ def run_train(mesh, opt_name: str, cf: float, rank: int, out_dir: str,
     p, s = sh.distribute((prm, state), shardings)
     step = sharded.make_sharded_train_step(cfg, opt, cosine_schedule(*LR),
                                            mesh)
-    whole = []
-    real_full = sharded.full
-
-    def recording_full(x):
-        whole.append(list(x.shape))
-        return real_full(x)
-    sharded.full = recording_full
     res = {"placements_ok": [], "collectives": [], "metrics": [],
-           "gathered_whole": []}
+           "log": []}
     save = {}
-    try:
-        for i, seed in enumerate(STEP_SEEDS, 1):
-            bt = batch(cfg, seed, device)
-            db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg,
-                                                                 bt)))
-            before = dict(sh.COLLECTIVES)
-            whole.clear()
+    for i, seed in enumerate(STEP_SEEDS, 1):
+        bt = batch(cfg, seed, device)
+        db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg,
+                                                             bt)))
+        before = dict(sh.COLLECTIVES)
+        with sh.recording() as log:
             p, s, m = step(p, s, db)
-            res["collectives"].append(_delta(before))
-            res["gathered_whole"].append(list(whole))
-            res["placements_ok"].append(leaves(tree_map(
-                lambda x, sh_: tuple(x.placements) == sh_.placements,
-                (p, s), shardings)))
-            res["metrics"].append({k: v.tolist() for k, v in m.items()})
-            full_p, full_s = sh.gather((p, s))
-            save.update({f"p{i}/{k}": v
-                         for k, v in named_leaves(full_p).items()})
-            save.update({f"s{i}/{k}": v
-                         for k, v in named_leaves(full_s).items()})
-    finally:
-        sharded.full = real_full
+        res["collectives"].append(_delta(before))
+        res["log"].append([list(e) for e in log])
+        res["placements_ok"].append(leaves(tree_map(
+            lambda x, sh_: tuple(x.placements) == sh_.placements,
+            (p, s), shardings)))
+        res["metrics"].append({k: v.tolist() for k, v in m.items()})
+        full_p, full_s = sh.gather((p, s))
+        save.update({f"p{i}/{k}": v
+                     for k, v in named_leaves(full_p).items()})
+        save.update({f"s{i}/{k}": v
+                     for k, v in named_leaves(full_s).items()})
     if rank == 0:
         np.savez(os.path.join(out_dir, f"{case}.npz"), **save)
     return res

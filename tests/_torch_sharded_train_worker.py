@@ -5,13 +5,19 @@ Every rank builds the meshes of the module (subgroups of the one group:
 ``new_group`` is collective over the whole group), then runs every case:
 
 * ``<case>``: two sharded train steps at the case's ("data", "model")
-  mesh, (2, 2) or (1, 4), from CASES' inputs (tensor parallel over
-  "model"), then the first step's reduced gradient again; rank 0 writes
-  ``<case>.npz`` (the gathered state after each step, the metrics, the
-  gradient), every rank ``<case>.<rank>.json`` (each leaf's placements
-  against ``named``, the collectives of each step and those over "model"
-  of the gradient (``launch.sharding.recording``), and the leaves the
-  step gathers over "model" or sums over it);
+  mesh, (2, 2), (1, 4) or (4, 1), from CASES' inputs (FSDP over "data",
+  tensor parallel over "model"), then the first step's reduced gradient
+  again; rank 0 writes ``<case>.npz`` (the gathered state after each
+  step, the metrics, the gradient), every rank ``<case>.<rank>.json``
+  (each leaf's placements against ``named``, the collectives of each step,
+  those of the gradient (``launch.sharding.recording``: over "model" by
+  kind, every one over "data"), the leaves the step gathers over "model"
+  or sums over it, and each leaf's block: its bytes and whether "data"
+  cuts it);
+* ``adafactor``: at (2, 2) and (4, 1), Adafactor's update of kimi-k2's
+  smoke leaves on each rank's blocks (``means=``, as the sharded step
+  calls it) against its update of the whole leaves, from the same whole
+  gradient and state (rank 0 writes the worst relative error);
 * ``restore``: the first case's state after its two steps saved from the
   (2, 2) mesh, restored at a (4,) ("data",) mesh and with no mesh, then
   one more sharded step at (4,);
@@ -51,7 +57,8 @@ CUT = {"n_heads": 6, "head_dim": 16}
 # MoE at their configs' own capacity factor (1.25), where experts overflow
 # and which tokens drop follows the whole batch's order; at (1, 4) the
 # dense config (4 heads over 2 KV heads: each rank slices the KV head its
-# query head reads), the tied one (with qkv bias) and the cut variant
+# query head reads), the tied one (with qkv bias) and the cut variant; at
+# (4, 1) (FSDP alone) the dense config on AdamW and kimi-k2 on Adafactor
 CASES = {"llama3.2-3b": ("llama3.2-3b", None, "mesh22", {}),
          "qwen2-0.5b": ("qwen2-0.5b", None, "mesh22", {}),
          "mixtral-8x22b": ("mixtral-8x22b", 8.0, "mesh22", {}),
@@ -62,8 +69,10 @@ CASES = {"llama3.2-3b": ("llama3.2-3b", None, "mesh22", {}),
          "kimi-k2-1t-a32b-drops": ("kimi-k2-1t-a32b", None, "mesh22", {}),
          "llama3.2-3b-1x4": ("llama3.2-3b", None, "mesh14", {}),
          "qwen2-0.5b-1x4": ("qwen2-0.5b", None, "mesh14", {}),
-         "llama3.2-3b-cut-1x4": ("llama3.2-3b", None, "mesh14", CUT)}
-MESH_SHAPES = {"mesh22": (2, 2), "mesh14": (1, 4)}
+         "llama3.2-3b-cut-1x4": ("llama3.2-3b", None, "mesh14", CUT),
+         "llama3.2-3b-4x1": ("llama3.2-3b", None, "mesh41", {}),
+         "kimi-k2-1t-a32b-4x1": ("kimi-k2-1t-a32b", 8.0, "mesh41", {})}
+MESH_SHAPES = {"mesh22": (2, 2), "mesh14": (1, 4), "mesh41": (4, 1)}
 B, S, CHUNK = 4, 48, 16
 LR = (1e-3, 10, 100)          # peak, warmup, total: lr(1) = 1e-4
 STEP_SEEDS = (1, 2)           # the two steps' batches
@@ -147,10 +156,8 @@ def _model_leaves(cfg, mesh) -> dict:
     the partial ones (the gradient summed over "model")."""
     from repro_torch.launch import sharding as sh
     from repro_torch.train import sharded
-    pspecs = sh.model_pspecs(mesh, cfg)
-    local, partial = sharded._roles(sharded.tp_config(cfg, mesh), mesh,
-                                    pspecs)
-    specs = named_specs(pspecs)
+    local, partial = sharded.leaf_roles(cfg, mesh)
+    specs = named_specs(sh.model_pspecs(mesh, cfg))
     loc, part = named_leaves_of(local), named_leaves_of(partial)
     return {"gathered": sorted(k for k, sp in specs.items()
                                if not loc[k] and any(
@@ -179,7 +186,8 @@ def named_leaves_of(tree, prefix: str = "") -> dict:
 
 
 def _by_axis(log: list, axis: str) -> dict:
-    out = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
+    out = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0,
+           "reduce_scatter": 0}
     for kind, _, _, a in log:
         if a == axis:
             out[kind] += 1
@@ -217,14 +225,73 @@ def run_case(case: str, mesh, rank: int, out_dir: str) -> dict:
     p0 = sh.distribute(params, shardings[0])
     db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg, bt)))
     with sh.recording() as log:
-        _, _, grads, local, _ = sharded.sharded_grads(cfg, mesh, p0, db)
+        _, _, grads = sharded.sharded_grads(cfg, mesh, p0, db)
     res["grads_over_model"] = _by_axis(log, "model")
-    grads = sharded.gather_local(grads, local, p0, shardings[0])
+    res["grads_over_data"] = [[kind, n] for kind, n, _, a in log
+                              if a == "data"]
+    res["blocks"] = {k: {"bytes": x.to_local().numel()
+                         * x.to_local().element_size(),
+                         "whole": x.numel() * x.element_size(),
+                         "data_cut": "data" in sh.cut_axes(x)}
+                     for k, x in named_leaves_of(p0).items()}
+    grads = sharded.gather_local(grads, p0, shardings[0])
     save.update({f"g/{k}": v for k, v in named_leaves(grads).items()})
     if rank == 0:
         np.savez(os.path.join(out_dir, f"{case}.npz"), **save)
     res["state"] = (p, s)
     return res
+
+
+def run_adafactor(meshes: dict, rank: int) -> dict:
+    """Adafactor's update on each rank's blocks (``means=`` from the
+    sharded step's ``block_means``) against its update of the whole
+    leaves, from the same whole gradient and state drawn once (both
+    gathered): of each mesh, the worst error of the new params over each
+    leaf's largest magnitude and the worst relative error of the state,
+    element by element (its factored statistics are positive)."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim import OptState
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.train import sharded
+
+    cfg, params, opt, _ = inputs("kimi-k2-1t-a32b")
+    g = torch.Generator().manual_seed(7)
+
+    def draw(x, scale):
+        return torch.randn(x.shape, generator=g) * scale
+    grads = tree_map(lambda x: draw(x, 1e-2), params)
+    state = opt.init(params)
+    state = OptState(torch.tensor(3, dtype=torch.int32),
+                     tree_map(lambda x: draw(x, 1e-3).abs(), state.inner))
+    lr = torch.tensor(1e-3)
+    want = opt.update(grads, state, params, lr)
+    out = {}
+    for name in ("mesh22", "mesh41"):
+        mesh = meshes[name]
+        p_sh, o_sh = sharded.state_shardings(mesh, cfg, state)
+        p, s, gr = sh.distribute((params, state, grads), (p_sh, o_sh, p_sh))
+        local = tree_map(lambda x: x.to_local(), (p, s, gr))
+        means = sharded.block_means(p, mesh)
+        new_p, new_s = opt.update(local[2], local[1], local[0], lr,
+                                  means=means)
+        got = sh.gather((tree_map(lambda x, sh_, old: sh.wrap(x, sh_,
+                                                              old.shape),
+                                  new_p, p_sh, p),
+                         tree_map(lambda x, sh_, old: sh.wrap(x, sh_,
+                                                              old.shape),
+                                  new_s, o_sh, s)))
+        new_p_got, new_p_want = leaves(got[0]), leaves(want[0])
+        params_err = [float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(new_p_got, new_p_want)]
+        state_err = [float(((a - b).abs() / b.abs()).max())
+                     for a, b in zip(leaves(got[1].inner),
+                                     leaves(want[1].inner))]
+        out[name] = {"params_of_max": max(params_err),
+                     "state_relative": max(state_err),
+                     "steps": [int(got[1].step), int(want[1].step)],
+                     "cut": sum(m is not None for m in leaves(means))}
+    return out
 
 
 def run_restore(state, meshes: dict, rank: int, out_dir: str) -> dict:
@@ -518,8 +585,8 @@ def step_digest(case: str, mesh) -> tuple:
         shardings = sharded.state_shardings(mesh, cfg, state)
         params, state = sh.distribute((params, state), shardings)
         db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg, bt)))
-        _, _, grads, local, _ = sharded.sharded_grads(cfg, mesh, params, db)
-        grads = sharded.gather_local(grads, local, params, shardings[0])
+        _, _, grads = sharded.sharded_grads(cfg, mesh, params, db)
+        grads = sharded.gather_local(grads, params, shardings[0])
         step = sharded.make_sharded_train_step(cfg, opt, sched, mesh)
     h = hashlib.sha256()
     save = {f"g/{k}": v for k, v in named_leaves(grads).items()}
@@ -570,6 +637,7 @@ def worker(rank: int, store_path: str, out_dir: str) -> None:
 
     meshes = {"mesh22": make_mesh((2, 2), ("data", "model"), device="cpu"),
               "mesh14": make_mesh((1, 4), ("data", "model"), device="cpu"),
+              "mesh41": make_mesh((4, 1), ("data", "model"), device="cpu"),
               "mesh12": make_mesh((1, 2), ("data", "model"), device="cpu"),
               "mesh11": make_mesh((1, 1), ("data", "model"), device="cpu"),
               "data4": make_mesh((4,), ("data",), device="cpu"),
@@ -587,6 +655,8 @@ def worker(rank: int, store_path: str, out_dir: str) -> None:
         name = "restore"
         _write(out_dir, name, rank, run_restore(first, meshes, rank,
                                                 out_dir))
+        name = "adafactor"
+        _write(out_dir, name, rank, run_adafactor(meshes, rank))
         name = "major_first"
         _write(out_dir, name, rank, run_major_first(meshes, rank))
         name = "constrain"

@@ -462,19 +462,55 @@ def test_collectives_equal_the_counted(worker, mesh):
     got, counted = case["collectives"], case["counted"]
     for kind, ref_kind in (("all_gather", "all-gather"),
                            ("all_reduce", "all-reduce"),
-                           ("all_to_all", "all-to-all")):
+                           ("all_to_all", "all-to-all"),
+                           ("reduce_scatter", "reduce-scatter")):
         assert got["count"][ref_kind] == counted[kind]
         assert got["bytes"][ref_kind] == counted[kind + "_bytes"]
     assert got["count"]["all-reduce"] > 0
-    # FSDP gathers over "data"; at one "data" rank the tensor-parallel step
-    # gathers nothing: every leaf the rules split is local to "model"
+    # FSDP gathers over "data" at use and reduce-scatters the gradients; at
+    # one "data" rank the tensor-parallel step gathers nothing: every leaf
+    # the rules split is local to "model"
     assert (got["count"]["all-gather"] > 0) == (mesh != "1x4")
+    assert (got["count"]["reduce-scatter"] > 0) == (mesh != "1x4")
     assert got["total_bytes"] == sum(counted[k] for k in counted
                                      if k.endswith("_bytes"))
     ex = case["executed"]
     assert ex["collective_count"] == got["count"]
     assert ex["collective_total_bytes"] == sum(
         ex["collective_wire_bytes"].values())
+
+
+def layer_share_bytes(cfg, data: int) -> int:
+    """A rank's block of one layer's parameters at ``data`` "data" ranks:
+    each stacked leaf's layer slice, cut ``data`` ways where the rules put
+    "data" on it (its "embed" dim)."""
+    from repro_torch.models.model import iter_schema
+    total = 0
+    for path, spec in iter_schema(cfg):
+        if path.startswith("blocks."):
+            n = math.prod(spec.shape) // cfg.n_layers
+            total += 4 * n // (data if "embed" in spec.logical_axes else 1)
+    return total
+
+
+def test_fsdp_peak_grows_by_the_rank_share_of_a_layer(worker):
+    """At the fake (4, 1) group, the smoke step's peak a rank at 2L layers
+    less its peak at L grows by no more than L layers' saved block inputs
+    (the checkpoint keeps each block's input, the rank's B / 4 rows) and
+    seven rank shares of a layer's parameters: the params, their gradient,
+    AdamW's m and v, and the out-of-place update's new params, m and v.
+    The arguments (params, m and v) grow by exactly three shares.  A step
+    that holds whole leaves or whole gradients grows by whole layers."""
+    cases = worker.read()
+    cfg = get_smoke_config("qwen2-0.5b")
+    n = cfg.n_layers
+    small = cases[f"memory 4x1 layers={n}"]
+    deep = cases[f"memory 4x1 layers={2 * n}"]
+    share = layer_share_bytes(cfg, 4)
+    assert deep["argument_bytes"] - small["argument_bytes"] == 3 * n * share
+    saved = (4 // 4) * 64 * cfg.d_model * cfg.activ_dtype.itemsize
+    grown = deep["peak_bytes"] - small["peak_bytes"]
+    assert 3 * n * share < grown <= n * (saved + 7 * share), (grown, share)
 
 
 @pytest.mark.parametrize("multi", [False, True])

@@ -366,8 +366,12 @@ def test_ep_sharded_train_step_matches_one_device(ranks, opt_name, cf):
     1.25, where experts overflow), and at capacity factor 8 against the
     port's and the reference's single-program steps.  Every rank: the
     same metrics, every leaf on its placements, the same collectives each
-    step; no expert leaf gathered whole but for Adafactor's update (its
-    gradient and its weights, once each a leaf and step)."""
+    step; no expert leaf gathered whole by either optimizer: each of the
+    three expert leaves is gathered over "data" alone, one layer's block
+    at each forward of the layer (the forward and remat's recompute), its
+    gradient reduce-scattered over "data" once a layer, no other
+    all-gather returns as many bytes, and Adafactor updates the rank's
+    blocks."""
     case = f"train-{opt_name}-{cf}"
     per_rank = ranks.results(case)
     got = ranks.arrays(case)
@@ -391,6 +395,14 @@ def test_ep_sharded_train_step_matches_one_device(ranks, opt_name, cf):
         assert per[0] == per[1] == per_rank[0]["collectives"][0], per
         # forward, remat's recompute and backward: 2 + 2 + 2 a layer
         assert per[0]["all_to_all"] == 6 * n_layers
-        for whole in res["gathered_whole"]:
-            experts = [s for s in whole if len(s) == 4 and s[1] == E]
-            assert len(experts) == (6 if opt_name == "adafactor" else 0)
+        # one layer's expert leaf as the rank's block over "model" (E / 2
+        # experts), whole over "data", in float32
+        block = E // 2 * D * ew.config(cf).moe.d_expert * 4
+        for log in res["log"]:
+            big = [(n, axis) for kind, n, _, axis in log
+                   if kind == "all_gather" and n >= block]
+            assert big == [(block, "data")] * (3 * 2 * n_layers), big
+            scattered = [n for kind, n, _, axis in log
+                         if kind == "reduce_scatter" and axis == "data"
+                         and n == block // 2]
+            assert len(scattered) == 3 * n_layers, scattered

@@ -1,10 +1,13 @@
-"""The sharded train step (``repro_torch.train.sharded``), tensor parallel
-over "model", at (2, 2) and (1, 4) ("data", "model") gloo meshes against
-the port's single-device ``train.steps.make_train_step`` and against the
-reference's single-device ``make_train_step`` (jitted) on the same inputs,
-for one smoke config of each family at (2, 2) and at (1, 4) a dense one
-(each rank slicing the KV head its query head reads), a tied one and one
-whose heads the rules cut; the collectives over "model"; the
+"""The sharded train step (``repro_torch.train.sharded``), FSDP over
+"data" and tensor parallel over "model", at (2, 2), (1, 4) and (4, 1)
+("data", "model") gloo meshes against the port's single-device
+``train.steps.make_train_step`` and against the reference's single-device
+``make_train_step`` (jitted) on the same inputs, for one smoke config of
+each family at (2, 2), at (1, 4) a dense one (each rank slicing the KV
+head its query head reads), a tied one and one whose heads the rules cut,
+and at (4, 1) a dense one and kimi-k2 on Adafactor; the collectives over
+"model" and over "data" (each leaf gathered at use, its gradient
+reduce-scattered); Adafactor on blocks against its whole update; the
 tensor-parallel modules against their unsharded calls at (1, 2); the step
 at one "model" rank against the step without a mesh, bit for bit, and
 against the reference (on the platform where they were taken, against the
@@ -31,7 +34,10 @@ relative, the gradient norm within 1e-4 relative, every gradient leaf
 within 1e-4 of that leaf's largest magnitude, the params and optimizer
 state within 2·lr a step taken everywhere (AdamW moves a weight by about
 lr·sign(g), and where g is at the float32 noise floor the two sides may
-step opposite ways) and within 1e-6 on at least 99.9 % of elements; router
+step opposite ways) and within 1e-6 on at least 99.9 % of elements;
+Adafactor's update on blocks against its whole update: the factored
+statistics within 1e-6 relative element by element, the params within
+1e-6 of each leaf's largest magnitude; router
 counts, placements, collective counts, the step at one "model" rank
 against the step without a mesh, and restored checkpoints exact; a tensor-parallel module's output and gradients within
 1e-5 of their largest magnitude."""
@@ -64,6 +70,7 @@ from repro_torch.train.steps import loss_and_grads, make_train_step  # noqa: E40
 
 LOSS_RTOL, GNORM_RTOL, GRAD_TOL_OF_MAX = 1e-5, 1e-4, 1e-4
 PARAM_TOL, PARAM_WITHIN = 1e-6, 0.999
+ADAFACTOR_RTOL = 1e-6
 # a reference step compiles without LLVM's optimisation passes: the same
 # HLO and float32 results in less time (as tests/test_torch_train.py)
 REFERENCE_COMPILER_OPTIONS = {"xla_backend_optimization_level": 0}
@@ -278,21 +285,57 @@ def dense_model_all_reduces(cfg, n_partial: int) -> int:
     return 5 * cfg.n_layers + 1 + 1 + 4 * (sw.S // sw.CHUNK) + n_partial
 
 
+def uses(cfg, path: str) -> int:
+    """How many times a step's forward reads leaf ``path`` (``a/b``): a
+    stacked leaf once a layer, zamba2's shared block once an invocation,
+    the embedding once for tokens and once more as a tied head."""
+    if path.startswith("blocks/"):
+        return cfg.n_layers
+    if path.startswith("shared_attn/"):
+        return cfg.n_shared_attn
+    if path == "embed":
+        return int(cfg.frontend == "tokens") + int(cfg.tie_embeddings)
+    return 1
+
+
+def forward_runs(cfg, path: str) -> int:
+    """How many times a step runs each forward of the block that reads
+    leaf ``path``, gathering it each time: a checkpointed block twice (the
+    forward and the recompute), zamba2's Mamba2 layers three times (each
+    is checkpointed inside its checkpointed group: the group's recompute
+    runs the layer's forward again, and the layer's backward recomputes
+    it once more); the embedding and the loss's head, read outside the
+    checkpoints, once."""
+    if path.startswith("blocks/"):
+        return 3 if cfg.family == "zamba2" else 2
+    if path.startswith("shared_attn/"):
+        return 2
+    return 1
+
+
 @pytest.mark.parametrize("case", list(sw.CASES))
 def test_collectives_over_model(ranks, case):
     """No leaf that the rules split over "model" on its heads, KV heads,
     mlp or vocab dim is all-gathered over "model" in a dense or MoE
     attention, the embedding or the loss: each rank uses its block.  The
     all-gathers over "model" recorded in the step's gradient (its forward,
-    backward and reduction; Adafactor's update gathers after it) are
-    exactly the whole leaves the step gathers (MoE's expert leaves,
-    rwkv6's and Mamba2's blocks, zamba2's LoRA factors) and, where the
-    rules cut through a head, 3 of q's or o's columns a layer (the
-    forward, the recompute and the backward of o's split); a dense layer
-    takes 5 all-reduces over "model"."""
+    backward and reduction) are exactly the other leaves the rules cut
+    over "model" (MoE's expert leaves, rwkv6's and Mamba2's blocks,
+    zamba2's LoRA factors), each gathered at each use in each forward of
+    its block, and, where the rules cut through a head, 3 of q's or o's
+    columns a layer (the forward, the recompute and the backward of o's
+    split); the partial ones among them (zamba2's LoRA factors) are
+    reduce-scattered over "model" once a use; a dense layer takes 5
+    all-reduces over "model"."""
     cfg = sw.config(case)
     per_rank = ranks.results(case)
     leaves = per_rank[0]["leaves"]
+    if sw.mesh_size(case, "model") == 1:
+        # FSDP alone: nothing is local to "model", nothing crosses it
+        assert not leaves["local"] and not leaves["partial"]
+        assert not any(v for res in per_rank
+                       for v in res["grads_over_model"].values())
+        return
     assert "embed" in leaves["local"]
     if cfg.family in ("attn", "moe"):
         assert {"blocks/wq", "blocks/wo"} <= set(leaves["local"])
@@ -309,14 +352,83 @@ def test_collectives_over_model(ranks, case):
         kv = {"blocks/wk", "blocks/wv"}
         assert (kv <= set(leaves["partial"])) == sliced
         assert (kv <= set(leaves["local"])) == (not cut and not sliced)
+    gathers = sum(uses(cfg, k) * forward_runs(cfg, k)
+                  for k in leaves["gathered"])
+    summed = sum(uses(cfg, k) for k in leaves["gathered"]
+                 if k in leaves["partial"])
     for res in per_rank:
         assert res["leaves"] == leaves
         over = res["grads_over_model"]
-        assert over["all_gather"] == len(leaves["gathered"]) \
+        assert over["all_gather"] == gathers \
             + (3 * cfg.n_layers if cut else 0), (over, leaves)
+        assert over["reduce_scatter"] == summed, (over, leaves)
         if cfg.family == "attn" and cfg.frontend == "tokens":
             assert over["all_reduce"] == dense_model_all_reduces(
                 cfg, len(leaves["partial"])), over
+
+
+def layer_bytes(cfg, blocks: dict) -> tuple:
+    """(one layer's leaves, the largest leaf outside the layers), whole,
+    in bytes."""
+    layer = sum(b["whole"] // cfg.n_layers for k, b in blocks.items()
+                if k.startswith("blocks/"))
+    return layer, max(b["whole"] for k, b in blocks.items()
+                      if not k.startswith("blocks/"))
+
+
+@pytest.mark.parametrize("case", [c for c in sw.CASES
+                                  if sw.mesh_size(c, "data") > 1])
+def test_collectives_over_data(ranks, case):
+    """FSDP over "data", exactly, in the step's gradient on every rank:
+    each leaf "data" cuts is all-gathered over "data" at each use in each
+    forward of its block (the recompute gathers again), and its gradient
+    comes back in one reduce-scatter over "data" a use; the all-reduces
+    over "data" are the packed loss terms and one a leaf "data" does not
+    cut, at that leaf's bytes (none of a leaf "data" cuts); MoE's routed
+    counts add one all-gather of each batch slice's a forward of each
+    layer; no all-gather returns more than one layer's leaves or the
+    largest leaf outside the layers.  The step's own collectives: the same
+    in both steps, and at (4, 1) none over "model"."""
+    cfg = sw.config(case)
+    for res in ranks.results(case):
+        blocks = res["blocks"]
+        cut = [k for k, b in blocks.items() if b["data_cut"]]
+        whole = [k for k, b in blocks.items() if not b["data_cut"]]
+        assert cut and "embed" in cut
+        log = res["grads_over_data"]
+        kinds = {k: [n for kind, n in log if kind == k]
+                 for k in ("all_gather", "reduce_scatter", "all_reduce",
+                           "all_to_all")}
+        routed = 2 * cfg.n_layers if cfg.family == "moe" else 0
+        assert len(kinds["all_gather"]) == routed + sum(
+            uses(cfg, k) * forward_runs(cfg, k) for k in cut), case
+        assert len(kinds["reduce_scatter"]) == sum(uses(cfg, k)
+                                                   for k in cut), case
+        packed = 8 * (3 if cfg.family == "moe" else 2)
+        assert sorted(kinds["all_reduce"]) == sorted(
+            [packed] + [blocks[k]["bytes"] for k in whole]), case
+        assert not kinds["all_to_all"]
+        assert max(kinds["all_gather"]) <= max(layer_bytes(cfg, blocks))
+        if sw.mesh_size(case, "model") == 1:
+            per = res["collectives"][0]
+            assert per == res["collectives"][1]
+            assert not any(res["grads_over_model"].values())
+
+
+def test_adafactor_on_blocks_matches_the_whole_update(ranks):
+    """Adafactor's update of kimi-k2's smoke leaves on each rank's blocks
+    at (2, 2) and (4, 1) (its means over a cut dim summed over the axes
+    that cut it) against its update of the whole leaves from the same
+    gradient and state, on every rank: the factored statistics within
+    1e-6 relative element by element, the new params within 1e-6 of each
+    leaf's largest magnitude (an element near 0 is a difference of two
+    numbers some 1e2 larger)."""
+    for res in ranks.results("adafactor"):
+        for name in ("mesh22", "mesh41"):
+            got = res[name]
+            assert got["cut"] > 0 and got["steps"] == [4, 4], (name, got)
+            assert got["state_relative"] <= ADAFACTOR_RTOL, (name, got)
+            assert got["params_of_max"] <= ADAFACTOR_RTOL, (name, got)
 
 
 @pytest.mark.parametrize("unit", sw.UNITS)
