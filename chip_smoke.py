@@ -381,8 +381,29 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     all-reduces over "data" a step, count and bytes, equal to those worked
     out from the config (``fsdp_expected``); the step walls and each
     rank's peak memory printed; within TP_PHASE_S.
+30. sharded serving (``serve.engine.prefill(mesh=)`` /
+    ``decode_step(mesh=)`` through ``repro_torch.serve.sharded``): two
+    gloo ranks on the one card as phase 29's.  (a) qwen2-0.5b at its
+    widths with SERVE_F32_LAYERS layers in float32 at the (1, 2) and
+    (2, 1) meshes: the prefill of SERVE_F32_PROMPT tokens into a cache of
+    SERVE_F32_MAX_LEN positions and SERVE_F32_STEPS decode steps with page
+    masses; the logits, the page masses and pos gathered, and each rank's
+    cache blocks after the prefill and after the last step, within
+    SERVE_TOL (abs + rel) of the single-device run on the card (each rank
+    against its block of that cache); (b) the same at one layer with one
+    KV head at (1, 2): the cache's sequence over "model", so the decode
+    combines the ranks' halves (its steps cross the halves' border); (c)
+    qwen2-0.5b at its full width and depth in bf16 at (1, 2): the prefill
+    of B SERVE_BATCH x S SERVE_PROMPT, then SERVE_STEPS decode steps, each
+    call under ``set_sync_debug_mode("error")`` but for gloo's own calls;
+    24 flash_attention launches a rank in the prefill, all on the tensor
+    cores at (7, 1) heads, none in decode; tokens/s of prefill and decode
+    and each rank's peak printed; then, on this process, flash_attention
+    at a rank's prefill shape (B 4, H 7, KVH 1, S 4096, d 64, bf16) beside
+    its plain version and ``sdpa`` (the kernel line's
+    ``flash_attention_tp_serve`` entry); within SERVE_PHASE_S.
 
-Each path (8-11, 14-16, 18-29) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-30) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -5776,6 +5797,347 @@ def tensor_parallel(dev, plain, smi_line: str, small: bool = False) -> dict:
     return out
 
 
+# phase 30: sharded serving at qwen2-0.5b's widths on two gloo ranks
+SERVE_MESHES = {"tp": (1, 2), "fsdp": (2, 1)}
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 4096, 16
+SERVE_F32_LAYERS = 4
+# 30a / 30b: the prompt ends one before the middle of the cache, so with
+# the cache's sequence over "model" the decode steps cross the ranks'
+# halves (511 on rank 0, 512 and 513 on rank 1)
+SERVE_F32_PROMPT, SERVE_F32_MAX_LEN, SERVE_F32_STEPS = 511, 1024, 3
+SERVE_PAGE = 16
+SERVE_TOL = 1e-4
+SERVE_LOCAL_HEADS = (7, 1)        # 14 / 2 query heads, 2 / 2 KV heads
+SERVE_TIME_SHAPE = (4, 7, 1, 4096, 64)
+# 30b: one KV head, which 2 "model" ranks do not divide (smoke: the same)
+SERVE_SEQ_VARIANT = {"n_kv_heads": 1, "n_layers": 1}
+SERVE_PHASE_S = 55
+
+
+def serve_phase_config(small: bool, dtype, changes=None):
+    """qwen2-0.5b (``small``: its smoke config) with ``dtype`` activations
+    and ``changes``."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if small else get_config)(TP_ARCH)
+    return dataclasses.replace(cfg, activ_dtype=dtype, **(changes or {}))
+
+
+def serve_sharded_run(mesh, dev, cfg, p, toks, prompt: int,
+                      max_len: int, steps: int, page: int,
+                      keep_first: bool = False) -> dict:
+    """Sharded prefill of ``toks[:, :prompt]`` and ``steps`` decode steps
+    on ``mesh`` (``p`` the params laid out by
+    ``serve.sharded.lay_out_params``), each call under the sync check but
+    for gloo's own calls: outputs (the logits and page masses gathered,
+    the cache blocks), flash_attention's launches, routes and head counts
+    in the prefill and in decode, walls, the peak memory from the
+    prefill's start."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import attention as attn
+    from repro_torch.serve import engine
+    from repro_torch.serve import sharded as ss
+
+    b = toks.shape[0]
+    cfg_p = ss.serve_config(cfg, mesh, b, prompt, "prefill")
+    cfg_d = ss.serve_config(cfg, mesh, b, max_len, "decode")
+    tok_p = ss.batch_block(toks[:, :prompt], mesh, cfg_p)
+    tok_d = [ss.batch_block(toks[:, prompt + t], mesh, cfg_d)
+             for t in range(steps)]
+    heads, real = set(), attn.flash_train
+
+    def seen(q, k, v, **kw):
+        heads.add((q.shape[1], k.shape[1]))
+        return real(q, k, v, **kw)
+    out = {"logits": [], "mass": []}
+    attn.flash_train = seen
+    try:
+        fa_kernel.LAUNCHES = 0
+        for r in fa_kernel.ROUTE_LAUNCHES:
+            fa_kernel.ROUTE_LAUNCHES[r] = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        ep_sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad(), sh.recording() as log, \
+                sync_checked_but_collectives(dev.type == "cuda"):
+            logits, cache = engine.prefill(p, cfg_p, tokens=tok_p,
+                                           max_len=max_len, mesh=mesh)
+        ep_sync(dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = fa_kernel.LAUNCHES
+        out["prefill_routes"] = dict(fa_kernel.ROUTE_LAUNCHES)
+        out["prefill_collectives"] = len(log)
+        out["heads"] = sorted(heads)
+        out["logits"].append(logits)
+        if keep_first:
+            out["first"] = {k: v.to_local().clone() for k, v in cache.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad(), sync_checked_but_collectives(
+                dev.type == "cuda"):
+            for t in range(steps):
+                logits, cache, aux = engine.decode_step(
+                    p, cfg_d, cache, tok_d[t], page_size=page, mesh=mesh)
+                out["logits"].append(logits)
+                out["mass"].append(aux["kv_page_mass"])
+        ep_sync(dev)
+        out["decode_s"] = time.perf_counter() - t0
+        out["decode_launches"] = fa_kernel.LAUNCHES - out["prefill_launches"]
+        out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                           if dev.type == "cuda" else None)
+    finally:
+        attn.flash_train = real
+    out["last"] = {k: v.to_local() for k, v in cache.items()}
+    out["shardings"] = sh.cache_shardings(mesh, cfg, b, max_len)
+    with torch.no_grad():
+        out["logits"] = [ss.gather_outputs(x) for x in out["logits"]]
+        out["mass"] = [ss.gather_outputs(x) for x in out["mass"]]
+    return out
+
+
+def serve_rank_f32(mesh, dev, cfg, params, toks) -> dict:
+    """30a / 30b on one rank: the float32 sharded run against the
+    single-device run on this device -> each output's worst share of
+    SERVE_TOL (|a - b| / (tol + tol |b|)), faults, walls."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.serve import engine
+    from repro_torch.serve import sharded as ss
+
+    prompt, max_len = SERVE_F32_PROMPT, SERVE_F32_MAX_LEN
+    steps = SERVE_F32_STEPS
+    if dev.type != "cuda":
+        prompt, max_len = 31, 64
+    got = serve_sharded_run(mesh, dev, cfg,
+                            ss.lay_out_params(params, mesh, cfg), toks,
+                            prompt, max_len, steps, SERVE_PAGE,
+                            keep_first=True)
+    with torch.no_grad():
+        logits, cache = engine.prefill(params, cfg, tokens=toks[:, :prompt],
+                                       max_len=max_len)
+        want = {"logits": [logits], "mass": []}
+        want["first"] = {k: v.clone() for k, v in cache.items()}
+        for t in range(steps):
+            logits, cache, aux = engine.decode_step(
+                params, cfg, cache, toks[:, prompt + t], page_size=SERVE_PAGE)
+            want["logits"].append(logits)
+            want["mass"].append(aux["kv_page_mass"])
+        want["last"] = cache
+
+    def share(a, b) -> float:
+        a, b = a.double(), b.double()
+        return float(((a - b).abs() / (SERVE_TOL + SERVE_TOL * b.abs()))
+                     .max())
+    shares = {}
+    for i, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        shares[f"logits/{i}"] = share(a, b)
+    for i, (a, b) in enumerate(zip(got["mass"], want["mass"])):
+        shares[f"mass/{i}"] = share(a, b)
+    for when in ("first", "last"):
+        for k, mine in got[when].items():
+            block = sh.local_block(want[when][k], got["shardings"][k])
+            if tuple(block.shape) != tuple(mine.shape):
+                shares[f"{when}/{k}"] = math.inf
+            elif k == "pos":
+                shares[f"{when}/{k}"] = 0.0 if torch.equal(
+                    block, mine) else math.inf
+            else:
+                shares[f"{when}/{k}"] = share(mine, block)
+    faults = [f"{k}: {v:.3g} of the tolerance" for k, v in shares.items()
+              if not v <= 1.0]
+    return {"worst_share": max(shares.values()), "faults": faults,
+            "prefill_s": got["prefill_s"], "decode_s": got["decode_s"],
+            "prompt": prompt, "max_len": max_len,
+            "cache_blocks": {k: list(v.shape) for k, v in got["last"].items()}}
+
+
+def serve_rank(rank: int, store: str, out_dir: str, small: bool = False
+               ) -> None:
+    """One of phase 30's two ranks (a spawned process; ``small``: the
+    smoke config on the CPU, a rehearsal)."""
+    import datetime
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cpu") if small else torch.device("cuda", 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.model import init_params
+        from repro_torch.serve import sharded as ss
+        meshes = {name: make_mesh(shape, ("data", "model"),
+                                  device=dev.type)
+                  for name, shape in SERVE_MESHES.items()}
+        gen = torch.Generator().manual_seed(30)
+        res = {}
+        t0 = time.perf_counter()
+        cfg = serve_phase_config(small, torch.float32,
+                                 {"n_layers": SERVE_F32_LAYERS})
+        params = init_params(cfg, 0, dev)
+        toks = torch.randint(0, cfg.vocab_size,
+                             (SERVE_BATCH, SERVE_F32_MAX_LEN), generator=gen,
+                             dtype=torch.int32).to(dev)
+        res["draw_s"] = time.perf_counter() - t0
+        for name, mesh in meshes.items():
+            res[f"f32_{name}"] = serve_rank_f32(mesh, dev, cfg, params, toks)
+        vcfg = serve_phase_config(small, torch.float32, SERVE_SEQ_VARIANT)
+        res["f32_seq"] = serve_rank_f32(meshes["tp"], dev, vcfg,
+                                        init_params(vcfg, 0, dev), toks)
+        del params
+        if dev.type == "cuda":
+            free_device_memory()
+        deep = serve_phase_config(small, torch.bfloat16)
+        prompt, steps = (64, 4) if small else (SERVE_PROMPT, SERVE_STEPS)
+        t0 = time.perf_counter()
+        whole = init_params(deep, 0, dev)
+        p = ss.lay_out_params(whole, meshes["tp"], deep)
+        del whole
+        if dev.type == "cuda":
+            free_device_memory()
+        toks = torch.randint(0, deep.vocab_size,
+                             (SERVE_BATCH, prompt + steps), generator=gen,
+                             dtype=torch.int32).to(dev)
+        res["bf16_draw_s"] = time.perf_counter() - t0
+        got = serve_sharded_run(meshes["tp"], dev, deep, p, toks, prompt,
+                                prompt + steps, steps, SERVE_PAGE)
+        res["bf16"] = {k: got[k] for k in (
+            "prefill_s", "decode_s", "prefill_launches", "prefill_routes",
+            "decode_launches", "heads", "peak_gib", "prefill_collectives")}
+        res["bf16"]["n_layers"] = deep.n_layers
+        res["bf16"]["finite"] = all(bool(torch.isfinite(x).all())
+                                    for x in got["logits"])
+        res["bf16"]["logits_sum"] = [float(x.double().sum())
+                                     for x in got["logits"]]
+        with open(f"{out_dir}/rank.{rank}.json", "w") as f:
+            json.dump(res, f, sort_keys=True)
+    except BaseException:
+        with open(f"{out_dir}/rank.{rank}.error", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def sharded_serving(dev, plain, smi_line: str, small: bool = False) -> dict:
+    """Phase 30 (see the module doc).  ``small``: a rehearsal of the ranks
+    on the CPU with the smoke config (no kernel time)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        free_device_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    out_dir = obs_dir("sharded_serving")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=serve_rank,
+                         args=(r, f"{tmp}/store", str(out_dir), small))
+             for r in range(2)]
+    try:
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(timeout=SERVE_PHASE_S + 60)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errors = sorted(out_dir.glob("rank.*.error"))
+        if errors or any(pr.exitcode != 0 for pr in procs):
+            fail("phase 30's ranks failed (exit codes "
+                 f"{[pr.exitcode for pr in procs]}): "
+                 + " | ".join(e.read_text()[-3000:] for e in errors))
+        ranks = [json.loads((out_dir / f"rank.{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    t_ranks = time.perf_counter() - t_phase
+    for name in ("f32_tp", "f32_fsdp", "f32_seq"):
+        for r, res in enumerate(ranks):
+            if res[name]["faults"]:
+                fail(f"30 {name} rank {r}: the float32 sharded serving "
+                     "against the single-device run: "
+                     + "; ".join(res[name]["faults"]))
+    layers = ranks[0]["bf16"]["n_layers"]
+    for r, res in enumerate(ranks):
+        got = res["bf16"]
+        if not got["finite"] or got["logits_sum"] != \
+                ranks[0]["bf16"]["logits_sum"]:
+            fail(f"30c rank {r}: logits finite {got['finite']}, sums "
+                 f"{got['logits_sum']} (rank 0 "
+                 f"{ranks[0]['bf16']['logits_sum']})")
+        if dev.type != "cuda":
+            continue
+        if (got["prefill_launches"] != layers
+                or got["prefill_routes"] != fa_routes(torch.bfloat16, 64,
+                                                      layers)
+                or got["decode_launches"] != 0
+                or got["heads"] != [list(SERVE_LOCAL_HEADS)]):
+            fail(f"30c rank {r}: prefill launches {got['prefill_launches']} "
+                 f"{got['prefill_routes']}, decode launches "
+                 f"{got['decode_launches']}, heads {got['heads']}: expected "
+                 f"{layers} tensor-core launches at {SERVE_LOCAL_HEADS} "
+                 "heads and none in decode")
+    bf = [r["bf16"] for r in ranks]
+    b = SERVE_BATCH
+    prompt, steps = (64, 4) if small else (SERVE_PROMPT, SERVE_STEPS)
+    out = {"arch": TP_ARCH, "meshes": SERVE_MESHES, "smi": smi_line,
+           "f32_layers": SERVE_F32_LAYERS,
+           "f32_prompt": ranks[0]["f32_tp"]["prompt"],
+           "f32_max_len": ranks[0]["f32_tp"]["max_len"],
+           "f32_steps": SERVE_F32_STEPS,
+           "f32_worst_share": {name: max(r[name]["worst_share"]
+                                         for r in ranks)
+                               for name in ("f32_tp", "f32_fsdp", "f32_seq")},
+           "f32_cache_blocks": {name: ranks[0][name]["cache_blocks"]
+                                for name in ("f32_tp", "f32_fsdp", "f32_seq")},
+           "bf16_layers": layers, "batch": b, "prompt": prompt,
+           "decode_steps": steps,
+           "prefill_s": [x["prefill_s"] for x in bf],
+           "decode_s": [x["decode_s"] for x in bf],
+           "prefill_tokens_per_s": b * prompt / max(x["prefill_s"]
+                                                    for x in bf),
+           "decode_tokens_per_s": b * steps / max(x["decode_s"] for x in bf),
+           "flash_attention_per_rank_prefill": bf[0]["prefill_launches"],
+           "flash_attention_in_decode": [x["decode_launches"] for x in bf],
+           "heads": bf[0]["heads"],
+           "prefill_collectives": bf[0]["prefill_collectives"],
+           "peak_gib": [x["peak_gib"] for x in bf],
+           "draw_s": [r["draw_s"] + r["bf16_draw_s"] for r in ranks],
+           "no_sync_in_serving_but_gloo": dev.type == "cuda",
+           "launches": sum(x["prefill_launches"] + x["decode_launches"]
+                           for x in bf),
+           "ranks_s": t_ranks}
+    if dev.type == "cuda":
+        bq, h, kvh, s_len, d = SERVE_TIME_SHAPE
+        out["forward"] = flash_attention_time(dev, plain,
+                                              "qwen2-0.5b serving rank", bq, h,
+                                              kvh, d, s_len=s_len)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["limit_s"] = SERVE_PHASE_S
+    say("sharded_serving", **{k: v for k, v in out.items()
+                              if k != "forward"})
+    if out["seconds"] > SERVE_PHASE_S:
+        fail(f"phase 30 took {out['seconds']:.1f} s, over its "
+             f"{SERVE_PHASE_S} s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -5783,7 +6145,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 29) -> None:
+def main(until: int = 30) -> None:
     import numpy as np
     import torch
 
@@ -6454,6 +6816,11 @@ def main(until: int = 29) -> None:
     # ---------- 29. tensor parallelism over "model", two gloo ranks
     tp29 = tensor_parallel(dev, plain, smi_line)
 
+    if until < 30:
+        fail(f"stopped after phase {until} (--until)")
+    # -------------------------- 30. sharded serving, two gloo ranks
+    sv30 = sharded_serving(dev, plain, smi_line)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -6745,6 +7112,20 @@ def main(until: int = 29) -> None:
          "bound_ms": tp29["backward"]["bound_ms"],
          "bound_by": tp29["backward"]["bound_by"],
          "library_ms": tp29["backward"]["sdpa_bwd_ms"]},
+        # the tensor-core route on the sharded serving path: its launches
+        # on both ranks in phase 30c's bf16 prefill (one a layer at a
+        # rank's 7 / 1 heads; none in decode), its error and time at that
+        # shape (B 4, H 7, KVH 1, S 4096, d 64)
+        {"name": "flash_attention_tp_serve", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": sv30["launches"],
+         "max_abs_err": sv30["forward"]["max_abs_err"],
+         "ms": sv30["forward"]["ms"], "plain_ms": sv30["forward"]["plain_ms"],
+         "bound_ms": sv30["forward"]["bound_ms"],
+         "bound_by": sv30["forward"]["bound_by"],
+         "library_ms": sv30["forward"]["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -6757,4 +7138,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 29)
+    main(int(args[1]) if args[:1] == ["--until"] else 30)

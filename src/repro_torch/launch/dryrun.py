@@ -48,13 +48,21 @@ would compile:
   the rank's columns and the attention on all heads; MoE layers
   single-program or expert parallel, rwkv6's and Mamba2's blocks whole on
   every rank, gathered block by block);
-* **prefill**: ``serve.engine.prefill(mesh=)`` on the rank's batch slice,
-  with full params but, under expert parallelism, the expert leaves' block
-  of ``E / gm`` experts;
-* **decode**: ``serve.engine.decode_step`` on the rank's batch slice of
-  ``abstract_cache`` with full params (the port has no tensor-parallel
-  decode; the reference's decode calls ``moe_block`` without groups).
-  ``long_500k``'s batch of 1 does not split and runs whole on every rank.
+* **prefill** and **decode**: ``serve.engine.prefill(mesh=)`` /
+  ``decode_step(mesh=)``, sharded serving on the reference's layouts
+  (``serve.sharded``): the params laid out by ``model_pspecs`` as the
+  train cell's (each leaf the rank's block, gathered inside the block
+  that reads it; the attention, the dense MLP, the embedding and the head
+  on the rank's blocks over "model", the attention at its heads), the
+  cache by ``cache_pspecs`` (the decode cell's an argument, the prefill
+  cell's its output), the rank's slice of the batch; prefill's MoE layers
+  on the step's groups (expert parallel where the rules put the experts
+  on "model"), decode's on the whole batch's routing with each rank's
+  experts' slots (or the layer's experts gathered at use); rwkv6's and
+  Mamba2's blocks whole on every rank, their states the rank's block
+  over "model".  ``long_500k``'s batch of 1 does not split: the cache's
+  sequence takes the batch axes too, and a decode step combines the
+  ranks' slices of it.
 
 The reference's ``--save-hlo`` is not ported: there is no HLO to save.
 
@@ -86,6 +94,7 @@ from ..models.model import ModelConfig, abstract_params
 from ..optim import cosine_schedule, get_optimizer
 from ..pytree import leaves, tree_map
 from ..serve import engine
+from ..serve.sharded import serve_config
 from ..train.sharded import make_sharded_train_step, state_shardings
 from . import hloanalysis
 from . import sharding as sh
@@ -98,7 +107,6 @@ __all__ = ["FAKE_WORLD", "build_step", "collective_bytes", "count_step",
 # the fake group's ranks: two pods of 16 x 16 (the reference's 512 host
 # devices)
 FAKE_WORLD = 512
-EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
 
 _DTYPE_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "f64": 8, "s32": 4, "u32": 4,
                 "s8": 1, "u8": 1, "pred": 1, "s64": 8, "u64": 8, "f8e4m3": 1,
@@ -221,36 +229,38 @@ def build_step(cfg: ModelConfig, shape, mesh, overrides):
         return fn, (_laid_out(params, p_sh), _laid_out(state, o_sh),
                     _laid_out(batch, b_sh))
 
+    p_sh = sh.named(mesh, sh.model_pspecs(mesh, cfg, overrides))
+    params = _laid_out(params, p_sh)
+    batch = input_specs(cfg, shape)
     if shape.kind == "prefill":
-        groups = cfg.moe_groups or (1, 1)
-        if cfg.moe_expert_sharded and groups[0] * groups[1] > 1:
-            # expert parallelism: the rank holds its E / gm experts
-            for k in EXPERT_LEAVES:
-                w = params["blocks"][k]
-                params["blocks"][k] = _fresh(
-                    (w.shape[0], w.shape[1] // groups[1]) + w.shape[2:],
-                    w.dtype)
+        serve_cfg = serve_config(cfg, mesh, shape.global_batch,
+                                 shape.seq_len, "prefill", overrides)
 
         def prefill(params, batch):
             with torch.no_grad():
-                return engine.prefill(params, cfg, tokens=batch.get("tokens"),
+                return engine.prefill(params, serve_cfg,
+                                      tokens=batch.get("tokens"),
                                       embeds=batch.get("embeds"),
                                       positions=batch.get("positions"),
                                       mesh=mesh)
 
-        return prefill, (params, _rank_batch(cfg, mesh,
-                                             input_specs(cfg, shape)))
+        return prefill, (params, _rank_batch(cfg, mesh, batch))
 
-    # decode: the rank's batch slice of the cache, full params
-    tokens = _rank_batch(cfg, mesh, input_specs(cfg, shape))["tokens"]
-    cache = engine.abstract_cache(cfg, tokens.shape[0], shape.seq_len)
+    # decode: the rank's blocks of the cache, one token a row
+    serve_cfg = serve_config(cfg, mesh, shape.global_batch, shape.seq_len,
+                             "decode", overrides)
+    cache = _laid_out(engine.abstract_cache(cfg, shape.global_batch,
+                                            shape.seq_len),
+                      sh.cache_shardings(mesh, cfg, shape.global_batch,
+                                         shape.seq_len))
 
     def decode(params, cache, tokens):
         with torch.no_grad():
-            logits, cache, _ = engine.decode_step(params, cfg, cache, tokens)
+            logits, cache, _ = engine.decode_step(params, serve_cfg, cache,
+                                                  tokens, mesh=mesh)
         return logits, cache
 
-    return decode, (params, cache, tokens)
+    return decode, (params, cache, _rank_batch(cfg, mesh, batch)["tokens"])
 
 
 # ------------------------------------------------------------ counting

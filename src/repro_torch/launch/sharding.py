@@ -19,7 +19,10 @@ mesh.
 The layout helpers and the collectives of the sharded path live here too
 (:func:`distribute`, :func:`gather`, :func:`all_reduce`,
 :func:`gather_slices`, FSDP's :func:`at_use` (a leaf gathered where a
-block reads it, its gradient reduce-scattered), the expert-parallel MoE's
+block reads it, its gradient reduce-scattered) and :func:`hand_over` (a
+param tree as the sharded train step and sharded serving hand it to the
+model), a rank's :func:`block` of a cut dim (the serving cache's blocks,
+:func:`cache_shardings`), the expert-parallel MoE's
 differentiable :func:`all_to_all`, :func:`split_seq` and
 :func:`gather_seq`, and tensor parallelism's :func:`to_model` and
 :func:`from_model`), so the train step, the model's blocks and
@@ -42,14 +45,16 @@ import torch.distributed as dist
 from ..models.model import ModelConfig, param_pspecs
 from ..pytree import tree_map
 
-__all__ = ["AtUse", "COLLECTIVES", "NamedSharding", "PartitionSpec",
-           "all_reduce", "all_to_all", "apply_overrides", "at_use",
-           "batch_axes", "batch_pspec", "batch_specs", "cache_pspecs",
-           "cut_axes", "default_rules", "distribute", "entry_axes",
-           "from_model", "full", "gather", "gather_seq", "gather_slices",
+__all__ = ["AtUse", "Block", "COLLECTIVES", "NamedSharding",
+           "PartitionSpec", "TP_AXES", "all_reduce", "all_to_all",
+           "apply_overrides", "at_use", "batch_axes", "batch_pspec",
+           "batch_specs", "block", "block_shape", "cache_pspecs",
+           "cache_shardings", "cut_axes", "default_rules", "distribute",
+           "entry_axes", "experts_local", "from_model", "full", "gather",
+           "gather_seq", "gather_slices", "hand_over", "leaf_roles",
            "local_block", "map_specs", "mesh_axes", "model_pspecs", "named",
            "opt_pspecs", "placements", "recording", "split_seq", "to_model",
-           "wrap"]
+           "tp_config", "wrap"]
 
 
 class PartitionSpec(tuple):
@@ -209,6 +214,45 @@ def cache_pspecs(mesh, cfg: ModelConfig, batch: int, max_len: int) -> dict:
             "k": kv, "v": kv, "pos": pos,
         }
     raise ValueError(cfg.family)
+
+
+def cache_shardings(mesh, cfg: ModelConfig, batch: int, max_len: int
+                    ) -> dict:
+    """:func:`cache_pspecs` on ``mesh``: the serving cache's layouts."""
+    return named(mesh, cache_pspecs(mesh, cfg, batch, max_len))
+
+
+class Block(NamedTuple):
+    """A rank's block of one tensor dim of ``length``: ``count`` entries
+    from ``first``, cut over ``axes``, the mesh axes of more than one rank
+    the spec entry names (major first; ``()``: whole)."""
+    first: int
+    count: int
+    axes: Tuple[str, ...]
+
+
+def block(mesh, entry, length: int) -> Block:
+    """The calling rank's :class:`Block` of a dim of ``length`` that the
+    spec entry ``entry`` cuts evenly (the rules' ``_maybe``): its index is
+    its coordinates on the entry's axes, major first, as :func:`placements`
+    lays the dim out."""
+    sizes = mesh_axes(mesh)
+    index, n = 0, 1
+    for a in entry_axes(entry):
+        index = index * sizes[a] + mesh.get_local_rank(a)
+        n *= sizes[a]
+    if length % n:
+        raise ValueError(f"a dim of {length} does not cut evenly over "
+                         f"{entry!r} ({n} ranks)")
+    count = length // n
+    return Block(index * count, count,
+                 tuple(a for a in entry_axes(entry) if sizes[a] > 1))
+
+
+def block_shape(mesh, spec, shape) -> Tuple[int, ...]:
+    """A rank's block's shape of a tensor of ``shape`` laid out by
+    ``spec`` (every cut even, as the cache's specs cut)."""
+    return tuple(block(mesh, e, n).count for e, n in zip(spec, shape))
 
 
 # ------------------------------------------------------------ placements
@@ -605,6 +649,85 @@ def at_use(x, keep: Optional[str] = None, sums: Sequence[str] = ()):
     cuts = _cuts(x, keep, sums)
     local = x.to_local()
     return AtUse(local, cuts) if cuts else local
+
+
+# ----------------------- the leaves a step hands over, and how ("model")
+# the logical axes whose leaves a module can use as its block over "model"
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def tp_config(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
+              ) -> ModelConfig:
+    """``cfg`` with ``tp_axes``: the logical axes of ``TP_AXES`` that the
+    rules (with ``overrides``) put on "model", at more than one "model"
+    rank of ``mesh`` (else ``cfg`` itself)."""
+    if mesh_axes(mesh).get("model", 1) == 1:
+        return cfg
+    rules = apply_overrides(default_rules(mesh, cfg), overrides or {})
+    return dataclasses.replace(cfg, tp_axes=tuple(
+        a for a in TP_AXES if rules.get(a) == "model"))
+
+
+def experts_local(cfg: ModelConfig) -> bool:
+    """Whether a step of ``cfg`` keeps the expert leaves as each rank's
+    block of experts over "model": the expert-parallel path
+    (``cfg.moe_groups`` of more than one member and
+    ``cfg.moe_expert_sharded``), or ``moe_expert_sharded`` without groups,
+    the serving decode's (each rank runs its experts' slots of the whole
+    batch's dispatch, ``models.moe``)."""
+    if cfg.moe is None or not cfg.moe_expert_sharded:
+        return False
+    return cfg.moe_groups is None or cfg.moe_groups[0] * cfg.moe_groups[1] > 1
+
+
+def leaf_roles(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
+               ) -> Tuple[Any, Any]:
+    """(local, partial) of the step on ``mesh`` (rules with
+    ``overrides``): trees of bools like the params.  Local: a leaf handed
+    over as this rank's block over "model" (an expert leaf where
+    :func:`experts_local` and its spec puts "model" on its experts dim; a
+    leaf of ``tp_roles``).  Partial: a whole leaf whose gradient is a
+    partial sum on each rank of "model"."""
+    from ..models.model import tp_roles
+    pspecs = model_pspecs(mesh, cfg, overrides)
+    cfg = tp_config(cfg, mesh, overrides)
+    local = map_specs(lambda spec: False, pspecs)
+    partial = map_specs(lambda spec: False, pspecs)
+    if experts_local(cfg):
+        for k in ("e_gate", "e_up", "e_down"):
+            local["blocks"][k] = "model" in entry_axes(
+                pspecs["blocks"][k][1])
+    if cfg.tp_axes:
+        size = mesh_axes(mesh)["model"]
+        for path, role in tp_roles(cfg, size).items():
+            *parents, leaf = path.split(".")
+            node = local if role == "local" else partial
+            for p in parents:
+                node = node[p]
+            node[leaf] = True
+    return local, partial
+
+
+def hand_over(params, cfg: ModelConfig, mesh,
+              overrides: Optional[dict] = None, sums: Sequence[str] = ()):
+    """DTensor ``params`` (laid out by :func:`model_pspecs` with
+    ``overrides``) as a step of ``cfg`` on ``mesh`` hands them to the
+    model: each leaf an :func:`at_use` of this rank's block, gathered
+    where a block reads it over every axis that cuts it but "model" for a
+    leaf of :func:`leaf_roles`' local ones; the gather's backward
+    reduce-scatters over the axes of ``sums`` and over "model" for a
+    partial leaf.  A leaf that is no DTensor (already a rank's own) goes
+    over as it is.  The sharded train step and sharded serving both call
+    it; under ``torch.no_grad()`` (serving) a gather has no backward."""
+    from torch.distributed.tensor import DTensor
+    local, partial = leaf_roles(cfg, mesh, overrides)
+
+    def one(x, loc, part):
+        if not isinstance(x, DTensor):
+            return x
+        return at_use(x, "model" if loc else None,
+                      tuple(sums) + (("model",) if part else ()))
+    return tree_map(one, params, local, partial)
 
 
 def gather(tree):

@@ -15,10 +15,15 @@
 * ``decode_step`` — single-token attention against a KV cache with optional
   sliding window and per-KV-page attention-mass telemetry (feeds the tiered
   KV cache manager).  Plain PyTorch, as the reference computes it outside
-  any Pallas kernel.
+  any Pallas kernel.  Over a cache whose sequence is cut over mesh axes
+  (sharded serving, ``seq=``) each rank scores its slice and the rows'
+  max, their sum and the weighted values meet in all-reduces over those
+  axes: the softmax of the whole row, by a log-sum-exp combine.
 * ``update_kv_cache`` — insert one token's K/V per batch row.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -69,7 +74,20 @@ def decode_step(
     window: int | None = None,
     sm_scale: float | None = None,
     page_size: int = 0,     # >0: also return per-page attention mass
+    seq=None,
 ):
+    """The attention of one new token a row -> out (B, H, d), and with
+    ``page_size`` the per-page mass (B, ceil(S / page_size)) too.
+
+    ``seq``: ``(first, mesh, axes)``, the caches hold positions ``first``
+    to ``first + S`` of a sequence cut over the mesh axes ``axes``.  The
+    row's max, its sum of exponentials and the weighted values are then
+    all-reduced over ``axes``: ``out`` is the whole row's, and the mass
+    this slice's pages' (``S`` a multiple of ``page_size``) under the
+    whole row's normaliser."""
+    if seq is not None:
+        return _decode_slice(q, k_cache, v_cache, pos, window, sm_scale,
+                             page_size, *seq)
     b, h, d = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
@@ -108,15 +126,65 @@ def decode_step(
     return out
 
 
+def _decode_slice(q, k_cache, v_cache, pos, window, sm_scale, page_size,
+                  first: int, mesh, axes):
+    """:func:`decode_step` over positions ``first`` to ``first + S`` of a
+    sequence cut over mesh ``axes`` (see there): the same dots, the
+    softmax's max and sum and the P·V product all-reduced over ``axes``."""
+    import torch.distributed as dist
+    from ..launch.sharding import all_reduce
+    b, h, d = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if page_size and s % page_size:
+        raise ValueError(f"a cache slice of {s} positions is not whole "
+                         f"pages of {page_size}")
+    qg = q.reshape(b, kvh, g, d).to(torch.float32)
+    scores = torch.einsum("bngd,bnkd->bngk", qg,
+                          k_cache.to(torch.float32)) * sm_scale
+    kpos = first + torch.arange(s, device=q.device)[None, :]
+    valid = kpos <= pos[:, None]
+    if window is not None:
+        valid &= kpos >= (pos[:, None] - window)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    top = scores.amax(-1)
+    all_reduce(top, mesh, axes, op=dist.ReduceOp.MAX)
+    e = torch.exp(scores - top[..., None])
+    total = e.sum(-1)
+    all_reduce(total, mesh, axes)
+    p = e / total[..., None]
+    # the reference rounds p to the cache dtype before its f32-result dot
+    out = torch.einsum("bngk,bnkd->bngd",
+                       p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    out = all_reduce(out, mesh, axes).reshape(b, h, d).to(q.dtype)
+    if page_size:
+        mass = p.sum((1, 2)).reshape(b, s // page_size, page_size).sum(-1)
+        return out, mass
+    return out
+
+
 def write_kv_(k_cache: torch.Tensor, v_cache: torch.Tensor,
               k_new: torch.Tensor, v_new: torch.Tensor,
-              pos: torch.Tensor) -> None:
+              pos: torch.Tensor, first: Optional[int] = None) -> None:
     """In place: row ``b`` of the caches gets ``k_new[b]``/``v_new[b]`` at
-    position ``pos[b]``.  k_new: (B, KVH, d)."""
+    position ``pos[b]``.  k_new: (B, KVH, d).  ``first``: the caches hold
+    positions ``first`` on of a sequence cut over ranks; a row whose
+    ``pos`` falls outside them keeps its old values (a masked write, the
+    same on every rank)."""
     bidx = torch.arange(k_cache.shape[0], device=k_cache.device)
     idx = pos.long()
-    k_cache[bidx, :, idx] = k_new.to(k_cache.dtype)
-    v_cache[bidx, :, idx] = v_new.to(v_cache.dtype)
+    k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+    if first is not None:
+        idx = idx - first
+        here = ((idx >= 0) & (idx < k_cache.shape[2]))[:, None, None]
+        idx = idx.clamp(0, k_cache.shape[2] - 1)
+        k_new = torch.where(here, k_new, k_cache[bidx, :, idx])
+        v_new = torch.where(here, v_new, v_cache[bidx, :, idx])
+    k_cache[bidx, :, idx] = k_new
+    v_cache[bidx, :, idx] = v_new
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):

@@ -2,14 +2,15 @@
 (PyTorch port of ``repro/models/layers.py``; same layouts: activations
 ``(B, S, D)``, heads ``(B, H, S, hd)``).
 
-Tensor parallelism (``tp``, a :class:`TensorParallel`; only the sharded
-train step sets it): :func:`swiglu` and :func:`attention_block` then run
-on this rank's block of their weights over the mesh axis "model", the
-rules' layout (``launch.sharding.default_rules``).  The block's input
-enters through ``launch.sharding.to_model`` (the backward sums the ranks'
-partial input gradients) and its partial outputs join through
-``from_model`` (one all-reduce), two all-reduces a block and step, and
-one more for each forward again under remat.  The attention:
+Tensor parallelism (``tp``, a :class:`TensorParallel`; the sharded train
+step and sharded serving set it): :func:`swiglu` and
+:func:`attention_block` then run on this rank's block of their weights
+over the mesh axis "model", the rules' layout
+(``launch.sharding.default_rules``).  The block's input enters through
+``launch.sharding.to_model`` (the backward sums the ranks' partial input
+gradients) and its partial outputs join through ``from_model`` (one
+all-reduce), two all-reduces a block and step, and one more for each
+forward again under remat.  The attention:
 
 * ``heads == "whole"`` (H divisible by the ranks): the rank projects and
   attends its H / m query heads.  Its KV heads are its own block when the
@@ -25,10 +26,19 @@ one more for each forward again under remat.  The attention:
   ``to_model``, and every rank attends all the heads; the rank's columns
   of the output go into its rows of ``wo``.  GSPMD must do the same with
   that layout: RoPE and the softmax read a whole head.
+
+With ``return_kv`` (the serving prefill) the block returns the cache rows
+the rank holds under the serving cache's layout
+(``launch.sharding.cache_pspecs``): its own k / v where the KV heads are
+its block (``kv == "local"``), else every KV head at the sequence rows
+``kv_rows`` names (the cache's sequence cut over "model", or over the
+batch axes for a batch of one), projected from the whole ``wk`` / ``wv``
+at those rows alone under "sliced" and cut from the whole k / v under
+"cut" or without ``tp``.  The attention itself is unchanged.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -162,6 +172,20 @@ class AttnParams(NamedTuple):
     bv: Optional[torch.Tensor]
 
 
+def attn_proj(p: AttnParams, h: torch.Tensor, name: str, sel=None,
+              local: bool = False) -> torch.Tensor:
+    """Projection ``name`` ("q", "k", "v") of ``h`` with its bias, on
+    columns ``sel`` of the whole projection (``pick``; None: all of them),
+    ``p``'s weight and bias already this rank's block of them where
+    ``local``."""
+    dt = h.dtype
+    w, bias = getattr(p, "w" + name), getattr(p, "b" + name)
+    y = h @ (w if local else pick(w, sel)).to(dt)
+    if bias is not None:
+        y = y + (bias if local else pick(bias, sel)).to(dt)
+    return y
+
+
 def mrope_sections(head_dim: int):
     half = head_dim // 2
     return (half - 2 * (half * 3 // 8), half * 3 // 8, half * 3 // 8)
@@ -183,34 +207,35 @@ def attention_block(
     return_kv: bool = False,
     tp: Optional[TensorParallel] = None,
     proj: Optional[Callable] = None,
+    kv_rows: Optional[Tuple[int, int]] = None,
 ):
     """``tp``: on this rank's heads and blocks of ``p`` (see the module
-    doc; not with ``return_kv``).  ``proj(h, name, sel, local)``, in place
-    of ``p``'s weights and biases (zamba2's shared block adds its LoRA
-    delta): projection ``name`` ("q", "k", "v") of ``h`` on columns ``sel``
-    of the whole projection (None: all of them), its weight already this
-    rank's block of them where ``local``."""
+    doc).  ``proj(h, name, sel, local)``, in place of ``p``'s weights and
+    biases (zamba2's shared block adds its LoRA delta): projection
+    ``name`` ("q", "k", "v") of ``h`` on columns ``sel`` of the whole
+    projection (None: all of them), its weight already this rank's block
+    of them where ``local``.  ``return_kv`` -> (out, (k, v)), the cache
+    rows this rank holds: ``kv_rows`` ``(first, count)`` of the sequence
+    (None: all of it), its KV heads as the module doc says."""
     b, s, _ = x.shape
-    dt = x.dtype
     hd = head_dim
 
-    def own_proj(h, name, sel, local):
-        w, bias = getattr(p, "w" + name), getattr(p, "b" + name)
-        y = h @ (w if local else pick(w, sel)).to(dt)
-        if bias is not None:
-            y = y + (bias if local else pick(bias, sel)).to(dt)
-        return y
+    def heads(t):                                  # (B, heads, rows, hd)
+        return t.reshape(b, t.shape[1], t.shape[2] // hd, hd).transpose(1, 2)
 
-    def heads(t):
-        return t.reshape(b, s, -1, hd).transpose(1, 2)   # (B,heads,S,hd)
+    def rope(t, pos):
+        if rope_mode == "rope":
+            return apply_rope(t, pos[:, None], rope_theta)
+        if rope_mode == "mrope":
+            return apply_mrope(t, pos, mrope_sections(head_dim), rope_theta)
+        return t
 
-    proj = proj or own_proj
+    proj = proj or (lambda h, name, sel, local:
+                    attn_proj(p, h, name, sel, local))
     if tp is None:
         q, k, v = (heads(proj(x, n, None, False)) for n in ("q", "k", "v"))
     else:
         from ..launch.sharding import gather_seq, to_model
-        if return_kv:
-            raise ValueError("a tensor-parallel attention returns no cache")
         m, r = tp.size, tp.rank
         qw, kvw = n_heads * hd, n_kv_heads * hd
         xm = to_model(x, tp.mesh)
@@ -232,13 +257,7 @@ def attention_block(
         else:
             raise ValueError(f"tensor parallel heads {tp.heads!r}")
 
-    if rope_mode == "rope":
-        q = apply_rope(q, positions[:, None], rope_theta)
-        k = apply_rope(k, positions[:, None], rope_theta)
-    elif rope_mode == "mrope":
-        sections = mrope_sections(head_dim)
-        q = apply_mrope(q, positions, sections, rope_theta)
-        k = apply_mrope(k, positions, sections, rope_theta)
+    q, k = rope(q, positions), rope(k, positions)
 
     o = attn_lib.flash_train(q, k, v, causal=True, window=window,
                              causal_schedule=causal_schedule, block_k=block_k)
@@ -246,10 +265,18 @@ def attention_block(
     if tp is not None and tp.heads == "cut":
         from ..launch.sharding import split_seq
         o = split_seq(o, tp.mesh, "model", -1)
-    out = o @ p.wo.to(dt)
+    out = o @ p.wo.to(x.dtype)
     if tp is not None:
         from ..launch.sharding import from_model
-        return from_model(out, tp.mesh)
-    if return_kv:
+        out = from_model(out, tp.mesh)
+    if not return_kv:
+        return out
+    first, count = kv_rows or (0, s)
+    rows = slice(first, first + count)
+    if tp is not None and tp.kv == "sliced":
+        # every KV head at the rank's rows alone, from the whole wk / wv
+        k, v = (heads(proj(xm[:, rows], n, None, False)) for n in ("k", "v"))
+        return out, (rope(k, positions[..., rows]), v)
+    if kv_rows is None:
         return out, (k, v)
-    return out
+    return out, (k[:, :, rows], v[:, :, rows])

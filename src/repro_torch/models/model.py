@@ -49,7 +49,7 @@ __all__ = ["LeafSpec", "MoECfg", "ModelConfig", "abstract_params",
            "iter_schema", "layer_params", "logits_fn", "loss_fn", "loss_terms",
            "mamba2_params", "moe_params",
            "param_pspecs", "rwkv6_ffn_params", "rwkv6_params", "rwkv6_block",
-           "shared_qkv", "tensor_parallel", "tp_layout", "tp_roles",
+           "shared_proj", "tensor_parallel", "tp_layout", "tp_roles",
            "transformer_block", "zamba2_mamba_block",
            "zamba2_shared_attention"]
 
@@ -402,10 +402,11 @@ def moe_params(bp: dict) -> MoEParams:
 
 def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
                       positions: torch.Tensor, return_kv: bool = False,
-                      mesh=None):
+                      mesh=None, kv_rows=None):
     """One dense or MoE transformer layer -> (x, aux), aux the MoE layer's
     ``{"counts", "aux_loss"}`` or None; with ``return_kv``
-    (x, aux, (k, v)), the prefill's cache rows.  ``mesh``: ``x`` is a
+    (x, aux, (k, v)), the prefill's cache rows (those this rank holds:
+    ``layers.attention_block``'s ``kv_rows``).  ``mesh``: ``x`` is a
     rank's slice of a batch split over ``cfg.act_batch_axes`` of it (see
     :func:`forward`), and with ``cfg.tp_axes`` the attention and the dense
     MLP run on this rank's blocks (:func:`tensor_parallel`)."""
@@ -417,7 +418,7 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
         positions=positions, rope_mode=cfg.rope, rope_theta=cfg.rope_theta,
         window=cfg.window, causal_schedule=cfg.causal_schedule,
         block_k=cfg.attn_block_k, return_kv=return_kv,
-        tp=tp if tp is not None and tp.heads else None,
+        tp=tp if tp is not None and tp.heads else None, kv_rows=kv_rows,
     )
     kv = None
     if return_kv:
@@ -481,19 +482,13 @@ def zamba2_mamba_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
     return x + h, state
 
 
-def shared_qkv(h: torch.Tensor, sp: dict, cfg: ModelConfig, inv: int):
-    """The shared block's q, k, v projections of the normed input ``h``
-    (..., D), each with invocation ``inv``'s LoRA delta (h a) b added:
-    (..., H * hd), (..., KVH * hd), (..., KVH * hd)."""
-    return [_shared_proj(h, sp, cfg, inv, nm) for nm in ("q", "k", "v")]
-
-
-def _shared_proj(h: torch.Tensor, sp: dict, cfg: ModelConfig, inv: int,
-                 nm: str, sel=None, local: bool = False) -> torch.Tensor:
-    """Projection ``nm`` of the shared block with its LoRA delta, on
-    columns ``sel`` (``layers.pick``; None: all), ``sp``'s weight already
-    this rank's block of them where ``local`` (the LoRA factors are always
-    whole)."""
+def shared_proj(h: torch.Tensor, sp: dict, cfg: ModelConfig, inv: int,
+                nm: str, sel=None, local: bool = False) -> torch.Tensor:
+    """Projection ``nm`` ("q", "k", "v") of the shared block's normed
+    input ``h`` (..., D) with invocation ``inv``'s LoRA delta (h a) b
+    added, on columns ``sel`` (``layers.pick``; None: all), ``sp``'s
+    weight already this rank's block of them where ``local`` (the LoRA
+    factors are always whole)."""
     dt = h.dtype
     width = (cfg.n_heads if nm == "q" else cfg.n_kv_heads) * cfg.head_dim
     w = sp["w" + nm]
@@ -505,13 +500,15 @@ def _shared_proj(h: torch.Tensor, sp: dict, cfg: ModelConfig, inv: int,
 
 def zamba2_shared_attention(x: torch.Tensor, sp: dict, cfg: ModelConfig,
                             inv: int, positions: torch.Tensor,
-                            return_kv: bool = False, mesh=None):
+                            return_kv: bool = False, mesh=None,
+                            kv_rows=None):
     """The shared attention block at invocation ``inv``: per-invocation
     LoRA on q/k/v, RoPE, causal attention through
     :func:`repro_torch.models.attention.flash_train` (the
     ``flash_attention`` kernel on a CUDA tensor), the output projection,
     then the shared SwiGLU.  With ``return_kv`` -> (x, (k, v)), the
-    prefill's cache rows (after RoPE).  ``mesh`` with ``cfg.tp_axes``:
+    prefill's cache rows (after RoPE; those this rank holds, as
+    :func:`transformer_block`'s).  ``mesh`` with ``cfg.tp_axes``:
     the attention and the MLP on this rank's blocks (:func:`tensor_parallel`;
     the LoRA factors whole, each rank using its columns of the delta)."""
     tp = tensor_parallel(cfg, mesh)
@@ -524,8 +521,8 @@ def zamba2_shared_attention(x: torch.Tensor, sp: dict, cfg: ModelConfig,
         rope_theta=cfg.rope_theta, window=cfg.window,
         causal_schedule=cfg.causal_schedule, block_k=cfg.attn_block_k,
         return_kv=return_kv, tp=tp if tp is not None and tp.heads else None,
-        proj=lambda t, nm, sel, local: _shared_proj(t, sp, cfg, inv, nm, sel,
-                                                    local))
+        proj=lambda t, nm, sel, local: shared_proj(t, sp, cfg, inv, nm, sel,
+                                                   local), kv_rows=kv_rows)
     if return_kv:
         o, kv = o
     x = x + o
@@ -686,10 +683,21 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     return rms_norm(x, gathered(params["final_norm"]), cfg.norm_eps), aux
 
 
-def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
-              ) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", hidden, head.to(hidden.dtype))
+def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
+              mesh=None) -> torch.Tensor:
+    """hidden (B, S, D) -> logits (B, S, V).  With a tensor-parallel
+    vocabulary (:func:`tensor_parallel` of ``mesh``) the head is this
+    rank's block of it and its logits are all-gathered over "model": the
+    reference's serving ``out_shardings`` give them whole over the
+    vocabulary."""
+    head = gathered(params["embed" if cfg.tie_embeddings else "lm_head"])
+    head = head.T if cfg.tie_embeddings else head
+    logits = torch.einsum("bsd,dv->bsv", hidden, head.to(hidden.dtype))
+    tp = tensor_parallel(cfg, mesh)
+    if tp is None or not tp.vocab:
+        return logits
+    from ..launch.sharding import gather_seq
+    return gather_seq(logits, tp.mesh, "model", -1)
 
 
 def _chunk_nll(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,

@@ -37,6 +37,14 @@ The router, ``counts`` and the balance loss are the whole batch's as on
 the single-program path, the shared expert runs on all of ``x``.  The
 collectives are ``launch.sharding``'s (``all_to_all``, ``split_seq``,
 ``gather_seq``): differentiable, and counted.
+
+Where the expert weights hold fewer than ``E`` experts on the
+single-program path (sharded serving's decode, the rules' experts on
+"model"), they are this rank's block of ``E / m`` over the mesh axis
+"model": every rank of "model" routes the same tokens into the same
+dispatch (its capacity and slot order the single program's), runs its
+experts' slots alone, and the combined outputs meet in one all-reduce
+over "model".  No gradient is taken on that path.
 """
 from __future__ import annotations
 
@@ -145,6 +153,27 @@ def _expert_ffn(x_buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return torch.bmm(F.silu(g) * u, wd.to(dt))
 
 
+def _expert_slots(x_buf: torch.Tensor, p: MoEParams, mesh) -> torch.Tensor:
+    """The expert products of the slots of this rank's block of experts
+    over "model" (``p.w_*`` hold its ``E / m``), zeros in the other
+    experts' slots: (E, C, D), whose combine the caller sums over
+    "model"."""
+    from ..launch.sharding import mesh_axes
+    e, n = x_buf.shape[0], p.w_gate.shape[0]
+    m = mesh_axes(mesh).get("model", 1) if mesh is not None else 1
+    if n * m != e:
+        raise ValueError(f"the expert weights hold {n} experts, not this "
+                         f"rank's block of {e} over {m} \"model\" ranks")
+    if torch.is_grad_enabled() and x_buf.requires_grad:
+        raise ValueError("the experts' slots over \"model\" take no "
+                         "gradient (sharded serving's decode)")
+    j = mesh.get_local_rank("model")
+    y_buf = torch.zeros_like(x_buf)
+    y_buf[j * n:(j + 1) * n] = _expert_ffn(x_buf[j * n:(j + 1) * n],
+                                           p.w_gate, p.w_up, p.w_down)
+    return y_buf
+
+
 def _shared_ffn(x: torch.Tensor, p: MoEParams) -> torch.Tensor:
     dt = x.dtype
     gs = x @ p.shared_w_gate.to(dt)
@@ -212,9 +241,14 @@ def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
         capacity = max(int(t_all * top_k * capacity_factor / e), 4)
         x_buf, pos = _dispatch_local(x.reshape(t, d), flat_e, top_k, e,
                                      capacity, before)
-        y_buf = _expert_ffn(x_buf, p.w_gate, p.w_up, p.w_down)
+        slots = p.w_gate.shape[0] != e
+        y_buf = (_expert_slots(x_buf, p, mesh) if slots
+                 else _expert_ffn(x_buf, p.w_gate, p.w_up, p.w_down))
         out = _combine_local(y_buf, pos, flat_e, topw.reshape(t, top_k),
                              capacity).reshape(b, s, d)
+        if slots:
+            from ..launch.sharding import from_model
+            out = from_model(out, mesh)
         dropped = (pos >= capacity).reshape(b, s, top_k)
     aux["dropped"] = dropped
     if p.shared_w_gate is not None:

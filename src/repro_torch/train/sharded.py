@@ -70,20 +70,18 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..launch.sharding import (AtUse, all_reduce, apply_overrides,
-                               at_use, batch_specs, cut_axes, default_rules,
-                               entry_axes, full, map_specs, mesh_axes,
-                               model_pspecs, named, opt_pspecs, wrap)
-from ..models.model import ModelConfig, forward, loss_terms, tp_roles
+from ..launch.sharding import (TP_AXES, AtUse, all_reduce,  # noqa: F401
+                               batch_specs, cut_axes, entry_axes, full,
+                               hand_over, leaf_roles, mesh_axes,
+                               model_pspecs, named, opt_pspecs, tp_config,
+                               wrap)
+from ..models.model import ModelConfig, forward, loss_terms
 from ..optim.optimizers import OptState, Optimizer
 from ..pytree import flatten, leaves, tree_map, unflatten
 
 __all__ = ["block_means", "gather_local", "leaf_roles",
            "make_sharded_train_step", "sharded_grads",
            "sharded_loss_and_grads", "state_shardings", "tp_config"]
-
-# the logical axes whose leaves a module can use as its block over "model"
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
 def state_shardings(mesh, cfg: ModelConfig, opt_state: OptState,
@@ -111,48 +109,6 @@ def _check_layout(tree, shardings, what: str) -> None:
 
 
 # ------------------------------------------------------------- the step
-def tp_config(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
-              ) -> ModelConfig:
-    """``cfg`` with ``tp_axes``: the logical axes of ``TP_AXES`` that the
-    rules (with ``overrides``) put on "model", at more than one "model"
-    rank of ``mesh`` (else ``cfg`` itself)."""
-    if mesh_axes(mesh).get("model", 1) == 1:
-        return cfg
-    rules = apply_overrides(default_rules(mesh, cfg), overrides or {})
-    return dataclasses.replace(cfg, tp_axes=tuple(
-        a for a in TP_AXES if rules.get(a) == "model"))
-
-
-def leaf_roles(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
-               ) -> Tuple[Any, Any]:
-    """(local, partial) of the step on ``mesh`` (rules with
-    ``overrides``): trees of bools like the params.  Local: a leaf handed
-    over as this rank's block over "model" (an expert leaf under expert
-    parallelism, ``cfg.moe_groups`` of more than one member and
-    ``cfg.moe_expert_sharded``, whose spec puts "model" on its experts dim;
-    a leaf of ``tp_roles``).  Partial: a whole leaf whose gradient is a
-    partial sum on each rank of "model"."""
-    pspecs = model_pspecs(mesh, cfg, overrides)
-    cfg = tp_config(cfg, mesh, overrides)
-    local = map_specs(lambda spec: False, pspecs)
-    partial = map_specs(lambda spec: False, pspecs)
-    groups = cfg.moe_groups or (1, 1)
-    if cfg.moe is not None and cfg.moe_expert_sharded \
-            and groups[0] * groups[1] > 1:
-        for k in ("e_gate", "e_up", "e_down"):
-            local["blocks"][k] = "model" in entry_axes(
-                pspecs["blocks"][k][1])
-    if cfg.tp_axes:
-        size = mesh_axes(mesh)["model"]
-        for path, role in tp_roles(cfg, size).items():
-            *parents, leaf = path.split(".")
-            node = local if role == "local" else partial
-            for p in parents:
-                node = node[p]
-            node[leaf] = True
-    return local, partial
-
-
 def _clip(grads, cuts, mesh, max_norm: float = 1.0):
     """``clip_by_global_norm`` of the whole gradient from the rank's blocks
     (``cuts``: each leaf's :func:`launch.sharding.cut_axes`, in leaf
@@ -238,12 +194,10 @@ def sharded_grads(cfg: ModelConfig, mesh, params, batch: Dict[str, Any],
     axes no gather summed, and over "model" for a partial leaf "model"
     does not cut."""
     step_cfg = tp_config(cfg, mesh, overrides)
-    local, partial = leaf_roles(cfg, mesh, overrides)
+    _, partial = leaf_roles(cfg, mesh, overrides)
     axes = _batch_axes(mesh, batch_specs(mesh, cfg, batch)["labels"])
-    handed = tree_map(lambda x, loc, part: at_use(
-        x, "model" if loc else None,
-        tuple(a for a in axes if a == "data") + (("model",) if part else ())),
-        params, local, partial)
+    handed = hand_over(params, cfg, mesh, overrides,
+                       sums=tuple(a for a in axes if a == "data"))
     l_batch = tree_map(lambda x: x.to_local(), batch)
     loss, aux, grads = sharded_loss_and_grads(handed, step_cfg, l_batch,
                                               mesh, axes)
