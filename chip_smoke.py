@@ -347,7 +347,7 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     two gloo ranks of CUDA tensors on the one card and a (1, 2) ("data",
     "model") mesh; qwen2-0.5b at its published widths cut to TP_LAYERS of
     24 layers, B 4, S 2048, remat "full", the same weights on both ranks
-    (``init_params`` seed 0), each rank its 7 of the 14 query heads and 1
+    (``ep_params``, drawn on the card), each rank its 7 of the 14 query heads and 1
     of the 2 KV heads, its half of the MLP columns and of the vocabulary.
     (a) float32: the sharded step's gradient (local blocks gathered over
     "model") and one sharded AdamW step against the single-device
@@ -402,8 +402,35 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     at a rank's prefill shape (B 4, H 7, KVH 1, S 4096, d 64, bf16) beside
     its plain version and ``sdpa`` (the kernel line's
     ``flash_attention_tp_serve`` entry); within SERVE_PHASE_S.
+31. Mixtral's expert tensor parallelism (its override puts
+    ``expert_mlp`` on "model": each rank runs every expert on its half of
+    ``d_expert``, the partial outputs summed over "model"): two gloo
+    ranks on the one card at (1, 2), Mixtral-8x22B at its published
+    widths, its weights drawn on the card from a seed of each leaf and
+    expert.  (a) One layer in float32: the prefill of SERVE_F32_PROMPT
+    tokens into SERVE_F32_MAX_LEN positions and SERVE_F32_STEPS decode
+    steps against the single-device run within SERVE_TOL, as 30a; (b) one
+    layer in float32, B MOE_TP_TRAIN_BATCH x S MOE_TP_TRAIN_SEQ: the
+    single-device gradient first (its blocks kept, the whole freed), then
+    the sharded gradient, each leaf's block (the router's whole) within
+    TRAIN_LEAF_TOL_OF_MAX of that leaf's largest magnitude, and one
+    sharded step on MOE_TP_OPT, its loss and gradient norm within
+    FULL_WIDTH_F32_TOL; (c) two layers in bf16: the prefill of B
+    MOE_TP_BATCH x S MOE_TP_PROMPT and MOE_TP_STEPS decode steps, 2
+    flash_attention launches a rank in the prefill, all on the tensor
+    cores at (24, 4) heads, none in decode, tokens/s, each rank's peak
+    and the collectives by axis and kind.  In every part: each step and
+    serving call under ``set_sync_debug_mode("error")`` but for gloo's own
+    calls, each expert leaf the rank's half of ``d_expert`` and none
+    gathered over "model", the serving calls' collectives exactly
+    ``moe_tp_expected``'s, the expert counts and dropped pairs of every
+    call the single-device run's and equal on both ranks.  Then, on this
+    process, flash_attention at a rank's prefill shape (B 4, H 24, KVH 4,
+    S 4096, d 128, bf16) beside its plain version and ``sdpa`` (the
+    kernel line's ``flash_attention_mixtral_tp`` entry); within
+    MOE_TP_PHASE_S.
 
-Each path (8-11, 14-16, 18-30) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-31) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -2994,8 +3021,9 @@ def moe_serve_full_width(dev, zero_counts, read_counts,
                          read_routes) -> dict:
     """Phase 22c: Mixtral-8x22B at its published widths (d_model 6,144, 48
     heads of 128 with 8 KV heads, 8 experts top-2 of d 16,384, vocab 32,768,
-    window 4,096; float32 parameters, bfloat16 activations), n_layers cut
-    from 56 to MIXTRAL_LAYERS.  The parameter draw is timed; then B 4, prompt
+    window 4,096; float32 parameters drawn on the card by ``ep_params``,
+    bfloat16 activations), n_layers cut from 56 to MIXTRAL_LAYERS.  The
+    parameter draw is timed; then B 4, prompt
     64 and 4,096, 32 generated tokens, page 16, prefill and decode called
     directly under ``set_sync_debug_mode("error")``: 2 flash_attention
     launches a prefill, all on the tensor cores, none in decode; every
@@ -3006,13 +3034,12 @@ def moe_serve_full_width(dev, zero_counts, read_counts,
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models.model import init_params
     from repro_torch.serve import engine
     free_device_memory()
     cfg = dataclasses.replace(get_config("mixtral-8x22b"),
                               n_layers=MIXTRAL_LAYERS)
     t0 = time.perf_counter()
-    params = init_params(cfg, 0, dev)
+    params = ep_params(cfg, dev, range(cfg.moe.n_experts))
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in params["blocks"].values()) + sum(
@@ -3392,13 +3419,13 @@ def recurrent_block_full_width(dev, read_routes) -> dict:
 def recurrent_serve_full_width(serve_launcher, dev, zero_counts, read_counts,
                                read_routes) -> dict:
     """Phase 23c: rwkv6-3b and zamba2-2.7b at their published widths
-    through ``launch.serve.main`` (float32 weights drawn from seed 0, bf16
+    through ``launch.serve.main`` (float32 weights drawn on the card, bf16
     activations, all layers): B 4, prompts 64 and 4,096, 32 tokens.  Every
     prefill and decode step runs under ``set_sync_debug_mode("error")``
     (``engine.prefill`` / ``decode_step`` wrapped for the call); the
-    weights are drawn once per arch (the launcher's ``init_params``
-    wrapped to hand the 4,096-token run the first run's draw, whose time
-    is the draw's).  Checks: flash_attention n_shared_attn times (9) a
+    weights are drawn once per arch, on the card (the launcher's
+    ``init_params`` replaced by ``ep_params``, which hands the 4,096-token
+    run the first run's draw, whose time is the draw's).  Checks: flash_attention n_shared_attn times (9) a
     zamba2 prefill on the route ``kernel.route`` names (bf16 at d 80: the
     tensor cores), none in decode, none for rwkv6, no other kernel; tokens in range, logits finite, no page telemetry.
     Reports the draw, prefill and decode tokens/s and peak memory.
@@ -3425,7 +3452,7 @@ def recurrent_serve_full_width(serve_launcher, dev, zero_counts, read_counts,
 
     def draw_once(cfg, seed, device):
         if cfg.name not in drawn:
-            drawn[cfg.name] = real["init_params"](cfg, seed, device)
+            drawn[cfg.name] = ep_params(cfg, torch.device(device), ())
         return drawn[cfg.name]
 
     runs = {}
@@ -4539,7 +4566,10 @@ def ep_params(cfg, dev, experts) -> dict:
     """``cfg``'s weights drawn on ``dev`` at ``init_params``' scales: a
     leaf from a seed of its own, an expert leaf expert by expert from a
     seed of each (leaf, expert), only the experts in ``experts`` (a rank's
-    block, or all of them), so a rank and a whole draw agree."""
+    block, or all of them), so a rank and a whole draw agree.  The
+    full-width phases draw with it on the card (22c, 23c, 29-31):
+    ``init_params`` draws on the host's one generator, about 120 M values
+    a second (45.6 s for 22c's 5.41 B)."""
     import torch
     from repro_torch.models.model import iter_schema
     gen = torch.Generator(device=dev)
@@ -5541,14 +5571,14 @@ def tp_rank(rank: int, store: str, out_dir: str, small: bool = False) -> None:
     try:
         from repro_torch.data import DataConfig, TokenPipeline
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.models.model import init_params, tp_layout
+        from repro_torch.models.model import tp_layout
         from repro_torch.train.sharded import tp_config
         mesh = make_mesh(TP_MESH, ("data", "model"), device=dev.type)
         fsdp_mesh = make_mesh(FSDP_MESH, ("data", "model"), device=dev.type)
         cfg = tp_phase_config(small, torch.float32)
         b, s = (4, 64) if small else (TP_BATCH, TP_SEQ)
         t0 = time.perf_counter()
-        params = init_params(cfg, 0, dev)
+        params = ep_params(cfg, dev, ())
         pipeline = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                             seq_len=s, global_batch=b,
                                             seed=29))
@@ -5561,7 +5591,7 @@ def tp_rank(rank: int, store: str, out_dir: str, small: bool = False) -> None:
             vcfg = tp_phase_config(small, torch.float32,
                                    smoke_w if small else full_w,
                                    TP_VARIANT_LAYERS)
-            got = tp_rank_f32(mesh, dev, rank, init_params(vcfg, 0, dev),
+            got = tp_rank_f32(mesh, dev, rank, ep_params(vcfg, dev, ()),
                               batch, vcfg)
             got["layout"] = list(tp_layout(tp_config(vcfg, mesh),
                                            TP_MESH[1])[:2])
@@ -5577,7 +5607,7 @@ def tp_rank(rank: int, store: str, out_dir: str, small: bool = False) -> None:
             free_device_memory()
         deep = tp_phase_config(small, torch.bfloat16, layers=None)
         t0 = time.perf_counter()
-        params = init_params(deep, 0, dev)
+        params = ep_params(deep, dev, ())
         res["fsdp_draw_s"] = time.perf_counter() - t0
         res["fsdp_expected"] = fsdp_expected(deep, FSDP_MESH[0])
         res["fsdp_bf16"] = tp_rank_bf16(fsdp_mesh, dev, rank, params,
@@ -5824,14 +5854,16 @@ def serve_phase_config(small: bool, dtype, changes=None):
 
 def serve_sharded_run(mesh, dev, cfg, p, toks, prompt: int,
                       max_len: int, steps: int, page: int,
-                      keep_first: bool = False) -> dict:
+                      keep_first: bool = False,
+                      overrides: dict | None = None) -> dict:
     """Sharded prefill of ``toks[:, :prompt]`` and ``steps`` decode steps
     on ``mesh`` (``p`` the params laid out by
-    ``serve.sharded.lay_out_params``), each call under the sync check but
-    for gloo's own calls: outputs (the logits and page masses gathered,
-    the cache blocks), flash_attention's launches, routes and head counts
-    in the prefill and in decode, walls, the peak memory from the
-    prefill's start."""
+    ``serve.sharded.lay_out_params``, the rules with ``overrides``), each
+    call under the sync check but for gloo's own calls: outputs (the
+    logits and page masses gathered, the cache blocks), flash_attention's
+    launches, routes and head counts in the prefill and in decode, each
+    call's collectives ``(kind, bytes, group size, axis)``, walls, the
+    peak memory from the prefill's start."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import sharding as sh
@@ -5840,8 +5872,8 @@ def serve_sharded_run(mesh, dev, cfg, p, toks, prompt: int,
     from repro_torch.serve import sharded as ss
 
     b = toks.shape[0]
-    cfg_p = ss.serve_config(cfg, mesh, b, prompt, "prefill")
-    cfg_d = ss.serve_config(cfg, mesh, b, max_len, "decode")
+    cfg_p = ss.serve_config(cfg, mesh, b, prompt, "prefill", overrides)
+    cfg_d = ss.serve_config(cfg, mesh, b, max_len, "decode", overrides)
     tok_p = ss.batch_block(toks[:, :prompt], mesh, cfg_p)
     tok_d = [ss.batch_block(toks[:, prompt + t], mesh, cfg_d)
              for t in range(steps)]
@@ -5869,6 +5901,7 @@ def serve_sharded_run(mesh, dev, cfg, p, toks, prompt: int,
         out["prefill_launches"] = fa_kernel.LAUNCHES
         out["prefill_routes"] = dict(fa_kernel.ROUTE_LAUNCHES)
         out["prefill_collectives"] = len(log)
+        out["logs"] = [[list(e) for e in log]]
         out["heads"] = sorted(heads)
         out["logits"].append(logits)
         if keep_first:
@@ -5877,8 +5910,11 @@ def serve_sharded_run(mesh, dev, cfg, p, toks, prompt: int,
         with torch.no_grad(), sync_checked_but_collectives(
                 dev.type == "cuda"):
             for t in range(steps):
-                logits, cache, aux = engine.decode_step(
-                    p, cfg_d, cache, tok_d[t], page_size=page, mesh=mesh)
+                with sh.recording() as log:
+                    logits, cache, aux = engine.decode_step(
+                        p, cfg_d, cache, tok_d[t], page_size=page,
+                        mesh=mesh)
+                out["logs"].append([list(e) for e in log])
                 out["logits"].append(logits)
                 out["mass"].append(aux["kv_page_mass"])
         ep_sync(dev)
@@ -5896,10 +5932,12 @@ def serve_sharded_run(mesh, dev, cfg, p, toks, prompt: int,
     return out
 
 
-def serve_rank_f32(mesh, dev, cfg, params, toks) -> dict:
-    """30a / 30b on one rank: the float32 sharded run against the
-    single-device run on this device -> each output's worst share of
-    SERVE_TOL (|a - b| / (tol + tol |b|)), faults, walls."""
+def serve_rank_f32(mesh, dev, cfg, params, toks,
+                   overrides: dict | None = None) -> dict:
+    """30a / 30b (and 31a) on one rank: the float32 sharded run (the rules
+    with ``overrides``) against the single-device run on this device ->
+    each output's worst share of SERVE_TOL (|a - b| / (tol + tol |b|)),
+    faults, walls, each sharded call's collectives."""
     import torch
     from repro_torch.launch import sharding as sh
     from repro_torch.serve import engine
@@ -5910,9 +5948,9 @@ def serve_rank_f32(mesh, dev, cfg, params, toks) -> dict:
     if dev.type != "cuda":
         prompt, max_len = 31, 64
     got = serve_sharded_run(mesh, dev, cfg,
-                            ss.lay_out_params(params, mesh, cfg), toks,
-                            prompt, max_len, steps, SERVE_PAGE,
-                            keep_first=True)
+                            ss.lay_out_params(params, mesh, cfg, overrides),
+                            toks, prompt, max_len, steps, SERVE_PAGE,
+                            keep_first=True, overrides=overrides)
     with torch.no_grad():
         logits, cache = engine.prefill(params, cfg, tokens=toks[:, :prompt],
                                        max_len=max_len)
@@ -5948,7 +5986,7 @@ def serve_rank_f32(mesh, dev, cfg, params, toks) -> dict:
               if not v <= 1.0]
     return {"worst_share": max(shares.values()), "faults": faults,
             "prefill_s": got["prefill_s"], "decode_s": got["decode_s"],
-            "prompt": prompt, "max_len": max_len,
+            "prompt": prompt, "max_len": max_len, "logs": got["logs"],
             "cache_blocks": {k: list(v.shape) for k, v in got["last"].items()}}
 
 
@@ -5973,7 +6011,6 @@ def serve_rank(rank: int, store: str, out_dir: str, small: bool = False
                             timeout=datetime.timedelta(seconds=120))
     try:
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.models.model import init_params
         from repro_torch.serve import sharded as ss
         meshes = {name: make_mesh(shape, ("data", "model"),
                                   device=dev.type)
@@ -5983,7 +6020,7 @@ def serve_rank(rank: int, store: str, out_dir: str, small: bool = False
         t0 = time.perf_counter()
         cfg = serve_phase_config(small, torch.float32,
                                  {"n_layers": SERVE_F32_LAYERS})
-        params = init_params(cfg, 0, dev)
+        params = ep_params(cfg, dev, ())
         toks = torch.randint(0, cfg.vocab_size,
                              (SERVE_BATCH, SERVE_F32_MAX_LEN), generator=gen,
                              dtype=torch.int32).to(dev)
@@ -5992,14 +6029,14 @@ def serve_rank(rank: int, store: str, out_dir: str, small: bool = False
             res[f"f32_{name}"] = serve_rank_f32(mesh, dev, cfg, params, toks)
         vcfg = serve_phase_config(small, torch.float32, SERVE_SEQ_VARIANT)
         res["f32_seq"] = serve_rank_f32(meshes["tp"], dev, vcfg,
-                                        init_params(vcfg, 0, dev), toks)
+                                        ep_params(vcfg, dev, ()), toks)
         del params
         if dev.type == "cuda":
             free_device_memory()
         deep = serve_phase_config(small, torch.bfloat16)
         prompt, steps = (64, 4) if small else (SERVE_PROMPT, SERVE_STEPS)
         t0 = time.perf_counter()
-        whole = init_params(deep, 0, dev)
+        whole = ep_params(deep, dev, ())
         p = ss.lay_out_params(whole, meshes["tp"], deep)
         del whole
         if dev.type == "cuda":
@@ -6138,6 +6175,422 @@ def sharded_serving(dev, plain, smi_line: str, small: bool = False) -> dict:
     return out
 
 
+# ------------------------------------------------------------------
+# phase 31: Mixtral's expert tensor parallelism on two gloo ranks
+MOE_TP_ARCH = "mixtral-8x22b"
+MOE_TP_MESH = (1, 2)
+# 31a / 31b: float32 at one layer (each rank draws the whole layer, 11.6
+# GB, then keeps its blocks); 31b's step on Adafactor (two ranks' AdamW
+# state beside the blocks and the out-of-place update would not fit the
+# one card at float32)
+MOE_TP_F32_LAYERS = 1
+MOE_TP_TRAIN_BATCH, MOE_TP_TRAIN_SEQ = 1, 512
+MOE_TP_OPT = "adafactor"
+# 31c: bf16 at two layers, B 4 x S 4096, then MOE_TP_STEPS decode steps
+MOE_TP_BF16_LAYERS = 2
+MOE_TP_BATCH, MOE_TP_PROMPT, MOE_TP_STEPS = 4, 4096, 4
+MOE_TP_LOCAL_HEADS = (24, 4)     # 48 / 2 query heads, 8 / 2 KV heads
+MOE_TP_TIME_SHAPE = (4, 24, 4, 4096, 128)
+MOE_TP_PHASE_S = 90
+
+
+def moe_tp_config(small: bool, dtype, layers: int):
+    """Mixtral-8x22B at its published widths cut to ``layers`` layers
+    (``small``: its smoke config, a rehearsal on the CPU) with ``dtype``
+    params and activations."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if small else get_config)(MOE_TP_ARCH)
+    return dataclasses.replace(cfg, n_layers=layers, param_dtype=dtype,
+                               activ_dtype=dtype)
+
+
+@contextlib.contextmanager
+def moe_routing_recorded(record: list):
+    """Every ``moe_block`` call of the block (the model's layers and the
+    serving decode's) appends its ``(counts, dropped)``, device tensors
+    copied on the device (no host read inside the sync check)."""
+    from repro_torch.models import model as tm
+    from repro_torch.serve import engine
+    real = tm.moe_block
+
+    def recorded(*a, **kw):
+        out, aux = real(*a, **kw)
+        record.append((aux["counts"].detach().clone(),
+                       aux["dropped"].detach().clone()))
+        return out, aux
+    tm.moe_block = engine.moe_block = recorded
+    try:
+        yield
+    finally:
+        tm.moe_block = engine.moe_block = real
+
+
+def moe_tp_routing(record: list) -> list:
+    """A record's ``(counts, dropped)`` as lists (read after the check)."""
+    return [[c.tolist(), d.int().sum().item(), d.flatten().tolist()]
+            for c, d in record]
+
+
+def by_axis(log) -> dict:
+    """``{"kind/axis": [count, bytes]}`` of a recorded call's
+    collectives."""
+    out: dict = {}
+    for kind, nbytes, _, axis in log:
+        got = out.setdefault(f"{kind}/{axis}", [0, 0])
+        got[0] += 1
+        got[1] += nbytes
+    return out
+
+
+def moe_tp_expected(kind: str, n_layers: int) -> dict:
+    """A serving call's collectives by (kind, axis) count at Mixtral's
+    (1, 2) layout on its override, worked out from it: nothing is cut
+    over "data"; over "model" the embedding's all-reduce, each layer's
+    attention output and expert output summed (one all-reduce each), the
+    logits all-gathered once, and at decode each layer's page mass summed
+    over the ranks' KV heads; no leaf is gathered over "model"."""
+    reduces = 1 + 2 * n_layers + (n_layers if kind == "decode" else 0)
+    return {"all_gather/model": 1, "all_reduce/model": reduces}
+
+
+def moe_tp_serve(mesh, dev, rank: int, small: bool, over: dict) -> dict:
+    """31a on one rank: the float32 serving run at one layer against the
+    single-device run (serve_rank_f32), its routing recorded."""
+    import torch
+    cfg = moe_tp_config(small, torch.float32, MOE_TP_F32_LAYERS)
+    params = ep_params(cfg, dev, range(cfg.moe.n_experts))
+    gen = torch.Generator().manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SERVE_BATCH, SERVE_F32_MAX_LEN), generator=gen,
+                         dtype=torch.int32).to(dev)
+    record: list = []
+    with moe_routing_recorded(record):
+        got = serve_rank_f32(mesh, dev, cfg, params, toks, over)
+    routing = moe_tp_routing(record)
+    n = len(routing) // 2
+    if routing[:n] != routing[n:]:
+        got["faults"].append("the sharded calls' expert counts or dropped "
+                             "pairs differ from the single-device calls'")
+    for i, log in enumerate(got["logs"]):
+        kind = "prefill" if i == 0 else "decode"
+        if by_axis(log).keys() != {"all_gather/model", "all_reduce/model"} \
+                or {k: v[0] for k, v in by_axis(log).items()} \
+                != moe_tp_expected(kind, cfg.n_layers):
+            got["faults"].append(f"call {i} ({kind}): collectives "
+                                 f"{by_axis(log)}, expected "
+                                 f"{moe_tp_expected(kind, cfg.n_layers)}")
+    got["logs"] = [by_axis(log) for log in got["logs"]]
+    got["routing"] = routing[:n]
+    return got
+
+
+def moe_tp_train(mesh, dev, rank: int, small: bool, over: dict) -> dict:
+    """31b on one rank: the single-device gradient of one layer first
+    (its blocks kept, the whole freed), then the sharded gradient (each
+    leaf's block against the single-device gradient's block, within
+    TRAIN_LEAF_TOL_OF_MAX of that leaf's largest magnitude) and one
+    sharded step under the sync check but for gloo's own calls, its loss
+    and gradient norm against the single-device ones within
+    FULL_WIDTH_F32_TOL; the routing of every call and the collectives."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.pytree import flatten
+    from repro_torch.train import sharded
+    from repro_torch.train.steps import loss_and_grads
+
+    cfg = moe_tp_config(small, torch.float32, MOE_TP_F32_LAYERS)
+    b, s = (1, 64) if small else (MOE_TP_TRAIN_BATCH, MOE_TP_TRAIN_SEQ)
+    batch = {k: ep_tokens(cfg, dev, b, s, 31 + c)
+             for c, k in enumerate(("tokens", "labels"))}
+    opt = get_optimizer(MOE_TP_OPT)
+    params = ep_params(cfg, dev, range(cfg.moe.n_experts))
+    state = opt.init(params)
+    shardings = sharded.state_shardings(mesh, cfg, state, over)
+    single: list = []
+    t0 = time.perf_counter()
+    with moe_routing_recorded(single):
+        one_loss, _, one_grads = loss_and_grads(params, cfg, batch)
+    one_norm = float(global_norm(one_grads))
+    one_leaves, skeleton = flatten(one_grads)
+    names = flatten(tree_paths(skeleton))[0]
+    blocks = [sh.local_block(g, x).clone() for g, x in
+              zip(one_leaves, flatten(shardings[0])[0])]
+    tops = [float(g.abs().max()) for g in one_leaves]
+    del one_grads, one_leaves
+    p, st = sh.distribute((params, state), shardings)
+    del params, state
+    if dev.type == "cuda":
+        free_device_memory()
+    out = {"single_s": time.perf_counter() - t0,
+           "one_loss": float(one_loss), "one_grad_norm": one_norm}
+    db = sh.distribute(batch, sh.named(mesh, sh.batch_specs(mesh, cfg,
+                                                            batch)))
+    grads_rec: list = []
+    with moe_routing_recorded(grads_rec), sh.recording() as log:
+        loss, _, grads = sharded.sharded_grads(cfg, mesh, p, db, over)
+    faults, share = [], {}
+    for name, g, want, top in zip(names, flatten(grads)[0], blocks, tops):
+        err = float((g - want).abs().max())
+        allowed = TRAIN_LEAF_TOL_OF_MAX * top
+        share[name] = err / allowed if allowed > 0 else math.inf
+        if not (bool(torch.isfinite(g).all()) and share[name] <= 1.0):
+            faults.append(f"{name}: max abs err {err} over {allowed}")
+    del grads, blocks
+    step = sharded.make_sharded_train_step(cfg, opt,
+                                           cosine_schedule(*TP_LR), mesh,
+                                           over)
+    step_rec: list = []
+    ep_sync(dev)
+    t0 = time.perf_counter()
+    with moe_routing_recorded(step_rec), sh.recording() as step_log, \
+            sync_checked_but_collectives(dev.type == "cuda"):
+        p, st, m = step(p, st, db)
+    ep_sync(dev)
+    out["step_s"] = time.perf_counter() - t0
+    for key, g, c in (("loss", float(loss), out["one_loss"]),
+                      ("step_loss", float(m["loss"]), out["one_loss"]),
+                      ("step_grad_norm", float(m["grad_norm"]), one_norm)):
+        if not (math.isfinite(g)
+                and abs(g - c) <= FULL_WIDTH_F32_TOL * (1 + abs(c))):
+            faults.append(f"{key}: {g} vs {c}")
+        out[key] = g
+    routing = [moe_tp_routing(r) for r in (single, grads_rec, step_rec)]
+    if not routing[0] == routing[1] == routing[2]:
+        faults.append("the sharded calls' expert counts or dropped pairs "
+                      "differ from the single-device calls'")
+    for what, lg in (("gradient", log), ("step", step_log)):
+        if any(k.startswith("all_gather/model") for k in by_axis(lg)):
+            faults.append(f"the {what} gathers over \"model\": "
+                          f"{by_axis(lg)}")
+    out.update(faults=faults, worst_share=max(share.values()),
+               share_of_tolerance=share, routing=routing[1],
+               grads_collectives=by_axis(log),
+               step_collectives=by_axis(step_log),
+               expert_blocks={k: list(x.to_local().shape) for k, x in
+                              p["blocks"].items() if k.startswith("e_")},
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None))
+    return out
+
+
+def moe_tp_prefill(mesh, dev, rank: int, small: bool, over: dict) -> dict:
+    """31c on one rank: Mixtral in bf16 at two layers, its blocks drawn
+    whole and laid out, the prefill of B MOE_TP_BATCH x S MOE_TP_PROMPT
+    and MOE_TP_STEPS decode steps (serve_sharded_run), its routing and
+    collectives."""
+    import torch
+    from repro_torch.serve import sharded as ss
+    cfg = moe_tp_config(small, torch.bfloat16, MOE_TP_BF16_LAYERS)
+    prompt, steps = (64, 2) if small else (MOE_TP_PROMPT, MOE_TP_STEPS)
+    t0 = time.perf_counter()
+    whole = ep_params(cfg, dev, range(cfg.moe.n_experts))
+    p = ss.lay_out_params(whole, mesh, cfg, over)
+    del whole
+    if dev.type == "cuda":
+        free_device_memory()
+    toks = ep_tokens(cfg, dev, MOE_TP_BATCH, prompt + steps, 311)
+    draw_s = time.perf_counter() - t0
+    record: list = []
+    with moe_routing_recorded(record):
+        got = serve_sharded_run(mesh, dev, cfg, p, toks, prompt,
+                                prompt + steps, steps, SERVE_PAGE,
+                                overrides=over)
+    faults = []
+    for i, log in enumerate(got["logs"]):
+        kind = "prefill" if i == 0 else "decode"
+        counted = {k: v[0] for k, v in by_axis(log).items()}
+        if counted != moe_tp_expected(kind, cfg.n_layers):
+            faults.append(f"call {i} ({kind}): collectives {by_axis(log)}")
+    out = {k: got[k] for k in ("prefill_s", "decode_s", "prefill_launches",
+                               "prefill_routes", "decode_launches", "heads",
+                               "peak_gib")}
+    out.update(draw_s=draw_s, n_layers=cfg.n_layers, prompt=prompt,
+               steps=steps, faults=faults,
+               collectives=[by_axis(log) for log in got["logs"][:2]],
+               routing=moe_tp_routing(record),
+               finite=all(bool(torch.isfinite(x).all())
+                          for x in got["logits"]),
+               logits_sum=[float(x.double().sum()) for x in got["logits"]],
+               expert_blocks={k: list(x.to_local().shape) for k, x in
+                              p["blocks"].items() if k.startswith("e_")})
+    return out
+
+
+def moe_tp_rank(rank: int, store: str, out_dir: str, small: bool = False
+                ) -> None:
+    """One of phase 31's two ranks (a spawned process; ``small``: the
+    smoke config on the CPU, a rehearsal)."""
+    import datetime
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cpu") if small else torch.device("cuda", 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.configs import get_sharding_overrides
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh(MOE_TP_MESH, ("data", "model"), device=dev.type)
+        over = get_sharding_overrides(MOE_TP_ARCH)
+        res = {}
+        for name, part in (("serve_f32", moe_tp_serve),
+                           ("train_f32", moe_tp_train),
+                           ("bf16", moe_tp_prefill)):
+            t0 = time.perf_counter()
+            res[name] = part(mesh, dev, rank, small, over)
+            res[name]["seconds"] = time.perf_counter() - t0
+            if dev.type == "cuda":
+                free_device_memory()
+                torch.cuda.reset_peak_memory_stats(dev)
+        with open(f"{out_dir}/rank.{rank}.json", "w") as f:
+            json.dump(res, f, sort_keys=True)
+    except BaseException:
+        with open(f"{out_dir}/rank.{rank}.error", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def mixtral_expert_tp(dev, plain, smi_line: str, small: bool = False
+                      ) -> dict:
+    """Phase 31 (see the module doc).  ``small``: a rehearsal of the ranks
+    on the CPU with the smoke config (no kernel time)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        free_device_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_tp_")
+    out_dir = obs_dir("mixtral_expert_tp")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=moe_tp_rank,
+                         args=(r, f"{tmp}/store", str(out_dir), small))
+             for r in range(2)]
+    try:
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(timeout=MOE_TP_PHASE_S + 60)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errors = sorted(out_dir.glob("rank.*.error"))
+        if errors or any(pr.exitcode != 0 for pr in procs):
+            fail("phase 31's ranks failed (exit codes "
+                 f"{[pr.exitcode for pr in procs]}): "
+                 + " | ".join(e.read_text()[-3000:] for e in errors))
+        ranks = [json.loads((out_dir / f"rank.{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    t_ranks = time.perf_counter() - t_phase
+    cfg = moe_tp_config(small, torch.float32, 1)
+    e, d, fe = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    want_blocks = {"e_gate": [1, e, d, fe // 2], "e_up": [1, e, d, fe // 2],
+                   "e_down": [1, e, fe // 2, d]}
+    for name in ("serve_f32", "train_f32", "bf16"):
+        for r, res in enumerate(ranks):
+            if res[name]["faults"]:
+                fail(f"31 {name} rank {r}: " + "; ".join(res[name]["faults"]))
+            if res[name]["routing"] != ranks[0][name]["routing"]:
+                fail(f"31 {name}: the ranks' expert counts or dropped pairs "
+                     "differ")
+    for name, layers in (("train_f32", 1), ("bf16", MOE_TP_BF16_LAYERS)):
+        want = {k: [layers] + v[1:] for k, v in want_blocks.items()}
+        for r, res in enumerate(ranks):
+            if res[name]["expert_blocks"] != want:
+                fail(f"31 {name} rank {r}: expert blocks "
+                     f"{res[name]['expert_blocks']}, expected {want}")
+    bf = [r["bf16"] for r in ranks]
+    layers = bf[0]["n_layers"]
+    for r, got in enumerate(bf):
+        if not got["finite"] or got["logits_sum"] != bf[0]["logits_sum"]:
+            fail(f"31c rank {r}: logits finite {got['finite']}, sums "
+                 f"{got['logits_sum']} (rank 0 {bf[0]['logits_sum']})")
+        if dev.type != "cuda":
+            continue
+        if (got["prefill_launches"] != layers
+                or got["prefill_routes"] != fa_routes(torch.bfloat16,
+                                                      cfg.head_dim, layers)
+                or got["decode_launches"] != 0
+                or got["heads"] != [list(MOE_TP_LOCAL_HEADS)]):
+            fail(f"31c rank {r}: prefill launches {got['prefill_launches']} "
+                 f"{got['prefill_routes']}, decode launches "
+                 f"{got['decode_launches']}, heads {got['heads']}: expected "
+                 f"{layers} tensor-core launches at {MOE_TP_LOCAL_HEADS} "
+                 "heads and none in decode")
+    prompt, steps = bf[0]["prompt"], bf[0]["steps"]
+    b = MOE_TP_BATCH
+    out = {"arch": MOE_TP_ARCH, "mesh": MOE_TP_MESH, "smi": smi_line,
+           "f32_layers": MOE_TP_F32_LAYERS,
+           "f32_serve_worst_share": max(r["serve_f32"]["worst_share"]
+                                        for r in ranks),
+           "f32_serve_collectives": ranks[0]["serve_f32"]["logs"][:2],
+           "f32_train_optimizer": MOE_TP_OPT,
+           "f32_train_worst_leaf_share": max(r["train_f32"]["worst_share"]
+                                             for r in ranks),
+           "f32_train_loss": [ranks[0]["train_f32"]["step_loss"],
+                              ranks[0]["train_f32"]["one_loss"]],
+           "f32_train_grad_norm": [ranks[0]["train_f32"]["step_grad_norm"],
+                                   ranks[0]["train_f32"]["one_grad_norm"]],
+           "f32_train_step_collectives":
+               ranks[0]["train_f32"]["step_collectives"],
+           "f32_train_step_s": [r["train_f32"]["step_s"] for r in ranks],
+           "f32_train_peak_gib": [r["train_f32"]["peak_gib"] for r in ranks],
+           "f32_dropped_pairs": sum(x[1] for x in
+                                    ranks[0]["train_f32"]["routing"]),
+           "expert_blocks": ranks[0]["bf16"]["expert_blocks"],
+           "bf16_layers": layers, "batch": b, "prompt": prompt,
+           "decode_steps": steps,
+           "prefill_s": [x["prefill_s"] for x in bf],
+           "decode_s": [x["decode_s"] for x in bf],
+           "prefill_tokens_per_s": b * prompt / max(x["prefill_s"]
+                                                    for x in bf),
+           "decode_tokens_per_s": b * steps / max(x["decode_s"] for x in bf),
+           "flash_attention_per_rank_prefill": bf[0]["prefill_launches"],
+           "flash_attention_in_decode": [x["decode_launches"] for x in bf],
+           "heads": bf[0]["heads"],
+           "bf16_collectives": bf[0]["collectives"],
+           "peak_gib": [x["peak_gib"] for x in bf],
+           "parts_s": {name: [r[name]["seconds"] for r in ranks]
+                       for name in ("serve_f32", "train_f32", "bf16")},
+           "no_sync_but_gloo": dev.type == "cuda",
+           "launches": sum(x["prefill_launches"] + x["decode_launches"]
+                           for x in bf),
+           "ranks_s": t_ranks}
+    if dev.type == "cuda":
+        bq, h, kvh, s_len, d_h = MOE_TP_TIME_SHAPE
+        out["forward"] = flash_attention_time(
+            dev, plain, "mixtral-8x22b expert-TP rank", bq, h, kvh, d_h,
+            s_len=s_len, window=MIXTRAL_WINDOW)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["limit_s"] = MOE_TP_PHASE_S
+    say("mixtral_expert_tp", **{k: v for k, v in out.items()
+                                if k != "forward"})
+    if out["seconds"] > MOE_TP_PHASE_S:
+        fail(f"phase 31 took {out['seconds']:.1f} s, over its "
+             f"{MOE_TP_PHASE_S} s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -6145,7 +6598,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 30) -> None:
+def main(until: int = 31) -> None:
     import numpy as np
     import torch
 
@@ -6821,6 +7274,11 @@ def main(until: int = 30) -> None:
     # -------------------------- 30. sharded serving, two gloo ranks
     sv30 = sharded_serving(dev, plain, smi_line)
 
+    if until < 31:
+        fail(f"stopped after phase {until} (--until)")
+    # ------------- 31. Mixtral's expert tensor parallelism, two gloo ranks
+    mx31 = mixtral_expert_tp(dev, plain, smi_line)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -7126,6 +7584,20 @@ def main(until: int = 30) -> None:
          "bound_ms": sv30["forward"]["bound_ms"],
          "bound_by": sv30["forward"]["bound_by"],
          "library_ms": sv30["forward"]["sdpa_ms"]},
+        # the tensor-core route on Mixtral's expert-tensor-parallel serving
+        # path: its launches on both ranks in phase 31c's bf16 prefill (one
+        # a layer at a rank's 24 / 4 heads; none in decode), its error and
+        # time at that shape (B 4, H 24, KVH 4, S 4096, d 128, window 4096)
+        {"name": "flash_attention_mixtral_tp", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": mx31["launches"],
+         "max_abs_err": mx31["forward"]["max_abs_err"],
+         "ms": mx31["forward"]["ms"], "plain_ms": mx31["forward"]["plain_ms"],
+         "bound_ms": mx31["forward"]["bound_ms"],
+         "bound_by": mx31["forward"]["bound_by"],
+         "library_ms": mx31["forward"]["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -7138,4 +7610,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 30)
+    main(int(args[1]) if args[:1] == ["--until"] else 31)

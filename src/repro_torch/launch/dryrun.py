@@ -46,8 +46,10 @@ would compile:
   "model", the attention at the rank's heads, two all-reduces over
   "model" a block; where the rules cut through a head, the projections on
   the rank's columns and the attention on all heads; MoE layers
-  single-program or expert parallel, rwkv6's and Mamba2's blocks whole on
-  every rank, gathered block by block);
+  single-program (each expert on the rank's block of ``d_expert`` where
+  the rules put ``expert_mlp`` on "model": Mixtral's override) or expert
+  parallel, rwkv6's and Mamba2's blocks whole on every rank, gathered
+  block by block);
 * **prefill** and **decode**: ``serve.engine.prefill(mesh=)`` /
   ``decode_step(mesh=)``, sharded serving on the reference's layouts
   (``serve.sharded``): the params laid out by ``model_pspecs`` as the
@@ -58,7 +60,9 @@ would compile:
   cell's its output), the rank's slice of the batch; prefill's MoE layers
   on the step's groups (expert parallel where the rules put the experts
   on "model"), decode's on the whole batch's routing with each rank's
-  experts' slots (or the layer's experts gathered at use); rwkv6's and
+  experts' slots; where the rules put ``expert_mlp`` on "model" both run
+  every expert on the rank's block of ``d_expert`` (else the layer's
+  experts are gathered at use); rwkv6's and
   Mamba2's blocks whole on every rank, their states the rank's block
   over "model".  ``long_500k``'s batch of 1 does not split: the cache's
   sequence takes the batch axes too, and a decode step combines the

@@ -653,7 +653,7 @@ def at_use(x, keep: Optional[str] = None, sums: Sequence[str] = ()):
 
 # ----------------------- the leaves a step hands over, and how ("model")
 # the logical axes whose leaves a module can use as its block over "model"
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert_mlp")
 
 
 def tp_config(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
@@ -686,11 +686,15 @@ def leaf_roles(cfg: ModelConfig, mesh, overrides: Optional[dict] = None
     ``overrides``): trees of bools like the params.  Local: a leaf handed
     over as this rank's block over "model" (an expert leaf where
     :func:`experts_local` and its spec puts "model" on its experts dim; a
-    leaf of ``tp_roles``).  Partial: a whole leaf whose gradient is a
-    partial sum on each rank of "model"."""
+    leaf of ``tp_roles``, the expert leaves among them where the rules put
+    ``expert_mlp`` on "model": each rank its block of ``d_expert``).
+    Partial: a whole leaf whose gradient is a partial sum on each rank of
+    "model".  A ``cfg`` that names its ``tp_axes`` (``tp_config``'s, made
+    with the arch's overrides: sharded serving's config) keeps them."""
     from ..models.model import tp_roles
     pspecs = model_pspecs(mesh, cfg, overrides)
-    cfg = tp_config(cfg, mesh, overrides)
+    if cfg.tp_axes is None:
+        cfg = tp_config(cfg, mesh, overrides)
     local = map_specs(lambda spec: False, pspecs)
     partial = map_specs(lambda spec: False, pspecs)
     if experts_local(cfg):

@@ -103,7 +103,8 @@ class TensorParallel(NamedTuple):
     one ``rank``): ``heads`` "whole" / "cut" / None and ``kv`` "local" /
     "sliced" / None as the module doc says, ``mlp`` (the dense MLP on its
     block of columns), ``vocab`` (the embedding and the loss on its block
-    of the vocabulary)."""
+    of the vocabulary), ``experts`` (the MoE expert FFN on its block of
+    every expert's ``d_expert``: ``models.moe``)."""
     mesh: Any
     size: int
     rank: int
@@ -111,6 +112,7 @@ class TensorParallel(NamedTuple):
     kv: Optional[str]
     mlp: bool
     vocab: bool
+    experts: bool
 
 
 def kv_heads_read(n_heads: int, n_kv_heads: int, size: int, rank: int):

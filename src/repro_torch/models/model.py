@@ -299,12 +299,15 @@ def param_pspecs(cfg: ModelConfig, rules: Dict[Optional[str], Any]) -> dict:
 
 # ======================================================= tensor parallelism
 def tp_layout(cfg: ModelConfig, size: int):
-    """(heads, kv, mlp, vocab) of :class:`layers.TensorParallel` for
-    ``cfg.tp_axes`` at ``size`` "model" ranks: which modules run on their
-    rank's block of the leaves the rules split over "model".  The dense
-    and MoE attention and zamba2's shared block split their heads; the
-    dense MLP and zamba2's shared MLP their columns (the MoE layers keep
-    their own route, and rwkv6's and Mamba2's blocks run whole); the
+    """(heads, kv, mlp, vocab, experts) of :class:`layers.TensorParallel`
+    for ``cfg.tp_axes`` at ``size`` "model" ranks: which modules run on
+    their rank's block of the leaves the rules split over "model".  The
+    dense and MoE attention and zamba2's shared block split their heads;
+    the dense MLP and zamba2's shared MLP their columns; the MoE expert
+    FFN every expert's ``d_expert`` where the rules put ``expert_mlp`` on
+    "model" (the reference's expert tensor parallelism: Mixtral's 8
+    experts at 16 ranks) and it splits evenly, else the layer's experts
+    are gathered at use (rwkv6's and Mamba2's blocks run whole); the
     embedding and the loss their vocabulary when it splits evenly."""
     axes = cfg.tp_axes or ()
     heads = kv = None
@@ -321,7 +324,9 @@ def tp_layout(cfg: ModelConfig, size: int):
                          f"ranks while the query heads are not split whole")
     mlp = "mlp" in axes and cfg.family in ("attn", "zamba2")
     vocab = "vocab" in axes and cfg.vocab_size % size == 0
-    return heads, kv, mlp, vocab
+    experts = ("expert_mlp" in axes and cfg.family == "moe"
+               and cfg.moe.d_expert % size == 0)
+    return heads, kv, mlp, vocab, experts
 
 
 def tp_roles(cfg: ModelConfig, size: int) -> Dict[str, str]:
@@ -329,7 +334,7 @@ def tp_roles(cfg: ModelConfig, size: int) -> Dict[str, str]:
     for a leaf the step hands over as this rank's block over "model" (its
     gradient is that block's), "partial" for a whole leaf whose gradient
     is a partial sum on each rank (the step sums it over "model")."""
-    heads, kv, mlp, vocab = tp_layout(cfg, size)
+    heads, kv, mlp, vocab, experts = tp_layout(cfg, size)
     out: Dict[str, str] = {}
     paths = {path for path, _ in iter_schema(cfg)}
 
@@ -355,6 +360,9 @@ def tp_roles(cfg: ModelConfig, size: int) -> Dict[str, str]:
     if mlp:
         for w in ("w_gate", "w_up", "w_down"):
             put(prefix + w, "local")
+    if experts:
+        for w in ("e_gate", "e_up", "e_down"):
+            put("blocks." + w, "local")
     return out
 
 
@@ -408,8 +416,9 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
     (x, aux, (k, v)), the prefill's cache rows (those this rank holds:
     ``layers.attention_block``'s ``kv_rows``).  ``mesh``: ``x`` is a
     rank's slice of a batch split over ``cfg.act_batch_axes`` of it (see
-    :func:`forward`), and with ``cfg.tp_axes`` the attention and the dense
-    MLP run on this rank's blocks (:func:`tensor_parallel`)."""
+    :func:`forward`), and with ``cfg.tp_axes`` the attention, the dense
+    MLP and the MoE expert FFN run on this rank's blocks
+    (:func:`tensor_parallel`)."""
     tp = tensor_parallel(cfg, mesh)
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     h = attention_block(
@@ -431,7 +440,8 @@ def transformer_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
                            capacity_factor=cfg.moe.capacity_factor,
                            groups=cfg.moe_groups or (1, 1),
                            batch_axes=cfg.act_batch_axes, mesh=mesh,
-                           expert_sharded=cfg.moe_expert_sharded)
+                           expert_sharded=cfg.moe_expert_sharded,
+                           tp=tp if tp is not None and tp.experts else None)
     else:
         h = swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"],
                    tp=tp if tp is not None and tp.mlp else None)

@@ -38,6 +38,23 @@ the single-program path, the shared expert runs on all of ``x``.  The
 collectives are ``launch.sharding``'s (``all_to_all``, ``split_seq``,
 ``gather_seq``): differentiable, and counted.
 
+With ``tp`` (a ``layers.TensorParallel`` whose ``experts`` is set: the
+rules put ``expert_mlp`` on "model", the reference's expert tensor
+parallelism, Mixtral's layout) the single-program path runs each expert's
+FFN on this rank's block of its ``d_expert`` (``p.w_gate`` / ``p.w_up``
+hold its ``Fe / m`` columns, ``p.w_down`` its rows).  The router,
+``counts``, the balance loss, the capacity, the slots and the dropped
+pairs are the whole batch's, the same on every rank of "model" (they see
+the same rows); the expert products give a partial ``(E, C, D)`` buffer,
+the combine a partial ``(T, D)`` output, and the partial outputs meet in
+one all-reduce over "model" (``launch.sharding.from_model``; never the
+``(E, C, D)`` buffer).  The dispatched rows and the routing weights enter
+through ``to_model``, so their gradients, partial on each rank, are summed
+over "model" in the backward (two all-reduces: ``(T, D)`` and
+``(T, k)``); the router's input does not, so the router's gradient (the
+weights' part summed, the balance loss's part whole) comes out whole and
+the same on every rank.
+
 Where the expert weights hold fewer than ``E`` experts on the
 single-program path (sharded serving's decode, the rules' experts on
 "model"), they are this rank's block of ``E / m`` over the mesh axis
@@ -185,7 +202,7 @@ def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
               capacity_factor: float = 1.25,
               groups: Tuple[int, int] = (1, 1),
               batch_axes: Optional[Tuple[str, ...]] = None, mesh=None,
-              expert_sharded: bool = False):
+              expert_sharded: bool = False, tp=None):
     """x: (B, S, D).  Returns (out (B, S, D), aux) with ``aux["counts"]``
     (E,) int32 — the expert activation telemetry — ``aux["aux_loss"]``,
     the switch-style load-balance loss (a float32 scalar), and
@@ -201,7 +218,9 @@ def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
     are the whole batch's too; on the expert-parallel path (``groups``
     ``(gd, gm)`` of more than one member and ``expert_sharded``; see the
     module doc) they are each group's, ``gd`` the batch axes' size and
-    ``gm`` the size of the mesh's "model" axis."""
+    ``gm`` the size of the mesh's "model" axis.  ``tp`` (with ``mesh``):
+    the single-program path tensor parallel over "model" on this rank's
+    block of ``d_expert`` (the module doc)."""
     gd, gm = groups
     ep = gd * gm > 1 and expert_sharded
     if ep and mesh is None:
@@ -239,14 +258,17 @@ def moe_block(x: torch.Tensor, p: MoEParams, *, top_k: int,
     else:
         # ---- single-program path
         capacity = max(int(t_all * top_k * capacity_factor / e), 4)
-        x_buf, pos = _dispatch_local(x.reshape(t, d), flat_e, top_k, e,
-                                     capacity, before)
+        xf, wf = x.reshape(t, d), topw.reshape(t, top_k)
+        if tp is not None:
+            from ..launch.sharding import to_model
+            xf, wf = to_model(xf, mesh), to_model(wf, mesh)
+        x_buf, pos = _dispatch_local(xf, flat_e, top_k, e, capacity, before)
         slots = p.w_gate.shape[0] != e
         y_buf = (_expert_slots(x_buf, p, mesh) if slots
                  else _expert_ffn(x_buf, p.w_gate, p.w_up, p.w_down))
-        out = _combine_local(y_buf, pos, flat_e, topw.reshape(t, top_k),
+        out = _combine_local(y_buf, pos, flat_e, wf,
                              capacity).reshape(b, s, d)
-        if slots:
+        if slots or tp is not None:
             from ..launch.sharding import from_model
             out = from_model(out, mesh)
         dropped = (pos >= capacity).reshape(b, s, top_k)

@@ -53,7 +53,12 @@ function and holds no whole leaf or cache beyond the block that reads it:
 * MoE decode routes the whole batch at capacity factor 4.0
   (``moe_block``'s ``batch_axes``); with the rules' experts on "model"
   each rank runs its experts' slots and the outputs meet in one
-  all-reduce over "model", else the layer's experts are gathered at use;
+  all-reduce over "model"; with ``expert_mlp`` on "model" (Mixtral's
+  override) each rank runs every expert on its block of ``d_expert``
+  (the expert leaves stay its block over "model", gathered over "data"
+  alone) and the combined partial outputs meet in one all-reduce over
+  "model", at prefill as at decode (``models.moe``); else the layer's
+  experts are gathered at use;
 * rwkv6's and Mamba2's blocks run whole on every rank; their recurrent
   state rests as the rank's block over "model", gathered at use.
 
@@ -259,8 +264,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     attention at its heads; each MoE layer routes by ``cfg``'s
     ``moe_groups`` / ``moe_expert_sharded`` as the reference's prefill
     passes them (the expert-parallel path, the expert leaves this rank's
-    block of them).  With plain ``params`` the older form (the module
-    doc)."""
+    block of them), or with ``expert_mlp`` in ``cfg.tp_axes`` on the
+    rank's block of every expert's ``d_expert``.  With plain ``params``
+    the older form (the module doc)."""
     # the reference swaps the triangular schedule for the masked one at
     # prefill (an XLA layout choice; the same function here)
     if cfg.causal_schedule == "triangular":
@@ -413,7 +419,8 @@ def _decode_layer(x, bp, cfg: ModelConfig, kc, vc, pos, tp,
     """One dense or MoE layer for one token -> (x, the page mass or None,
     the MoE layer's router counts or None); K / V written into ``kc`` /
     ``vc`` in place.  A MoE layer routes with capacity factor 4.0, the
-    whole batch's routing under ``mesh``."""
+    whole batch's routing under ``mesh``, its expert FFN on the rank's
+    block of ``d_expert`` where ``tp.experts``."""
     h = rms_norm(x[:, None], bp["ln1"], cfg.norm_eps)[:, 0]
     ap = AttnParams(bp["wq"], bp["wk"], bp["wv"], bp["wo"], bp.get("bq"),
                     bp.get("bk"), bp.get("bv"))
@@ -429,7 +436,9 @@ def _decode_layer(x, bp, cfg: ModelConfig, kc, vc, pos, tp,
     if cfg.family == "moe":
         h2, moe_aux = moe_block(h2, moe_params(bp), top_k=cfg.moe.top_k,
                                 capacity_factor=4.0,
-                                batch_axes=cfg.act_batch_axes, mesh=mesh)
+                                batch_axes=cfg.act_batch_axes, mesh=mesh,
+                                tp=tp if tp is not None and tp.experts
+                                else None)
         counts = moe_aux["counts"]
     else:
         h2 = swiglu(h2, bp["w_gate"], bp["w_up"], bp["w_down"],

@@ -43,20 +43,33 @@ Ranks that differ only on "model" compute the same batch slice, each its
 part of it.  At more than one "model" rank the step is tensor parallel
 over "model" as the rules lay the leaves out: the config's ``tp_axes``
 names the logical axes the rules put on "model" (heads, kv_heads, mlp,
-vocab), and ``models.model.tp_roles`` the leaves whose module runs on its
-rank's block: the attention's q / o (and k / v where they split), the
-dense MLP, the embedding and the loss's head (``models.layers``' module
-doc has the forms, and the fallback where the rule cuts through a head).
-Those leaves stay this rank's block over "model", their gradients that
-block's; the activations' partial sums meet in two all-reduces over
-"model" a block (``launch.sharding.to_model`` / ``from_model``).  The MoE
-layers keep their route: the single program, or with ``moe_groups`` and
-``moe_expert_sharded`` expert parallelism (the reference's
-``_moe_shard_map``), where each rank of "model" routes its sequence slice
-to the experts it holds (``models.moe``) and an expert leaf (one whose
-spec puts "model" on its experts dim) is local to "model" too.
-rwkv6's and Mamba2's blocks run whole on every rank, each gathered block
-by block.  At one rank on every axis, or without a mesh, every op is the
+vocab, expert_mlp), and ``models.model.tp_roles`` the leaves whose module
+runs on its rank's block: the attention's q / o (and k / v where they
+split), the dense MLP, the embedding and the loss's head
+(``models.layers``' module doc has the forms, and the fallback where the
+rule cuts through a head), and where the rules put ``expert_mlp`` on
+"model" (Mixtral's override, the reference's expert tensor parallelism)
+the MoE experts' ``e_gate`` / ``e_up`` columns and ``e_down`` rows of
+``d_expert``.  Those leaves stay this rank's block over "model" (still
+gathered over "data" at use), their gradients that block's; the
+activations' partial sums meet in two all-reduces over "model" a dense
+block (``launch.sharding.to_model`` / ``from_model``).  A MoE layer on
+expert tensor parallelism routes the whole batch on every rank of
+"model" (the same router, counts, balance loss, capacity, slots and
+dropped pairs), runs every expert on its block of ``d_expert`` and sums
+the combined ``(T, D)`` outputs in one all-reduce over "model" (never
+the ``(E, C, D)`` buffer); its backward all-reduces the gradients of the
+dispatched rows and of the routing weights (two), so the router's
+gradient comes out whole on every rank.  With the dense layer's
+attention that is 6 all-reduces over "model" a MoE layer and step (the
+recompute under remat stops before the experts').  Otherwise the MoE
+layers keep their route: the single program with the layer's experts
+gathered at use, or with ``moe_groups`` and ``moe_expert_sharded``
+expert parallelism (the reference's ``_moe_shard_map``), where each rank
+of "model" routes its sequence slice to the experts it holds
+(``models.moe``) and an expert leaf (one whose spec puts "model" on its
+experts dim) is local to "model" too.  rwkv6's and Mamba2's blocks run
+whole on every rank, each gathered block by block.  At one rank on every axis, or without a mesh, every op is the
 single-device step's.  The layout helpers and the collectives (counted in
 ``launch.sharding.COLLECTIVES``) are ``launch.sharding``'s.  Under remat
 every block's forward, its gathers and collectives with it, runs again

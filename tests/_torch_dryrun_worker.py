@@ -14,6 +14,9 @@ and the CLI's record under ``OUT/cli`` (or ``OUT/error.txt``).
    changes no count); at (4, 1) the same step's memory at the config's
    layers and at twice as many; ``make_production_mesh`` on too few
    ranks.
+   Then Mixtral's smoke step on its override (its experts' d_expert over
+   "model") the same way at (2, 2) and (1, 4), beside its single-device
+   count.
 2. A fake group of 512 ranks: ``make_production_mesh`` one pod and two.
 3. No group: ``dryrun.main`` on qwen2-0.5b x train_4k x 16x16, which
    starts its own fake group of 512.
@@ -27,6 +30,10 @@ import traceback
 ARCH = "qwen2-0.5b"
 MESHES = ((2, 2), (1, 4), (4, 1))
 BATCH, SEQ = 4, 64
+# Mixtral's smoke step on its override (each expert's d_expert over
+# "model"): at the meshes whose "model" axis it cuts
+MOE_ARCH = "mixtral-8x22b"
+MOE_MESHES = ((2, 2), (1, 4))
 
 
 def fake_group(world: int) -> None:
@@ -34,6 +41,59 @@ def fake_group(world: int) -> None:
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world)
+
+
+def moe_cases(out: dict) -> None:
+    """Mixtral's smoke train step (B 4, S 64) on its override: the
+    single-device count without a group, then on the fake group of 4 at
+    each of MOE_MESHES the sharded step's count and ``FlopCounterMode``'s
+    count of the same step on CPU tensors."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_sharding_overrides, get_smoke_config
+    from repro_torch.launch import dryrun, sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec, input_specs
+    from repro_torch.models.model import abstract_params, init_params
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.train.sharded import state_shardings
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_smoke_config(MOE_ARCH)
+    over = get_sharding_overrides(MOE_ARCH)
+    shape = ShapeSpec("train_smoke", SEQ, BATCH, "train")
+    opt = get_optimizer(dryrun.get_optimizer_name_from_cfg(cfg))
+    step = make_train_step(cfg, opt, cosine_schedule(3e-4, 100, 10000))
+    params = abstract_params(cfg)
+    out["moe single_device_flops"] = dryrun.count_step(
+        step, (params, opt.init(params),
+               input_specs(cfg, shape)))["executed"]["flops"]
+    fake_group(4)
+    try:
+        for shp in MOE_MESHES:
+            mesh = make_mesh(shp, ("data", "model"), device="cpu")
+            fn, args = dryrun.build_step(cfg, shape, mesh, over)
+            rec = dryrun.count_step(fn, args)
+            step_cfg = dryrun.step_config(cfg, shape, mesh, over)
+            params_cpu = init_params(step_cfg, 0, "cpu")
+            state_cpu = opt.init(params_cpu)
+            toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                                 generator=torch.Generator().manual_seed(0),
+                                 dtype=torch.int32)
+            batch = {"tokens": toks, "labels": toks}
+            cpu_args = sh.distribute(
+                (params_cpu, state_cpu, batch),
+                (*state_shardings(mesh, step_cfg, state_cpu, over),
+                 sh.named(mesh, sh.batch_specs(mesh, step_cfg, batch))))
+            with FlopCounterMode(display=False) as f:
+                fn(*cpu_args)
+            out[f"moe mesh {shp[0]}x{shp[1]}"] = {
+                "flops": rec["executed"]["flops"],
+                "kernels": rec["kernels"], "executed": rec["executed"],
+                "cpu_flops": f.get_total_flops()}
+    finally:
+        dist.destroy_process_group()
 
 
 def small_group_cases(out: dict) -> None:
@@ -133,6 +193,7 @@ def main(out_dir: str) -> None:
     out: dict = {}
     try:
         small_group_cases(out)
+        moe_cases(out)
         production_cases(out)
         cli_case(out_dir, out)
         with open(os.path.join(out_dir, "cases.json"), "w") as f:

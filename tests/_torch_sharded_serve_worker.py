@@ -3,7 +3,8 @@ rank of a 4-rank gloo group, importing only ``repro_torch``.
 
 Every rank builds the meshes (subgroups of the one group), then runs each
 case of CASES: the case's smoke config in float32, its params laid out by
-``model_pspecs`` (``serve.sharded.lay_out_params``), ``engine.prefill``
+``model_pspecs`` on the arch's sharding overrides
+(``serve.sharded.lay_out_params``), ``engine.prefill``
 of the prompt (PROMPT tokens into a cache of MAX_LEN positions) and
 DECODE_STEPS ``engine.decode_step`` calls with page masses of PAGE
 positions, each under ``launch.sharding.recording``.  Then:
@@ -47,7 +48,8 @@ CUT = {"n_heads": 6, "head_dim": 16}
 # they do not divide it, so the cache's sequence goes over "model" (and
 # the decode combines the ranks' slices), zamba2's 4 over "model"; at
 # (4, 1) FSDP alone; at a batch of one the sequence takes "data" too.
-# Mixtral with a window of 6 (the window cuts the combined rows); the MoE
+# Mixtral with a window of 6 (the window cuts the combined rows) and its
+# override (each rank every expert on its block of d_expert); the MoE
 # at capacity factor 8 (no token drops at prefill, where the groups'
 # local capacity differs from the single program's)
 CASES = {
@@ -105,6 +107,14 @@ def tokens_np(case: str) -> np.ndarray:
                         ).astype(np.int32)
 
 
+def overrides(case: str) -> dict:
+    """The case's arch's sharding overrides (Mixtral's: its experts'
+    ``expert_mlp`` on "model", each rank running every expert on its block
+    of ``d_expert``)."""
+    from repro_torch.configs import get_sharding_overrides
+    return get_sharding_overrides(CASES[case][0])
+
+
 def params_np(cfg) -> dict:
     from repro_torch.models.model import iter_schema
     return perturbed_tree(iter_schema(cfg))
@@ -129,19 +139,20 @@ def single_device(cfg, params, toks):
     return out, first, cache, auxes
 
 
-def sharded(cfg, params, toks, mesh):
-    """The sharded prefill and decode steps on ``mesh`` -> (logits of each
-    call, cache after the prefill (cloned DTensors), cache after the last
-    step, the aux of each step, the collectives of each call)."""
+def sharded(cfg, params, toks, mesh, over: dict):
+    """The sharded prefill and decode steps on ``mesh`` (the rules with the
+    overrides ``over``) -> (logits of each call, cache after the prefill
+    (cloned DTensors), cache after the last step, the aux of each step,
+    the collectives of each call)."""
     import torch
     from torch.distributed.tensor import DTensor
     from repro_torch.launch import sharding as sh
     from repro_torch.serve import engine
     from repro_torch.serve import sharded as ss
     b = toks.shape[0]
-    cfg_p = ss.serve_config(cfg, mesh, b, PROMPT, "prefill")
-    cfg_d = ss.serve_config(cfg, mesh, b, MAX_LEN, "decode")
-    p = ss.lay_out_params(params, mesh, cfg)
+    cfg_p = ss.serve_config(cfg, mesh, b, PROMPT, "prefill", over)
+    cfg_d = ss.serve_config(cfg, mesh, b, MAX_LEN, "decode", over)
+    p = ss.lay_out_params(params, mesh, cfg, over)
     logs = []
     with torch.no_grad():
         with sh.recording() as log:
@@ -194,7 +205,8 @@ def run_case(case: str, mesh, rank: int, out_dir: str) -> dict:
     toks = torch.from_numpy(tokens_np(case))
     b = toks.shape[0]
     one_logits, one_first, one_last, _ = single_device(cfg, params, toks)
-    logits, first, last, auxes, logs = sharded(cfg, params, toks, mesh)
+    logits, first, last, auxes, logs = sharded(cfg, params, toks, mesh,
+                                               overrides(case))
     res = {"collectives": [[list(e) for e in log] for log in logs],
            "blocks_prefill": _block_errors(first, one_first, mesh, cfg, b),
            "blocks_last": _block_errors(last, one_last, mesh, cfg, b),
@@ -225,13 +237,14 @@ def run_memory(case: str, mesh) -> dict:
     from repro_torch.serve import sharded as ss
     toks = torch.from_numpy(tokens_np(case))
     b = toks.shape[0]
+    over = overrides(case)
     out = {}
     for layers in (config(case).n_layers, 2 * config(case).n_layers):
         cfg = config(case, layers)
         params = ss.lay_out_params(tree_map(torch.from_numpy,
-                                            params_np(cfg)), mesh, cfg)
-        cfg_p = ss.serve_config(cfg, mesh, b, PROMPT, "prefill")
-        cfg_d = ss.serve_config(cfg, mesh, b, MAX_LEN, "decode")
+                                            params_np(cfg)), mesh, cfg, over)
+        cfg_p = ss.serve_config(cfg, mesh, b, PROMPT, "prefill", over)
+        cfg_d = ss.serve_config(cfg, mesh, b, MAX_LEN, "decode", over)
         tok_p = ss.batch_block(toks[:, :PROMPT], mesh, cfg_p)
         tok_d = ss.batch_block(toks[:, PROMPT], mesh, cfg_d)
 

@@ -5,8 +5,9 @@ Every rank builds the meshes of the module (subgroups of the one group:
 ``new_group`` is collective over the whole group), then runs every case:
 
 * ``<case>``: two sharded train steps at the case's ("data", "model")
-  mesh, (2, 2), (1, 4) or (4, 1), from CASES' inputs (FSDP over "data",
-  tensor parallel over "model"), then the first step's reduced gradient
+  mesh, (2, 2), (1, 4) or (4, 1), from CASES' inputs on the arch's
+  sharding overrides (FSDP over "data", tensor parallel over "model"),
+  then the first step's reduced gradient
   again; rank 0 writes ``<case>.npz`` (the gathered state after each
   step, the metrics, the gradient), every rank ``<case>.<rank>.json``
   (each leaf's placements against ``named``, the collectives of each step,
@@ -26,8 +27,9 @@ Every rank builds the meshes of the module (subgroups of the one group:
 * ``constrain``: ``constrain_batch`` on a DTensor over a 2-rank mesh;
 * ``units``: at a (1, 2) mesh, the tensor-parallel ``swiglu``,
   ``attention_block`` (KV heads local, sliced, and heads cut), the
-  vocab-parallel loss (tied and untied) and the embedding lookup against
-  their unsharded calls, outputs and gradients (ranks 0 and 1);
+  vocab-parallel loss (tied and untied), the embedding lookup and the
+  MoE expert FFN on each rank's block of ``d_expert`` against their
+  unsharded calls, outputs and gradients (ranks 0 and 1);
 * ``digest``: two steps at a (1, 1) mesh and two without a mesh, hashed,
   and the (1, 1) run's arrays in ``digest-<case>.npz`` (rank 0).
 
@@ -55,8 +57,9 @@ CUT = {"n_heads": 6, "head_dim": 16}
 # with a tied embedding and qkv bias, the two MoE (Adafactor on kimi-k2)
 # at capacity factor 8 (no token drops), the two recurrent; then the two
 # MoE at their configs' own capacity factor (1.25), where experts overflow
-# and which tokens drop follows the whole batch's order; at (1, 4) the
-# dense config (4 heads over 2 KV heads: each rank slices the KV head its
+# and which tokens drop follows the whole batch's order; at (1, 4)
+# Mixtral at its own capacity factor (its experts' d_expert over 4 ranks),
+# the dense config (4 heads over 2 KV heads: each rank slices the KV head its
 # query head reads), the tied one (with qkv bias) and the cut variant; at
 # (4, 1) (FSDP alone) the dense config on AdamW and kimi-k2 on Adafactor
 CASES = {"llama3.2-3b": ("llama3.2-3b", None, "mesh22", {}),
@@ -67,6 +70,7 @@ CASES = {"llama3.2-3b": ("llama3.2-3b", None, "mesh22", {}),
          "zamba2-2.7b": ("zamba2-2.7b", None, "mesh22", {}),
          "mixtral-8x22b-drops": ("mixtral-8x22b", None, "mesh22", {}),
          "kimi-k2-1t-a32b-drops": ("kimi-k2-1t-a32b", None, "mesh22", {}),
+         "mixtral-8x22b-1x4-drops": ("mixtral-8x22b", None, "mesh14", {}),
          "llama3.2-3b-1x4": ("llama3.2-3b", None, "mesh14", {}),
          "qwen2-0.5b-1x4": ("qwen2-0.5b", None, "mesh14", {}),
          "llama3.2-3b-cut-1x4": ("llama3.2-3b", None, "mesh14", CUT),
@@ -109,6 +113,14 @@ def inputs(case: str):
             cosine_schedule(*LR))
 
 
+def overrides(case: str) -> dict:
+    """The case's arch's sharding overrides (Mixtral's: its experts'
+    ``expert_mlp`` on "model", the reference's expert tensor
+    parallelism)."""
+    from repro_torch.configs import get_sharding_overrides
+    return get_sharding_overrides(CASES[case][0])
+
+
 def mesh_size(case: str, axis: str) -> int:
     return dict(zip(("data", "model"), MESH_SHAPES[CASES[case][2]]))[axis]
 
@@ -149,15 +161,16 @@ def _placements_ok(tree, shardings) -> list:
                            tree, shardings))
 
 
-def _model_leaves(cfg, mesh) -> dict:
-    """The step's leaves by what it does with them over "model": the paths
-    of the whole leaves it all-gathers over "model" (their spec puts
-    "model" on a dim), of the local leaves (each rank its block) and of
-    the partial ones (the gradient summed over "model")."""
+def _model_leaves(cfg, mesh, over: dict) -> dict:
+    """The step's leaves by what it does with them over "model" (the rules
+    with the overrides ``over``): the paths of the whole leaves it
+    all-gathers over "model" (their spec puts "model" on a dim), of the
+    local leaves (each rank its block) and of the partial ones (the
+    gradient summed over "model")."""
     from repro_torch.launch import sharding as sh
     from repro_torch.train import sharded
-    local, partial = sharded.leaf_roles(cfg, mesh)
-    specs = named_specs(sh.model_pspecs(mesh, cfg))
+    local, partial = sharded.leaf_roles(cfg, mesh, over)
+    specs = named_specs(sh.model_pspecs(mesh, cfg, over))
     loc, part = named_leaves_of(local), named_leaves_of(partial)
     return {"gathered": sorted(k for k, sp in specs.items()
                                if not loc[k] and any(
@@ -199,12 +212,13 @@ def run_case(case: str, mesh, rank: int, out_dir: str) -> dict:
     from repro_torch.train import sharded
 
     cfg, params, opt, sched = inputs(case)
+    over = overrides(case)
     state = opt.init(params)
-    shardings = sharded.state_shardings(mesh, cfg, state)
+    shardings = sharded.state_shardings(mesh, cfg, state, over)
     p, s = sh.distribute((params, state), shardings)
-    step = sharded.make_sharded_train_step(cfg, opt, sched, mesh)
+    step = sharded.make_sharded_train_step(cfg, opt, sched, mesh, over)
     res = {"placements_ok": [], "collectives": [], "metrics": [],
-           "leaves": _model_leaves(cfg, mesh)}
+           "leaves": _model_leaves(cfg, mesh, over)}
     save = {}
     for i, seed in enumerate(STEP_SEEDS, 1):
         bt = batch(cfg, seed)
@@ -225,7 +239,7 @@ def run_case(case: str, mesh, rank: int, out_dir: str) -> dict:
     p0 = sh.distribute(params, shardings[0])
     db = sh.distribute(bt, sh.named(mesh, sh.batch_specs(mesh, cfg, bt)))
     with sh.recording() as log:
-        _, _, grads = sharded.sharded_grads(cfg, mesh, p0, db)
+        _, _, grads = sharded.sharded_grads(cfg, mesh, p0, db, over)
     res["grads_over_model"] = _by_axis(log, "model")
     res["grads_over_data"] = [[kind, n] for kind, n, _, a in log
                               if a == "data"]
@@ -432,6 +446,7 @@ UNITS = ("swiglu",) + tuple(UNIT_ATTENTION) + ("loss-tied", "loss-untied",
 def _err(got, want) -> float:
     """max |got - want| over max |want|."""
     import torch
+    got, want = got.detach(), want.detach()
     return float((got - want).abs().max()
                  / torch.clamp(want.abs().max(), min=1e-30))
 
@@ -546,8 +561,84 @@ def _unit_case(name: str, mesh, rank: int) -> dict:
             "heads": tp.heads, "kv": tp.kv}
 
 
+# the MoE expert FFN on each rank's block of d_expert at 2 "model" ranks
+# (Mixtral's smoke widths: 4 experts of 64, top 2): at capacity factor 8
+# (no drops) and at 0.5 (16 slots an expert for 128 routed pairs: experts
+# overflow)
+MOE_UNITS = {"moe-experts": 8.0, "moe-experts-drops": 0.5}
+
+
+def _moe_unit_case(name: str, mesh, rank: int) -> dict:
+    """``moe_block`` tensor parallel over "model" (``tp.experts``: each
+    rank's ``Fe / 2`` columns of ``w_gate`` / ``w_up`` and rows of
+    ``w_down``) against its unsharded call on the same draw: the output
+    and, from the same cotangent plus the balance loss (so a balance
+    loss counted once a rank would show in the router's gradient), the
+    gradients of the input, the router (whole) and each expert leaf (its
+    block of the whole gradient); the counts and dropped pairs of each."""
+    import torch
+    from repro_torch.configs import get_smoke_config, get_sharding_overrides
+    from repro_torch.models import model as tm
+    from repro_torch.models.moe import MoEParams, moe_block
+    from repro_torch.train import sharded
+
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    m = 2
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
+                              param_dtype=torch.float32,
+                              activ_dtype=torch.float32)
+    cfg = sharded.tp_config(cfg, mesh, get_sharding_overrides(
+        "mixtral-8x22b"))
+    tp = tm.tensor_parallel(cfg, mesh)
+    if tp is None or not tp.experts:
+        raise AssertionError(f"{name}: no expert tensor parallelism: {tp}")
+    d, e, fe = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+    w = {"router": rnd(d, e, scale=0.3), "w_gate": rnd(e, d, fe, scale=0.1),
+         "w_up": rnd(e, d, fe, scale=0.1), "w_down": rnd(e, fe, d, scale=0.1)}
+    cut = {"w_gate": -1, "w_up": -1, "w_down": 1}
+    x = rnd(UNIT_B, UNIT_S, d)
+    cot = rnd(UNIT_B, UNIT_S, d)
+
+    def run(w, tp):
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        xs = x.clone().requires_grad_(True)
+        out, aux = moe_block(xs, MoEParams(**ws, shared_w_gate=None,
+                                           shared_w_up=None,
+                                           shared_w_down=None),
+                             top_k=cfg.moe.top_k,
+                             capacity_factor=MOE_UNITS[name],
+                             mesh=mesh if tp else None, tp=tp)
+        grads = torch.autograd.grad((out * cot).sum() + aux["aux_loss"],
+                                    [xs, *ws.values()])
+        return out, aux, dict(zip(["x", *ws], grads))
+    want, want_aux, want_g = run(w, None)
+    blocks = {k: (v.chunk(m, cut[k])[rank] if k in cut else v)
+              for k, v in w.items()}
+    got, got_aux, got_g = run(blocks, tp)
+    errs = {"out": _err(got, want)}
+    for k in got_g:
+        wg = want_g[k].chunk(m, cut[k])[rank] if k in cut else want_g[k]
+        errs[k] = _err(got_g[k], wg)
+    return {"errors": errs, "local": sorted(cut), "partial": [],
+            "block_shapes": {k: list(v.shape) for k, v in blocks.items()},
+            "counts": got_aux["counts"].tolist(),
+            "counts_equal": torch.equal(got_aux["counts"],
+                                        want_aux["counts"]),
+            "dropped": got_aux["dropped"].tolist(),
+            "dropped_equal": torch.equal(got_aux["dropped"],
+                                         want_aux["dropped"]),
+            "n_dropped": int(want_aux["dropped"].sum()),
+            "heads": tp.heads, "kv": tp.kv}
+
+
 def run_units(meshes: dict, rank: int) -> dict:
-    return {name: _unit_case(name, meshes["mesh12"], rank) for name in UNITS}
+    out = {name: _unit_case(name, meshes["mesh12"], rank) for name in UNITS}
+    out.update({name: _moe_unit_case(name, meshes["mesh12"], rank)
+                for name in MOE_UNITS})
+    return out
 
 
 # ------------------------------------- one "model" rank: the step as it was

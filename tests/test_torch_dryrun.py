@@ -5,8 +5,8 @@ meta trace against the same step on CPU tensors and against
 ``flash_attention``'s meta route; and, in one subprocess on fake process
 groups (``tests/_torch_dryrun_worker.py``), per-rank FLOPs of the
 tensor-parallel train step against the count worked out from the config,
-and collectives, over meshes of 4, ``make_production_mesh`` and one CLI
-run.
+and collectives, over meshes of 4 (and Mixtral's step on its override,
+its expert products at 1/m), ``make_production_mesh`` and one CLI run.
 
 Tolerances.  Shapes, dtypes, decisions, FLOPs on CPU tensors, per-rank
 FLOPs, collectives and the meta route's charge: exact.  Against the
@@ -478,6 +478,72 @@ def test_collectives_equal_the_counted(worker, mesh):
     assert ex["collective_count"] == got["count"]
     assert ex["collective_total_bytes"] == sum(
         ex["collective_wire_bytes"].values())
+
+
+def moe_tp_rank_flops(cfg, b: int, s: int, data: int, m: int) -> dict:
+    """The FLOPs of a rank's train step of the MoE config ``cfg`` at a
+    ("data", "model") mesh of (``data``, ``m``) on the rules with its
+    override (``expert_mlp`` on "model": Mixtral's), worked out from the
+    config, by part.  The rank takes ``b / data`` rows of ``s`` tokens.
+    Split over "model": q and o on H / m heads, the attention kernels'
+    charges at those heads (its window's kept pairs), the loss's head on
+    vocab / m, and the expert products on each expert's ``d_expert / m``
+    columns: three batched products of the whole batch's capacity ``C =
+    max(int(b s k cf / E), 4)`` slots an expert (the single program's
+    dispatch, the same on every rank), each run 4 times (forward, the
+    recompute, the two products of its backward: the combine after the
+    down product saves its output, so the recompute runs it too).  Whole
+    on every rank of "model": the router (4 times) and the k / v
+    projections (on KVH / m heads where they divide "model", else on the
+    KV heads the rank's query heads read)."""
+    t, hd, d, L = (b // data) * s, cfg.head_dim, cfg.d_model, cfg.n_layers
+    heads = cfg.n_heads // m
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv_heads = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
+                else -(-heads // group))
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    capacity = max(int(b * s * k * cfg.moe.capacity_factor / e), 4)
+
+    def mm(kk, n):
+        return 4 * 2 * t * kk * n
+    return {
+        "split": L * (mm(d, heads * hd) + mm(heads * hd, d))
+        + mm(d, cfg.vocab_size // m),
+        "attention": L * (2 * 4 + 10) * hd * (b // data) * heads
+        * fa_kernel.kept_pairs(s, s, True, cfg.window),
+        "experts": L * 3 * 4 * 2 * e * capacity * d * (cfg.moe.d_expert // m),
+        "router": L * mm(d, e),
+        "kv": L * 2 * mm(d, kv_heads * hd)}
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_moe_expert_tp_rank_flops_are_the_configs(worker, mesh):
+    """Mixtral's smoke step on its override: a rank's FLOPs are exactly
+    :func:`moe_tp_rank_flops`, the expert products at 1/m of the
+    single-device step's (every "data" rank runs the whole batch's
+    capacity: the single program's dispatch); the single-device count is
+    the formula at one rank."""
+    cases = worker.read()
+    data, model = map(int, mesh.split("x"))
+    cfg = get_smoke_config("mixtral-8x22b")
+    b, s = 4, 64
+    got = moe_tp_rank_flops(cfg, b, s, data, model)
+    assert cases[f"moe mesh {mesh}"]["flops"] == sum(got.values())
+    one = moe_tp_rank_flops(cfg, b, s, 1, 1)
+    assert sum(one.values()) == cases["moe single_device_flops"]
+    assert model * got["experts"] == one["experts"]
+    assert data * model * got["split"] == one["split"]
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_moe_expert_tp_meta_count_follows_the_step_on_cpu_tensors(worker,
+                                                                  mesh):
+    """Mixtral's expert-tensor-parallel step: the meta count (each
+    attention's charge swapped for the plain version's count) equals
+    ``FlopCounterMode``'s count of the same step on CPU tensors over the
+    fake group, exactly."""
+    case = worker.read()[f"moe mesh {mesh}"]
+    assert swapped(case) == case["cpu_flops"]
 
 
 def layer_share_bytes(cfg, data: int) -> int:

@@ -10,8 +10,10 @@ heads over "model" at (2, 2) (and zamba2's at (1, 4)), the sequence over
 "model" where they do not divide it (the decode's log-sum-exp combine
 over "model"), and over "data" too at a batch of one (the combine over
 "data").  Families: dense (llama3.2-3b, and qwen2-0.5b tied with qkv
-bias), a variant whose heads the rules cut, Mixtral (experts gathered at
-use; a window of 6) and kimi-k2 (experts on "model": expert parallel at
+bias), a variant whose heads the rules cut, Mixtral (its override puts
+``expert_mlp`` on "model": every expert on the rank's block of
+``d_expert`` at prefill and at decode, never gathered over "model"; a
+window of 6) and kimi-k2 (experts on "model": expert parallel at
 prefill, each rank's experts' slots at decode), zamba2 and rwkv6 (their
 blocks whole, their states the rank's block over "model").  The reference's
 own sharded paths raise on this jax
@@ -243,19 +245,22 @@ def expected_collectives(case: str, kind: str) -> Counter:
     over "model"; at prefill, q gathered where the rules cut a head, and
     the MoE's (the whole batch's routing: one gather of the slices'
     counts over each batch axis; expert parallel: q's sequence slices back
-    over "model" and two all-to-alls); at decode, q gathered where the
+    over "model" and two all-to-alls; expert tensor parallel: the partial
+    outputs summed over "model"); at decode, q gathered where the
     rank does not hold its KV heads, the combine's three all-reduces over
     each axis of the cache's sequence, the page mass summed over the
-    ranks' heads, the experts' slots summed over "model", and each
+    ranks' heads, the experts' slots or the expert-tensor-parallel
+    outputs summed over "model", and each
     recurrent state gathered over the axes that cut it."""
     arch, shape, b, _ = sw.CASES[case]
     cfg = sw.config(case)
     mesh = FakeMesh(shape)
     sizes = mesh.shape
+    over = sw.overrides(case)
     scfg = serve_config(cfg, mesh, b, sw.PROMPT if kind == "prefill"
-                        else sw.MAX_LEN, kind)
-    local, _ = sh.leaf_roles(scfg, mesh)
-    pspecs = sh.model_pspecs(mesh, cfg)
+                        else sw.MAX_LEN, kind, over)
+    local, _ = sh.leaf_roles(scfg, mesh, over)
+    pspecs = sh.model_pspecs(mesh, cfg, over)
     fam, n_layers = cfg.family, cfg.n_layers
     n_attn = {"attn": n_layers, "moe": n_layers, "rwkv6": 0,
               "zamba2": cfg.n_shared_attn}[fam]
@@ -277,8 +282,8 @@ def expected_collectives(case: str, kind: str) -> Counter:
             walk(spec[k], loc[k], f"{path}.{k}" if path else k)
     walk(pspecs, local, "")
     m = sizes["model"]
-    heads, kv, mlp, vocab = (tp_layout(scfg, m) if scfg.tp_axes
-                             else (None, None, False, False))
+    heads, kv, mlp, vocab, experts = (tp_layout(scfg, m) if scfg.tp_axes
+                                      else (None, None, False, False, False))
     if vocab:
         out[("all_gather", "model")] += 1
         out[("all_reduce", "model")] += 1
@@ -287,6 +292,8 @@ def expected_collectives(case: str, kind: str) -> Counter:
     if mlp:
         out[("all_reduce", "model")] += n_attn if fam == "zamba2" \
             else n_layers
+    if experts:
+        out[("all_reduce", "model")] += n_layers
     bax = [a for a in scfg.act_batch_axes or () if sizes[a] > 1]
     if fam == "moe":
         for a in bax:
@@ -338,6 +345,26 @@ def test_collectives_are_the_layouts(ranks, case):
             assert got == expected_collectives(case, kind), (kind, got)
 
 
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if sw.CASES[c][0] == "mixtral-8x22b"])
+def test_mixtral_experts_stay_the_ranks_block(case):
+    """On Mixtral's override, at prefill and at decode: the expert FFN
+    runs on the rank's block of ``d_expert`` (``tp_layout``'s experts), no
+    expert leaf is gathered over "model" (each is local there, its spec
+    ``expert_mlp`` dim on "model"), and neither route of the experts on
+    "model" is taken (no expert parallelism, no experts' slots)."""
+    _, shape, b, _ = sw.CASES[case]
+    cfg, mesh, over = sw.config(case), FakeMesh(shape), sw.overrides(case)
+    pspecs = sh.model_pspecs(mesh, cfg, over)["blocks"]
+    assert pspecs["e_gate"][3] == pspecs["e_up"][3] == "model"
+    assert pspecs["e_down"][2] == "model"
+    for kind, seq in (("prefill", sw.PROMPT), ("decode", sw.MAX_LEN)):
+        scfg = serve_config(cfg, mesh, b, seq, kind, over)
+        assert tp_layout(scfg, shape[1])[4] and not sh.experts_local(scfg)
+        local, _ = sh.leaf_roles(scfg, mesh, over)
+        assert all(local["blocks"][k] for k in ("e_gate", "e_up", "e_down"))
+
+
 @pytest.mark.parametrize("case", sw.MEMORY_CASES)
 def test_no_whole_leaf_outlives_its_block(ranks, case):
     """A rank's memory at twice the layers (``launch.dryrun.count_step``'s
@@ -353,7 +380,8 @@ def test_no_whole_leaf_outlives_its_block(ranks, case):
     blocks = sw.params_np(cfg)["blocks"]
     layer_whole = sum(
         blocks[path][0].nbytes for path, spec in
-        sh.model_pspecs(FakeMesh(shape), cfg)["blocks"].items()
+        sh.model_pspecs(FakeMesh(shape), cfg,
+                        sw.overrides(case))["blocks"].items()
         if any(sizes[a] > 1 for e in spec for a in sh.entry_axes(e)))
     for res in ranks.results(f"memory-{case}"):
         small, deep = res[f"layers={cfg.n_layers}"], \

@@ -4,11 +4,14 @@
 ``train.steps.make_train_step`` and against the reference's single-device
 ``make_train_step`` (jitted) on the same inputs, for one smoke config of
 each family at (2, 2), at (1, 4) a dense one (each rank slicing the KV
-head its query head reads), a tied one and one whose heads the rules cut,
-and at (4, 1) a dense one and kimi-k2 on Adafactor; the collectives over
-"model" and over "data" (each leaf gathered at use, its gradient
-reduce-scattered); Adafactor on blocks against its whole update; the
-tensor-parallel modules against their unsharded calls at (1, 2); the step
+head its query head reads), a tied one, one whose heads the rules cut and
+Mixtral, and at (4, 1) a dense one and kimi-k2 on Adafactor, each on its
+arch's sharding overrides (Mixtral's puts its experts' ``expert_mlp`` on
+"model": each rank runs every expert on its block of ``d_expert``); the
+collectives over "model" and over "data" (each leaf gathered at use, its
+gradient reduce-scattered); Adafactor on blocks against its whole update;
+the tensor-parallel modules (the MoE expert FFN among them) against their
+unsharded calls at (1, 2); the step
 at one "model" rank against the step without a mesh, bit for bit, and
 against the reference (on the platform where they were taken, against the
 digests of the step before tensor parallelism too); checkpoints across
@@ -273,16 +276,26 @@ def test_sharded_step_matches_the_reference_step(ranks, case):
                    want, want_m, lr_rel=1e-7)
 
 
-# the step's all-reduces over "model" in a dense config whose tokens are
-# embedded: 5 a layer (the attention's and the MLP's from_model in the
-# forward, the attention's again in the recompute under remat: the
-# checkpoint stops recomputing once the tensors it saved are back, before
-# the MLP's; the two to_model in the backward), 1 of the embedding, 1 of
-# the loss's to_model, 4 a loss chunk (its row max and its packed sums,
-# again in the chunk's recompute) and one a partial leaf's gradient (the
-# clip's squares take one more after these)
-def dense_model_all_reduces(cfg, n_partial: int) -> int:
-    return 5 * cfg.n_layers + 1 + 1 + 4 * (sw.S // sw.CHUNK) + n_partial
+# the step's all-reduces over "model" in a config whose tokens are
+# embedded, dense or MoE with its expert FFN tensor parallel: a dense
+# layer 5 (the attention's and the MLP's from_model in the forward, the
+# attention's again in the recompute under remat: the checkpoint stops
+# recomputing once the tensors it saved are back, before the MLP's; the
+# two to_model in the backward), a MoE layer 6 (the attention's and the
+# experts' from_model in the forward, the attention's again in the
+# recompute, which stops before the experts'; the attention's to_model and
+# the experts' two, of the dispatched rows and of the routing weights, in
+# the backward), 1 of the embedding, 1 of the loss's to_model, 4 a loss
+# chunk (its row max and its packed sums, again in the chunk's recompute)
+# and one a partial leaf's gradient (the clip's squares take one more
+# after these)
+def model_all_reduces(cfg, n_partial: int) -> int:
+    per_layer = 6 if cfg.family == "moe" else 5
+    return per_layer * cfg.n_layers + 1 + 1 + 4 * (sw.S // sw.CHUNK) \
+        + n_partial
+
+
+EXPERT_LEAVES = {"blocks/e_gate", "blocks/e_up", "blocks/e_down"}
 
 
 def uses(cfg, path: str) -> int:
@@ -326,7 +339,11 @@ def test_collectives_over_model(ranks, case):
     columns a layer (the forward, the recompute and the backward of o's
     split); the partial ones among them (zamba2's LoRA factors) are
     reduce-scattered over "model" once a use; a dense layer takes 5
-    all-reduces over "model"."""
+    all-reduces over "model".  Where the overrides put ``expert_mlp`` on
+    "model" (Mixtral) the expert leaves are local too, each rank's block
+    of every expert's ``d_expert`` (cut over "data" as well), never
+    gathered over "model", and a MoE layer takes 6 all-reduces over
+    "model" (:func:`model_all_reduces`)."""
     cfg = sw.config(case)
     per_rank = ranks.results(case)
     leaves = per_rank[0]["leaves"]
@@ -345,6 +362,15 @@ def test_collectives_over_model(ranks, case):
         assert not leaves["gathered"]
         assert {"blocks/w_gate", "blocks/w_up", "blocks/w_down"} \
             <= set(leaves["local"])
+    experts_tp = sw.overrides(case).get("expert_mlp") == "model"
+    if experts_tp:
+        assert EXPERT_LEAVES <= set(leaves["local"]) and \
+            not leaves["gathered"], leaves
+        cut_by = sw.mesh_size(case, "data") * sw.mesh_size(case, "model")
+        for res in per_rank:
+            for k in EXPERT_LEAVES:
+                b = res["blocks"][k]
+                assert b["bytes"] * cut_by == b["whole"], (k, b)
     cut = cfg.n_heads % sw.mesh_size(case, "model") != 0
     if cfg.family in ("attn", "moe"):
         sliced = not cut \
@@ -362,8 +388,9 @@ def test_collectives_over_model(ranks, case):
         assert over["all_gather"] == gathers \
             + (3 * cfg.n_layers if cut else 0), (over, leaves)
         assert over["reduce_scatter"] == summed, (over, leaves)
-        if cfg.family == "attn" and cfg.frontend == "tokens":
-            assert over["all_reduce"] == dense_model_all_reduces(
+        if (cfg.family == "attn" or experts_tp) \
+                and cfg.frontend == "tokens":
+            assert over["all_reduce"] == model_all_reduces(
                 cfg, len(leaves["partial"])), over
 
 
@@ -431,11 +458,13 @@ def test_adafactor_on_blocks_matches_the_whole_update(ranks):
             assert got["params_of_max"] <= ADAFACTOR_RTOL, (name, got)
 
 
-@pytest.mark.parametrize("unit", sw.UNITS)
+@pytest.mark.parametrize("unit", sw.UNITS + tuple(sw.MOE_UNITS))
 def test_tensor_parallel_module_matches_the_unsharded_call(ranks, unit):
     """At (1, 2): the module on each rank's blocks (the heads, the mlp
-    columns, the vocabulary) against the unsharded call on the same draw;
-    output and every gradient within 1e-5 of their largest magnitude."""
+    columns, the vocabulary, every expert's d_expert) against the
+    unsharded call on the same draw; output and every gradient within
+    1e-5 of their largest magnitude (the MoE's router gradient, whole on
+    each rank, among them)."""
     want_layout = {"attention-kv-local": ("whole", "local"),
                    "attention-kv-sliced": ("whole", "sliced"),
                    "attention-kv-repeated": ("whole", "sliced"),
@@ -446,6 +475,26 @@ def test_tensor_parallel_module_matches_the_unsharded_call(ranks, unit):
             assert (got["heads"], got["kv"]) == want_layout[unit]
         assert got["local"], got
         assert max(got["errors"].values()) <= 1e-5, got["errors"]
+
+
+@pytest.mark.parametrize("unit", list(sw.MOE_UNITS))
+def test_moe_expert_tp_routes_alike_on_every_rank(ranks, unit):
+    """At (1, 2), ``moe_block`` on each rank's block of ``d_expert``: each
+    rank holds half of every expert's columns of ``w_gate`` / ``w_up`` and
+    rows of ``w_down``, and its router counts and dropped pairs are the
+    unsharded call's exactly, the same on both ranks (the ``-drops`` unit
+    drops pairs)."""
+    cfg = sw.config("mixtral-8x22b")
+    e, d, fe = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    got = [res[unit] for res in ranks.results("units", world=2)]
+    for res in got:
+        assert res["counts_equal"] and res["dropped_equal"], res
+        assert res["block_shapes"] == {
+            "router": [d, e], "w_gate": [e, d, fe // 2],
+            "w_up": [e, d, fe // 2], "w_down": [e, fe // 2, d]}
+        assert res["counts"] == got[0]["counts"]
+        assert res["dropped"] == got[0]["dropped"]
+    assert (got[0]["n_dropped"] > 0) == unit.endswith("-drops")
 
 
 # the digests of two steps of each case, taken with the step as it was
