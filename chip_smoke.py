@@ -224,7 +224,9 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     B 4, prompts 64 and 4,096, 32 tokens; every prefill and decode step
     under the sync check): the weights' draw, prefill and decode tokens/s,
     peak memory, 9 flash_attention launches per zamba2 prefill, all on the
-    tensor cores (bf16 at d 80), none in decode, none for rwkv6; (d)
+    tensor cores (bf16 at d 80), none in decode, none for rwkv6, then each
+    profiled at RECURRENT_PROFILE_LAYERS (every layer alike: rwkv6's first
+    4, zamba2's first group of 6 and its shared block); (d)
     flash_attention at zamba2-2.7b's prefill shape (B 4, H 32, KVH 32, S
     4,096, d 80, bfloat16, causal, the tensor-core route) and at kimi-k2's
     (B 2, H 64, KVH 8, S 4,096, d 112) against its plain version, timed
@@ -429,8 +431,41 @@ in full float32 (TF32 off).  Phases, each reported on its own line:
     S 4096, d 128, bf16) beside its plain version and ``sdpa`` (the
     kernel line's ``flash_attention_mixtral_tp`` entry); within
     MOE_TP_PHASE_S.
+32. RWKV-6's and Mamba2's mixes on each "model" rank's heads: two gloo
+    ranks on the one card at (1, 2), rwkv6-3b (20 of its 40 heads a
+    rank; its channel mix on the rank's halves of ``d_ff`` and of the
+    receptance's columns) and zamba2-2.7b (40 of 80 Mamba2 heads a rank;
+    its shared block at 16 / 16 attention heads) at their published
+    widths, the weights drawn on the card.  For each: (a) float32 at
+    REC_TP_F32_LAYERS (rwkv6 2 layers, zamba2 one group of 6 Mamba2
+    layers and its shared block): the prefill of SERVE_F32_PROMPT tokens
+    into SERVE_F32_MAX_LEN positions and SERVE_F32_STEPS decode steps
+    against the single-device run within SERVE_TOL, as 30a; (b) the same
+    layers in float32, B REC_TP_TRAIN_BATCH x S REC_TP_TRAIN_SEQ: the
+    single-device gradient, then the sharded gradient, each leaf's block
+    within TRAIN_LEAF_TOL_OF_MAX of that leaf's largest magnitude, and one
+    sharded step on REC_TP_OPT, its loss and gradient norm within
+    FULL_WIDTH_F32_TOL.  rwkv6-3b's float32 runs at these widths differ
+    from themselves on the CPU by more than those bounds, so its sharded
+    runs (REC_TP_NOISE_ARCHS) are held to them or to twice that noise
+    floor, measured in the phase (``rec_tp_noise``: the single-device
+    runs on the CPU, in a thread while the ranks run, against the same
+    runs on the card); (c) bf16 at REC_TP_BF16_LAYERS: the prefill of B
+    REC_TP_BATCH x S REC_TP_PROMPT and REC_TP_STEPS decode steps, each
+    rank's recurrent state its heads' block, zamba2's one
+    flash_attention launch a rank in the prefill on the tensor cores at
+    (16, 16) heads, none in decode, tokens/s a rank, each rank's peak and
+    the collectives by axis and kind.  In every part each step and
+    serving call runs under ``set_sync_debug_mode("error")`` but for
+    gloo's own calls, and the collectives over "model" are exactly those
+    worked out from the layout (``rec_tp_train_expected``,
+    ``rec_tp_serve_expected``: no leaf gathered over "model" where the
+    rank's block is its heads' slice).  Then, on this process,
+    flash_attention at a rank's zamba2 prefill shape (B 4, H 16, KVH 16,
+    S 4096, d 80, bf16) beside its plain version and ``sdpa`` (the kernel
+    line's ``flash_attention_zamba2_tp`` entry); within REC_TP_PHASE_S.
 
-Each path (8-11, 14-16, 18-31) sets the launch counters to 0 just before it
+Each path (8-11, 14-16, 18-32) sets the launch counters to 0 just before it
 runs and reads them just after.  Any failure exits non-zero before the
 result lines.  The last lines are the
 kernel table (JSON), the ``nvidia-smi`` name and power limit, and
@@ -3184,6 +3219,10 @@ def moe_scenario_gpu_vs_cpu(dev, run_scenario, zero_counts, read_counts,
 # full width on RECURRENT_CHECK_TOKENS tokens, float32.  (d) flash_attention
 # at zamba2-2.7b's prefill shape (label, B, H, KVH, d).
 RECURRENT_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
+# 23c's profiles: the first layers of the full-width draw (a profiled
+# prefill of B 4 x 4,096 at all 32 / 54 layers took 45 / 73 s on a slow
+# host, the script's limit nearing)
+RECURRENT_PROFILE_LAYERS = {"rwkv6-3b": 4, "zamba2-2.7b": 6}
 RECURRENT_SMOKE_LEN = 150
 RECURRENT_F32_TOL = 1e-4
 RECURRENT_BF16_TOL = {"hidden": 6e-2, "logits": 1e-2}
@@ -3512,9 +3551,14 @@ def recurrent_serve_full_width(serve_launcher, dev, zero_counts, read_counts,
 
 
 def recurrent_serve_profile(dev, cfg, params, prefill) -> None:
-    """Phase 23c, where the time goes (``profiled_steps``): one prefill of
-    B 4 x 4,096 tokens, then 8 decode steps after a 64-token prefill."""
+    """Phase 23c, where the time goes (``profiled_steps``), at ``cfg``'s
+    RECURRENT_PROFILE_LAYERS first layers of ``params``: one prefill of B
+    4 x 4,096 tokens, then 8 decode steps after a 64-token prefill."""
     import torch
+    n = RECURRENT_PROFILE_LAYERS[cfg.name]
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    params = dict(params, blocks={k: v[:n]
+                                  for k, v in params["blocks"].items()})
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
     toks = torch.randint(0, cfg.vocab_size, (4, 4096), generator=gen,
@@ -3522,13 +3566,14 @@ def recurrent_serve_profile(dev, cfg, params, prefill) -> None:
     with torch.no_grad():
         prof = profiled_steps(
             lambda: prefill(params, cfg, tokens=toks, max_len=4096), 1)
-        say("recurrent_prefill_profile", arch=cfg.name, prompt_len=4096,
-            **prof)
+        say("recurrent_prefill_profile", arch=cfg.name, n_layers=n,
+            prompt_len=4096, **prof)
         logits, cache = prefill(params, cfg, tokens=toks[:, :64],
                                 max_len=64 + 9)
         prof = profiled_steps(decode_steps(params, cfg, cache,
                                            torch.argmax(logits, -1)), 8)
-    say("recurrent_decode_profile", arch=cfg.name, prompt_len=64, **prof)
+    say("recurrent_decode_profile", arch=cfg.name, n_layers=n,
+        prompt_len=64, **prof)
     del toks, logits, cache
 
 
@@ -5916,7 +5961,8 @@ def serve_sharded_run(mesh, dev, cfg, p, toks, prompt: int,
                         mesh=mesh)
                 out["logs"].append([list(e) for e in log])
                 out["logits"].append(logits)
-                out["mass"].append(aux["kv_page_mass"])
+                if "kv_page_mass" in aux:
+                    out["mass"].append(aux["kv_page_mass"])
         ep_sync(dev)
         out["decode_s"] = time.perf_counter() - t0
         out["decode_launches"] = fa_kernel.LAUNCHES - out["prefill_launches"]
@@ -5960,7 +6006,8 @@ def serve_rank_f32(mesh, dev, cfg, params, toks,
             logits, cache, aux = engine.decode_step(
                 params, cfg, cache, toks[:, prompt + t], page_size=SERVE_PAGE)
             want["logits"].append(logits)
-            want["mass"].append(aux["kv_page_mass"])
+            if "kv_page_mass" in aux:
+                want["mass"].append(aux["kv_page_mass"])
         want["last"] = cache
 
     def share(a, b) -> float:
@@ -6591,6 +6638,552 @@ def mixtral_expert_tp(dev, plain, smi_line: str, small: bool = False
     return out
 
 
+# phase 32: RWKV-6's and Mamba2's mixes on each "model" rank's heads
+REC_TP_MESH = (1, 2)
+# 32a / 32b: float32; rwkv6-3b at 2 layers, zamba2-2.7b at one group of 6
+# Mamba2 layers and its shared block; 32b's step on Adafactor, B 1 x S 512
+# (31b's)
+REC_TP_F32_LAYERS = {"rwkv6-3b": 2, "zamba2-2.7b": 6}
+REC_TP_TRAIN_BATCH, REC_TP_TRAIN_SEQ = 1, 512
+REC_TP_OPT = "adafactor"
+# 32c: bf16, B 4 x S 4096, then REC_TP_STEPS decode steps
+REC_TP_BF16_LAYERS = {"rwkv6-3b": 4, "zamba2-2.7b": 6}
+REC_TP_BATCH, REC_TP_PROMPT, REC_TP_STEPS = 4, 4096, 2
+# a rank's heads at (1, 2): RWKV-6's 40 / 2, Mamba2's 80 / 2; zamba2's
+# shared attention 32 / 2 query and KV heads
+REC_TP_LOCAL_HEADS = {"rwkv6-3b": 20, "zamba2-2.7b": 40}
+REC_TP_ATTN_HEADS = (16, 16)
+REC_TP_TIME_SHAPE = (4, 16, 16, 4096, 80)
+REC_TP_PHASE_S = 90
+# rwkv6-3b's float32 runs at these widths differ from themselves on
+# another backend by more than SERVE_TOL and TRAIN_LEAF_TOL_OF_MAX (the
+# single-device run on an H100 against the same run on the CPU: 3.14x
+# and 30.8x): its sharded runs are held to those bounds or to twice that
+# noise floor, measured in the same phase on the same inputs
+# (rec_tp_noise)
+REC_TP_NOISE_ARCHS = ("rwkv6-3b",)
+
+
+def rec_tp_config(arch: str, small: bool, dtype, layers: int):
+    """``arch`` at its published widths cut to ``layers`` layers
+    (``small``: its smoke config at its own depth, a rehearsal on the
+    CPU) with ``dtype`` params and activations."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if small else get_config)(arch)
+    if small:
+        layers = cfg.n_layers
+    return dataclasses.replace(cfg, n_layers=layers, param_dtype=dtype,
+                               activ_dtype=dtype)
+
+
+def rec_tp_leaves(cfg, mesh) -> dict:
+    """The step's leaves by what it does with them over "model" (the
+    rules' layout of ``cfg`` on ``mesh``): "gathered" the paths of the
+    leaves the rules cut over "model" that a rank gathers whole, "local"
+    those it keeps as its block, "partial" those whose gradient is a
+    partial sum on each rank."""
+    from repro_torch.launch import sharding as sh
+    local, partial = (dict(rec_tp_items(t))
+                      for t in sh.leaf_roles(cfg, mesh))
+    specs = dict(rec_tp_items(sh.model_pspecs(mesh, cfg)))
+    return {"gathered": sorted(k for k, sp in specs.items() if not local[k]
+                               and any("model" in sh.entry_axes(e)
+                                       for e in sp)),
+            "local": sorted(k for k, v in local.items() if v),
+            "partial": sorted(k for k, v in partial.items() if v)}
+
+
+def rec_tp_items(tree, prefix: str = ""):
+    """``(path, leaf)`` of a tree of dicts, the path's parts joined by
+    "/" (a spec is a leaf)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from rec_tp_items(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def rec_tp_train_expected(cfg, leaves: dict, seq: int) -> dict:
+    """The collectives over "model" of 32b's sharded gradient at (1, 2),
+    worked out from the layout (``tests/test_torch_sharded_train.py``'s
+    rule): each gathered leaf all-gathered at each forward of its block
+    (a layer's twice under remat, zamba2's Mamba2 layers three times,
+    nested in their group), a partial one among them reduce-scattered
+    once a use; RWKV-6's channel mix 2 all-gathers and 2 reduce-scatters
+    a layer; all-reduces 4 an RWKV-6 layer, 7 a Mamba2 layer, 5 a shared
+    block, 1 of the embedding, 1 of the loss's input, 4 a loss chunk and
+    one a partial leaf "model" does not cut."""
+    L = cfg.n_layers
+    inv = cfg.n_shared_attn if cfg.family == "zamba2" else 0
+    runs = 3 if cfg.family == "zamba2" else 2
+
+    def uses(path):
+        return L if path.startswith("blocks/") else inv
+    gathered = leaves["gathered"]
+    joins = 2 * L if cfg.family == "rwkv6" else 0
+    chunk = min(cfg.loss_chunk or seq, seq)
+    chunks = seq // chunk if seq % chunk == 0 else 1
+    partial_whole = set(leaves["partial"]) - set(gathered)
+    per_layer = 4 if cfg.family == "rwkv6" else 7
+    return {"all_gather/model": sum(uses(k) * (runs if k.startswith(
+                "blocks/") else 2) for k in gathered) + joins,
+            "reduce_scatter/model": sum(uses(k) for k in gathered
+                                        if k in leaves["partial"]) + joins,
+            "all_reduce/model": per_layer * L + 5 * inv + 2 + 4 * chunks
+            + len(partial_whole)}
+
+
+def rec_tp_serve_expected(cfg, leaves: dict, kind: str) -> dict:
+    """A serving call's collectives at (1, 2), worked out from the layout:
+    each gathered leaf once a use, the logits' all-gather; all-reduces:
+    the embedding, each RWKV-6 time mix (Mamba2 mix: its output and its
+    sums of squares), each shared block's attention and MLP; RWKV-6's
+    channel mix a reduce-scatter and an all-gather a layer; at decode
+    each Mamba2 layer's conv state gathered (its channel blocks are not
+    the rank's channels); the heads divide "model", so no state is
+    joined or gathered but the conv state."""
+    L = cfg.n_layers
+    inv = cfg.n_shared_attn if cfg.family == "zamba2" else 0
+    gathers = sum(L if k.startswith("blocks/") else inv
+                  for k in leaves["gathered"]) + 1
+    if cfg.family == "rwkv6":
+        return {"all_gather/model": gathers + L,
+                "all_reduce/model": 1 + L, "reduce_scatter/model": L}
+    return {"all_gather/model": gathers + (L if kind == "decode" else 0),
+            "all_reduce/model": 1 + 2 * L + 2 * inv}
+
+
+def rec_tp_serve(mesh, dev, arch: str, small: bool) -> dict:
+    """32a on one rank: ``arch``'s float32 serving run against the
+    single-device run (serve_rank_f32), its collectives against
+    ``rec_tp_serve_expected``."""
+    import torch
+    from repro_torch.launch.sharding import tp_config
+    cfg = rec_tp_config(arch, small, torch.float32, REC_TP_F32_LAYERS[arch])
+    params = ep_params(cfg, dev, ())
+    gen = torch.Generator().manual_seed(32)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SERVE_BATCH, SERVE_F32_MAX_LEN), generator=gen,
+                         dtype=torch.int32).to(dev)
+    got = serve_rank_f32(mesh, dev, cfg, params, toks)
+    if arch in REC_TP_NOISE_ARCHS:
+        got["faults"] = []          # held by recurrent_tp (rec_tp_noise)
+    leaves = rec_tp_leaves(tp_config(cfg, mesh), mesh)
+    for i, log in enumerate(got["logs"]):
+        kind = "prefill" if i == 0 else "decode"
+        counted = {k: v[0] for k, v in by_axis(log).items()}
+        want = rec_tp_serve_expected(cfg, leaves, kind)
+        if counted != want:
+            got["faults"].append(f"call {i} ({kind}): collectives "
+                                 f"{by_axis(log)}, expected {want}")
+    got["logs"] = [by_axis(log) for log in got["logs"][:2]]
+    got["leaves"] = leaves
+    return got
+
+
+def rec_tp_train(mesh, dev, arch: str, small: bool) -> dict:
+    """32b on one rank: the single-device gradient first (its blocks kept,
+    the whole freed), then the sharded gradient (each leaf's block
+    against the single-device gradient's block, within
+    TRAIN_LEAF_TOL_OF_MAX of that leaf's largest magnitude; its
+    collectives over "model" ``rec_tp_train_expected``'s) and one sharded
+    step under the sync check but for gloo's own calls, its loss and
+    gradient norm against the single-device ones within
+    FULL_WIDTH_F32_TOL."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim import cosine_schedule, get_optimizer
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.pytree import flatten
+    from repro_torch.train import sharded
+    from repro_torch.train.steps import loss_and_grads
+
+    cfg = rec_tp_config(arch, small, torch.float32, REC_TP_F32_LAYERS[arch])
+    b, s = (1, 64) if small else (REC_TP_TRAIN_BATCH, REC_TP_TRAIN_SEQ)
+    batch = {k: ep_tokens(cfg, dev, b, s, 32 + c)
+             for c, k in enumerate(("tokens", "labels"))}
+    opt = get_optimizer(REC_TP_OPT)
+    params = ep_params(cfg, dev, ())
+    state = opt.init(params)
+    shardings = sharded.state_shardings(mesh, cfg, state)
+    t0 = time.perf_counter()
+    one_loss, _, one_grads = loss_and_grads(params, cfg, batch)
+    one_norm = float(global_norm(one_grads))
+    one_leaves, skeleton = flatten(one_grads)
+    names = flatten(tree_paths(skeleton))[0]
+    blocks = [sh.local_block(g, x).clone() for g, x in
+              zip(one_leaves, flatten(shardings[0])[0])]
+    tops = [float(g.abs().max()) for g in one_leaves]
+    del one_grads, one_leaves
+    p, st = sh.distribute((params, state), shardings)
+    del params, state
+    if dev.type == "cuda":
+        free_device_memory()
+    out = {"single_s": time.perf_counter() - t0,
+           "one_loss": float(one_loss), "one_grad_norm": one_norm}
+    db = sh.distribute(batch, sh.named(mesh, sh.batch_specs(mesh, cfg,
+                                                            batch)))
+    with sh.recording() as log:
+        loss, _, grads = sharded.sharded_grads(cfg, mesh, p, db)
+    faults, share = [], {}
+    noise = arch in REC_TP_NOISE_ARCHS
+    for name, g, want, top in zip(names, flatten(grads)[0], blocks, tops):
+        err = float((g - want).abs().max())
+        allowed = TRAIN_LEAF_TOL_OF_MAX * top
+        # a leaf whose gradient is 0 (a LoRA factor before its zero-drawn
+        # partner) must come out 0
+        share[name] = (err / allowed if allowed > 0
+                       else 0.0 if err == 0 else math.inf)
+        if not bool(torch.isfinite(g).all()):
+            share[name] = math.inf
+        if not (noise or share[name] <= 1.0):
+            faults.append(f"{name}: max abs err {err} over {allowed}")
+    del grads, blocks
+    leaves = rec_tp_leaves(sh.tp_config(cfg, mesh), mesh)
+    want = rec_tp_train_expected(cfg, leaves, s)
+    counted = {k: v[0] for k, v in by_axis(log).items()
+               if k.endswith("/model")}
+    if counted != want:
+        faults.append(f"the gradient's collectives over \"model\" "
+                      f"{counted}, expected {want}")
+    step = sharded.make_sharded_train_step(cfg, opt,
+                                           cosine_schedule(*TP_LR), mesh)
+    ep_sync(dev)
+    t0 = time.perf_counter()
+    with sh.recording() as step_log, \
+            sync_checked_but_collectives(dev.type == "cuda"):
+        p, st, m = step(p, st, db)
+    ep_sync(dev)
+    out["step_s"] = time.perf_counter() - t0
+    for key, g, c in (("loss", float(loss), out["one_loss"]),
+                      ("step_loss", float(m["loss"]), out["one_loss"]),
+                      ("step_grad_norm", float(m["grad_norm"]), one_norm)):
+        if not math.isfinite(g) or (
+                abs(g - c) > FULL_WIDTH_F32_TOL * (1 + abs(c))
+                and not (noise and key == "step_grad_norm")):
+            faults.append(f"{key}: {g} vs {c}")
+        out[key] = g
+    out.update(faults=faults, worst_share=max(share.values()),
+               leaves=leaves, grads_collectives=by_axis(log),
+               step_collectives=by_axis(step_log),
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None))
+    return out
+
+
+def rec_tp_prefill(mesh, dev, arch: str, small: bool) -> dict:
+    """32c on one rank: ``arch`` in bf16, its blocks drawn whole and laid
+    out, the prefill of B REC_TP_BATCH x S REC_TP_PROMPT and REC_TP_STEPS
+    decode steps (serve_sharded_run), its launches and collectives."""
+    import torch
+    from repro_torch.launch.sharding import tp_config
+    from repro_torch.serve import sharded as ss
+    cfg = rec_tp_config(arch, small, torch.bfloat16,
+                        REC_TP_BF16_LAYERS[arch])
+    prompt, steps = (64, 2) if small else (REC_TP_PROMPT, REC_TP_STEPS)
+    t0 = time.perf_counter()
+    whole = ep_params(cfg, dev, ())
+    p = ss.lay_out_params(whole, mesh, cfg)
+    del whole
+    if dev.type == "cuda":
+        free_device_memory()
+    toks = ep_tokens(cfg, dev, REC_TP_BATCH, prompt + steps, 321)
+    draw_s = time.perf_counter() - t0
+    got = serve_sharded_run(mesh, dev, cfg, p, toks, prompt, prompt + steps,
+                            steps, SERVE_PAGE)
+    leaves = rec_tp_leaves(tp_config(cfg, mesh), mesh)
+    faults = []
+    for i, log in enumerate(got["logs"]):
+        kind = "prefill" if i == 0 else "decode"
+        counted = {k: v[0] for k, v in by_axis(log).items()}
+        if counted != rec_tp_serve_expected(cfg, leaves, kind):
+            faults.append(f"call {i} ({kind}): collectives {by_axis(log)}")
+    out = {k: got[k] for k in ("prefill_s", "decode_s", "prefill_launches",
+                               "prefill_routes", "decode_launches", "heads",
+                               "peak_gib")}
+    out.update(draw_s=draw_s, n_layers=cfg.n_layers, prompt=prompt,
+               steps=steps, faults=faults,
+               collectives=[by_axis(log) for log in got["logs"][:2]],
+               finite=all(bool(torch.isfinite(x).all())
+                          for x in got["logits"]),
+               logits_sum=[float(x.double().sum()) for x in got["logits"]],
+               state_blocks={k: list(v.shape) for k, v in
+                             got["last"].items() if k in ("wkv", "ssm")})
+    return out
+
+
+def rec_tp_single(cfg, dev, params, toks, batch, small: bool) -> tuple:
+    """The single-device float32 runs 32a / 32b hold the sharded ones to,
+    on ``dev``: the serving outputs (serve_rank_f32's prefill and decode
+    steps, its shorter ones for a ``small`` rehearsal: each call's logits,
+    the cache after the prefill and after the last step) and the gradient
+    of ``batch`` (loss, leaves, norm)."""
+    import torch
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.pytree import flatten
+    from repro_torch.serve import engine
+    from repro_torch.train.steps import loss_and_grads
+    prompt, max_len = ((31, 64) if small
+                       else (SERVE_F32_PROMPT, SERVE_F32_MAX_LEN))
+    out = {}
+    with torch.no_grad():
+        logits, cache = engine.prefill(params, cfg, tokens=toks[:, :prompt],
+                                       max_len=max_len)
+        out["logits/0"] = logits
+        out.update({f"first/{k}": v.clone() for k, v in cache.items()})
+        for t in range(SERVE_F32_STEPS):
+            logits, cache, _ = engine.decode_step(params, cfg, cache,
+                                                  toks[:, prompt + t])
+            out[f"logits/{t + 1}"] = logits
+        out.update({f"last/{k}": v for k, v in cache.items()})
+    loss, _, grads = loss_and_grads(params, cfg, batch)
+    leaves, skeleton = flatten(grads)
+    names = flatten(tree_paths(skeleton))[0]
+    return out, float(loss), dict(zip(names, leaves)), float(
+        global_norm(grads))
+
+
+def rec_tp_noise(arch: str, dev, small: bool):
+    """The float32 noise floor of ``arch``'s single-device run at 32a /
+    32b's inputs: the same function on the CPU against it on ``dev``.
+    Starts the CPU run on a thread and returns ``finish()``, which (after
+    the ranks, on the free device) runs it on ``dev`` and gives the worst
+    serving share of SERVE_TOL, the worst gradient leaf's share of
+    TRAIN_LEAF_TOL_OF_MAX of that leaf's largest magnitude, and the
+    gradient norm's gap."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.pytree import tree_map
+    cfg = rec_tp_config(arch, small, torch.float32, REC_TP_F32_LAYERS[arch])
+    b, s = (1, 64) if small else (REC_TP_TRAIN_BATCH, REC_TP_TRAIN_SEQ)
+    gen = torch.Generator().manual_seed(32)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SERVE_BATCH, SERVE_F32_MAX_LEN), generator=gen,
+                         dtype=torch.int32)
+    batch = {k: ep_tokens(cfg, torch.device("cpu"), b, s, 32 + c)
+             for c, k in enumerate(("tokens", "labels"))}
+    host = tree_map(lambda x: x.cpu(), ep_params(cfg, dev, ()))
+    pool = ThreadPoolExecutor(max_workers=1)
+    on_cpu = pool.submit(rec_tp_single, cfg, torch.device("cpu"), host,
+                         toks, batch, small)
+    pool.shutdown(wait=False)
+
+    def finish() -> dict:
+        cpu = on_cpu.result()
+        params = tree_map(lambda x: x.to(dev), host)
+        mine = rec_tp_single(cfg, dev, params, toks.to(dev),
+                             {k: v.to(dev) for k, v in batch.items()}, small)
+
+        def share(a, b):
+            a, b = a.double().cpu(), b.double().cpu()
+            return float(((a - b).abs() / (SERVE_TOL + SERVE_TOL * b.abs()))
+                         .max())
+        serve = {k: share(mine[0][k], v) for k, v in cpu[0].items()
+                 if k.split("/")[-1] != "pos"}
+        grads = {}
+        for k, v in cpu[2].items():
+            top = float(v.abs().max())
+            err = float((mine[2][k].cpu() - v).abs().max())
+            grads[k] = (err / (TRAIN_LEAF_TOL_OF_MAX * top) if top > 0
+                        else 0.0 if err == 0 else math.inf)
+        return {"serve_worst": max(serve.values()), "serve": serve,
+                "grad_worst": max(grads.values()),
+                "grad_top": sorted(grads.items(), key=lambda kv: -kv[1])[:6],
+                "loss": [mine[1], cpu[1]], "grad_norm": [mine[3], cpu[3]]}
+    return finish
+
+
+def rec_tp_rank(rank: int, store: str, out_dir: str, small: bool = False
+                ) -> None:
+    """One of phase 32's two ranks (a spawned process; ``small``: the
+    smoke configs on the CPU, a rehearsal)."""
+    import datetime
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cpu") if small else torch.device("cuda", 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh(REC_TP_MESH, ("data", "model"), device=dev.type)
+        res = {}
+        for arch in REC_TP_F32_LAYERS:
+            for name, part in (("serve_f32", rec_tp_serve),
+                               ("train_f32", rec_tp_train),
+                               ("bf16", rec_tp_prefill)):
+                t0 = time.perf_counter()
+                got = part(mesh, dev, arch, small)
+                got["seconds"] = time.perf_counter() - t0
+                res[f"{arch} {name}"] = got
+                if dev.type == "cuda":
+                    free_device_memory()
+                    torch.cuda.reset_peak_memory_stats(dev)
+        with open(f"{out_dir}/rank.{rank}.json", "w") as f:
+            json.dump(res, f, sort_keys=True)
+    except BaseException:
+        with open(f"{out_dir}/rank.{rank}.error", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def recurrent_tp(dev, plain, smi_line: str, small: bool = False) -> dict:
+    """Phase 32 (see the module doc).  ``small``: a rehearsal of the ranks
+    on the CPU with the smoke configs (no kernel time)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        free_device_memory()
+    noise = {arch: rec_tp_noise(arch, dev, small)
+             for arch in REC_TP_NOISE_ARCHS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rec_tp_")
+    out_dir = obs_dir("recurrent_tp")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rec_tp_rank,
+                         args=(r, f"{tmp}/store", str(out_dir), small))
+             for r in range(2)]
+    try:
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(timeout=REC_TP_PHASE_S + 60)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errors = sorted(out_dir.glob("rank.*.error"))
+        if errors or any(pr.exitcode != 0 for pr in procs):
+            fail("phase 32's ranks failed (exit codes "
+                 f"{[pr.exitcode for pr in procs]}): "
+                 + " | ".join(e.read_text()[-3000:] for e in errors))
+        ranks = [json.loads((out_dir / f"rank.{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    t_ranks = time.perf_counter() - t_phase
+    noise = {arch: finish() for arch, finish in noise.items()}
+    for arch, floor in noise.items():
+        # within the bounds, or no farther from the single-device run than
+        # twice the same run on the CPU is
+        for r, res in enumerate(ranks):
+            got = {"serve": res[f"{arch} serve_f32"]["worst_share"],
+                   "grad": res[f"{arch} train_f32"]["worst_share"]}
+            for what, worst in got.items():
+                if not worst <= max(1.0, 2 * floor[f"{what}_worst"]):
+                    fail(f"32 {arch} rank {r}: the {what} shares "
+                         f"{worst:.3g} of the tolerance, the CPU run's "
+                         f"{floor[f'{what}_worst']:.3g}")
+            gap = abs(res[f"{arch} train_f32"]["step_grad_norm"]
+                      - res[f"{arch} train_f32"]["one_grad_norm"])
+            cpu_gap = abs(floor["grad_norm"][0] - floor["grad_norm"][1])
+            if not gap <= max(FULL_WIDTH_F32_TOL
+                              * (1 + floor["grad_norm"][0]), 2 * cpu_gap):
+                fail(f"32 {arch} rank {r}: gradient norm off by {gap}, the "
+                     f"CPU run's by {cpu_gap}")
+    out = {"mesh": REC_TP_MESH, "smi": smi_line, "ranks_s": t_ranks,
+           "no_sync_but_gloo": dev.type == "cuda", "launches": 0,
+           "noise_floor": noise}
+    for arch in REC_TP_F32_LAYERS:
+        for name in ("serve_f32", "train_f32", "bf16"):
+            for r, res in enumerate(ranks):
+                if res[f"{arch} {name}"]["faults"]:
+                    fail(f"32 {arch} {name} rank {r}: "
+                         + "; ".join(res[f"{arch} {name}"]["faults"]))
+        bf = [res[f"{arch} bf16"] for res in ranks]
+        cfg = rec_tp_config(arch, small, torch.bfloat16,
+                            REC_TP_BF16_LAYERS[arch])
+        attn = cfg.n_shared_attn if cfg.family == "zamba2" else 0
+        heads = (cfg.d_model // 64 if cfg.family == "rwkv6"
+                 else cfg.mamba_heads) // REC_TP_MESH[1]
+        state = "wkv" if cfg.family == "rwkv6" else "ssm"
+        for r, got in enumerate(bf):
+            if not got["finite"] or got["logits_sum"] != bf[0]["logits_sum"]:
+                fail(f"32c {arch} rank {r}: logits finite {got['finite']}, "
+                     f"sums {got['logits_sum']} (rank 0 "
+                     f"{bf[0]['logits_sum']})")
+            if got["state_blocks"][state][2] != heads:
+                fail(f"32c {arch} rank {r}: its {state} block "
+                     f"{got['state_blocks'][state]}, not its {heads} heads")
+            if dev.type != "cuda":
+                continue
+            want_heads = [list(REC_TP_ATTN_HEADS)] if attn else []
+            if (got["prefill_launches"] != attn
+                    or (attn and got["prefill_routes"] != fa_routes(
+                        torch.bfloat16, cfg.head_dim, attn))
+                    or got["decode_launches"] != 0
+                    or got["heads"] != want_heads):
+                fail(f"32c {arch} rank {r}: prefill launches "
+                     f"{got['prefill_launches']} {got['prefill_routes']}, "
+                     f"decode launches {got['decode_launches']}, heads "
+                     f"{got['heads']}: expected {attn} tensor-core launches "
+                     f"at {want_heads} and none in decode")
+        t32 = [res[f"{arch} train_f32"] for res in ranks]
+        prompt, steps = bf[0]["prompt"], bf[0]["steps"]
+        out[arch] = {
+            "f32_layers": REC_TP_F32_LAYERS[arch],
+            "f32_serve_worst_share": max(res[f"{arch} serve_f32"][
+                "worst_share"] for res in ranks),
+            "f32_serve_collectives": ranks[0][f"{arch} serve_f32"]["logs"],
+            "leaves": ranks[0][f"{arch} serve_f32"]["leaves"],
+            "f32_train_optimizer": REC_TP_OPT,
+            "f32_train_worst_leaf_share": max(x["worst_share"] for x in t32),
+            "f32_train_loss": [t32[0]["step_loss"], t32[0]["one_loss"]],
+            "f32_train_grad_norm": [t32[0]["step_grad_norm"],
+                                    t32[0]["one_grad_norm"]],
+            "f32_train_grads_collectives": t32[0]["grads_collectives"],
+            "f32_train_step_s": [x["step_s"] for x in t32],
+            "f32_train_peak_gib": [x["peak_gib"] for x in t32],
+            "bf16_layers": bf[0]["n_layers"], "batch": REC_TP_BATCH,
+            "prompt": prompt, "decode_steps": steps,
+            "local_heads": heads,
+            "prefill_s": [x["prefill_s"] for x in bf],
+            "decode_s": [x["decode_s"] for x in bf],
+            "prefill_tokens_per_s_a_rank": REC_TP_BATCH * prompt
+            / max(x["prefill_s"] for x in bf),
+            "decode_tokens_per_s": REC_TP_BATCH * steps
+            / max(x["decode_s"] for x in bf),
+            "flash_attention_per_rank_prefill": bf[0]["prefill_launches"],
+            "flash_attention_in_decode": [x["decode_launches"] for x in bf],
+            "attention_heads": bf[0]["heads"],
+            "bf16_collectives": bf[0]["collectives"],
+            "state_blocks": bf[0]["state_blocks"],
+            "peak_gib": [x["peak_gib"] for x in bf],
+            "parts_s": {name: [res[f"{arch} {name}"]["seconds"]
+                               for res in ranks]
+                        for name in ("serve_f32", "train_f32", "bf16")}}
+        out["launches"] += sum(x["prefill_launches"] + x["decode_launches"]
+                               for x in bf)
+    if dev.type == "cuda":
+        bq, h, kvh, s_len, d_h = REC_TP_TIME_SHAPE
+        out["forward"] = flash_attention_time(
+            dev, plain, "zamba2-2.7b tensor-parallel rank", bq, h, kvh, d_h,
+            s_len=s_len)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["limit_s"] = REC_TP_PHASE_S
+    say("recurrent_tp", **{k: v for k, v in out.items() if k != "forward"})
+    if out["seconds"] > REC_TP_PHASE_S:
+        fail(f"phase 32 took {out['seconds']:.1f} s, over its "
+             f"{REC_TP_PHASE_S} s")
+    return out
+
+
 def in_band(name: str, checks: dict) -> None:
     bad = {k: v for k, v in checks.items() if not v}
     if bad:
@@ -6598,7 +7191,7 @@ def in_band(name: str, checks: dict) -> None:
              f"{sorted(bad)}")
 
 
-def main(until: int = 31) -> None:
+def main(until: int = 32) -> None:
     import numpy as np
     import torch
 
@@ -7279,6 +7872,11 @@ def main(until: int = 31) -> None:
     # ------------- 31. Mixtral's expert tensor parallelism, two gloo ranks
     mx31 = mixtral_expert_tp(dev, plain, smi_line)
 
+    if until < 32:
+        fail(f"stopped after phase {until} (--until)")
+    # ----- 32. RWKV-6's and Mamba2's mixes on each rank's heads, two ranks
+    rc32 = recurrent_tp(dev, plain, smi_line)
+
     kernels = [
         {"name": "observe_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/observe_scatter/csrc/"
@@ -7598,6 +8196,21 @@ def main(until: int = 31) -> None:
          "bound_ms": mx31["forward"]["bound_ms"],
          "bound_by": mx31["forward"]["bound_by"],
          "library_ms": mx31["forward"]["sdpa_ms"]},
+        # the tensor-core route on zamba2's tensor-parallel serving path:
+        # its launches on both ranks in phase 32c's bf16 prefill (one a
+        # shared-block invocation at a rank's 16 / 16 heads, beside the
+        # Mamba2 layers on the rank's 40 of 80 heads; none in decode), its
+        # error and time at that shape (B 4, H 16, KVH 16, S 4096, d 80)
+        {"name": "flash_attention_zamba2_tp", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": rc32["launches"],
+         "max_abs_err": rc32["forward"]["max_abs_err"],
+         "ms": rc32["forward"]["ms"], "plain_ms": rc32["forward"]["plain_ms"],
+         "bound_ms": rc32["forward"]["bound_ms"],
+         "bound_by": rc32["forward"]["bound_by"],
+         "library_ms": rc32["forward"]["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -7610,4 +8223,4 @@ if __name__ == "__main__":
     # --until N stops after phase N (a short first check of a new kernel);
     # it fails by design, since the result lines are never reached
     args = sys.argv[1:]
-    main(int(args[1]) if args[:1] == ["--until"] else 31)
+    main(int(args[1]) if args[:1] == ["--until"] else 32)

@@ -48,8 +48,8 @@ would compile:
   the rank's columns and the attention on all heads; MoE layers
   single-program (each expert on the rank's block of ``d_expert`` where
   the rules put ``expert_mlp`` on "model": Mixtral's override) or expert
-  parallel, rwkv6's and Mamba2's blocks whole on every rank, gathered
-  block by block);
+  parallel, every RWKV-6 and Mamba2 mix at the rank's heads, RWKV-6's
+  channel mix on the rank's blocks);
 * **prefill** and **decode**: ``serve.engine.prefill(mesh=)`` /
   ``decode_step(mesh=)``, sharded serving on the reference's layouts
   (``serve.sharded``): the params laid out by ``model_pspecs`` as the
@@ -62,9 +62,10 @@ would compile:
   on "model"), decode's on the whole batch's routing with each rank's
   experts' slots; where the rules put ``expert_mlp`` on "model" both run
   every expert on the rank's block of ``d_expert`` (else the layer's
-  experts are gathered at use); rwkv6's and
-  Mamba2's blocks whole on every rank, their states the rank's block
-  over "model".  ``long_500k``'s batch of 1 does not split: the cache's
+  experts are gathered at use); RWKV-6's and
+  Mamba2's mixes at the rank's heads, their states the rank's block over
+  "model" (whole where the heads do not divide it, joined from the
+  ranks' heads).  ``long_500k``'s batch of 1 does not split: the cache's
   sequence takes the batch axes too, and a decode step combines the
   ranks' slices of it.
 

@@ -24,9 +24,9 @@ param tree as the sharded train step and sharded serving hand it to the
 model), a rank's :func:`block` of a cut dim (the serving cache's blocks,
 :func:`cache_shardings`), the expert-parallel MoE's
 differentiable :func:`all_to_all`, :func:`split_seq` and
-:func:`gather_seq`, and tensor parallelism's :func:`to_model` and
-:func:`from_model`), so the train step, the model's blocks and
-checkpoints share them.  Each collective is counted in
+:func:`gather_seq`, and tensor parallelism's :func:`to_model`,
+:func:`from_model` and :func:`scatter_sum`), so the train step, the
+model's blocks and checkpoints share them.  Each collective is counted in
 :data:`COLLECTIVES` as plain integers (calls and bytes), as
 ``core.shard`` counts the telemetry path's; inside a :func:`recording`
 block each is also logged with its group's size (the dry run's wire
@@ -53,8 +53,8 @@ __all__ = ["AtUse", "Block", "COLLECTIVES", "NamedSharding",
            "entry_axes", "experts_local", "from_model", "full", "gather",
            "gather_seq", "gather_slices", "hand_over", "leaf_roles",
            "local_block", "map_specs", "mesh_axes", "model_pspecs", "named",
-           "opt_pspecs", "placements", "recording", "split_seq", "to_model",
-           "tp_config", "wrap"]
+           "opt_pspecs", "placements", "recording", "scatter_sum",
+           "split_seq", "to_model", "tp_config", "wrap"]
 
 
 class PartitionSpec(tuple):
@@ -890,6 +890,31 @@ class _FromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, group, n, dim):
+        ctx.args = (axis, group, n, dim)
+        return _reduce_scatter(list(x.chunk(n, dim)), group, n, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, group, n, dim = ctx.args
+        return (torch.cat(_all_gather(g, group, n, axis), dim), None, None,
+                None, None)
+
+
+def scatter_sum(x: torch.Tensor, mesh, axis: str = "model", dim: int = -1
+                ) -> torch.Tensor:
+    """Where a block's partial results join and each rank goes on with
+    its slice of them: the sum over the ranks of mesh axis ``axis`` of
+    ``x``, this rank's slice of ``dim`` (cut evenly; one reduce-scatter).
+    The backward all-gathers the slices' gradients: each rank's part
+    reaches every slice.  :func:`gather_seq` of the slices is
+    :func:`from_model` of ``x`` at the same bytes on the wire."""
+    group, n, _ = _axis_group(mesh, axis)
+    return _ScatterSum.apply(x, axis, group, n, dim)
 
 
 def to_model(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:

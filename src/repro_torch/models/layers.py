@@ -35,6 +35,14 @@ its block (``kv == "local"``), else every KV head at the sequence rows
 batch axes for a batch of one), projected from the whole ``wk`` / ``wv``
 at those rows alone under "sliced" and cut from the whole k / v under
 "cut" or without ``tp``.  The attention itself is unchanged.
+
+RWKV-6's and Mamba2's blocks (``tp.mix``, ``tp.ffn``; the mixes are
+``models.rwkv6`` / ``models.mamba2``'s) run on the rank's heads,
+:func:`head_share`'s: the input enters through ``to_model`` and the
+rank's partial output leaves through ``from_model``.  A weight whose
+rules' block over "model" is the rank's heads' slice is used as that
+block (``mix == "local"``), any other weight the mix reads is whole on
+the rank and sliced to its heads (its gradient a partial sum).
 """
 from __future__ import annotations
 
@@ -104,7 +112,12 @@ class TensorParallel(NamedTuple):
     "sliced" / None as the module doc says, ``mlp`` (the dense MLP on its
     block of columns), ``vocab`` (the embedding and the loss on its block
     of the vocabulary), ``experts`` (the MoE expert FFN on its block of
-    every expert's ``d_expert``: ``models.moe``)."""
+    every expert's ``d_expert``: ``models.moe``), ``mix`` (RWKV-6's time
+    mix or Mamba2's mix on the rank's heads: "local" where the rules'
+    block of its head-split weights is the rank's heads' slice, "sliced"
+    where they are whole and sliced, None: the mix runs whole) and
+    ``ffn`` (RWKV-6's channel mix on the rank's block of ``d_ff`` and of
+    the receptance's columns)."""
     mesh: Any
     size: int
     rank: int
@@ -113,6 +126,16 @@ class TensorParallel(NamedTuple):
     mlp: bool
     vocab: bool
     experts: bool
+    mix: Optional[str]
+    ffn: bool
+
+
+def head_share(n_heads: int, size: int, rank: int) -> Tuple[int, int]:
+    """``(first, count)``: rank ``rank`` of ``size``'s heads of
+    ``n_heads``, in order, the first ``n_heads % size`` ranks taking one
+    more (so rank 0 is never the smallest; a rank may take none)."""
+    per, extra = divmod(n_heads, size)
+    return rank * per + min(rank, extra), per + int(rank < extra)
 
 
 def kv_heads_read(n_heads: int, n_kv_heads: int, size: int, rank: int):

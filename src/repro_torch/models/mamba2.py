@@ -8,15 +8,30 @@ Chunked exactly like the RWKV6 path: intra-chunk pairwise decays are
 exp(non-positive sums); the inter-chunk state (H, P, N) is carried by a
 Python loop over chunks (the reference's ``lax.scan``).  Used inside the
 Zamba2 hybrid blocks.  Plain PyTorch on tensors.
+
+Tensor parallel over "model" (``tp``, a ``layers.TensorParallel`` with
+``tp.mix``): the rank runs its heads (``layers.head_share``), its state
+``(B, h, P, N)``.  ``in_proj`` is whole on the rank (the rules' blocks of
+its fused ``[z | x | B C | dt]`` columns straddle the segments), and the
+rank projects its heads' ``z``, ``x`` and ``dt`` columns and all of ``B``
+and ``C`` (one group); the conv, ``a_log``, ``d_skip``, ``dt_bias`` and
+``norm`` on its channels and heads; ``out_proj``'s rows of them (the
+leaf itself where it is the rank's block).  The gated RMSNorm runs over
+the whole ``d_inner``: each position's float32 sum of squares is summed
+over "model" (one all-reduce, and one in the backward), then divided by
+``d_inner``.  The input enters through ``to_model``, the partial output
+leaves through ``from_model``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Mamba2Params", "mamba2_mix", "mamba2_mix_step"]
+from .layers import TensorParallel, head_share, pick
+
+__all__ = ["Mamba2Params", "channels", "mamba2_mix", "mamba2_mix_step"]
 
 
 class Mamba2Params(NamedTuple):
@@ -51,12 +66,61 @@ def _dt(dt_raw: torch.Tensor, p: Mamba2Params) -> torch.Tensor:
 
 
 def _gated_out(o: torch.Tensor, z: torch.Tensor, p: Mamba2Params,
-               dt_, eps: float) -> torch.Tensor:
-    """o * silu(z), RMS-normed with ``norm``, through ``out_proj``."""
+               dt_, eps: float, tp: Optional[TensorParallel] = None,
+               d_inner: int = 0) -> torch.Tensor:
+    """o * silu(z), RMS-normed with ``norm``, through ``out_proj``; under
+    ``tp`` the rank's channels of the ``d_inner`` the norm runs over."""
     o = o * F.silu(z.to(torch.float32))
-    var = torch.mean(o * o, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(o * o, dim=-1, keepdim=True)
+    else:
+        from ..launch.sharding import from_model, to_model
+        squares = to_model(torch.sum(o * o, dim=-1, keepdim=True), tp.mesh)
+        var = from_model(squares, tp.mesh) / d_inner
     o = o * torch.rsqrt(var + eps) * p.norm.to(torch.float32)
-    return o.to(dt_) @ p.out_proj.to(dt_)
+    out = o.to(dt_) @ p.out_proj.to(dt_)
+    if tp is None:
+        return out
+    from ..launch.sharding import from_model
+    return from_model(out, tp.mesh)
+
+
+def channels(d_inner: int, n_heads: int, d_state: int, first: int,
+             count: int, device) -> torch.Tensor:
+    """The ``[x | B C]`` channels (of the conv and its state) that heads
+    ``first .. first + count`` read: their x channels and all of B and
+    C."""
+    hp = d_inner // n_heads
+    return torch.cat([torch.arange(first * hp, (first + count) * hp,
+                                   device=device),
+                      torch.arange(d_inner, d_inner + 2 * d_state,
+                                   device=device)])
+
+
+def _rank_heads(x: torch.Tensor, p: Mamba2Params, d_inner: int,
+                n_heads: int, d_state: int, tp: Optional[TensorParallel]):
+    """(input, params, d_inner, heads) of the mix on this rank: the whole
+    mix without ``tp``, else the input through ``to_model`` and the
+    params cut to the rank's heads (the module doc): ``in_proj``'s
+    columns ``[z_r | x_r | B C | dt_r]``, the conv's ``[x_r | B C]``."""
+    if tp is None or not tp.mix:
+        return x, p, d_inner, n_heads
+    from ..launch.sharding import to_model
+    hp = d_inner // n_heads
+    first, count = head_share(n_heads, tp.size, tp.rank)
+    conv = channels(d_inner, n_heads, d_state, first, count, x.device)
+    cols = torch.cat([conv[:count * hp], conv + d_inner,
+                      torch.arange(2 * d_inner + 2 * d_state + first,
+                                   2 * d_inner + 2 * d_state + first + count,
+                                   device=x.device)])
+    own = (first * hp, count * hp)
+    return to_model(x, tp.mesh), Mamba2Params(
+        in_proj=pick(p.in_proj, cols), conv_w=pick(p.conv_w, conv),
+        conv_b=pick(p.conv_b, conv), a_log=pick(p.a_log, (first, count)),
+        d_skip=pick(p.d_skip, (first, count)),
+        dt_bias=pick(p.dt_bias, (first, count)), norm=pick(p.norm, own),
+        out_proj=(p.out_proj if tp.mix == "local"
+                  else p.out_proj.narrow(0, *own))), count * hp, count
 
 
 def mamba2_mix(
@@ -69,10 +133,16 @@ def mamba2_mix(
     d_state: int,
     chunk: int = 64,
     eps: float = 1e-5,
+    tp: Optional[TensorParallel] = None,
 ):
-    """Returns (out (B, S, D), final_state (B, H, P, N) float32)."""
+    """Returns (out (B, S, D), final_state (B, H, P, N) float32).
+    ``tp``: on the rank's heads (the module doc); ``state`` and the final
+    state are then the rank's heads'."""
     b, s, _ = x.shape
     hp = d_inner // n_heads  # head dim P
+    whole = d_inner
+    x, p, d_inner, n_heads = _rank_heads(x, p, d_inner, n_heads, d_state,
+                                         tp)
     n = d_state
     dt_ = x.dtype
     f32 = torch.float32
@@ -131,7 +201,9 @@ def mamba2_mix(
 
     # D skip + gated RMSNorm + out proj
     o = o + xh * p.d_skip.to(f32)[:, None]
-    return _gated_out(o.reshape(b, s, d_inner), z, p, dt_, eps), state
+    return _gated_out(o.reshape(b, s, d_inner), z, p, dt_, eps,
+                      tp if tp is not None and tp.mix else None,
+                      whole), state
 
 
 # ----------------------------------------------------------- single-token step
@@ -145,10 +217,17 @@ def mamba2_mix_step(
     n_heads: int,
     d_state: int,
     eps: float = 1e-5,
+    tp: Optional[TensorParallel] = None,
 ):
-    """One decode step.  Returns (out (B, D), new_conv_state, new_state)."""
+    """One decode step.  Returns (out (B, D), new_conv_state, new_state).
+    ``tp``: on the rank's heads (the module doc); ``conv_state`` and
+    ``state`` are then the rank's (its ``channels`` and heads), and so
+    are the new ones."""
     b, _ = x.shape
     hp = d_inner // n_heads
+    whole = d_inner
+    x, p, d_inner, n_heads = _rank_heads(x, p, d_inner, n_heads, d_state,
+                                         tp)
     n = d_state
     dt_ = x.dtype
     f32 = torch.float32
@@ -172,5 +251,6 @@ def mamba2_mix_step(
         (dt[..., None] * xh)[..., None] * bmf[:, None, None, :]
     o = (state @ cmf[:, None, :, None])[..., 0]             # (B,H,P)
     o = o + xh * p.d_skip.to(f32)[:, None]
-    return _gated_out(o.reshape(b, d_inner), z, p, dt_, eps), \
+    return _gated_out(o.reshape(b, d_inner), z, p, dt_, eps,
+                      tp if tp is not None and tp.mix else None, whole), \
         window[:, 1:], state

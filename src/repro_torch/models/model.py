@@ -299,16 +299,24 @@ def param_pspecs(cfg: ModelConfig, rules: Dict[Optional[str], Any]) -> dict:
 
 # ======================================================= tensor parallelism
 def tp_layout(cfg: ModelConfig, size: int):
-    """(heads, kv, mlp, vocab, experts) of :class:`layers.TensorParallel`
-    for ``cfg.tp_axes`` at ``size`` "model" ranks: which modules run on
-    their rank's block of the leaves the rules split over "model".  The
-    dense and MoE attention and zamba2's shared block split their heads;
-    the dense MLP and zamba2's shared MLP their columns; the MoE expert
-    FFN every expert's ``d_expert`` where the rules put ``expert_mlp`` on
-    "model" (the reference's expert tensor parallelism: Mixtral's 8
-    experts at 16 ranks) and it splits evenly, else the layer's experts
-    are gathered at use (rwkv6's and Mamba2's blocks run whole); the
-    embedding and the loss their vocabulary when it splits evenly."""
+    """(heads, kv, mlp, vocab, experts, mix, ffn) of
+    :class:`layers.TensorParallel` for ``cfg.tp_axes`` at ``size``
+    "model" ranks: which modules run on their rank's block of the leaves
+    the rules split over "model".  The dense and MoE attention and
+    zamba2's shared block split their heads; the dense MLP and zamba2's
+    shared MLP their columns; the MoE expert FFN every expert's
+    ``d_expert`` where the rules put ``expert_mlp`` on "model" (the
+    reference's expert tensor parallelism: Mixtral's 8 experts at 16
+    ranks) and it splits evenly, else the layer's experts are gathered at
+    use; the embedding and the loss their vocabulary when it splits
+    evenly.  RWKV-6's time mix (where the rules put "heads" on "model")
+    and Mamba2's mix (``mlp``) run the rank's heads
+    (``layers.head_share``; ``d_model // 64`` heads of RWKV-6's,
+    ``mamba_heads`` of Mamba2's): ``mix`` "local" where the heads divide
+    "model" (the rules' block of ``wr`` / ``wk`` / ``wv`` / ``wg``'s
+    columns, of ``out_proj``'s rows, is then the rank's heads'), else
+    "sliced"; RWKV-6's channel mix (``ffn``) its blocks of ``d_ff`` and of
+    the receptance's columns where both split evenly."""
     axes = cfg.tp_axes or ()
     heads = kv = None
     if "heads" in axes and cfg.family in ("attn", "moe", "zamba2"):
@@ -326,7 +334,22 @@ def tp_layout(cfg: ModelConfig, size: int):
     vocab = "vocab" in axes and cfg.vocab_size % size == 0
     experts = ("expert_mlp" in axes and cfg.family == "moe"
                and cfg.moe.d_expert % size == 0)
-    return heads, kv, mlp, vocab, experts
+    mix = None
+    if cfg.family == "rwkv6" and "heads" in axes:
+        mix = "local" if (cfg.d_model // 64) % size == 0 else "sliced"
+    elif cfg.family == "zamba2" and "mlp" in axes:
+        mix = "local" if cfg.mamba_heads % size == 0 else "sliced"
+    ffn = (cfg.family == "rwkv6" and "heads" in axes and "mlp" in axes
+           and cfg.d_ff % size == 0 and cfg.d_model % size == 0)
+    return heads, kv, mlp, vocab, experts, mix, ffn
+
+
+# the recurrent leaves a rank uses whole, sliced to its heads (or, on the
+# input side, all of them): their gradients are partial sums on each rank
+_RWKV6_PARTIAL = ("wo", "u", "w0", "ln_x", "w_lora_a", "w_lora_b", "tm_mu",
+                  "tm_lora_a", "tm_lora_b")
+_MAMBA2_PARTIAL = ("in_proj", "conv_w", "conv_b", "a_log", "d_skip",
+                   "dt_bias", "norm")
 
 
 def tp_roles(cfg: ModelConfig, size: int) -> Dict[str, str]:
@@ -334,7 +357,7 @@ def tp_roles(cfg: ModelConfig, size: int) -> Dict[str, str]:
     for a leaf the step hands over as this rank's block over "model" (its
     gradient is that block's), "partial" for a whole leaf whose gradient
     is a partial sum on each rank (the step sums it over "model")."""
-    heads, kv, mlp, vocab, experts = tp_layout(cfg, size)
+    heads, kv, mlp, vocab, experts, mix, ffn = tp_layout(cfg, size)
     out: Dict[str, str] = {}
     paths = {path for path, _ in iter_schema(cfg)}
 
@@ -363,6 +386,21 @@ def tp_roles(cfg: ModelConfig, size: int) -> Dict[str, str]:
     if experts:
         for w in ("e_gate", "e_up", "e_down"):
             put("blocks." + w, "local")
+    own = "local" if mix == "local" else "partial"
+    if mix and cfg.family == "rwkv6":
+        for w in ("wr", "wk", "wv", "wg"):
+            put("blocks." + w, own)
+        for w in _RWKV6_PARTIAL:
+            put("blocks." + w, "partial")
+    if ffn:
+        for w in ("f_wk", "f_wv", "f_wr"):
+            put("blocks." + w, "local")
+        for w in ("f_mu_k", "f_mu_r"):
+            put("blocks." + w, "partial")
+    if mix and cfg.family == "zamba2":
+        put("blocks.out_proj", own)
+        for w in _MAMBA2_PARTIAL:
+            put("blocks." + w, "partial")
     return out
 
 
@@ -466,29 +504,37 @@ def mamba2_params(bp: dict) -> Mamba2Params:
 
 
 def rwkv6_block(x: torch.Tensor, bp: dict, cfg: ModelConfig, state=None,
-                return_shift: bool = False):
+                return_shift: bool = False, mesh=None):
     """One RWKV-6 layer -> (x, final wkv state).  Heads of 64 channels
     (``d_model // 64``, as the reference; not ``cfg.n_heads``).  With
     ``return_shift`` -> (x, state, (sh_mix, sh_ffn)): the last position's
     normed inputs of the time mix and of the channel mix, the token shift
-    a decode step continues from."""
+    a decode step continues from.  ``mesh`` with ``cfg.tp_axes``: the time
+    mix on the rank's heads (``state`` and the final state the rank's
+    heads') and the channel mix on its blocks (:func:`tensor_parallel`,
+    ``models.rwkv6``)."""
+    tp = tensor_parallel(cfg, mesh)
     xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
     h, state = rwkv6_mix(xn, rwkv6_params(bp), state,
-                         n_heads=cfg.d_model // 64)
+                         n_heads=cfg.d_model // 64, tp=tp)
     x = x + h
     xn2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    x = x + rwkv6_channel_mix(xn2, rwkv6_ffn_params(bp))
+    x = x + rwkv6_channel_mix(xn2, rwkv6_ffn_params(bp), tp)
     if return_shift:
         return x, state, (xn[:, -1], xn2[:, -1])
     return x, state
 
 
 def zamba2_mamba_block(x: torch.Tensor, bp: dict, cfg: ModelConfig,
-                       state=None):
-    """One Zamba2 Mamba2 layer (no MLP) -> (x, final SSM state)."""
+                       state=None, mesh=None):
+    """One Zamba2 Mamba2 layer (no MLP) -> (x, final SSM state); ``mesh``
+    with ``cfg.tp_axes``: on the rank's heads (``state`` and the final
+    state the rank's heads'; :func:`tensor_parallel`,
+    ``models.mamba2``)."""
     h, state = mamba2_mix(rms_norm(x, bp["ln1"], cfg.norm_eps),
                           mamba2_params(bp), state, d_inner=cfg.d_inner,
-                          n_heads=cfg.mamba_heads, d_state=cfg.ssm_state)
+                          n_heads=cfg.mamba_heads, d_state=cfg.ssm_state,
+                          tp=tensor_parallel(cfg, mesh))
     return x + h, state
 
 
@@ -639,8 +685,8 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     expert-parallel path (``params``' expert leaves this rank's block of
     experts over "model"); with ``cfg.tp_axes`` the leaves of
     :func:`tp_roles` are this rank's blocks over "model" and the
-    embedding, attention and MLP run tensor-parallel
-    (:func:`tensor_parallel`).  A leaf handed over as a
+    embedding, attention, MLP and RWKV-6's and Mamba2's mixes run
+    tensor-parallel (:func:`tensor_parallel`).  A leaf handed over as a
     ``launch.sharding.AtUse`` is gathered inside each block that reads it
     (:func:`gathered`)."""
     x = constrain_batch(embed_inputs(params, cfg, tokens, embeds, mesh), cfg)
@@ -666,7 +712,8 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
     elif cfg.family == "rwkv6":
         def layer(x, i):
             x, _ = rwkv6_block(constrain_batch(x, cfg),
-                               gathered(layer_params(params, i)), cfg)
+                               gathered(layer_params(params, i)), cfg,
+                               mesh=mesh)
             return constrain_batch(x, cfg)
         for i in range(cfg.n_layers):
             x = _remat(lambda x, i=i: layer(x, i), cfg)(x)
@@ -678,7 +725,7 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
         def layer(x, i):
             x, _ = zamba2_mamba_block(constrain_batch(x, cfg),
                                       gathered(layer_params(params, i)),
-                                      cfg)
+                                      cfg, mesh=mesh)
             return constrain_batch(x, cfg)
 
         def group(x, inv):

@@ -13,13 +13,27 @@ w_t in (0,1) per channel is data-dependent (lora on the shifted input);
 u is the per-channel "bonus" for the current token.  Plain PyTorch on
 tensors: the chunk count and padding come from the input's shape, so the
 loop never reads the device.
+
+Tensor parallel over "model" (``tp``, a ``layers.TensorParallel``): the
+time mix runs the rank's heads (``layers.head_share``; ``tp.mix``), its
+state the rank's heads' ``(B, h, hd, hd)``: r / k / v / g on the rank's
+columns of ``wr`` / ``wk`` / ``wv`` / ``wg`` (the leaves themselves where
+they are the rank's block, else sliced), the decay and bonus on its
+channels, the group norm per head, ``wo``'s rows of them, one
+all-reduce of the output.  The channel mix (``tp.ffn``) runs on the
+rank's blocks of ``f_wk``'s columns and ``f_wv``'s rows; its partial
+``kv`` is reduce-scattered over the model dim, each rank gates its
+columns with its block of ``f_wr``, and the gated columns are
+all-gathered (the bytes of one all-reduce, ``f_wr``'s product split).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from .layers import TensorParallel, head_share, pick
 
 __all__ = ["RWKV6FFNParams", "RWKV6Params", "rwkv6_channel_mix",
            "rwkv6_channel_mix_step", "rwkv6_mix", "rwkv6_mix_step"]
@@ -80,7 +94,35 @@ def _group_norm(o: torch.Tensor, scale: torch.Tensor, eps: float
     mean = o.mean(-1, keepdim=True)
     var = o.var(-1, unbiased=False, keepdim=True)
     o = (o - mean) * torch.rsqrt(var + eps)
-    return o.reshape(*o.shape[:-2], -1) * scale.to(torch.float32)
+    return o.flatten(-2) * scale.to(torch.float32)
+
+
+def _rank_heads(x: torch.Tensor, p: RWKV6Params, n_heads: int,
+                tp: Optional[TensorParallel]):
+    """(input, params, heads, head dim) of the time mix on this rank: the
+    whole mix without ``tp``, else the input through ``to_model`` and the
+    params cut to the rank's heads (see the module doc)."""
+    hd = x.shape[-1] // n_heads
+    if tp is None or not tp.mix:
+        return x, p, n_heads, hd
+    from ..launch.sharding import to_model
+    first, n_heads = head_share(n_heads, tp.size, tp.rank)
+    cols = (first * hd, n_heads * hd)
+    own = {w: (getattr(p, w) if tp.mix == "local"
+               else pick(getattr(p, w), cols))
+           for w in ("wr", "wk", "wv", "wg")}
+    return to_model(x, tp.mesh), p._replace(
+        w0=pick(p.w0, cols), w_lora_b=pick(p.w_lora_b, cols),
+        u=pick(p.u, cols), wo=p.wo.narrow(0, *cols), ln_x=pick(p.ln_x, cols),
+        **own), n_heads, hd
+
+
+def _joined(out: torch.Tensor, tp: Optional[TensorParallel]
+            ) -> torch.Tensor:
+    if tp is None or not tp.mix:
+        return out
+    from ..launch.sharding import from_model
+    return from_model(out, tp.mesh)
 
 
 def rwkv6_mix(
@@ -91,10 +133,13 @@ def rwkv6_mix(
     n_heads: int,
     chunk: int = 64,
     eps: float = 1e-5,
+    tp: Optional[TensorParallel] = None,
 ):
-    """Returns (out (B, S, D), final_state (B, H, hd, hd) float32)."""
+    """Returns (out (B, S, D), final_state (B, H, hd, hd) float32).
+    ``tp``: on the rank's heads (the module doc); ``state`` and the final
+    state are then the rank's heads'."""
+    x, p, n_heads, hd = _rank_heads(x, p, n_heads, tp)
     b, s, d = x.shape
-    hd = d // n_heads
     dt = x.dtype
     f32 = torch.float32
 
@@ -149,11 +194,16 @@ def rwkv6_mix(
     # per-head group norm, gate, output proj
     o = _group_norm(o, p.ln_x, eps)
     o = o.to(dt) * g
-    return o @ p.wo.to(dt), state
+    return _joined(o @ p.wo.to(dt), tp), state
 
 
-def rwkv6_channel_mix(x: torch.Tensor, p: RWKV6FFNParams) -> torch.Tensor:
-    return rwkv6_channel_mix_step(x, _token_shift(x), p)
+def rwkv6_channel_mix(x: torch.Tensor, p: RWKV6FFNParams,
+                      tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """``tp``: on the rank's blocks (the module doc)."""
+    if tp is not None and tp.ffn:
+        from ..launch.sharding import to_model
+        x = to_model(x, tp.mesh)
+    return rwkv6_channel_mix_step(x, _token_shift(x), p, tp)
 
 
 # ----------------------------------------------------------- single-token step
@@ -165,10 +215,12 @@ def rwkv6_mix_step(
     *,
     n_heads: int,
     eps: float = 1e-5,
+    tp: Optional[TensorParallel] = None,
 ):
-    """One decode step.  Returns (out (B, D), new_state)."""
+    """One decode step.  Returns (out (B, D), new_state); ``tp`` as
+    :func:`rwkv6_mix`'s."""
+    x, p, n_heads, hd = _rank_heads(x, p, n_heads, tp)
     b, d = x.shape
-    hd = d // n_heads
     dt = x.dtype
     f32 = torch.float32
 
@@ -186,16 +238,25 @@ def rwkv6_mix_step(
 
     o = _group_norm(o, p.ln_x, eps)
     o = o.to(dt) * g
-    return o @ p.wo.to(dt), state
+    return _joined(o @ p.wo.to(dt), tp), state
 
 
 def rwkv6_channel_mix_step(x: torch.Tensor, x_prev: torch.Tensor,
-                           p: RWKV6FFNParams) -> torch.Tensor:
+                           p: RWKV6FFNParams,
+                           tp: Optional[TensorParallel] = None
+                           ) -> torch.Tensor:
     """The channel mix on (B, S, D) with its shifted input, or on one
-    token's (B, D) with the previous token's."""
+    token's (B, D) with the previous token's; ``tp``: on the rank's
+    blocks (the module doc; a caller under grad passes ``x`` through
+    ``to_model`` first, as :func:`rwkv6_channel_mix` does)."""
     dt = x.dtype
     xk = x + (x_prev - x) * p.mu_k.to(dt)
     xr = x + (x_prev - x) * p.mu_r.to(dt)
     k = torch.square(torch.relu(xk @ p.wk.to(dt)))
     kv = k @ p.wv.to(dt)
-    return torch.sigmoid(xr @ p.wr.to(dt)) * kv
+    if tp is None or not tp.ffn:
+        return torch.sigmoid(xr @ p.wr.to(dt)) * kv
+    from ..launch.sharding import gather_seq, scatter_sum
+    kv = scatter_sum(kv, tp.mesh, "model", -1)
+    return gather_seq(torch.sigmoid(xr @ p.wr.to(dt)) * kv, tp.mesh,
+                      "model", -1)

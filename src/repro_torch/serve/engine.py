@@ -59,8 +59,20 @@ function and holds no whole leaf or cache beyond the block that reads it:
   alone) and the combined partial outputs meet in one all-reduce over
   "model", at prefill as at decode (``models.moe``); else the layer's
   experts are gathered at use;
-* rwkv6's and Mamba2's blocks run whole on every rank; their recurrent
-  state rests as the rank's block over "model", gathered at use.
+* RWKV-6's and Mamba2's mixes run the rank's heads as in the sharded
+  train step (``models.rwkv6`` / ``models.mamba2``; RWKV-6's channel mix
+  on the rank's blocks).  A recurrent state rests as the rank's block of
+  ``cache_pspecs``: where that block is the rank's heads (the heads
+  divide "model") the rank reads and writes it with no collective; where
+  the state is whole on every rank (rwkv6-3b's 40 heads at 16 ranks) the
+  rank reads its heads' slice, and each layer's new state is joined
+  whole from the ranks' heads in one all-reduce (zeros outside each
+  rank's heads: exact), at prefill and at every decode step.  Mamba2's
+  conv state rests in contiguous channel blocks, which are not the
+  rank's channels: the prefill projects the block's channels of the last
+  three positions from the whole ``in_proj``, a decode step gathers the
+  conv state at use (one all-gather) for the rank's channels and
+  projects the new token's block channels.
 
 ``prefill(mesh=)`` with plain tensors for params (each rank's leaves as
 it reads them, the expert leaves its block under expert parallelism)
@@ -79,9 +91,9 @@ import torch
 from ..kernels.dispatch import resolve_device
 from ..launch import sharding as sh
 from ..models import attention as attn_lib
-from ..models.layers import (AttnParams, apply_rope, attn_proj, rms_norm,
-                             swiglu)
-from ..models.mamba2 import mamba2_mix_step
+from ..models.layers import (AttnParams, apply_rope, attn_proj, head_share,
+                             rms_norm, swiglu)
+from ..models.mamba2 import channels, mamba2_mix_step
 from ..models.model import (ModelConfig, constrain_batch, default_positions,
                             embed_inputs, gathered, layer_params, logits_fn,
                             mamba2_params, moe_params, rwkv6_block,
@@ -241,6 +253,46 @@ def _at_use(t: torch.Tensor, lay: Optional[_Layout], name: str):
     return t
 
 
+def _heads_rest(st: torch.Tensor, tp, n_heads: int,
+                lay: Optional[_Layout], name: str) -> torch.Tensor:
+    """A recurrent layer's final state as its mix gives it (the rank's
+    heads' under ``tp.mix``, else whole) -> the rank's block of cache leaf
+    ``name``: the heads' state itself where the block is the rank's heads,
+    else the ranks' heads joined whole (each rank's in zeros, summed over
+    "model": one all-reduce) and cut to the block."""
+    if tp is None or not tp.mix:
+        return _rest(st, lay, name)
+    if _state_cuts(lay, name) == ((1, "model"),):
+        return st
+    first, count = head_share(n_heads, tp.size, tp.rank)
+    whole = st.new_zeros((st.shape[0], n_heads) + tuple(st.shape[2:]))
+    whole[:, first:first + count] = st
+    return _rest(sh.all_reduce(whole, tp.mesh, ("model",)), lay, name)
+
+
+def _heads_at_use(t: torch.Tensor, tp, n_heads: int,
+                  lay: Optional[_Layout], name: str) -> torch.Tensor:
+    """The rank's block of a layer's recurrent state -> the state its mix
+    reads: under ``tp.mix`` the rank's heads' (the block itself where it
+    is those heads, else their slice of the whole state), else whole."""
+    if tp is None or not tp.mix:
+        return _at_use(t, lay, name)
+    if _state_cuts(lay, name) == ((1, "model"),):
+        return t
+    first, count = head_share(n_heads, tp.size, tp.rank)
+    return _at_use(t, lay, name)[:, first:first + count]
+
+
+def _conv_block(cfg: ModelConfig, lay: Optional[_Layout]):
+    """``(first, count)``: the rank's block of the conv state's ``[x | B
+    C]`` channels (all of them without a layout)."""
+    width = cfg.d_inner + 2 * cfg.ssm_state
+    if lay is None:
+        return 0, width
+    blk = sh.block(lay.mesh, lay.shardings["conv"].spec[3], width)
+    return blk.first, blk.count
+
+
 def _kv_rows(lay: Optional[_Layout], s: int):
     """The prompt's rows of the rank's block of the KV cache's sequence:
     ``(first, count)`` (None: all of it, no layout)."""
@@ -291,6 +343,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
         cache = init_cache(cfg, b, max_len, device=x.device)
     cache["pos"].fill_(s)
     rows = _kv_rows(lay, s)
+    tp = tensor_parallel(cfg, mesh)
     if cfg.family in ("attn", "moe"):
         for i in range(cfg.n_layers):
             x = constrain_batch(x, cfg)
@@ -305,14 +358,16 @@ def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
         # of the block's output there (ROADMAP Queue 3)
         for i in range(cfg.n_layers):
             x, st, (cache["sh_mix"][i], cache["sh_ffn"][i]) = rwkv6_block(
-                x, gathered(layer_params(params, i)), cfg, return_shift=True)
-            cache["wkv"][i] = _rest(st, lay, "wkv")
+                x, gathered(layer_params(params, i)), cfg, return_shift=True,
+                mesh=mesh)
+            cache["wkv"][i] = _heads_rest(st, tp, cfg.d_model // 64, lay,
+                                          "wkv")
     elif cfg.family == "zamba2":
         every = cfg.zamba_attn_every
         for inv in range(cfg.n_shared_attn):
             for i in range(inv * every, (inv + 1) * every):
                 x = _mamba_prefill(x, gathered(layer_params(params, i)), cfg,
-                                   cache, i, lay)
+                                   cache, i, lay, mesh)
             x, (k, v) = zamba2_shared_attention(
                 x, gathered(params["shared_attn"]), cfg, inv, positions,
                 return_kv=True, mesh=mesh, kv_rows=rows)
@@ -330,18 +385,22 @@ def prefill(params: dict, cfg: ModelConfig, tokens=None, embeds=None,
 
 
 def _mamba_prefill(x, bp, cfg: ModelConfig, cache: Cache, i: int,
-                   lay: Optional[_Layout]):
+                   lay: Optional[_Layout], mesh=None):
     """Zamba2's Mamba2 layer ``i`` at prefill: its conv state, the last 3
-    pre-conv inputs (in_proj's x / B / C slice of the last rows; zeros
-    before a shorter prompt, as the causal conv pads), and its SSM state
-    into the cache (the rank's blocks of them)."""
-    di, n = cfg.d_inner, cfg.ssm_state
+    pre-conv inputs (in_proj's x / B / C columns of the last rows, those
+    of the rank's block of channels; zeros before a shorter prompt, as
+    the causal conv pads), and its SSM state into the cache (the rank's
+    blocks of them; the mix on the rank's heads under ``mesh``'s tensor
+    parallelism)."""
+    di = cfg.d_inner
     tail = min(x.shape[1], 3)
     xn = rms_norm(x[:, -tail:], bp["ln1"], cfg.norm_eps)
-    cache["conv"][i, :, 3 - tail:] = _rest(
-        xn @ bp["in_proj"][:, di:2 * di + 2 * n].to(x.dtype), lay, "conv")
-    x, st = zamba2_mamba_block(x, bp, cfg)
-    cache["ssm"][i] = _rest(st, lay, "ssm")
+    first, count = _conv_block(cfg, lay)
+    cache["conv"][i, :, 3 - tail:] = \
+        xn @ bp["in_proj"][:, di + first:di + first + count].to(x.dtype)
+    x, st = zamba2_mamba_block(x, bp, cfg, mesh=mesh)
+    cache["ssm"][i] = _heads_rest(st, tensor_parallel(cfg, mesh),
+                                  cfg.mamba_heads, lay, "ssm")
     return x
 
 
@@ -447,33 +506,54 @@ def _decode_layer(x, bp, cfg: ModelConfig, kc, vc, pos, tp,
 
 
 def _rwkv6_decode(x, bp, cfg: ModelConfig, cache: Cache, i: int,
-                  lay: Optional[_Layout]):
+                  lay: Optional[_Layout], tp=None):
     """RWKV-6 layer ``i`` for one token; its states written into the
-    cache (the wkv state gathered at use, the rank's block kept)."""
+    cache (the rank's block kept).  Under ``tp`` the mixes on the rank's
+    heads and blocks (the module doc), else the wkv state gathered at
+    use."""
+    h_all = cfg.d_model // 64
     xn = rms_norm(x[:, None], bp["ln1"], cfg.norm_eps)[:, 0]
     h, st = rwkv6_mix_step(
-        xn, cache["sh_mix"][i], _at_use(cache["wkv"][i], lay, "wkv"),
-        rwkv6_params(bp), n_heads=cfg.d_model // 64)
-    cache["wkv"][i] = _rest(st, lay, "wkv")
+        xn, cache["sh_mix"][i],
+        _heads_at_use(cache["wkv"][i], tp, h_all, lay, "wkv"),
+        rwkv6_params(bp), n_heads=h_all, tp=tp)
+    cache["wkv"][i] = _heads_rest(st, tp, h_all, lay, "wkv")
     x = x + h
     xn2 = rms_norm(x[:, None], bp["ln2"], cfg.norm_eps)[:, 0]
     x = x + rwkv6_channel_mix_step(xn2, cache["sh_ffn"][i],
-                                   rwkv6_ffn_params(bp))
+                                   rwkv6_ffn_params(bp), tp)
     cache["sh_mix"][i], cache["sh_ffn"][i] = xn, xn2
     return x
 
 
 def _mamba_decode(x, bp, cfg: ModelConfig, cache: Cache, i: int,
-                  lay: Optional[_Layout]):
+                  lay: Optional[_Layout], tp=None):
     """Zamba2's Mamba2 layer ``i`` for one token; its conv and SSM states
-    written into the cache (gathered at use, the rank's blocks kept)."""
+    written into the cache (gathered at use, the rank's blocks kept).
+    Under ``tp.mix`` the mix on the rank's heads (the module doc): the
+    conv state gathered whole for the rank's channels, the rank's block
+    of it shifted by one row and its channels of the new token projected
+    from the whole ``in_proj``."""
+    di, n, h_all = cfg.d_inner, cfg.ssm_state, cfg.mamba_heads
     xn = rms_norm(x[:, None], bp["ln1"], cfg.norm_eps)[:, 0]
-    h, conv, st = mamba2_mix_step(
-        xn, _at_use(cache["conv"][i], lay, "conv"),
-        _at_use(cache["ssm"][i], lay, "ssm"), mamba2_params(bp),
-        d_inner=cfg.d_inner, n_heads=cfg.mamba_heads, d_state=cfg.ssm_state)
-    cache["conv"][i] = _rest(conv, lay, "conv")
-    cache["ssm"][i] = _rest(st, lay, "ssm")
+    conv = _at_use(cache["conv"][i], lay, "conv")
+    if tp is None or not tp.mix:
+        h, conv, st = mamba2_mix_step(
+            xn, conv, _at_use(cache["ssm"][i], lay, "ssm"),
+            mamba2_params(bp), d_inner=di, n_heads=h_all, d_state=n)
+        cache["conv"][i] = _rest(conv, lay, "conv")
+        cache["ssm"][i] = _rest(st, lay, "ssm")
+        return x + h
+    first, count = head_share(h_all, tp.size, tp.rank)
+    h, _, st = mamba2_mix_step(
+        xn, conv.index_select(-1, channels(di, h_all, n, first, count,
+                                           x.device)),
+        _heads_at_use(cache["ssm"][i], tp, h_all, lay, "ssm"),
+        mamba2_params(bp), d_inner=di, n_heads=h_all, d_state=n, tp=tp)
+    lo, width = _conv_block(cfg, lay)
+    new = xn @ bp["in_proj"][:, di + lo:di + lo + width].to(xn.dtype)
+    cache["conv"][i] = torch.cat([cache["conv"][i][:, 1:], new[:, None]], 1)
+    cache["ssm"][i] = _heads_rest(st, tp, h_all, lay, "ssm")
     return x + h
 
 
@@ -540,13 +620,13 @@ def decode_step(params: dict, cfg: ModelConfig, cache: Cache,
     elif cfg.family == "rwkv6":
         for i in range(cfg.n_layers):
             x = _rwkv6_decode(x, gathered(layer_params(params, i)), cfg,
-                              cache, i, lay)
+                              cache, i, lay, tp)
     elif cfg.family == "zamba2":
         every = cfg.zamba_attn_every
         for inv in range(cfg.n_shared_attn):
             for i in range(inv * every, (inv + 1) * every):
                 x = _mamba_decode(x, gathered(layer_params(params, i)), cfg,
-                                  cache, i, lay)
+                                  cache, i, lay, tp)
             x = _zamba_shared_attn_decode(
                 x, gathered(params["shared_attn"]), cfg, inv,
                 cache["k"][inv], cache["v"][inv], pos, tp, lay)

@@ -7,7 +7,8 @@ starts one), on the reference's layouts (its dry run's ``in_shardings`` /
   the rank's block, gathered inside the block that reads it), the heads,
   the MLP's columns, the vocabulary and, on an arch's override, the
   experts' ``d_expert`` over "model" (the attention, the dense MLP, the
-  embedding, the head and the MoE expert FFN on the rank's blocks);
+  embedding, the head and the MoE expert FFN on the rank's blocks, and
+  RWKV-6's and Mamba2's mixes on the rank's heads);
 * the cache by ``launch.sharding.cache_pspecs``: the batch over the batch
   axes, the KV heads over "model" where they divide it, else the sequence
   over "model" (and over the batch axes too when the batch does not

@@ -68,9 +68,19 @@ gathered at use, or with ``moe_groups`` and ``moe_expert_sharded``
 expert parallelism (the reference's ``_moe_shard_map``), where each rank
 of "model" routes its sequence slice to the experts it holds
 (``models.moe``) and an expert leaf (one whose spec puts "model" on its
-experts dim) is local to "model" too.  rwkv6's and Mamba2's blocks run
-whole on every rank, each gathered block by block.  At one rank on every axis, or without a mesh, every op is the
-single-device step's.  The layout helpers and the collectives (counted in
+experts dim) is local to "model" too.  RWKV-6's time mix and Mamba2's
+mix run the rank's heads (``layers.head_share``: the first ``H mod m``
+ranks one more, a rank may take none and still joins every
+collective): the leaves whose rules' block is the rank's heads' slice
+stay that block (RWKV-6's ``wr`` / ``wk`` / ``wv`` / ``wg`` where its
+heads divide "model", Mamba2's ``out_proj`` where its heads do), the
+others the mix reads are gathered at use and sliced to the rank's heads,
+their gradients partial (``models.model.tp_roles``); one all-reduce of
+each mix's output, one more of Mamba2's sums of squares (its gated norm
+runs over the whole ``d_inner``).  RWKV-6's channel mix runs on the
+rank's blocks of ``f_wk`` / ``f_wv`` / ``f_wr`` (a reduce-scatter and an
+all-gather).  At one rank on every axis, or without a mesh, every op is
+the single-device step's.  The layout helpers and the collectives (counted in
 ``launch.sharding.COLLECTIVES``) are ``launch.sharding``'s.  Under remat
 every block's forward, its gathers and collectives with it, runs again
 in the backward, in the same order on every rank.

@@ -13,7 +13,9 @@ cell run on CPU tensors (the params and the cache laid out on the same
 mesh) under ``FlopCounterMode``; and the cell as the dry run counted it
 before sharded serving, counted the same way: full params on every rank,
 the rank's batch slice, and at decode the slice's whole cache.  Beside
-them the single-device prefill's and decode step's counts.
+them the single-device prefill's and decode step's counts.  Then the
+rwkv6 and zamba2 smoke models' cells (each "model" rank on its heads of
+every RWKV-6 and Mamba2 mix) the same way, without the full-params cell.
 """
 import json
 import os
@@ -21,11 +23,20 @@ import sys
 import traceback
 
 ARCH = "qwen2-0.5b"
+RECURRENT_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
 MESHES = ((2, 2), (1, 4), (4, 1))
 BATCH, SEQ = 4, 64
 
 
 def cases(out: dict) -> None:
+    arch_cases(out, ARCH, "", full=True)
+    for arch in RECURRENT_ARCHS:
+        arch_cases(out, arch, f"{arch} ", full=False)
+
+
+def arch_cases(out: dict, arch: str, prefix: str, full: bool) -> None:
+    """``arch``'s cells, keyed by ``prefix``; ``full``: beside each, the
+    cell as the dry run counted it before sharded serving."""
     import torch
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -38,18 +49,18 @@ def cases(out: dict) -> None:
     from repro_torch.serve import engine
     from repro_torch.serve import sharded as ss
 
-    cfg = get_smoke_config(ARCH)
-    ov = get_sharding_overrides(ARCH)
+    cfg = get_smoke_config(arch)
+    ov = get_sharding_overrides(arch)
     gen = torch.Generator().manual_seed(0)
     toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen,
                          dtype=torch.int32)
     meta = abstract_params(cfg)
     with torch.no_grad():
-        out["single prefill"] = dryrun.count_step(
+        out[f"{prefix}single prefill"] = dryrun.count_step(
             lambda p, t: engine.prefill(p, cfg, tokens=t),
             (meta, input_specs(cfg, ShapeSpec("p", SEQ, BATCH, "prefill"))[
                 "tokens"]))["executed"]["flops"]
-        out["single decode"] = dryrun.count_step(
+        out[f"{prefix}single decode"] = dryrun.count_step(
             lambda p, c, t: engine.decode_step(p, cfg, c, t)[:2],
             (meta, engine.abstract_cache(cfg, BATCH, SEQ),
              torch.empty(BATCH, dtype=torch.int32, device="meta"))
@@ -77,12 +88,13 @@ def cases(out: dict) -> None:
                            ss.batch_block(toks[:, 0], mesh, scfg))
                 with FlopCounterMode(display=False) as f:
                     fn(*cpu)
-                out[f"{kind} {shp[0]}x{shp[1]}"] = {
+                out[f"{prefix}{kind} {shp[0]}x{shp[1]}"] = {
                     "flops": rec["executed"]["flops"],
                     "cpu_flops": f.get_total_flops(),
                     "kernels": rec["kernels"], "memory": rec["memory"],
                     "collectives": rec["collectives"],
-                    "full_params": full_params_memory(cfg, shape, mesh, ov)}
+                    "full_params": (full_params_memory(cfg, shape, mesh, ov)
+                                    if full else None)}
     finally:
         dist.destroy_process_group()
 

@@ -16,7 +16,9 @@ and the CLI's record under ``OUT/cli`` (or ``OUT/error.txt``).
    ranks.
    Then Mixtral's smoke step on its override (its experts' d_expert over
    "model") the same way at (2, 2) and (1, 4), beside its single-device
-   count.
+   count; and the rwkv6 and zamba2 smoke steps (each "model" rank on its
+   heads of every RWKV-6 and Mamba2 mix) the same way at (2, 2), (1, 4)
+   and (4, 1), beside their single-device counts.
 2. A fake group of 512 ranks: ``make_production_mesh`` one pod and two.
 3. No group: ``dryrun.main`` on qwen2-0.5b x train_4k x 16x16, which
    starts its own fake group of 512.
@@ -34,6 +36,10 @@ BATCH, SEQ = 4, 64
 # "model"): at the meshes whose "model" axis it cuts
 MOE_ARCH = "mixtral-8x22b"
 MOE_MESHES = ((2, 2), (1, 4))
+# the recurrent smoke steps: rwkv6's 2 heads are 1 / 1 / 0 / 0 a rank at
+# (1, 4) (rank 0, the counted one, takes one), zamba2's 4 Mamba2 heads 1
+RECURRENT_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
+RECURRENT_MESHES = ((2, 2), (1, 4), (4, 1))
 
 
 def fake_group(world: int) -> None:
@@ -44,10 +50,18 @@ def fake_group(world: int) -> None:
 
 
 def moe_cases(out: dict) -> None:
-    """Mixtral's smoke train step (B 4, S 64) on its override: the
+    """Mixtral's smoke train step (B 4, S 64) on its override, then the
+    recurrent smoke steps (:func:`train_cases`)."""
+    train_cases(out, MOE_ARCH, MOE_MESHES, "moe ")
+    for arch in RECURRENT_ARCHS:
+        train_cases(out, arch, RECURRENT_MESHES, f"{arch} ")
+
+
+def train_cases(out: dict, arch: str, meshes, prefix: str) -> None:
+    """``arch``'s smoke train step (B 4, S 64) on its overrides: the
     single-device count without a group, then on the fake group of 4 at
-    each of MOE_MESHES the sharded step's count and ``FlopCounterMode``'s
-    count of the same step on CPU tensors."""
+    each of ``meshes`` the sharded step's count and ``FlopCounterMode``'s
+    count of the same step on CPU tensors, keyed by ``prefix``."""
     import torch
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
@@ -60,18 +74,18 @@ def moe_cases(out: dict) -> None:
     from repro_torch.train.sharded import state_shardings
     from repro_torch.train.steps import make_train_step
 
-    cfg = get_smoke_config(MOE_ARCH)
-    over = get_sharding_overrides(MOE_ARCH)
+    cfg = get_smoke_config(arch)
+    over = get_sharding_overrides(arch)
     shape = ShapeSpec("train_smoke", SEQ, BATCH, "train")
     opt = get_optimizer(dryrun.get_optimizer_name_from_cfg(cfg))
     step = make_train_step(cfg, opt, cosine_schedule(3e-4, 100, 10000))
     params = abstract_params(cfg)
-    out["moe single_device_flops"] = dryrun.count_step(
+    out[f"{prefix}single_device_flops"] = dryrun.count_step(
         step, (params, opt.init(params),
                input_specs(cfg, shape)))["executed"]["flops"]
     fake_group(4)
     try:
-        for shp in MOE_MESHES:
+        for shp in meshes:
             mesh = make_mesh(shp, ("data", "model"), device="cpu")
             fn, args = dryrun.build_step(cfg, shape, mesh, over)
             rec = dryrun.count_step(fn, args)
@@ -88,7 +102,7 @@ def moe_cases(out: dict) -> None:
                  sh.named(mesh, sh.batch_specs(mesh, step_cfg, batch))))
             with FlopCounterMode(display=False) as f:
                 fn(*cpu_args)
-            out[f"moe mesh {shp[0]}x{shp[1]}"] = {
+            out[f"{prefix}mesh {shp[0]}x{shp[1]}"] = {
                 "flops": rec["executed"]["flops"],
                 "kernels": rec["kernels"], "executed": rec["executed"],
                 "cpu_flops": f.get_total_flops()}

@@ -27,9 +27,11 @@ Every rank builds the meshes of the module (subgroups of the one group:
 * ``constrain``: ``constrain_batch`` on a DTensor over a 2-rank mesh;
 * ``units``: at a (1, 2) mesh, the tensor-parallel ``swiglu``,
   ``attention_block`` (KV heads local, sliced, and heads cut), the
-  vocab-parallel loss (tied and untied), the embedding lookup and the
-  MoE expert FFN on each rank's block of ``d_expert`` against their
-  unsharded calls, outputs and gradients (ranks 0 and 1);
+  vocab-parallel loss (tied and untied), the embedding lookup, the
+  MoE expert FFN on each rank's block of ``d_expert`` and RWKV-6's time
+  and channel mixes and Mamba2's mix on each rank's heads (whole heads a
+  rank, and heads that do not divide the ranks) against their unsharded
+  calls, outputs, final states and gradients (ranks 0 and 1);
 * ``digest``: two steps at a (1, 1) mesh and two without a mesh, hashed,
   and the (1, 1) run's arrays in ``digest-<case>.npz`` (rank 0).
 
@@ -61,7 +63,10 @@ CUT = {"n_heads": 6, "head_dim": 16}
 # Mixtral at its own capacity factor (its experts' d_expert over 4 ranks),
 # the dense config (4 heads over 2 KV heads: each rank slices the KV head its
 # query head reads), the tied one (with qkv bias) and the cut variant; at
-# (4, 1) (FSDP alone) the dense config on AdamW and kimi-k2 on Adafactor
+# (4, 1) (FSDP alone) the dense config on AdamW and kimi-k2 on Adafactor;
+# at (1, 4) the two recurrent configs too: rwkv6's 2 heads (1 / 1 / 0 / 0
+# a rank, its time mix's weights gathered and sliced), zamba2's 4 Mamba2
+# heads (1 a rank)
 CASES = {"llama3.2-3b": ("llama3.2-3b", None, "mesh22", {}),
          "qwen2-0.5b": ("qwen2-0.5b", None, "mesh22", {}),
          "mixtral-8x22b": ("mixtral-8x22b", 8.0, "mesh22", {}),
@@ -74,6 +79,8 @@ CASES = {"llama3.2-3b": ("llama3.2-3b", None, "mesh22", {}),
          "llama3.2-3b-1x4": ("llama3.2-3b", None, "mesh14", {}),
          "qwen2-0.5b-1x4": ("qwen2-0.5b", None, "mesh14", {}),
          "llama3.2-3b-cut-1x4": ("llama3.2-3b", None, "mesh14", CUT),
+         "rwkv6-3b-1x4": ("rwkv6-3b", None, "mesh14", {}),
+         "zamba2-2.7b-1x4": ("zamba2-2.7b", None, "mesh14", {}),
          "llama3.2-3b-4x1": ("llama3.2-3b", None, "mesh41", {}),
          "kimi-k2-1t-a32b-4x1": ("kimi-k2-1t-a32b", 8.0, "mesh41", {})}
 MESH_SHAPES = {"mesh22": (2, 2), "mesh14": (1, 4), "mesh41": (4, 1)}
@@ -634,15 +641,127 @@ def _moe_unit_case(name: str, mesh, rank: int) -> dict:
             "heads": tp.heads, "kv": tp.kv}
 
 
+# RWKV-6's and Mamba2's mixes at 2 "model" ranks: unit -> (arch, config
+# changes).  RWKV-6 at d 128 (2 heads: one a rank, the rank's blocks of
+# wr / wk / wv / wg its heads) and d 192 (3 heads: 2 / 1, the weights
+# whole and sliced); its channel mix (d_ff 256: 128 columns a rank);
+# Mamba2 at d 128 (4 heads: 2 a rank, out_proj's block its rows) and d 96
+# (3 heads: 2 / 1, out_proj whole and sliced)
+RECURRENT_UNITS = {
+    "rwkv6-time-mix": ("rwkv6-3b", {}),
+    "rwkv6-time-mix-cut": ("rwkv6-3b", {"d_model": 192, "n_heads": 3}),
+    "rwkv6-channel-mix": ("rwkv6-3b", {}),
+    "mamba2-mix": ("zamba2-2.7b", {}),
+    "mamba2-mix-cut": ("zamba2-2.7b", {"d_model": 96})}
+
+
+def _recurrent_unit_case(name: str, mesh, rank: int) -> dict:
+    """A recurrent mix on each rank's heads at ``mesh`` (1, 2) against its
+    unsharded call on the same draw (layer 0's leaves of the smoke
+    config, every leaf drawn): from the same cotangents of the output and
+    of the final state (the rank's heads' slice of it), the output, the
+    rank's heads' final state and the gradients of the input and of every
+    leaf the mix reads (a local leaf's against its block of the whole
+    gradient, a partial one's summed over "model" first)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import mamba2, rwkv6, model as tm
+    from repro_torch.models.layers import head_share
+    from repro_torch.train import sharded
+
+    arch, changes = RECURRENT_UNITS[name]
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              activ_dtype=torch.float32, **changes)
+    cfg = sharded.tp_config(cfg, mesh)
+    tp = tm.tensor_parallel(cfg, mesh)
+    m = tp.size
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    layer = {k: torch.from_numpy(v[0]) for k, v in
+             perturbed_tree(tm.iter_schema(cfg))["blocks"].items()}
+    rules = sh.default_rules(mesh, cfg)
+    cut = {}
+    for path, spec in tm.iter_schema(cfg):
+        key = path.split(".")[-1]
+        dims = [d for d, a in enumerate(spec.logical_axes[1:])
+                if rules.get(a) == "model"]
+        if path.startswith("blocks.") and dims:
+            cut[key] = dims[0]
+    roles = {k.split(".")[-1]: r for k, r in tm.tp_roles(cfg, m).items()}
+    if name.startswith("rwkv6-time"):
+        fields, heads = tm.RWKV6Params._fields, cfg.d_model // 64
+
+        def run(w, x, tp):
+            return rwkv6.rwkv6_mix(x, tm.RWKV6Params(**w), n_heads=heads,
+                                   tp=tp)
+    elif name.startswith("rwkv6-channel"):
+        fields, heads = ["f_" + f for f in tm.RWKV6FFNParams._fields], 0
+
+        def run(w, x, tp):
+            return rwkv6.rwkv6_channel_mix(x, tm.RWKV6FFNParams(
+                *(w["f_" + f] for f in tm.RWKV6FFNParams._fields)),
+                tp), None
+    else:
+        fields, heads = tm.Mamba2Params._fields, cfg.mamba_heads
+
+        def run(w, x, tp):
+            return mamba2.mamba2_mix(x, tm.Mamba2Params(**w),
+                                     d_inner=cfg.d_inner, n_heads=heads,
+                                     d_state=cfg.ssm_state, tp=tp)
+    w = {k: layer[k] for k in fields}
+    local = {k for k in w if roles.get(k) == "local"}
+    partial = {k for k in w if roles.get(k) == "partial"}
+    x = torch.randn(UNIT_B, UNIT_S, cfg.d_model, generator=g)
+    first, count = head_share(heads, m, rank) if heads else (0, 0)
+
+    def grads(w, x, tp):
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        xs = x.clone().requires_grad_(True)
+        out, state = run(ws, xs, tp)
+        loss = (out * cot).sum()
+        if state is not None:
+            whole = cot_state if tp is None \
+                else cot_state[:, first:first + count]
+            loss = loss + (state * whole).sum()
+        return out, state, torch.autograd.grad(loss, [xs, *ws.values()])
+    cot = torch.randn(UNIT_B, UNIT_S, cfg.d_model, generator=g)
+    _, state_shape = run(w, x, None)
+    cot_state = None if state_shape is None else torch.randn(
+        state_shape.shape, generator=g)
+    want, want_state, want_g = grads(w, x, None)
+    blocks = {k: v.chunk(m, cut[k])[rank] if k in local else v
+              for k, v in w.items()}
+    got, got_state, got_g = grads(blocks, x, tp)
+    errs = {"out": _err(got, want), "x": _err(got_g[0], want_g[0])}
+    if want_state is not None:
+        errs["state"] = _err(got_state,
+                             want_state[:, first:first + count]) \
+            if count else float(got_state.numel())
+    for k, gg, wg in zip(w, got_g[1:], want_g[1:]):
+        if k in partial:
+            sh.all_reduce(gg, mesh, ("model",))
+        if k in local:
+            wg = wg.chunk(m, cut[k])[rank]
+        errs[k] = _err(gg, wg)
+    return {"errors": errs, "local": sorted(local), "partial": sorted(partial),
+            "whole": sorted(set(w) - local - partial), "mix": tp.mix,
+            "ffn": tp.ffn, "heads": [first, count],
+            "state_shape": None if got_state is None
+            else list(got_state.shape)}
+
+
 def run_units(meshes: dict, rank: int) -> dict:
     out = {name: _unit_case(name, meshes["mesh12"], rank) for name in UNITS}
     out.update({name: _moe_unit_case(name, meshes["mesh12"], rank)
                 for name in MOE_UNITS})
+    out.update({name: _recurrent_unit_case(name, meshes["mesh12"], rank)
+                for name in RECURRENT_UNITS})
     return out
 
 
 # ------------------------------------- one "model" rank: the step as it was
-DIGEST_CASES = ("qwen2-0.5b", "kimi-k2-1t-a32b")
+DIGEST_CASES = ("qwen2-0.5b", "kimi-k2-1t-a32b", "rwkv6-3b", "zamba2-2.7b")
 
 
 def digest_platform() -> str:

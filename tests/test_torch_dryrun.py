@@ -6,7 +6,9 @@ meta trace against the same step on CPU tensors and against
 groups (``tests/_torch_dryrun_worker.py``), per-rank FLOPs of the
 tensor-parallel train step against the count worked out from the config,
 and collectives, over meshes of 4 (and Mixtral's step on its override,
-its expert products at 1/m), ``make_production_mesh`` and one CLI run.
+its expert products at 1/m; rwkv6's and zamba2's steps, the products of
+every RWKV-6 and Mamba2 mix at the rank's heads), ``make_production_mesh``
+and one CLI run.
 
 Tolerances.  Shapes, dtypes, decisions, FLOPs on CPU tensors, per-rank
 FLOPs, collectives and the meta route's charge: exact.  Against the
@@ -56,6 +58,7 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn,  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.shapes import SHAPES, ShapeSpec, input_specs  # noqa: E402
+from repro_torch.models.layers import head_share  # noqa: E402
 from repro_torch.models.model import abstract_params, init_params  # noqa: E402
 from repro_torch.optim import cosine_schedule, get_optimizer  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
@@ -543,6 +546,106 @@ def test_moe_expert_tp_meta_count_follows_the_step_on_cpu_tensors(worker,
     ``FlopCounterMode``'s count of the same step on CPU tensors over the
     fake group, exactly."""
     case = worker.read()[f"moe mesh {mesh}"]
+    assert swapped(case) == case["cpu_flops"]
+
+
+def recurrent_rank_flops(cfg, b: int, s: int, m: int) -> dict:
+    """The FLOPs of rank 0's train step of the rwkv6 or zamba2 config
+    ``cfg`` on its ``b`` rows of ``s`` tokens at ``m`` "model" ranks,
+    worked out from the config, by part.  ``heads``: the products of the
+    rank's heads (``head_share``: ``c`` of ``H``) of every mix, RWKV-6's
+    r / k / v / g on ``64 c`` columns, its decay LoRA's second factor, its
+    chunk products (64-token chunks: the scores by v, r by the carried
+    state, the state update) and ``wo``'s ``64 c`` rows; Mamba2's
+    ``in_proj`` columns of its heads' z, x and dt (``c (2 P + 1)``), its
+    chunk products at ``c`` heads and ``out_proj``'s ``c P`` rows.
+    ``split``: the products the rules split evenly (RWKV-6's channel mix
+    on ``d_ff / m`` and ``d / m`` columns, zamba2's shared block at
+    ``H / m`` heads and ``d_ff / m`` columns, its attention's charges at
+    those heads, the loss's head on ``vocab / m``).  ``whole``: on every
+    rank (RWKV-6's token-shift LoRAs and the decay LoRA's first factor,
+    Mamba2's B and C and their ``C Bᵀ`` products, the shared block's
+    LoRA).  A product runs 4 times (the forward, the recompute, the two
+    products of its backward) but where an operand needs no gradient (the
+    chunk's first carried state, zeros: 3) or its output none (the last
+    chunk's state update, the final state the step drops: 2), a block's
+    last product 3 times (the checkpoint stops recomputing once the
+    tensors it saved are back: Mamba2's ``out_proj`` in its own
+    recompute, the shared MLP's down projection), and Mamba2's one more
+    forward (each layer checkpointed inside its checkpointed group: 5,
+    the carried state's 4, the state update's 3, ``out_proj``'s 4)."""
+    t, d, V = b * s, cfg.d_model, cfg.vocab_size
+    lc, nc = 64, -(-s // 64)
+
+    def mm(k, n, times=4):
+        return times * 2 * t * k * n
+
+    def chunks(h, n, hd, runs):
+        """The chunk products of ``h`` heads: the scores (L x L) by the
+        values (``hd``), the queries by the carried ``n`` x ``hd``
+        state, the state update."""
+        out = 0
+        for i in range(nc):
+            out += (runs + 2) * 2 * b * h * lc * lc * hd
+            out += (runs + (1 if i == 0 else 2)) * 2 * b * h * lc * n * hd
+            out += (runs + (0 if i == nc - 1 else 2)) * 2 * b * h * n * lc * hd
+        return out
+    if cfg.family == "rwkv6":
+        _, c = head_share(d // 64, m, 0)
+        w, f = 64 * c, cfg.d_ff
+        heads = mm(d, 4 * w) + mm(64, w) + mm(w, d) + chunks(c, 64, 64, 2)
+        split = mm(d, f // m) + mm(f // m, d) + mm(d, d // m)
+        return {"heads": cfg.n_layers * heads,
+                "split": cfg.n_layers * split + mm(d, V // m),
+                "whole": cfg.n_layers * (mm(d, 32) + 5 * mm(32, d)
+                                         + mm(d, 64))}
+    di, n = cfg.d_inner, cfg.ssm_state
+    p = di // cfg.mamba_heads
+    _, c = head_share(cfg.mamba_heads, m, 0)
+    heads = mm(d, c * (2 * p + 1), 5) + mm(c * p, d) + chunks(c, n, p, 3)
+    whole = mm(d, 2 * n, 5) + nc * 5 * 2 * b * lc * lc * n
+    hr, kr, hd, f = (cfg.n_heads // m, cfg.n_kv_heads // m, cfg.head_dim,
+                     cfg.d_ff // m)
+    shared = mm(d, hr * hd) + 2 * mm(d, kr * hd) + mm(hr * hd, d) \
+        + 2 * mm(d, f) + mm(f, d, 3) \
+        + (2 * 4 + 10) * hd * b * hr * fa_kernel.kept_pairs(s, s, True, None)
+    lora = 3 * (mm(d, 32) + mm(32, d))
+    inv = cfg.n_shared_attn
+    return {"heads": cfg.n_layers * heads,
+            "split": inv * shared + mm(d, V // m),
+            "whole": cfg.n_layers * whole + inv * lora}
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4", "4x1"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_recurrent_tp_rank_flops_are_the_configs(worker, arch, mesh):
+    """rwkv6's and zamba2's smoke steps: a rank's FLOPs are exactly
+    :func:`recurrent_rank_flops`, every RWKV-6 and Mamba2 mix's head
+    products at the rank's heads (at (1, 4) rwkv6's rank 0 takes 1 of 2
+    heads, zamba2's 1 of 4); the single-device count is the formula at one
+    rank, and the head products are the single-device step's at the
+    rank's share of the heads and of the batch."""
+    cases = worker.read()
+    data, model = map(int, mesh.split("x"))
+    cfg = get_smoke_config(arch)
+    b, s = 4, 64
+    got = recurrent_rank_flops(cfg, b // data, s, model)
+    assert cases[f"{arch} mesh {mesh}"]["flops"] == sum(got.values())
+    one = recurrent_rank_flops(cfg, b, s, 1)
+    assert sum(one.values()) == cases[f"{arch} single_device_flops"]
+    heads = cfg.d_model // 64 if cfg.family == "rwkv6" else cfg.mamba_heads
+    _, count = head_share(heads, model, 0)
+    assert data * heads * got["heads"] == count * one["heads"]
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4", "4x1"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_recurrent_tp_meta_count_follows_the_step_on_cpu_tensors(
+        worker, arch, mesh):
+    """The same steps' meta count (each attention's charge swapped for the
+    plain version's count) equals ``FlopCounterMode``'s count of the same
+    step on CPU tensors over the fake group, exactly."""
+    case = worker.read()[f"{arch} mesh {mesh}"]
     assert swapped(case) == case["cpu_flops"]
 
 

@@ -20,6 +20,10 @@ positions).
 * A rank's peak and arguments are below those of the cell as the dry run
   counted it before sharded serving (full params on every rank, the
   rank's batch slice, its whole cache).
+* The rwkv6 and zamba2 smoke models' cells the same way
+  (:func:`recurrent_serve_rank_flops`): every RWKV-6 and Mamba2 mix at
+  the rank's heads, and their meta count against the cell on CPU
+  tensors.
 
 Tolerances: exact (FLOPs, launches, shapes); memory strictly below."""
 import json
@@ -38,7 +42,7 @@ import _torch_dryrun_serve_worker as dw  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
-from repro_torch.models.layers import kv_heads_read  # noqa: E402
+from repro_torch.models.layers import head_share, kv_heads_read  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MESHES = [f"{d}x{m}" for d, m in dw.MESHES]
@@ -175,6 +179,102 @@ def test_prefill_attends_the_ranks_heads(worker, mesh):
         (dw.BATCH // data * cfg.n_heads // model, dw.SEQ, dw.SEQ)]
     assert cases[f"decode {mesh}"]["kernels"]["flash_attention"][
         "launches"] == 0
+
+
+def recurrent_serve_rank_flops(cfg, kind: str, b: int, s: int, data: int,
+                               m: int) -> dict:
+    """The FLOPs of rank 0's serving cell of the rwkv6 or zamba2 config
+    ``cfg`` at a ("data", "model") mesh of (``data``, ``m``), worked out
+    from the config, by part (each product once: no gradient; the rank
+    takes ``b / data`` rows, ``s`` prompt tokens or one token a row
+    against ``s`` positions).  ``heads``: the products of the rank's
+    heads (``head_share``: ``c`` of ``H``) of every mix, as
+    ``test_torch_dryrun.recurrent_rank_flops`` names them (at decode the
+    step's: RWKV-6's r by its heads' ``(state + u k v)``, Mamba2's state
+    by C); ``split``: RWKV-6's channel mix on ``d_ff / m`` and ``d / m``
+    columns, zamba2's shared block at ``H / m`` heads and ``d_ff / m``
+    columns (its attention: the kernel's charge at prefill, the two dots
+    over ``s`` positions at decode), Mamba2's conv state: the last 3
+    positions' (at prefill) or the new token's (at decode, where the mix
+    runs on the rank's heads) channels of the rank's block of them
+    (``(d_inner + 2 N) / m`` where it divides "model"), the head on
+    ``vocab / m`` for the last token; ``whole``: the token-shift LoRAs,
+    the decay LoRA's first factor, Mamba2's B and C and their ``C Bᵀ``,
+    the shared block's LoRA."""
+    bl, d, V = b // data, cfg.d_model, cfg.vocab_size
+    t = bl * s if kind == "prefill" else bl
+    lc, nc = 64, -(-s // 64)
+
+    def mm(k, n, rows=t):
+        return 2 * rows * k * n
+    head = mm(d, V // m, bl)
+    if cfg.family == "rwkv6":
+        _, c = head_share(d // 64, m, 0)
+        w, f = 64 * c, cfg.d_ff
+        heads = mm(d, 4 * w) + mm(64, w) + mm(w, d)
+        heads += (nc * (2 * bl * c * lc * lc * 64 + 2 * 2 * bl * c * lc * 64
+                        * 64) if kind == "prefill"
+                  else 2 * bl * c * 64 * 64)
+        return {"heads": cfg.n_layers * heads,
+                "split": cfg.n_layers * (mm(d, f // m) + mm(f // m, d)
+                                         + mm(d, d // m)) + head,
+                "whole": cfg.n_layers * (mm(d, 32) + 5 * mm(32, d)
+                                         + mm(d, 64))}
+    di, n = cfg.d_inner, cfg.ssm_state
+    p, conv = di // cfg.mamba_heads, di + 2 * n
+    block = conv // m if conv % m == 0 else conv
+    _, c = head_share(cfg.mamba_heads, m, 0)
+    heads = mm(d, c * (2 * p + 1)) + mm(c * p, d)
+    whole = mm(d, 2 * n)
+    if kind == "prefill":
+        heads += nc * (2 * bl * c * lc * lc * p + 2 * 2 * bl * c * lc * n * p)
+        whole += nc * 2 * bl * lc * lc * n
+        split = mm(d, block, 3 * bl)
+    else:
+        heads += 2 * bl * c * p * n
+        split = mm(d, block, bl) if m > 1 else 0
+    hr, kr, hd, f = (cfg.n_heads // m, cfg.n_kv_heads // m, cfg.head_dim,
+                     cfg.d_ff // m)
+    shared = mm(d, hr * hd) + 2 * mm(d, kr * hd) + mm(hr * hd, d) \
+        + 2 * mm(d, f) + mm(f, d)
+    shared += (4 * hd * bl * hr * fa_kernel.kept_pairs(s, s, True, None)
+               if kind == "prefill" else 2 * 2 * bl * hr * s * hd)
+    inv = cfg.n_shared_attn
+    return {"heads": cfg.n_layers * heads,
+            "split": cfg.n_layers * split + inv * shared + head,
+            "whole": cfg.n_layers * whole + inv * 3 * (mm(d, 32)
+                                                       + mm(32, d))}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", dw.RECURRENT_ARCHS)
+def test_recurrent_serving_rank_flops_are_worked_out(worker, arch, mesh,
+                                                     kind):
+    """rwkv6's and zamba2's serving cells: a rank's FLOPs are exactly
+    :func:`recurrent_serve_rank_flops`; the single-device cell is the
+    formula at one rank, and the head products are the single-device
+    cell's at the rank's share of the heads and of the batch."""
+    cases = worker.read()
+    data, model = map(int, mesh.split("x"))
+    cfg = get_smoke_config(arch)
+    got = recurrent_serve_rank_flops(cfg, kind, dw.BATCH, dw.SEQ, data,
+                                     model)
+    assert cases[f"{arch} {kind} {mesh}"]["flops"] == sum(got.values())
+    one = recurrent_serve_rank_flops(cfg, kind, dw.BATCH, dw.SEQ, 1, 1)
+    assert sum(one.values()) == cases[f"{arch} single {kind}"]
+    heads = cfg.d_model // 64 if cfg.family == "rwkv6" else cfg.mamba_heads
+    _, count = head_share(heads, model, 0)
+    assert data * heads * got["heads"] == count * one["heads"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", dw.RECURRENT_ARCHS)
+def test_recurrent_serving_meta_count_follows_the_cell_on_cpu_tensors(
+        worker, arch, mesh, kind):
+    case = worker.read()[f"{arch} {kind} {mesh}"]
+    assert swapped_flops(case) == case["cpu_flops"]
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -14,8 +14,11 @@ bias), a variant whose heads the rules cut, Mixtral (its override puts
 ``expert_mlp`` on "model": every expert on the rank's block of
 ``d_expert`` at prefill and at decode, never gathered over "model"; a
 window of 6) and kimi-k2 (experts on "model": expert parallel at
-prefill, each rank's experts' slots at decode), zamba2 and rwkv6 (their
-blocks whole, their states the rank's block over "model").  The reference's
+prefill, each rank's experts' slots at decode), zamba2 and rwkv6 (each
+rank running its heads of every Mamba2 and RWKV-6 mix, rwkv6's channel
+mix on its blocks; at (1, 4) rwkv6's 2 heads give two ranks none and its
+wkv state rests whole, joined from the ranks' heads; their states
+otherwise the rank's block over "model").  The reference's
 own sharded paths raise on this jax
 (``tests/test_distribution.py::test_serve_decode_compiles_sharded``), so
 the single-device functions of either package are the oracle.  The
@@ -251,7 +254,13 @@ def expected_collectives(case: str, kind: str) -> Counter:
     each axis of the cache's sequence, the page mass summed over the
     ranks' heads, the experts' slots or the expert-tensor-parallel
     outputs summed over "model", and each
-    recurrent state gathered over the axes that cut it."""
+    recurrent state the mix does not read as the rank's heads (Mamba2's
+    conv state) gathered over the axes that cut it.  RWKV-6's and
+    Mamba2's mixes on the rank's heads, at both: one all-reduce over
+    "model" of each mix's output, Mamba2's sum of squares one more, the
+    heads' states joined in one more where they do not divide "model";
+    RWKV-6's channel mix one reduce-scatter and one all-gather over
+    "model"."""
     arch, shape, b, _ = sw.CASES[case]
     cfg = sw.config(case)
     mesh = FakeMesh(shape)
@@ -282,8 +291,9 @@ def expected_collectives(case: str, kind: str) -> Counter:
             walk(spec[k], loc[k], f"{path}.{k}" if path else k)
     walk(pspecs, local, "")
     m = sizes["model"]
-    heads, kv, mlp, vocab, experts = (tp_layout(scfg, m) if scfg.tp_axes
-                                      else (None, None, False, False, False))
+    heads, kv, mlp, vocab, experts, mix, ffn = (
+        tp_layout(scfg, m) if scfg.tp_axes
+        else (None, None, False, False, False, None, False))
     if vocab:
         out[("all_gather", "model")] += 1
         out[("all_reduce", "model")] += 1
@@ -298,6 +308,12 @@ def expected_collectives(case: str, kind: str) -> Counter:
     if fam == "moe":
         for a in bax:
             out[("all_gather", a)] += n_layers
+    if mix:
+        out[("all_reduce", "model")] += n_layers * (
+            (2 if fam == "zamba2" else 1) + (mix == "sliced"))
+    if ffn:
+        out[("reduce_scatter", "model")] += n_layers
+        out[("all_gather", "model")] += n_layers
     cache = sh.cache_pspecs(mesh, cfg, b, sw.MAX_LEN)
     if kind == "prefill":
         if heads == "cut":
@@ -319,6 +335,8 @@ def expected_collectives(case: str, kind: str) -> Counter:
         out[("all_reduce", "model")] += n_layers
     states = {"rwkv6": ("wkv",), "zamba2": ("ssm", "conv")}.get(fam, ())
     for leaf in states:
+        if mix and leaf != "conv":
+            continue
         for e in cache[leaf][2:]:
             for a in sh.entry_axes(e):
                 if sizes[a] > 1:

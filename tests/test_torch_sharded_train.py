@@ -4,14 +4,16 @@
 ``train.steps.make_train_step`` and against the reference's single-device
 ``make_train_step`` (jitted) on the same inputs, for one smoke config of
 each family at (2, 2), at (1, 4) a dense one (each rank slicing the KV
-head its query head reads), a tied one, one whose heads the rules cut and
-Mixtral, and at (4, 1) a dense one and kimi-k2 on Adafactor, each on its
+head its query head reads), a tied one, one whose heads the rules cut,
+Mixtral and the two recurrent ones (rwkv6's 2 heads leave two ranks
+none), and at (4, 1) a dense one and kimi-k2 on Adafactor, each on its
 arch's sharding overrides (Mixtral's puts its experts' ``expert_mlp`` on
 "model": each rank runs every expert on its block of ``d_expert``); the
 collectives over "model" and over "data" (each leaf gathered at use, its
 gradient reduce-scattered); Adafactor on blocks against its whole update;
-the tensor-parallel modules (the MoE expert FFN among them) against their
-unsharded calls at (1, 2); the step
+the tensor-parallel modules (the MoE expert FFN, RWKV-6's time and channel
+mixes and Mamba2's mix among them) against their unsharded calls at (1,
+2); the step
 at one "model" rank against the step without a mesh, bit for bit, and
 against the reference (on the platform where they were taken, against the
 digests of the step before tensor parallelism too); checkpoints across
@@ -68,6 +70,8 @@ from repro.optim import cosine_schedule as j_cosine  # noqa: E402
 from repro.optim import get_optimizer as j_get_optimizer  # noqa: E402
 from repro.train import steps as j_steps  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.launch.sharding import tp_config  # noqa: E402
+from repro_torch.models.model import tp_layout  # noqa: E402
 from repro_torch.optim import OptState  # noqa: E402
 from repro_torch.train.steps import loss_and_grads, make_train_step  # noqa: E402
 
@@ -277,22 +281,30 @@ def test_sharded_step_matches_the_reference_step(ranks, case):
 
 
 # the step's all-reduces over "model" in a config whose tokens are
-# embedded, dense or MoE with its expert FFN tensor parallel: a dense
-# layer 5 (the attention's and the MLP's from_model in the forward, the
-# attention's again in the recompute under remat: the checkpoint stops
-# recomputing once the tensors it saved are back, before the MLP's; the
-# two to_model in the backward), a MoE layer 6 (the attention's and the
-# experts' from_model in the forward, the attention's again in the
-# recompute, which stops before the experts'; the attention's to_model and
-# the experts' two, of the dispatched rows and of the routing weights, in
-# the backward), 1 of the embedding, 1 of the loss's to_model, 4 a loss
-# chunk (its row max and its packed sums, again in the chunk's recompute)
-# and one a partial leaf's gradient (the clip's squares take one more
-# after these)
+# embedded, dense, MoE with its expert FFN tensor parallel, or recurrent:
+# a dense layer 5 (the attention's and the MLP's from_model in the
+# forward, the attention's again in the recompute under remat: the
+# checkpoint stops recomputing once the tensors it saved are back, before
+# the MLP's; the two to_model in the backward), a MoE layer 6 (the
+# attention's and the experts' from_model in the forward, the attention's
+# again in the recompute, which stops before the experts'; the
+# attention's to_model and the experts' two, of the dispatched rows and
+# of the routing weights, in the backward), an RWKV-6 layer 4 (the time
+# mix's from_model in the forward and in the recompute, the two mixes'
+# to_model in the backward; the channel mix joins in a reduce-scatter and
+# an all-gather), a Mamba2 layer 7 (its sum of squares and its output in
+# the forward and in its group's recompute, the sum of squares alone in
+# its own recompute, which stops before the output's; the input's and
+# the sum of squares' to_model in the backward), zamba2's shared block 5
+# an invocation (a dense layer's), 1 of the embedding, 1 of the loss's
+# to_model, 4 a loss chunk (its row max and its packed sums, again in the
+# chunk's recompute) and one a partial leaf's gradient where "model" does
+# not cut the leaf (the clip's squares take one more after these)
 def model_all_reduces(cfg, n_partial: int) -> int:
-    per_layer = 6 if cfg.family == "moe" else 5
-    return per_layer * cfg.n_layers + 1 + 1 + 4 * (sw.S // sw.CHUNK) \
-        + n_partial
+    per_layer = {"moe": 6, "rwkv6": 4, "zamba2": 7}.get(cfg.family, 5)
+    shared = 5 * cfg.n_shared_attn if cfg.family == "zamba2" else 0
+    return per_layer * cfg.n_layers + shared + 1 + 1 \
+        + 4 * (sw.S // sw.CHUNK) + n_partial
 
 
 EXPERT_LEAVES = {"blocks/e_gate", "blocks/e_up", "blocks/e_down"}
@@ -333,17 +345,25 @@ def test_collectives_over_model(ranks, case):
     attention, the embedding or the loss: each rank uses its block.  The
     all-gathers over "model" recorded in the step's gradient (its forward,
     backward and reduction) are exactly the other leaves the rules cut
-    over "model" (MoE's expert leaves, rwkv6's and Mamba2's blocks,
-    zamba2's LoRA factors), each gathered at each use in each forward of
-    its block, and, where the rules cut through a head, 3 of q's or o's
-    columns a layer (the forward, the recompute and the backward of o's
-    split); the partial ones among them (zamba2's LoRA factors) are
-    reduce-scattered over "model" once a use; a dense layer takes 5
-    all-reduces over "model".  Where the overrides put ``expert_mlp`` on
-    "model" (Mixtral) the expert leaves are local too, each rank's block
-    of every expert's ``d_expert`` (cut over "data" as well), never
-    gathered over "model", and a MoE layer takes 6 all-reduces over
-    "model" (:func:`model_all_reduces`)."""
+    over "model" (MoE's expert leaves, RWKV-6's ``wo`` and, where its
+    heads do not divide "model", its ``wr`` / ``wk`` / ``wv`` / ``wg``,
+    Mamba2's ``in_proj`` and conv, zamba2's LoRA factors), each gathered
+    at each use in each forward of its block, and, where the rules cut
+    through a head, 3 of q's or o's columns a layer (the forward, the
+    recompute and the backward of o's split); the partial ones among them
+    are reduce-scattered over "model" once a use.  RWKV-6's channel mix
+    adds 2 all-gathers (the forward's join, the backward of its
+    reduce-scatter) and 2 reduce-scatters (the forward and the recompute)
+    a layer.  The all-reduces over "model" are exactly
+    :func:`model_all_reduces`' (5 a dense layer).  Each rank keeps as its
+    block every leaf the rules cut over "model" where the block is the
+    rank's heads' or columns' slice: RWKV-6's channel mix always, its time
+    mix's ``wr`` / ``wk`` / ``wv`` / ``wg`` where its heads divide
+    "model", Mamba2's ``out_proj`` where its heads do.  Where the
+    overrides put ``expert_mlp`` on "model" (Mixtral) the expert leaves
+    are local too, each rank's block of every expert's ``d_expert`` (cut
+    over "data" as well), never gathered over "model", and a MoE layer
+    takes 6 all-reduces over "model" (:func:`model_all_reduces`)."""
     cfg = sw.config(case)
     per_rank = ranks.results(case)
     leaves = per_rank[0]["leaves"]
@@ -362,6 +382,24 @@ def test_collectives_over_model(ranks, case):
         assert not leaves["gathered"]
         assert {"blocks/w_gate", "blocks/w_up", "blocks/w_down"} \
             <= set(leaves["local"])
+    m = sw.mesh_size(case, "model")
+    mix, ffn = tp_layout(tp_config(cfg, FakeMesh(case), sw.overrides(case)),
+                         m)[5:]
+    if cfg.family == "rwkv6":
+        heads = cfg.d_model // 64
+        assert mix == ("local" if heads % m == 0 else "sliced") and ffn
+        assert {"blocks/f_wk", "blocks/f_wv", "blocks/f_wr"} \
+            <= set(leaves["local"])
+        time = {f"blocks/{w}" for w in ("wr", "wk", "wv", "wg")}
+        assert (time <= set(leaves["local"])) == (heads % m == 0)
+        assert (time <= set(leaves["gathered"]) & set(leaves["partial"])) \
+            == (heads % m != 0)
+        assert "blocks/wo" in set(leaves["gathered"]) & set(leaves["partial"])
+    if cfg.family == "zamba2":
+        assert mix == ("local" if cfg.mamba_heads % m == 0 else "sliced")
+        assert ("blocks/out_proj" in leaves["local"]) == (mix == "local")
+        assert {"blocks/in_proj", "blocks/conv_w", "blocks/conv_b"} \
+            <= set(leaves["gathered"]) & set(leaves["partial"])
     experts_tp = sw.overrides(case).get("expert_mlp") == "model"
     if experts_tp:
         assert EXPERT_LEAVES <= set(leaves["local"]) and \
@@ -371,7 +409,8 @@ def test_collectives_over_model(ranks, case):
             for k in EXPERT_LEAVES:
                 b = res["blocks"][k]
                 assert b["bytes"] * cut_by == b["whole"], (k, b)
-    cut = cfg.n_heads % sw.mesh_size(case, "model") != 0
+    cut = cfg.family in ("attn", "moe", "zamba2") \
+        and cfg.n_heads % sw.mesh_size(case, "model") != 0
     if cfg.family in ("attn", "moe"):
         sliced = not cut \
             and cfg.n_kv_heads % sw.mesh_size(case, "model") != 0
@@ -382,16 +421,26 @@ def test_collectives_over_model(ranks, case):
                   for k in leaves["gathered"])
     summed = sum(uses(cfg, k) for k in leaves["gathered"]
                  if k in leaves["partial"])
+    joins = 2 * cfg.n_layers if ffn else 0
     for res in per_rank:
         assert res["leaves"] == leaves
         over = res["grads_over_model"]
-        assert over["all_gather"] == gathers \
+        assert over["all_gather"] == gathers + joins \
             + (3 * cfg.n_layers if cut else 0), (over, leaves)
-        assert over["reduce_scatter"] == summed, (over, leaves)
-        if (cfg.family == "attn" or experts_tp) \
+        assert over["reduce_scatter"] == summed + joins, (over, leaves)
+        if (cfg.family != "moe" or experts_tp) \
                 and cfg.frontend == "tokens":
             assert over["all_reduce"] == model_all_reduces(
-                cfg, len(leaves["partial"])), over
+                cfg, len(set(leaves["partial"])
+                         - set(leaves["gathered"]))), over
+
+
+class FakeMesh:
+    """A case's mesh as the rules read it (``shape`` alone)."""
+
+    def __init__(self, case: str):
+        self.shape = {"data": sw.mesh_size(case, "data"),
+                      "model": sw.mesh_size(case, "model")}
 
 
 def layer_bytes(cfg, blocks: dict) -> tuple:
@@ -477,6 +526,36 @@ def test_tensor_parallel_module_matches_the_unsharded_call(ranks, unit):
         assert max(got["errors"].values()) <= 1e-5, got["errors"]
 
 
+@pytest.mark.parametrize("unit", list(sw.RECURRENT_UNITS))
+def test_recurrent_mix_on_the_ranks_heads_matches_the_unsharded_call(
+        ranks, unit):
+    """At (1, 2): RWKV-6's time mix, its channel mix and Mamba2's mix on
+    each rank's heads (or blocks) against the unsharded call on the same
+    draw; output, the rank's heads' final state and every gradient within
+    1e-5 of their largest magnitude.  At whole heads a rank (2 of
+    RWKV-6's, 4 of Mamba2's) the rank's block of ``wr`` / ``wk`` / ``wv``
+    / ``wg`` (of ``out_proj``) is its heads' and used as it is; at 3 heads
+    (2 / 1) they are whole and sliced; every other leaf the mix reads is
+    whole on the rank, its gradient summed over "model"."""
+    got = [res[unit] for res in ranks.results("units", world=2)]
+    arch, changes = sw.RECURRENT_UNITS[unit]
+    for r, res in enumerate(got):
+        assert max(res["errors"].values()) <= 1e-5, res["errors"]
+        assert not res["whole"], res
+        if unit.startswith("rwkv6-channel"):
+            assert res["ffn"] and res["local"] == ["f_wk", "f_wr", "f_wv"]
+            assert res["partial"] == ["f_mu_k", "f_mu_r"]
+            continue
+        cut = unit.endswith("-cut")
+        assert res["mix"] == ("sliced" if cut else "local")
+        assert res["heads"] == ([[0, 2], [2, 1]][r] if cut
+                                else [r * res["heads"][1], res["heads"][1]])
+        own = (["out_proj"] if arch == "zamba2-2.7b"
+               else ["wg", "wk", "wr", "wv"])
+        assert res["local"] == ([] if cut else own), res
+        assert res["state_shape"][1] == res["heads"][1]
+
+
 @pytest.mark.parametrize("unit", list(sw.MOE_UNITS))
 def test_moe_expert_tp_routes_alike_on_every_rank(ranks, unit):
     """At (1, 2), ``moe_block`` on each rank's block of ``d_expert``: each
@@ -498,22 +577,29 @@ def test_moe_expert_tp_routes_alike_on_every_rank(ranks, unit):
 
 
 # the digests of two steps of each case, taken with the step as it was
-# before tensor parallelism (parent of the change that added it), one
-# thread, without a mesh and at a (1, 1) mesh alike, on the platform named
-# (float32 bytes depend on the torch build and the CPU's kernels)
+# before tensor parallelism (parent of the change that added it; for
+# rwkv6 and zamba2, of the change that split their mixes' heads over
+# "model"), one thread, without a mesh and at a (1, 1) mesh alike, on the
+# platform named (float32 bytes depend on the torch build and the CPU's
+# kernels)
 DIGEST_PLATFORM = "torch 2.13.0+cpu x86_64 AVX512"
 DIGESTS = {
     "qwen2-0.5b":
         "e2674a2d056b63a3d570ea63e9e4d982273b2bb8b50e817700fc44489bc8f213",
     "kimi-k2-1t-a32b":
-        "37bd715d02ac3463d3ed8dc392614c4c95bb461fe319adc445e9e6c4d34480de"}
+        "37bd715d02ac3463d3ed8dc392614c4c95bb461fe319adc445e9e6c4d34480de",
+    "rwkv6-3b":
+        "7d0f6da09d74661525fe1c8a708b773bf824fdc7464f59e4e1322916ff3df3ca",
+    "zamba2-2.7b":
+        "ae0843672eeb16fa600a588f40970a01877d4b2d50ac28e610f051f614942c80"}
 
 
 @pytest.mark.parametrize("case", sw.DIGEST_CASES)
 def test_one_model_rank_is_the_step_as_it_was(ranks, case):
     """Without a mesh and at a (1, 1) mesh the step is the same bit for
     bit: the params, optimizer state and metrics of two steps hash alike
-    (AdamW on the tied qwen2 config, Adafactor on kimi-k2).  The (1, 1)
+    (AdamW on the tied qwen2 config and on rwkv6 and zamba2, Adafactor on
+    kimi-k2).  The (1, 1)
     run is held to the reference's single-device step at the module's
     bounds, and on the platform where the digests of the step before
     tensor parallelism were taken, to those digests."""
