@@ -570,6 +570,22 @@ def spill_bytes(ptxas_log: str, marker: str) -> dict:
     return out
 
 
+def ptxas_registers(ptxas_log: str, marker: str) -> dict:
+    """{function: registers a thread} of the entry functions in a ``ptxas
+    -v`` report whose (mangled) names hold ``marker``."""
+    out, fn = {}, None
+    for ln in ptxas_log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        used = re.search(r"Used (\d+) registers", ln)
+        if entry:
+            fn = entry.group(1)
+        elif fn is not None and used:
+            if marker in fn:
+                out[fn] = int(used.group(1))
+            fn = None
+    return out
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -1730,9 +1746,10 @@ def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
     kernels (``parent_flash_library``), causal: the tensor-core route
     (bfloat16) and the TF32 route (float32) at FLASH_TIME_SHAPES (S 4,096;
     rows 5 and 5c), the tensor-core route at ZAMBA2_TIME_SHAPE and
-    KIMI_TIME_SHAPE (rows 5z and 5k), no lse asked of either, as in
-    serving; and at qwen2-0.5b's training shape (S 2,048, bfloat16, row 5t)
-    this build's saving forward (``return_lse``: the lse and the float32
+    KIMI_TIME_SHAPE (rows 5z and 5k), the TF32 route at ROW5B_TIME_SHAPES'
+    float32 ones (row 5b), no lse asked of either, as in serving; and at
+    qwen2-0.5b's training shape (S 2,048, bfloat16, row 5t) this build's
+    saving forward (``return_lse``: the lse and the float32
     output written too, FlashAttentionFn's) against the other's forward as
     FlashAttentionFn ran it there (with the lse, where its ABI takes one).
     Order: other, this, this, other; both outputs within FLASH_TOL of the
@@ -1767,6 +1784,9 @@ def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
              for dtype in ("bfloat16", "float32")]
     cases += [(label, b, h, kvh, d, "bfloat16", 4096, False)
               for label, b, h, kvh, d in (ZAMBA2_TIME_SHAPE, KIMI_TIME_SHAPE)]
+    cases += [(label, b, h, kvh, d, "float32", 4096, False)
+              for label, b, h, kvh, d, dtypes in ROW5B_TIME_SHAPES
+              if "float32" in dtypes]
     cases.append(("qwen2-0.5b train, saving", *FLASH_TIME_SHAPES[0][1:],
                   "bfloat16", 2048, True))
     res = {}
@@ -1787,7 +1807,7 @@ def flash_parent_in_turns(dev, plain, parent_csrc: Path) -> dict:
                 fail(f"flash_attention ({label}, {dtype}) differs from "
                      f"its plain version: {err}, {share}")
             errs.append(err)
-        res[f"{label} {dtype}"] = dict(
+        res[f"{label} d={d} {dtype}"] = dict(
             route=fa_kernel.route(q.dtype, d), shape=[b, h, kvh, s_len, d],
             saving=saving, ms=ms, other_ms=other_ms,
             ms_over_other_ms=ms / other_ms, max_abs_err=errs[0],
@@ -7295,29 +7315,39 @@ def main(until: int = 32) -> None:
         fail(f"the backward flash_attention kernels (d in "
              f"{fa_kernel.HEAD_DIMS}) spill or are missing from the ptxas "
              f"report: {bwd_spills}")
-    # the bf16 backward's kernels at the trained head dims (64: qwen2-0.5b,
-    # 128: Mixtral) on wgmma alone: HGMMA in each, no warp-level HMMA
+    # on wgmma alone, HGMMA in each and no warp-level HMMA: the bf16
+    # backward's kernels at the trained head dims (64: qwen2-0.5b, 128:
+    # Mixtral) and the TF32 route's forward at every head dim its wgmma body
+    # takes (all but 256, which keeps mma.sync)
     fa_lib = _build.library_path("flash_attention")
-    bwd_mix = {}
-    for marker in ("fa_bwd_wg_dq_kernelILi64E", "fa_bwd_wg_dkv_kernelILi64E",
-                   "fa_bwd_wg_dq_kernelILi128E",
-                   "fa_bwd_wg_dkv_kernelILi128E"):
-        body = [ins for fn in sass_text(fa_lib, marker).values()
-                for ins in fn]
-        ops = [re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ins)
-               for ins in body]
-        ops = [m.group(1) for m in ops if m]
-        bwd_mix[marker] = [len(ops),
-                           sum(o.startswith("HGMMA") for o in ops),
-                           sum(o.startswith("HMMA") for o in ops)]
-        if not bwd_mix[marker][1] or bwd_mix[marker][2]:
-            fail(f"the bf16 backward kernel {marker}: {bwd_mix[marker][1]} "
-                 f"HGMMA and {bwd_mix[marker][2]} HMMA instructions "
-                 f"(expected wgmma alone)")
+    markers = {"bf16_backward": [
+        "fa_bwd_wg_dq_kernelILi64E", "fa_bwd_wg_dkv_kernelILi64E",
+        "fa_bwd_wg_dq_kernelILi128E", "fa_bwd_wg_dkv_kernelILi128E"],
+        "tf32x3": [f"flash_attention_tf32x3_kernelILi{d}E"
+                   for d in fa_kernel.TF32X3_WGMMA_HEAD_DIMS]}
+    wgmma_mix = {}
+    for kind, names in markers.items():
+        wgmma_mix[kind] = {}
+        for marker in names:
+            fns = sass_text(fa_lib, marker)
+            ops = [re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ins)
+                   for body in fns.values() for ins in body]
+            ops = [m.group(1) for m in ops if m]
+            mix = wgmma_mix[kind][marker] = [
+                len(fns), len(ops), sum(o.startswith("HGMMA") for o in ops),
+                sum(o.startswith("HMMA") for o in ops)]
+            if mix[0] != 1 or not mix[2] or mix[3]:
+                fail(f"the {kind} kernel {marker}: {mix[0]} functions, "
+                     f"{mix[2]} HGMMA and {mix[3]} HMMA instructions "
+                     f"(expected one, on wgmma alone)")
     # the TF32 kernels' instruction mix: how many instructions the operand
-    # splits and the softmax add to each HMMA
+    # splits and the softmax add to each HGMMA (HMMA at d 256)
+    # and the registers a thread each was built with (at launch: the wgmma
+    # body's setmaxnreg moves them between its warpgroups)
     say("build_sass", tf32x3=sass_mix(fa_lib, "flash_attention_tf32x3_kernel"),
-        bf16_backward_instructions_hgmma_hmma=bwd_mix)
+        functions_instructions_hgmma_hmma=wgmma_mix,
+        tf32x3_registers=ptxas_registers(fa_log,
+                                         "flash_attention_tf32x3_kernel"))
 
     rng = np.random.default_rng(0)
     errors = {}

@@ -376,9 +376,10 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
   return (int)cudaErrorInvalidValue;
 }
 
-// The TF32 tensor-core kernel (3xTF32 mma.sync): float32 q, k, v and out as
-// above, d in 16, 32, 64, 80, 112, 128, 256, every pointer 16-byte aligned
-// (cp.async); lse as the tensor-core kernel's, written when not null.
+// The TF32 tensor-core kernel (3xTF32: wgmma fed by TMA at d 16 to 128,
+// mma.sync fed by cp.async at 256): float32 q, k, v and out as above, d in
+// 16, 32, 64, 80, 112, 128, 256, every pointer 16-byte aligned (TMA,
+// cp.async); lse as the tensor-core kernel's, written when not null.
 // Returns a cudaError_t.
 int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v, void* out,
                                   long long n_bh, long long sq, long long sk, int d,

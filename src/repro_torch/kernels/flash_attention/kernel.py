@@ -7,13 +7,14 @@ every head dim in ``HEAD_DIMS``: bfloat16 runs
 on the tensor cores (``"tensor_core"``: wgmma fed by TMA; d that is not
 whole 64-column panels, 16, 32, 80 and 112, in a last panel that TMA fills
 with zeros past d; d 256 in four panels over 64-key tiles), float32 on the
-TF32 tensor cores with every product split three ways (``"tf32x3"``:
-mma.sync fed by cp.async).  The third kernel runs on the CUDA cores
-(``"cuda_core"``) and no route gives it: the private :func:`_launch` names
-it, to hold it against a tensor-core route on the same input and to time it
-in turns with one (float32 at every d, bfloat16 at 16, 32, 80, 112 and
-256); no path calls it.  A launch that fails raises; no route stands in
-for another.
+TF32 tensor cores with every product split three ways (``"tf32x3"``: wgmma
+fed by TMA at d 16 to 128, K and V split once into shared hi / lo planes
+and Q into registers; mma.sync fed by cp.async at d 256).  The third
+kernel runs on the CUDA cores (``"cuda_core"``) and no route gives it: the
+private :func:`_launch` names it, to hold it against a tensor-core route on
+the same input and to time it in turns with one (float32 at every d,
+bfloat16 at 16, 32, 80, 112 and 256); no path calls it.  A launch that
+fails raises; no route stands in for another.
 
 The wrapper checks its inputs, allocates the output, launches on the current
 stream and raises if the launch failed (a launch refused for its shared
@@ -62,10 +63,11 @@ from .. import _build
 from ..dispatch import refuse_grad
 
 __all__ = ["BWD_LAUNCHES", "BWD_META_CALLS", "BWD_ROUTE_LAUNCHES", "HEAD_DIMS",
-           "LAUNCHES", "META_CALLS", "ROUTE_LAUNCHES", "bwd_charge", "charge",
-           "flash_attention_bwd_cuda", "flash_attention_bwd_meta",
-           "flash_attention_cuda", "flash_attention_meta", "kept_pairs",
-           "meta_key", "route", "tf32x3_blocks_per_sm"]
+           "LAUNCHES", "META_CALLS", "ROUTE_LAUNCHES", "TF32X3_WGMMA_HEAD_DIMS",
+           "bwd_charge", "charge", "flash_attention_bwd_cuda",
+           "flash_attention_bwd_meta", "flash_attention_cuda",
+           "flash_attention_meta", "kept_pairs", "meta_key", "route",
+           "tf32x3_blocks_per_sm"]
 
 LAUNCHES = 0
 # launches by route; "cuda_core" counts only the named comparisons
@@ -85,6 +87,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype runs at every one on the tensor cores (bfloat16 on wgmma, float32 on
 # the TF32 ones)
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
+# the head dims at which the "tf32x3" route runs its wgmma body (TMA, K and
+# V split once into shared hi / lo planes); at 256 it runs mma.sync
+TF32X3_WGMMA_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 # the head dims the CUDA-core kernel takes when it is named through _launch
 _CUDA_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 80, 112, 256),
                         torch.float32: HEAD_DIMS}

@@ -32,6 +32,7 @@ from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: E402
 from repro_torch.kernels.embedding_bag import kernel as eb_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_lse_ref  # noqa: E402
 from repro_torch.kernels.gather_count import gather_count  # noqa: E402
 from repro_torch.kernels.gather_count import kernel as gc_kernel  # noqa: E402
 from repro_torch.kernels.hist_select import kernel as hs_kernel  # noqa: E402
@@ -513,9 +514,7 @@ def test_flash_attention_tensor_core_route_matches_plain(cuda, d, bh, kvh, sq,
         "cuda_core": before["cuda_core"]}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("bh,kvh,sq,sk,causal,window", [
+_TF32X3_CASES = [
     (14, 2, 1, 1, True, None),          # a one-token prompt
     (14, 2, 19, 19, True, None),        # shorter than one tile
     (16, 8, 130, 130, True, None),      # one tile and two rows
@@ -523,17 +522,27 @@ def test_flash_attention_tensor_core_route_matches_plain(cuda, d, bh, kvh, sq,
     (16, 8, 200, 200, True, 33),        # a window edge inside a tile
     (8, 2, 200, 130, False, None),      # non-causal, Sq > Sk
     (8, 2, 130, 300, False, None),      # non-causal, Sq < Sk
-])
+]
+
+
+def _tf32x3_qkv(cuda, bh, kvh, sq, sk, d):
+    rng = np.random.default_rng(sq * d + sk)
+    return (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                             * scale).to(cuda)
+            for shape, scale in (((bh, sq, d), 3.0), ((kvh, sk, d), 1.0),
+                                 ((kvh, sk, d), 1.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("bh,kvh,sq,sk,causal,window", _TF32X3_CASES)
 def test_flash_attention_tf32x3_route_matches_plain(cuda, d, bh, kvh, sq, sk,
                                                    causal, window):
-    """float32 at d = 64 and 128 runs on the TF32 tensor cores (3xTF32),
-    within 2e-5 of the plain version; the CUDA-core kernel, named through
-    ``_launch`` on the same input, is within 2e-5 too."""
-    rng = np.random.default_rng(sq * d + sk)
-    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
-                                * scale).to(cuda)
-               for shape, scale in (((bh, sq, d), 3.0), ((kvh, sk, d), 1.0),
-                                    ((kvh, sk, d), 1.0)))
+    """float32 at every head dim runs on the TF32 tensor cores (3xTF32:
+    wgmma fed by TMA up to d 128, mma.sync at 256), within 2e-5 of the
+    plain version; the CUDA-core kernel, named through ``_launch`` on the
+    same input, is within 2e-5 too."""
+    q, k, v = _tf32x3_qkv(cuda, bh, kvh, sq, sk, d)
     kw = dict(q_per_kv=bh // kvh, causal=causal, window=window)
     before = dict(fa_kernel.ROUTE_LAUNCHES)
     got = flash_attention(q, k, v, **kw)
@@ -550,15 +559,47 @@ def test_flash_attention_tf32x3_route_matches_plain(cuda, d, bh, kvh, sq, sk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("bh,kvh,sq,sk,causal,window", _TF32X3_CASES)
+def test_flash_attention_tf32x3_lse_matches_plain(cuda, d, bh, kvh, sq, sk,
+                                                 causal, window):
+    """With ``return_lse`` (``FlashAttentionFn``'s forward) the TF32 route
+    also writes each row's log-sum-exp in log2 units, within 1e-5 of the
+    plain version's (+inf on a row with no valid key), and the same output
+    as without it, bit for bit; its float32 output is the output itself."""
+    q, k, v = _tf32x3_qkv(cuda, bh, kvh, sq, sk, d)
+    kw = dict(q_per_kv=bh // kvh, causal=causal, window=window)
+    before = fa_kernel.ROUTE_LAUNCHES["tf32x3"]
+    out, lse, out32 = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True,
+                                                     **kw)
+    assert fa_kernel.ROUTE_LAUNCHES["tf32x3"] == before + 1
+    assert out32 is out and lse.shape == (bh, sq)
+    want = attention_lse_ref(q, k, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, fa_kernel.flash_attention_cuda(q, k, v, **kw))
+
+
+@pytest.mark.cuda
 def test_flash_attention_tf32x3_refuses_what_it_does_not_take(cuda):
-    """cp.async needs 16-byte-aligned q, k and v; the TF32 and tensor-core
-    kernels take only their own (dtype, d); a refusal launches nothing."""
-    buf = torch.zeros(14 * 64 * 64 + 1, device=cuda)
-    q = buf[1:].view(14, 64, 64)                    # 4 bytes off
+    """TMA needs q, k and v to start on 16-byte boundaries: an offset of
+    4, 8 or 12 bytes of any one of them is refused, with the lse asked for
+    or not; the TF32 and tensor-core kernels take only their own (dtype,
+    d); a refusal launches nothing."""
     k = torch.zeros(2, 64, 64, device=cuda)
     before = fa_kernel.LAUNCHES
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention(q, k, k, q_per_kv=7)
+    for off in (1, 2, 3):
+        buf = torch.zeros(14 * 64 * 64 + off, device=cuda)
+        q = buf[off:].view(14, 64, 64)              # 4 * off bytes off
+        kv = buf[off:off + 2 * 64 * 64].view(2, 64, 64)
+        for args in ((q, k, k), (k, kv, k), (k, k, kv)):
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_attention(args[0], args[1], args[2],
+                                q_per_kv=args[0].shape[0] // 2)
+            with pytest.raises(ValueError, match="16-byte"):
+                fa_kernel.flash_attention_cuda(
+                    args[0], args[1], args[2],
+                    q_per_kv=args[0].shape[0] // 2, return_lse=True)
     with pytest.raises(ValueError, match="tf32x3"):
         fa_kernel._launch("tf32x3", q.bfloat16(), k.bfloat16(), k.bfloat16(),
                           q_per_kv=7)

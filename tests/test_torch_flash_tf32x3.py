@@ -5,32 +5,37 @@ The route (every head dim in float32) multiplies on the TF32 tensor cores,
 whose operands keep 10 mantissa bits.  Its card check (``chip_smoke.py``'s ``FLASH_TOL`` for
 float32, and ``tests/test_torch_cuda.py``) holds every output within 2e-5,
 relative and absolute, of the plain version, which computes in float32.
-Here the kernel's blocked online softmax (KV tiles of 64 keys at d <= 64, 32
-at d = 80, 112 and 128, 8 at d = 256; float32 max, sum and accumulator) is
-emulated in float32 PyTorch
-with both products, S = Q·Kᵀ and P·V, taken three ways: in float32; with
-each operand rounded once to TF32; and with each operand split as
-hi = tf32(x) plus lo = tf32(x - hi), three products (lo·hi + hi·lo + hi·hi)
-summed into one float32 accumulator (the kernel's choice).  A product of two
-TF32 values is exact in float32, as in the tensor core.  Rounding is
-``cvt.rna.tf32.f32``'s: to nearest, ties away from zero, emulated on the
-int32 view (add 0x1000, clear the 13 low bits).  Inputs are the card
-check's: numpy normals, q scaled by 3, k and v by 1, causal, at qwen2-0.5b's
-14 query heads over 2 KV heads (d=64, and at the smoke configs' d=16 and
-32), internlm2-1.8b's 16 over 8 (d=128), zamba2-2.7b's 32 over 32 (d=80),
-kimi-k2's 64 over 8 (d=112) and 8 over 1 at d=256.  The split must pass the
-float32 check; one TF32 product must fail it, which is why the kernel pays
-for three.
+Here the kernel's blocked online softmax is emulated in float32 PyTorch at
+its own KV tiles (``BLOCK_K``: the wgmma body's 128 keys at d 16, 64 at d
+32 and 64, 32 at d 80, 112 and 128; the mma.sync body's 8 at d 256;
+float32 max, sum and accumulator), with both products, S = Q·Kᵀ and P·V, taken three
+ways: in float32; with each operand rounded once to TF32; and with each
+operand split as hi = tf32(x) plus lo = tf32(x - hi), three products
+(lo·hi + hi·lo + hi·hi) summed into one float32 accumulator (the kernel's
+choice).  A product of two TF32 values is exact in float32, as in the
+tensor core.  Rounding is ``cvt.rna.tf32.f32``'s: to nearest, ties away
+from zero, emulated on the int32 view (add 0x1000, clear the 13 low bits).
+Inputs are the card check's: numpy normals, q scaled by 3, k and v by 1,
+causal, at qwen2-0.5b's 14 query heads over 2 KV heads (d=64, and at the
+smoke configs' d=16 and 32), internlm2-1.8b's 16 over 8 (d=128),
+zamba2-2.7b's 32 over 32 (d=80), kimi-k2's 64 over 8 (d=112) and 8 over 1
+at d=256.  The split must pass the float32 check; one TF32 product must
+fail it, which is why the kernel pays for three.
 
 The tensor core also rounds each of its sums toward zero (an mma adds its
 8 products to the accumulator and truncates).  A second emulation models
-that, one mma of 8 products at a time, and holds the kernel's choice of a
-fresh accumulator for each KV tile's P·V (added to O by a rounded fma)
-against summing P·V into O itself: the latter drifts toward zero with the
-row's length (on the card it failed the check at S=4096).  S sums 3 x d/8
-truncating mma adds a row; at d=256 (96 of them) the kernel sums it 64
-columns of d at a time in fresh accumulators, joined by rounded adds, which
-the emulation holds against one accumulator."""
+that, one k step of 8 at a time, its three products (lo·hi, hi·lo, hi·hi)
+one after another into one truncating accumulator, and holds it to the
+float32 check at every shape; it also holds the kernel's choice of a fresh
+accumulator for each KV tile's P·V (added to O by a rounded fma) against
+summing P·V into O itself: the latter drifts toward zero with the row's
+length (on the card it failed the check at S=4096).  S sums 3 x d/8
+truncating adds a row; at d=256 (96 of them) the kernel sums it 64 columns
+of d at a time in fresh accumulators, joined by rounded adds, which the
+emulation holds against one accumulator.  The wgmma body feeds P·V with P
+as the S accumulator holds it and the keys of V permuted inside each group
+of 8 to match; under the truncating emulation that permutation changes no
+bit where an mma's 8 products sum exactly."""
 import numpy as np
 import pytest
 
@@ -43,9 +48,9 @@ from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
 # chip_smoke.py's FLASH_TOL["float32"] and FLASH_QKV_SCALE
 RTOL = ATOL = 2e-5
 QKV_SCALE = (3.0, 1.0, 1.0)
-# the TF32 kernel's KV tile, and the columns of d its S sums in one
-# accumulator
-BLOCK_K = {16: 64, 32: 64, 64: 64, 80: 32, 112: 32, 128: 32, 256: 8}
+# the TF32 kernel's KV tile (csrc/flash_attention_tf32x3.cuh: Hop<D>::kBK,
+# Tile<256>::BK), and the columns of d its S sums in one accumulator
+BLOCK_K = {16: 128, 32: 64, 64: 64, 80: 32, 112: 32, 128: 32, 256: 8}
 S_CHUNK = {256: 64}
 
 SHAPES = {"qwen2-0.5b": (14, 2, 1024, 64), "internlm2-1.8b": (16, 8, 512, 128),
@@ -225,6 +230,82 @@ def test_s_in_64_column_accumulators_at_d_256():
                               / (ATOL + RTOL * ref.abs())).max())
     assert worst[S_CHUNK[d]] <= 1 / 3, worst
     assert worst[S_CHUNK[d]] < worst[d], worst
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_truncating_emulation_at_the_kernels_tiles(shape):
+    """Every shape, the last 256 rows (the longest sums): the kernel's own
+    tiling (``BLOCK_K``, ``S_CHUNK``) with every k step's three products
+    into one truncating accumulator and each tile's P·V in a fresh one
+    stays within the float32 check."""
+    h, kvh, s, d = SHAPES[shape]
+    q, k, v = _qkv(s + d, h, kvh, s, d)
+    q0 = max(0, s - 256)
+    ref = attention_ref(q, k, v, q_per_kv=h // kvh, causal=True)[:, q0:]
+    got = _emulated_truncating(q, k, v, h // kvh, q0, True, S_CHUNK.get(d))
+    worst = float(((got - ref).abs() / (ATOL + RTOL * ref.abs())).max())
+    assert worst <= 1.0, worst
+
+
+def _slots_of_keys() -> list:
+    """Where the wgmma body puts each key of a group of 8 in the P·V
+    product: the S accumulator holds row g at keys 2t and 2t + 1 (its
+    elements 4j + 2r and 4j + 2r + 1), the .tf32 A fragment takes row g at
+    k t (a0, a1) and t + 4 (a2, a3), so key 2t sits at slot t and key
+    2t + 1 at slot t + 4, in P's columns and V's rows alike."""
+    slots = [0] * 8
+    for t in range(4):
+        slots[2 * t], slots[2 * t + 1] = t, t + 4
+    return slots
+
+
+def _mma3_exact(a, b):
+    """a @ b as :func:`_mma3_truncating` sums it from a zero accumulator,
+    each mma's 8 products added one at a time in k's order in float64; and
+    where every such add was exact (no rounding in any step of the
+    element's sum: then the order of the 8 cannot matter)."""
+    (a_lo, a_hi), (b_lo, b_hi) = _parts(a, "tf32x3"), _parts(b, "tf32x3")
+    c = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    exact = torch.ones(c.shape, dtype=torch.bool)
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            acc = torch.zeros(c.shape, dtype=torch.float64)
+            for kk in range(k0, k0 + 8):
+                t = x[..., kk:kk + 1].double() * y[..., kk:kk + 1, :].double()
+                s = acc + t
+                back = s - acc
+                exact &= ((acc - (s - back)) + (t - back)) == 0
+                acc = s
+            c = _round_toward_zero(c.double() + acc)
+    return c, exact
+
+
+def test_the_in_group_key_permutation_keeps_p_v():
+    """One KV tile's P·V at the wgmma body's tiling (qwen2-0.5b heads, d
+    64, 64 keys, the tile's p from the online softmax's scores): with P's
+    columns and V's rows put in the slots of :func:`_slots_of_keys`, the
+    truncating products give the unpermuted result bit for bit wherever
+    both sums are exact, which is most of the tile, and within a float32
+    step elsewhere."""
+    assert _slots_of_keys() == [0, 4, 1, 5, 2, 6, 3, 7]
+    h, kvh, s, d = SHAPES["qwen2-0.5b"]
+    bk = BLOCK_K[d]
+    q, k, v = _qkv(s + d, h, kvh, 256, d)
+    kf = torch.repeat_interleave(k, h // kvh, 0)[:, :bk]
+    vf = torch.repeat_interleave(v, h // kvh, 0)[:, :bk]
+    sc = q[:, bk:] @ kf.transpose(1, 2) * d ** -0.5
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    # key of each slot: the inverse of _slots_of_keys, group by group
+    key_at = torch.tensor([_slots_of_keys().index(i) for i in range(8)])
+    order = (torch.arange(bk) // 8) * 8 + key_at.repeat(bk // 8)
+    assert order[:8].tolist() == [0, 2, 4, 6, 1, 3, 5, 7]
+    plain, exact_plain = _mma3_exact(p, vf)
+    permuted, exact_perm = _mma3_exact(p[..., order], vf[:, order])
+    both = exact_plain & exact_perm
+    assert float(both.float().mean()) > 0.9, float(both.float().mean())
+    assert torch.equal(plain[both], permuted[both])
+    step = torch.finfo(torch.float32).eps * plain.abs()
+    assert bool(((plain - permuted).abs() <= step).all())
 
 
 # (float32 bits, the bits cvt.rna.tf32.f32 gives)
